@@ -1,0 +1,154 @@
+"""Single-stream serving engine: prefill then chunked decode over a static
+KV cache (counterpart of aria_tpu/engine/generate.py).
+
+The prompt is padded to a power-of-two bucket; the prefill attends it with
+causal flash and samples the first token at the last real position. Decode
+runs one token per step in a Python loop where the JAX package runs a
+jitted 50-step scan; tokens stay on the device and are read back once per
+chunk of ``decode_chunk`` steps, where stop tokens are checked.
+
+Speculative decoding, guided decoding, penalties and image inputs are not
+ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from aria_tpu.config import AriaConfig
+from aria_tpu_torch.engine.sampling import sample
+from aria_tpu_torch.models.aria import prepare_embeddings
+from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 256
+    temperature: float = 0.8
+    top_k: Optional[int] = 200
+    top_p: Optional[float] = None
+    min_p: Optional[float] = None
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    repetition_penalty: float = 1.0
+    stop_token_ids: tuple[int, ...] = ()
+    decode_chunk: int = 32
+    guided: Optional[object] = None
+    speculative: Optional[object] = None
+
+    @property
+    def uses_penalties(self) -> bool:
+        return (self.presence_penalty != 0.0 or self.frequency_penalty != 0.0
+                or self.repetition_penalty != 1.0)
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    tokens: list[int]  # generated tokens (no prompt), truncated at a stop
+    prefill_s: float
+    decode_s: float
+    steps: int
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.steps / self.decode_s if self.decode_s > 0 else float("inf")
+
+
+def _bucket(n: int, minimum: int = 32) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+class Engine:
+    def __init__(
+        self,
+        params: dict,
+        cfg: AriaConfig,
+        *,
+        max_seq_len: int = 2048,
+        cache_dtype=torch.bfloat16,
+        rng_seed: int = 0,
+    ):
+        self.cfg = cfg
+        self.params = params
+        # a multiple of 512, as the JAX engine allocates (generate.py:103)
+        self.max_seq_len = -(-max_seq_len // 512) * 512
+        self.cache_dtype = cache_dtype
+        self.device = params["lm"]["final_norm"].device
+        self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+
+    def _sample(self, logits, gen: GenerationConfig, top_p, min_p) -> torch.Tensor:
+        return sample(self.generator, logits, gen.temperature, gen.top_k, top_p, min_p)
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompt_tokens: Sequence[int],
+        gen: GenerationConfig = GenerationConfig(),
+        pixel_values=None,
+        pixel_mask=None,
+    ) -> GenerateResult:
+        if gen.speculative is not None:
+            raise NotImplementedError("speculative decoding is not ported yet")
+        if gen.guided is not None:
+            raise NotImplementedError("guided decoding is not ported yet")
+        if gen.uses_penalties:
+            raise NotImplementedError("sampling penalties are not ported yet")
+        if pixel_values is not None or pixel_mask is not None:
+            raise NotImplementedError("image inputs are not ported yet")
+        true_len = len(prompt_tokens)
+        bucket = _bucket(true_len)
+        if bucket + gen.max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt bucket {bucket} + max_new_tokens {gen.max_new_tokens} "
+                f"exceeds max_seq_len {self.max_seq_len}")
+        dev = self.device
+        tokens = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+        tokens[0, :true_len] = torch.as_tensor(list(prompt_tokens), dtype=torch.long)
+        top_p = None if gen.top_p is None else torch.full((1,), float(gen.top_p), device=dev)
+        min_p = None if gen.min_p is None else torch.full((1,), float(gen.min_p), device=dev)
+        cache = KVCache.init(self.cfg.text, 1, self.max_seq_len, self.cache_dtype, device=dev)
+        lm, text_cfg = self.params["lm"], self.cfg.text
+
+        t0 = time.perf_counter()
+        embeds = prepare_embeddings(self.params, self.cfg, tokens)
+        out = lm_forward(lm, text_cfg, inputs_embeds=embeds,
+                         positions=torch.arange(bucket, device=dev), cache=cache,
+                         cache_pos=0, logit_position=true_len - 1, causal_flash=True)
+        cur = self._sample(out.logits[:, 0], gen, top_p, min_p)
+        first = int(cur[0])  # waits for the prefill
+        t1 = time.perf_counter()
+
+        generated = [first]
+        stop_ids = set(gen.stop_token_ids)
+        stopped = first in stop_ids
+        pos = true_len
+        while not stopped and len(generated) < gen.max_new_tokens:
+            n = min(gen.decode_chunk, gen.max_new_tokens - len(generated))
+            chunk = []
+            for _ in range(n):
+                out = lm_forward(lm, text_cfg, cur[:, None].long(),
+                                 positions=torch.full((1,), pos, device=dev),
+                                 cache=cache, cache_pos=pos)
+                cur = self._sample(out.logits[:, -1], gen, top_p, min_p)
+                chunk.append(cur)
+                pos += 1
+            for t in torch.cat(chunk).tolist():  # one read-back per chunk
+                generated.append(t)
+                if t in stop_ids:
+                    stopped = True
+                    break
+        t2 = time.perf_counter()
+
+        for i, t in enumerate(generated):  # trim after a stop token
+            if t in stop_ids:
+                generated = generated[: i + 1]
+                break
+        return GenerateResult(tokens=generated, prefill_s=t1 - t0, decode_s=t2 - t1,
+                              steps=len(generated) - 1)

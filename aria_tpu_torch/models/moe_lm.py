@@ -1,0 +1,284 @@
+"""The Aria MoE decoder on the serving path (counterpart of
+aria_tpu/models/moe_lm.py, serving form only).
+
+Parameters are the JAX package's tree, leaf for leaf (see
+``checkpoint/from_jax.py``): every per-layer leaf is stacked on a leading
+[L] axis, linear weights are right-multiply [in, out], wqkv/wo are dense
+int4 ``{"q4t", "sg"}``, the expert stacks are int4 with the shared experts
+fused in as always-on experts, and embed/lm_head are int8 ``{"q", "s"}``.
+
+The layer loop is a Python loop over a layer index; the kernels index the
+whole weight and cache stacks with it, so no per-layer slice is copied.
+Attention has two branches, both hand kernels: causal flash over the fresh
+k/v of a from-zero prefill, and decode attention over the cache for one
+new token. The KV cache is written in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from aria_tpu.config import TextConfig
+from aria_tpu_torch.ops.decode_attention import decode_attention
+from aria_tpu_torch.ops.dense_int4 import dense_int4
+from aria_tpu_torch.ops.flash import flash_causal
+from aria_tpu_torch.ops.moe import route_topk
+from aria_tpu_torch.ops.moe_decode_kernel import DECODE_KERNEL_MAX_TOKENS, moe_decode_int4
+from aria_tpu_torch.ops.norms import rms_norm
+from aria_tpu_torch.ops.quant import (
+    is_dense_int4,
+    is_quantized,
+    is_quantized_int4,
+    linear,
+    quantize_dense_int4,
+    quantize_expert_int4,
+    quantize_weight,
+)
+from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape cache [L, B, H_kv, S_max, D_head], bf16, or int8 with
+    f32 per-(layer, lane, head, position) scales (amax/127 over D at write
+    time). Written in place by ``lm_forward``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def init(cfg: TextConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+             device=None) -> "KVCache":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
+        if dtype == torch.int8:
+            return KVCache(k, v, torch.ones(shape[:-1], device=device),
+                           torch.ones(shape[:-1], device=device))
+        return KVCache(k, v)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[3]
+
+
+class LMOutput(NamedTuple):
+    logits: torch.Tensor  # [B, S, V] f32
+    cache: Optional[KVCache]
+
+
+def init_lm_params_serving_int4(
+    cfg: TextConfig,
+    generator: torch.Generator,
+    *,
+    device=None,
+    dtype=torch.bfloat16,
+) -> dict:
+    """Random-init the decoder directly in its serving form, on ``device``:
+    int4 expert stacks with the shared experts fused in, int4 wqkv/wo, int8
+    embed and lm_head (the structure of moe_lm.py:149-252, quantized by the
+    port's own quantizers). Expert weights are drawn and quantized in slabs
+    of at most 11 experts, so the bf16 stacks are never whole."""
+    L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
+    I = cfg.moe_intermediate_size
+    E_t = E + cfg.num_shared_experts
+    qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    expert_chunk = next(d for d in range(11, 0, -1) if E_t % d == 0)
+
+    def dense(shape, scale_dim):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * scale_dim**-0.5).to(dtype)
+
+    w1 = w2 = None
+    for l in range(L):
+        for e0 in range(0, E_t, expert_chunk):
+            n = min(expert_chunk, E_t - e0)
+            q1, q2 = quantize_expert_int4(dense((n, 2 * I, D), D), dense((n, I, D), I))
+            if w1 is None:
+                w1 = {k: torch.empty((L, E_t) + v.shape[1:], dtype=v.dtype, device=device)
+                      for k, v in q1.items()}
+                w2 = {k: torch.empty((L, E_t) + v.shape[1:], dtype=v.dtype, device=device)
+                      for k, v in q2.items()}
+            for dst, src in ((w1, q1), (w2, q2)):
+                for leaf, v in src.items():
+                    dst[leaf][l, e0:e0 + n] = v
+
+    def dense_int4_stack(d_in, d_out):
+        parts = [quantize_dense_int4(dense((1, d_in, d_out), d_in)) for _ in range(L)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    layers = {
+        "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "ffn_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "wqkv": dense_int4_stack(D, qkv_out),
+        "wo": dense_int4_stack(cfg.q_size, D),
+        "gate": dense((L, E, D), D).float(),
+        "w1": w1,
+        "w2": w2,
+    }
+    return {
+        "embed": quantize_weight(dense((cfg.vocab_size, D), D)),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "lm_head": quantize_weight(dense((D, cfg.vocab_size), D)),
+    }
+
+
+def embed_tokens(embed, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Embedding lookup; an int8 table is dequantized per gathered row."""
+    if is_quantized(embed):
+        out = embed["q"][tokens].float() * embed["s"]
+        return out.to(dtype or torch.bfloat16)
+    return embed[tokens]
+
+
+def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor, v: torch.Tensor):
+    """Write k/v [B, S, H, D] at positions pos..pos+S of layer ``layer``, in
+    place (moe_lm.py:430-482 with a scalar cache_pos)."""
+    S = k.shape[1]
+    if pos + S > cache.max_seq:
+        raise ValueError(f"cache write at {pos}+{S} past max_seq {cache.max_seq}")
+    k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)  # [B, H, S, D]
+    if cache.quantized:
+        # the JAX source's "/ 127.0" is a reciprocal multiply under jit
+        k_sc = torch.clamp_min(k_t.float().abs().amax(dim=-1), 1e-6) * (1.0 / 127.0)
+        v_sc = torch.clamp_min(v_t.float().abs().amax(dim=-1), 1e-6) * (1.0 / 127.0)
+        k_t = torch.round(k_t.float() / k_sc[..., None]).to(torch.int8)
+        v_t = torch.round(v_t.float() / v_sc[..., None]).to(torch.int8)
+        cache.k_scale[layer, :, :, pos:pos + S] = k_sc
+        cache.v_scale[layer, :, :, pos:pos + S] = v_sc
+    cache.k[layer, :, :, pos:pos + S] = k_t.to(cache.k.dtype)
+    cache.v[layer, :, :, pos:pos + S] = v_t.to(cache.v.dtype)
+
+
+def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, sin,
+               cache: Optional[KVCache], cache_pos: Optional[int], use_flash: bool,
+               lengths: Optional[torch.Tensor]):
+    B, S, _ = x.shape
+    qkv = dense_int4(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1).to(x.dtype)
+    q_size = cfg.q_size
+    kv_size = cfg.num_kv_heads * cfg.head_dim
+    q = qkv[..., :q_size].reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = qkv[..., q_size:q_size + kv_size].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = qkv[..., q_size + kv_size:].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cache is not None:
+        _write_cache(cache, layer, cache_pos, k, v)
+    if use_flash:
+        # from-zero prefill: causal attention over the fresh k/v equals
+        # attending the cache prefix, so the cache is written but not read
+        out = flash_causal(q, k, v.contiguous())
+    elif cache is not None and S == 1:
+        out = decode_attention(q[:, 0], cache.k, cache.v, layer, lengths,
+                               cache.k_scale, cache.v_scale)[:, None]
+    else:
+        raise NotImplementedError(
+            "attention over a cache for more than one new token at a time is not ported")
+    proj = dense_int4(out.reshape(B * S, q_size), layers["wo"], layer)
+    return proj.reshape(B, S, -1).to(x.dtype)
+
+
+def _shared_slots(cfg: TextConfig, T: int, dtype, device):
+    """The fused shared experts as always-on slots: ids E..E+ns-1 with
+    combine weight 1 for every token (moe_lm.py:911-927)."""
+    ns = cfg.num_shared_experts
+    ids = torch.arange(cfg.num_experts, cfg.num_experts + ns, dtype=torch.int32, device=device)
+    return ids.expand(T, ns), torch.ones((T, ns), dtype=dtype, device=device)
+
+
+def decode_kernel_tile(I: int) -> Optional[int]:
+    """The intermediate tile ``ft`` the JAX package gives moe_decode_int4
+    (moe_lm.py:945-961): all of I when I is a multiple of 128 up to 2048,
+    else the largest of 1024, 512, 256, 128 that divides I, else none (and
+    no decode kernel). W4A8 re-quantizes h per row of one tile; the port
+    quantizes over all of I, so it matches the reference where ft == I."""
+    cands = (I,) if I % 128 == 0 and I <= 2048 else (1024, 512, 256, 128)
+    return next((f for f in cands if I % f == 0), None)
+
+
+def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared) -> torch.Tensor:
+    """Routed + fused shared experts over the packed int4 stacks
+    (moe_lm.py:897-973, single chip, eval)."""
+    B, S, D = x.shape
+    flat = x.reshape(-1, D)
+    w1, w2 = layers["w1"], layers["w2"]
+    routing = route_topk(flat, layers["gate"][layer], cfg.moe_topk)
+    indices = torch.cat([routing.indices, shared[0]], dim=1)
+    weights = torch.cat([routing.weights, shared[1]], dim=1)
+    out = moe_decode_int4(flat, indices, weights, w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
+    return out.reshape(B, S, D)
+
+
+def lm_forward(
+    params: dict,
+    cfg: TextConfig,
+    tokens: Optional[torch.Tensor] = None,  # [B, S]
+    *,
+    inputs_embeds: Optional[torch.Tensor] = None,  # [B, S, D]
+    positions: Optional[torch.Tensor] = None,  # [S]
+    cache: Optional[KVCache] = None,
+    cache_pos: Optional[int] = None,  # write offset into the cache
+    logit_position: Optional[int] = None,  # logits at this position only
+    causal_flash: Optional[bool] = None,  # caller asserts causal-from-0 attention
+) -> LMOutput:
+    """Run the decoder. Without a cache, or with ``causal_flash``, attention
+    is causal over the tokens given (flash kernel); with a cache and one
+    token, it attends the cache (decode-attention kernel). The cache is
+    updated in place and returned."""
+    if inputs_embeds is None:
+        x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
+    else:
+        x = inputs_embeds
+    B, S, _ = x.shape
+    layers = params["layers"]
+    if not (is_dense_int4(layers["wqkv"]) and is_quantized_int4(layers["w1"])):
+        raise NotImplementedError(
+            "only the int4 serving form is ported (dense int4 wqkv/wo, int4 experts)")
+    if layers["w1"]["q4"].shape[1] != cfg.num_experts + cfg.num_shared_experts:
+        raise NotImplementedError("the shared experts must be fused into the int4 stacks")
+    if B * S > DECODE_KERNEL_MAX_TOKENS:
+        raise NotImplementedError(
+            f"an int4 MoE call over {B * S} > {DECODE_KERNEL_MAX_TOKENS} tokens needs the "
+            "moe_prefill_int4 kernel, which is not ported yet")
+    ft = decode_kernel_tile(cfg.moe_intermediate_size)
+    if ft != cfg.moe_intermediate_size:
+        raise NotImplementedError(
+            f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's decode "
+            f"kernel takes a tile ft={ft}; only ft equal to the whole intermediate is ported")
+    if cfg.num_kv_heads != cfg.num_heads:
+        raise NotImplementedError("the decode-attention kernel is MHA only")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    cos, sin = precompute_rope(positions, cfg.head_dim, cfg.rope_base)
+    if causal_flash is None:
+        causal_flash = cache is None
+    use_flash = bool(causal_flash) and (S > 1 or cache is None)
+    if cache is not None and cache_pos is None:
+        raise ValueError("a cache needs cache_pos")
+    lengths = None
+    if cache is not None and not use_flash:
+        lengths = torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device)
+    shared = _shared_slots(cfg, B * S, x.dtype, x.device)
+
+    for layer in range(cfg.num_layers):
+        normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
+        x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
+                           lengths)
+        normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
+        x = x + _moe_ffn(layers, cfg, layer, normed, shared)
+
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if logit_position is not None:
+        x = x[:, logit_position:logit_position + 1]
+    logits = linear(x, params["lm_head"], "bsd,dv->bsv")
+    return LMOutput(logits, cache)

@@ -1,0 +1,108 @@
+"""Decode attention over the stacked KV cache (counterpart of
+aria_tpu/ops/decode_attention.py).
+
+One query per (lane, head) attends the keys at positions < lengths[lane]
+of layer ``layer`` of a [L, B, H, S, D] cache, bf16 or int8 with f32
+per-(head, position) scales [L, B, H, S].
+
+Kernel: ``csrc/decode_attention.cu``. It replaces ``decode_attention`` of
+aria_tpu/ops/decode_attention.py:208 (``_make_kernel`` :154,
+``_attend_block`` :26) for bf16 and int8 caches. It reads 2*len*D bytes
+per head (int8) against about 4 FLOPs per byte, so it is bound by the
+cache read; one block per (head, lane) runs an online softmax over tiles
+of 32 positions and skips every position at or past the lane's length.
+
+Numerics as in the JAX kernel: q is scaled by 1/sqrt(D) in f32 and cast
+to bf16 (to q's dtype for a bf16 cache); an int8 cache multiplies the
+scores by k_scale and the probabilities by v_scale; the output is bf16
+for an int8 cache.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from aria_tpu_torch.ops import backend
+from aria_tpu_torch.ops._build import library
+
+NEG_INF = -1e30
+HEAD_DIM = 128  # the kernel's head width
+
+
+def _scaled_query(q: torch.Tensor, quantized: bool) -> torch.Tensor:
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    return (q.float() * scale).to(torch.bfloat16 if quantized else q.dtype)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # [B, H, D]
+    k_cache: torch.Tensor,  # [L, B, H, S, D]
+    v_cache: torch.Tensor,
+    layer: int,
+    lengths: torch.Tensor,  # [B] int32
+    k_scale: Optional[torch.Tensor] = None,  # f32 [L, B, H, S] for int8
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    quantized = k_scale is not None
+    cdt = torch.bfloat16 if quantized else q.dtype
+    qs = _scaled_query(q, quantized)
+    k = k_cache[layer].to(cdt).float()  # [B, H, S, D]
+    v = v_cache[layer].to(cdt).float()
+    scores = torch.einsum("bhd,bhsd->bhs", qs.float(), k)
+    if quantized:
+        scores = scores * k_scale[layer]
+    pos = torch.arange(k.shape[2], device=q.device)
+    scores = torch.where(pos[None, None, :] < lengths[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True)
+    pv = (p * v_scale[layer] if quantized else p).to(cdt).float()
+    out = torch.einsum("bhs,bhsd->bhd", pv, v) / denom
+    return out.to(torch.bfloat16 if quantized else q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer: int,
+    lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Returns [B, H, D]: bf16 for an int8 cache, q's dtype for a bf16 one."""
+    quantized = k_scale is not None
+    extra = (k_scale, v_scale) if quantized else ()
+    if not backend.on_cuda(q, k_cache, v_cache, lengths, *extra):
+        return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
+    B, H, D = q.shape
+    L, _, _, S, _ = k_cache.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {D}, the kernel takes {HEAD_DIM}")
+    if not 0 <= layer < L:
+        raise IndexError(f"decode_attention: layer {layer} of {L}")
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    backend.require(k_cache, "k_cache", cache_dtype, (L, B, H, S, D))
+    backend.require(v_cache, "v_cache", cache_dtype, (L, B, H, S, D))
+    backend.require(lengths, "lengths", torch.int32, (B,))
+    if quantized:
+        backend.require(k_scale, "k_scale", torch.float32, (L, B, H, S))
+        backend.require(v_scale, "v_scale", torch.float32, (L, B, H, S))
+    qs = _scaled_query(q, quantized).contiguous()
+    backend.require(qs, "q", torch.bfloat16, (B, H, D))
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
+    null = backend.ptr(None)
+    err = library().aria_decode_attention(
+        backend.ptr(qs), backend.ptr(k_cache), backend.ptr(v_cache),
+        backend.ptr(k_scale) if quantized else null,
+        backend.ptr(v_scale) if quantized else null,
+        backend.ptr(lengths), backend.ptr(out), B, H, S, layer, int(quantized),
+        backend.stream())
+    backend.check(err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

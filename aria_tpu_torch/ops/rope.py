@@ -1,0 +1,29 @@
+"""Interleaved rotary position embeddings (counterpart of aria_tpu/ops/rope.py).
+
+Frequencies ``base**(-2i/d)``, angles in f32, rotation of the interleaved
+pairs ``(x[..., 0::2], x[..., 1::2])`` in f32, result cast back to the
+input dtype. (The JAX package rotates in the input dtype from 8K tokens
+up; the port serves prompts of at most 128 tokens.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def precompute_rope(positions: torch.Tensor, head_dim: int, base: float):
+    """Return (cos, sin), each [..., head_dim // 2], f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    freqs = 1.0 / (torch.tensor(base, dtype=torch.float32, device=positions.device) ** exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; cos/sin: [S, D/2]."""
+    xf = x.float()
+    x_even, x_odd = xf[..., 0::2], xf[..., 1::2]
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    out_even = x_even * cos - x_odd * sin
+    out_odd = x_odd * cos + x_even * sin
+    return torch.stack([out_even, out_odd], dim=-1).reshape(x.shape).to(x.dtype)
