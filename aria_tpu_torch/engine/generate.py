@@ -7,8 +7,13 @@ runs one token per step in a Python loop where the JAX package runs a
 jitted 50-step scan; tokens stay on the device and are read back once per
 chunk of ``decode_chunk`` steps, where stop tokens are checked.
 
-Speculative decoding, guided decoding, penalties and image inputs are not
-ported yet and raise ``NotImplementedError``.
+An image request runs the vision tower and projector as their own step
+(``encode_images``, as the JAX engine's ``_encode_jit``) inside the timed
+prefill window, so ``prefill_s`` is the image-to-first-token time; the
+features are then scattered into the ``<|img|>`` slots of the prompt.
+
+Speculative decoding, guided decoding and penalties are not ported yet and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from aria_tpu.config import AriaConfig
 from aria_tpu_torch.engine.sampling import sample
-from aria_tpu_torch.models.aria import prepare_embeddings
+from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
 
 
@@ -94,14 +99,15 @@ class Engine:
         pixel_values=None,
         pixel_mask=None,
     ) -> GenerateResult:
+        """``pixel_values`` [N, C, S, S] (uint8 or float) and ``pixel_mask``
+        [N, S, S] bool may be numpy arrays or tensors; the prompt carries one
+        ``image_token_id`` per image feature."""
         if gen.speculative is not None:
             raise NotImplementedError("speculative decoding is not ported yet")
         if gen.guided is not None:
             raise NotImplementedError("guided decoding is not ported yet")
         if gen.uses_penalties:
             raise NotImplementedError("sampling penalties are not ported yet")
-        if pixel_values is not None or pixel_mask is not None:
-            raise NotImplementedError("image inputs are not ported yet")
         true_len = len(prompt_tokens)
         bucket = _bucket(true_len)
         if bucket + gen.max_new_tokens > self.max_seq_len:
@@ -117,7 +123,12 @@ class Engine:
         lm, text_cfg = self.params["lm"], self.cfg.text
 
         t0 = time.perf_counter()
-        embeds = prepare_embeddings(self.params, self.cfg, tokens)
+        feats = None
+        if pixel_values is not None:
+            pm = None if pixel_mask is None else torch.as_tensor(pixel_mask, device=dev)
+            feats = encode_images(self.params, self.cfg,
+                                  torch.as_tensor(pixel_values, device=dev), pm)
+        embeds = prepare_embeddings(self.params, self.cfg, tokens, image_features=feats)
         out = lm_forward(lm, text_cfg, inputs_embeds=embeds,
                          positions=torch.arange(bucket, device=dev), cache=cache,
                          cache_pos=0, logit_position=true_len - 1, causal_flash=True)

@@ -11,7 +11,8 @@ The layer loop is a Python loop over a layer index; the kernels index the
 whole weight and cache stacks with it, so no per-layer slice is copied.
 Attention has two branches, both hand kernels: causal flash over the fresh
 k/v of a from-zero prefill, and decode attention over the cache for one
-new token. The KV cache is written in place.
+new token. The MoE runs the W4A8 decode kernel up to 128 tokens and the
+segmented prefill kernel above. The KV cache is written in place.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.flash import flash_causal
 from aria_tpu_torch.ops.moe import route_topk
 from aria_tpu_torch.ops.moe_decode_kernel import DECODE_KERNEL_MAX_TOKENS, moe_decode_int4
+from aria_tpu_torch.ops.moe_prefill_kernel import experts_segmented_int4
 from aria_tpu_torch.ops.norms import rms_norm
 from aria_tpu_torch.ops.quant import (
     is_dense_int4,
@@ -38,6 +40,10 @@ from aria_tpu_torch.ops.quant import (
     quantize_weight,
 )
 from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
+
+
+MOE_CHUNK = 8192  # tokens per MoE slice of a long prefill (moe_lm.py:866-880)
+MOE_CHUNK_LONG = 2048  # the slice from 32768 tokens on
 
 
 @dataclasses.dataclass
@@ -206,17 +212,52 @@ def decode_kernel_tile(I: int) -> Optional[int]:
     return next((f for f in cands if I % f == 0), None)
 
 
+def prefill_kernel_tile(I: int) -> Optional[int]:
+    """The intermediate tile the JAX package gives moe_prefill_int4
+    (moe_lm.py:985-1002): the first of 512, 256, 128 that divides I, else
+    none (and the JAX package dequantizes in XLA instead, which is not
+    ported). 128 at I = 1664."""
+    return next((f for f in (512, 256, 128) if I % f == 0), None)
+
+
 def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared) -> torch.Tensor:
     """Routed + fused shared experts over the packed int4 stacks
-    (moe_lm.py:897-973, single chip, eval)."""
+    (moe_lm.py:866-1002, single chip, eval): up to 128 tokens through
+    moe_decode_int4, more through experts_segmented_int4 (moe_prefill_int4).
+
+    A prefill of more than MOE_CHUNK tokens (MOE_CHUNK_LONG at 32768 and
+    over) runs in slices of that size one after another, as the JAX
+    package's lax.map does; exact, as routing is per token. A token count
+    past the slice that is not a multiple of it raises NotImplementedError:
+    the JAX package runs it unsliced, and the port has not been run at
+    such sizes (prompt buckets are powers of two, so the engine never
+    makes one)."""
     B, S, D = x.shape
     flat = x.reshape(-1, D)
+    T = flat.shape[0]
+    chunk = MOE_CHUNK_LONG if T >= 32768 else MOE_CHUNK
+    if T > chunk:
+        if T % chunk:
+            raise NotImplementedError(
+                f"an MoE call over {T} tokens, past the {chunk}-token slice and not a "
+                "multiple of it, is not ported")
+        outs = [_moe_ffn_tokens(layers, cfg, layer, flat[i:i + chunk], shared)
+                for i in range(0, T, chunk)]
+        return torch.cat(outs).reshape(B, S, D)
+    return _moe_ffn_tokens(layers, cfg, layer, flat, shared).reshape(B, S, D)
+
+
+def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tensor,
+                    shared) -> torch.Tensor:
+    T = flat.shape[0]
     w1, w2 = layers["w1"], layers["w2"]
     routing = route_topk(flat, layers["gate"][layer], cfg.moe_topk)
-    indices = torch.cat([routing.indices, shared[0]], dim=1)
-    weights = torch.cat([routing.weights, shared[1]], dim=1)
-    out = moe_decode_int4(flat, indices, weights, w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
-    return out.reshape(B, S, D)
+    indices = torch.cat([routing.indices, shared[0][:T]], dim=1)
+    weights = torch.cat([routing.weights, shared[1][:T]], dim=1)
+    experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
+    if T <= DECODE_KERNEL_MAX_TOKENS:
+        return moe_decode_int4(flat, indices, weights, *experts)
+    return experts_segmented_int4(flat, indices, weights, *experts)
 
 
 def lm_forward(
@@ -246,10 +287,10 @@ def lm_forward(
             "only the int4 serving form is ported (dense int4 wqkv/wo, int4 experts)")
     if layers["w1"]["q4"].shape[1] != cfg.num_experts + cfg.num_shared_experts:
         raise NotImplementedError("the shared experts must be fused into the int4 stacks")
-    if B * S > DECODE_KERNEL_MAX_TOKENS:
+    if B * S > DECODE_KERNEL_MAX_TOKENS and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
         raise NotImplementedError(
-            f"an int4 MoE call over {B * S} > {DECODE_KERNEL_MAX_TOKENS} tokens needs the "
-            "moe_prefill_int4 kernel, which is not ported yet")
+            f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's prefill "
+            "kernel needs a multiple of 128; its dequantizing XLA path is not ported")
     ft = decode_kernel_tile(cfg.moe_intermediate_size)
     if ft != cfg.moe_intermediate_size:
         raise NotImplementedError(

@@ -1,9 +1,10 @@
 """Build and load the hand kernels in ``aria_tpu_torch/csrc``.
 
-At first use, one ``nvcc`` call compiles every ``.cu`` source for sm_90a
-into a shared library with a plain C interface under
-``aria_tpu_torch/_build/`` (listed in ``.gitignore``); the library is named
-by a hash of the sources and flags, so an edit rebuilds it. It is loaded with
+At first use, one ``nvcc`` process per ``.cu`` source, all started
+together, compiles the sources for sm_90a, and one more links them into a
+shared library with a plain C interface under ``aria_tpu_torch/_build/``
+(listed in ``.gitignore``); the library is named by a hash of the sources
+and flags, so an edit rebuilds it. It is loaded with
 ``ctypes``: pointers and the stream go as ``c_void_p``, and each entry point
 returns ``cudaGetLastError()``. A failed build raises.
 """
@@ -22,8 +23,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (all return int: the cudaError_t)
@@ -39,6 +41,12 @@ SIGNATURES = {
     # xq, sx, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, hq, sh, hsum, part, out,
     # T, D, I, E, U, ng, layer, stream
     "aria_moe_w4a8": [_P] * 15 + [_I] * 7 + [_P],
+    # q, k, v, kv_valid, out, B, S, H, D, scale, stream
+    "aria_vit_flash": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # x_seg, tile_expert, rows_used, w1q4, w1sg, h, R, D, I, E, layer, stream
+    "aria_moe_prefill_glu": [_P] * 6 + [_I] * 5 + [_P],
+    # h, tile_expert, rows_used, w2q4, w2s8, out, R, D, I, E, layer, stream
+    "aria_moe_prefill_down": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 
@@ -47,7 +55,7 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -65,6 +73,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]], verbose: bool) -> None:
+    """Run the commands at once and wait for every one; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}): {' '.join(p.args)}\n{log}"
+              for p, log in zip(procs, logs) if p.returncode != 0]
+    if verbose:
+        print("".join(logs), flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the current library exists; returns its
     path. ``verbose`` adds ``-Xptxas -v`` and prints the compiler output."""
@@ -72,15 +93,19 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(p) for p in _sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or proc.returncode != 0:
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
-    os.replace(tmp, out)
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    try:
+        _run_all([[nvcc, *COMPILE_FLAGS, *ptxas, "-c", str(s), "-o", str(o)]
+                  for s, o in zip(srcs, objs)], verbose)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]], verbose)
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

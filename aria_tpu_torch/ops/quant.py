@@ -58,6 +58,34 @@ def dequantize_weight(w: dict, input_axis: int = -2, dtype=torch.bfloat16) -> to
     return (w["q"].float() * s).to(dtype)
 
 
+VIT_QUANT_KEYS = ("wq", "wk", "wv", "wo", "fc1_w", "fc2_w")
+PROJECTOR_QUANT_KEYS = (
+    "q_proj", "k_proj", "v_proj", "attn_out_w", "linear_w", "ffn_in", "ffn_out",
+)
+
+
+def quantize_vit_params(vit_params: dict) -> dict:
+    """int8 vision tower: the patch embedding and the per-layer projections
+    (weights [L, in, out], scale over out); norms, biases and the position
+    table stay float (quant.py:151-164)."""
+    out = dict(vit_params)
+    out["patch_embed_w"] = quantize_weight(vit_params["patch_embed_w"], input_axis=-2)
+    layers = dict(vit_params["layers"])
+    for key in VIT_QUANT_KEYS:
+        layers[key] = quantize_weight(layers[key], input_axis=-2)
+    out["layers"] = layers
+    return out
+
+
+def quantize_projector_params(proj_params: dict) -> dict:
+    """int8 projector; ``attn_in_w`` stays float, as it is column-sliced into
+    the three packed MultiheadAttention projections (quant.py:167-176)."""
+    out = dict(proj_params)
+    for key in PROJECTOR_QUANT_KEYS:
+        out[key] = quantize_weight(proj_params[key], input_axis=-2)
+    return out
+
+
 def linear(x: torch.Tensor, w, spec: str) -> torch.Tensor:
     """einsum(spec, x, w) returning f32; a quantized weight's scale runs over
     the spec's last output axis. The products are torch.matmul, as the JAX

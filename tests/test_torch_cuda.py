@@ -14,6 +14,8 @@ from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import dense_int4 as di
 from aria_tpu_torch.ops import flash as fl
 from aria_tpu_torch.ops import moe_decode_kernel as mk
+from aria_tpu_torch.ops import moe_prefill_kernel as mp
+from aria_tpu_torch.ops import vit_flash as vf
 from aria_tpu_torch.ops.quant import quantize_dense_int4, quantize_expert_int4
 
 pytestmark = pytest.mark.cuda
@@ -32,13 +34,14 @@ def _randn(gen, *shape, scale=1.0, dtype=torch.bfloat16):
 
 def test_dense_int4_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
-    w = quantize_dense_int4(_randn(g, 2, 2560, 7680, scale=2560**-0.5))
-    for T in (1, 64, 128):
-        x = _randn(g, T, 2560)
-        # both are f32 sums of exact products; only the order differs
-        torch.testing.assert_close(di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1),
-                                   rtol=1e-4, atol=1e-4)
-    assert di.dense_int4.launches >= 3
+    for F in (7680, 2560):  # wqkv, wo
+        w = quantize_dense_int4(_randn(g, 2, 2560, F, scale=2560**-0.5))
+        for T in (1, 64, 128, 512):
+            x = _randn(g, T, 2560)
+            # both are f32 sums of exact products; only the order differs
+            torch.testing.assert_close(di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1),
+                                       rtol=1e-4, atol=1e-4)
+    assert di.dense_int4.launches >= 8
 
 
 def test_moe_decode_int4_kernel_matches_plain(cuda):
@@ -80,13 +83,81 @@ def test_decode_attention_kernel_matches_plain(cuda):
 
 def test_flash_causal_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for B, S in ((1, 64), (1, 128), (2, 37)):
+    for B, S in ((1, 64), (1, 128), (2, 37), (1, 512), (1, 509)):
         q, k, v = (_randn(g, B, S, 20, 128) for _ in range(3))
         # bf16 output; both round p to bf16 before p.v, the plain version
         # after normalising it
         torch.testing.assert_close(fl.flash_causal(q, k, v).float(),
                                    fl.flash_causal_plain(q, k, v).float(),
                                    rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("B,S,H,D,valid", [(1, 4900, 16, 72, (4900,)), (1, 4900, 16, 72, (2450,)),
+                                            (2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (129,))])
+def test_vit_flash_kernel_matches_plain(cuda, B, S, H, D, valid):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(g, B, S, H, D) for _ in range(3))
+    kv_valid = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    for b, n in enumerate(valid):
+        kv_valid[b, :n] = True
+    got, ref = vf.vit_flash(q, k, v, kv_valid), vf.vit_flash_plain(q, k, v, kv_valid)
+    # valid query rows only (padding rows are garbage by contract); bf16
+    # output, and p rounds to bf16 before p.v unnormalised in the kernel,
+    # normalised in the plain version
+    for b, n in enumerate(valid):
+        torch.testing.assert_close(got[b, :n].float(), ref[b, :n].float(), rtol=1e-2, atol=1e-2)
+
+
+def _expert_stack(g, L, E, I, D):
+    w1 = {"q4": torch.empty((L, E, 2 * I, D // 2), dtype=torch.int8, device=g.device),
+          "sg": torch.empty((L, E, 8, 2 * I), dtype=torch.bfloat16, device=g.device)}
+    w2 = {"q4": torch.empty((L, E, I, D // 2), dtype=torch.int8, device=g.device),
+          "s8": torch.empty((L, E, 8, D), dtype=torch.bfloat16, device=g.device)}
+    for e0 in range(0, E, 11):
+        n = min(11, E - e0)
+        q1, q2 = quantize_expert_int4(_randn(g, L, n, 2 * I, D, scale=D**-0.5),
+                                      _randn(g, L, n, I, D, scale=I**-0.5))
+        for dst, src in ((w1, q1), (w2, q2)):
+            for leaf in dst:
+                dst[leaf][:, e0:e0 + n] = src[leaf]
+    return w1, w2
+
+
+@pytest.mark.parametrize("T", [512, 129])
+def test_moe_prefill_int4_kernel_matches_plain(cuda, T):
+    """64 routed + 2 shared experts at full width, top-6 + 2 shared."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    E, I, D = 66, 1664, 2560
+    w1, w2 = _expert_stack(g, 1, E, I, D)
+    top = torch.topk(torch.randn((T, 64), generator=g, device=cuda), 6, dim=-1)
+    shared = torch.arange(64, 66, device=cuda).expand(T, 2)
+    ind = torch.cat([top.indices, shared], 1).to(torch.int32)
+    wts = torch.cat([torch.softmax(top.values, -1), torch.ones((T, 2), device=cuda)], 1)
+    x = _randn(g, T, D)
+    experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
+    dest, tile_e, R, rows_used = mp.segment_dispatch(ind, E)
+    x_seg = torch.zeros((R, D), dtype=torch.bfloat16, device=cuda)
+    x_seg[dest.long()] = x.repeat_interleave(8, dim=0)
+    # every tile, padding included (zeros in, zeros out), then the used ones
+    used = int(rows_used)
+    ref = mp.moe_prefill_int4_plain(x_seg, tile_e, *experts, rows_used)
+    for n in (R, used):
+        got = mp.moe_prefill_int4(x_seg, tile_e, *experts,
+                                  torch.tensor([n], dtype=torch.int32, device=cuda))
+        # exact products and f32 sums on both sides, in another order; h
+        # rounds to bf16 between the products on both, so a sum near a
+        # rounding edge of h moves one row's input to the down product by
+        # one bf16 ulp
+        err = (got[:n] - ref[:n]).abs().max()
+        assert err <= 1e-2 * ref.abs().max(), (n, err.item())
+    # the whole FFN, with tiles past the used rows skipped
+    got = mp.experts_segmented_int4(x, ind, wts.to(x.dtype), *experts)
+    assert mp.moe_prefill_int4.launches >= 3
+    with torch.no_grad():
+        vals = ref[dest.long()].reshape(T, 8, D)
+        ref = torch.einsum("tkd,tk->td", vals, wts.to(x.dtype).float()).to(x.dtype)
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= 1e-2 * ref.float().abs().max(), err.item()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -99,3 +170,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         q = _randn(g, 1, 8, 2, 64)
         fl.flash_causal(q, q, q)
+    q = _randn(g, 1, 64, 2, 72)
+    with pytest.raises(TypeError):
+        vf.vit_flash(q.float(), q.float(), q.float())
+    for D in (60, 80, 128):  # the kernel takes D = 64 and 72 only
+        with pytest.raises(ValueError):
+            vf.vit_flash(*(_randn(g, 1, 64, 2, D) for _ in range(3)))
+    with pytest.raises(ValueError):  # not contiguous
+        vf.vit_flash(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+    with pytest.raises(TypeError):  # the mask is bool
+        vf.vit_flash(q, q, q, torch.ones((1, 64), dtype=torch.int32, device=cuda))
+    w1, w2 = _expert_stack(g, 1, 4, 128, 512)
+    tile_e = torch.zeros(2, dtype=torch.int32, device=cuda)
+    used = torch.tensor([256], dtype=torch.int32, device=cuda)
+    experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"])
+    with pytest.raises(TypeError):
+        mp.moe_prefill_int4(_randn(g, 256, 512, dtype=torch.float32), tile_e, *experts, 0, used)
+    with pytest.raises(ValueError):  # rows not whole 128-row tiles
+        mp.moe_prefill_int4(_randn(g, 200, 512), tile_e, *experts, 0, used)
+    with pytest.raises(IndexError):
+        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 1, used)
+    with pytest.raises(TypeError):  # the used row count is int32
+        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 0, used.long())

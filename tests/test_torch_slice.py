@@ -132,19 +132,22 @@ def test_sampled_stream_is_seeded_and_in_range(params):
 def test_paths_not_yet_ported_raise(params):
     _, tlm = params
     eng = Engine({"lm": tlm}, CFG, max_seq_len=512)
-    with pytest.raises(NotImplementedError, match="moe_prefill_int4"):
-        eng.generate(list(range(1, 200)), GenerationConfig(max_new_tokens=2))
+    # a prompt over 128 tokens now prefills through moe_prefill_int4
+    assert len(eng.generate(list(range(1, 200)), GenerationConfig(max_new_tokens=2)).tokens) == 2
     with pytest.raises(NotImplementedError, match="speculative"):
         eng.generate(PROMPT, GenerationConfig(speculative=object()))
+    with pytest.raises(NotImplementedError, match="guided"):
+        eng.generate(PROMPT, GenerationConfig(guided=object()))
     with pytest.raises(NotImplementedError, match="penalties"):
         eng.generate(PROMPT, GenerationConfig(presence_penalty=0.5))
-    with pytest.raises(NotImplementedError, match="image"):
-        eng.generate(PROMPT, GenerationConfig(), pixel_values=np.zeros((1, 3, 98, 98)))
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.generate(PROMPT, GenerationConfig(max_new_tokens=1000))
     with pytest.raises(NotImplementedError, match="ft=256"):
         tm.lm_forward(tlm, dataclasses.replace(TEXT, moe_intermediate_size=2304),
                       torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="prefill kernel"):
+        tm.lm_forward(tlm, dataclasses.replace(TEXT, moe_intermediate_size=192),
+                      torch.zeros((1, 200), dtype=torch.long))
 
 
 @pytest.mark.parametrize("I,ft", [(1664, 1664), (128, 128), (2048, 2048), (2304, 256),
@@ -152,6 +155,12 @@ def test_paths_not_yet_ported_raise(params):
 def test_decode_kernel_tile_follows_the_jax_rule(I, ft):
     """moe_lm.py:945-961 (no env override): ft = I = 1664 at flagship."""
     assert tm.decode_kernel_tile(I) == ft
+
+
+@pytest.mark.parametrize("I,ft", [(1664, 128), (2048, 512), (768, 256), (192, None)])
+def test_prefill_kernel_tile_follows_the_jax_rule(I, ft):
+    """moe_lm.py:985-1002: the first of 512, 256, 128 dividing I."""
+    assert tm.prefill_kernel_tile(I) == ft
 
 
 def test_torch_init_serves_a_request():
