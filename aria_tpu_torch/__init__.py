@@ -3,15 +3,17 @@ kernels for NVIDIA Hopper (sm_90a).
 
 It mirrors the layout of ``aria_tpu`` (``ops/``, ``models/``, ``engine/``,
 ``checkpoint/``) and is held to it by the tests: the same param tree, given
-as numpy leaves, runs through both packages. It imports ``torch`` and never
-``jax``; the configuration dataclasses are the JAX package's own
-(``aria_tpu/config.py`` imports no jax), re-exported here.
+as numpy leaves, runs through both packages. It imports ``torch`` and
+nothing of ``jax`` or of the JAX package; the configuration dataclasses are
+its own copy (``config.py``).
 
 Every kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
-plain PyTorch version for CPU tensors (``ops/backend.py``).
+plain PyTorch version for CPU tensors (``ops/backend.py``). Entry points
+that build tensors do so on the card unless the caller passes
+``device="cpu"``; without a card they raise.
 """
 
-from aria_tpu.config import AriaConfig, TextConfig
+from aria_tpu_torch.config import AriaConfig, ProjectorConfig, TextConfig, VisionConfig
 
-__all__ = ["AriaConfig", "TextConfig"]
+__all__ = ["AriaConfig", "ProjectorConfig", "TextConfig", "VisionConfig"]
 __version__ = "0.1.0"

@@ -7,7 +7,8 @@ Every leaf keeps its dtype and its bytes: int8 ``{"q", "s"}`` /
 ``{"q4t", "sg"}`` (dense_int4.py:33-50) come across byte for byte. bf16
 leaves (numpy's ``bfloat16`` extension dtype) are carried as their 16-bit
 patterns. Nothing here imports jax: convert a JAX tree first with
-``jax.tree.map(numpy.asarray, tree)``.
+``jax.tree.map(numpy.asarray, tree)``. The tensors land on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -17,18 +18,21 @@ from typing import Any
 import numpy as np
 import torch
 
+from aria_tpu_torch.ops import backend
 
-def to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
+
+def to_tensor(a: np.ndarray, device="cuda") -> torch.Tensor:
     """One numpy leaf as a tensor with the same dtype and bytes."""
+    device = backend.device(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())
-    return t.to(device) if device is not None else t
+    return t.to(device)
 
 
-def from_jax(tree: Any, device=None) -> Any:
+def from_jax(tree: Any, device="cuda") -> Any:
     """Map a nested dict of numpy arrays to tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: from_jax(v, device) for k, v in tree.items()}

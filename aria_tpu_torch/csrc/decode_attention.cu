@@ -121,7 +121,143 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
   }
 }
 
+// ---------------------------------------------------------------------------
+// The packed-int4 cache [L, B, H/2, S, 128] int8, head-pair packed with
+// biased-lo bytes: head p is the low nibble, lo = (byte & 0xF) - 8, and
+// head p + H/2 the high nibble, hi = byte >> 4 (arithmetic shift of the
+// signed byte). Scales are bf16 [L, B, H, S].
+//
+// Replaces `_attend_block_p4` (aria_tpu/ops/decode_attention.py:80) and
+// its selection at :234-236. The TPU kernel unpacks on its matrix unit
+// through the affine identity lo = byte - (byte & 0xF0) - 8; here the
+// nibbles are unpacked in registers and each product q * nibble is exact.
+// Bound: the cache read, len*128 bytes per head pair for each of k and v
+// (a quarter of a bf16 cache), against ~8 FLOPs per byte: memory-bound.
+// One block per (head pair, lane) reads each byte once and serves both
+// heads: as above, a warp takes 32 positions, each lane one key row for
+// the two scores, then two online softmaxes; for p*v each lane owns 4 of
+// the 128 dims of both heads. Numerics as the TPU kernel: scores are
+// (q.nibble) in f32 times k_scale, masked at positions >= len; the
+// denominator sums the f32 probabilities; p * v_scale rounds to bf16
+// before it multiplies v; the output is bf16.
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ void dot_row_p4(const int8_t* kr, const float* qlo, const float* qhi,
+                                           float& dlo, float& dhi) {
+  dlo = 0.f;
+  dhi = 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    const uint4 w = reinterpret_cast<const uint4*>(kr)[c];
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int byte = aria::sbyte(ws[i >> 2], i & 3);
+      dlo += qlo[c * 16 + i] * (float)((byte & 0xF) - 8);
+      dhi += qhi[c * 16 + i] * (float)(byte >> 4);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+decode_attention_p4_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+                           const int8_t* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
+                           const __nv_bfloat16* __restrict__ vs, const int* __restrict__ lengths,
+                           __nv_bfloat16* __restrict__ out, int B, int Hp, int S, int layer) {
+  __shared__ float qs[2][D];
+  __shared__ float red_m[2][WARPS], red_s[2][WARPS];
+  __shared__ float red_acc[2][WARPS][D];
+  const int pair = blockIdx.x, b = blockIdx.y, H = 2 * Hp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int len = min(lengths[b], S);
+  const size_t plane = (((size_t)layer * B + b) * Hp + pair) * S;  // bytes' first row
+  const size_t sc_lo = (((size_t)layer * B + b) * H + pair) * S;   // head pair's scales
+  const size_t sc_hi = sc_lo + (size_t)Hp * S;                     // head pair + H/2
+
+  {  // threads 0..127 load the low head's query, 128..255 the high head's
+    const int sel = threadIdx.x / D, d = threadIdx.x % D;
+    qs[sel][d] = aria::bf2f(q[((size_t)b * H + pair + sel * Hp) * D + d]);
+  }
+  __syncthreads();
+
+  float m[2] = {aria::NEG_INF, aria::NEG_INF}, s[2] = {0.f, 0.f};
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int p0 = warp * 32; p0 < len; p0 += WARPS * 32) {
+    const int p = p0 + lane;
+    float sc[2] = {aria::NEG_INF, aria::NEG_INF};
+    if (p < len) {
+      dot_row_p4(k + (plane + p) * D, qs[0], qs[1], sc[0], sc[1]);
+      sc[0] *= aria::bf2f(ks[sc_lo + p]);
+      sc[1] *= aria::bf2f(ks[sc_hi + p]);
+    }
+    float pw[2], corr[2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float mn = fmaxf(m[t], aria::warp_max(sc[t]));
+      corr[t] = expf(m[t] - mn);
+      const float pr = p < len ? expf(sc[t] - mn) : 0.f;
+      s[t] = s[t] * corr[t] + aria::warp_sum(pr);
+      pw[t] = p < len ? bf16_round(pr * aria::bf2f(vs[(t ? sc_hi : sc_lo) + p])) : 0.f;
+      m[t] = mn;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][i] *= corr[t];
+    }
+    const int nvalid = min(32, len - p0);
+    for (int j = 0; j < nvalid; ++j) {
+      const float plo = __shfl_sync(aria::FULL_MASK, pw[0], j);
+      const float phi = __shfl_sync(aria::FULL_MASK, pw[1], j);
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(v + (plane + p0 + j) * D + lane * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int byte = aria::sbyte(w, i);
+        acc[0][i] += plo * (float)((byte & 0xF) - 8);
+        acc[1][i] += phi * (float)(byte >> 4);
+      }
+    }
+  }
+
+  if (lane == 0) {
+    red_m[0][warp] = m[0]; red_s[0][warp] = s[0];
+    red_m[1][warp] = m[1]; red_s[1][warp] = s[1];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    red_acc[0][warp][lane * 4 + i] = acc[0][i];
+    red_acc[1][warp][lane * 4 + i] = acc[1][i];
+  }
+  __syncthreads();
+  {
+    const int sel = threadIdx.x / D, d = threadIdx.x % D;
+    float M = aria::NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, red_m[sel][w]);
+    float tot = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float e = expf(red_m[sel][w] - M);
+      tot += red_s[sel][w] * e;
+      a += red_acc[sel][w][d] * e;
+    }
+    out[((size_t)b * H + pair + sel * Hp) * D + d] = __float2bfloat16(tot > 0.f ? a / tot : 0.f);
+  }
+}
+
 }  // namespace
+
+ARIA_EXPORT int aria_decode_attention_p4(const void* q, const void* k, const void* v,
+                                         const void* k_scale, const void* v_scale,
+                                         const void* lengths, void* out, int B, int Hp, int S,
+                                         int layer, void* stream) {
+  dim3 grid(Hp, B);
+  decode_attention_p4_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v,
+      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, (const int*)lengths,
+      (__nv_bfloat16*)out, B, Hp, S, layer);
+  return cudaGetLastError();
+}
 
 ARIA_EXPORT int aria_decode_attention(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,

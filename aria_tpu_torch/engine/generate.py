@@ -12,8 +12,11 @@ An image request runs the vision tower and projector as their own step
 prefill window, so ``prefill_s`` is the image-to-first-token time; the
 features are then scattered into the ``<|img|>`` slots of the prompt.
 
-Speculative decoding, guided decoding and penalties are not ported yet and
-raise ``NotImplementedError``.
+The KV cache is bf16, int8 or ``"int4"`` (``cache_dtype``; head pairs
+packed into bytes, ``models/moe_lm.KVCache``). Speculative decoding,
+guided decoding and penalties are not ported for the single stream yet and
+raise ``NotImplementedError`` (the batched engine, ``engine/server.py``,
+has the penalties).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from aria_tpu.config import AriaConfig
+from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.engine.sampling import sample
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward

@@ -4,12 +4,13 @@ aria_tpu/engine/sampling.py:20-142).
 Temperature, then top-k, top-p and min-p on the scaled logits (vLLM's
 order), then a Gumbel-argmax draw from an explicit ``torch.Generator``.
 Top-k is exact ``torch.topk`` where the JAX package takes the TPU's
-``approx_max_k``. Penalties are not ported yet.
+``approx_max_k``. The batched engine gives per-row temperatures and
+applies the presence, frequency and repetition penalties first.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -47,20 +48,55 @@ def filter_min_p(logits: torch.Tensor, min_p: torch.Tensor) -> torch.Tensor:
     return torch.where(drop, torch.full_like(logits, NEG_INF), logits)
 
 
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V] f32
+    counts: torch.Tensor,  # [B, V] output-token counts
+    prompt_mask: torch.Tensor,  # [B, V] bool: token appeared in the prompt
+    presence: torch.Tensor,  # [B]
+    frequency: torch.Tensor,  # [B]
+    repetition: torch.Tensor,  # [B] (1.0 = off)
+) -> torch.Tensor:
+    """OpenAI/vLLM penalties per row (sampling.py:74-98): repetition
+    divides positive and multiplies negative raw logits of tokens seen in
+    the prompt or the output, then presence (once) and frequency (per
+    occurrence) subtract for tokens seen in the output."""
+    c = counts.float()
+    out_seen = c > 0.0
+    rep = torch.clamp_min(repetition.float(), 1e-6)[:, None]
+    penalized = torch.where(logits > 0.0, logits / rep, logits * rep)
+    logits = torch.where(out_seen | prompt_mask, penalized, logits)
+    return logits - presence.float()[:, None] * out_seen - frequency.float()[:, None] * c
+
+
+def update_counts(counts: torch.Tensor, toks: torch.Tensor,
+                  active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Add 1 at each row's sampled token, rows where ``active`` is False
+    left alone (sampling.py:101-109). In place; returns ``counts``."""
+    one = torch.ones((counts.shape[0], 1), dtype=counts.dtype, device=counts.device)
+    if active is not None:
+        one = one * active.to(counts.dtype)[:, None]
+    return counts.scatter_add_(1, toks.long()[:, None], one)
+
+
 def sample(
     generator: torch.Generator,
     logits: torch.Tensor,  # [B, V]
-    temperature: float = 1.0,
+    temperature: Union[float, torch.Tensor] = 1.0,
     top_k: Optional[int] = None,
     top_p: Optional[torch.Tensor] = None,
     min_p: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns [B] int32 token ids; temperature <= 0 means greedy, whatever
-    the filters (as in the JAX package). One temperature for every row: the
-    per-row form serves the batched engine, which is not ported yet."""
-    if temperature <= 0.0:
+    the filters (as in the JAX package). ``temperature`` is one float, or a
+    [B] tensor of per-row temperatures (sampling.py:126-142), where rows at
+    <= 0 take the argmax of the raw logits and the rest are drawn."""
+    per_row = isinstance(temperature, torch.Tensor)
+    if per_row:
+        scaled = logits.float() / torch.clamp_min(temperature.float(), 1e-5)[:, None]
+    elif temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    scaled = logits.float() / max(float(temperature), 1e-5)
+    else:
+        scaled = logits.float() / max(float(temperature), 1e-5)
     if top_k is not None:
         scaled = filter_top_k(scaled, top_k)
     if top_p is not None:
@@ -69,4 +105,7 @@ def sample(
         scaled = filter_min_p(scaled, min_p)
     u = torch.rand(scaled.shape, generator=generator, device=logits.device)
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+    sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    if per_row:
+        sampled = torch.where(temperature <= 0.0, torch.argmax(logits, dim=-1), sampled)
+    return sampled.to(torch.int32)

@@ -9,7 +9,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from aria_tpu.config import AriaConfig
+from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.models.moe_lm import embed_tokens
 from aria_tpu_torch.models.projector import projector_forward
 from aria_tpu_torch.models.vit import vit_forward

@@ -12,7 +12,10 @@ whole weight and cache stacks with it, so no per-layer slice is copied.
 Attention has two branches, both hand kernels: causal flash over the fresh
 k/v of a from-zero prefill, and decode attention over the cache for one
 new token. The MoE runs the W4A8 decode kernel up to 128 tokens and the
-segmented prefill kernel above. The KV cache is written in place.
+segmented prefill kernel above. The KV cache (bf16, int8, or head-pair
+packed int4) is written in place: at one offset for every lane, or at a
+per-lane offset (continuous batching), where one new token per lane goes
+through the ``kv_cache_write`` kernel.
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from aria_tpu.config import TextConfig
+from aria_tpu_torch.config import TextConfig
+from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.decode_attention import decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.flash import flash_causal
+from aria_tpu_torch.ops.kv_write import kv_cache_write
 from aria_tpu_torch.ops.moe import route_topk
 from aria_tpu_torch.ops.moe_decode_kernel import DECODE_KERNEL_MAX_TOKENS, moe_decode_int4
 from aria_tpu_torch.ops.moe_prefill_kernel import experts_segmented_int4
@@ -48,9 +53,12 @@ MOE_CHUNK_LONG = 2048  # the slice from 32768 tokens on
 
 @dataclasses.dataclass
 class KVCache:
-    """Static-shape cache [L, B, H_kv, S_max, D_head], bf16, or int8 with
+    """Static-shape cache [L, B, H_kv, S_max, D_head]: bf16; or int8 with
     f32 per-(layer, lane, head, position) scales (amax/127 over D at write
-    time). Written in place by ``lm_forward``."""
+    time); or ``"int4"``, head pairs nibble-packed into an int8 [L, B,
+    H_kv/2, S_max, D_head] buffer (head h in the low nibble as value + 8,
+    head h + H_kv/2 in the high one) with bf16 scales [L, B, H_kv, S_max]
+    (amax/7), as moe_lm.py:83-108. Written in place by ``lm_forward``."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -59,8 +67,18 @@ class KVCache:
 
     @staticmethod
     def init(cfg: TextConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-             device=None) -> "KVCache":
+             device="cuda") -> "KVCache":
+        """On the card unless ``device`` names another."""
+        device = backend.device(device)
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
+        if dtype == "int4":
+            if cfg.num_kv_heads % 2:
+                raise ValueError("an int4 KV cache packs head pairs: the head count must be even")
+            pshape = shape[:2] + (cfg.num_kv_heads // 2,) + shape[3:]
+            return KVCache(torch.zeros(pshape, dtype=torch.int8, device=device),
+                           torch.zeros(pshape, dtype=torch.int8, device=device),
+                           torch.ones(shape[:-1], dtype=torch.bfloat16, device=device),
+                           torch.ones(shape[:-1], dtype=torch.bfloat16, device=device))
         k = torch.zeros(shape, dtype=dtype, device=device)
         v = torch.zeros(shape, dtype=dtype, device=device)
         if dtype == torch.int8:
@@ -71,6 +89,11 @@ class KVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def packed4(self) -> bool:
+        """int4 head-pair packing: the scales have twice the head planes."""
+        return self.k_scale is not None and self.k_scale.shape[2] == 2 * self.k.shape[2]
 
     @property
     def max_seq(self) -> int:
@@ -86,14 +109,16 @@ def init_lm_params_serving_int4(
     cfg: TextConfig,
     generator: torch.Generator,
     *,
-    device=None,
+    device="cuda",
     dtype=torch.bfloat16,
 ) -> dict:
-    """Random-init the decoder directly in its serving form, on ``device``:
+    """Random-init the decoder directly in its serving form, on the card
+    unless ``device`` names another:
     int4 expert stacks with the shared experts fused in, int4 wqkv/wo, int8
     embed and lm_head (the structure of moe_lm.py:149-252, quantized by the
     port's own quantizers). Expert weights are drawn and quantized in slabs
     of at most 11 experts, so the bf16 stacks are never whole."""
+    device = backend.device(device)
     L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
     I = cfg.moe_intermediate_size
     E_t = E + cfg.num_shared_experts
@@ -147,28 +172,71 @@ def embed_tokens(embed, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     return embed[tokens]
 
 
-def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor, v: torch.Tensor):
-    """Write k/v [B, S, H, D] at positions pos..pos+S of layer ``layer``, in
-    place (moe_lm.py:430-482 with a scalar cache_pos)."""
-    S = k.shape[1]
-    if pos + S > cache.max_seq:
-        raise ValueError(f"cache write at {pos}+{S} past max_seq {cache.max_seq}")
-    k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)  # [B, H, S, D]
+def quantize_kv(cache: KVCache, k_t: torch.Tensor, v_t: torch.Tensor):
+    """k/v [B, H, S, D] in the cache's form (moe_lm.py:435-471): returns
+    (k, v, k_scale, v_scale), the scales None for a bf16 cache.
+
+    int8 quantizes in f32; int4 takes the scale amax/7 to bf16 and then
+    divides and rounds in bf16, as the JAX source does, and packs head
+    pairs (``pack_heads``, moe_lm.py:460-463). The JAX source's division
+    of the amax by a constant is a reciprocal multiply under jit."""
+    if not cache.quantized:
+        return k_t.to(cache.k.dtype), v_t.to(cache.v.dtype), None, None
+    amax = [torch.clamp_min(t.float().abs().amax(dim=-1), 1e-6) for t in (k_t, v_t)]
+    if not cache.packed4:
+        scales = [a * (1.0 / 127.0) for a in amax]
+        return (*(torch.round(t.float() / sc[..., None]).to(torch.int8)
+                  for t, sc in zip((k_t, v_t), scales)), *scales)
+    scales = [(a * (1.0 / 7.0)).to(torch.bfloat16) for a in amax]
+    packed = []
+    for t, sc in zip((k_t, v_t), scales):
+        q = torch.round((t.to(torch.bfloat16) / sc[..., None]).float())
+        q = torch.clamp(q, -8, 7).to(torch.int8)
+        half = q.shape[1] // 2
+        packed.append(((q[:, :half] + 8) & 0xF) | (q[:, half:] << 4))
+    return (*packed, *scales)
+
+
+def _write_cache(cache: KVCache, layer: int, pos, k: torch.Tensor, v: torch.Tensor,
+                 rows: Optional[torch.Tensor]):
+    """Write k/v [B, S, H, D] of layer ``layer`` in place: at positions
+    pos..pos+S of every lane for an int ``pos`` (moe_lm.py:472-482), or at
+    pos[b]..pos[b]+S of lane b for a [B] int32 tensor (moe_lm.py:483-532):
+    one position per lane through ``kv_cache_write`` (``rows`` the lane
+    ids), more by an indexed write."""
+    B, S = k.shape[:2]
+    kq, vq, ks, vs = quantize_kv(cache, k.transpose(1, 2), v.transpose(1, 2))  # [B, H, S, D]
+    if not isinstance(pos, torch.Tensor):
+        if pos + S > cache.max_seq:
+            raise ValueError(f"cache write at {pos}+{S} past max_seq {cache.max_seq}")
+        cache.k[layer, :, :, pos:pos + S] = kq
+        cache.v[layer, :, :, pos:pos + S] = vq
+        if cache.quantized:
+            cache.k_scale[layer, :, :, pos:pos + S] = ks
+            cache.v_scale[layer, :, :, pos:pos + S] = vs
+        return
+    if S == 1:
+        scales = (cache.k_scale, cache.v_scale, ks[..., 0].contiguous(),
+                  vs[..., 0].contiguous()) if cache.quantized else ()
+        kv_cache_write(cache.k, cache.v, layer, rows, pos, kq[:, :, 0].contiguous(),
+                       vq[:, :, 0].contiguous(), *scales)
+        return
+    # positions must lie inside the cache here: an index past it raises
+    dev = k.device
+    bi = torch.arange(B, device=dev)[:, None, None]
+    si = (pos.long()[:, None] + torch.arange(S, device=dev)[None, :])[:, None, :]
+    hv = torch.arange(kq.shape[1], device=dev)[None, :, None]
+    cache.k[layer, bi, hv, si] = kq
+    cache.v[layer, bi, hv, si] = vq
     if cache.quantized:
-        # the JAX source's "/ 127.0" is a reciprocal multiply under jit
-        k_sc = torch.clamp_min(k_t.float().abs().amax(dim=-1), 1e-6) * (1.0 / 127.0)
-        v_sc = torch.clamp_min(v_t.float().abs().amax(dim=-1), 1e-6) * (1.0 / 127.0)
-        k_t = torch.round(k_t.float() / k_sc[..., None]).to(torch.int8)
-        v_t = torch.round(v_t.float() / v_sc[..., None]).to(torch.int8)
-        cache.k_scale[layer, :, :, pos:pos + S] = k_sc
-        cache.v_scale[layer, :, :, pos:pos + S] = v_sc
-    cache.k[layer, :, :, pos:pos + S] = k_t.to(cache.k.dtype)
-    cache.v[layer, :, :, pos:pos + S] = v_t.to(cache.v.dtype)
+        hs = torch.arange(ks.shape[1], device=dev)[None, :, None]
+        cache.k_scale[layer, bi, hs, si] = ks
+        cache.v_scale[layer, bi, hs, si] = vs
 
 
 def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, sin,
-               cache: Optional[KVCache], cache_pos: Optional[int], use_flash: bool,
-               lengths: Optional[torch.Tensor]):
+               cache: Optional[KVCache], cache_pos, use_flash: bool,
+               lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor]):
     B, S, _ = x.shape
     qkv = dense_int4(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1).to(x.dtype)
     q_size = cfg.q_size
@@ -179,7 +247,7 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
-        _write_cache(cache, layer, cache_pos, k, v)
+        _write_cache(cache, layer, cache_pos, k, v, rows)
     if use_flash:
         # from-zero prefill: causal attention over the fresh k/v equals
         # attending the cache prefix, so the cache is written but not read
@@ -266,16 +334,17 @@ def lm_forward(
     tokens: Optional[torch.Tensor] = None,  # [B, S]
     *,
     inputs_embeds: Optional[torch.Tensor] = None,  # [B, S, D]
-    positions: Optional[torch.Tensor] = None,  # [S]
+    positions: Optional[torch.Tensor] = None,  # [S] or [B, S]
     cache: Optional[KVCache] = None,
-    cache_pos: Optional[int] = None,  # write offset into the cache
-    logit_position: Optional[int] = None,  # logits at this position only
+    cache_pos=None,  # write offset: an int, or an int32 [B] tensor per lane
+    logit_position=None,  # logits at this position only: an int, or [B] per row
     causal_flash: Optional[bool] = None,  # caller asserts causal-from-0 attention
 ) -> LMOutput:
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
-    token, it attends the cache (decode-attention kernel). The cache is
-    updated in place and returned."""
+    token, it attends the cache (decode-attention kernel) up to
+    ``cache_pos + 1`` for each lane. The cache is updated in place and
+    returned."""
     if inputs_embeds is None:
         x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
     else:
@@ -306,20 +375,28 @@ def lm_forward(
     use_flash = bool(causal_flash) and (S > 1 or cache is None)
     if cache is not None and cache_pos is None:
         raise ValueError("a cache needs cache_pos")
-    lengths = None
+    per_lane = isinstance(cache_pos, torch.Tensor)
+    lengths = rows = None
+    if per_lane:
+        cache_pos = cache_pos.to(torch.int32)
+        if S == 1:
+            rows = torch.arange(B, dtype=torch.int32, device=x.device)
     if cache is not None and not use_flash:
-        lengths = torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device)
+        lengths = (cache_pos + S if per_lane else
+                   torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device))
     shared = _shared_slots(cfg, B * S, x.dtype, x.device)
 
     for layer in range(cfg.num_layers):
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
-                           lengths)
+                           lengths, rows)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         x = x + _moe_ffn(layers, cfg, layer, normed, shared)
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if logit_position is not None:
+    if isinstance(logit_position, torch.Tensor):  # one position per row
+        x = x[torch.arange(B, device=x.device), logit_position.long()][:, None]
+    elif logit_position is not None:
         x = x[:, logit_position:logit_position + 1]
     logits = linear(x, params["lm_head"], "bsd,dv->bsv")
     return LMOutput(logits, cache)

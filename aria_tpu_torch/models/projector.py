@@ -16,16 +16,19 @@ from typing import Optional
 
 import torch
 
-from aria_tpu.config import ProjectorConfig
+from aria_tpu_torch.config import ProjectorConfig
+from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.activations import gelu_tanh
 from aria_tpu_torch.ops.attention import sdpa
 from aria_tpu_torch.ops.norms import layer_norm
 from aria_tpu_torch.ops.quant import linear
 
 
-def init_projector_params(cfg: ProjectorConfig, generator: torch.Generator, *, device=None,
+def init_projector_params(cfg: ProjectorConfig, generator: torch.Generator, *, device="cuda",
                           dtype=torch.bfloat16) -> dict:
-    """Random init with the structure of projector.py:29-56."""
+    """Random init with the structure of projector.py:29-56, on the card
+    unless ``device`` names another."""
+    device = backend.device(device)
     E, KV = cfg.embed_dim, cfg.kv_dim
 
     def dense(shape, fan_in):

@@ -16,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from aria_tpu.config import VisionConfig
+from aria_tpu_torch.config import VisionConfig
+from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.activations import gelu_tanh
 from aria_tpu_torch.ops.attention import sdpa
 from aria_tpu_torch.ops.norms import layer_norm
@@ -32,10 +33,12 @@ class VisionOutput(NamedTuple):
     kv_ignore_mask: torch.Tensor  # [N, P] bool, True = padding (for the projector)
 
 
-def init_vit_params(cfg: VisionConfig, generator: torch.Generator, *, device=None,
+def init_vit_params(cfg: VisionConfig, generator: torch.Generator, *, device="cuda",
                     dtype=torch.bfloat16) -> dict:
     """Random init with the structure of vit.py:37-68 (normal / sqrt(fan_in)
-    weights, zero biases, unit norm scales)."""
+    weights, zero biases, unit norm scales), on the card unless ``device``
+    names another."""
+    device = backend.device(device)
     L, D, F = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     patch_dim = cfg.num_channels * cfg.patch_size * cfg.patch_size
     P = cfg.patches_per_side**2

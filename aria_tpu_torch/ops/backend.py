@@ -17,6 +17,16 @@ import ctypes
 import torch
 
 
+def device(dev="cuda") -> torch.device:
+    """The device an entry point builds on: the card unless the caller names
+    another. A CUDA device without a card raises; nothing falls back to the
+    CPU."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return dev
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device, False when every one
     lies on the CPU; a mix raises."""

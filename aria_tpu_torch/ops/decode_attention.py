@@ -3,7 +3,11 @@ aria_tpu/ops/decode_attention.py).
 
 One query per (lane, head) attends the keys at positions < lengths[lane]
 of layer ``layer`` of a [L, B, H, S, D] cache, bf16 or int8 with f32
-per-(head, position) scales [L, B, H, S].
+per-(head, position) scales [L, B, H, S]; or of a packed-int4 cache
+[L, B, H/2, S, D] int8 with bf16 scales [L, B, H, S], taken when the
+scales have twice the cache's head planes (decode_attention.py:234-236).
+Its bytes hold head h in the low nibble as (value + 8) and head h + H/2
+in the high nibble (``unpack_heads``).
 
 Kernel: ``csrc/decode_attention.cu``. It replaces ``decode_attention`` of
 aria_tpu/ops/decode_attention.py:208 (``_make_kernel`` :154,
@@ -12,10 +16,16 @@ per head (int8) against about 4 FLOPs per byte, so it is bound by the
 cache read; one block per (head, lane) runs an online softmax over tiles
 of 32 positions and skips every position at or past the lane's length.
 
+The packed-int4 cache has a kernel of its own in the same source
+(``decode_attention_p4_kernel``), replacing ``_attend_block_p4``
+(decode_attention.py:80): one block per (head pair, lane) reads each byte
+once for both heads and unpacks the nibbles in registers.
+
 Numerics as in the JAX kernel: q is scaled by 1/sqrt(D) in f32 and cast
-to bf16 (to q's dtype for a bf16 cache); an int8 cache multiplies the
-scores by k_scale and the probabilities by v_scale; the output is bf16
-for an int8 cache.
+to bf16 (to q's dtype for a bf16 cache); a quantized cache multiplies the
+scores by k_scale and the probabilities by v_scale, the denominator sums
+the probabilities before v_scale; the output is bf16 for a quantized
+cache. With int4, p * v_scale rounds to bf16 before it multiplies v.
 """
 
 from __future__ import annotations
@@ -36,29 +46,44 @@ def _scaled_query(q: torch.Tensor, quantized: bool) -> torch.Tensor:
     return (q.float() * scale).to(torch.bfloat16 if quantized else q.dtype)
 
 
+def unpack_heads(packed: torch.Tensor) -> torch.Tensor:
+    """[..., H/2, S, D] biased-lo bytes -> [..., H, S, D] int8 values in
+    [-8, 7] (moe_lm.py:625-629): the low nibble less 8, then the high
+    nibble by an arithmetic shift of the signed byte."""
+    lo = (packed & 0xF) - 8
+    hi = packed >> 4
+    return torch.cat([lo, hi], dim=-3).to(torch.int8)
+
+
+def is_packed4(k_cache: torch.Tensor, k_scale: Optional[torch.Tensor]) -> bool:
+    return k_scale is not None and k_scale.shape[2] == 2 * k_cache.shape[2]
+
+
 def decode_attention_plain(
     q: torch.Tensor,  # [B, H, D]
     k_cache: torch.Tensor,  # [L, B, H, S, D]
     v_cache: torch.Tensor,
     layer: int,
     lengths: torch.Tensor,  # [B] int32
-    k_scale: Optional[torch.Tensor] = None,  # f32 [L, B, H, S] for int8
+    k_scale: Optional[torch.Tensor] = None,  # [L, B, H, S]: f32 int8, bf16 int4
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     quantized = k_scale is not None
     cdt = torch.bfloat16 if quantized else q.dtype
     qs = _scaled_query(q, quantized)
-    k = k_cache[layer].to(cdt).float()  # [B, H, S, D]
-    v = v_cache[layer].to(cdt).float()
+    k, v = k_cache[layer], v_cache[layer]
+    if is_packed4(k_cache, k_scale):
+        k, v = unpack_heads(k), unpack_heads(v)
+    k, v = k.to(cdt).float(), v.to(cdt).float()  # [B, H, S, D]
     scores = torch.einsum("bhd,bhsd->bhs", qs.float(), k)
     if quantized:
-        scores = scores * k_scale[layer]
+        scores = scores * k_scale[layer].float()
     pos = torch.arange(k.shape[2], device=q.device)
     scores = torch.where(pos[None, None, :] < lengths[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     denom = p.sum(dim=-1, keepdim=True)
-    pv = (p * v_scale[layer] if quantized else p).to(cdt).float()
+    pv = (p * v_scale[layer].float() if quantized else p).to(cdt).float()
     out = torch.einsum("bhs,bhsd->bhd", pv, v) / denom
     return out.to(torch.bfloat16 if quantized else q.dtype)
 
@@ -72,11 +97,14 @@ def decode_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Returns [B, H, D]: bf16 for an int8 cache, q's dtype for a bf16 one."""
+    """Returns [B, H, D]: bf16 for a quantized cache, q's dtype for a bf16
+    one."""
     quantized = k_scale is not None
     extra = (k_scale, v_scale) if quantized else ()
     if not backend.on_cuda(q, k_cache, v_cache, lengths, *extra):
         return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
+    if is_packed4(k_cache, k_scale):
+        return decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
     B, H, D = q.shape
     L, _, _, S, _ = k_cache.shape
     if D != HEAD_DIM:
@@ -105,4 +133,34 @@ def decode_attention(
     return out
 
 
+def decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale):
+    """The packed-int4 kernel (``decode_attention`` takes it for such a
+    cache); it counts its own launches."""
+    if not backend.on_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
+        return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
+    B, H, D = q.shape
+    L, _, Hp, S, _ = k_cache.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {D}, the kernel takes {HEAD_DIM}")
+    if H != 2 * Hp:
+        raise ValueError(f"decode_attention: {H} query heads over {Hp} packed head pairs")
+    if not 0 <= layer < L:
+        raise IndexError(f"decode_attention: layer {layer} of {L}")
+    backend.require(k_cache, "k_cache", torch.int8, (L, B, Hp, S, D))
+    backend.require(v_cache, "v_cache", torch.int8, (L, B, Hp, S, D))
+    backend.require(k_scale, "k_scale", torch.bfloat16, (L, B, H, S))
+    backend.require(v_scale, "v_scale", torch.bfloat16, (L, B, H, S))
+    backend.require(lengths, "lengths", torch.int32, (B,))
+    qs = _scaled_query(q, True).contiguous()
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
+    p = backend.ptr
+    err = library().aria_decode_attention_p4(
+        p(qs), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(lengths), p(out),
+        B, Hp, S, layer, backend.stream())
+    backend.check(err, "decode_attention (int4)")
+    decode_attention_int4.launches += 1
+    return out
+
+
 decode_attention.launches = 0
+decode_attention_int4.launches = 0

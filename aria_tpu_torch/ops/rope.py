@@ -12,7 +12,8 @@ import torch
 
 
 def precompute_rope(positions: torch.Tensor, head_dim: int, base: float):
-    """Return (cos, sin), each [..., head_dim // 2], f32."""
+    """Return (cos, sin), each [..., head_dim // 2], f32, for positions
+    [S] or [B, S]."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
     freqs = 1.0 / (torch.tensor(base, dtype=torch.float32, device=positions.device) ** exps)
     angles = positions.float()[..., None] * freqs
@@ -20,10 +21,14 @@ def precompute_rope(positions: torch.Tensor, head_dim: int, base: float):
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, H, D]; cos/sin: [S, D/2]."""
+    """x: [B, S, H, D]; cos/sin: [S, D/2], or [B, S, D/2] for per-lane
+    positions (rope.py:27-54)."""
     xf = x.float()
     x_even, x_odd = xf[..., 0::2], xf[..., 1::2]
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     out_even = x_even * cos - x_odd * sin
     out_odd = x_odd * cos + x_even * sin
     return torch.stack([out_even, out_odd], dim=-1).reshape(x.shape).to(x.dtype)

@@ -5,8 +5,11 @@
 
 1. Device: the card's name and power limit.
 2. Build the hand kernels from ``aria_tpu_torch/csrc`` (nvcc, sm_90a) and
-   hold each against its plain PyTorch version at the shapes the serving
-   path gives it, with the tolerance stated beside each, timing both.
+   hold each against its plain PyTorch version at the shapes the text,
+   image and lanes paths give it, with the tolerance stated beside each,
+   timing kernel, plain version and, where one exists, one PyTorch call
+   of the same function, beside the kernel's bound (bytes over the memory
+   rate or operations over the peak rate, the larger).
 3. The text path: random-init the full-width 28-layer, 64+2-expert int4
    serving model on the card, build ``Engine(max_seq_len=1024, int8 KV)``
    and answer three text requests through ``Engine.generate``; the four
@@ -14,14 +17,22 @@
 4. The image path (bench.py's default request): add the 27-layer ViT and
    the projector (int8, as bench.py builds them) and serve one 980px crop
    with the prompt [11]*8 + [9]*256 + [13]*8 through ``Engine.generate``;
-   all six kernels must each launch. Then the image prefill's device time
+   its six kernels must each launch. Then the image prefill's device time
    by kernel, and the card against the CPU's plain versions at reduced
    depth: ``encode_images`` with 2 ViT layers, and a 2-layer prefill over
    more than 128 tokens.
+5. The lanes path (bench.py's lanes child): ``BatchedEngine`` with 32
+   lanes and the int4 KV cache serves 32 x 200 tokens per round, a
+   warm-up round and two timed ones; ``kv_cache_write`` and the int4
+   decode attention must launch. Then a profiled decode chunk, a greedy
+   int8-KV check, and a 2-layer batched decode step against the CPU.
 
-Any failure raises and exits non-zero; without a CUDA device the script
-exits non-zero before printing any result. The line before the last is
-the kernels' JSON record; the last line is the device record.
+Each path sets every launch count to 0 just before it runs and reads them
+just after. Any failure raises and exits non-zero; without a CUDA device
+the script exits non-zero before printing any result. The line before the
+last is the kernels' JSON record (``launches`` from the newest path that
+runs the kernel, ``launches_by_path`` from each); the last line is the
+device record.
 """
 
 from __future__ import annotations
@@ -89,21 +100,53 @@ def _compare(name, got, ref, tol: float, why: str) -> float:
     return err
 
 
-def check_kernels(device, gen, cfg=None, S=1024, vision=None):
-    """Phase 2: each kernel against its plain version at the slice's shapes.
-    Returns {kernel name: {"max_abs_err", "ms", "plain_ms", "times"}}: the
-    worst error over the shapes checked; "times" lists the device ms of
-    kernel and plain version at each timed shape, and "ms"/"plain_ms" are
-    its first entry (the decode shape for dense_int4 and the decode
-    kernels, S = 64 for flash_causal, the image request's shape for the
-    others; dense_int4 and flash_causal are timed at 512 rows too)."""
-    import torch
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 
-    from aria_tpu.config import VisionConfig
-    from aria_tpu_torch import TextConfig
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, ops: float, kind: str = "bf16") -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate (each input read once, each output written once) and
+    the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timed(at, kernel, plain, iters, plain_iters, bound, library=None) -> dict:
+    """One timed shape: device and wall ms of kernel and plain version, the
+    bound, and the device ms of one PyTorch call of the same function."""
+    return {"at": at, "k": _time_ms(kernel, iters), "p": _time_ms(plain, plain_iters),
+            "bound": bound, "lib": None if library is None else _time_ms(library, iters)[0]}
+
+
+def _entry(t: dict) -> dict:
+    return {"ms": t["k"][0], "plain_ms": t["p"][0], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["lib"]}
+
+
+def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_seq=384):
+    """Phase 2: each kernel against its plain version at the shapes the
+    text, image and lanes paths give it. Returns {kernel name:
+    {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+    "times"}}: the worst error over the shapes checked; "times" lists every
+    timed shape with the same keys, and the others are its first entry (the
+    decode shape for dense_int4 and moe_decode_int4, one 1000-position lane
+    for decode_attention, S = 64 for flash_causal, the 32-lane int4 write
+    and 32-lane attention for the int4 KV kernels, the image request's
+    shape for the others)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aria_tpu_torch import TextConfig, VisionConfig
     from aria_tpu_torch.ops import decode_attention as da
     from aria_tpu_torch.ops import dense_int4 as di
     from aria_tpu_torch.ops import flash as fl
+    from aria_tpu_torch.ops import kv_write as kw
     from aria_tpu_torch.ops import moe_decode_kernel as mk
     from aria_tpu_torch.ops import moe_prefill_kernel as mp
     from aria_tpu_torch.ops import vit_flash as vfl
@@ -119,34 +162,40 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None):
         return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
     def record(name, errs, timed):
-        """timed: [(shape, kernel (device, wall) ms, plain (device, wall) ms)]"""
-        results[name] = {"max_abs_err": max(errs), "ms": timed[0][1][0],
-                         "plain_ms": timed[0][2][0],
-                         "times": [{"at": at, "ms": k[0], "plain_ms": p[0]} for at, k, p in timed]}
-        for at, k, p in timed:
-            print(f"  {name} {at}: device time per call: kernel {k[0]:.4f} ms, plain "
-                  f"{p[0]:.4f} ms; wall per call: kernel {k[1]:.4f} ms, plain "
-                  f"{p[1]:.4f} ms", flush=True)
+        results[name] = {"max_abs_err": max(errs), **_entry(timed[0]),
+                         "times": [{"at": t["at"], **_entry(t)} for t in timed]}
+        for t in timed:
+            lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
+            print(f"  {name} {t['at']}: device time per call: kernel {t['k'][0]:.4f} ms, plain "
+                  f"{t['p'][0]:.4f} ms, library {lib}, bound {t['bound'][0]:.4f} ms "
+                  f"({t['bound'][1]}); wall per call: kernel {t['k'][1]:.4f} ms, plain "
+                  f"{t['p'][1]:.4f} ms", flush=True)
 
     # dense_int4: wqkv (F = 7680) and wo (F = 2560) at decode (T = 1), at
-    # the 64- and 128-token prompt buckets and at the image prompt's 512
+    # the 32-lane decode step (T = 32), at the 64- and 128-token prompt
+    # buckets, at the image prompt's 512 and at the 32-row grouped
+    # admission of 64-token prompts (T = 2048). No PyTorch call takes this
+    # int4 layout: library none.
     print("dense_int4", flush=True)
     errs, timed = [], []
-    for F in ((cfg.num_heads + 2 * cfg.num_kv_heads) * Dh, D):
-        w = quantize_dense_int4(randn(2, D, F, scale=D**-0.5))
-        for T in (1, 64, 128, 512):
+    for F_out in ((cfg.num_heads + 2 * cfg.num_kv_heads) * Dh, D):
+        w = quantize_dense_int4(randn(2, D, F_out, scale=D**-0.5))
+        for T in (1, 32, 64, 128, 512, 2048):
             x = randn(T, D)
             got, ref = di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1)
-            errs.append(_compare(f"dense_int4 T={T} F={F}", got, ref, 1e-4,
+            errs.append(_compare(f"dense_int4 T={T} F={F_out}", got, ref, 1e-4,
                                  "both f32 sums of exact products; order differs"))
-            if T in (1, 512):
-                timed.append((f"T={T} F={F}",
-                              _time_ms(lambda: di.dense_int4(x, w, 1), 200 if T == 1 else 20),
-                              _time_ms(lambda: di.dense_int4_plain(x, w, 1), 20 if T == 1 else 5)))
+            if T in (1, 32, 512, 2048):
+                bound = _bound(_nbytes(x, w["q4t"][1], w["sg"][1]) + T * F_out * 4,
+                               2 * T * D * F_out)
+                timed.append(_timed(f"T={T} F={F_out}", lambda: di.dense_int4(x, w, 1),
+                                    lambda: di.dense_int4_plain(x, w, 1),
+                                    {1: 200, 32: 100, 512: 20, 2048: 10}[T], 5, bound))
     record("dense_int4", errs, timed)  # wqkv at T = 1 first
     del w
 
-    # moe_decode_int4 (W4A8): 64 + 2 experts at full width, T = 1, 64, 128
+    # moe_decode_int4 (W4A8): 64 + 2 experts at full width, T = 1 (one
+    # stream), 32 (the lanes), 64, 128. Bound: the used experts' bytes.
     print("moe_decode_int4", flush=True)
     L = 2
     w1 = {"q4": torch.empty((L, E, 2 * I, D // 2), dtype=torch.int8, device=device),
@@ -161,8 +210,9 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None):
             for dst, src in ((w1, q1), (w2, q2)):
                 for leaf in dst:
                     dst[leaf][layer, e0:e0 + n] = src[leaf]
-    errs = []
-    for T in (1, 64, 128):
+    expert_bytes = _nbytes(w1["q4"][1, 0], w1["sg"][1, 0], w2["q4"][1, 0], w2["s8"][1, 0])
+    errs, timed = [], []
+    for T in (1, lanes, 64, 128):
         x = randn(T, D)
         logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
         top, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
@@ -175,16 +225,20 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None):
             f"moe_decode_int4 T={T}", got, ref, 2e-2,
             "bf16 output rounding, plus one-step flips of the int8 h re-quantization "
             "where the f32 sum order differs"))
-        if T == 1:
-            timed = [("T=1", _time_ms(lambda: mk.moe_decode_int4(*args), 100),
-                      _time_ms(lambda: mk.moe_decode_int4_plain(*args), 5))]
+        if T in (1, lanes):
+            used = int(torch.unique(indices).numel())
+            bound = _bound(used * expert_bytes + _nbytes(x, indices, weights, got),
+                           T * indices.shape[1] * 6 * I * D, "int8")
+            timed.append(_timed(f"T={T} ({used} experts)", lambda: mk.moe_decode_int4(*args),
+                                lambda: mk.moe_decode_int4_plain(*args), 100, 3, bound))
     record("moe_decode_int4", errs, timed)
 
     # moe_prefill_int4 on the same stacks: top-6 + 2 shared at T = 512 (the
-    # image prompt's bucket) and T = 129, rows past the used tiles skipped
+    # image prompt's bucket), 129, and 2048 (32 rows of 64-token prompts),
+    # rows past the used tiles skipped
     print("moe_prefill_int4", flush=True)
-    errs = []
-    for T in (512, 129):
+    errs, timed = [], []
+    for T in (512, 129, lanes * 64):
         logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
         _, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
         shared = torch.arange(cfg.num_experts, E, device=device).expand(T, -1)
@@ -200,14 +254,19 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None):
             got[:used], ref[:used], 1e-2,
             "exact products, f32 sums in another order; h rounds to bf16 between the "
             "products on both sides, so a sum at a rounding edge moves by one bf16 ulp"))
-        if T == 512:
-            timed = [(f"T=512 ({used // mp.TM} tiles)",
-                      _time_ms(lambda: mp.moe_prefill_int4(*args), 20),
-                      _time_ms(lambda: mp.moe_prefill_int4_plain(*args), 3))]
+        if T != 129:
+            n_exp = int(torch.unique(tile_e[:used // mp.TM]).numel())
+            bound = _bound(n_exp * expert_bytes + _nbytes(x_seg[:used], got[:used]),
+                           used * 6 * I * D)
+            timed.append(_timed(f"T={T} ({used // mp.TM} tiles)",
+                                lambda: mp.moe_prefill_int4(*args),
+                                lambda: mp.moe_prefill_int4_plain(*args), 20, 3, bound))
     record("moe_prefill_int4", errs, timed)
     del w1, w2
 
-    # decode_attention over a 1024-position cache, int8 and bf16
+    # decode_attention over a 1024-position cache, int8 and bf16. The bf16
+    # cache's library call is scaled_dot_product_attention with the length
+    # mask; no PyTorch call takes the int8 cache with its scales.
     print("decode_attention", flush=True)
     L = 2
     kf, vf = randn(L, 1, H, S, Dh), randn(L, 1, H, S, Dh)
@@ -224,31 +283,125 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None):
             got, ref = da.decode_attention(*args), da.decode_attention_plain(*args)
             errs.append(_compare(f"decode_attention {label} len={n}", got, ref, 1e-2,
                                  "bf16 output; the plain version rounds p*v_scale to bf16"))
-    lengths = torch.full((1,), S - 24, dtype=torch.int32, device=device)
-    args = (q, kq, vq, 1, lengths, ks, vs)
-    record("decode_attention", errs, [(
-        f"int8 len={S - 24}", _time_ms(lambda: da.decode_attention(*args), 200),
-        _time_ms(lambda: da.decode_attention_plain(*args), 20))])
+    n = S - 24
+    lengths = torch.full((1,), n, dtype=torch.int32, device=device)
+    a8, a16 = (q, kq, vq, 1, lengths, ks, vs), (q, kf, vf, 1, lengths)
+    mask = (torch.arange(S, device=device) < n)[None, None, None, :]
+    timed = [
+        _timed(f"int8 len={n}", lambda: da.decode_attention(*a8),
+               lambda: da.decode_attention_plain(*a8), 200, 20,
+               _bound(2 * n * H * Dh + 2 * n * H * 4 + 2 * _nbytes(q), 4 * n * H * Dh)),
+        _timed(f"bf16 len={n}", lambda: da.decode_attention(*a16),
+               lambda: da.decode_attention_plain(*a16), 200, 20,
+               _bound(2 * n * H * Dh * 2 + 2 * _nbytes(q), 4 * n * H * Dh),
+               lambda: F.scaled_dot_product_attention(q[:, :, None], kf[1], vf[1],
+                                                      attn_mask=mask)),
+    ]
+    record("decode_attention", errs, timed)
     del kf, vf, kq, vq
 
-    # flash_causal at the 64-, 128- and 512-token prompt buckets, and at a
-    # ragged S below each of the short and the long ones
+    # the packed-int4 cache: 32 lanes with lengths spread over 48-320 of
+    # 384 positions (the lanes path), and one lane over 1000 of 1024. No
+    # PyTorch call takes the packed cache: library none.
+    print("decode_attention_int4", flush=True)
+    errs, timed = [], []
+    for B, S4, lens in ((lanes, lanes_seq, None), (1, S, [S - 24])):
+        kp = torch.randint(-128, 128, (L, B, H // 2, S4, Dh), generator=gen, device=device,
+                           dtype=torch.int8)
+        vp = torch.randint(-128, 128, (L, B, H // 2, S4, Dh), generator=gen, device=device,
+                           dtype=torch.int8)
+        ks4, vs4 = ((torch.rand((L, B, H, S4), generator=gen, device=device) * 0.3 + 0.02)
+                    .to(torch.bfloat16) for _ in range(2))
+        if lens is None:
+            lens = torch.linspace(48, min(320, S4), B).round().int().tolist()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        q = randn(B, H, Dh)
+        args = (q, kp, vp, 1, lengths, ks4, vs4)
+        got, ref = da.decode_attention_int4(*args), da.decode_attention_plain(*args)
+        errs.append(_compare(
+            f"decode_attention_int4 B={B} len={min(lens)}..{max(lens)} of {S4}", got, ref, 1e-2,
+            "bf16 output; p*v_scale rounds to bf16 after the kernel's online rescaling and "
+            "after the plain version's one-pass softmax"))
+        n_tot = sum(lens)
+        bound = _bound(n_tot * (H // 2 * Dh * 2 + H * 2 * 2) + 2 * _nbytes(q), 4 * n_tot * H * Dh)
+        timed.append(_timed(f"B={B} len={min(lens)}..{max(lens)} of {S4}",
+                            lambda: da.decode_attention_int4(*args),
+                            lambda: da.decode_attention_plain(*args), 200, 10, bound))
+    record("decode_attention_int4", errs, timed)
+    del kp, vp
+
+    # kv_cache_write at the lanes shapes: 32 lanes into [28, 32, H, 384,
+    # 128], bf16, int8 with f32 scales, packed int4 (H/2 byte planes) with
+    # bf16 scales. A byte copy: exact. The library call is the indexed
+    # assignment of the same rows (index_put_, one per tensor).
+    print("kv_cache_write", flush=True)
+    errs, timed = [], []
+    rows = torch.arange(lanes, dtype=torch.int32, device=device)
+    slots = torch.randint(0, min(320, lanes_seq), (lanes,), generator=gen, device=device,
+                          dtype=torch.int32)
+    r, s = rows.long(), slots.long()
+    for label in ("int4", "int8", "bf16"):
+        Hc = H // 2 if label == "int4" else H
+        shape = (cfg.num_layers, lanes, Hc, lanes_seq, Dh)
+        if label == "bf16":
+            k, v, kn, vn = (randn(*sh) for sh in (shape, shape, (lanes, Hc, Dh), (lanes, Hc, Dh)))
+            sc = ()
+        else:
+            k, v, kn, vn = (torch.randint(-128, 128, sh, generator=gen, device=device,
+                                          dtype=torch.int8)
+                            for sh in (shape, shape, (lanes, Hc, Dh), (lanes, Hc, Dh)))
+            sdt = torch.float32 if label == "int8" else torch.bfloat16
+            sc = tuple(torch.rand(sh, generator=gen, device=device).to(sdt)
+                       for sh in ((cfg.num_layers, lanes, H, lanes_seq),) * 2 + ((lanes, H),) * 2)
+        ref = [t.clone() for t in (k, v) + sc[:2]]
+        kw.kv_cache_write_plain(ref[0], ref[1], 1, rows, slots, kn, vn, *ref[2:], *sc[2:])
+        kw.kv_cache_write(k, v, 1, rows, slots, kn, vn, *sc)
+        if not all(torch.equal(got, want) for got, want in zip((k, v) + sc[:2], ref)):
+            raise AssertionError(f"kv_cache_write {label}: differs from the plain version")
+        print(f"  kv_cache_write {label}: equal to the plain version (a byte copy: exact)",
+              flush=True)
+        errs.append(0.0)
+        del ref
+
+        def library(k=k, v=v, kn=kn, vn=vn, sc=sc):
+            k[1][r, :, s] = kn
+            v[1][r, :, s] = vn
+            if sc:
+                sc[0][1][r, :, s] = sc[2]
+                sc[1][1][r, :, s] = sc[3]
+
+        args = (k, v, 1, rows, slots, kn, vn, *sc)
+        timed.append(_timed(f"{label}, {lanes} lanes", lambda: kw.kv_cache_write(*args),
+                            lambda: kw.kv_cache_write_plain(*args), 200, 50,
+                            _bound(2 * _nbytes(kn, vn, *sc[2:]) + _nbytes(rows, slots), 0),
+                            library))
+        del k, v, args
+    record("kv_cache_write", errs, timed)  # int4 first
+
+    # flash_causal at the 64-, 128- and 512-token prompt buckets, at a
+    # ragged S below each of the short and the long ones, and at the
+    # grouped admission's 32 rows of 64. The library call is
+    # scaled_dot_product_attention(is_causal=True) on the [B, H, S, D] views.
     print("flash_causal", flush=True)
     errs, timed = [], []
-    for S in (64, 128, 37, 512, 509):
-        qkv = [randn(1, S, H, Dh) for _ in range(3)]
+    for B, S in ((1, 64), (1, 128), (1, 37), (1, 512), (1, 509), (lanes, 64)):
+        qkv = [randn(B, S, H, Dh) for _ in range(3)]
         got, ref = fl.flash_causal(*qkv), fl.flash_causal_plain(*qkv)
-        errs.append(_compare(f"flash_causal S={S}", got, ref, 1e-2,
+        errs.append(_compare(f"flash_causal B={B} S={S}", got, ref, 1e-2,
                              "bf16 output; both round p to bf16 before p.v, the plain "
                              "version after normalising it"))
         if S in (64, 512):
-            timed.append((f"S={S}", _time_ms(lambda: fl.flash_causal(*qkv), 200 if S == 64 else 50),
-                          _time_ms(lambda: fl.flash_causal_plain(*qkv), 50 if S == 64 else 20)))
-    record("flash_causal", errs, timed)  # S = 64 first
+            bound = _bound(4 * _nbytes(qkv[0]), B * H * 4 * Dh * S * (S + 1) / 2)
+            timed.append(_timed(f"B={B} S={S}", lambda: fl.flash_causal(*qkv),
+                                lambda: fl.flash_causal_plain(*qkv), 200 if S == 64 else 50, 20,
+                                bound, lambda: F.scaled_dot_product_attention(
+                                    *(t.transpose(1, 2) for t in qkv), is_causal=True)))
+    record("flash_causal", errs, timed)  # B = 1, S = 64 first
     del qkv
 
     # vit_flash over the 4,900 patches of a 980px crop, 16 heads of 72,
-    # with every key valid and with half of them
+    # with every key valid and with half of them; library: sdpa with the
+    # key mask on the [B, H, S, D] views
     print("vit_flash", flush=True)
     P, VH, VD = vision.patches_per_side**2, vision.num_heads, vision.head_dim
     errs = []
@@ -262,9 +415,12 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None):
             "valid rows; bf16 output, p rounds to bf16 for p.v unnormalised in the "
             "kernel and normalised in the plain version"))
     valid = torch.ones((1, P), dtype=torch.bool, device=device)
-    record("vit_flash", errs, [(
-        f"S={P} all valid", _time_ms(lambda: vfl.vit_flash(*qkv, valid), 20),
-        _time_ms(lambda: vfl.vit_flash_plain(*qkv, valid), 3))])
+    record("vit_flash", errs, [_timed(
+        f"S={P} all valid", lambda: vfl.vit_flash(*qkv, valid),
+        lambda: vfl.vit_flash_plain(*qkv, valid), 20, 3,
+        _bound(4 * _nbytes(qkv[0]) + _nbytes(valid), 4 * VD * VH * P * P),
+        lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in qkv),
+                                               attn_mask=valid[:, None, None, :]))])
     return results
 
 
@@ -278,21 +434,28 @@ KERNELS = {
     "vit_flash": ("aria_tpu_torch/csrc/vit_flash.cu", "aria_tpu/ops/vit_flash.py:91"),
     "moe_prefill_int4": ("aria_tpu_torch/csrc/moe_prefill.cu",
                          "aria_tpu/ops/moe_prefill_kernel.py:120"),
+    "kv_cache_write": ("aria_tpu_torch/csrc/kv_write.cu", "aria_tpu/ops/kv_write.py:91"),
+    "decode_attention_int4": ("aria_tpu_torch/csrc/decode_attention.cu",
+                              "aria_tpu/ops/decode_attention.py:80"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
+IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
+PATHS = ("lanes", "image", "text")  # newest first: a kernel's "launches" is the first with any
 
 
 def _wrappers():
-    from aria_tpu_torch.ops.decode_attention import decode_attention
+    from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
     from aria_tpu_torch.ops.dense_int4 import dense_int4
     from aria_tpu_torch.ops.flash import flash_causal
+    from aria_tpu_torch.ops.kv_write import kv_cache_write
     from aria_tpu_torch.ops.moe_decode_kernel import moe_decode_int4
     from aria_tpu_torch.ops.moe_prefill_kernel import moe_prefill_int4
     from aria_tpu_torch.ops.vit_flash import vit_flash
 
     return {"dense_int4": dense_int4, "moe_decode_int4": moe_decode_int4,
             "decode_attention": decode_attention, "flash_causal": flash_causal,
-            "vit_flash": vit_flash, "moe_prefill_int4": moe_prefill_int4}
+            "vit_flash": vit_flash, "moe_prefill_int4": moe_prefill_int4,
+            "kv_cache_write": kv_cache_write, "decode_attention_int4": decode_attention_int4}
 
 
 def _tree_map(fn, tree):
@@ -489,8 +652,8 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
                                pixel_values=pixels)
     if results[2].tokens != results[3].tokens:
         raise AssertionError("the repeated greedy image request gave another stream")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in IMAGE_PATH:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the image path")
     print(f"  image request (bench.py's): image-to-first-token {results[1].prefill_s * 1e3:.1f} "
           f"ms, decode {results[1].tokens_per_s:.2f} tok/s ({gpu})", flush=True)
@@ -562,6 +725,215 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
     return launches
 
 
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+MOE_KERNELS = ("act_quant_kernel", "gateup_kernel", "hquant_kernel", "down_kernel",
+               "combine_kernel")  # csrc/moe_decode.cu, the W4A8 MoE of a decode step
+
+
+def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3):
+    """Phase 5: bench.py's lanes child (bench.py:48-104, 247-256) through
+    the port's ``BatchedEngine``: 32 lanes, max_seq_len 320, T 0.8, top-k
+    200, decode_chunk 50, the int4 KV cache; each round submits 32 prompts
+    of 48 tokens drawn from ``np.random.RandomState(0).randint(5, 1000)``
+    with 200 new tokens each; one warm-up round and two timed ones. Then a
+    profiled decode chunk, a greedy check with the int8 KV cache and a
+    2-layer batched decode step against the CPU's plain versions. Returns
+    each kernel's launch count over the rounds."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.server import BatchedEngine
+
+    cfg = cfg or AriaConfig()
+    text = cfg.text
+    top = min(1000, text.vocab_size)
+    wrappers = _wrappers()
+    for w in wrappers.values():  # count only what the lanes path launches
+        w.launches = 0
+    engine = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320, temperature=0.8,
+                           top_k=200, decode_chunk=50, cache_dtype="int4", rng_seed=SEED)
+    rng = np.random.RandomState(0)
+    print(f"lanes: {lanes} lanes, int4 KV over {engine.S} positions, {new_tokens} tokens per "
+          f"request, {rounds} rounds (the first warms up)", flush=True)
+    with torch.inference_mode():  # the engine's state is inference tensors
+        for rnd in range(rounds):
+            for _ in range(lanes):
+                engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=new_tokens)
+            _sync(device)
+            t0 = time.perf_counter()
+            engine._admit_all()  # the grouped admission, timed on its own
+            _sync(device)
+            t1 = time.perf_counter()
+            admitted = {n: w.launches for n, w in wrappers.items()}
+            finished, chunks = [], 0
+            while engine.queue or engine._active_mask().any():
+                finished += engine.step()  # each ends in the chunk's one read-back
+                chunks += 1
+            t2 = time.perf_counter()
+            if len(finished) != lanes:
+                raise AssertionError(f"lanes round {rnd}: {len(finished)} of {lanes} finished")
+            for r in finished:
+                if r.error or len(r.generated) != new_tokens:
+                    raise AssertionError(f"lanes request {r.uid}: {len(r.generated)} tokens, "
+                                         f"error {r.error}")
+                if not all(0 <= t < text.vocab_size for t in r.generated):
+                    raise AssertionError(f"lanes request {r.uid}: token out of range")
+            steps = chunks * engine.decode_chunk
+            per_step = sum(w.launches - admitted[n] for n, w in wrappers.items()) / steps
+            total = sum(len(r.generated) for r in finished)
+            step_ms = (t2 - t1) / steps * 1e3
+            print(f"  round {rnd}{' (warm-up)' if rnd == 0 else ''}: {total} tokens in "
+                  f"{t2 - t0:.3f} s = {total / (t2 - t0):.2f} tok/s aggregate; grouped admission "
+                  f"{(t1 - t0) * 1e3:.1f} ms wall; decode {steps} steps, "
+                  f"{step_ms:.2f} ms wall per step; {per_step:.1f} hand-kernel "
+                  f"launches per step ({gpu})", flush=True)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"  launches: {launches}", flush=True)
+    for name in ("kv_cache_write", "decode_attention_int4"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the lanes path")
+
+    with torch.inference_mode():
+        if device.type == "cuda":
+            _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms)
+        del engine
+        _lanes_greedy_check(device, lm, cfg, top)
+        _lanes_reference(device, lm, text, top)
+    return launches
+
+
+def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5):
+    """A decode chunk of ``steps`` steps over all lanes under the profiler:
+    device busy time, the W4A8 MoE's share and kernel launches per step;
+    the idle share is against ``step_ms``, the wall per step of the last
+    round with the profiler off."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(1)
+    uids = [engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=new_tokens)
+            for _ in range(lanes)]
+    engine.decode_chunk = steps
+    engine.step()  # admission and a first chunk, unprofiled
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        wall = (time.perf_counter() - t0) / steps
+    events = prof.key_averages()
+    dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / steps / 1e3
+    moe = sum(e.self_device_time_total for e in dev_ev
+              if any(k in e.key for k in MOE_KERNELS)) / steps / 1e3
+    n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
+    print(f"  profiled decode chunk ({steps} steps x {lanes} lanes): wall {wall * 1e3:.2f} ms per "
+          f"step (profiler on), device busy {busy:.3f} ms per step, of it the W4A8 MoE "
+          f"{moe:.3f} ms; {n_launch:.0f} kernel launches per step; device idle share "
+          f"{1 - busy / step_ms:.3f} of the {step_ms:.2f} ms step (profiler off)", flush=True)
+    print("  device time by kernel, lanes decode:\n"
+          + events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    for uid in uids:
+        engine.cancel(uid)
+    engine.step()
+
+
+def _lanes_greedy_check(device, lm, cfg, top):
+    """Greedy with the int8 KV cache: four requests in two buckets, served
+    twice, give the same streams, and each first token is the argmax of its
+    row of the grouped prefill's logits."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+
+    text = cfg.text
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(5, top, n).tolist() for n in (20, 30, 40, 60)]  # buckets 32 and 64
+    streams = []
+    for _ in range(2):
+        eng = BatchedEngine({"lm": lm}, cfg, max_lanes=4, max_seq_len=320, decode_chunk=16,
+                            cache_dtype=torch.int8, rng_seed=SEED)
+        uids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        fin = {r.uid: r for r in eng.run_until_complete()}
+        streams.append([fin[u].generated for u in uids])
+    if streams[0] != streams[1] or any(len(s) != 32 for s in streams[0]):
+        raise AssertionError("the repeated greedy lanes requests gave other streams")
+    for group, bucket in (((0, 1), 32), ((2, 3), 64)):  # the engine's two grouped prefills
+        toks = torch.zeros((2, bucket), dtype=torch.long, device=device)
+        for row, i in enumerate(group):
+            toks[row, :len(prompts[i])] = torch.tensor(prompts[i])
+        lens = torch.tensor([len(prompts[i]) for i in group], device=device)
+        cache = KVCache.init(text, 2, bucket, torch.int8, device=device)
+        logits = lm_forward(lm, text, toks, positions=torch.arange(bucket, device=device),
+                            cache=cache, cache_pos=0, logit_position=lens - 1,
+                            causal_flash=True).logits[:, 0]
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite grouped prefill logits")
+        for row, i in enumerate(group):
+            if int(logits[row].argmax()) != streams[0][i][0]:
+                raise AssertionError(f"lane {i}: first token is not its prefill row's argmax")
+    print(f"  greedy, int8 KV, 4 requests in buckets 32 and 64: streams repeat; first tokens "
+          f"{[s[0] for s in streams[0]]} equal their prefill rows' argmax", flush=True)
+
+
+def _lanes_reference(device, lm, text, top, ref_layers=2):
+    """A 2-layer grouped prefill then one batched decode step with per-lane
+    positions, on the card against the CPU's plain versions, with the bf16
+    witness beside the limit. The int8 KV cache is held to the limit; the
+    int4 one is reported beside its own witness and not held: a one-ulp
+    move of a bf16 k or v moves its int4 rounding by a seventh of the
+    head's range, which the witness shows is far above 5e-2."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.models.moe_lm import KVCache, embed_tokens, lm_forward
+
+    cut = dataclasses.replace(text, num_layers=ref_layers)
+    small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}
+    small_cpu = _tree_map(lambda v: v.cpu(), small)
+    rng = np.random.RandomState(3)
+    lens = [5, 9, 14, 20]
+    toks = torch.zeros((4, 32), dtype=torch.long)
+    for b, n in enumerate(lens):
+        toks[b, :n] = torch.from_numpy(rng.randint(5, top, n))
+    new = torch.from_numpy(rng.randint(5, top, 4)).to(torch.int32)
+    cpu = torch.device("cpu")
+
+    def step(params, dev, cache_dtype, bump=False):
+        emb = embed_tokens(params["embed"], toks.to(dev))
+        if bump:
+            emb = _bump_half(emb)
+        cache = KVCache.init(cut, 4, 128, cache_dtype, device=dev)
+        lm_forward(params, cut, inputs_embeds=emb, positions=torch.arange(32, device=dev),
+                   cache=cache, cache_pos=0, causal_flash=True)
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return lm_forward(params, cut, new[:, None].long().to(dev), positions=pos[:, None],
+                          cache=cache, cache_pos=pos).logits[:, 0].float().cpu()
+
+    for cache_dtype, label in ((torch.int8, "int8"), ("int4", "int4")):
+        got, ref = step(small, device, cache_dtype), step(small_cpu, cpu, cache_dtype)
+        ulp = step(small_cpu, cpu, cache_dtype, bump=True)
+        rel, witness = _rel_err(got, ref), _rel_err(ulp, ref)
+        held = cache_dtype == torch.int8
+        print(f"  reference ({ref_layers} layers, {label} KV, a decode step of 4 lanes at "
+              f"positions {lens}, CPU plain versions): relative logit error {rel:.3e} "
+              f"({f'limit {REF_LIMIT:.0e}' if held else 'not held'}), top-1 agreement "
+              f"{_top1(got, ref):.3f}; witness, CPU with one bf16 ulp on half the prompt "
+              f"embeddings: relative error {witness:.3e}, top-1 agreement {_top1(ulp, ref):.3f}",
+              flush=True)
+        if held and not rel <= REF_LIMIT:
+            raise AssertionError(f"reference lanes logits differ: relative error {rel}")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -592,14 +964,19 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     lm, text_launches = run_slice(device, gen(3), gpu=gpu)
-    # bench.py's image request is the main path: its counts are "launches"
     launches = {"text": text_launches, "image": run_image(device, gen(4), lm, gpu=gpu)}
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches["lanes"] = run_lanes(device, lm, gpu=gpu)
+    torch.cuda.synchronize()
+    for name in KERNELS:
+        if not any(launches[path][name] for path in PATHS):
+            raise AssertionError(f"{name} was launched on no path")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches["image"][name],
-         "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+         "launches": next(launches[path][name] for path in PATHS if launches[path][name]),
+         "launches_by_path": {path: launches[path][name] for path in PATHS},
          **results[name]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(record))

@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from aria_tpu_torch.config import AriaConfig, TextConfig
+from aria_tpu_torch.engine.server import BatchedEngine
+from aria_tpu_torch.models.moe_lm import init_lm_params_serving_int4
 from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import dense_int4 as di
 from aria_tpu_torch.ops import flash as fl
+from aria_tpu_torch.ops import kv_write as kw
 from aria_tpu_torch.ops import moe_decode_kernel as mk
 from aria_tpu_torch.ops import moe_prefill_kernel as mp
 from aria_tpu_torch.ops import vit_flash as vf
@@ -79,6 +83,88 @@ def test_decode_attention_kernel_matches_plain(cuda):
         torch.testing.assert_close(da.decode_attention(*args).float(),
                                    da.decode_attention_plain(*args).float(),
                                    rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_kv_cache_write_kernel_matches_plain(cuda, cache):
+    """The 32-lane shapes, with a duplicate lane and two dropped ones."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, R, H, S, D, B = 28, 32, 20, 384, 128, 34
+    Hc = H // 2 if cache == "int4" else H
+    if cache == "bf16":
+        k, v, kn, vn = (_randn(g, *shape) for shape in [(L, R, Hc, S, D)] * 2 + [(B, Hc, D)] * 2)
+        scales = ()
+    else:
+        def ints(*shape):
+            return torch.randint(-128, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+
+        sdt = torch.float32 if cache == "int8" else torch.bfloat16
+        k, v, kn, vn = ints(L, R, Hc, S, D), ints(L, R, Hc, S, D), ints(B, Hc, D), ints(B, Hc, D)
+        scales = tuple(torch.rand(shape, generator=g, device=cuda).to(sdt)
+                       for shape in [(L, R, H, S)] * 2 + [(B, H)] * 2)
+    rows = torch.randperm(R, generator=g, device=cuda)[:B - 2].to(torch.int32)
+    slots = torch.randint(0, S, (B - 2,), generator=g, device=cuda, dtype=torch.int32)
+    # lane 32 repeats lane 0 verbatim; lane 33 lies past the cache and is dropped
+    rows = torch.cat([rows, rows[:1], torch.tensor([R], dtype=torch.int32, device=cuda)])
+    slots = torch.cat([slots, slots[:1], slots[:1]])
+    kn[32], vn[32] = kn[0], vn[0]
+    if scales:
+        scales[2][32], scales[3][32] = scales[2][0], scales[3][0]
+    new = (kn, vn) + scales[2:]
+    ref = [t.clone() for t in (k, v) + scales[:2]]
+    kw.kv_cache_write_plain(ref[0], ref[1], 5, rows, slots, *new[:2], *ref[2:], *new[2:])
+    got = [k, v, *scales[:2]]
+    launches = kw.kv_cache_write.launches
+    kw.kv_cache_write(got[0], got[1], 5, rows, slots, *new[:2], *got[2:], *new[2:])
+    torch.cuda.synchronize()
+    assert kw.kv_cache_write.launches == launches + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)  # a byte copy: exact
+
+
+def test_int4_decode_attention_kernel_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for B, S, lens in ((32, 384, None), (1, 1024, [1000]), (3, 384, [1, 129, 384])):
+        L, H, D = 2, 20, 128
+        kp = torch.randint(-128, 128, (L, B, H // 2, S, D), generator=g, device=cuda,
+                           dtype=torch.int8)
+        vp = torch.randint(-128, 128, (L, B, H // 2, S, D), generator=g, device=cuda,
+                           dtype=torch.int8)
+        ks = (torch.rand((L, B, H, S), generator=g, device=cuda) * 0.3 + 0.05).to(torch.bfloat16)
+        vs = (torch.rand((L, B, H, S), generator=g, device=cuda) * 0.3 + 0.05).to(torch.bfloat16)
+        lengths = (torch.randint(48, 321, (B,), generator=g, device=cuda) if lens is None
+                   else torch.tensor(lens, device=cuda)).to(torch.int32)
+        q = _randn(g, B, H, D)
+        args = (q, kp, vp, 1, lengths, ks, vs)
+        launches = da.decode_attention_int4.launches
+        got = da.decode_attention(*args)
+        assert da.decode_attention_int4.launches == launches + 1
+        # bf16 output; p * v_scale rounds to bf16 on both sides, after the
+        # online softmax's rescaling in the kernel and a one-pass softmax in
+        # the plain version
+        torch.testing.assert_close(got.float(), da.decode_attention_plain(*args).float(),
+                                   rtol=1e-2, atol=1e-2)
+
+
+def test_batched_engine_greedy_streams_repeat(cuda):
+    """A 2-layer full-width int4 model, 8 lanes, the int4 KV cache: serving
+    the same greedy requests twice gives the same streams, through the
+    kv_cache_write and int4 decode-attention kernels."""
+    text = TextConfig(num_layers=2)
+    lm = init_lm_params_serving_int4(text, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(5, 1000, n)] for n in (48, 48, 20, 100, 7)]
+    streams = []
+    before = (kw.kv_cache_write.launches, da.decode_attention_int4.launches)
+    for _ in range(2):
+        eng = BatchedEngine({"lm": lm}, AriaConfig(text=text), max_lanes=8, max_seq_len=320,
+                            decode_chunk=10, cache_dtype="int4")
+        uids = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        fin = {r.uid: r for r in eng.run_until_complete()}
+        streams.append([fin[u].generated for u in uids])
+    assert streams[0] == streams[1]
+    assert all(len(s) == 24 for s in streams[0])
+    assert kw.kv_cache_write.launches > before[0] and da.decode_attention_int4.launches > before[1]
 
 
 def test_flash_causal_kernel_matches_plain(cuda):

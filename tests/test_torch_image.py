@@ -16,6 +16,7 @@ the image features agree to bf16 level only. The LM logits are held to a
 relative error and the greedy stream is pinned at a seed.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -36,7 +37,9 @@ from aria_tpu.ops import backend as jbackend
 from aria_tpu.ops import norms as jnorms
 from aria_tpu.ops import quant as jquant
 from aria_tpu_torch.checkpoint.from_jax import from_jax
+from aria_tpu_torch.config import config_from_dict
 from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+from aria_tpu_torch.engine.server import BatchedEngine
 from aria_tpu_torch.models import aria as taria
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models import projector as tproj
@@ -55,6 +58,8 @@ TEXT = TextConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
                   num_kv_heads=2, head_dim=128, num_experts=8, moe_topk=2,
                   moe_intermediate_size=128, num_shared_experts=2, max_seq_len=512)
 CFG = AriaConfig(vision=VISION, projector=PROJ, text=TEXT)
+T_CFG = config_from_dict(dataclasses.asdict(CFG))  # the port's own config, field for field
+T_VISION, T_PROJ, T_TEXT = T_CFG.vision, T_CFG.projector, T_CFG.text
 N_Q = 128
 PROMPT = [11] * 8 + [CFG.image_token_id] * N_Q + [13] * 8
 
@@ -85,7 +90,7 @@ def f32_params(interpret):
     """Float ViT and projector at f32."""
     vis = jvit.init_vit_params(jax.random.PRNGKey(1), VISION, jnp.float32)
     proj = jproj.init_projector_params(jax.random.PRNGKey(2), PROJ, jnp.float32)
-    return vis, proj, from_jax(_to_np(vis)), from_jax(_to_np(proj))
+    return vis, proj, from_jax(_to_np(vis), device="cpu"), from_jax(_to_np(proj), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +103,7 @@ def served(interpret):
     lm = jm.init_lm_params_serving_int4(jax.random.PRNGKey(3), TEXT, dtype=jnp.float32)
     lm["embed"] = jquant.dequantize_weight(lm["embed"], dtype=jnp.float32)
     params = {"vision": vis, "projector": proj, "lm": lm}
-    return params, from_jax(_to_np(params))
+    return params, from_jax(_to_np(params), device="cpu")
 
 
 def _rel(got, ref):
@@ -132,13 +137,13 @@ def test_vit_and_projector_quantizers_match_jax_bytes():
                          (jquant.quantize_projector_params, tquant.quantize_projector_params,
                           proj)):
         ref = _to_np(jax.jit(jq)(tree))
-        got = tq(from_jax(_to_np(tree)))
+        got = tq(from_jax(_to_np(tree), device="cpu"))
         flat, _ = jax.tree_util.tree_flatten_with_path(ref)
         for path, leaf in flat:
             t = got
             for key in path:
                 t = t[key.key]
-            want = from_jax(leaf)
+            want = from_jax(leaf, device="cpu")
             assert t.dtype == want.dtype and t.shape == want.shape, jax.tree_util.keystr(path)
             if t.dtype == torch.bfloat16:
                 t, want = t.view(torch.int16), want.view(torch.int16)
@@ -150,9 +155,9 @@ def test_vit_and_projector_quantizers_match_jax_bytes():
 def test_torch_init_has_the_jax_vision_structure():
     g = torch.Generator().manual_seed(0)
     for jtree, ttree in ((jvit.init_vit_params(jax.random.PRNGKey(0), VISION),
-                          tvit.init_vit_params(VISION, g)),
+                          tvit.init_vit_params(T_VISION, g, device="cpu")),
                          (jproj.init_projector_params(jax.random.PRNGKey(0), PROJ),
-                          tproj.init_projector_params(PROJ, g))):
+                          tproj.init_projector_params(T_PROJ, g, device="cpu"))):
         flat, _ = jax.tree_util.tree_flatten_with_path(jtree)
         for path, leaf in flat:
             t = ttree
@@ -182,7 +187,7 @@ def test_patch_mask_and_position_ids_match_jax(valid_hw):
     got2d = tvit.patch_attention_mask(torch.from_numpy(pm), 14)
     np.testing.assert_array_equal(got2d.numpy(), np.asarray(ref2d))
     ref = jvit._position_ids(ref2d, VISION.patches_per_side)
-    got = tvit._position_ids(got2d, VISION.patches_per_side)
+    got = tvit._position_ids(got2d, T_VISION.patches_per_side)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
@@ -202,7 +207,7 @@ def test_vit_forward_matches_jax(f32_params, ragged):
     if ragged:
         pm[1, :, 126:] = False  # a 224 x 126 image padded right: 144 real patches
     ref = jvit.vit_forward(vis, VISION, jnp.asarray(pv), jnp.asarray(pm))
-    got = tvit.vit_forward(tvis, VISION, torch.from_numpy(pv), torch.from_numpy(pm))
+    got = tvit.vit_forward(tvis, T_VISION, torch.from_numpy(pv), torch.from_numpy(pm))
     np.testing.assert_array_equal(got.patch_mask.numpy(), np.asarray(ref.patch_mask))
     np.testing.assert_array_equal(got.kv_ignore_mask.numpy(), np.asarray(ref.kv_ignore_mask))
     valid = np.asarray(ref.patch_mask)
@@ -220,7 +225,7 @@ def test_projector_forward_matches_jax(f32_params):
     ignore = np.zeros((2, 256), bool)
     ignore[1, 100:] = True
     ref = jproj.projector_forward(proj, PROJ, jnp.asarray(x), jnp.asarray(ignore))
-    got = tproj.projector_forward(tproj_p, PROJ, torch.from_numpy(x), torch.from_numpy(ignore))
+    got = tproj.projector_forward(tproj_p, T_PROJ, torch.from_numpy(x), torch.from_numpy(ignore))
     assert got.shape == (2, N_Q, PROJ.output_dim)
     # f32; summation order only
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
@@ -228,7 +233,7 @@ def test_projector_forward_matches_jax(f32_params):
 
 def test_encode_images_uint8_matches_jitted_jax(f32_params):
     vis, proj, tvis, tproj_p = f32_params
-    cfg = CFG
+    cfg = T_CFG
     params = {"vision": vis, "projector": proj}
     pixels = _pixels(6, n=2)
     ref = jax.jit(lambda p, pv: jaria.encode_images(p, cfg, pv))(params, jnp.asarray(pixels))
@@ -287,12 +292,12 @@ def test_image_prefill_logits_match_jax(served):
     emb = jaria.prepare_embeddings(params, CFG, jnp.asarray(toks), image_features=feats)
     ref = np.asarray(jm.lm_forward(params["lm"], TEXT, inputs_embeds=emb).logits)
     with torch.inference_mode():
-        tfeats = taria.encode_images(tparams, CFG, torch.from_numpy(pixels))
-        temb = taria.prepare_embeddings(tparams, CFG, torch.from_numpy(toks).long(),
+        tfeats = taria.encode_images(tparams, T_CFG, torch.from_numpy(pixels))
+        temb = taria.prepare_embeddings(tparams, T_CFG, torch.from_numpy(toks).long(),
                                         image_features=tfeats)
-        got = tm.lm_forward(tparams["lm"], TEXT, inputs_embeds=temb).logits.numpy()
+        got = tm.lm_forward(tparams["lm"], T_TEXT, inputs_embeds=temb).logits.numpy()
         # the port's LM on the JAX package's embeddings
-        same = tm.lm_forward(tparams["lm"], TEXT,
+        same = tm.lm_forward(tparams["lm"], T_TEXT,
                              inputs_embeds=torch.from_numpy(np.asarray(emb))).logits.numpy()
     assert got.shape == ref.shape == (1, 256, TEXT.vocab_size)
     n = len(PROMPT)
@@ -318,16 +323,34 @@ def test_image_greedy_stream_matches_jax_engine(served):
     pixels = _pixels(9)
     jr = JEngine(params, CFG, max_seq_len=512, cache_dtype=jnp.int8).generate(
         PROMPT, JGen(max_new_tokens=12, temperature=0.0, decode_chunk=6), pixel_values=pixels)
-    tr = Engine(tparams, CFG, max_seq_len=512, cache_dtype=torch.int8).generate(
+    tr = Engine(tparams, T_CFG, max_seq_len=512, cache_dtype=torch.int8).generate(
         PROMPT, GenerationConfig(max_new_tokens=12, temperature=0.0, decode_chunk=6),
         pixel_values=pixels)
     assert len(tr.tokens) == 12 and tr.prefill_s > 0
     assert tr.tokens == jr.tokens
 
 
+def test_batched_engine_admits_an_image_request_beside_text(served):
+    """The image request is admitted alone through encode_images, the text
+    request in a grouped prefill; both streams equal Engine.generate's."""
+    _, tparams = served
+    pixels = _pixels(11)
+    text_prompt = [5, 17, 3, 99]
+    gen = GenerationConfig(max_new_tokens=8, temperature=0.0, top_k=None, decode_chunk=4)
+    single = Engine(tparams, T_CFG, max_seq_len=512, cache_dtype=torch.int8)
+    want = [single.generate(PROMPT, gen, pixel_values=pixels).tokens,
+            single.generate(text_prompt, gen).tokens]
+    srv = BatchedEngine(tparams, T_CFG, max_lanes=2, max_seq_len=512, decode_chunk=4,
+                        cache_dtype=torch.int8)
+    uids = [srv.submit(PROMPT, max_new_tokens=8, pixel_values=pixels),
+            srv.submit(text_prompt, max_new_tokens=8)]
+    fin = {r.uid: r for r in srv.run_until_complete()}
+    assert [fin[u].generated for u in uids] == want
+
+
 def test_image_request_takes_tensors_and_a_pixel_mask(served):
     _, tparams = served
-    eng = Engine(tparams, CFG, max_seq_len=512)
+    eng = Engine(tparams, T_CFG, max_seq_len=512)
     gen = GenerationConfig(max_new_tokens=4, temperature=0.0, decode_chunk=4)
     pixels = _pixels(10)
     a = eng.generate(PROMPT, gen, pixel_values=pixels).tokens
@@ -342,10 +365,10 @@ def test_long_prefill_is_sliced_exactly(served, monkeypatch):
     _, tparams = served
     toks = torch.from_numpy(np.random.RandomState(11).randint(0, 512, (1, 512))).long()
     with torch.inference_mode():
-        whole = tm.lm_forward(tparams["lm"], TEXT, toks).logits
+        whole = tm.lm_forward(tparams["lm"], T_TEXT, toks).logits
         monkeypatch.setattr(tm, "MOE_CHUNK", 256)
-        sliced = tm.lm_forward(tparams["lm"], TEXT, toks).logits
+        sliced = tm.lm_forward(tparams["lm"], T_TEXT, toks).logits
         with pytest.raises(NotImplementedError, match="multiple"):
-            tm.lm_forward(tparams["lm"], TEXT, toks[:, :300])
+            tm.lm_forward(tparams["lm"], T_TEXT, toks[:, :300])
     # routing is per token; the slices' MoE sums are the same sums
     torch.testing.assert_close(sliced, whole, rtol=1e-5, atol=1e-5)

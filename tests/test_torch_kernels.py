@@ -38,7 +38,7 @@ torch.set_num_threads(1)
 
 
 def _t(x):
-    return to_tensor(np.asarray(x))
+    return to_tensor(np.asarray(x), device="cpu")
 
 
 # ------------------------------------------------------------ dense_int4

@@ -4,6 +4,7 @@ quantizer bytes, weight interchange and the small ops, on the CPU.
 Inputs are made with numpy from a seed and fed to both packages.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,7 @@ from aria_tpu.ops import moe as jmoe
 from aria_tpu.ops import norms as jnorms
 from aria_tpu.ops import quant as jquant
 from aria_tpu.ops import rope as jrope
+from aria_tpu_torch import config as tconfig
 from aria_tpu_torch.checkpoint.from_jax import from_jax, to_tensor
 from aria_tpu_torch.engine import generate as tgenerate
 from aria_tpu_torch.engine import sampling as tsampling
@@ -43,12 +45,12 @@ def _np(x):
 
 
 def _t(x):
-    return to_tensor(np.asarray(x))
+    return to_tensor(np.asarray(x), device="cpu")
 
 
 def _bytes_equal(t: torch.Tensor, j) -> bool:
     """Same dtype and the same bytes (bf16 compared as its bit pattern)."""
-    ref = to_tensor(np.asarray(j))
+    ref = to_tensor(np.asarray(j), device="cpu")
     if t.dtype != ref.dtype or t.shape != ref.shape:
         return False
     if t.dtype == torch.bfloat16:
@@ -146,7 +148,8 @@ def test_linear_matches_jax():
     x, w = rng.randn(2, 5, 64).astype(np.float32), rng.randn(64, 48).astype(np.float32)
     qw = jquant.quantize_weight(jnp.asarray(w))
     ref = jquant.linear(jnp.asarray(x), qw, "bsd,dv->bsv")
-    got = tquant.linear(torch.from_numpy(x), from_jax(jax.tree.map(_np, qw)), "bsd,dv->bsv")
+    got = tquant.linear(torch.from_numpy(x), from_jax(jax.tree.map(_np, qw), device="cpu"),
+                        "bsd,dv->bsv")
     # f32 products of exact int8 values; only the summation order differs
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
 
@@ -159,7 +162,7 @@ def test_from_jax_keeps_every_leaf_byte_for_byte():
                      num_kv_heads=2, head_dim=128, num_experts=4, moe_topk=2,
                      moe_intermediate_size=128, num_shared_experts=2)
     tree = jax.tree.map(_np, jm.init_lm_params_serving_int4(jax.random.PRNGKey(0), cfg))
-    got = from_jax(tree)
+    got = from_jax(tree, device="cpu")
     flat_ref, _ = jax.tree_util.tree_flatten_with_path(tree)
     for path, leaf in flat_ref:
         t = got
@@ -176,7 +179,8 @@ def test_torch_init_has_the_jax_serving_structure():
                      moe_intermediate_size=128, num_shared_experts=2)
     ref = jax.eval_shape(lambda k: jm.init_lm_params_serving_int4(k, cfg),
                          jax.random.PRNGKey(0))
-    got = tm.init_lm_params_serving_int4(cfg, torch.Generator().manual_seed(0))
+    tcfg = tconfig.TextConfig(**dataclasses.asdict(cfg))  # the port's own copy
+    got = tm.init_lm_params_serving_int4(tcfg, torch.Generator().manual_seed(0), device="cpu")
     flat_ref, _ = jax.tree_util.tree_flatten_with_path(ref)
     n = 0
     for path, leaf in flat_ref:

@@ -37,6 +37,7 @@ from aria_tpu.models import moe_lm as jm
 from aria_tpu.ops import backend as jbackend
 from aria_tpu.ops.quant import dequantize_weight
 from aria_tpu_torch.checkpoint.from_jax import from_jax
+from aria_tpu_torch.config import config_from_dict
 from aria_tpu_torch.engine.generate import Engine, GenerationConfig
 from aria_tpu_torch.models import moe_lm as tm
 
@@ -46,6 +47,8 @@ TEXT = TextConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
                   num_kv_heads=2, head_dim=128, num_experts=8, moe_topk=2,
                   moe_intermediate_size=128, num_shared_experts=2, max_seq_len=512)
 CFG = AriaConfig.tiny().replace(text=TEXT)
+T_CFG = config_from_dict(dataclasses.asdict(CFG))  # the port's own config, field for field
+T_TEXT = T_CFG.text
 SEED = 1
 PROMPT = [int(t) for t in np.random.RandomState(101).randint(1, 512, 48)]
 
@@ -67,7 +70,7 @@ def interpret():
 def params(interpret):
     lm = jm.init_lm_params_serving_int4(jax.random.PRNGKey(SEED), TEXT, dtype=jnp.float32)
     lm["embed"] = dequantize_weight(lm["embed"], dtype=jnp.float32)
-    return lm, from_jax(jax.tree.map(np.asarray, lm))
+    return lm, from_jax(jax.tree.map(np.asarray, lm), device="cpu")
 
 
 def test_lm_forward_logits_match_jax(params):
@@ -75,7 +78,7 @@ def test_lm_forward_logits_match_jax(params):
     toks = np.random.RandomState(SEED).randint(0, 512, (1, 40)).astype(np.int32)
     ref = np.asarray(jm.lm_forward(lm, TEXT, jnp.asarray(toks)).logits)
     with torch.inference_mode():
-        got = tm.lm_forward(tlm, TEXT, torch.from_numpy(toks).long()).logits.numpy()
+        got = tm.lm_forward(tlm, T_TEXT, torch.from_numpy(toks).long()).logits.numpy()
     assert got.shape == ref.shape == (1, 40, TEXT.vocab_size)
     # W4A8 rounding flips (module docstring): seen 0.5-0.8% relative, and
     # at most 0.06 on logits of magnitude ~4; a wrong scale or layout is O(1)
@@ -90,8 +93,8 @@ def test_lm_forward_with_logit_position_matches_full(params):
     _, tlm = params
     toks = torch.from_numpy(np.random.RandomState(2).randint(0, 512, (1, 24))).long()
     with torch.inference_mode():
-        full = tm.lm_forward(tlm, TEXT, toks).logits
-        one = tm.lm_forward(tlm, TEXT, toks, logit_position=17).logits
+        full = tm.lm_forward(tlm, T_TEXT, toks).logits
+        one = tm.lm_forward(tlm, T_TEXT, toks, logit_position=17).logits
     assert one.shape == (1, 1, TEXT.vocab_size)
     # one row against 24 rows through lm_head: the matmul blocks differ
     torch.testing.assert_close(one[0, 0], full[0, 17], rtol=1e-5, atol=1e-5)
@@ -102,7 +105,8 @@ def test_greedy_stream_matches_jax_engine(params, cache_dtype):
     lm, tlm = params
     jr = JEngine({"lm": lm}, CFG, max_seq_len=128, cache_dtype=getattr(jnp, cache_dtype)).generate(
         PROMPT, JGen(max_new_tokens=16, temperature=0.0, decode_chunk=8))
-    tr = Engine({"lm": tlm}, CFG, max_seq_len=128, cache_dtype=getattr(torch, cache_dtype)).generate(
+    tr = Engine({"lm": tlm}, T_CFG, max_seq_len=128,
+                cache_dtype=getattr(torch, cache_dtype)).generate(
         PROMPT, GenerationConfig(max_new_tokens=16, temperature=0.0, decode_chunk=8))
     assert len(tr.tokens) == 16 and tr.steps == 15
     assert tr.tokens == jr.tokens
@@ -110,7 +114,7 @@ def test_greedy_stream_matches_jax_engine(params, cache_dtype):
 
 def test_stop_token_trims_the_stream(params):
     _, tlm = params
-    eng = Engine({"lm": tlm}, CFG, max_seq_len=128)
+    eng = Engine({"lm": tlm}, T_CFG, max_seq_len=128)
     full = eng.generate(PROMPT, GenerationConfig(max_new_tokens=12, temperature=0.0,
                                                  decode_chunk=5)).tokens
     stop = full[6]
@@ -123,15 +127,15 @@ def test_sampled_stream_is_seeded_and_in_range(params):
     _, tlm = params
     gen = GenerationConfig(max_new_tokens=10, temperature=0.8, top_k=50, top_p=0.95,
                            min_p=0.01, decode_chunk=4)
-    a = Engine({"lm": tlm}, CFG, max_seq_len=128, rng_seed=3).generate(PROMPT, gen).tokens
-    b = Engine({"lm": tlm}, CFG, max_seq_len=128, rng_seed=3).generate(PROMPT, gen).tokens
+    a = Engine({"lm": tlm}, T_CFG, max_seq_len=128, rng_seed=3).generate(PROMPT, gen).tokens
+    b = Engine({"lm": tlm}, T_CFG, max_seq_len=128, rng_seed=3).generate(PROMPT, gen).tokens
     assert a == b and len(a) == 10
     assert all(0 <= t < TEXT.vocab_size for t in a)
 
 
 def test_paths_not_yet_ported_raise(params):
     _, tlm = params
-    eng = Engine({"lm": tlm}, CFG, max_seq_len=512)
+    eng = Engine({"lm": tlm}, T_CFG, max_seq_len=512)
     # a prompt over 128 tokens now prefills through moe_prefill_int4
     assert len(eng.generate(list(range(1, 200)), GenerationConfig(max_new_tokens=2)).tokens) == 2
     with pytest.raises(NotImplementedError, match="speculative"):
@@ -143,10 +147,10 @@ def test_paths_not_yet_ported_raise(params):
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.generate(PROMPT, GenerationConfig(max_new_tokens=1000))
     with pytest.raises(NotImplementedError, match="ft=256"):
-        tm.lm_forward(tlm, dataclasses.replace(TEXT, moe_intermediate_size=2304),
+        tm.lm_forward(tlm, dataclasses.replace(T_TEXT, moe_intermediate_size=2304),
                       torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="prefill kernel"):
-        tm.lm_forward(tlm, dataclasses.replace(TEXT, moe_intermediate_size=192),
+        tm.lm_forward(tlm, dataclasses.replace(T_TEXT, moe_intermediate_size=192),
                       torch.zeros((1, 200), dtype=torch.long))
 
 
@@ -164,10 +168,10 @@ def test_prefill_kernel_tile_follows_the_jax_rule(I, ft):
 
 
 def test_torch_init_serves_a_request():
-    cfg = TEXT
-    lm = tm.init_lm_params_serving_int4(cfg, torch.Generator().manual_seed(0),
+    cfg = T_TEXT
+    lm = tm.init_lm_params_serving_int4(cfg, torch.Generator().manual_seed(0), device="cpu",
                                         dtype=torch.float32)
-    eng = Engine({"lm": lm}, CFG, max_seq_len=128, cache_dtype=torch.int8)
+    eng = Engine({"lm": lm}, T_CFG, max_seq_len=128, cache_dtype=torch.int8)
     out = eng.generate(PROMPT[:20], GenerationConfig(max_new_tokens=6, temperature=0.0,
                                                      decode_chunk=3))
     assert len(out.tokens) == 6 and all(0 <= t < cfg.vocab_size for t in out.tokens)
