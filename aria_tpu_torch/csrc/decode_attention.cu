@@ -19,45 +19,11 @@
 
 namespace {
 
-constexpr int D = 128;
+constexpr int D = aria::HEAD_DIM;
 constexpr int WARPS = 8;
-
-__device__ __forceinline__ float dot_row(const int8_t* kr, const float* qs) {
-  float d = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c) {
-    const uint4 w = reinterpret_cast<const uint4*>(kr)[c];
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 16; ++i) d += qs[c * 16 + i] * (float)aria::sbyte(ws[i >> 2], i & 3);
-  }
-  return d;
-}
-
-__device__ __forceinline__ float dot_row(const __nv_bfloat16* kr, const float* qs) {
-  float d = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const uint4 w = reinterpret_cast<const uint4*>(kr)[c];
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      d += qs[c * 8 + 2 * k] * aria::bf_lo(ws[k]) + qs[c * 8 + 2 * k + 1] * aria::bf_hi(ws[k]);
-  }
-  return d;
-}
-
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = (float)aria::sbyte(w, i);
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  o[0] = aria::bf_lo(w.x); o[1] = aria::bf_hi(w.x);
-  o[2] = aria::bf_lo(w.y); o[3] = aria::bf_hi(w.y);
-}
+using aria::bf16_round;
+using aria::dot_row;
+using aria::load4;
 
 template <typename KT>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -140,10 +106,6 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
 // (q.nibble) in f32 times k_scale, masked at positions >= len; the
 // denominator sums the f32 probabilities; p * v_scale rounds to bf16
 // before it multiplies v; the output is bf16.
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ void dot_row_p4(const int8_t* kr, const float* qlo, const float* qhi,
                                            float& dlo, float& dhi) {

@@ -1,7 +1,9 @@
-"""Continuous-batching serving engine (counterpart of
-aria_tpu/engine/server.py:37-779).
+"""Continuous-batching serving engines (counterpart of
+aria_tpu/engine/server.py): ``BatchedEngine`` (:37-779) over a contiguous
+cache, and ``PagedBatchedEngine`` (:781-1365) over a shared page pool with
+chunked prefill and a prefix cache (documented at the class).
 
-A fixed pool of B cache lanes. Queued text requests are admitted in groups
+``BatchedEngine`` holds a fixed pool of B cache lanes. Queued text requests are admitted in groups
 of one prompt bucket, each group in one multi-row prefill (at most
 ``GROUP_ROWS`` rows) into a fresh bucket-length cache whose rows are then
 copied into their lanes; an image request is admitted alone, through
@@ -25,6 +27,7 @@ raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Deque, List, Optional, Sequence
 
@@ -33,6 +36,7 @@ import torch
 
 from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.engine.generate import _bucket
+from aria_tpu_torch.engine.paged import PagedKVCache, PagePool
 from aria_tpu_torch.engine.sampling import apply_penalties, sample, update_counts
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
@@ -65,6 +69,7 @@ class Request:
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     error: Optional[str] = None
+    cached_tokens: int = 0  # prompt positions served from the prefix cache (paged engine)
 
 
 class BatchedEngine:
@@ -239,6 +244,10 @@ class BatchedEngine:
                 req.frequency_penalty or 0.0,
                 1.0 if req.repetition_penalty is None else req.repetition_penalty)
 
+    def _set_lane_sampling(self, lane: int, req: Request) -> None:
+        (self.lane_top_p[lane], self.lane_min_p[lane], self.lane_pres[lane],
+         self.lane_freq[lane], self.lane_rep[lane]) = self._req_sampling(req)
+
     def _active_mask(self) -> np.ndarray:
         return np.asarray([r is not None for r in self.lane_req], bool)
 
@@ -355,13 +364,12 @@ class BatchedEngine:
             self.lane_req[lane] = req
             self.lane_pos[lane] = len(req.prompt_tokens)
             self.lane_temp[lane] = temps[row]
-            (self.lane_top_p[lane], self.lane_min_p[lane], self.lane_pres[lane],
-             self.lane_freq[lane], self.lane_rep[lane]) = samp[row]
+            self._set_lane_sampling(lane, req)
 
-    def _decode_chunk(self, active: np.ndarray):
-        """``decode_chunk`` steps over all B lanes (server.py:317-374).
-        Returns the tokens [n, B] and the positions after the chunk, both
-        on the device."""
+    def _decode_chunk(self, active: np.ndarray, page_table: Optional[torch.Tensor] = None):
+        """``decode_chunk`` steps over all B lanes (server.py:317-374; the
+        paged engine's :956-999 with its ``page_table``). Returns the tokens
+        [n, B] and the positions after the chunk, both on the device."""
         dev, lm, text = self.device, self.params["lm"], self.cfg.text
         act = torch.as_tensor(active, device=dev)
         pos = torch.as_tensor(self.lane_pos, device=dev)
@@ -377,7 +385,8 @@ class BatchedEngine:
         outs = []
         for _ in range(self.decode_chunk):
             logits = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
-                                cache=self.cache, cache_pos=pos).logits[:, -1]
+                                cache=self.cache, cache_pos=pos,
+                                page_table=page_table).logits[:, -1]
             if self._penalties:
                 logits = apply_penalties(logits, self.lane_counts, self.lane_pmask, pres, freq, rep)
             nxt = sample(self.generator, logits, temps, self.top_k, top_p, min_p)
@@ -388,3 +397,353 @@ class BatchedEngine:
             outs.append(toks)
         self.lane_tok = toks
         return torch.stack(outs), pos
+
+
+class PagedBatchedEngine:
+    """Continuous batching over a shared page pool with chunked prefill
+    (counterpart of aria_tpu/engine/server.py:781-1365).
+
+    Lanes draw ``page_size``-token pages from one pool (``engine/paged.py``),
+    so device memory scales with the tokens in flight. Admission allocates
+    a request's pages and computes its prompt embedding (an image request
+    runs ``encode_images`` once here); each ``step`` then advances every
+    mid-prefill lane by one ``prefill_chunk``-token chunk in one batched
+    call (at most ``PREFILL_ROWS`` rows) and runs one decode chunk for the
+    lanes already decoding, so a long prompt does not stall the others.
+
+    Prefix cache: full prompt pages are keyed by a chain hash of their
+    tokens; a request whose prompt shares a prefix takes the cached pages
+    and skips those chunks, but never the page that holds its last prompt
+    token, so a chunk always runs to give the first token. Image requests
+    neither reuse nor register pages.
+
+    As the JAX engine: the decode step runs all B lanes; idle lanes write
+    into the null page 0 and mid-prefill or paused lanes at their frozen
+    positions, which the next chunk overwrites. A chunk attends the
+    quantized pages it has just written, not its fresh k/v. Unlike the JAX
+    engine, a chunk runs the rows it has (the JAX engine pads them to a
+    power of two to bound its compiles), and a lane's pages are capped at
+    the table's MAXP: the JAX ``_ensure_pages`` asks for more, which stalls
+    a lane forever at a tight pool (ROADMAP queue 3 (e)). Positions past S
+    are never kept; their writes are dropped.
+    """
+
+    PREFILL = "prefill"
+    DECODE = "decode"
+    PREFILL_ROWS = 32  # most lanes in one chunk (server.py:1159)
+
+    def __init__(
+        self,
+        params: dict,
+        cfg: AriaConfig,
+        *,
+        max_lanes: int = 4,
+        max_seq_len: int = 2048,
+        page_size: int = 256,
+        num_pages: Optional[int] = None,
+        prefill_chunk: int = 128,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        decode_chunk: int = 16,
+        cache_dtype=torch.bfloat16,
+        rng_seed: int = 0,
+        prefix_cache: bool = True,
+        guided_fsm=None,
+        adapters=None,
+    ):
+        for name, value in {"guided_fsm": guided_fsm, "adapters": adapters}.items():
+            if value is not None:
+                raise NotImplementedError(f"PagedBatchedEngine({name}=...): {_NOT_PORTED[name]} "
+                                          "is not ported yet")
+        self.params = params
+        self.cfg = cfg
+        self.B = max_lanes
+        self.PS = page_size
+        self.MAXP = -(-max_seq_len // page_size)
+        self.S = self.MAXP * page_size
+        self.C = prefill_chunk
+        self.temperature = temperature
+        self.top_k = top_k
+        self.decode_chunk = decode_chunk
+        self.device = params["lm"]["final_norm"].device
+        self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # default pool: half of full residency, one slack page per lane, the null page
+        if num_pages is None:
+            num_pages = 1 + max_lanes * (self.MAXP // 2 + 1)
+        self.pool = PagePool(num_pages)
+        self.cache = PagedKVCache.init(cfg.text, num_pages, page_size, cache_dtype,
+                                       device=self.device)
+        self.page_table = np.zeros((self.B, self.MAXP), np.int32)  # 0 = the null page
+        # cached pages start at page multiples, so chunks must tile pages
+        self.prefix_cache = prefix_cache and page_size % prefill_chunk == 0
+        self.lane_keys: List[Optional[list]] = [None] * self.B
+        self.lane_req: List[Optional[Request]] = [None] * self.B
+        self.lane_state: List[Optional[str]] = [None] * self.B  # PREFILL | DECODE | None
+        self.lane_pages: List[list] = [[] for _ in range(self.B)]
+        self.lane_pos = np.zeros(self.B, np.int32)
+        self.lane_tok = torch.zeros(self.B, dtype=torch.int32, device=self.device)
+        self.lane_temp = np.full(self.B, temperature, np.float32)
+        self.lane_top_p = np.ones(self.B, np.float32)
+        self.lane_min_p = np.zeros(self.B, np.float32)
+        self.lane_pres = np.zeros(self.B, np.float32)
+        self.lane_freq = np.zeros(self.B, np.float32)
+        self.lane_rep = np.ones(self.B, np.float32)
+        self._nucleus = False
+        self._penalties = False
+        self.lane_counts: Optional[torch.Tensor] = None
+        self.lane_pmask: Optional[torch.Tensor] = None
+        self.lane_embeds: List[Optional[torch.Tensor]] = [None] * self.B  # [1, n*C, D] in prefill
+        self.lane_true_len = np.zeros(self.B, np.int32)
+        self.queue: Deque[Request] = deque()
+        self._uid = 0
+        self._finished: List[Request] = []
+        self._pending_first: list = []  # (lane, request, 1-element device tensor)
+
+    # the request and sampling-state helpers are BatchedEngine's (server.py:1009-1013)
+    submit = BatchedEngine.submit
+    _ensure_penalty_state = BatchedEngine._ensure_penalty_state
+    _req_sampling = staticmethod(BatchedEngine._req_sampling)
+    _set_lane_sampling = BatchedEngine._set_lane_sampling
+    _decode_chunk = BatchedEngine._decode_chunk
+
+    def cancel(self, uid: int) -> bool:
+        """Abort a queued or running request, recycling its pages."""
+        for r in self.queue:
+            if r.uid == uid:
+                self.queue.remove(r)
+                r.done = True
+                r.error = "cancelled"
+                self._finished.append(r)
+                return True
+        for lane, r in enumerate(self.lane_req):
+            if r is not None and r.uid == uid:
+                self._pending_first = [e for e in self._pending_first if e[1].uid != uid]
+                r.error = "cancelled"
+                self._finish(lane)
+                return True
+        return False
+
+    @torch.inference_mode()
+    def step(self) -> List[Request]:
+        """One tick: admit, one prefill chunk, one decode chunk; returns the
+        requests that finished."""
+        while self._admit():
+            pass
+        self._prefill_tick()
+        active = self._decode_mask()
+        for lane in range(self.B):  # decode growth: one chunk of headroom
+            if active[lane] and not self._ensure_pages(
+                    lane, int(self.lane_pos[lane]) + self.decode_chunk + 1):
+                active[lane] = False  # page pressure: this lane waits
+        if active.any():
+            table = torch.as_tensor(self.page_table, device=self.device)
+            all_toks, pos = self._decode_chunk(active, table)
+            n, B = all_toks.shape
+            firsts = [e[2] for e in self._pending_first]
+            host = torch.cat([all_toks.reshape(-1), pos, *firsts]).tolist()  # the one read-back
+            toks_host = np.asarray(host[:n * B], np.int64).reshape(n, B)
+            new_pos = host[n * B:n * B + B]
+            for (lane, req, _), first in zip(self._pending_first, host[n * B + B:]):
+                req.generated.append(int(first))
+                if first in req.stop_token_ids or len(req.generated) >= req.max_new_tokens:
+                    self._finish(lane)  # this lane's chunk tokens are dropped
+            self._pending_first = []
+            for lane in range(self.B):
+                if not active[lane]:
+                    continue
+                self.lane_pos[lane] = new_pos[lane]
+                req = self.lane_req[lane]
+                if req is None:
+                    continue  # finished on its first token
+                for t in toks_host[:, lane].tolist():
+                    req.generated.append(t)
+                    if (t in req.stop_token_ids or len(req.generated) >= req.max_new_tokens
+                            or int(self.lane_pos[lane]) >= self.S - 1):
+                        self._finish(lane)
+                        break
+        out, self._finished = self._finished, []
+        return out
+
+    def run_until_complete(self, max_ticks: int = 10_000) -> List[Request]:
+        """Drain the queue and the lanes; returns every finished request."""
+        out: List[Request] = []
+        for _ in range(max_ticks):
+            out.extend(self.step())
+            if not self.queue and all(s is None for s in self.lane_state):
+                break
+        return out
+
+    # ------------------------------------------------------------ lanes
+
+    def _decode_mask(self) -> np.ndarray:
+        return np.asarray([s == self.DECODE for s in self.lane_state], bool)
+
+    def _admit(self) -> bool:
+        """Start the request at the head of the queue: its pages and its
+        prompt embedding, the lane marked mid-prefill (server.py:1075-1132).
+        No chunk runs here."""
+        lane = next((i for i, r in enumerate(self.lane_req) if r is None), None)
+        if lane is None or not self.queue:
+            return False
+        req = self.queue[0]
+        true_len = len(req.prompt_tokens)
+        total = true_len + req.max_new_tokens
+        if total > self.S:
+            self.queue.popleft()
+            req.done = True
+            req.error = f"request {req.uid} needs {total} > max_seq_len {self.S}"
+            self._finished.append(req)
+            return True
+        n_chunks = -(-true_len // self.C)
+        need_pages = min(-(-(n_chunks * self.C) // self.PS), self.MAXP)
+        # never the page of the last prompt token: a chunk must run for the
+        # first token's logits
+        shared: list = []
+        keys = None
+        if self.prefix_cache and req.pixel_values is None:
+            keys = self._page_keys(req.prompt_tokens)
+            for key in keys[:(true_len - 1) // self.PS]:
+                page = self.pool.lookup(key)
+                if page is None:
+                    break
+                shared.append(page)
+        fresh = self.pool.alloc(need_pages - len(shared))
+        if fresh is None:
+            self.pool.release(shared)  # pool pressure: stay queued
+            return False
+        pages = shared + fresh
+        self.queue.popleft()
+        self.page_table[lane, :need_pages] = pages
+        self.lane_pages[lane] = pages
+        self.lane_keys[lane] = keys
+        self.lane_req[lane] = req
+        self.lane_state[lane] = self.PREFILL
+        self.lane_pos[lane] = len(shared) * self.PS  # the cached chunks are skipped
+        req.cached_tokens = len(shared) * self.PS
+        self.lane_true_len[lane] = true_len
+        self.lane_temp[lane] = self.temperature if req.temperature is None else req.temperature
+        self._set_lane_sampling(lane, req)
+        if self._penalties:
+            self.lane_pmask[lane] = False
+            self.lane_pmask[lane, torch.as_tensor(req.prompt_tokens, device=self.device)] = True
+            self.lane_counts[lane] = 0
+        self.lane_embeds[lane] = self._embeds_for(req, n_chunks * self.C)
+        return True
+
+    def _page_keys(self, tokens: Sequence[int]) -> list:
+        """A chain hash per full prompt page: key i commits to tokens[:(i + 1)
+        * PS], so equal keys mean equal positions and history and the cached
+        KV holds verbatim. The hash starts from the JAX package's salt for
+        the base model (an adapter id of 0), so the keys are its keys."""
+        h = hashlib.sha1(np.int32(0).tobytes())
+        keys = []
+        for i in range(len(tokens) // self.PS):
+            h.update(np.asarray(tokens[i * self.PS:(i + 1) * self.PS], np.int32).tobytes())
+            keys.append(h.hexdigest())
+        return keys
+
+    def _embeds_for(self, req: Request, bucket: int) -> torch.Tensor:
+        """[1, bucket, D] prompt embedding, image features scattered in."""
+        dev = self.device
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :len(req.prompt_tokens)] = req.prompt_tokens
+        feats = None
+        if req.pixel_values is not None:
+            pm = None if req.pixel_mask is None else torch.as_tensor(req.pixel_mask, device=dev)
+            feats = encode_images(self.params, self.cfg,
+                                  torch.as_tensor(req.pixel_values, device=dev), pm)
+        return prepare_embeddings(self.params, self.cfg, torch.as_tensor(tokens, device=dev),
+                                  image_features=feats)
+
+    def _prefill_tick(self):
+        """Advance every mid-prefill lane (at most PREFILL_ROWS) by one chunk
+        in one batched call (server.py:1149-1225). A lane whose prompt is
+        now written samples its first token on the device, read back with
+        the next decode chunk, and publishes its full prompt pages."""
+        lanes = [i for i, s in enumerate(self.lane_state) if s == self.PREFILL]
+        lanes = lanes[:self.PREFILL_ROWS]
+        if not lanes:
+            return
+        dev, C = self.device, self.C
+        logits = self._chunk_logits(lanes)
+        top_p = min_p = None
+        if self._nucleus:
+            top_p = torch.as_tensor(self.lane_top_p[lanes], device=dev)
+            min_p = torch.as_tensor(self.lane_min_p[lanes], device=dev)
+        toks = sample(self.generator, logits, torch.as_tensor(self.lane_temp[lanes], device=dev),
+                      self.top_k, top_p, min_p)
+        for idx, lane in enumerate(lanes):
+            self.lane_pos[lane] += C
+            true_len = int(self.lane_true_len[lane])
+            if self.lane_pos[lane] < true_len:
+                continue
+            tok = toks[idx:idx + 1]  # this row's sample is the first token
+            self.lane_tok[lane] = tok[0]
+            if self._penalties:
+                self.lane_counts[lane, tok.long()] += 1
+            self._pending_first.append((lane, self.lane_req[lane], tok))
+            self.lane_pos[lane] = true_len
+            self.lane_state[lane] = self.DECODE
+            self.lane_embeds[lane] = None
+            # the prompt's full pages are complete, and decode writes only
+            # past true_len: publish them
+            if self.lane_keys[lane]:
+                for key, page in zip(self.lane_keys[lane], self.lane_pages[lane]):
+                    self.pool.register(key, page)
+                self.lane_keys[lane] = None
+
+    def _chunk_logits(self, lanes: List[int]) -> torch.Tensor:
+        """The next chunk of each lane's prompt through the model, its k/v
+        written into the lane's pages: [N, V] logits at each row's last
+        prompt position in the chunk (its last position while the prompt
+        goes on), penalized as a fresh request's."""
+        dev, C = self.device, self.C
+        starts = self.lane_pos[lanes]
+        embeds = torch.cat([self.lane_embeds[l][:, int(o):int(o) + C]
+                            for l, o in zip(lanes, starts)])
+        offsets = torch.as_tensor(starts, device=dev)
+        logit_at = np.clip(self.lane_true_len[lanes] - 1 - starts, 0, C - 1)
+        logits = lm_forward(
+            self.params["lm"], self.cfg.text, inputs_embeds=embeds,
+            positions=offsets[:, None] + torch.arange(C, dtype=torch.int32, device=dev)[None, :],
+            cache=self.cache, cache_pos=offsets,
+            logit_position=torch.as_tensor(logit_at, device=dev),
+            page_table=torch.as_tensor(self.page_table[lanes], device=dev)).logits[:, 0]
+        if self._penalties:  # a fresh request's output counts are zero
+            pres, freq, rep = (torch.as_tensor(a[lanes], device=dev)
+                               for a in (self.lane_pres, self.lane_freq, self.lane_rep))
+            logits = apply_penalties(logits, torch.zeros_like(logits, dtype=torch.int32),
+                                     self.lane_pmask[torch.as_tensor(lanes, device=dev)],
+                                     pres, freq, rep)
+        return logits
+
+    def _ensure_pages(self, lane: int, upto: int) -> bool:
+        """Grow the lane's table to cover logical positions < upto, capped
+        at the table's MAXP pages (positions past S are never kept)."""
+        need = min(-(-upto // self.PS), self.MAXP)
+        have = len(self.lane_pages[lane])
+        if need <= have:
+            return True
+        extra = self.pool.alloc(need - have)
+        if extra is None:
+            return False
+        self.page_table[lane, have:need] = extra
+        self.lane_pages[lane].extend(extra)
+        return True
+
+    def _finish(self, lane: int):
+        req = self.lane_req[lane]
+        if req is not None:
+            req.done = True
+            self._finished.append(req)
+        self.pool.release(self.lane_pages[lane])
+        self.page_table[lane, :] = 0
+        self.lane_pages[lane] = []
+        self.lane_keys[lane] = None  # an unfinished prefill registers nothing
+        self.lane_req[lane] = None
+        self.lane_state[lane] = None
+        self.lane_embeds[lane] = None
+        self.lane_top_p[lane] = 1.0
+        self.lane_min_p[lane] = 0.0
+        self.lane_pres[lane] = self.lane_freq[lane] = 0.0
+        self.lane_rep[lane] = 1.0

@@ -16,6 +16,14 @@ segmented prefill kernel above. The KV cache (bf16, int8, or head-pair
 packed int4) is written in place: at one offset for every lane, or at a
 per-lane offset (continuous batching), where one new token per lane goes
 through the ``kv_cache_write`` kernel.
+
+With a ``page_table`` the cache is the paged server's ``PagedKVCache``
+(moe_lm.py:382-428): one new token per lane is written through
+``kv_cache_write`` with rows = page ids and attends through the
+``paged_decode_attention`` kernel; a prefill chunk of C tokens per lane is
+written by an indexed write and attends the lanes' gathered, dequantized
+pages with the plain ``sdpa`` under the chunk's causal mask, as the JAX
+package attends them in XLA.
 """
 
 from __future__ import annotations
@@ -26,7 +34,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from aria_tpu_torch.config import TextConfig
+from aria_tpu_torch.engine.paged import (
+    gather_lane_kv,
+    paged_decode_attention,
+    paged_write,
+    write_index,
+)
 from aria_tpu_torch.ops import backend
+from aria_tpu_torch.ops.attention import sdpa
 from aria_tpu_torch.ops.decode_attention import decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.flash import flash_causal
@@ -234,9 +249,22 @@ def _write_cache(cache: KVCache, layer: int, pos, k: torch.Tensor, v: torch.Tens
         cache.v_scale[layer, bi, hs, si] = vs
 
 
+def _paged_attention(cache, layer: int, q, k, v, lengths, page_table, pages, slots, mask):
+    """Write k/v [B, S, H, D] into the lanes' pages, then attend: one token
+    per lane through the paged kernel, a chunk over the gathered pages
+    under ``mask`` (moe_lm.py:382-428)."""
+    paged_write(cache, layer, pages, slots,
+                *quantize_kv(cache, k.transpose(1, 2), v.transpose(1, 2)))
+    if q.shape[1] == 1:
+        return paged_decode_attention(q[:, 0], cache, layer, page_table, lengths)[:, None]
+    k_att, v_att = gather_lane_kv(cache, layer, page_table)  # [B, H, MAXP * PS, D]
+    return sdpa(q, k_att.transpose(1, 2).to(q.dtype), v_att.transpose(1, 2).to(q.dtype), mask)
+
+
 def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, sin,
                cache: Optional[KVCache], cache_pos, use_flash: bool,
-               lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor]):
+               lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
+               paged: Optional[tuple] = None):
     B, S, _ = x.shape
     qkv = dense_int4(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1).to(x.dtype)
     q_size = cfg.q_size
@@ -246,9 +274,11 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     v = qkv[..., q_size + kv_size:].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cache is not None:
+    if cache is not None and paged is None:
         _write_cache(cache, layer, cache_pos, k, v, rows)
-    if use_flash:
+    if paged is not None:
+        out = _paged_attention(cache, layer, q, k, v, lengths, *paged)
+    elif use_flash:
         # from-zero prefill: causal attention over the fresh k/v equals
         # attending the cache prefix, so the cache is written but not read
         out = flash_causal(q, k, v.contiguous())
@@ -339,12 +369,14 @@ def lm_forward(
     cache_pos=None,  # write offset: an int, or an int32 [B] tensor per lane
     logit_position=None,  # logits at this position only: an int, or [B] per row
     causal_flash: Optional[bool] = None,  # caller asserts causal-from-0 attention
+    page_table: Optional[torch.Tensor] = None,  # [B, MAXP] int32: ``cache`` is paged
 ) -> LMOutput:
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
     token, it attends the cache (decode-attention kernel) up to
-    ``cache_pos + 1`` for each lane. The cache is updated in place and
-    returned."""
+    ``cache_pos + 1`` for each lane. With a ``page_table`` the cache is a
+    ``PagedKVCache`` and token i of lane b attends logical positions up to
+    ``cache_pos[b] + i``. The cache is updated in place and returned."""
     if inputs_embeds is None:
         x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
     else:
@@ -372,14 +404,26 @@ def lm_forward(
     cos, sin = precompute_rope(positions, cfg.head_dim, cfg.rope_base)
     if causal_flash is None:
         causal_flash = cache is None
-    use_flash = bool(causal_flash) and (S > 1 or cache is None)
+    use_flash = bool(causal_flash) and (S > 1 or cache is None) and page_table is None
     if cache is not None and cache_pos is None:
         raise ValueError("a cache needs cache_pos")
+    paged = None
+    if page_table is not None:
+        if not isinstance(cache_pos, torch.Tensor):
+            cache_pos = torch.full((B,), cache_pos, dtype=torch.int32, device=x.device)
+        cache_pos = cache_pos.expand(B).to(torch.int32)
+        pages, slots = write_index(page_table, cache_pos, S, cache.page_size)
+        mask = None
+        if S > 1:  # kv_pos <= cache_pos + arange(S): [B, 1, S, MAXP * PS]
+            kv_pos = torch.arange(page_table.shape[1] * cache.page_size, device=x.device)
+            qi = cache_pos[:, None] + torch.arange(S, device=x.device)[None, :]
+            mask = (kv_pos[None, None, :] <= qi[:, :, None])[:, None]
+        paged = (page_table, pages, slots, mask)
     per_lane = isinstance(cache_pos, torch.Tensor)
     lengths = rows = None
     if per_lane:
         cache_pos = cache_pos.to(torch.int32)
-        if S == 1:
+        if S == 1 and paged is None:
             rows = torch.arange(B, dtype=torch.int32, device=x.device)
     if cache is not None and not use_flash:
         lengths = (cache_pos + S if per_lane else
@@ -389,7 +433,7 @@ def lm_forward(
     for layer in range(cfg.num_layers):
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
-                           lengths, rows)
+                           lengths, rows, paged)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         x = x + _moe_ffn(layers, cfg, layer, normed, shared)
 

@@ -36,6 +36,9 @@ SIGNATURES = {
     "aria_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, lengths, out, B, H/2, S, layer, stream
     "aria_decode_attention_p4": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, k_scale, v_scale, table, lengths, out, B, H, NP, PS, MAXP, layer,
+    # quantized, stream
+    "aria_paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
     # k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, rows, slots,
     # B, R, Hc, S, row_bytes, Hs, scale_bytes, layer, stream
     "aria_kv_write": [_P] * 10 + [_I] * 8 + [_P],

@@ -1,7 +1,9 @@
 """Plain masked attention (counterpart of aria_tpu/ops/attention.py).
 
-Used only by the kernels' plain versions and by the tests: the serving path
-attends through the flash and decode-attention kernels.
+Used by the kernels' plain versions, by the tests, and on the card by the
+paged server's prefill chunk (``models/moe_lm.py``), which attends the
+lanes' gathered pages as the JAX package attends them in XLA; the other
+paths attend through the flash and decode-attention kernels.
 """
 
 from __future__ import annotations

@@ -26,6 +26,14 @@
    warm-up round and two timed ones; ``kv_cache_write`` and the int4
    decode attention must launch. Then a profiled decode chunk, a greedy
    int8-KV check, and a 2-layer batched decode step against the CPU.
+6. The paged path (bench.py's lanes child with ``--paged --kv-int8``):
+   ``PagedBatchedEngine`` with 32 lanes on int8 pages serves 32 x 200
+   tokens per round through 128-token prefill chunks, a warm-up round and
+   two timed ones; ``paged_decode_attention`` must launch once per layer of
+   every decode step. Then a profiled decode chunk, two prefix-cache
+   rounds (at the served chunk, reported; at whole-page chunks, held), the
+   tight-pool request that stalls the JAX engine, and a 2-layer paged
+   chunk and decode step against the CPU.
 
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises and exits non-zero; without a CUDA device
@@ -129,20 +137,23 @@ def _entry(t: dict) -> dict:
             "bound_by": t["bound"][1], "library_ms": t["lib"]}
 
 
-def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_seq=384):
+def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_seq=384,
+                  page_size=256, paged_seq=512):
     """Phase 2: each kernel against its plain version at the shapes the
-    text, image and lanes paths give it. Returns {kernel name:
+    text, image, lanes and paged paths give it. Returns {kernel name:
     {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
     "times"}}: the worst error over the shapes checked; "times" lists every
     timed shape with the same keys, and the others are its first entry (the
     decode shape for dense_int4 and moe_decode_int4, one 1000-position lane
     for decode_attention, S = 64 for flash_causal, the 32-lane int4 write
-    and 32-lane attention for the int4 KV kernels, the image request's
-    shape for the others)."""
+    and 32-lane attention for the int4 KV kernels, 32 lanes on int8 pages
+    for paged_decode_attention, the image request's shape for the
+    others)."""
     import torch
     import torch.nn.functional as F
 
     from aria_tpu_torch import TextConfig, VisionConfig
+    from aria_tpu_torch.engine import paged as pg
     from aria_tpu_torch.ops import decode_attention as da
     from aria_tpu_torch.ops import dense_int4 as di
     from aria_tpu_torch.ops import flash as fl
@@ -330,6 +341,46 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     record("decode_attention_int4", errs, timed)
     del kp, vp
 
+    # paged_decode_attention at the paged path's shapes: 32 lanes on page
+    # tables shuffled over the engine's default pool (1 + 2 pages per
+    # lane), lengths 48-511 of 512, int8 pages with f32 scales and bf16
+    # pages. No PyTorch call reads through a page table: library none.
+    print("paged_decode_attention", flush=True)
+    errs, timed = [], []
+    maxp = -(-paged_seq // page_size)
+    NP = 1 + lanes * (maxp // 2 + 1)
+    shape = (L, NP, H, page_size, Dh)
+    table = (torch.randperm(NP - 1, generator=gen, device=device)[:lanes * maxp] + 1)
+    table = table.reshape(lanes, maxp).to(torch.int32)
+    lens = torch.linspace(48, paged_seq - 1, lanes).round().int().tolist()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    q = randn(lanes, H, Dh)
+    for label in ("int8", "bf16"):
+        if label == "int8":
+            pages = [torch.randint(-128, 128, shape, generator=gen, device=device,
+                                   dtype=torch.int8) for _ in range(2)]
+            pages += [torch.rand(shape[:-1], generator=gen, device=device) * 0.02 + 0.005
+                      for _ in range(2)]
+            per_pos = 2 * Dh + 8  # k and v bytes and two f32 scales per head
+        else:
+            pages = [randn(*shape) for _ in range(2)]
+            per_pos = 4 * Dh
+        cache = pg.PagedKVCache(*pages)
+        args = (q, cache, 1, table, lengths)
+        got, ref = pg.paged_decode_attention(*args), pg.paged_decode_attention_plain(*args)
+        errs.append(_compare(
+            f"paged_decode_attention {label} B={lanes} len={min(lens)}..{max(lens)} of "
+            f"{maxp * page_size}", got, ref, 1e-2,
+            "bf16 output; p (times v_scale) rounds to bf16 after the kernel's online "
+            "rescaling and after the plain version's one-pass softmax"))
+        bound = _bound(sum(lens) * H * per_pos + _nbytes(table, lengths) + 2 * _nbytes(q),
+                       4 * sum(lens) * H * Dh)
+        timed.append(_timed(f"{label}, {lanes} lanes, len {min(lens)}..{max(lens)}",
+                            lambda: pg.paged_decode_attention(*args),
+                            lambda: pg.paged_decode_attention_plain(*args), 200, 10, bound))
+        del cache, args, pages
+    record("paged_decode_attention", errs, timed)  # int8 first
+
     # kv_cache_write at the lanes shapes: 32 lanes into [28, 32, H, 384,
     # 128], bf16, int8 with f32 scales, packed int4 (H/2 byte planes) with
     # bf16 scales. A byte copy: exact. The library call is the indexed
@@ -437,13 +488,16 @@ KERNELS = {
     "kv_cache_write": ("aria_tpu_torch/csrc/kv_write.cu", "aria_tpu/ops/kv_write.py:91"),
     "decode_attention_int4": ("aria_tpu_torch/csrc/decode_attention.cu",
                               "aria_tpu/ops/decode_attention.py:80"),
+    "paged_decode_attention": ("aria_tpu_torch/csrc/paged_attention.cu",
+                               "aria_tpu/engine/paged.py:150"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
-PATHS = ("lanes", "image", "text")  # newest first: a kernel's "launches" is the first with any
+PATHS = ("paged", "lanes", "image", "text")  # newest first: a kernel's "launches" is the first with any
 
 
 def _wrappers():
+    from aria_tpu_torch.engine.paged import paged_decode_attention
     from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
     from aria_tpu_torch.ops.dense_int4 import dense_int4
     from aria_tpu_torch.ops.flash import flash_causal
@@ -455,7 +509,8 @@ def _wrappers():
     return {"dense_int4": dense_int4, "moe_decode_int4": moe_decode_int4,
             "decode_attention": decode_attention, "flash_causal": flash_causal,
             "vit_flash": vit_flash, "moe_prefill_int4": moe_prefill_int4,
-            "kv_cache_write": kv_cache_write, "decode_attention_int4": decode_attention_int4}
+            "kv_cache_write": kv_cache_write, "decode_attention_int4": decode_attention_int4,
+            "paged_decode_attention": paged_decode_attention}
 
 
 def _tree_map(fn, tree):
@@ -809,7 +864,7 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3):
     return launches
 
 
-def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5):
+def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label="lanes"):
     """A decode chunk of ``steps`` steps over all lanes under the profiler:
     device busy time, the W4A8 MoE's share and kernel launches per step;
     the idle share is against ``step_ms``, the wall per step of the last
@@ -838,7 +893,7 @@ def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5):
           f"step (profiler on), device busy {busy:.3f} ms per step, of it the W4A8 MoE "
           f"{moe:.3f} ms; {n_launch:.0f} kernel launches per step; device idle share "
           f"{1 - busy / step_ms:.3f} of the {step_ms:.2f} ms step (profiler off)", flush=True)
-    print("  device time by kernel, lanes decode:\n"
+    print(f"  device time by kernel, {label} decode:\n"
           + events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     for uid in uids:
         engine.cancel(uid)
@@ -934,6 +989,246 @@ def _lanes_reference(device, lm, text, top, ref_layers=2):
             raise AssertionError(f"reference lanes logits differ: relative error {rel}")
 
 
+PREFIX_LOGIT_LIMIT = 5e-2  # relative first-token logit error, cached against uncached pages
+
+
+def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3,
+              max_seq=512, page_size=256, chunk=128):
+    """Phase 6: bench.py's lanes child with ``--paged --kv-int8``
+    (bench.py:48-104) through the port's ``PagedBatchedEngine``: 32 lanes,
+    max_seq_len 512 in 256-token pages (the default pool: 1 + 32 x 2
+    pages), 128-token prefill chunks, T 0.8, top-k 200, decode_chunk 50,
+    int8 pages; each round submits 32 prompts of 48 tokens drawn from
+    ``np.random.RandomState(0).randint(5, 1000)`` with 200 new tokens each;
+    one warm-up round and two timed ones. Then a profiled decode chunk, two
+    prefix-cache rounds, the tight-pool request and a 2-layer paged chunk
+    and decode step against the CPU's plain versions. Returns each
+    kernel's launch count over the rounds."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.server import PagedBatchedEngine
+
+    cfg = cfg or AriaConfig()
+    text = cfg.text
+    top = min(1000, text.vocab_size)
+    wrappers = _wrappers()
+    for w in wrappers.values():  # count only what the paged path launches
+        w.launches = 0
+    engine = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=max_seq,
+                                page_size=page_size, prefill_chunk=chunk, temperature=0.8,
+                                top_k=200, decode_chunk=50, cache_dtype=torch.int8,
+                                rng_seed=SEED)
+    rng = np.random.RandomState(0)
+    print(f"paged: {lanes} lanes, int8 pages of {page_size} over {engine.S} positions, "
+          f"{engine.pool.available + 1} pages, chunks of {chunk}, {new_tokens} tokens per "
+          f"request, {rounds} rounds (the first warms up)", flush=True)
+    pda = wrappers["paged_decode_attention"]
+    with torch.inference_mode():  # the engine's state is inference tensors
+        for rnd in range(rounds):
+            for _ in range(lanes):
+                engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=new_tokens)
+            _sync(device)
+            t0 = time.perf_counter()
+            while engine._admit():
+                pass
+            engine._prefill_tick()  # one chunk holds every 48-token prompt
+            _sync(device)
+            t1 = time.perf_counter()
+            admitted = {n: w.launches for n, w in wrappers.items()}
+            finished, chunks = [], 0
+            while engine.queue or any(s is not None for s in engine.lane_state):
+                finished += engine.step()  # each ends in the chunk's one read-back
+                chunks += 1
+            t2 = time.perf_counter()
+            if len(finished) != lanes:
+                raise AssertionError(f"paged round {rnd}: {len(finished)} of {lanes} finished")
+            for r in finished:
+                if r.error or len(r.generated) != new_tokens:
+                    raise AssertionError(f"paged request {r.uid}: {len(r.generated)} tokens, "
+                                         f"error {r.error}")
+                if not all(0 <= t < text.vocab_size for t in r.generated):
+                    raise AssertionError(f"paged request {r.uid}: token out of range")
+            steps = chunks * engine.decode_chunk
+            per_step = sum(w.launches - admitted[n] for n, w in wrappers.items()) / steps
+            attn = (pda.launches - admitted["paged_decode_attention"]) / steps
+            if device.type == "cuda" and attn != text.num_layers:
+                raise AssertionError(f"paged_decode_attention launched {attn} times per decode "
+                                     f"step, not once per layer ({text.num_layers})")
+            total = sum(len(r.generated) for r in finished)
+            step_ms = (t2 - t1) / steps * 1e3
+            print(f"  round {rnd}{' (warm-up)' if rnd == 0 else ''}: {total} tokens in "
+                  f"{t2 - t0:.3f} s = {total / (t2 - t0):.2f} tok/s aggregate; prefill tick "
+                  f"({lanes} x {chunk} tokens) {(t1 - t0) * 1e3:.1f} ms wall; decode {steps} "
+                  f"steps, {step_ms:.2f} ms wall per step; {per_step:.1f} hand-kernel launches "
+                  f"per step, of them paged_decode_attention {attn:.0f} ({gpu})", flush=True)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"  launches: {launches}", flush=True)
+    for name in ("kv_cache_write", "paged_decode_attention", "dense_int4", "moe_decode_int4",
+                 "moe_prefill_int4"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the paged path")
+
+    with torch.inference_mode():
+        if device.type == "cuda":
+            _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, label="paged")
+        del engine
+        # at the served chunk the first request's one-lane chunks (128 rows)
+        # take the MoE's W4A8 decode kernel and the seven-lane chunks of the
+        # engine without the cache its bf16 prefill kernel, so the cached
+        # page is not the recomputed one: reported. At chunks of a whole
+        # page every chunk takes the prefill kernel: held.
+        _prefix_round(device, lm, cfg, top, max_seq, page_size, chunk, held=False)
+        _prefix_round(device, lm, cfg, top, max_seq, page_size, page_size, held=True)
+        _tight_pool(lm, cfg, top, max_seq, page_size, chunk)
+        _paged_reference(device, lm, text, top, page_size)
+    return launches
+
+
+def _prefix_round(device, lm, cfg, top, max_seq, page_size, chunk, held, n=8, tail=16,
+                  new=32):
+    """Greedy requests that share one full page of prompt: the first is
+    served alone and registers the page; the other seven, served together,
+    each take it from the cache (cached tokens and pool hits held). Their
+    streams are compared with an engine without the prefix cache serving
+    the same requests in the same order: the cached page was written by a
+    one-lane chunk and the recomputed one by a seven-lane chunk. With
+    ``held`` the streams must be equal, or else the first-token logits
+    within PREFIX_LOGIT_LIMIT; without, the comparison is reported."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.server import PagedBatchedEngine
+
+    rng = np.random.RandomState(5)
+    prefix = rng.randint(5, top, page_size).tolist()
+    prompts = [prefix + rng.randint(5, top, tail).tolist() for _ in range(n)]
+    runs = {}
+    for cached in (True, False):
+        eng = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=n, max_seq_len=max_seq,
+                                 page_size=page_size, prefill_chunk=chunk, decode_chunk=16,
+                                 cache_dtype=torch.int8, prefix_cache=cached, rng_seed=SEED)
+        first_logits = {}
+        chunk_logits = eng._chunk_logits
+
+        def record(lanes, eng=eng, chunk_logits=chunk_logits, first_logits=first_logits):
+            logits = chunk_logits(lanes)
+            for row, lane in enumerate(lanes):  # the completing chunk's row wins
+                first_logits[eng.lane_req[lane].uid] = logits[row].float().cpu()
+            return logits
+
+        eng._chunk_logits = record
+        uids = [eng.submit(prompts[0], max_new_tokens=new)]
+        fin = eng.run_until_complete()
+        uids += [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
+        fin += eng.run_until_complete()
+        by_uid = {r.uid: r for r in fin}
+        if len(by_uid) != n or any(r.error or len(r.generated) != new for r in fin):
+            raise AssertionError(f"prefix round (prefix cache {cached}): a request failed")
+        runs[cached] = ([by_uid[u].generated for u in uids],
+                        [by_uid[u].cached_tokens for u in uids], eng.pool.hits,
+                        [first_logits[u] for u in uids])
+    (streams, cached_tokens, hits, logits), (plain, plain_cached, plain_hits, plain_logits) = (
+        runs[True], runs[False])
+    if cached_tokens != [0] + [page_size] * (n - 1) or hits != n - 1:
+        raise AssertionError(f"prefix round: cached tokens {cached_tokens}, pool hits {hits}")
+    if plain_hits != 0 or any(plain_cached):
+        raise AssertionError("prefix round: the engine without a prefix cache reused pages")
+    same = [a == b for a, b in zip(streams, plain)]
+    rel = [_rel_err(a, b) for a, b in zip(logits, plain_logits)]
+    print(f"  prefix cache ({n} greedy requests, a {page_size}-token shared page + {tail}, "
+          f"{new} tokens, chunks of {chunk}, {'held' if held else 'reported'}): cached tokens {cached_tokens}, pool hits {hits}; streams equal to the "
+          f"engine without the cache: {sum(same)} of {n}; first-token logits, relative error "
+          f"{max(rel):.3e} (largest), first tokens equal: "
+          f"{all(a[0] == b[0] for a, b in zip(streams, plain))}", flush=True)
+    if held and not all(same):
+        print(f"  finding: {n - sum(same)} of {n} cached streams differ from the uncached ones; "
+              f"first-token logits held to {PREFIX_LOGIT_LIMIT:.0e} instead", flush=True)
+        if not max(rel) <= PREFIX_LOGIT_LIMIT:
+            raise AssertionError(f"prefix round: first-token logits differ by {max(rel)}")
+
+
+def _tight_pool(lm, cfg, top, max_seq, page_size, chunk, prompt_len=48):
+    """One lane over max_seq positions with the default pool (1 + 2 pages
+    at max_seq 512): a request that fills the window. The JAX engine asks
+    for a page past the table once the lane stands within a decode chunk of
+    S and waits for it forever; the port returns the request whole."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.server import PagedBatchedEngine
+
+    eng = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=1, max_seq_len=max_seq,
+                             page_size=page_size, prefill_chunk=chunk, decode_chunk=50,
+                             cache_dtype=torch.int8, rng_seed=SEED)
+    new = eng.S - 60  # 452 at S = 512: the request ends within a decode chunk of S
+    eng.submit(np.random.RandomState(6).randint(5, top, prompt_len).tolist(), max_new_tokens=new)
+    trace, fin = [], []
+    for _ in range(20):
+        fin += eng.step()
+        if fin:
+            break
+        trace.append((int(eng.lane_pos[0]), len(eng.lane_req[0].generated)))
+    if len(fin) != 1 or fin[0].error or len(fin[0].generated) != new:
+        raise AssertionError(f"tight pool: {fin} after positions and counts {trace}")
+    pos, got = trace[-1]
+    print(f"  tight pool ({eng.pool.available + 1} pages, one lane, {prompt_len} + {new} of "
+          f"{eng.S} positions): the last tick before the end stood at position {pos} with "
+          f"{got} tokens (the JAX engine asks for {-(-(pos + 51) // page_size)} pages of a "
+          f"{eng.MAXP}-page table there and stalls); the request returned {len(fin[0].generated)} tokens, "
+          f"no error", flush=True)
+
+
+def _paged_reference(device, lm, text, top, page_size, ref_layers=2):
+    """A 2-layer paged prefill chunk of 4 lanes, then one decode step at
+    per-lane positions through the page table, int8 pages, on the card
+    against the CPU's plain versions, with the bf16 witness beside the
+    limit."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.paged import PagedKVCache
+    from aria_tpu_torch.models.moe_lm import embed_tokens, lm_forward
+
+    cut = dataclasses.replace(text, num_layers=ref_layers)
+    small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}
+    small_cpu = _tree_map(lambda v: v.cpu(), small)
+    rng = np.random.RandomState(7)
+    lens = [5, 9, 14, 20]
+    toks = torch.zeros((4, 32), dtype=torch.long)
+    for b, n in enumerate(lens):
+        toks[b, :n] = torch.from_numpy(rng.randint(5, top, n))
+    new = torch.from_numpy(rng.randint(5, top, 4)).to(torch.int32)
+    table = torch.tensor([[5, 2], [1, 8], [7, 3], [4, 6]], dtype=torch.int32)
+    cpu = torch.device("cpu")
+
+    def step(params, dev, bump=False):
+        emb = embed_tokens(params["embed"], toks.to(dev))
+        if bump:
+            emb = _bump_half(emb)
+        cache = PagedKVCache.init(cut, 9, page_size, torch.int8, device=dev)
+        pt = table.to(dev)
+        lm_forward(params, cut, inputs_embeds=emb, positions=torch.arange(32, device=dev),
+                   cache=cache, cache_pos=torch.zeros(4, dtype=torch.int32, device=dev),
+                   page_table=pt)
+        pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return lm_forward(params, cut, new[:, None].long().to(dev), positions=pos[:, None],
+                          cache=cache, cache_pos=pos, page_table=pt).logits[:, 0].float().cpu()
+
+    got, ref = step(small, device), step(small_cpu, cpu)
+    ulp = step(small_cpu, cpu, bump=True)
+    rel, witness = _rel_err(got, ref), _rel_err(ulp, ref)
+    print(f"  reference ({ref_layers} layers, int8 pages, a 32-token chunk of 4 lanes then a "
+          f"decode step at positions {lens} through shuffled page tables, CPU plain versions): "
+          f"relative logit error {rel:.3e} (limit {REF_LIMIT:.0e}), top-1 agreement "
+          f"{_top1(got, ref):.3f}; witness, CPU with one bf16 ulp on half the prompt "
+          f"embeddings: relative error {witness:.3e}, top-1 agreement {_top1(ulp, ref):.3f}",
+          flush=True)
+    if not rel <= REF_LIMIT:
+        raise AssertionError(f"reference paged logits differ: relative error {rel}")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -968,6 +1263,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     launches["lanes"] = run_lanes(device, lm, gpu=gpu)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches["paged"] = run_paged(device, lm, gpu=gpu)
     torch.cuda.synchronize()
     for name in KERNELS:
         if not any(launches[path][name] for path in PATHS):

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from aria_tpu_torch.config import AriaConfig, TextConfig
-from aria_tpu_torch.engine.server import BatchedEngine
+from aria_tpu_torch.engine import paged as pg
+from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine
 from aria_tpu_torch.models.moe_lm import init_lm_params_serving_int4
 from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import dense_int4 as di
@@ -144,6 +145,60 @@ def test_int4_decode_attention_kernel_matches_plain(cuda):
         # the plain version
         torch.testing.assert_close(got.float(), da.decode_attention_plain(*args).float(),
                                    rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("pages", ["int8", "bf16"])
+def test_paged_decode_attention_kernel_matches_plain(cuda, pages):
+    """32 lanes on page tables shuffled over a 65-page pool, lengths 48-511
+    of 512, one lane past its table and one over a single position."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, NP, H, PS, D, B, maxp = 2, 65, 20, 256, 128, 32, 2
+    shape = (L, NP, H, PS, D)
+    if pages == "int8":
+        kq, vq = (torch.randint(-128, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = ((torch.rand(shape[:-1], generator=g, device=cuda) * 0.02 + 0.005)
+                  for _ in range(2))
+        cache = pg.PagedKVCache(kq, vq, ks, vs)
+    else:
+        cache = pg.PagedKVCache(_randn(g, *shape), _randn(g, *shape))
+    table = (torch.randperm(NP - 1, generator=g, device=cuda)[:B * maxp] + 1).reshape(B, maxp)
+    table = table.to(torch.int32)
+    lengths = torch.randint(48, 512, (B,), generator=g, device=cuda).to(torch.int32)
+    lengths[0], lengths[1] = 600, 1
+    q = _randn(g, B, H, D)
+    args = (q, cache, 1, table, lengths)
+    launches = pg.paged_decode_attention.launches
+    got = pg.paged_decode_attention(*args)
+    assert pg.paged_decode_attention.launches == launches + 1
+    # bf16 output; p (times v_scale) rounds to bf16 on both sides, after the
+    # online softmax's rescaling in the kernel and a one-pass softmax in the
+    # plain version
+    torch.testing.assert_close(got.float(), pg.paged_decode_attention_plain(*args).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_paged_engine_greedy_streams_repeat(cuda):
+    """A 2-layer full-width int4 model, 8 lanes on int8 pages: serving the
+    same greedy requests twice gives the same streams, through the
+    kv_cache_write and paged decode-attention kernels."""
+    text = TextConfig(num_layers=2)
+    lm = init_lm_params_serving_int4(text, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(5, 1000, n)] for n in (48, 48, 20, 300, 7)]
+    streams = []
+    before = (kw.kv_cache_write.launches, pg.paged_decode_attention.launches)
+    for _ in range(2):
+        eng = PagedBatchedEngine({"lm": lm}, AriaConfig(text=text), max_lanes=8,
+                                 max_seq_len=512, page_size=256, prefill_chunk=128,
+                                 decode_chunk=10, cache_dtype=torch.int8)
+        uids = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        fin = {r.uid: r for r in eng.run_until_complete()}
+        streams.append([fin[u].generated for u in uids])
+    assert streams[0] == streams[1]
+    assert all(len(s) == 24 for s in streams[0])
+    assert kw.kv_cache_write.launches > before[0]
+    assert pg.paged_decode_attention.launches > before[1]
 
 
 def test_batched_engine_greedy_streams_repeat(cuda):

@@ -26,6 +26,7 @@ from aria_tpu.ops.rope import apply_rope as j_apply_rope
 from aria_tpu.ops.rope import precompute_rope as j_precompute_rope
 from aria_tpu_torch import config as tconfig
 from aria_tpu_torch.checkpoint.from_jax import from_jax, to_tensor
+from aria_tpu_torch.engine.paged import PagedKVCache
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models import projector as tproj
 from aria_tpu_torch.models import vit as tvit
@@ -98,6 +99,7 @@ def test_entry_points_build_on_the_card_or_raise(monkeypatch):
         lambda **kw: tm.init_lm_params_serving_int4(cfg.text, gen, **kw),
         lambda **kw: tm.KVCache.init(cfg.text, 1, 128, **kw),
         lambda **kw: tm.KVCache.init(cfg.text, 1, 128, "int4", **kw),
+        lambda **kw: PagedKVCache.init(cfg.text, 3, 32, torch.int8, **kw),
         lambda **kw: tvit.init_vit_params(cfg.vision, gen, **kw),
         lambda **kw: tproj.init_projector_params(cfg.projector, gen, **kw),
         lambda **kw: from_jax({"a": np.zeros(3, np.float32)}, **kw),
