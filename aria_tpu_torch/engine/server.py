@@ -1,7 +1,9 @@
 """Continuous-batching serving engines (counterpart of
 aria_tpu/engine/server.py): ``BatchedEngine`` (:37-779) over a contiguous
 cache, and ``PagedBatchedEngine`` (:781-1365) over a shared page pool with
-chunked prefill and a prefix cache (documented at the class).
+chunked prefill and a prefix cache (documented at the class). Both build
+on ``_LaneEngine``: the queue, the per-lane sampling state, the decode
+chunk over all lanes and its one read-back with the stop rules.
 
 ``BatchedEngine`` holds a fixed pool of B cache lanes. Queued text requests are admitted in groups
 of one prompt bucket, each group in one multi-row prefill (at most
@@ -36,10 +38,11 @@ import torch
 
 from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.engine.generate import _bucket
-from aria_tpu_torch.engine.paged import PagedKVCache, PagePool
+from aria_tpu_torch.engine.paged import PagePool
 from aria_tpu_torch.engine.sampling import apply_penalties, sample, update_counts
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+from aria_tpu_torch.ops.paged_attention import PagedKVCache
 
 GROUP_ROWS = 32  # most requests in one grouped admission prefill (server.py:470-477)
 
@@ -72,42 +75,26 @@ class Request:
     cached_tokens: int = 0  # prompt positions served from the prefix cache (paged engine)
 
 
-class BatchedEngine:
-    def __init__(
-        self,
-        params: dict,
-        cfg: AriaConfig,
-        *,
-        max_lanes: int = 4,
-        max_seq_len: int = 2048,
-        temperature: float = 0.0,
-        top_k: Optional[int] = None,
-        decode_chunk: int = 16,
-        cache_dtype=torch.bfloat16,
-        rng_seed: int = 0,
-        mesh=None,
-        guided_fsm=None,
-        adapters=None,
-        logprobs_topk: Optional[int] = None,
-    ):
-        given = {"mesh": mesh, "guided_fsm": guided_fsm, "adapters": adapters,
-                 "logprobs_topk": logprobs_topk}
+class _LaneEngine:
+    """What both engines share: the request queue, the per-lane sampling
+    state, ``submit`` and ``cancel``, the decode chunk over all B lanes and
+    its one read-back with the stop and finish rules. The engines differ
+    in admission, prefill and the cache."""
+
+    def __init__(self, params: dict, cfg: AriaConfig, max_lanes: int, temperature: float,
+                 top_k: Optional[int], decode_chunk: int, rng_seed: int, **given):
         for name, value in given.items():
             if value is not None:
-                raise NotImplementedError(f"BatchedEngine({name}=...): {_NOT_PORTED[name]} "
-                                          "is not ported yet")
+                raise NotImplementedError(f"{type(self).__name__}({name}=...): "
+                                          f"{_NOT_PORTED[name]} is not ported yet")
         self.cfg = cfg
         self.params = params
         self.B = max_lanes
-        # a multiple of 128, as the JAX engine allocates (server.py:103)
-        self.S = -(-max_seq_len // 128) * 128
         self.temperature = temperature
         self.top_k = top_k
         self.decode_chunk = decode_chunk
-        self.cache_dtype = cache_dtype
         self.device = params["lm"]["final_norm"].device
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
-        self.cache = KVCache.init(cfg.text, self.B, self.S, cache_dtype, device=self.device)
         self.lane_req: List[Optional[Request]] = [None] * self.B
         self.lane_pos = np.zeros(self.B, np.int32)  # next write position (host copy)
         self.lane_tok = torch.zeros(self.B, dtype=torch.int32, device=self.device)
@@ -182,40 +169,6 @@ class BatchedEngine:
                 return True
         return False
 
-    @torch.inference_mode()
-    def step(self) -> List[Request]:
-        """Admit queued requests, run one decode chunk, return the requests
-        that finished."""
-        self._admit_all()
-        active = self._active_mask()
-        if not active.any():
-            out, self._finished = self._finished, []
-            return out
-        all_toks, pos = self._decode_chunk(active)
-        n, B = all_toks.shape
-        firsts = [e[2] for e in self._pending_first]
-        # the one read-back per chunk
-        host = torch.cat([all_toks.reshape(-1), pos, *firsts]).tolist()
-        toks_host = np.asarray(host[:n * B], np.int64).reshape(n, B)
-        self.lane_pos = np.asarray(host[n * B:n * B + B], np.int32)
-        for (lane, req, _), first in zip(self._pending_first, host[n * B + B:]):
-            req.generated.append(int(first))
-            if first in req.stop_token_ids or len(req.generated) >= req.max_new_tokens:
-                self._finish(lane)  # this lane's chunk tokens are dropped
-        self._pending_first = []
-        for lane in range(self.B):
-            req = self.lane_req[lane]
-            if req is None:
-                continue
-            for t in toks_host[:, lane].tolist():
-                req.generated.append(t)
-                if (t in req.stop_token_ids or len(req.generated) >= req.max_new_tokens
-                        or int(self.lane_pos[lane]) >= self.S - 1):
-                    self._finish(lane)
-                    break
-        out, self._finished = self._finished, []
-        return out
-
     def run_until_complete(self, max_ticks: int = 10_000) -> List[Request]:
         """Drain the queue and the lanes; returns every finished request."""
         out: List[Request] = []
@@ -261,6 +214,109 @@ class BatchedEngine:
         self.lane_min_p[lane] = 0.0
         self.lane_pres[lane] = self.lane_freq[lane] = 0.0
         self.lane_rep[lane] = 1.0
+
+    def _take_finished(self) -> List[Request]:
+        out, self._finished = self._finished, []
+        return out
+
+    def _decode_chunk(self, active: np.ndarray, page_table: Optional[torch.Tensor] = None):
+        """``decode_chunk`` steps over all B lanes (server.py:317-374; the
+        paged engine's :956-999 with its ``page_table``). Returns the tokens
+        [n, B] and the positions after the chunk, both on the device."""
+        dev, lm, text = self.device, self.params["lm"], self.cfg.text
+        act = torch.as_tensor(active, device=dev)
+        pos = torch.as_tensor(self.lane_pos, device=dev)
+        temps = torch.as_tensor(self.lane_temp, device=dev)
+        top_p = min_p = None
+        if self._nucleus:
+            top_p = torch.as_tensor(self.lane_top_p, device=dev)
+            min_p = torch.as_tensor(self.lane_min_p, device=dev)
+        if self._penalties:
+            pres, freq, rep = (torch.as_tensor(a, device=dev)
+                               for a in (self.lane_pres, self.lane_freq, self.lane_rep))
+        toks = self.lane_tok
+        outs = []
+        for _ in range(self.decode_chunk):
+            logits = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
+                                cache=self.cache, cache_pos=pos,
+                                page_table=page_table).logits[:, -1]
+            if self._penalties:
+                logits = apply_penalties(logits, self.lane_counts, self.lane_pmask, pres, freq, rep)
+            nxt = sample(self.generator, logits, temps, self.top_k, top_p, min_p)
+            if self._penalties:
+                update_counts(self.lane_counts, nxt, act)
+            pos = torch.where(act, pos + 1, pos)
+            toks = torch.where(act, nxt, toks)
+            outs.append(toks)
+        self.lane_tok = toks
+        return torch.stack(outs), pos
+
+    def _read_back(self, active: np.ndarray, all_toks: torch.Tensor, pos: torch.Tensor):
+        """The chunk's one read-back: its tokens [n, B], the positions after
+        it and the pending first tokens (server.py:742-779, :1330-1365).
+        Each active lane takes its tokens until a stop token, max_new_tokens
+        or position S - 1 (checked after the chunk, as both JAX engines
+        do); a lane that finishes on its first token drops its chunk's."""
+        n, B = all_toks.shape
+        firsts = [e[2] for e in self._pending_first]
+        host = torch.cat([all_toks.reshape(-1), pos, *firsts]).tolist()
+        toks_host = np.asarray(host[:n * B], np.int64).reshape(n, B)
+        new_pos = host[n * B:n * B + B]
+        for (lane, req, _), first in zip(self._pending_first, host[n * B + B:]):
+            req.generated.append(int(first))
+            if first in req.stop_token_ids or len(req.generated) >= req.max_new_tokens:
+                self._finish(lane)
+        self._pending_first = []
+        for lane in range(B):
+            if not active[lane]:
+                continue
+            self.lane_pos[lane] = new_pos[lane]
+            req = self.lane_req[lane]
+            if req is None:
+                continue  # finished on its first token
+            for t in toks_host[:, lane].tolist():
+                req.generated.append(t)
+                if (t in req.stop_token_ids or len(req.generated) >= req.max_new_tokens
+                        or int(self.lane_pos[lane]) >= self.S - 1):
+                    self._finish(lane)
+                    break
+
+
+class BatchedEngine(_LaneEngine):
+    def __init__(
+        self,
+        params: dict,
+        cfg: AriaConfig,
+        *,
+        max_lanes: int = 4,
+        max_seq_len: int = 2048,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        decode_chunk: int = 16,
+        cache_dtype=torch.bfloat16,
+        rng_seed: int = 0,
+        mesh=None,
+        guided_fsm=None,
+        adapters=None,
+        logprobs_topk: Optional[int] = None,
+    ):
+        super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
+                         mesh=mesh, guided_fsm=guided_fsm, adapters=adapters,
+                         logprobs_topk=logprobs_topk)
+        # a multiple of 128, as the JAX engine allocates (server.py:103)
+        self.S = -(-max_seq_len // 128) * 128
+        self.cache_dtype = cache_dtype
+        self.cache = KVCache.init(cfg.text, self.B, self.S, cache_dtype, device=self.device)
+
+    @torch.inference_mode()
+    def step(self) -> List[Request]:
+        """Admit queued requests, run one decode chunk, return the requests
+        that finished."""
+        self._admit_all()
+        active = self._active_mask()
+        if active.any():
+            self._read_back(active, *self._decode_chunk(active))
+        return self._take_finished()
 
     def _reject_oversized(self, req: Request) -> bool:
         if _bucket(len(req.prompt_tokens)) + req.max_new_tokens <= self.S:
@@ -366,45 +422,14 @@ class BatchedEngine:
             self.lane_temp[lane] = temps[row]
             self._set_lane_sampling(lane, req)
 
-    def _decode_chunk(self, active: np.ndarray, page_table: Optional[torch.Tensor] = None):
-        """``decode_chunk`` steps over all B lanes (server.py:317-374; the
-        paged engine's :956-999 with its ``page_table``). Returns the tokens
-        [n, B] and the positions after the chunk, both on the device."""
-        dev, lm, text = self.device, self.params["lm"], self.cfg.text
-        act = torch.as_tensor(active, device=dev)
-        pos = torch.as_tensor(self.lane_pos, device=dev)
-        temps = torch.as_tensor(self.lane_temp, device=dev)
-        top_p = min_p = None
-        if self._nucleus:
-            top_p = torch.as_tensor(self.lane_top_p, device=dev)
-            min_p = torch.as_tensor(self.lane_min_p, device=dev)
-        if self._penalties:
-            pres, freq, rep = (torch.as_tensor(a, device=dev)
-                               for a in (self.lane_pres, self.lane_freq, self.lane_rep))
-        toks = self.lane_tok
-        outs = []
-        for _ in range(self.decode_chunk):
-            logits = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
-                                cache=self.cache, cache_pos=pos,
-                                page_table=page_table).logits[:, -1]
-            if self._penalties:
-                logits = apply_penalties(logits, self.lane_counts, self.lane_pmask, pres, freq, rep)
-            nxt = sample(self.generator, logits, temps, self.top_k, top_p, min_p)
-            if self._penalties:
-                update_counts(self.lane_counts, nxt, act)
-            pos = torch.where(act, pos + 1, pos)
-            toks = torch.where(act, nxt, toks)
-            outs.append(toks)
-        self.lane_tok = toks
-        return torch.stack(outs), pos
 
-
-class PagedBatchedEngine:
+class PagedBatchedEngine(_LaneEngine):
     """Continuous batching over a shared page pool with chunked prefill
     (counterpart of aria_tpu/engine/server.py:781-1365).
 
-    Lanes draw ``page_size``-token pages from one pool (``engine/paged.py``),
-    so device memory scales with the tokens in flight. Admission allocates
+    Lanes draw ``page_size``-token pages from one pool (``engine/paged.py``;
+    the cache is ``ops/paged_attention.py``), so device memory scales with
+    the tokens in flight. Admission allocates
     a request's pages and computes its prompt embedding (an image request
     runs ``encode_images`` once here); each ``step`` then advances every
     mid-prefill lane by one ``prefill_chunk``-token chunk in one batched
@@ -451,22 +476,12 @@ class PagedBatchedEngine:
         guided_fsm=None,
         adapters=None,
     ):
-        for name, value in {"guided_fsm": guided_fsm, "adapters": adapters}.items():
-            if value is not None:
-                raise NotImplementedError(f"PagedBatchedEngine({name}=...): {_NOT_PORTED[name]} "
-                                          "is not ported yet")
-        self.params = params
-        self.cfg = cfg
-        self.B = max_lanes
+        super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
+                         guided_fsm=guided_fsm, adapters=adapters)
         self.PS = page_size
         self.MAXP = -(-max_seq_len // page_size)
         self.S = self.MAXP * page_size
         self.C = prefill_chunk
-        self.temperature = temperature
-        self.top_k = top_k
-        self.decode_chunk = decode_chunk
-        self.device = params["lm"]["final_norm"].device
-        self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
         # default pool: half of full residency, one slack page per lane, the null page
         if num_pages is None:
             num_pages = 1 + max_lanes * (self.MAXP // 2 + 1)
@@ -477,51 +492,10 @@ class PagedBatchedEngine:
         # cached pages start at page multiples, so chunks must tile pages
         self.prefix_cache = prefix_cache and page_size % prefill_chunk == 0
         self.lane_keys: List[Optional[list]] = [None] * self.B
-        self.lane_req: List[Optional[Request]] = [None] * self.B
         self.lane_state: List[Optional[str]] = [None] * self.B  # PREFILL | DECODE | None
         self.lane_pages: List[list] = [[] for _ in range(self.B)]
-        self.lane_pos = np.zeros(self.B, np.int32)
-        self.lane_tok = torch.zeros(self.B, dtype=torch.int32, device=self.device)
-        self.lane_temp = np.full(self.B, temperature, np.float32)
-        self.lane_top_p = np.ones(self.B, np.float32)
-        self.lane_min_p = np.zeros(self.B, np.float32)
-        self.lane_pres = np.zeros(self.B, np.float32)
-        self.lane_freq = np.zeros(self.B, np.float32)
-        self.lane_rep = np.ones(self.B, np.float32)
-        self._nucleus = False
-        self._penalties = False
-        self.lane_counts: Optional[torch.Tensor] = None
-        self.lane_pmask: Optional[torch.Tensor] = None
         self.lane_embeds: List[Optional[torch.Tensor]] = [None] * self.B  # [1, n*C, D] in prefill
         self.lane_true_len = np.zeros(self.B, np.int32)
-        self.queue: Deque[Request] = deque()
-        self._uid = 0
-        self._finished: List[Request] = []
-        self._pending_first: list = []  # (lane, request, 1-element device tensor)
-
-    # the request and sampling-state helpers are BatchedEngine's (server.py:1009-1013)
-    submit = BatchedEngine.submit
-    _ensure_penalty_state = BatchedEngine._ensure_penalty_state
-    _req_sampling = staticmethod(BatchedEngine._req_sampling)
-    _set_lane_sampling = BatchedEngine._set_lane_sampling
-    _decode_chunk = BatchedEngine._decode_chunk
-
-    def cancel(self, uid: int) -> bool:
-        """Abort a queued or running request, recycling its pages."""
-        for r in self.queue:
-            if r.uid == uid:
-                self.queue.remove(r)
-                r.done = True
-                r.error = "cancelled"
-                self._finished.append(r)
-                return True
-        for lane, r in enumerate(self.lane_req):
-            if r is not None and r.uid == uid:
-                self._pending_first = [e for e in self._pending_first if e[1].uid != uid]
-                r.error = "cancelled"
-                self._finish(lane)
-                return True
-        return False
 
     @torch.inference_mode()
     def step(self) -> List[Request]:
@@ -537,41 +511,8 @@ class PagedBatchedEngine:
                 active[lane] = False  # page pressure: this lane waits
         if active.any():
             table = torch.as_tensor(self.page_table, device=self.device)
-            all_toks, pos = self._decode_chunk(active, table)
-            n, B = all_toks.shape
-            firsts = [e[2] for e in self._pending_first]
-            host = torch.cat([all_toks.reshape(-1), pos, *firsts]).tolist()  # the one read-back
-            toks_host = np.asarray(host[:n * B], np.int64).reshape(n, B)
-            new_pos = host[n * B:n * B + B]
-            for (lane, req, _), first in zip(self._pending_first, host[n * B + B:]):
-                req.generated.append(int(first))
-                if first in req.stop_token_ids or len(req.generated) >= req.max_new_tokens:
-                    self._finish(lane)  # this lane's chunk tokens are dropped
-            self._pending_first = []
-            for lane in range(self.B):
-                if not active[lane]:
-                    continue
-                self.lane_pos[lane] = new_pos[lane]
-                req = self.lane_req[lane]
-                if req is None:
-                    continue  # finished on its first token
-                for t in toks_host[:, lane].tolist():
-                    req.generated.append(t)
-                    if (t in req.stop_token_ids or len(req.generated) >= req.max_new_tokens
-                            or int(self.lane_pos[lane]) >= self.S - 1):
-                        self._finish(lane)
-                        break
-        out, self._finished = self._finished, []
-        return out
-
-    def run_until_complete(self, max_ticks: int = 10_000) -> List[Request]:
-        """Drain the queue and the lanes; returns every finished request."""
-        out: List[Request] = []
-        for _ in range(max_ticks):
-            out.extend(self.step())
-            if not self.queue and all(s is None for s in self.lane_state):
-                break
-        return out
+            self._read_back(active, *self._decode_chunk(active, table))
+        return self._take_finished()
 
     # ------------------------------------------------------------ lanes
 
@@ -732,18 +673,10 @@ class PagedBatchedEngine:
         return True
 
     def _finish(self, lane: int):
-        req = self.lane_req[lane]
-        if req is not None:
-            req.done = True
-            self._finished.append(req)
+        super()._finish(lane)
         self.pool.release(self.lane_pages[lane])
         self.page_table[lane, :] = 0
         self.lane_pages[lane] = []
         self.lane_keys[lane] = None  # an unfinished prefill registers nothing
-        self.lane_req[lane] = None
         self.lane_state[lane] = None
         self.lane_embeds[lane] = None
-        self.lane_top_p[lane] = 1.0
-        self.lane_min_p[lane] = 0.0
-        self.lane_pres[lane] = self.lane_freq[lane] = 0.0
-        self.lane_rep[lane] = 1.0

@@ -34,12 +34,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from aria_tpu_torch.config import TextConfig
-from aria_tpu_torch.engine.paged import (
-    gather_lane_kv,
-    paged_decode_attention,
-    paged_write,
-    write_index,
-)
 from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.attention import sdpa
 from aria_tpu_torch.ops.decode_attention import decode_attention
@@ -50,6 +44,12 @@ from aria_tpu_torch.ops.moe import route_topk
 from aria_tpu_torch.ops.moe_decode_kernel import DECODE_KERNEL_MAX_TOKENS, moe_decode_int4
 from aria_tpu_torch.ops.moe_prefill_kernel import experts_segmented_int4
 from aria_tpu_torch.ops.norms import rms_norm
+from aria_tpu_torch.ops.paged_attention import (
+    gather_lane_kv,
+    paged_decode_attention,
+    paged_write,
+    write_index,
+)
 from aria_tpu_torch.ops.quant import (
     is_dense_int4,
     is_quantized,

@@ -130,6 +130,28 @@ def moe_prefill_int4(
 moe_prefill_int4.launches = 0
 
 
+def expert_slots(
+    x: torch.Tensor,  # [T, D]
+    indices: torch.Tensor,  # [T, k] int32 expert ids (shared experts included)
+    w1q4: torch.Tensor,
+    w1sg: torch.Tensor,
+    w2q4: torch.Tensor,
+    w2s8: torch.Tensor,
+    layer: int,
+) -> torch.Tensor:
+    """Each routing slot's expert output [T, k, D] f32: the tokens
+    scattered into padded expert segments, the grouped GLU-FFN, and the
+    rows gathered back."""
+    T, D = x.shape
+    k = indices.shape[1]
+    dest_row, tile_expert, R, rows_used = segment_dispatch(indices, w1q4.shape[1])
+    dest = dest_row.long()
+    x_seg = torch.zeros((R, D), dtype=x.dtype, device=x.device)
+    x_seg[dest] = x.repeat_interleave(k, dim=0)
+    out_seg = moe_prefill_int4(x_seg, tile_expert, w1q4, w1sg, w2q4, w2s8, layer, rows_used)
+    return out_seg[dest].reshape(T, k, D)
+
+
 def experts_segmented_int4(
     x: torch.Tensor,  # [T, D]
     indices: torch.Tensor,  # [T, k] int32 expert ids (shared experts included)
@@ -142,14 +164,6 @@ def experts_segmented_int4(
 ) -> torch.Tensor:
     """The MoE FFN for prefill-sized T; returns [T, D] in x's dtype
     (moe_prefill_kernel.py:227-254)."""
-    T, D = x.shape
-    k = indices.shape[1]
-    E = w1q4.shape[1]
-    dest_row, tile_expert, R, rows_used = segment_dispatch(indices, E)
-    dest = dest_row.long()
-    x_seg = torch.zeros((R, D), dtype=x.dtype, device=x.device)
-    x_seg[dest] = x.repeat_interleave(k, dim=0)
-    out_seg = moe_prefill_int4(x_seg, tile_expert, w1q4, w1sg, w2q4, w2s8, layer, rows_used)
-    per_slot = out_seg[dest].reshape(T, k, D)
+    per_slot = expert_slots(x, indices, w1q4, w1sg, w2q4, w2s8, layer)
     combined = torch.einsum("tkd,tk->td", per_slot, weights.float())
     return combined.to(x.dtype)

@@ -30,10 +30,12 @@
    ``PagedBatchedEngine`` with 32 lanes on int8 pages serves 32 x 200
    tokens per round through 128-token prefill chunks, a warm-up round and
    two timed ones; ``paged_decode_attention`` must launch once per layer of
-   every decode step. Then a profiled decode chunk, two prefix-cache
-   rounds (at the served chunk, reported; at whole-page chunks, held), the
-   tight-pool request that stalls the JAX engine, and a 2-layer paged
-   chunk and decode step against the CPU.
+   every decode step. Then a profiled prefill tick and decode chunk, where
+   a row's result depends on the rows beside it (op by op), two
+   prefix-cache rounds at the served chunk (the first request alone,
+   reported; beside a companion, held, with two planted faults that must
+   exceed the limit), the tight-pool request that stalls the JAX engine,
+   and a 2-layer paged chunk and decode step against the CPU.
 
 Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises and exits non-zero; without a CUDA device
@@ -138,7 +140,7 @@ def _entry(t: dict) -> dict:
 
 
 def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_seq=384,
-                  page_size=256, paged_seq=512):
+                  page_size=256, paged_seq=512, paged_chunk=128):
     """Phase 2: each kernel against its plain version at the shapes the
     text, image, lanes and paged paths give it. Returns {kernel name:
     {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -153,13 +155,13 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     import torch.nn.functional as F
 
     from aria_tpu_torch import TextConfig, VisionConfig
-    from aria_tpu_torch.engine import paged as pg
     from aria_tpu_torch.ops import decode_attention as da
     from aria_tpu_torch.ops import dense_int4 as di
     from aria_tpu_torch.ops import flash as fl
     from aria_tpu_torch.ops import kv_write as kw
     from aria_tpu_torch.ops import moe_decode_kernel as mk
     from aria_tpu_torch.ops import moe_prefill_kernel as mp
+    from aria_tpu_torch.ops import paged_attention as pg
     from aria_tpu_torch.ops import vit_flash as vfl
     from aria_tpu_torch.ops.quant import quantize_dense_int4, quantize_expert_int4
 
@@ -184,24 +186,26 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
 
     # dense_int4: wqkv (F = 7680) and wo (F = 2560) at decode (T = 1), at
     # the 32-lane decode step (T = 32), at the 64- and 128-token prompt
-    # buckets, at the image prompt's 512 and at the 32-row grouped
-    # admission of 64-token prompts (T = 2048). No PyTorch call takes this
+    # buckets, at the image prompt's 512, at the 32-row grouped admission
+    # of 64-token prompts (T = 2048) and at the paged prefill tick's 32
+    # lanes x one 128-token chunk (T = 4096). No PyTorch call takes this
     # int4 layout: library none.
     print("dense_int4", flush=True)
     errs, timed = [], []
+    tick = lanes * paged_chunk
     for F_out in ((cfg.num_heads + 2 * cfg.num_kv_heads) * Dh, D):
         w = quantize_dense_int4(randn(2, D, F_out, scale=D**-0.5))
-        for T in (1, 32, 64, 128, 512, 2048):
+        for T in dict.fromkeys((1, 32, 64, 128, 512, 2048, tick)):
             x = randn(T, D)
             got, ref = di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1)
             errs.append(_compare(f"dense_int4 T={T} F={F_out}", got, ref, 1e-4,
                                  "both f32 sums of exact products; order differs"))
-            if T in (1, 32, 512, 2048):
+            if T in (1, 32, 512, 2048, tick):
                 bound = _bound(_nbytes(x, w["q4t"][1], w["sg"][1]) + T * F_out * 4,
                                2 * T * D * F_out)
                 timed.append(_timed(f"T={T} F={F_out}", lambda: di.dense_int4(x, w, 1),
                                     lambda: di.dense_int4_plain(x, w, 1),
-                                    {1: 200, 32: 100, 512: 20, 2048: 10}[T], 5, bound))
+                                    {1: 200, 32: 100}.get(T, max(5, 20480 // T)), 5, bound))
     record("dense_int4", errs, timed)  # wqkv at T = 1 first
     del w
 
@@ -245,11 +249,11 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     record("moe_decode_int4", errs, timed)
 
     # moe_prefill_int4 on the same stacks: top-6 + 2 shared at T = 512 (the
-    # image prompt's bucket), 129, and 2048 (32 rows of 64-token prompts),
-    # rows past the used tiles skipped
+    # image prompt's bucket), 129, 2048 (32 rows of 64-token prompts) and
+    # 4096 (the paged prefill tick), rows past the used tiles skipped
     print("moe_prefill_int4", flush=True)
     errs, timed = [], []
-    for T in (512, 129, lanes * 64):
+    for T in dict.fromkeys((512, 129, lanes * 64, tick)):
         logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
         _, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
         shared = torch.arange(cfg.num_experts, E, device=device).expand(T, -1)
@@ -271,7 +275,8 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                            used * 6 * I * D)
             timed.append(_timed(f"T={T} ({used // mp.TM} tiles)",
                                 lambda: mp.moe_prefill_int4(*args),
-                                lambda: mp.moe_prefill_int4_plain(*args), 20, 3, bound))
+                                lambda: mp.moe_prefill_int4_plain(*args),
+                                max(5, 10240 // T), 3, bound))
     record("moe_prefill_int4", errs, timed)
     del w1, w2
 
@@ -427,6 +432,50 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                             _bound(2 * _nbytes(kn, vn, *sc[2:]) + _nbytes(rows, slots), 0),
                             library))
         del k, v, args
+    # the paged decode step's write: int8 pages of the default pool [28,
+    # NP, H, 256, 128] with f32 scales, rows = shuffled page ids; idle
+    # lanes all write page 0, slot 0 with differing data (the null page,
+    # never read, so left out of the comparison), and a lane past its
+    # table has page -1 and writes nothing. Bound and library: the lanes
+    # that write.
+    NP = 1 + lanes * (-(-paged_seq // page_size) // 2 + 1)
+    shape = (cfg.num_layers, NP, H, page_size, Dh)
+    n_idle, n_past = max(1, lanes // 8), max(1, lanes // 16)
+    rows = (torch.randperm(NP - 1, generator=gen, device=device)[:lanes] + 1).to(torch.int32)
+    rows[lanes - n_idle - n_past:lanes - n_past] = 0
+    rows[lanes - n_past:] = -1
+    slots = torch.randint(0, page_size, (lanes,), generator=gen, device=device,
+                          dtype=torch.int32)
+    slots = torch.where(rows == 0, torch.zeros_like(slots), slots)
+    k, v = (torch.randint(-128, 128, shape, generator=gen, device=device, dtype=torch.int8)
+            for _ in range(2))
+    kn, vn = (torch.randint(-128, 128, (lanes, H, Dh), generator=gen, device=device,
+                            dtype=torch.int8) for _ in range(2))
+    sc = tuple(torch.rand(sh, generator=gen, device=device)
+               for sh in (shape[:-1],) * 2 + ((lanes, H),) * 2)
+    ref = [t.clone() for t in (k, v) + sc[:2]]
+    kw.kv_cache_write_plain(ref[0], ref[1], 1, rows, slots, kn, vn, *ref[2:], *sc[2:])
+    kw.kv_cache_write(k, v, 1, rows, slots, kn, vn, *sc)
+    if not all(torch.equal(got[:, 1:], want[:, 1:]) for got, want in zip((k, v) + sc[:2], ref)):
+        raise AssertionError("kv_cache_write on pages: differs from the plain version")
+    print(f"  kv_cache_write int8 pages, {lanes} lanes ({n_idle} idle on page 0, {n_past} past "
+          "the table): equal to the plain version outside the null page (a byte copy: exact)",
+          flush=True)
+    errs.append(0.0)
+    del ref
+    keep = rows >= 0
+    r, s = rows[keep].long(), slots[keep].long()
+    kept = (kn[keep], vn[keep], sc[2][keep], sc[3][keep])
+
+    def library():
+        k[1][r, :, s], v[1][r, :, s] = kept[0], kept[1]
+        sc[0][1][r, :, s], sc[1][1][r, :, s] = kept[2], kept[3]
+
+    args = (k, v, 1, rows, slots, kn, vn, *sc)
+    timed.append(_timed(f"int8 pages [{', '.join(map(str, shape))}], {lanes} lanes",
+                        lambda: kw.kv_cache_write(*args), lambda: kw.kv_cache_write_plain(*args),
+                        200, 50, _bound(2 * _nbytes(*kept) + _nbytes(rows, slots), 0), library))
+    del k, v, args, sc
     record("kv_cache_write", errs, timed)  # int4 first
 
     # flash_causal at the 64-, 128- and 512-token prompt buckets, at a
@@ -497,13 +546,13 @@ PATHS = ("paged", "lanes", "image", "text")  # newest first: a kernel's "launche
 
 
 def _wrappers():
-    from aria_tpu_torch.engine.paged import paged_decode_attention
     from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
     from aria_tpu_torch.ops.dense_int4 import dense_int4
     from aria_tpu_torch.ops.flash import flash_causal
     from aria_tpu_torch.ops.kv_write import kv_cache_write
     from aria_tpu_torch.ops.moe_decode_kernel import moe_decode_int4
     from aria_tpu_torch.ops.moe_prefill_kernel import moe_prefill_int4
+    from aria_tpu_torch.ops.paged_attention import paged_decode_attention
     from aria_tpu_torch.ops.vit_flash import vit_flash
 
     return {"dense_int4": dense_int4, "moe_decode_int4": moe_decode_int4,
@@ -1000,10 +1049,11 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3,
     pages), 128-token prefill chunks, T 0.8, top-k 200, decode_chunk 50,
     int8 pages; each round submits 32 prompts of 48 tokens drawn from
     ``np.random.RandomState(0).randint(5, 1000)`` with 200 new tokens each;
-    one warm-up round and two timed ones. Then a profiled decode chunk, two
-    prefix-cache rounds, the tight-pool request and a 2-layer paged chunk
-    and decode step against the CPU's plain versions. Returns each
-    kernel's launch count over the rounds."""
+    one warm-up round and two timed ones. Then a profiled prefill tick and
+    decode chunk, the batch-dependence diagnosis, two prefix-cache rounds,
+    the tight-pool request and a 2-layer paged chunk and decode step
+    against the CPU's plain versions. Returns each kernel's launch count
+    over the rounds."""
     import numpy as np
     import torch
 
@@ -1072,81 +1122,246 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3,
 
     with torch.inference_mode():
         if device.type == "cuda":
+            _profile_prefill_tick(engine, lanes, top, new_tokens)
             _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, label="paged")
         del engine
-        # at the served chunk the first request's one-lane chunks (128 rows)
-        # take the MoE's W4A8 decode kernel and the seven-lane chunks of the
-        # engine without the cache its bf16 prefill kernel, so the cached
-        # page is not the recomputed one: reported. At chunks of a whole
-        # page every chunk takes the prefill kernel: held.
-        _prefix_round(device, lm, cfg, top, max_seq, page_size, chunk, held=False)
-        _prefix_round(device, lm, cfg, top, max_seq, page_size, page_size, held=True)
+        # the served chunk beside a companion and alone, and a whole page alone
+        for at, few in ((chunk, 2), (chunk, 1), (page_size, 1)):
+            _batch_dependence(device, lm, cfg, top, max_seq, page_size, at, few)
+        _prefix_round(lm, cfg, top, max_seq, page_size, chunk, companion=False)
+        _prefix_round(lm, cfg, top, max_seq, page_size, chunk, companion=True)
         _tight_pool(lm, cfg, top, max_seq, page_size, chunk)
         _paged_reference(device, lm, text, top, page_size)
     return launches
 
 
-def _prefix_round(device, lm, cfg, top, max_seq, page_size, chunk, held, n=8, tail=16,
-                  new=32):
-    """Greedy requests that share one full page of prompt: the first is
-    served alone and registers the page; the other seven, served together,
-    each take it from the cache (cached tokens and pool hits held). Their
-    streams are compared with an engine without the prefix cache serving
-    the same requests in the same order: the cached page was written by a
-    one-lane chunk and the recomputed one by a seven-lane chunk. With
-    ``held`` the streams must be equal, or else the first-token logits
-    within PREFIX_LOGIT_LIMIT; without, the comparison is reported."""
+def _profile_prefill_tick(engine, lanes, top, new_tokens):
+    """One prefill tick of ``lanes`` 48-token prompts (one chunk each)
+    under the profiler: wall and device time, by kernel."""
     import numpy as np
     import torch
 
-    from aria_tpu_torch.engine.server import PagedBatchedEngine
+    rng = np.random.RandomState(4)
+    uids = [engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=new_tokens)
+            for _ in range(lanes)]
+    while engine._admit():
+        pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    busy, events = _device_ms(engine._prefill_tick)
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"  profiled prefill tick ({lanes} x {engine.C} rows): wall {wall:.1f} ms (profiler "
+          f"on), device busy {busy:.1f} ms; device time by kernel:\n"
+          + events.table(sort_by="self_device_time_total", row_limit=15), flush=True)
+    for uid in uids:
+        engine.cancel(uid)
+    engine.step()
+
+
+def _row0(x, rows: int, C: int):
+    """Row 0's share of an op's argument or result in a chunk of ``rows``
+    lanes x C tokens: tensors led by rows * C tokens keep the first C, led
+    by rows lanes the first lane; weights, ints and caches pass as they
+    are."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if x.dim() and x.shape[0] == rows * C:
+            return x[:C]
+        return x[:1] if x.dim() and x.shape[0] == rows else x
+    if isinstance(x, tuple):
+        parts = [_row0(v, rows, C) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def _max_diff(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(_max_diff(x, y) for x, y in zip(a, b))
+    return (a.float() - b.float()).abs().max().item()
+
+
+BATCH_OPS = (("models.moe_lm", "rms_norm"), ("models.moe_lm", "dense_int4"),
+             ("models.moe_lm", "apply_rope"), ("models.moe_lm", "quantize_kv"),
+             ("models.moe_lm", "gather_lane_kv"), ("models.moe_lm", "sdpa"),
+             ("models.moe_lm", "route_topk"), ("ops.moe_prefill_kernel", "expert_slots"),
+             ("models.moe_lm", "experts_segmented_int4"), ("models.moe_lm", "linear"))
+
+
+def _prefix_prompts(top, page_size, n=8, tail=16):
+    """The prefix round's prompts: n that share one page of prompt, each
+    with its own tail, and a companion with another prompt."""
+    import numpy as np
 
     rng = np.random.RandomState(5)
     prefix = rng.randint(5, top, page_size).tolist()
     prompts = [prefix + rng.randint(5, top, tail).tolist() for _ in range(n)]
-    runs = {}
-    for cached in (True, False):
-        eng = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=n, max_seq_len=max_seq,
-                                 page_size=page_size, prefill_chunk=chunk, decode_chunk=16,
-                                 cache_dtype=torch.int8, prefix_cache=cached, rng_seed=SEED)
-        first_logits = {}
-        chunk_logits = eng._chunk_logits
+    return prompts, rng.randint(5, top, page_size + tail).tolist()
 
-        def record(lanes, eng=eng, chunk_logits=chunk_logits, first_logits=first_logits):
-            logits = chunk_logits(lanes)
-            for row, lane in enumerate(lanes):  # the completing chunk's row wins
-                first_logits[eng.lane_req[lane].uid] = logits[row].float().cpu()
-            return logits
 
-        eng._chunk_logits = record
-        uids = [eng.submit(prompts[0], max_new_tokens=new)]
-        fin = eng.run_until_complete()
-        uids += [eng.submit(p, max_new_tokens=new) for p in prompts[1:]]
-        fin += eng.run_until_complete()
-        by_uid = {r.uid: r for r in fin}
-        if len(by_uid) != n or any(r.error or len(r.generated) != new for r in fin):
-            raise AssertionError(f"prefix round (prefix cache {cached}): a request failed")
-        runs[cached] = ([by_uid[u].generated for u in uids],
-                        [by_uid[u].cached_tokens for u in uids], eng.pool.hits,
-                        [first_logits[u] for u in uids])
-    (streams, cached_tokens, hits, logits), (plain, plain_cached, plain_hits, plain_logits) = (
-        runs[True], runs[False])
-    if cached_tokens != [0] + [page_size] * (n - 1) or hits != n - 1:
-        raise AssertionError(f"prefix round: cached tokens {cached_tokens}, pool hits {hits}")
-    if plain_hits != 0 or any(plain_cached):
+def _batch_dependence(device, lm, cfg, top, max_seq, page_size, chunk, few, lanes=7):
+    """Where a row's result depends on the rows beside it, on the served
+    path at full depth. A paged engine runs the first prompt chunk of
+    the prefix round's first request in a ``few``-lane chunk (beside its
+    companion, or alone), and of ``lanes`` followers that share its first
+    page in one chunk, as the engine without the prefix cache does: the
+    first row's logits and the int8 page it writes are compared. Then
+    every op of the larger chunk's forward, recorded as it ran, runs again
+    on the first row's share alone; an op whose result differs from that
+    row's part of the recorded one depends on the rows beside it. Printed,
+    not held."""
+    import importlib
+
+    import torch
+
+    from aria_tpu_torch.engine.server import PagedBatchedEngine
+
+    prompts, companion = _prefix_prompts(top, page_size, n=lanes + 1)
+    calls = []
+
+    def run(batch, record=False):
+        eng = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=max_seq,
+                                 page_size=page_size, prefill_chunk=chunk,
+                                 cache_dtype=torch.int8, prefix_cache=False, rng_seed=SEED)
+        for p in batch:
+            eng.submit(p, max_new_tokens=1)
+        while eng._admit():
+            pass
+        saved = []
+        if record:
+            for mod, name in BATCH_OPS:
+                m = importlib.import_module(f"aria_tpu_torch.{mod}")
+                fn = getattr(m, name)
+                saved.append((m, name, fn))
+
+                def wrapped(*args, _fn=fn, _name=name, **kw):
+                    out = _fn(*args, **kw)
+                    calls.append((_name, _fn, args, kw, out))
+                    return out
+
+                setattr(m, name, wrapped)
+        try:
+            logits = eng._chunk_logits(list(range(len(batch))))
+        finally:
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+        page = int(eng.page_table[0, 0])
+        return logits[0].float(), [t[:, page] for t in (eng.cache.k, eng.cache.v)]
+
+    (one, p1), (many, pn) = run([prompts[0], companion][:few]), run(prompts[1:], record=True)
+    differ = sum(int((a != b).sum()) for a, b in zip(p1, pn))
+    total = sum(a.numel() for a in p1)
+    worst = {}
+    for name, fn, args, kw, out in calls:
+        alone = fn(*_row0(args, lanes, chunk), **{k: _row0(v, lanes, chunk) for k, v in kw.items()})
+        worst[name] = max(worst.get(name, 0.0), _max_diff(_row0(out, lanes, chunk), alone))
+    ops = ", ".join(f"{name} {d:.3e}" for name, d in worst.items())
+    print(f"  batch dependence ({cfg.text.num_layers} layers, a shared prompt's first "
+          f"{chunk}-token chunk in {few} lane(s) against in {lanes}): logits max |diff| "
+          f"{_max_diff(one, many):.3e}; its int8 page's k/v bytes differ at {differ} of {total}; op by op, the first row's "
+          f"share alone against its part of the {lanes}-lane call, max |diff|: {ops}",
+          flush=True)
+
+
+def _serve_prefix(lm, cfg, max_seq, page_size, chunk, first, rest, new, cached, fault=None):
+    """Greedy: the requests ``first`` together, then ``rest`` together, on a
+    fresh engine (``cached``: with the prefix cache). A planted ``fault``
+    corrupts the page that first[0] registered before ``rest`` comes: "page
+    left unwritten" zeroes it, "wrong page" points its key at first[1]'s
+    page. Returns, for each request in order, (tokens, cached tokens,
+    first-token logits), and the pool's hits."""
+    import torch
+
+    from aria_tpu_torch.engine.server import PagedBatchedEngine
+
+    eng = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=len(rest) + 1, max_seq_len=max_seq,
+                             page_size=page_size, prefill_chunk=chunk, decode_chunk=16,
+                             cache_dtype=torch.int8, prefix_cache=cached, rng_seed=SEED)
+    first_logits = {}
+    chunk_logits = eng._chunk_logits
+
+    def record(lanes):
+        logits = chunk_logits(lanes)
+        for row, lane in enumerate(lanes):  # the completing chunk's row wins
+            first_logits[eng.lane_req[lane].uid] = logits[row].float().cpu()
+        return logits
+
+    eng._chunk_logits = record
+    uids = [eng.submit(p, max_new_tokens=new) for p in first]
+    fin = eng.run_until_complete()
+    if fault is not None:
+        key = eng._page_keys(first[0])[0]
+        page = eng.pool.key_to_page[key]
+        if fault == "page left unwritten":
+            eng.cache.k[:, page] = 0
+            eng.cache.v[:, page] = 0
+        else:
+            eng.pool.key_to_page[key] = eng.pool.key_to_page[eng._page_keys(first[1])[0]]
+    uids += [eng.submit(p, max_new_tokens=new) for p in rest]
+    fin += eng.run_until_complete()
+    by_uid = {r.uid: r for r in fin}
+    if len(by_uid) != len(uids) or any(r.error or len(r.generated) != new for r in fin):
+        raise AssertionError(f"prefix round (prefix cache {cached}, fault {fault}): a request "
+                             "failed")
+    return ([(by_uid[u].generated, by_uid[u].cached_tokens, first_logits[u]) for u in uids],
+            eng.pool.hits)
+
+
+def _prefix_round(lm, cfg, top, max_seq, page_size, chunk, companion, n=8, tail=16, new=32):
+    """Greedy requests that share one full page of prompt: the first is
+    served (alone, or beside a companion with another prompt) and
+    registers the page; the other n - 1, served together, each take it
+    from the cache (cached tokens and pool hits held). Their streams and
+    first-token logits are compared with an engine without the prefix
+    cache serving the same requests in the same order.
+
+    Alone, the first request's one-lane chunks (128 rows) take the MoE's
+    W4A8 decode kernel and the uncached engine's (n-1)-lane chunks its
+    prefill kernel, so the cached page is not the recomputed one: reported.
+    With the companion every chunk takes the prefill kernel, and the two
+    pages differ only by the rows beside them in their launches: the
+    streams must be equal, or else the first-token logits within
+    PREFIX_LOGIT_LIMIT, while two planted faults (the cached page left
+    unwritten; its key pointing at the companion's page) must exceed it."""
+    prompts, other = _prefix_prompts(top, page_size, n, tail)
+    first = [prompts[0]] + ([other] if companion else [])
+    faults = ("page left unwritten", "wrong page") if companion else ()
+    runs = {fault: _serve_prefix(lm, cfg, max_seq, page_size, chunk, first, prompts[1:], new,
+                                 cached=fault != "uncached",
+                                 fault=None if fault in ("cached", "uncached") else fault)
+            for fault in ("cached", "uncached") + faults}
+    (cached, hits), (plain, plain_hits) = runs["cached"], runs["uncached"]
+    k0 = len(first)
+    if [c for _, c, _ in cached] != [0] * k0 + [page_size] * (n - 1) or hits != n - 1:
+        raise AssertionError(f"prefix round: cached tokens {[c for _, c, _ in cached]}, "
+                             f"pool hits {hits}")
+    if plain_hits != 0 or any(c for _, c, _ in plain):
         raise AssertionError("prefix round: the engine without a prefix cache reused pages")
-    same = [a == b for a, b in zip(streams, plain)]
-    rel = [_rel_err(a, b) for a, b in zip(logits, plain_logits)]
-    print(f"  prefix cache ({n} greedy requests, a {page_size}-token shared page + {tail}, "
-          f"{new} tokens, chunks of {chunk}, {'held' if held else 'reported'}): cached tokens {cached_tokens}, pool hits {hits}; streams equal to the "
-          f"engine without the cache: {sum(same)} of {n}; first-token logits, relative error "
-          f"{max(rel):.3e} (largest), first tokens equal: "
-          f"{all(a[0] == b[0] for a, b in zip(streams, plain))}", flush=True)
-    if held and not all(same):
-        print(f"  finding: {n - sum(same)} of {n} cached streams differ from the uncached ones; "
-              f"first-token logits held to {PREFIX_LOGIT_LIMIT:.0e} instead", flush=True)
-        if not max(rel) <= PREFIX_LOGIT_LIMIT:
-            raise AssertionError(f"prefix round: first-token logits differ by {max(rel)}")
+    same = sum(a[0] == b[0] for a, b in zip(cached, plain))
+    firsts = all(a[0][0] == b[0][0] for a, b in zip(cached, plain))
+    rel = max(_rel_err(a[2], b[2]) for a, b in zip(cached, plain))
+    print(f"  prefix cache ({n} greedy requests, a {page_size}-token shared page + {tail}, {new} "
+          f"tokens, chunks of {chunk}, the first request "
+          f"{'beside a companion: held' if companion else 'alone: reported'}): cached tokens "
+          f"{[c for _, c, _ in cached]}, pool hits {hits}; streams equal to the engine without "
+          f"the cache: {same} of {len(cached)}; first-token logits, relative error {rel:.3e} "
+          f"(largest); first tokens equal: {firsts}", flush=True)
+    if not companion:
+        return
+    for fault in faults:
+        caught = min(_rel_err(a[2], b[2]) for a, b in zip(runs[fault][0][k0:], plain[k0:]))
+        print(f"  planted fault, {fault}: first-token logits of the {n - 1} followers at least "
+              f"{caught:.3e} from the uncached engine's (limit {PREFIX_LOGIT_LIMIT:.0e})",
+              flush=True)
+        if not caught > PREFIX_LOGIT_LIMIT:
+            raise AssertionError(f"prefix round: the planted fault ({fault}) gives logits within "
+                                 f"the limit ({caught})")
+    if same < len(cached):
+        print(f"  finding: {len(cached) - same} of {len(cached)} cached streams differ from the "
+              f"uncached ones; first-token logits held to {PREFIX_LOGIT_LIMIT:.0e} instead",
+              flush=True)
+        if not rel <= PREFIX_LOGIT_LIMIT:
+            raise AssertionError(f"prefix round: first-token logits differ by {rel}")
 
 
 def _tight_pool(lm, cfg, top, max_seq, page_size, chunk, prompt_len=48):
@@ -1188,8 +1403,8 @@ def _paged_reference(device, lm, text, top, page_size, ref_layers=2):
     import numpy as np
     import torch
 
-    from aria_tpu_torch.engine.paged import PagedKVCache
     from aria_tpu_torch.models.moe_lm import embed_tokens, lm_forward
+    from aria_tpu_torch.ops.paged_attention import PagedKVCache
 
     cut = dataclasses.replace(text, num_layers=ref_layers)
     small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}

@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from aria_tpu_torch.config import AriaConfig, TextConfig
-from aria_tpu_torch.engine import paged as pg
 from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine
 from aria_tpu_torch.models.moe_lm import init_lm_params_serving_int4
 from aria_tpu_torch.ops import decode_attention as da
@@ -20,6 +19,7 @@ from aria_tpu_torch.ops import flash as fl
 from aria_tpu_torch.ops import kv_write as kw
 from aria_tpu_torch.ops import moe_decode_kernel as mk
 from aria_tpu_torch.ops import moe_prefill_kernel as mp
+from aria_tpu_torch.ops import paged_attention as pg
 from aria_tpu_torch.ops import vit_flash as vf
 from aria_tpu_torch.ops.quant import quantize_dense_int4, quantize_expert_int4
 

@@ -26,12 +26,12 @@ from aria_tpu.ops.rope import apply_rope as j_apply_rope
 from aria_tpu.ops.rope import precompute_rope as j_precompute_rope
 from aria_tpu_torch import config as tconfig
 from aria_tpu_torch.checkpoint.from_jax import from_jax, to_tensor
-from aria_tpu_torch.engine.paged import PagedKVCache
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models import projector as tproj
 from aria_tpu_torch.models import vit as tvit
 from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import kv_write as kw
+from aria_tpu_torch.ops.paged_attention import PagedKVCache
 from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -47,6 +47,7 @@ from aria_tpu_torch.engine.server import PagedBatchedEngine
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models.projector import init_projector_params
 from aria_tpu_torch.models.vit import init_vit_params
+from aria_tpu_torch.ops import paged_attention as tpa
 
 torch.set_num_threads(1)
 
@@ -188,7 +189,7 @@ def _caches(dtype, seed=0):
     else:
         leaves = tuple(rng.randn(*shape).astype(np.float32) for _ in range(2))
     jleaves, tleaves = _both(leaves, dtype)
-    return jpaged.PagedKVCache(*jleaves), tpaged.PagedKVCache(*tleaves)
+    return jpaged.PagedKVCache(*jleaves), tpa.PagedKVCache(*tleaves)
 
 
 def _new_kv(dtype, B, S, seed=1):
@@ -213,9 +214,9 @@ def test_paged_write_matches_jax(interpret, dtype, S):
     jnew_kv, tnew_kv = _both(_new_kv(dtype, 3, S), dtype)
     jnew = jpaged.paged_write(jc, jnp.int32(1), jnp.asarray(TABLE), jnp.asarray(pos),
                               *jnew_kv, use_kernel=True)
-    pages, slots = tpaged.write_index(torch.from_numpy(TABLE), torch.from_numpy(pos), S,
+    pages, slots = tpa.write_index(torch.from_numpy(TABLE), torch.from_numpy(pos), S,
                                       PAGE["PS"])
-    tpaged.paged_write(tc, 1, pages, slots, *tnew_kv)
+    tpa.paged_write(tc, 1, pages, slots, *tnew_kv)
     for name in ("k", "v", "k_scale", "v_scale")[:4 if dtype == "int8" else 2]:
         want = np.asarray(getattr(jnew, name).astype(jnp.float32))
         got = getattr(tc, name).float().numpy()
@@ -229,9 +230,9 @@ def test_paged_write_drops_positions_past_the_table():
     before = [t.clone() for t in (tc.k, tc.v, tc.k_scale, tc.v_scale)]
     table = torch.from_numpy(TABLE[:1])
     for pos, S in ((96, 1), (100, 1), (96, 32)):
-        pages, slots = tpaged.write_index(table, torch.tensor([pos]), S, PAGE["PS"])
+        pages, slots = tpa.write_index(table, torch.tensor([pos]), S, PAGE["PS"])
         assert (pages == -1).all()
-        tpaged.paged_write(tc, 0, pages, slots,
+        tpa.paged_write(tc, 0, pages, slots,
                            *(torch.from_numpy(a) for a in _new_kv("int8", 1, S)))
     for b, a in zip(before, (tc.k, tc.v, tc.k_scale, tc.v_scale)):
         assert torch.equal(a, b)
@@ -242,7 +243,7 @@ def test_gather_lane_kv_matches_jax(dtype):
     jc, tc = _caches(dtype)
     for layer in range(PAGE["L"]):
         want = jpaged.gather_lane_kv(jc, jnp.int32(layer), jnp.asarray(TABLE))
-        got = tpaged.gather_lane_kv(tc, layer, torch.from_numpy(TABLE))
+        got = tpa.gather_lane_kv(tc, layer, torch.from_numpy(TABLE))
         for w, g in zip(want, got):
             assert g.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
             np.testing.assert_array_equal(g.float().numpy(), np.asarray(w.astype(jnp.float32)))
@@ -274,7 +275,7 @@ def _kernel_setup(dtype):
     q = jnp.asarray(rng.randn(B, H, D).astype(np.float32))
     if dtype == "int8":
         q = q.astype(jnp.bfloat16)
-    tcache = tpaged.PagedKVCache(*(torch.from_numpy(np.asarray(a).copy()) for a in cache
+    tcache = tpa.PagedKVCache(*(torch.from_numpy(np.asarray(a).copy()) for a in cache
                                    if a is not None))
     tq = torch.from_numpy(np.array(q.astype(jnp.float32))).to(
         torch.bfloat16 if dtype == "int8" else torch.float32)
@@ -292,7 +293,7 @@ def test_paged_decode_attention_plain_matches_jax_kernel(interpret, dtype, rtol,
     for layer in range(2):
         want = jpaged.paged_decode_attention(q, cache, jnp.int32(layer), table,
                                              jnp.asarray(lens), interpret=True)
-        got = tpaged.paged_decode_attention(tq, tcache, layer,
+        got = tpa.paged_decode_attention(tq, tcache, layer,
                                             torch.from_numpy(np.array(table)),
                                             torch.from_numpy(lens))
         assert got.dtype == (torch.bfloat16 if dtype == "int8" else torch.float32)
@@ -302,7 +303,7 @@ def test_paged_decode_attention_plain_matches_jax_kernel(interpret, dtype, rtol,
 
 def test_int4_pages_raise():
     with pytest.raises(NotImplementedError, match="int4 pages"):
-        tpaged.PagedKVCache.init(TextConfig(num_layers=1), 3, 32, "int4", device="cpu")
+        tpa.PagedKVCache.init(TextConfig(num_layers=1), 3, 32, "int4", device="cpu")
 
 
 # ------------------------------------------------------------ the stall
