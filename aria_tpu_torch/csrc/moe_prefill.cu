@@ -59,37 +59,15 @@ constexpr int D_HSTRIDE = D_BK + 8;    // bf16 elements per staged h row
 constexpr int D_WSTRIDE = D_BNP + 16;  // bytes per staged weight row
 constexpr int D_STAGE = TM * D_HSTRIDE * 2 + D_BK * D_WSTRIDE;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using aria::cp_async16;
+using aria::cp_async_commit;
+using aria::cp_async_wait;
+using aria::lds32;
+using aria::mma_bf16;
+using aria::pack_bf16;
 
 __device__ __forceinline__ float lo_nib(int byte) { return (float)((byte & 15) - 8); }
 __device__ __forceinline__ float hi_nib(int byte) { return (float)((int)(int8_t)byte >> 4); }
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(addr), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __global__ void __launch_bounds__(THREADS)
 glu_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ tile_expert,

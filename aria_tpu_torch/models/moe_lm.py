@@ -1,21 +1,34 @@
 """The Aria MoE decoder on the serving path (counterpart of
-aria_tpu/models/moe_lm.py, serving form only).
+aria_tpu/models/moe_lm.py, serving forms only).
 
 Parameters are the JAX package's tree, leaf for leaf (see
 ``checkpoint/from_jax.py``): every per-layer leaf is stacked on a leading
-[L] axis, linear weights are right-multiply [in, out], wqkv/wo are dense
-int4 ``{"q4t", "sg"}``, the expert stacks are int4 with the shared experts
-fused in as always-on experts, and embed/lm_head are int8 ``{"q", "s"}``.
+[L] axis, linear weights are right-multiply [in, out], and the shared
+experts are fused into the expert stacks as always-on experts. Three
+serving forms:
+
+- int4 (``init_lm_params_serving_int4``): dense int4 wqkv/wo ``{"q4t",
+  "sg"}``, int4 expert stacks, int8 ``{"q", "s"}`` embed and lm_head;
+- int8 (bench.py without ``--int4``: ``quantize_params``, then
+  ``fuse_shared_experts``): int8 wqkv/wo and lm_head, int8 experts with
+  ``"s8"``, bf16 embed;
+- bf16 (the same with ``--bf16``): every weight bf16.
 
 The layer loop is a Python loop over a layer index; the kernels index the
 whole weight and cache stacks with it, so no per-layer slice is copied.
 Attention has two branches, both hand kernels: causal flash over the fresh
 k/v of a from-zero prefill, and decode attention over the cache for one
-new token. The MoE runs the W4A8 decode kernel up to 128 tokens and the
-segmented prefill kernel above. The KV cache (bf16, int8, or head-pair
-packed int4) is written in place: at one offset for every lane, or at a
-per-lane offset (continuous batching), where one new token per lane goes
-through the ``kv_cache_write`` kernel.
+new token; wqkv/wo go through ``dense_int4`` in the int4 form and through
+``linear`` (a torch product, as the JAX package leaves it to XLA) in the
+others. The MoE (moe_lm.py:932-1044) takes, up to 128 tokens, the decode
+kernel of the form (``moe_decode_int4``, ``moe_decode_quant``,
+``moe_decode``); above that the int4 form takes the segmented prefill
+kernel, and the others dequantize the layer's experts (int8 only, for this
+call) and take the ragged path (``experts_ragged``, two ``gmm`` kernels).
+The KV cache (bf16, int8, or head-pair packed int4) is written in place:
+at one offset for every lane, or at a per-lane offset (continuous
+batching), where one new token per lane goes through the
+``kv_cache_write`` kernel.
 
 With a ``page_table`` the cache is the paged server's ``PagedKVCache``
 (moe_lm.py:382-428): one new token per lane is written through
@@ -40,8 +53,13 @@ from aria_tpu_torch.ops.decode_attention import decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.flash import flash_causal
 from aria_tpu_torch.ops.kv_write import kv_cache_write
-from aria_tpu_torch.ops.moe import route_topk
-from aria_tpu_torch.ops.moe_decode_kernel import DECODE_KERNEL_MAX_TOKENS, moe_decode_int4
+from aria_tpu_torch.ops.moe import experts_ragged, route_topk
+from aria_tpu_torch.ops.moe_decode_kernel import (
+    DECODE_KERNEL_MAX_TOKENS,
+    moe_decode,
+    moe_decode_int4,
+    moe_decode_quant,
+)
 from aria_tpu_torch.ops.moe_prefill_kernel import experts_segmented_int4
 from aria_tpu_torch.ops.norms import rms_norm
 from aria_tpu_torch.ops.paged_attention import (
@@ -51,6 +69,7 @@ from aria_tpu_torch.ops.paged_attention import (
     write_index,
 )
 from aria_tpu_torch.ops.quant import (
+    dequantize_expert_weights,
     is_dense_int4,
     is_quantized,
     is_quantized_int4,
@@ -58,6 +77,7 @@ from aria_tpu_torch.ops.quant import (
     quantize_dense_int4,
     quantize_expert_int4,
     quantize_weight,
+    with_s8,
 )
 from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
 
@@ -120,6 +140,36 @@ class LMOutput(NamedTuple):
     cache: Optional[KVCache]
 
 
+def _dense_init(generator, device, dtype):
+    """Draws of the JAX init's ``dense``: N(0, 1) in f32 times
+    scale_dim**-0.5, cast to ``dtype``."""
+    def dense(shape, scale_dim):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * scale_dim**-0.5).to(dtype)
+    return dense
+
+
+def _expert_stacks(cfg: TextConfig, dense, quantize, device) -> tuple:
+    """The fused [L, E + ns, ...] expert stacks, drawn and quantized in
+    slabs of at most 11 experts so that no float stack is ever whole:
+    ``quantize`` maps a slab (w1 [n, 2I, D], w2 [n, I, D]) to two dicts of
+    leaves, which fill stacks allocated at the first slab."""
+    L, D, I = cfg.num_layers, cfg.hidden_size, cfg.moe_intermediate_size
+    E_t = cfg.num_experts + cfg.num_shared_experts
+    chunk = next(d for d in range(11, 0, -1) if E_t % d == 0)
+    w1 = w2 = None
+    for l in range(L):
+        for e0 in range(0, E_t, chunk):
+            q1, q2 = quantize(dense((chunk, 2 * I, D), D), dense((chunk, I, D), I))
+            if w1 is None:
+                w1, w2 = ({k: torch.empty((L, E_t) + v.shape[1:], dtype=v.dtype, device=device)
+                           for k, v in q.items()} for q in (q1, q2))
+            for dst, src in ((w1, q1), (w2, q2)):
+                for leaf, v in src.items():
+                    dst[leaf][l, e0:e0 + chunk] = v
+    return w1, w2
+
+
 def init_lm_params_serving_int4(
     cfg: TextConfig,
     generator: torch.Generator,
@@ -135,28 +185,9 @@ def init_lm_params_serving_int4(
     of at most 11 experts, so the bf16 stacks are never whole."""
     device = backend.device(device)
     L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
-    I = cfg.moe_intermediate_size
-    E_t = E + cfg.num_shared_experts
     qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
-    expert_chunk = next(d for d in range(11, 0, -1) if E_t % d == 0)
-
-    def dense(shape, scale_dim):
-        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (w * scale_dim**-0.5).to(dtype)
-
-    w1 = w2 = None
-    for l in range(L):
-        for e0 in range(0, E_t, expert_chunk):
-            n = min(expert_chunk, E_t - e0)
-            q1, q2 = quantize_expert_int4(dense((n, 2 * I, D), D), dense((n, I, D), I))
-            if w1 is None:
-                w1 = {k: torch.empty((L, E_t) + v.shape[1:], dtype=v.dtype, device=device)
-                      for k, v in q1.items()}
-                w2 = {k: torch.empty((L, E_t) + v.shape[1:], dtype=v.dtype, device=device)
-                      for k, v in q2.items()}
-            for dst, src in ((w1, q1), (w2, q2)):
-                for leaf, v in src.items():
-                    dst[leaf][l, e0:e0 + n] = v
+    dense = _dense_init(generator, device, dtype)
+    w1, w2 = _expert_stacks(cfg, dense, quantize_expert_int4, device)
 
     def dense_int4_stack(d_in, d_out):
         parts = [quantize_dense_int4(dense((1, d_in, d_out), d_in)) for _ in range(L)]
@@ -176,6 +207,60 @@ def init_lm_params_serving_int4(
         "layers": layers,
         "final_norm": torch.ones((D,), dtype=dtype, device=device),
         "lm_head": quantize_weight(dense((D, cfg.vocab_size), D)),
+    }
+
+
+def init_lm_params_serving(
+    cfg: TextConfig,
+    generator: torch.Generator,
+    *,
+    form: str = "bf16",
+    device="cuda",
+    dtype=torch.bfloat16,
+) -> dict:
+    """Random-init the decoder in the bf16 or the int8 serving form, on the
+    card unless ``device`` names another: the tree that bench.py builds
+    without ``--int4`` (bench.py:410-425: ``init_aria_params``, for int8
+    ``quantize_params``, then ``fuse_shared_experts``), with the shared
+    experts drawn as expert-shaped slabs straight into the fused [L, E +
+    ns, ...] stacks, at most 11 experts at a time, so neither a second
+    stack nor a whole float one is ever held. int8: wqkv, wo and lm_head
+    ``{"q", "s"}``, w1 quantized over D and w2 over I with ``"s8"``; embed
+    stays float in both forms."""
+    if form not in ("bf16", "int8"):
+        raise ValueError(f"form {form!r}: 'bf16' or 'int8'")
+    device = backend.device(device)
+    L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
+    qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    dense = _dense_init(generator, device, dtype)
+    int8 = form == "int8"
+
+    def experts(w1, w2):
+        if int8:
+            return (with_s8(quantize_weight(w1, input_axis=-1)),
+                    with_s8(quantize_weight(w2, input_axis=-2)))
+        return {"w": w1}, {"w": w2}
+
+    def proj(w):
+        return quantize_weight(w, input_axis=-2) if int8 else w
+
+    w1, w2 = _expert_stacks(cfg, dense, experts, device)
+    if not int8:
+        w1, w2 = w1["w"], w2["w"]
+    layers = {
+        "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "ffn_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "wqkv": proj(dense((L, D, qkv_out), D)),
+        "wo": proj(dense((L, cfg.q_size, D), cfg.q_size)),
+        "gate": dense((L, E, D), D).float(),
+        "w1": w1,
+        "w2": w2,
+    }
+    return {
+        "embed": dense((cfg.vocab_size, D), D),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "lm_head": proj(dense((D, cfg.vocab_size), D)),
     }
 
 
@@ -261,12 +346,27 @@ def _paged_attention(cache, layer: int, q, k, v, lengths, page_table, pages, slo
     return sdpa(q, k_att.transpose(1, 2).to(q.dtype), v_att.transpose(1, 2).to(q.dtype), mask)
 
 
+def _layer_weight(w, layer: int):
+    """One layer of a stacked weight: a tensor, or an int8 ``{"q", "s"}``
+    dict (the kernels' ``s8`` left out)."""
+    return {k: w[k][layer] for k in ("q", "s")} if is_quantized(w) else w[layer]
+
+
+def _project(x2d: torch.Tensor, w, layer: int) -> torch.Tensor:
+    """x [T, in] through one layer of wqkv or wo, in f32: a dense int4
+    stack through its kernel, an int8 or float one through ``linear``
+    (moe_lm.py:368-369)."""
+    if is_dense_int4(w):
+        return dense_int4(x2d, w, layer)
+    return linear(x2d, _layer_weight(w, layer), "td,df->tf")
+
+
 def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, sin,
                cache: Optional[KVCache], cache_pos, use_flash: bool,
                lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
                paged: Optional[tuple] = None):
     B, S, _ = x.shape
-    qkv = dense_int4(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1).to(x.dtype)
+    qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1).to(x.dtype)
     q_size = cfg.q_size
     kv_size = cfg.num_kv_heads * cfg.head_dim
     q = qkv[..., :q_size].reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -288,7 +388,7 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     else:
         raise NotImplementedError(
             "attention over a cache for more than one new token at a time is not ported")
-    proj = dense_int4(out.reshape(B * S, q_size), layers["wo"], layer)
+    proj = _project(out.reshape(B * S, q_size), layers["wo"], layer)
     return proj.reshape(B, S, -1).to(x.dtype)
 
 
@@ -319,9 +419,9 @@ def prefill_kernel_tile(I: int) -> Optional[int]:
 
 
 def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared) -> torch.Tensor:
-    """Routed + fused shared experts over the packed int4 stacks
-    (moe_lm.py:866-1002, single chip, eval): up to 128 tokens through
-    moe_decode_int4, more through experts_segmented_int4 (moe_prefill_int4).
+    """Routed + fused shared experts (moe_lm.py:866-1044, single chip,
+    eval): up to 128 tokens through the decode kernel of the form, more
+    through experts_segmented_int4 (int4) or the ragged path.
 
     A prefill of more than MOE_CHUNK tokens (MOE_CHUNK_LONG at 32768 and
     over) runs in slices of that size one after another, as the JAX
@@ -352,10 +452,20 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
     routing = route_topk(flat, layers["gate"][layer], cfg.moe_topk)
     indices = torch.cat([routing.indices, shared[0][:T]], dim=1)
     weights = torch.cat([routing.weights, shared[1][:T]], dim=1)
-    experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
+    if is_quantized_int4(w1):
+        experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
+        if T <= DECODE_KERNEL_MAX_TOKENS:
+            return moe_decode_int4(flat, indices, weights, *experts)
+        return experts_segmented_int4(flat, indices, weights, *experts)
     if T <= DECODE_KERNEL_MAX_TOKENS:
-        return moe_decode_int4(flat, indices, weights, *experts)
-    return experts_segmented_int4(flat, indices, weights, *experts)
+        if is_quantized(w1):
+            return moe_decode_quant(flat, indices, weights, w1["q"], w1["s8"], w2["q"], w2["s8"],
+                                    layer)
+        return moe_decode(flat, indices, weights, w1, w2, layer)
+    # the layer's dequantized int8 experts live for this call only
+    w1l, w2l = dequantize_expert_weights(_layer_weight(w1, layer), _layer_weight(w2, layer),
+                                         dtype=flat.dtype)
+    return experts_ragged(flat, indices, weights, w1l, w2l)
 
 
 def lm_forward(
@@ -383,15 +493,21 @@ def lm_forward(
         x = inputs_embeds
     B, S, _ = x.shape
     layers = params["layers"]
-    if not (is_dense_int4(layers["wqkv"]) and is_quantized_int4(layers["w1"])):
-        raise NotImplementedError(
-            "only the int4 serving form is ported (dense int4 wqkv/wo, int4 experts)")
-    if layers["w1"]["q4"].shape[1] != cfg.num_experts + cfg.num_shared_experts:
-        raise NotImplementedError("the shared experts must be fused into the int4 stacks")
-    if B * S > DECODE_KERNEL_MAX_TOKENS and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
+    w1 = layers["w1"]
+    int4 = is_quantized_int4(w1)
+    stack = w1["q4"] if int4 else w1["q"] if is_quantized(w1) else w1
+    if "shared_w1" in layers or stack.shape[1] != cfg.num_experts + cfg.num_shared_experts:
+        raise NotImplementedError("the shared experts must be fused into the expert stacks "
+                                  "(fuse_shared_experts)")
+    many = B * S > DECODE_KERNEL_MAX_TOKENS
+    if many and int4 and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
         raise NotImplementedError(
             f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's prefill "
             "kernel needs a multiple of 128; its dequantizing XLA path is not ported")
+    if many and not int4 and cfg.num_experts <= 2 * cfg.moe_topk:
+        raise NotImplementedError(
+            "at most 2 x top-k experts: the reference's capacity path (experts_grouped, "
+            "moe_lm.py:1044) is not ported")
     ft = decode_kernel_tile(cfg.moe_intermediate_size)
     if ft != cfg.moe_intermediate_size:
         raise NotImplementedError(

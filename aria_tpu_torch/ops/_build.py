@@ -55,6 +55,12 @@ SIGNATURES = {
     "aria_moe_prefill_glu": [_P] * 6 + [_I] * 5 + [_P],
     # h, tile_expert, rows_used, w2q4, w2s8, out, R, D, I, E, layer, stream
     "aria_moe_prefill_down": [_P] * 6 + [_I] * 5 + [_P],
+    # x, ids, valid, wd, w1, w2, h, part, out, T, D, I, E, U, layer, stream
+    "aria_moe_decode_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    # x, ids, valid, wd, w1, s1, w2, s2, h, part, out, T, D, I, E, U, layer, stream
+    "aria_moe_decode_int8": [_P] * 11 + [_I] * 6 + [_P],
+    # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, stream
+    "aria_gmm": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

@@ -1,24 +1,38 @@
-"""Fused MoE FFN over packed int4 experts with int8 activations (W4A8),
-for at most 128 token rows (counterpart of the ``act_int8=True`` form of
-``moe_decode_int4`` in aria_tpu/ops/moe_decode_kernel.py).
+"""The fused MoE FFN of a decode step, for at most 128 token rows, over the
+unique active experts (counterpart of aria_tpu/ops/moe_decode_kernel.py),
+in the three serving forms:
 
-    out[t] = sum over slots s of wd[t, s] * (silu(x[t] . w1g[e]) * (x[t] . w1u[e])) . w2[e]
+- ``moe_decode_int4`` (the ``act_int8=True`` form of the JAX function):
+  packed int4 experts with int8 activations (W4A8),
 
-with x quantized to int8 per (token, D-group), int8 x int4 dots accumulated
-exactly in int32, and h re-quantized to int8 per row over the whole
-intermediate before the down projection (moe_decode_kernel.py:215-285 with
-ft = I). The FFN runs once per UNIQUE active expert for all T rows; the
-combine goes through a dense [E, T] weight table (``unique_meta``, the
-counterpart of ``_unique_meta`` :44-78).
+      out[t] = sum over slots s of wd[t, s] * (silu(x[t] . w1g[e]) * (x[t] . w1u[e])) . w2[e]
 
-Kernel: ``csrc/moe_decode.cu`` (act_quant_int8, gate/up, h re-quantize,
-down projection and combine). It replaces ``moe_decode_int4`` at
-aria_tpu/ops/moe_decode_kernel.py:450 with ``_kernel_q4_a8`` :288 and
-``_ffn_q4_a8`` :227. A decode step streams 3*I*D/2 bytes per active
-expert (6.4 MB at I = 1664, D = 2560) against about 4 integer operations
-per byte per row, so it is bound by the expert-weight read; each expert's
-packed rows are read once for all T rows and unpacked in registers, with
-``__dp4a`` on the masked raw bytes.
+  with x quantized to int8 per (token, D-group), int8 x int4 dots
+  accumulated exactly in int32, and h re-quantized to int8 per row over
+  the whole intermediate before the down projection
+  (moe_decode_kernel.py:215-285 with ft = I). Kernel ``csrc/moe_decode.cu``
+  (act_quant_int8, gate/up, h re-quantize, down projection and combine);
+  it replaces :450 with ``_kernel_q4_a8`` :288 and ``_ffn_q4_a8`` :227. A
+  decode step streams 3*I*D/2 bytes per active expert (6.4 MB at I =
+  1664, D = 2560) against about 4 integer operations per byte per row, so
+  it is bound by the expert-weight read; each expert's packed rows are
+  read once for all T rows and unpacked in registers, with ``__dp4a`` on
+  the masked raw bytes.
+- ``moe_decode`` (bf16 experts, :389) and ``moe_decode_quant`` (int8
+  experts with f32 per-output-channel scales, :503), both ``_ffn`` :81:
+  gate and up are f32 dots of x with the weights in x's dtype (an int8
+  weight is exact in bf16; its scale comes after the dot), h = silu(gate)
+  * up in f32 is rounded to x's dtype, and the down dot (times its scale)
+  is added to the output with the token's combine weight, expert by
+  expert in ascending order (the JAX grid's order with one intermediate
+  tile). Kernel ``csrc/moe_decode_fp.cu``, templated on the weight type:
+  tensor-core products that stream each active expert's weights once for
+  all rows, 25.6 MB (bf16) or 12.8 MB (int8) per expert at flagship
+  width, so bound by that read.
+
+The FFN runs once per UNIQUE active expert for all T rows; the combine
+goes through a dense [E, T] weight table (``unique_meta``, the counterpart
+of ``_unique_meta`` :44-78).
 """
 
 from __future__ import annotations
@@ -160,3 +174,110 @@ def moe_decode_int4(
 
 
 moe_decode_int4.launches = 0
+
+
+def decode_rows(T: int) -> int:
+    """The token rows the bf16 and int8 kernels compute: T rounded up to
+    16, 32, 64 or 128 (the rows past T are zeros)."""
+    return next(r for r in (16, 32, 64, 128) if T <= r)
+
+
+def moe_decode_plain(x, indices, weights, w1, w2, layer: int, s1=None, s2=None):
+    """``_ffn`` (moe_decode_kernel.py:81-99) over the unique experts in
+    ascending order, in plain torch: f32 dots of x with the weights cast to
+    x's dtype; for int8 weights the scales ``s1`` (w1's s8) and ``s2``
+    (w2's s8) after each dot; h rounded to x's dtype before the down dot;
+    the result cast to x's dtype."""
+    T, D = x.shape
+    E, I = w1.shape[1], w1.shape[2] // 2
+    ids, valid, wd = unique_meta(indices, weights, E)
+    xf = x.float()
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e, ok in zip(ids.tolist(), valid.tolist()):
+        if not ok:
+            continue
+        w = w1[layer, e].to(x.dtype).float()
+        gate, up = xf @ w[:I].T, xf @ w[I:].T
+        if s1 is not None:
+            gate = gate * s1[layer, e, 0, :I]
+            up = up * s1[layer, e, 0, I:]
+        h = (gate * torch.sigmoid(gate)) * up
+        partial = h.to(x.dtype).float() @ w2[layer, e].to(x.dtype).float()
+        if s2 is not None:
+            partial = partial * s2[layer, e, 0]
+        out = out + wd[e][:, None] * partial
+    return out.to(x.dtype)
+
+
+def _launch_fp(name, x, indices, weights, w1, s1, w2, s2, layer: int) -> torch.Tensor:
+    """Check what ``csrc/moe_decode_fp.cu`` takes and launch it."""
+    T, D = x.shape
+    L, E, I2, _ = w1.shape
+    I = I2 // 2
+    if T > DECODE_KERNEL_MAX_TOKENS:
+        raise ValueError(f"{name}: {T} rows, at most {DECODE_KERNEL_MAX_TOKENS}")
+    if D % 64 or I % 64:
+        raise ValueError(f"{name}: unsupported D={D}, I={I}")
+    if not 0 <= layer < L:
+        raise IndexError(f"{name}: layer {layer} of {L}")
+    backend.require(x, "x", torch.bfloat16, (T, D))
+    backend.require(w1, "w1", w1.dtype, (L, E, I2, D))
+    backend.require(w2, "w2", w1.dtype, (L, E, I, D))
+    if s1 is not None:
+        backend.require(s1, "w1 s8", torch.float32, (L, E, 8, I2))
+        backend.require(s2, "w2 s8", torch.float32, (L, E, 8, D))
+    ids, valid, wd = unique_meta(indices, weights, E)
+    U = ids.shape[0]
+    dev = x.device
+    h = torch.empty((U, decode_rows(T), I), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((U, T, D), dtype=torch.float32, device=dev)
+    out = torch.empty((T, D), dtype=torch.bfloat16, device=dev)
+    lib, p, st = library(), backend.ptr, backend.stream()
+    head = (p(x), p(ids), p(valid), p(wd))
+    tail = (p(h), p(part), p(out), T, D, I, E, U, layer, st)
+    if s1 is None:
+        err = lib.aria_moe_decode_bf16(*head, p(w1), p(w2), *tail)
+    else:
+        err = lib.aria_moe_decode_int8(*head, p(w1), p(s1), p(w2), p(s2), *tail)
+    backend.check(err, name)
+    return out
+
+
+def moe_decode(
+    x: torch.Tensor,  # [T, D]
+    indices: torch.Tensor,  # [T, k] int32 expert ids (shared experts included)
+    weights: torch.Tensor,  # [T, k] combine weights
+    w1: torch.Tensor,  # bf16 [L, E, 2I, D] out-major, gate rows then up rows
+    w2: torch.Tensor,  # bf16 [L, E, I, D]
+    layer: int,
+) -> torch.Tensor:
+    """bf16 experts; returns [T, D] in x's dtype."""
+    if not backend.on_cuda(x, indices, weights, w1, w2):
+        return moe_decode_plain(x, indices, weights, w1, w2, layer)
+    backend.require(w1, "w1", torch.bfloat16)
+    out = _launch_fp("moe_decode", x, indices, weights, w1, None, w2, None, layer)
+    moe_decode.launches += 1
+    return out
+
+
+def moe_decode_quant(
+    x: torch.Tensor,  # [T, D]
+    indices: torch.Tensor,  # [T, k] int32
+    weights: torch.Tensor,  # [T, k]
+    w1q: torch.Tensor,  # int8 [L, E, 2I, D], a scale per row of 2I
+    w1s8: torch.Tensor,  # f32 [L, E, 8, 2I], every row the scale
+    w2q: torch.Tensor,  # int8 [L, E, I, D], a scale per column of D
+    w2s8: torch.Tensor,  # f32 [L, E, 8, D]
+    layer: int,
+) -> torch.Tensor:
+    """int8 experts; returns [T, D] in x's dtype."""
+    if not backend.on_cuda(x, indices, weights, w1q, w1s8, w2q, w2s8):
+        return moe_decode_plain(x, indices, weights, w1q, w2q, layer, w1s8, w2s8)
+    backend.require(w1q, "w1q", torch.int8)
+    out = _launch_fp("moe_decode_quant", x, indices, weights, w1q, w1s8, w2q, w2s8, layer)
+    moe_decode_quant.launches += 1
+    return out
+
+
+moe_decode.launches = 0
+moe_decode_quant.launches = 0

@@ -3,7 +3,9 @@ and the quantizer half of aria_tpu/ops/dense_int4.py).
 
 Formats, byte for byte the JAX package's:
 
-- int8 per-output-channel: ``{"q": int8, "s": f32 [..., out]}``.
+- int8 per-output-channel: ``{"q": int8, "s": f32 [..., out]}``; int8
+  experts add ``"s8"``, the scale broadcast to [..., 8, out] (w1 [L, E,
+  2I, D] scaled per row of 2I, w2 [L, E, I, D] per column of D).
 - int4 experts: w1 ``{"q4": int8 [..., 2I, D/2], "sg": bf16 [..., 8, 2I]}``
   with within-group nibble pairing over D (rows 0..ng-1 of ``sg`` are the
   D-group scales, the rank-1 row factor of w2 folded into the up half);
@@ -54,8 +56,100 @@ def quantize_weight(w: torch.Tensor, input_axis: int = -2) -> dict:
 
 
 def dequantize_weight(w: dict, input_axis: int = -2, dtype=torch.bfloat16) -> torch.Tensor:
-    s = w["s"].unsqueeze(input_axis)
-    return (w["q"].float() * s).to(dtype)
+    """q * s in f32, rounded once to ``dtype``: one pass, the f32 product
+    never stored (a layer's int8 experts are 843M weights at flagship)."""
+    q = w["q"]
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    return torch.mul(q, w["s"].unsqueeze(input_axis), out=out)
+
+
+def with_s8(qw: dict) -> dict:
+    """Attach the scale broadcast to [..., 8, out], as the expert kernels
+    read it (quant.py:59-64)."""
+    s = qw["s"]
+    return {**qw, "s8": s[..., None, :].expand(*s.shape[:-1], 8, s.shape[-1]).contiguous()}
+
+
+# the decoder's weights that the int8 serving form quantizes (quant.py:26);
+# norms, the router gate and embed stay float
+LM_QUANT_KEYS = ("wqkv", "wo", "w1", "w2", "shared_w1", "shared_w2")
+
+
+def quantize_lm_params(lm_params: dict) -> dict:
+    """The int8 serving form of the decoder (quant.py:123-141): w1 is
+    out-major [L, E, 2I, D] and quantized over D (a scale per row of 2I),
+    w2 [L, E, I, D] over I (a scale per column of D), both with ``s8``;
+    every other weight is [..., in, out] with a scale per output; lm_head
+    int8, embed unchanged."""
+    layers = dict(lm_params["layers"])
+    for key in LM_QUANT_KEYS:
+        if key not in layers:
+            continue  # shared_w1/w2 are gone after fuse_shared_experts
+        if key == "w1":
+            layers[key] = with_s8(quantize_weight(layers[key], input_axis=-1))
+        elif key == "w2":
+            layers[key] = with_s8(quantize_weight(layers[key], input_axis=-2))
+        else:
+            layers[key] = quantize_weight(layers[key], input_axis=-2)
+    return {**lm_params, "layers": layers,
+            "lm_head": quantize_weight(lm_params["lm_head"], input_axis=-2)}
+
+
+def quantize_params(params: dict) -> dict:
+    """Quantize the decoder; the ViT and projector stay as they are
+    (quant.py:144-148)."""
+    return {**params, "lm": quantize_lm_params(params["lm"])}
+
+
+def fuse_shared_experts(params: dict, num_shared: int = 2) -> dict:
+    """Append the shared MLP to the expert stacks as ``num_shared`` always-on
+    virtual experts (quant.py:67-120): its GLU is elementwise over the
+    intermediate axis, so slice j of it is an expert of width I. Returns
+    w1 [L, E+ns, 2I, D] and w2 [L, E+ns, I, D] with shared_w1/shared_w2
+    removed, for a bf16 or an int8 tree (after ``quantize_params``): an
+    int8 shared MLP is dequantized to bf16 and each virtual expert
+    quantized like the routed ones, as the JAX function does."""
+    lm = params["lm"]
+    layers = dict(lm["layers"])
+    w1, w2 = layers["w1"], layers["w2"]
+    if is_quantized_int4(w1):
+        raise NotImplementedError("fuse_shared_experts: the int4 form is built fused "
+                                  "(init_lm_params_serving_int4)")
+    quant = is_quantized(w1)
+    L, E, I2, D = (w1["q"] if quant else w1).shape
+    I = I2 // 2
+    sw1, sw2 = layers.pop("shared_w1"), layers.pop("shared_w2")  # [L, D, 2Is], [L, Is, D]
+    if is_quantized(sw1):
+        sw1 = dequantize_weight(sw1, input_axis=-2)
+        sw2 = dequantize_weight(sw2, input_axis=-2)
+    Is = sw2.shape[1]
+    if Is != num_shared * I:
+        raise ValueError(f"fuse_shared_experts: shared width {Is} is not {num_shared} x {I}")
+    # virtual expert j: rows j*I:(j+1)*I of the intermediate axis, out-major
+    g = sw1[:, :, :Is].reshape(L, D, num_shared, I).permute(0, 2, 3, 1)  # [L, ns, I, D]
+    u = sw1[:, :, Is:].reshape(L, D, num_shared, I).permute(0, 2, 3, 1)
+    v_w1 = torch.cat([g, u], dim=2)  # [L, ns, 2I, D]
+    v_w2 = sw2.reshape(L, num_shared, I, D)
+    if quant:
+        qv1 = with_s8(quantize_weight(v_w1, input_axis=-1))
+        qv2 = with_s8(quantize_weight(v_w2, input_axis=-2))
+        layers["w1"] = {k: torch.cat([w1[k], qv1[k]], dim=1) for k in w1}
+        layers["w2"] = {k: torch.cat([w2[k], qv2[k]], dim=1) for k in w2}
+    else:
+        layers["w1"] = torch.cat([w1, v_w1.to(w1.dtype)], dim=1)
+        layers["w2"] = torch.cat([w2, v_w2.to(w2.dtype)], dim=1)
+    return {**params, "lm": {**lm, "layers": layers}}
+
+
+def dequantize_expert_weights(w1, w2, dtype=torch.bfloat16):
+    """One layer's experts as float stacks for the ragged path
+    (quant.py:179-185): int8 ones dequantized (w1 over D, w2 over I), int4
+    ones unpacked, bf16 ones returned as they are."""
+    if is_quantized_int4(w1):
+        return dequantize_w1_int4(w1, dtype), dequantize_w2_int4(w2, dtype)
+    w1d = dequantize_weight(w1, input_axis=-1, dtype=dtype) if is_quantized(w1) else w1
+    w2d = dequantize_weight(w2, input_axis=-2, dtype=dtype) if is_quantized(w2) else w2
+    return w1d, w2d
 
 
 VIT_QUANT_KEYS = ("wq", "wk", "wv", "wo", "fc1_w", "fc2_w")

@@ -6,7 +6,7 @@
 1. Device: the card's name and power limit.
 2. Build the hand kernels from ``aria_tpu_torch/csrc`` (nvcc, sm_90a) and
    hold each against its plain PyTorch version at the shapes the text,
-   image and lanes paths give it, with the tolerance stated beside each,
+   image, lanes, paged and forms paths give it, with the tolerance stated beside each,
    timing kernel, plain version and, where one exists, one PyTorch call
    of the same function, beside the kernel's bound (bytes over the memory
    rate or operations over the peak rate, the larger).
@@ -23,21 +23,31 @@
    more than 128 tokens.
 5. The lanes path (bench.py's lanes child): ``BatchedEngine`` with 32
    lanes and the int4 KV cache serves 32 x 200 tokens per round, a
-   warm-up round and two timed ones; ``kv_cache_write`` and the int4
+   warm-up round and a timed one; ``kv_cache_write`` and the int4
    decode attention must launch. Then a profiled decode chunk, a greedy
    int8-KV check, and a 2-layer batched decode step against the CPU.
 6. The paged path (bench.py's lanes child with ``--paged --kv-int8``):
    ``PagedBatchedEngine`` with 32 lanes on int8 pages serves 32 x 200
    tokens per round through 128-token prefill chunks, a warm-up round and
-   two timed ones; ``paged_decode_attention`` must launch once per layer of
+   a timed one; ``paged_decode_attention`` must launch once per layer of
    every decode step. Then a profiled prefill tick and decode chunk, where
    a row's result depends on the rows beside it (op by op), two
    prefix-cache rounds at the served chunk (the first request alone,
    reported; beside a companion, held, with two planted faults that must
    exceed the limit), the tight-pool request that stalls the JAX engine,
    and a 2-layer paged chunk and decode step against the CPU.
+7. The forms (bench.py without ``--int4``): with the int4 model freed,
+   the int8 and then the bf16 serving form at full width and depth, the
+   ViT and projector bf16. int8: bench.py's image request twice sampled
+   and twice greedy through ``Engine`` (bf16 KV), bench.py's lanes child
+   through ``BatchedEngine`` (32 lanes, bf16 KV, 64 tokens, a warm-up and
+   a timed round), and a 2-layer prefill and decode step against the
+   CPU; bf16: the image request once sampled and twice greedy, and the
+   same reference. Each path must launch its form's decode MoE kernel,
+   ``gmm`` and the attention kernels, and none of the int4 kernels.
 
-Each path sets every launch count to 0 just before it runs and reads them
+Phase 2 also holds ``moe_decode``, ``moe_decode_quant`` and ``gmm`` at
+the forms' shapes. Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises and exits non-zero; without a CUDA device
 the script exits non-zero before printing any result. The line before the
 last is the kernels' JSON record (``launches`` from the newest path that
@@ -279,6 +289,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                                 max(5, 10240 // T), 3, bound))
     record("moe_prefill_int4", errs, timed)
     del w1, w2
+    check_fp_experts(device, gen, cfg, lanes, results, randn, record)
 
     # decode_attention over a 1024-position cache, int8 and bf16. The bf16
     # cache's library call is scaled_dot_product_attention with the length
@@ -524,6 +535,132 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     return results
 
 
+def _ragged_sizes(gen, M: int, E: int, empty=(0, 7, 40, 41)):
+    """E group sizes summing to M, random, with the groups in ``empty``
+    left without rows (int32 on the generator's device)."""
+    import torch
+
+    w = torch.rand(E, generator=gen, device=gen.device)
+    w[[e for e in empty if e < E - 1]] = 0
+    sizes = torch.floor(w / w.sum() * M).to(torch.int32)
+    sizes[E - 1] += M - int(sizes.sum())
+    return sizes
+
+
+def _grouped_mm(lhs, rhs_kn, sizes, ref):
+    """torch._grouped_mm on the same rows and groups (rhs as [E, K, N],
+    output rounded to bf16), the library yardstick of gmm, or None where
+    the card's torch has no such call or it does not take these operands."""
+    import torch
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        print("  library: torch._grouped_mm is missing", flush=True)
+        return None
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    try:  # its output is bf16, the operands' type
+        out = fn(lhs, rhs_kn, offs=offs)
+    except (RuntimeError, TypeError, ValueError) as exc:
+        print(f"  library: torch._grouped_mm refuses these operands ({exc})", flush=True)
+        return None
+    if _rel_err(out.float(), ref) > 1e-2:
+        print("  library: torch._grouped_mm gives another result; not timed", flush=True)
+        return None
+    return lambda: fn(lhs, rhs_kn, offs=offs)
+
+
+def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
+    """Phase 2, the bf16 and int8 forms' expert kernels at full width on
+    ``L`` layers of 64 + 2 experts (a whole 28-layer bf16 stack is 47 GB):
+    ``moe_decode`` and ``moe_decode_quant`` under top-6 + 2 shared random
+    routing at T = 1 (one stream), the lanes' T and 128; ``gmm`` in both
+    layouts at the image prefill's 512 x 8 rows and the lanes admission's
+    2048 x 8, four groups empty and tiles straddling the others, and row
+    0's bits alone in a 128-row call against among 4096 rows."""
+    import torch
+
+    from aria_tpu_torch.ops import moe as tmoe
+    from aria_tpu_torch.ops import moe_decode_kernel as mk
+    from aria_tpu_torch.ops.quant import quantize_weight, with_s8
+
+    D, I = cfg.hidden_size, cfg.moe_intermediate_size
+    E = cfg.num_experts + cfg.num_shared_experts
+    w1 = torch.empty((L, E, 2 * I, D), dtype=torch.bfloat16, device=device)
+    w2 = torch.empty((L, E, I, D), dtype=torch.bfloat16, device=device)
+    for layer in range(L):
+        for e0 in range(0, E, 11):
+            w1[layer, e0:e0 + 11] = randn(min(11, E - e0), 2 * I, D, scale=D**-0.5)
+            w2[layer, e0:e0 + 11] = randn(min(11, E - e0), I, D, scale=I**-0.5)
+    q1 = [with_s8(quantize_weight(w1[layer], input_axis=-1)) for layer in range(L)]
+    q2 = [with_s8(quantize_weight(w2[layer], input_axis=-2)) for layer in range(L)]
+    q1, q2 = ({k: torch.stack([p[k] for p in q]) for k in q[0]} for q in (q1, q2))
+    per_expert = {"moe_decode": _nbytes(w1[1, 0], w2[1, 0]),
+                  "moe_decode_quant": _nbytes(q1["q"][1, 0], q1["s"][1, 0], q2["q"][1, 0],
+                                              q2["s"][1, 0])}
+    print("moe_decode, moe_decode_quant", flush=True)
+    errs = {name: [] for name in per_expert}
+    timed = {name: [] for name in per_expert}
+    for T in dict.fromkeys((1, lanes, 128)):
+        x = randn(T, D)
+        logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
+        top, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
+        shared = torch.arange(cfg.num_experts, E, device=device).expand(T, -1)
+        indices = torch.cat([idx, shared], dim=1).to(torch.int32)
+        weights = torch.cat([torch.softmax(top, -1), torch.ones_like(shared, dtype=top.dtype)],
+                            1).to(x.dtype)
+        used = int(torch.unique(indices).numel())
+        for name, args, plain_args in (
+                ("moe_decode", (x, indices, weights, w1, w2, 1),
+                 (x, indices, weights, w1, w2, 1)),
+                ("moe_decode_quant", (x, indices, weights, q1["q"], q1["s8"], q2["q"], q2["s8"], 1),
+                 (x, indices, weights, q1["q"], q2["q"], 1, q1["s8"], q2["s8"]))):
+            kernel = getattr(mk, name)
+            got, ref = kernel(*args), mk.moe_decode_plain(*plain_args)
+            errs[name].append(_compare(
+                f"{name} T={T} ({used} experts)", got, ref, 1e-2,
+                "exact products, f32 sums in another order; h and the output round to bf16 on "
+                "both sides, so a sum at a rounding edge of h moves by one bf16 ulp"))
+            if T < 128:
+                bound = _bound(used * per_expert[name] + _nbytes(x, indices, weights, got),
+                               T * indices.shape[1] * 6 * I * D)
+                timed[name].append(_timed(
+                    f"T={T} ({used} experts)", lambda k=kernel, a=args: k(*a),
+                    lambda a=plain_args: mk.moe_decode_plain(*a), 100, 3, bound))
+    for name in per_expert:
+        record(name, errs[name], timed[name])  # T = 1 first
+    del q1, q2
+
+    print("gmm", flush=True)
+    errs, timed = [], []
+    for M in (512 * 8, lanes * 64 * 8):
+        sizes = _ragged_sizes(gen, M, E)
+        used = int((sizes > 0).sum())
+        for label, rhs, trans in (("w1 [E, 2I, D]", w1[1], True), ("w2 [E, I, D]", w2[1], False)):
+            K, N = (D, 2 * I) if trans else (I, D)
+            lhs = randn(M, K)
+            got, ref = tmoe.gmm(lhs, rhs, sizes, trans), tmoe.gmm_plain(lhs, rhs, sizes, trans)
+            errs.append(_compare(f"gmm {label} M={M} ({used} of {E} groups)", got, ref, 1e-4,
+                                 "exact bf16 products, f32 sums in another order"))
+            bound = _bound(_nbytes(lhs, sizes) + used * N * K * 2 + M * N * 4, 2 * M * N * K)
+            library = _grouped_mm(lhs, rhs.transpose(1, 2) if trans else rhs, sizes, ref)
+            timed.append(_timed(f"{label} M={M}", lambda a=(lhs, rhs, sizes, trans): tmoe.gmm(*a),
+                                lambda a=(lhs, rhs, sizes, trans): tmoe.gmm_plain(*a),
+                                max(5, 81920 // M), 3, bound, library))
+    # row 0 alone in a 128-row call against among 4096 rows in 62 groups
+    sizes = _ragged_sizes(gen, 4096, E)
+    first = int(torch.nonzero(sizes)[0])
+    alone = torch.zeros(E, dtype=torch.int32, device=device)
+    alone[first] = 128
+    lhs = randn(4096, D)
+    many, one = tmoe.gmm(lhs, w1[1], sizes, True), tmoe.gmm(lhs[:128].contiguous(), w1[1], alone,
+                                                            True)
+    if not torch.equal(many[0], one[0]):
+        raise AssertionError("gmm: row 0 gets other bits at 4096 rows than at 128")
+    print("  gmm row 0: equal bits alone in a 128-row call and among 4096 rows", flush=True)
+    record("gmm", errs, timed)  # w1 at M = 4096 first
+    del w1, w2
+
+
 KERNELS = {
     "dense_int4": ("aria_tpu_torch/csrc/dense_int4.cu", "aria_tpu/ops/dense_int4.py:124"),
     "moe_decode_int4": ("aria_tpu_torch/csrc/moe_decode.cu",
@@ -539,10 +676,18 @@ KERNELS = {
                               "aria_tpu/ops/decode_attention.py:80"),
     "paged_decode_attention": ("aria_tpu_torch/csrc/paged_attention.cu",
                                "aria_tpu/engine/paged.py:150"),
+    "moe_decode": ("aria_tpu_torch/csrc/moe_decode_fp.cu",
+                   "aria_tpu/ops/moe_decode_kernel.py:389"),
+    "moe_decode_quant": ("aria_tpu_torch/csrc/moe_decode_fp.cu",
+                         "aria_tpu/ops/moe_decode_kernel.py:503"),
+    "gmm": ("aria_tpu_torch/csrc/gmm.cu", "aria_tpu/ops/moe.py:204"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
-PATHS = ("paged", "lanes", "image", "text")  # newest first: a kernel's "launches" is the first with any
+INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
+FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
+# newest first: a kernel's "launches" is the first with any
+PATHS = ("image-bf16", "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
 
 
 def _wrappers():
@@ -550,7 +695,8 @@ def _wrappers():
     from aria_tpu_torch.ops.dense_int4 import dense_int4
     from aria_tpu_torch.ops.flash import flash_causal
     from aria_tpu_torch.ops.kv_write import kv_cache_write
-    from aria_tpu_torch.ops.moe_decode_kernel import moe_decode_int4
+    from aria_tpu_torch.ops.moe import gmm
+    from aria_tpu_torch.ops.moe_decode_kernel import moe_decode, moe_decode_int4, moe_decode_quant
     from aria_tpu_torch.ops.moe_prefill_kernel import moe_prefill_int4
     from aria_tpu_torch.ops.paged_attention import paged_decode_attention
     from aria_tpu_torch.ops.vit_flash import vit_flash
@@ -559,7 +705,8 @@ def _wrappers():
             "decode_attention": decode_attention, "flash_causal": flash_causal,
             "vit_flash": vit_flash, "moe_prefill_int4": moe_prefill_int4,
             "kv_cache_write": kv_cache_write, "decode_attention_int4": decode_attention_int4,
-            "paged_decode_attention": paged_decode_attention}
+            "paged_decode_attention": paged_decode_attention, "moe_decode": moe_decode,
+            "moe_decode_quant": moe_decode_quant, "gmm": gmm}
 
 
 def _tree_map(fn, tree):
@@ -710,6 +857,62 @@ def _device_ms(fn) -> tuple[float, object]:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3, events
 
 
+def _image_prefill(device, params, cfg, engine, pv, prompt, first_token, gpu):
+    """bench.py's image prefill again, outside the engine: the features'
+    shape, finite logits whose argmax is the first greedy token, and on the
+    card the warm encode and prefill times with the device time by kernel."""
+    import torch
+
+    from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
+    from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+
+    text = cfg.text
+    lm = params["lm"]
+    bucket = max(32, 1 << (len(prompt) - 1).bit_length())  # the engine's: 512 at 272 tokens
+    tokens = torch.zeros((1, bucket), dtype=torch.long, device=device)
+    tokens[0, :len(prompt)] = torch.tensor(prompt)
+
+    def encode():
+        return encode_images(params, cfg, pv)
+
+    def prefill(feats):
+        embeds = prepare_embeddings(params, cfg, tokens, image_features=feats)
+        cache = KVCache.init(text, 1, engine.max_seq_len, engine.cache_dtype, device=device)
+        return lm_forward(lm, text, inputs_embeds=embeds,
+                          positions=torch.arange(bucket, device=device), cache=cache,
+                          cache_pos=0, logit_position=len(prompt) - 1,
+                          causal_flash=True).logits
+
+    feats = encode()
+    logits = prefill(feats)
+    n_q = cfg.projector.query_count(cfg.vision.patches_per_side**2)
+    if feats.shape != (1, n_q, text.hidden_size) or not torch.isfinite(feats).all():
+        raise AssertionError(f"image features: shape {tuple(feats.shape)} or non-finite")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite image prefill logits")
+    if int(logits[0, 0].argmax()) != first_token:
+        raise AssertionError("image prefill argmax differs from the first greedy token")
+    if device.type != "cuda":
+        return
+    # where the image-to-first-token time goes, warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = encode()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill(feats)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    enc_ms, enc_ev = _device_ms(encode)
+    pre_ms, pre_ev = _device_ms(lambda: prefill(feats))
+    print(f"  image prefill, warm ({gpu}): ViT + projector {(t1 - t0) * 1e3:.1f} ms wall, "
+          f"{enc_ms:.1f} ms device; LM prefill ({bucket} tokens) {(t2 - t1) * 1e3:.1f} ms "
+          f"wall, {pre_ms:.1f} ms device", flush=True)
+    for label, ev in (("ViT + projector", enc_ev), ("LM prefill", pre_ev)):
+        print(f"  device time by kernel, {label} ({gpu}):\n"
+              + ev.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+
+
 def run_image(device, gen, lm, cfg=None, gpu=""):
     """Phase 4: bench.py's image request (bench.py:387-461) through
     ``Engine.generate``: one uint8 980px crop, the prompt [11]*8 + [9]*256 +
@@ -721,8 +924,7 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
 
     from aria_tpu_torch import AriaConfig
     from aria_tpu_torch.engine.generate import Engine, GenerationConfig
-    from aria_tpu_torch.models.aria import encode_images, normalize_pixels, prepare_embeddings
-    from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+    from aria_tpu_torch.models.aria import encode_images, normalize_pixels
     from aria_tpu_torch.models.projector import init_projector_params
     from aria_tpu_torch.models.vit import init_vit_params
     from aria_tpu_torch.ops.quant import quantize_projector_params, quantize_vit_params
@@ -764,47 +966,7 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
 
     with torch.inference_mode():
         pv = torch.as_tensor(pixels, device=device)
-        bucket = 512  # the engine's bucket for bench.py's 272-token prompt
-        tokens = torch.zeros((1, bucket), dtype=torch.long, device=device)
-        tokens[0, :len(prompt)] = torch.tensor(prompt)
-
-        def encode():
-            return encode_images(params, cfg, pv)
-
-        def prefill(feats):
-            embeds = prepare_embeddings(params, cfg, tokens, image_features=feats)
-            cache = KVCache.init(text, 1, engine.max_seq_len, torch.int8, device=device)
-            return lm_forward(lm, text, inputs_embeds=embeds,
-                              positions=torch.arange(bucket, device=device), cache=cache,
-                              cache_pos=0, logit_position=len(prompt) - 1,
-                              causal_flash=True).logits
-
-        feats = encode()
-        logits = prefill(feats)
-        if feats.shape != (1, n_q, text.hidden_size) or not torch.isfinite(feats).all():
-            raise AssertionError(f"image features: shape {tuple(feats.shape)} or non-finite")
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite image prefill logits")
-        if int(logits[0, 0].argmax()) != results[2].tokens[0]:
-            raise AssertionError("image prefill argmax differs from the first greedy token")
-        if device.type == "cuda":
-            # where the image-to-first-token time goes, warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            feats = encode()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            prefill(feats)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            enc_ms, enc_ev = _device_ms(encode)
-            pre_ms, pre_ev = _device_ms(lambda: prefill(feats))
-            print(f"  image prefill, warm ({gpu}): ViT + projector {(t1 - t0) * 1e3:.1f} ms wall, "
-                  f"{enc_ms:.1f} ms device; LM prefill (512 tokens) {(t2 - t1) * 1e3:.1f} ms "
-                  f"wall, {pre_ms:.1f} ms device", flush=True)
-            for label, ev in (("ViT + projector", enc_ev), ("LM prefill", pre_ev)):
-                print(f"  device time by kernel, {label}:\n"
-                      + ev.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+        _image_prefill(device, params, cfg, engine, pv, prompt, results[2].tokens[0], gpu)
 
         # the card against the CPU's plain versions at reduced depth
         ref_layers = 2
@@ -838,34 +1000,20 @@ def _sync(device):
 
 MOE_KERNELS = ("act_quant_kernel", "gateup_kernel", "hquant_kernel", "down_kernel",
                "combine_kernel")  # csrc/moe_decode.cu, the W4A8 MoE of a decode step
+FP_MOE_KERNELS = ("fp_gateup_kernel", "fp_down_kernel", "fp_combine_kernel")  # moe_decode_fp.cu
 
 
-def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3):
-    """Phase 5: bench.py's lanes child (bench.py:48-104, 247-256) through
-    the port's ``BatchedEngine``: 32 lanes, max_seq_len 320, T 0.8, top-k
-    200, decode_chunk 50, the int4 KV cache; each round submits 32 prompts
-    of 48 tokens drawn from ``np.random.RandomState(0).randint(5, 1000)``
-    with 200 new tokens each; one warm-up round and two timed ones. Then a
-    profiled decode chunk, a greedy check with the int8 KV cache and a
-    2-layer batched decode step against the CPU's plain versions. Returns
-    each kernel's launch count over the rounds."""
+def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu) -> float:
+    """bench.py's lanes rounds on ``engine``: each submits ``lanes``
+    prompts of 48 tokens drawn from ``np.random.RandomState(0).randint(5,
+    1000)`` with ``new_tokens`` each, times the grouped admission on its
+    own and the decode steps after it, and checks every request. Returns
+    the last round's wall ms per decode step."""
     import numpy as np
     import torch
 
-    from aria_tpu_torch import AriaConfig
-    from aria_tpu_torch.engine.server import BatchedEngine
-
-    cfg = cfg or AriaConfig()
-    text = cfg.text
-    top = min(1000, text.vocab_size)
-    wrappers = _wrappers()
-    for w in wrappers.values():  # count only what the lanes path launches
-        w.launches = 0
-    engine = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320, temperature=0.8,
-                           top_k=200, decode_chunk=50, cache_dtype="int4", rng_seed=SEED)
     rng = np.random.RandomState(0)
-    print(f"lanes: {lanes} lanes, int4 KV over {engine.S} positions, {new_tokens} tokens per "
-          f"request, {rounds} rounds (the first warms up)", flush=True)
+    vocab = engine.cfg.text.vocab_size
     with torch.inference_mode():  # the engine's state is inference tensors
         for rnd in range(rounds):
             for _ in range(lanes):
@@ -887,7 +1035,7 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3):
                 if r.error or len(r.generated) != new_tokens:
                     raise AssertionError(f"lanes request {r.uid}: {len(r.generated)} tokens, "
                                          f"error {r.error}")
-                if not all(0 <= t < text.vocab_size for t in r.generated):
+                if not all(0 <= t < vocab for t in r.generated):
                     raise AssertionError(f"lanes request {r.uid}: token out of range")
             steps = chunks * engine.decode_chunk
             per_step = sum(w.launches - admitted[n] for n, w in wrappers.items()) / steps
@@ -898,6 +1046,34 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3):
                   f"{(t1 - t0) * 1e3:.1f} ms wall; decode {steps} steps, "
                   f"{step_ms:.2f} ms wall per step; {per_step:.1f} hand-kernel "
                   f"launches per step ({gpu})", flush=True)
+    return step_ms
+
+
+def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
+    """Phase 5: bench.py's lanes child (bench.py:48-104, 247-256) through
+    the port's ``BatchedEngine``: 32 lanes, max_seq_len 320, T 0.8, top-k
+    200, decode_chunk 50, the int4 KV cache; each round submits 32 prompts
+    of 48 tokens drawn from ``np.random.RandomState(0).randint(5, 1000)``
+    with 200 new tokens each; one warm-up round and one timed one. Then a
+    profiled decode chunk, a greedy check with the int8 KV cache and a
+    2-layer batched decode step against the CPU's plain versions. Returns
+    each kernel's launch count over the rounds."""
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.server import BatchedEngine
+
+    cfg = cfg or AriaConfig()
+    text = cfg.text
+    top = min(1000, text.vocab_size)
+    wrappers = _wrappers()
+    for w in wrappers.values():  # count only what the lanes path launches
+        w.launches = 0
+    engine = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320, temperature=0.8,
+                           top_k=200, decode_chunk=50, cache_dtype="int4", rng_seed=SEED)
+    print(f"lanes: {lanes} lanes, int4 KV over {engine.S} positions, {new_tokens} tokens per "
+          f"request, {rounds} rounds (the first warms up)", flush=True)
+    step_ms = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
     for name in ("kv_cache_write", "decode_attention_int4"):
@@ -913,11 +1089,13 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3):
     return launches
 
 
-def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label="lanes"):
+def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label="lanes",
+                        moe_kernels=None):
     """A decode chunk of ``steps`` steps over all lanes under the profiler:
-    device busy time, the W4A8 MoE's share and kernel launches per step;
-    the idle share is against ``step_ms``, the wall per step of the last
-    round with the profiler off."""
+    device busy time, the decode MoE's share (the W4A8 kernels unless
+    ``moe_kernels`` names others) and kernel launches per step; the idle
+    share is against ``step_ms``, the wall per step of the last round with
+    the profiler off."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -936,10 +1114,10 @@ def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label
     dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_ev) / steps / 1e3
     moe = sum(e.self_device_time_total for e in dev_ev
-              if any(k in e.key for k in MOE_KERNELS)) / steps / 1e3
+              if any(k in e.key for k in moe_kernels or MOE_KERNELS)) / steps / 1e3
     n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
     print(f"  profiled decode chunk ({steps} steps x {lanes} lanes): wall {wall * 1e3:.2f} ms per "
-          f"step (profiler on), device busy {busy:.3f} ms per step, of it the W4A8 MoE "
+          f"step (profiler on), device busy {busy:.3f} ms per step, of it the decode MoE "
           f"{moe:.3f} ms; {n_launch:.0f} kernel launches per step; device idle share "
           f"{1 - busy / step_ms:.3f} of the {step_ms:.2f} ms step (profiler off)", flush=True)
     print(f"  device time by kernel, {label} decode:\n"
@@ -1041,7 +1219,7 @@ def _lanes_reference(device, lm, text, top, ref_layers=2):
 PREFIX_LOGIT_LIMIT = 5e-2  # relative first-token logit error, cached against uncached pages
 
 
-def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3,
+def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2,
               max_seq=512, page_size=256, chunk=128):
     """Phase 6: bench.py's lanes child with ``--paged --kv-int8``
     (bench.py:48-104) through the port's ``PagedBatchedEngine``: 32 lanes,
@@ -1049,7 +1227,7 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=3,
     pages), 128-token prefill chunks, T 0.8, top-k 200, decode_chunk 50,
     int8 pages; each round submits 32 prompts of 48 tokens drawn from
     ``np.random.RandomState(0).randint(5, 1000)`` with 200 new tokens each;
-    one warm-up round and two timed ones. Then a profiled prefill tick and
+    one warm-up round and one timed one. Then a profiled prefill tick and
     decode chunk, the batch-dependence diagnosis, two prefix-cache rounds,
     the tight-pool request and a 2-layer paged chunk and decode step
     against the CPU's plain versions. Returns each kernel's launch count
@@ -1444,6 +1622,155 @@ def _paged_reference(device, lm, text, top, page_size, ref_layers=2):
         raise AssertionError(f"reference paged logits differ: relative error {rel}")
 
 
+def _check_form_path(path, launches, form, image=True):
+    """A forms path went through its form's kernels and left the int4 ones."""
+    want = (FORM_DECODE[form], "gmm", "flash_causal")
+    want += ("decode_attention", "vit_flash") if image else ("kv_cache_write",)
+    for name in want:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the {path} path")
+    for name in INT4_ONLY:
+        if launches[name]:
+            raise AssertionError(f"{name} was launched by the {path} path")
+
+
+def _form_reference(lm, text, prompt, device, ref_layers=2):
+    """The first ``ref_layers`` decoder layers on the card against the CPU's
+    plain versions: a prefill of the prompt (over 128 tokens: the ragged
+    path) into a bf16 cache, then one decode step, each with the witness
+    beside the limit."""
+    import torch
+
+    from aria_tpu_torch.models.moe_lm import KVCache, embed_tokens, lm_forward
+
+    cut = dataclasses.replace(text, num_layers=ref_layers)
+    small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}
+    small_cpu = _tree_map(lambda v: v.cpu(), small)
+    S = len(prompt)
+    toks = torch.tensor([prompt])
+    new = torch.tensor([[prompt[0]]])
+    cpu = torch.device("cpu")
+
+    def run(params, dev, bump=False):
+        emb = embed_tokens(params["embed"], toks.to(dev))
+        if bump:
+            emb = _bump_half(emb)
+        cache = KVCache.init(cut, 1, S + 64, torch.bfloat16, device=dev)
+        pre = lm_forward(params, cut, inputs_embeds=emb, positions=torch.arange(S, device=dev),
+                         cache=cache, cache_pos=0, causal_flash=True).logits
+        dec = lm_forward(params, cut, new.to(dev), positions=torch.full((1,), S, device=dev),
+                         cache=cache, cache_pos=S).logits
+        return pre.float().cpu(), dec.float().cpu()
+
+    got, ref, ulp = run(small, device), run(small_cpu, cpu), run(small_cpu, cpu, bump=True)
+    for i, label in enumerate((f"prefill of {S} tokens", "then a decode step")):
+        rel, witness = _rel_err(got[i], ref[i]), _rel_err(ulp[i], ref[i])
+        print(f"  reference ({ref_layers} layers, bf16 KV, {label}, CPU plain versions): "
+              f"relative logit error {rel:.3e} (limit {REF_LIMIT:.0e}), top-1 agreement "
+              f"{_top1(got[i], ref[i]):.3f}; witness, CPU with one bf16 ulp on half the prompt "
+              f"embeddings: relative error {witness:.3e}, top-1 agreement "
+              f"{_top1(ulp[i], ref[i]):.3f}", flush=True)
+        if not rel <= REF_LIMIT:
+            raise AssertionError(f"reference logits ({label}) differ: relative error {rel}")
+
+
+def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_rounds=2):
+    """Phase 7: the int8 and bf16 serving forms at full width and depth, as
+    bench.py builds them without ``--int4`` (bench.py:410-425), random
+    weights from the phase's generator: ``init_lm_params_serving`` draws the
+    fused expert stacks in slabs, and the ViT and projector stay bf16.
+
+    int8: ``Engine(max_seq_len=1024)`` with a bf16 KV cache serves
+    bench.py's image request twice sampled (200 tokens, T 0.8, top-k 200)
+    and twice greedy (64 tokens); ``BatchedEngine`` serves bench.py's lanes
+    child (``--lanes 32 --experts 64``: 32 prompts of 48 tokens, bf16 KV,
+    max_seq_len 512, here 64 new tokens, a warm-up round and a timed one);
+    then a 2-layer card-against-CPU reference. bf16, after the int8 model
+    is freed: the image request once sampled and twice greedy, and the
+    same reference. Each path must go through its form's kernels and none
+    of the int4 ones. Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.moe_lm import init_lm_params_serving
+    from aria_tpu_torch.models.projector import init_projector_params
+    from aria_tpu_torch.models.vit import init_vit_params
+
+    cfg = cfg or AriaConfig()
+    text, vision = cfg.text, cfg.vision
+    top = min(1000, text.vocab_size)
+    side = vision.image_size
+    pixels = np.random.RandomState(SEED).randint(0, 256, (1, 3, side, side), dtype=np.uint8)
+    n_q = cfg.projector.query_count(vision.patches_per_side**2)
+    prompt = [11] * 8 + [cfg.image_token_id] * n_q + [13] * 8
+    sampled = GenerationConfig(max_new_tokens=200, temperature=0.8, top_k=200, decode_chunk=50)
+    greedy = GenerationConfig(max_new_tokens=64, temperature=0.0, decode_chunk=50)
+    rng = np.random.RandomState(SEED + 2)
+    ref_prompt = [int(t) for t in rng.randint(1, text.vocab_size, 200)]
+    launches = {}
+    for form in ("int8", "bf16"):
+        t0 = time.perf_counter()
+        params = {"lm": init_lm_params_serving(text, gen, form=form, device=device),
+                  "vision": init_vit_params(vision, gen, device=device),
+                  "projector": init_projector_params(cfg.projector, gen, device=device)}
+        _sync(device)
+        gib = torch.cuda.memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+        print(f"forms, {form}: decoder {text.num_layers} layers, {text.num_experts}+"
+              f"{text.num_shared_experts} experts in the {form} serving form, bf16 "
+              f"{vision.num_layers}-layer ViT and projector, initialised in "
+              f"{time.perf_counter() - t0:.1f} s ({gib:.2f} GiB on the card)", flush=True)
+        engine = Engine(params, cfg, max_seq_len=1024, cache_dtype=torch.bfloat16, rng_seed=SEED)
+        n_sampled = 2 if form == "int8" else 1
+        requests = [(f"image, T 0.8 top-k 200 ({i + 1} of {n_sampled})", prompt, sampled)
+                    for i in range(n_sampled)]
+        requests += [("image greedy", prompt, greedy), ("image greedy again", prompt, greedy)]
+        results, counts = _serve(engine, requests, _wrappers(), text.vocab_size, gpu,
+                                 pixel_values=pixels)
+        if results[-1].tokens != results[-2].tokens:
+            raise AssertionError(f"the repeated greedy image request ({form}) gave another stream")
+        _check_form_path(f"image-{form}", counts, form)
+        launches[f"image-{form}"] = counts
+        r = results[n_sampled - 1]
+        print(f"  image request ({form} form, bench.py's): image-to-first-token "
+              f"{r.prefill_s * 1e3:.1f} ms, decode {r.tokens_per_s:.2f} tok/s ({gpu})", flush=True)
+        with torch.inference_mode():
+            _image_prefill(device, params, cfg, engine, torch.as_tensor(pixels, device=device),
+                           prompt, results[-2].tokens[0], gpu)
+        del engine
+        if form == "int8":
+            wrappers = _wrappers()
+            for w in wrappers.values():  # count only what the lanes path launches
+                w.launches = 0
+            lanes_engine = BatchedEngine({"lm": params["lm"]}, cfg, max_lanes=lanes,
+                                         max_seq_len=512, temperature=0.8, top_k=200,
+                                         decode_chunk=50, cache_dtype=torch.bfloat16,
+                                         rng_seed=SEED)
+            print(f"lanes ({form} form): {lanes} lanes, bf16 KV over {lanes_engine.S} positions, "
+                  f"{lanes_new} tokens per request, {lanes_rounds} rounds (the first warms up)",
+                  flush=True)
+            step_ms = _lanes_rounds(device, lanes_engine, wrappers, lanes, top, lanes_new,
+                                    lanes_rounds, gpu)
+            counts = {name: w.launches for name, w in wrappers.items()}
+            print(f"  launches: {counts}", flush=True)
+            _check_form_path("lanes-int8", counts, form, image=False)
+            launches["lanes-int8"] = counts
+            if device.type == "cuda":
+                with torch.inference_mode():
+                    _profile_lanes_chunk(lanes_engine, lanes, top, lanes_new, step_ms,
+                                         label="lanes-int8", moe_kernels=FP_MOE_KERNELS)
+            del lanes_engine
+        with torch.inference_mode():
+            _form_reference(params["lm"], text, ref_prompt, device)
+        del params
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -1463,25 +1790,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     _build.library()
 
     def gen(phase):  # each phase draws from its own seeded stream
         return torch.Generator(device=device).manual_seed(SEED + phase)
 
+    def done(phase, since):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"phase {phase}: {time.perf_counter() - since:.1f} s", flush=True)
+        return time.perf_counter()
+
+    t0 = done("build", t0)
     with torch.inference_mode():
         results = check_kernels(device, gen(2))
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    t0 = done("kernels", t0)
     lm, text_launches = run_slice(device, gen(3), gpu=gpu)
+    t0 = done("text", t0)
     launches = {"text": text_launches, "image": run_image(device, gen(4), lm, gpu=gpu)}
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    t0 = done("image", t0)
     launches["lanes"] = run_lanes(device, lm, gpu=gpu)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    t0 = done("lanes", t0)
     launches["paged"] = run_paged(device, lm, gpu=gpu)
-    torch.cuda.synchronize()
+    del lm  # the forms' models do not fit beside the int4 one
+    t0 = done("paged", t0)
+    launches.update(run_forms(device, gen(7), gpu=gpu))
+    done("forms", t0)
     for name in KERNELS:
         if not any(launches[path][name] for path in PATHS):
             raise AssertionError(f"{name} was launched on no path")

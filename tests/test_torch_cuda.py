@@ -17,11 +17,17 @@ from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import dense_int4 as di
 from aria_tpu_torch.ops import flash as fl
 from aria_tpu_torch.ops import kv_write as kw
+from aria_tpu_torch.ops import moe as tmoe
 from aria_tpu_torch.ops import moe_decode_kernel as mk
 from aria_tpu_torch.ops import moe_prefill_kernel as mp
 from aria_tpu_torch.ops import paged_attention as pg
 from aria_tpu_torch.ops import vit_flash as vf
-from aria_tpu_torch.ops.quant import quantize_dense_int4, quantize_expert_int4
+from aria_tpu_torch.ops.quant import (
+    quantize_dense_int4,
+    quantize_expert_int4,
+    quantize_weight,
+    with_s8,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -333,3 +339,113 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 1, used)
     with pytest.raises(TypeError):  # the used row count is int32
         mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 0, used.long())
+
+
+def _fp_stack(g, E, I, D, form):
+    """One layer of 64 + 2 experts at full width, bf16 or int8 with s8."""
+    w1, w2 = _randn(g, 1, E, 2 * I, D, scale=D**-0.5), _randn(g, 1, E, I, D, scale=I**-0.5)
+    if form == "bf16":
+        return w1, None, w2, None
+    q1, q2 = with_s8(quantize_weight(w1, input_axis=-1)), with_s8(quantize_weight(w2, input_axis=-2))
+    return q1["q"], q1["s8"], q2["q"], q2["s8"]
+
+
+def _top6(g, T, E):
+    top = torch.topk(torch.randn((T, E - 2), generator=g, device=g.device), 6, dim=-1)
+    shared = torch.arange(E - 2, E, device=g.device).expand(T, 2)
+    ind = torch.cat([top.indices, shared], 1).to(torch.int32)
+    wts = torch.cat([torch.softmax(top.values, -1), torch.ones((T, 2), device=g.device)], 1)
+    return ind, wts.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_moe_decode_fp_kernels_match_plain(cuda, form):
+    """moe_decode (bf16) and moe_decode_quant (int8) at full width, 64 + 2
+    experts, top-6 + 2 shared, T = 1, 32 and 128."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    E, I, D = 66, 1664, 2560
+    w1, s1, w2, s2 = _fp_stack(g, E, I, D, form)
+    for T in (1, 32, 128):
+        ind, wts = _top6(g, T, E)
+        x = _randn(g, T, D)
+        if form == "bf16":
+            wrapper, args = mk.moe_decode, (x, ind, wts, w1, w2, 0)
+            ref = mk.moe_decode_plain(*args)
+        else:
+            wrapper, args = mk.moe_decode_quant, (x, ind, wts, w1, s1, w2, s2, 0)
+            ref = mk.moe_decode_plain(x, ind, wts, w1, w2, 0, s1, s2)
+        launches = wrapper.launches
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == launches + 1
+        # exact products and f32 sums in another order; h and the output
+        # round to bf16 on both sides, so a sum at a rounding edge of h
+        # moves by one bf16 ulp
+        err = (got.float() - ref.float()).abs().max()
+        assert err <= 1e-2 * ref.float().abs().max(), (T, err.item())
+
+
+def _groups(g, M, E, empty):
+    """E group sizes summing to M, the groups in ``empty`` without rows."""
+    w = torch.rand(E, generator=g, device=g.device)
+    w[list(empty)] = 0
+    sizes = torch.floor(w / w.sum() * M).to(torch.int32)
+    sizes[E - 1 if E - 1 not in empty else 0] += M - int(sizes.sum())
+    return sizes
+
+
+@pytest.mark.parametrize("transpose_rhs", [True, False])
+def test_gmm_kernel_matches_plain(cuda, transpose_rhs):
+    """The w1 layout [E, 2I, D] and the w2 layout [E, I, D] at 512 x 8 and
+    2048 x 8 rows, 66 groups with empty ones and tiles that straddle group
+    boundaries."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    E, I, D = 66, 1664, 2560
+    K, N = (D, 2 * I) if transpose_rhs else (I, D)
+    rhs = _randn(g, E, N, K, scale=K**-0.5) if transpose_rhs else _randn(g, E, K, N, scale=K**-0.5)
+    for M in (4096, 16384):
+        sizes = _groups(g, M, E, empty=(0, 7, 40, 41))
+        lhs = _randn(g, M, K)
+        launches = tmoe.gmm.launches
+        got = tmoe.gmm(lhs, rhs, sizes, transpose_rhs)
+        torch.cuda.synchronize()
+        assert tmoe.gmm.launches == launches + 1
+        ref = tmoe.gmm_plain(lhs, rhs, sizes, transpose_rhs)
+        # exact bf16 products, f32 sums in another order
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+
+
+def test_gmm_row_gets_the_same_bits_at_every_row_count(cuda):
+    """Row 0 alone in a 128-row call and among 4096 rows in 66 groups."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    E, K, N = 66, 2560, 3328
+    rhs = _randn(g, E, N, K, scale=K**-0.5)
+    lhs = _randn(g, 4096, K)
+    sizes = _groups(g, 4096, E, empty=(3,))
+    small = torch.zeros(E, dtype=torch.int32, device=cuda)
+    small[0] = 128
+    big = tmoe.gmm(lhs, rhs, sizes, True)
+    one = tmoe.gmm(lhs[:128].contiguous(), rhs, small, True)
+    assert torch.equal(big[0], one[0])
+
+
+def test_fp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w1, w2 = _randn(g, 1, 4, 256, 256), _randn(g, 1, 4, 128, 256)
+    ind = torch.zeros((129, 2), dtype=torch.int32, device=cuda)
+    ind[:, 1] = 1
+    wts = torch.ones((129, 2), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # more than 128 rows
+        mk.moe_decode(_randn(g, 129, 256), ind, wts, w1, w2, 0)
+    with pytest.raises(TypeError):
+        mk.moe_decode(_randn(g, 2, 256, dtype=torch.float32), ind[:2], wts[:2], w1, w2, 0)
+    with pytest.raises(IndexError):
+        mk.moe_decode(_randn(g, 2, 256), ind[:2], wts[:2], w1, w2, 1)
+    sizes = torch.tensor([100, 28], dtype=torch.int32, device=cuda)
+    rhs = _randn(g, 2, 256, 128)
+    with pytest.raises(ValueError):  # rows not whole 128-row tiles
+        tmoe.gmm(_randn(g, 100, 128), rhs, sizes, True)
+    with pytest.raises(TypeError):  # group sizes are int32
+        tmoe.gmm(_randn(g, 128, 128), rhs, sizes.long(), True)
+    with pytest.raises(ValueError):  # rhs not [E, N, K]
+        tmoe.gmm(_randn(g, 128, 256), rhs, sizes, True)

@@ -38,6 +38,7 @@ from aria_tpu.engine import paged as jpaged
 from aria_tpu.engine.server import PagedBatchedEngine as JPagedBatchedEngine
 from aria_tpu.models import moe_lm as jm
 from aria_tpu.ops import backend as jbackend
+from aria_tpu.ops import quant as jquant
 from aria_tpu.ops.quant import dequantize_weight
 from aria_tpu_torch.checkpoint.from_jax import from_jax
 from aria_tpu_torch.config import TextConfig, config_from_dict
@@ -142,6 +143,23 @@ def test_chunks_cover_both_moe_branches(served):
     rows = served[1]
     assert 6 * 32 in rows["prefill"]
     assert {32, 64} <= set(rows["decode"])
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8"])
+def test_serving_forms_match_jax_paged_engine(interpret, form):
+    """The bf16 and int8 serving forms (bench.py:410-425; f32 here) in both
+    paged engines, f32 pages: the 6-lane first chunk takes the ragged
+    path, the later chunks and the decode steps the form's decode MoE."""
+    lm = {"lm": jm.init_lm_params(jax.random.PRNGKey(SEED), JTEXT, dtype=jnp.float32)}
+    if form == "int8":
+        lm = jquant.quantize_params(lm)
+    lm = jquant.fuse_shared_experts(lm)
+    tparams = {"lm": from_jax(jax.tree.map(np.asarray, lm["lm"]), device="cpu")}
+    jeng = JPagedBatchedEngine(lm, JCFG, cache_dtype=jnp.float32, **ENGINE)
+    teng = PagedBatchedEngine(tparams, CFG, cache_dtype=torch.float32, **ENGINE)
+    want, got = _serve(jeng), _serve(teng)
+    assert all(len(g) == N_NEW for g in got[0])
+    assert got == want
 
 
 # ------------------------------------------------------------ PagePool

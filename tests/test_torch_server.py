@@ -35,6 +35,7 @@ from aria_tpu.engine.generate import GenerationConfig as JGen
 from aria_tpu.engine.server import BatchedEngine as JBatchedEngine
 from aria_tpu.models import moe_lm as jm
 from aria_tpu.ops import backend as jbackend
+from aria_tpu.ops import quant as jquant
 from aria_tpu.ops.quant import dequantize_weight
 from aria_tpu_torch.checkpoint.from_jax import from_jax
 from aria_tpu_torch.config import config_from_dict
@@ -114,6 +115,26 @@ def test_batched_streams_equal_single_stream_engine(params, streams, cache):
     single = Engine(tparams, CFG, max_seq_len=128, cache_dtype=CACHES[cache][1])
     gen = GenerationConfig(max_new_tokens=N_NEW, temperature=0.0, top_k=None, decode_chunk=4)
     assert streams[cache][1] == [single.generate(p, gen).tokens for p in PROMPTS]
+
+
+@pytest.mark.parametrize("cache", ["float32", "int8"])
+def test_int8_form_greedy_streams_match_jax_batched_engine(interpret, cache):
+    """The int8 serving form (bench.py:410-425: init, quantize_params,
+    fuse_shared_experts; f32 here) in both engines: 3 lanes, decode_chunk
+    3, the int8 decode MoE at every step and for the grouped prefills
+    (buckets of 32 and 64 rows, at most 128 tokens each). The int4 cache
+    is left out: its bf16 rounding moves a token here, as the int4 form's
+    streams are pinned to prompts where none moves (module docstring)."""
+    lm = jquant.fuse_shared_experts(jquant.quantize_params(
+        {"lm": jm.init_lm_params(jax.random.PRNGKey(SEED), JTEXT, dtype=jnp.float32)}))["lm"]
+    jdt, tdt = (jnp.float32, torch.float32) if cache == "float32" else CACHES[cache]
+    jeng = JBatchedEngine({"lm": lm}, JCFG, max_lanes=3, max_seq_len=128, decode_chunk=3,
+                          cache_dtype=jdt)
+    teng = BatchedEngine({"lm": from_jax(jax.tree.map(np.asarray, lm), device="cpu")}, CFG,
+                         max_lanes=3, max_seq_len=128, decode_chunk=3, cache_dtype=tdt)
+    want, got = _serve(jeng), _serve(teng)
+    assert all(len(g) == N_NEW for g in got)
+    assert got == want
 
 
 def test_int4_single_stream_engine_matches_jax(params):
