@@ -16,6 +16,11 @@
 // the causal edge. p is rounded to bf16 for p*v and kept in f32 for the
 // softmax sum, as in the TPU kernel. Scalar FMA, no tensor cores: speed
 // is later work.
+//
+// With a non-null `lse` the kernel also writes each query row's f32
+// log-sum-exp of its scaled scores, lse [B, H, S] = m + log(s), which the
+// backward (flash_bwd.cu) recomputes the probabilities from; the output
+// is the same with or without it.
 
 #include "common.cuh"
 
@@ -29,7 +34,7 @@ constexpr int KSTRIDE = D + 1;
 __global__ void __launch_bounds__(WARPS * 32)
 flash_causal_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    int S, int H, float scale) {
+                    float* __restrict__ lse, int S, int H, float scale) {
   __shared__ float qs[WARPS][D];
   __shared__ float ks[KT * KSTRIDE];
   __shared__ float vs[KT * D];
@@ -102,16 +107,18 @@ flash_causal_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
     for (int i = 0; i < D / 32; ++i)
       out[base + (size_t)qi * row_stride + lane + 32 * i] = __float2bfloat16(acc[i] / s);
+    if (lse != nullptr && lane == 0) lse[((size_t)b * H + h) * S + qi] = m + logf(s);
   }
 }
 
 }  // namespace
 
+// lse: f32 [B, H, S], or null (serving)
 ARIA_EXPORT int aria_flash_causal(const void* q, const void* k, const void* v, void* out,
-                                  int B, int S, int H, float scale, void* stream) {
+                                  void* lse, int B, int S, int H, float scale, void* stream) {
   dim3 grid((S + WARPS - 1) / WARPS, H, B);
   flash_causal_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, S, H, scale);
+      (__nv_bfloat16*)out, (float*)lse, S, H, scale);
   return cudaGetLastError();
 }

@@ -1,11 +1,12 @@
-"""The Aria MoE decoder on the serving path (counterpart of
-aria_tpu/models/moe_lm.py, serving forms only).
+"""The Aria MoE decoder (counterpart of aria_tpu/models/moe_lm.py): the
+serving forms and training.
 
 Parameters are the JAX package's tree, leaf for leaf (see
 ``checkpoint/from_jax.py``): every per-layer leaf is stacked on a leading
-[L] axis, linear weights are right-multiply [in, out], and the shared
-experts are fused into the expert stacks as always-on experts. Three
-serving forms:
+[L] axis and linear weights are right-multiply [in, out]. The training
+tree (``init_lm_params``) is float with the shared experts as their own
+MLP (``shared_w1``, ``shared_w2``); the serving forms fuse them into the
+expert stacks as always-on experts:
 
 - int4 (``init_lm_params_serving_int4``): dense int4 wqkv/wo ``{"q4t",
   "sg"}``, int4 expert stacks, int8 ``{"q", "s"}`` embed and lm_head;
@@ -17,17 +18,27 @@ serving forms:
 The layer loop is a Python loop over a layer index; the kernels index the
 whole weight and cache stacks with it, so no per-layer slice is copied.
 Attention has two branches, both hand kernels: causal flash over the fresh
-k/v of a from-zero prefill, and decode attention over the cache for one
-new token; wqkv/wo go through ``dense_int4`` in the int4 form and through
-``linear`` (a torch product, as the JAX package leaves it to XLA) in the
-others. The MoE (moe_lm.py:932-1044) takes, up to 128 tokens, the decode
-kernel of the form (``moe_decode_int4``, ``moe_decode_quant``,
+k/v of a from-zero prefill (and of training, where autograd runs its
+backward kernel), and decode attention over the cache for one new token;
+wqkv/wo go through ``dense_int4`` in the int4 form and through ``linear``
+(an f32 torch product, as the JAX package leaves it to XLA) in the others.
+The MoE (moe_lm.py:929-1044) takes, in serving, up to 128 tokens, the
+decode kernel of the form (``moe_decode_int4``, ``moe_decode_quant``,
 ``moe_decode``); above that the int4 form takes the segmented prefill
 kernel, and the others dequantize the layer's experts (int8 only, for this
 call) and take the ragged path (``experts_ragged``, two ``gmm`` kernels).
-The KV cache (bf16, int8, or head-pair packed int4) is written in place:
-at one offset for every lane, or at a per-lane offset (continuous
-batching), where one new token per lane goes through the
+In training, and wherever expert LoRA is given, the MoE is the JAX
+package's XLA dispatch: expert LoRA on the capacity path
+(``experts_grouped``), at most 32 tokens on ``experts_gather``, more on
+``experts_ragged`` when there are more than 2 x top-k experts (its
+backward is ``gmm_dlhs`` and ``tgmm``), else ``experts_grouped``; the
+router adds its z and aux losses, and there is no MoE slicing. LoRA
+adapters (``train/lora.py``) add their deltas to wqkv, wo, shared_w1 and
+shared_w2 and ride inside the expert GLU. ``remat`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) as ``jax.checkpoint`` does the
+scanned body. The KV cache (bf16, int8, or head-pair packed int4) is
+written in place: at one offset for every lane, or at a per-lane offset
+(continuous batching), where one new token per lane goes through the
 ``kv_cache_write`` kernel.
 
 With a ``page_table`` the cache is the paged server's ``PagedKVCache``
@@ -45,6 +56,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from aria_tpu_torch.config import TextConfig
 from aria_tpu_torch.ops import backend
@@ -53,7 +65,13 @@ from aria_tpu_torch.ops.decode_attention import decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.flash import flash_causal
 from aria_tpu_torch.ops.kv_write import kv_cache_write
-from aria_tpu_torch.ops.moe import experts_ragged, route_topk
+from aria_tpu_torch.ops.moe import (
+    experts_gather,
+    experts_grouped,
+    experts_ragged,
+    glu,
+    route_topk,
+)
 from aria_tpu_torch.ops.moe_decode_kernel import (
     DECODE_KERNEL_MAX_TOKENS,
     moe_decode,
@@ -138,6 +156,12 @@ class KVCache:
 class LMOutput(NamedTuple):
     logits: torch.Tensor  # [B, S, V] f32
     cache: Optional[KVCache]
+    z_loss: Optional[torch.Tensor] = None  # f32 scalars, summed over layers
+    aux_loss: Optional[torch.Tensor] = None
+
+# Up to this many tokens the training MoE gathers each token's experts
+# (moe_lm.py:46).
+GATHER_PATH_MAX_TOKENS = 32
 
 
 def _dense_init(generator, device, dtype):
@@ -147,6 +171,43 @@ def _dense_init(generator, device, dtype):
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return (w * scale_dim**-0.5).to(dtype)
     return dense
+
+
+def init_lm_params(cfg: TextConfig, generator: torch.Generator, *, device="cuda",
+                   dtype=torch.bfloat16) -> dict:
+    """Random-init the training tree of moe_lm.py:122-146, on the card unless
+    ``device`` names another: float weights, the router gate f32, the
+    shared experts unfused. Each [L, ...] stack is drawn one layer at a
+    time, so the f32 draws never hold a whole stack (a full-width w1 is 15
+    G weights)."""
+    device = backend.device(device)
+    L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
+    I, Is = cfg.moe_intermediate_size, cfg.shared_intermediate_size
+    qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    dense = _dense_init(generator, device, dtype)
+
+    def stack(shape, scale_dim):
+        out = torch.empty((L,) + shape, dtype=dtype, device=device)
+        for layer in range(L):
+            out[layer] = dense(shape, scale_dim)
+        return out
+
+    return {
+        "embed": dense((cfg.vocab_size, D), D),
+        "layers": {
+            "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
+            "ffn_norm": torch.ones((L, D), dtype=dtype, device=device),
+            "wqkv": stack((D, qkv_out), D),
+            "wo": stack((cfg.q_size, D), cfg.q_size),
+            "gate": stack((E, D), D).float(),
+            "w1": stack((E, 2 * I, D), D),
+            "w2": stack((E, I, D), I),
+            "shared_w1": stack((D, 2 * Is), D),
+            "shared_w2": stack((Is, D), Is),
+        },
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "lm_head": dense((D, cfg.vocab_size), D),
+    }
 
 
 def _expert_stacks(cfg: TextConfig, dense, quantize, device) -> tuple:
@@ -361,12 +422,23 @@ def _project(x2d: torch.Tensor, w, layer: int) -> torch.Tensor:
     return linear(x2d, _layer_weight(w, layer), "td,df->tf")
 
 
+def _lora_delta(x: torch.Tensor, ab: Optional[dict], layer: int, scale: float):
+    """One layer's single-adapter LoRA delta x @ a @ b * scale in x's dtype
+    (moe_lm.py:264-280): the products in f32 (a and b are f32)."""
+    h = torch.einsum("...d,dr->...r", x.float(), ab["a"][layer].float())
+    return scale * torch.einsum("...r,rf->...f", h, ab["b"][layer].float()).to(x.dtype)
+
+
 def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, sin,
                cache: Optional[KVCache], cache_pos, use_flash: bool,
                lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
-               paged: Optional[tuple] = None):
+               paged: Optional[tuple] = None, lora: Optional[dict] = None,
+               lora_scale: float = 0.0):
     B, S, _ = x.shape
-    qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1).to(x.dtype)
+    qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1)
+    if lora and "wqkv" in lora:
+        qkv = qkv + _lora_delta(x, lora["wqkv"], layer, lora_scale)
+    qkv = qkv.to(x.dtype)
     q_size = cfg.q_size
     kv_size = cfg.num_kv_heads * cfg.head_dim
     q = qkv[..., :q_size].reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -388,8 +460,11 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     else:
         raise NotImplementedError(
             "attention over a cache for more than one new token at a time is not ported")
-    proj = _project(out.reshape(B * S, q_size), layers["wo"], layer)
-    return proj.reshape(B, S, -1).to(x.dtype)
+    out = out.reshape(B, S, q_size)
+    proj = _project(out.reshape(B * S, q_size), layers["wo"], layer).reshape(B, S, -1)
+    if lora and "wo" in lora:
+        proj = proj + _lora_delta(out, lora["wo"], layer, lora_scale)
+    return proj.to(x.dtype)
 
 
 def _shared_slots(cfg: TextConfig, T: int, dtype, device):
@@ -418,54 +493,92 @@ def prefill_kernel_tile(I: int) -> Optional[int]:
     return next((f for f in (512, 256, 128) if I % f == 0), None)
 
 
-def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared) -> torch.Tensor:
-    """Routed + fused shared experts (moe_lm.py:866-1044, single chip,
-    eval): up to 128 tokens through the decode kernel of the form, more
-    through experts_segmented_int4 (int4) or the ragged path.
+def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared,
+             training: bool = False, lora: Optional[dict] = None, lora_scale: float = 0.0):
+    """The routed experts, and the shared ones fused in as always-on slots
+    (``shared``) or as their own MLP (moe_lm.py:763-1057, single chip).
+    Returns (out [B, S, D], z_loss, aux_loss).
 
-    A prefill of more than MOE_CHUNK tokens (MOE_CHUNK_LONG at 32768 and
-    over) runs in slices of that size one after another, as the JAX
-    package's lax.map does; exact, as routing is per token. A token count
-    past the slice that is not a multiple of it raises NotImplementedError:
-    the JAX package runs it unsliced, and the port has not been run at
-    such sizes (prompt buckets are powers of two, so the engine never
-    makes one)."""
+    A serving prefill of more than MOE_CHUNK tokens (MOE_CHUNK_LONG at
+    32768 and over) runs in slices of that size one after another, as the
+    JAX package's lax.map does; exact, as routing is per token. A token
+    count past the slice that is not a multiple of it raises
+    NotImplementedError: the JAX package runs it unsliced, and the port has
+    not been run at such sizes (prompt buckets are powers of two, so the
+    engine never makes one). Training is never sliced (moe_lm.py:871)."""
     B, S, D = x.shape
     flat = x.reshape(-1, D)
     T = flat.shape[0]
     chunk = MOE_CHUNK_LONG if T >= 32768 else MOE_CHUNK
-    if T > chunk:
+    if T > chunk and not training:
         if T % chunk:
             raise NotImplementedError(
                 f"an MoE call over {T} tokens, past the {chunk}-token slice and not a "
                 "multiple of it, is not ported")
-        outs = [_moe_ffn_tokens(layers, cfg, layer, flat[i:i + chunk], shared)
-                for i in range(0, T, chunk)]
-        return torch.cat(outs).reshape(B, S, D)
-    return _moe_ffn_tokens(layers, cfg, layer, flat, shared).reshape(B, S, D)
+        outs = [_moe_ffn_tokens(layers, cfg, layer, flat[i:i + chunk], shared, training, lora,
+                                lora_scale)[0] for i in range(0, T, chunk)]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return torch.cat(outs).reshape(B, S, D), zero, zero
+    out, z_loss, aux_loss = _moe_ffn_tokens(layers, cfg, layer, flat, shared, training, lora,
+                                            lora_scale)
+    return out.reshape(B, S, D), z_loss, aux_loss
 
 
-def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tensor,
-                    shared) -> torch.Tensor:
+def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tensor, shared,
+                    training: bool, lora: Optional[dict], lora_scale: float):
     T = flat.shape[0]
     w1, w2 = layers["w1"], layers["w2"]
-    routing = route_topk(flat, layers["gate"][layer], cfg.moe_topk)
-    indices = torch.cat([routing.indices, shared[0][:T]], dim=1)
-    weights = torch.cat([routing.weights, shared[1][:T]], dim=1)
-    if is_quantized_int4(w1):
+    routing = route_topk(flat, layers["gate"][layer], cfg.moe_topk,
+                         z_loss_coeff=cfg.moe_z_loss_coeff,
+                         aux_loss_coeff=cfg.moe_aux_loss_coeff, training=training)
+    indices, weights = routing.indices, routing.weights
+    if shared is not None:
+        indices = torch.cat([indices, shared[0][:T]], dim=1)
+        weights = torch.cat([weights, shared[1][:T]], dim=1)
+    expert_lora = lora is not None and ("w1" in lora or "w2" in lora)
+    if expert_lora or training:
+        w1l, w2l = w1[layer], w2[layer]
+        if expert_lora:  # inside the GLU: the capacity path (moe_lm.py:1026-1033)
+            lw1, lw2 = (None if lora.get(n) is None else
+                        {f: lora[n][f][layer] for f in ("a", "b")} for n in ("w1", "w2"))
+            out = experts_grouped(flat, indices, weights, w1l, w2l, lora_w1=lw1, lora_w2=lw2,
+                                  lora_scale=lora_scale)
+        elif T <= GATHER_PATH_MAX_TOKENS:
+            out = experts_gather(flat, indices, weights, w1l, w2l)
+        elif cfg.num_experts > 2 * cfg.moe_topk:
+            out = experts_ragged(flat, indices, weights, w1l, w2l)
+        else:
+            out = experts_grouped(flat, indices, weights, w1l, w2l)
+    elif is_quantized_int4(w1):
         experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
         if T <= DECODE_KERNEL_MAX_TOKENS:
-            return moe_decode_int4(flat, indices, weights, *experts)
-        return experts_segmented_int4(flat, indices, weights, *experts)
-    if T <= DECODE_KERNEL_MAX_TOKENS:
+            out = moe_decode_int4(flat, indices, weights, *experts)
+        else:
+            out = experts_segmented_int4(flat, indices, weights, *experts)
+    elif T <= DECODE_KERNEL_MAX_TOKENS:
         if is_quantized(w1):
-            return moe_decode_quant(flat, indices, weights, w1["q"], w1["s8"], w2["q"], w2["s8"],
-                                    layer)
-        return moe_decode(flat, indices, weights, w1, w2, layer)
-    # the layer's dequantized int8 experts live for this call only
-    w1l, w2l = dequantize_expert_weights(_layer_weight(w1, layer), _layer_weight(w2, layer),
-                                         dtype=flat.dtype)
-    return experts_ragged(flat, indices, weights, w1l, w2l)
+            out = moe_decode_quant(flat, indices, weights, w1["q"], w1["s8"], w2["q"], w2["s8"],
+                                   layer)
+        else:
+            out = moe_decode(flat, indices, weights, w1, w2, layer)
+    else:
+        # the layer's dequantized int8 experts live for this call only
+        w1l, w2l = dequantize_expert_weights(_layer_weight(w1, layer), _layer_weight(w2, layer),
+                                             dtype=flat.dtype)
+        if cfg.num_experts > 2 * cfg.moe_topk:
+            out = experts_ragged(flat, indices, weights, w1l, w2l)
+        else:
+            out = experts_grouped(flat, indices, weights, w1l, w2l)
+    if shared is None:  # the shared MLP (moe_lm.py:1049-1056)
+        h = linear(flat, _layer_weight(layers["shared_w1"], layer), "td,df->tf")
+        if lora and "shared_w1" in lora:
+            h = h + _lora_delta(flat, lora["shared_w1"], layer, lora_scale)
+        h = glu(h.to(flat.dtype))
+        shared_out = linear(h, _layer_weight(layers["shared_w2"], layer), "tf,fd->td")
+        if lora and "shared_w2" in lora:
+            shared_out = shared_out + _lora_delta(h, lora["shared_w2"], layer, lora_scale)
+        out = out + shared_out.to(flat.dtype)
+    return out, routing.z_loss, routing.aux_loss
 
 
 def lm_forward(
@@ -480,13 +593,19 @@ def lm_forward(
     logit_position=None,  # logits at this position only: an int, or [B] per row
     causal_flash: Optional[bool] = None,  # caller asserts causal-from-0 attention
     page_table: Optional[torch.Tensor] = None,  # [B, MAXP] int32: ``cache`` is paged
+    training: bool = False,  # router losses, the training MoE dispatch
+    lora: Optional[dict] = None,  # {"layers": {name: {"a": [L, ...], "b": [L, ...]}}}
+    lora_scale: float = 0.0,
+    remat: bool = False,  # recompute each layer in the backward
 ) -> LMOutput:
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
     token, it attends the cache (decode-attention kernel) up to
     ``cache_pos + 1`` for each lane. With a ``page_table`` the cache is a
     ``PagedKVCache`` and token i of lane b attends logical positions up to
-    ``cache_pos[b] + i``. The cache is updated in place and returned."""
+    ``cache_pos[b] + i``. The cache is updated in place and returned, with
+    the router's z and aux losses summed over the layers (0 unless
+    ``training``)."""
     if inputs_embeds is None:
         x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
     else:
@@ -496,25 +615,28 @@ def lm_forward(
     w1 = layers["w1"]
     int4 = is_quantized_int4(w1)
     stack = w1["q4"] if int4 else w1["q"] if is_quantized(w1) else w1
-    if "shared_w1" in layers or stack.shape[1] != cfg.num_experts + cfg.num_shared_experts:
-        raise NotImplementedError("the shared experts must be fused into the expert stacks "
-                                  "(fuse_shared_experts)")
+    fused = "shared_w1" not in layers
+    if stack.shape[1] != cfg.num_experts + (cfg.num_shared_experts if fused else 0):
+        raise ValueError(f"expert stack of {stack.shape[1]} experts: {cfg.num_experts} routed"
+                         + (f" + {cfg.num_shared_experts} fused shared" if fused else ""))
+    lora_layers = lora["layers"] if lora is not None else None
+    expert_lora = lora_layers is not None and ("w1" in lora_layers or "w2" in lora_layers)
+    if (training or expert_lora) and isinstance(w1, dict):
+        raise NotImplementedError(
+            "training or expert LoRA over quantized experts is QLoRA (_experts_lora_blocked "
+            "and _pin_default_layout, moe_lm.py:655-760): ROADMAP queue 2 item 3")
     many = B * S > DECODE_KERNEL_MAX_TOKENS
-    if many and int4 and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
+    if not training and many and int4 and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
         raise NotImplementedError(
             f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's prefill "
             "kernel needs a multiple of 128; its dequantizing XLA path is not ported")
-    if many and not int4 and cfg.num_experts <= 2 * cfg.moe_topk:
-        raise NotImplementedError(
-            "at most 2 x top-k experts: the reference's capacity path (experts_grouped, "
-            "moe_lm.py:1044) is not ported")
     ft = decode_kernel_tile(cfg.moe_intermediate_size)
-    if ft != cfg.moe_intermediate_size:
+    if not (training or expert_lora) and ft != cfg.moe_intermediate_size:
         raise NotImplementedError(
             f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's decode "
             f"kernel takes a tile ft={ft}; only ft equal to the whole intermediate is ported")
     if cfg.num_kv_heads != cfg.num_heads:
-        raise NotImplementedError("the decode-attention kernel is MHA only")
+        raise NotImplementedError("the attention kernels are MHA only")
     if positions is None:
         positions = torch.arange(S, device=x.device)
     cos, sin = precompute_rope(positions, cfg.head_dim, cfg.rope_base)
@@ -544,14 +666,24 @@ def lm_forward(
     if cache is not None and not use_flash:
         lengths = (cache_pos + S if per_lane else
                    torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device))
-    shared = _shared_slots(cfg, B * S, x.dtype, x.device)
+    shared = _shared_slots(cfg, B * S, x.dtype, x.device) if fused else None
 
-    for layer in range(cfg.num_layers):
+    def layer_fn(x, layer):
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
-                           lengths, rows, paged)
+                           lengths, rows, paged, lora_layers, lora_scale)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
-        x = x + _moe_ffn(layers, cfg, layer, normed, shared)
+        out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
+                                         lora_layers, lora_scale)
+        return x + out, z_loss, aux_loss
+
+    z_loss = aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(cfg.num_layers):
+        if remat:
+            x, zl, al = checkpoint(layer_fn, x, layer, use_reentrant=False)
+        else:
+            x, zl, al = layer_fn(x, layer)
+        z_loss, aux_loss = z_loss + zl, aux_loss + al
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if isinstance(logit_position, torch.Tensor):  # one position per row
@@ -559,4 +691,4 @@ def lm_forward(
     elif logit_position is not None:
         x = x[:, logit_position:logit_position + 1]
     logits = linear(x, params["lm_head"], "bsd,dv->bsv")
-    return LMOutput(logits, cache)
+    return LMOutput(logits, cache, z_loss, aux_loss)

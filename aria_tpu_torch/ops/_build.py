@@ -42,8 +42,10 @@ SIGNATURES = {
     # k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, rows, slots,
     # B, R, Hc, S, row_bytes, Hs, scale_bytes, layer, stream
     "aria_kv_write": [_P] * 10 + [_I] * 8 + [_P],
-    # q, k, v, out, B, S, H, scale, stream
-    "aria_flash_causal": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse, B, S, H, scale, stream
+    "aria_flash_causal": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # q, k, v, o, do, lse, di, dq, dk, dv, B, S, H, scale, stream
+    "aria_flash_causal_bwd": [_P] * 10 + [_I] * 3 + [_F, _P],
     # x, xq, sx, T, D, ng, stream
     "aria_act_quant_int8": [_P, _P, _P, _I, _I, _I, _P],
     # xq, sx, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, hq, sh, hsum, part, out,
@@ -59,8 +61,10 @@ SIGNATURES = {
     "aria_moe_decode_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # x, ids, valid, wd, w1, s1, w2, s2, h, part, out, T, D, I, E, U, layer, stream
     "aria_moe_decode_int8": [_P] * 11 + [_I] * 6 + [_P],
-    # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, stream
-    "aria_gmm": [_P] * 4 + [_I] * 5 + [_P],
+    # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, lhs_f32, stream
+    "aria_gmm": [_P] * 4 + [_I] * 6 + [_P],
+    # lhs, grad, group_sizes, out, M, K, N, E, stream
+    "aria_tgmm": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

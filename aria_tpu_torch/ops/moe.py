@@ -1,29 +1,35 @@
-"""Top-k routing, the GLU, and the dropless ragged expert path
-(counterpart of aria_tpu/ops/moe.py:44-86 and :204-248).
+"""Top-k routing with the MoE losses, the GLU, and the three expert paths:
+per-token gather, capacity dispatch and the dropless ragged path
+(counterpart of aria_tpu/ops/moe.py).
 
 Softmax is taken over the top-k logits only, in f32, and cast back to the
-activation dtype. Only the eval-mode router is ported: the slice serves and
-does not train, so the z and aux losses are not computed.
+activation dtype. In training the router also gives the z loss (over the
+log-sum-exp of all the logits) and the switch load-balancing loss (over the
+full softmax), moe.py:44-79.
 
+``experts_gather`` (at most 32 tokens) and ``experts_grouped`` (the
+capacity path, with single-adapter expert LoRA inside the GLU) are torch
+products with f32 outputs, as the JAX package leaves them to XLA.
 ``experts_ragged`` sorts the routing slots by expert and runs both expert
-products as ragged grouped matmuls (``gmm``, the forward of megablox's
-``gmm``) with the group sizes on the device; everything around the two
-products is torch ops, as the JAX package leaves it to XLA. Kernel:
-``csrc/gmm.cu``, bf16 in and f32 out, for rhs [E, N, K] (w1,
-``transpose_rhs``) and [E, K, N] (w2); its notes give the tiling. The
-backward (megablox's custom VJP, ``tgmm``) belongs to training and is not
-ported.
+products as ragged grouped matmuls with the group sizes on the device, and
+differentiates them as megablox's custom VJP does (megablox/ops.py:63-106):
+the lhs gradient is ``gmm`` of the cotangent with the rhs, transpose_rhs
+flipped, in the lhs dtype (``gmm_dlhs``), and the rhs gradient is ``tgmm``
+of the lhs and the cotangent, in the rhs dtype (transposed back for w1).
+Kernels: ``csrc/gmm.cu`` (``aria_gmm`` forward and lhs gradient,
+``aria_tgmm``); its notes give the tiling and the f32 split.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops._build import library
+from aria_tpu_torch.ops.quant import matmul_f32
 
 GMM_ROWS = 128  # gmm's row tile: the ragged path pads the sorted rows to it
 
@@ -31,19 +37,101 @@ GMM_ROWS = 128  # gmm's row tile: the ragged path pads the sorted rows to it
 class RouterOutput(NamedTuple):
     weights: torch.Tensor  # [T, k] combine weights
     indices: torch.Tensor  # [T, k] int32 expert ids
+    z_loss: torch.Tensor  # f32 scalar (0 unless training)
+    aux_loss: torch.Tensor  # f32 scalar (0 unless training)
 
 
-def route_topk(x: torch.Tensor, gate_weight: torch.Tensor, topk: int) -> RouterOutput:
+def route_topk(x: torch.Tensor, gate_weight: torch.Tensor, topk: int, *,
+               z_loss_coeff: float = 0.0, aux_loss_coeff: float = 0.0,
+               training: bool = False) -> RouterOutput:
     """x [T, D], gate_weight [E, D] (f32); logits in f32."""
     logits = x.float() @ gate_weight.float().T
     top_logits, top_indices = torch.topk(logits, topk, dim=-1)
     scores = torch.softmax(top_logits, dim=-1)
-    return RouterOutput(scores.to(x.dtype), top_indices.to(torch.int32))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    z_loss = aux_loss = zero
+    if training:
+        E = gate_weight.shape[0]
+        z = torch.logsumexp(logits, dim=-1)
+        z_loss = torch.mean(torch.square(z)) * z_loss_coeff
+        tokens_per_expert = torch.zeros(E, dtype=torch.int32, device=x.device).scatter_add_(
+            0, top_indices.reshape(-1), torch.ones(top_indices.numel(), dtype=torch.int32,
+                                                   device=x.device))
+        probs = torch.softmax(logits, dim=-1)
+        aux_loss = torch.sum(torch.mean(probs, dim=0) * tokens_per_expert) * (
+            E / (logits.shape[0] * topk) * aux_loss_coeff)
+    return RouterOutput(scores.to(x.dtype), top_indices.to(torch.int32), z_loss, aux_loss)
 
 
 def glu(x: torch.Tensor) -> torch.Tensor:
     gate, up = x.chunk(2, dim=-1)
     return F.silu(gate) * up
+
+
+def experts_gather(x, indices, weights, w1, w2) -> torch.Tensor:
+    """The few-token path (moe.py:86-101): each token's experts' weights
+    gathered, products in f32 from the upcast operands."""
+    w1_g = w1[indices.long()].float()  # [T, k, 2I, D]
+    w2_g = w2[indices.long()].float()  # [T, k, I, D]
+    h = glu(torch.einsum("td,tkfd->tkf", x.float(), w1_g).to(x.dtype))
+    out = torch.einsum("tkf,tkfd->tkd", h.float(), w2_g)
+    return torch.einsum("tkd,tk->td", out, weights.float()).to(x.dtype)
+
+
+def _dispatch_indices(indices: torch.Tensor, num_experts: int, capacity: int):
+    """Per routing slot, its row in the [E*C] buffer (moe.py:104-124):
+    returns (slot_dest [T*k], token_ids [T*k]), slots past an expert's
+    capacity sent to the trash row E*C."""
+    T, k = indices.shape
+    flat_e = indices.reshape(-1).long()
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(num_experts, dtype=torch.long, device=indices.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    ranks = torch.arange(T * k, device=indices.device) - starts[flat_e[order]]
+    pos_in_expert = torch.empty_like(ranks).index_copy_(0, order, ranks)
+    slot_dest = torch.where(pos_in_expert < capacity, flat_e * capacity + pos_in_expert,
+                            num_experts * capacity)
+    token_ids = torch.arange(T, device=indices.device).repeat_interleave(k)
+    return slot_dest, token_ids
+
+
+def experts_grouped(
+    x: torch.Tensor,  # [T, D]
+    indices: torch.Tensor,  # [T, k]
+    weights: torch.Tensor,  # [T, k]
+    w1: torch.Tensor,  # [E, 2I, D]
+    w2: torch.Tensor,  # [E, I, D]
+    capacity: Optional[int] = None,
+    lora_w1: Optional[dict] = None,  # {"a": [E, D, r], "b": [E, r, 2I]}
+    lora_w2: Optional[dict] = None,  # {"a": [E, I, r], "b": [E, r, D]}
+    lora_scale: float = 0.0,
+) -> torch.Tensor:
+    """The capacity path (moe.py:127-201): tokens scattered into an [E, C,
+    D] buffer (C = T by default: dropless), batched products in f32 with
+    the per-expert LoRA deltas inside the GLU (fc1 before it, fc2 after
+    it), the gather back and the combine over k in f32. Returns [T, D] in
+    x's dtype. The multi-adapter selector of the JAX function is not
+    ported."""
+    T, D = x.shape
+    E, k = w1.shape[0], indices.shape[1]
+    C = T if capacity is None else capacity
+    slot_dest, token_ids = _dispatch_indices(indices, E, C)
+    buf = x.new_zeros((E * C + 1, D)).index_put((slot_dest,), x[token_ids])
+    buf = buf[:E * C].reshape(E, C, D)
+    h = matmul_f32(buf, w1.transpose(1, 2))
+    if lora_w1 is not None:
+        hr = torch.einsum("ecd,edr->ecr", buf.float(), lora_w1["a"].float())
+        h = h + lora_scale * torch.einsum("ecr,erf->ecf", hr, lora_w1["b"].float())
+    h = glu(h.to(x.dtype))
+    out = matmul_f32(h, w2)
+    if lora_w2 is not None:
+        outr = torch.einsum("ecf,efr->ecr", h.float(), lora_w2["a"].float())
+        out = out + lora_scale * torch.einsum("ecr,erd->ecd", outr, lora_w2["b"].float())
+    out = torch.cat([out.to(x.dtype).reshape(E * C, D), x.new_zeros((1, D))])
+    per_slot = out[slot_dest].reshape(T, k, D)
+    combined = torch.einsum("tkd,tk->td", per_slot.float(), weights.float())
+    return combined.to(x.dtype)
 
 
 def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -62,8 +150,36 @@ def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     return out
 
 
+def tgmm_plain(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """out[g] = lhs[rows of g]^T . grad[rows of g] in f32, [E, K, N] in
+    ``out_dtype``; an empty group's slice is zero."""
+    E, K, N = group_sizes.shape[0], lhs.shape[1], grad.shape[1]
+    out = torch.zeros((E, K, N), dtype=torch.float32, device=lhs.device)
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        if n:
+            out[e] = lhs[start:start + n].float().T @ grad[start:start + n].float()
+        start += n
+    return out.to(out_dtype)
+
+
+def _gmm_launch(lhs, rhs, group_sizes, out, transpose_rhs: bool, lhs_f32: bool) -> None:
+    M, K = lhs.shape
+    E, N = rhs.shape[0], out.shape[1]
+    if M % GMM_ROWS or K % 32 or N % 128:
+        raise ValueError(f"gmm: unsupported M={M}, K={K}, N={N}")
+    backend.require(lhs, "lhs", torch.float32 if lhs_f32 else torch.bfloat16, (M, K))
+    backend.require(rhs, "rhs", torch.bfloat16, (E, N, K) if transpose_rhs else (E, K, N))
+    backend.require(group_sizes, "group_sizes", torch.int32, (E,))
+    p = backend.ptr
+    err = library().aria_gmm(p(lhs), p(rhs), p(group_sizes), p(out), M, K, N, E,
+                             int(transpose_rhs), int(lhs_f32), backend.stream())
+    backend.check(err, "gmm")
+
+
 def gmm(
-    lhs: torch.Tensor,  # [M, K], rows sorted by group
+    lhs: torch.Tensor,  # [M, K] bf16, rows sorted by group
     rhs: torch.Tensor,  # [E, N, K] with transpose_rhs, else [E, K, N]
     group_sizes: torch.Tensor,  # int32 [E], summing to M
     transpose_rhs: bool = False,
@@ -72,24 +188,80 @@ def gmm(
     [M, N] f32, as megablox's ``gmm`` with ``preferred_element_type=f32``."""
     if not backend.on_cuda(lhs, rhs, group_sizes):
         return gmm_plain(lhs, rhs, group_sizes, transpose_rhs)
-    M, K = lhs.shape
-    E = rhs.shape[0]
     N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
-    if M % GMM_ROWS or K % 32 or N % 128:
-        raise ValueError(f"gmm: unsupported M={M}, K={K}, N={N}")
-    backend.require(lhs, "lhs", torch.bfloat16, (M, K))
-    backend.require(rhs, "rhs", torch.bfloat16, (E, N, K) if transpose_rhs else (E, K, N))
-    backend.require(group_sizes, "group_sizes", torch.int32, (E,))
-    out = torch.empty((M, N), dtype=torch.float32, device=lhs.device)
-    p = backend.ptr
-    err = library().aria_gmm(p(lhs), p(rhs), p(group_sizes), p(out), M, K, N, E,
-                             int(transpose_rhs), backend.stream())
-    backend.check(err, "gmm")
+    out = torch.empty((lhs.shape[0], N), dtype=torch.float32, device=lhs.device)
+    _gmm_launch(lhs, rhs, group_sizes, out, transpose_rhs, lhs_f32=False)
     gmm.launches += 1
     return out
 
 
+def gmm_dlhs(grad: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+             transpose_rhs: bool, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The lhs gradient of ``gmm``: grad [M, N] f32 . rhs (``transpose_rhs``
+    as the forward's flipped), in ``out_dtype``, summed in f32 (megablox
+    ops.py:80-88). On the card: grad f32, out bf16."""
+    if not backend.on_cuda(grad, rhs, group_sizes):
+        return gmm_plain(grad, rhs, group_sizes, transpose_rhs).to(out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"gmm_dlhs: the kernel gives bf16, not {out_dtype}")
+    N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    out = torch.empty((grad.shape[0], N), dtype=torch.bfloat16, device=grad.device)
+    _gmm_launch(grad, rhs, group_sizes, out, transpose_rhs, lhs_f32=True)
+    gmm_dlhs.launches += 1
+    return out
+
+
+def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
+         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The rhs gradient of ``gmm`` (megablox ``tgmm``, ops.py:89-97):
+    out[g] = lhs[rows of g]^T . grad[rows of g], [E, K, N] in
+    ``out_dtype``. On the card: lhs bf16, grad f32, out bf16."""
+    if not backend.on_cuda(lhs, grad, group_sizes):
+        return tgmm_plain(lhs, grad, group_sizes, out_dtype)
+    M, K = lhs.shape
+    E, N = group_sizes.shape[0], grad.shape[1]
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"tgmm: the kernel gives bf16, not {out_dtype}")
+    if M % 32 or K % 128 or N % 128:
+        raise ValueError(f"tgmm: unsupported M={M}, K={K}, N={N}")
+    backend.require(lhs, "lhs", torch.bfloat16, (M, K))
+    backend.require(grad, "grad", torch.float32, (M, N))
+    backend.require(group_sizes, "group_sizes", torch.int32, (E,))
+    out = torch.empty((E, K, N), dtype=torch.bfloat16, device=lhs.device)
+    p = backend.ptr
+    err = library().aria_tgmm(p(lhs), p(grad), p(group_sizes), p(out), M, K, N, E,
+                              backend.stream())
+    backend.check(err, "tgmm")
+    tgmm.launches += 1
+    return out
+
+
 gmm.launches = 0
+gmm_dlhs.launches = 0
+tgmm.launches = 0
+
+
+class _Gmm(torch.autograd.Function):
+    """``gmm`` with megablox's custom VJP (ops.py:63-106)."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, transpose_rhs):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        ctx.transpose_rhs = transpose_rhs
+        return gmm(lhs, rhs, group_sizes, transpose_rhs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        grad = grad.contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = gmm_dlhs(grad, rhs, group_sizes, not ctx.transpose_rhs, lhs.dtype)
+        if ctx.needs_input_grad[1]:
+            drhs = tgmm(lhs, grad, group_sizes, rhs.dtype)
+            if ctx.transpose_rhs:
+                drhs = drhs.transpose(1, 2)
+        return dlhs, drhs, None, None
 
 
 def experts_ragged(
@@ -103,7 +275,7 @@ def experts_ragged(
     padded to a multiple of 128 rows with the pad rows on the last group,
     two grouped matmuls with the GLU in x's dtype between them, the inverse
     permutation and the combine over k in f32. Returns [T, D] in x's dtype.
-    Nothing waits on the host."""
+    Nothing waits on the host. Differentiable in x, the weights, w1 and w2."""
     T, D = x.shape
     E = w1.shape[0]
     k = indices.shape[1]
@@ -117,8 +289,8 @@ def experts_ragged(
     if M_pad != M:
         sorted_tokens = F.pad(sorted_tokens, (0, 0, 0, M_pad - M))
         group_sizes[E - 1] += M_pad - M
-    h = glu(gmm(sorted_tokens, w1, group_sizes, transpose_rhs=True).to(x.dtype))
-    out = gmm(h, w2, group_sizes)[:M]
+    h = glu(_Gmm.apply(sorted_tokens, w1, group_sizes, True).to(x.dtype))
+    out = _Gmm.apply(h, w2, group_sizes, False)[:M]
     unsorted = torch.empty_like(out).index_copy_(0, order, out)  # the inverse permutation
     combined = torch.einsum("tkd,tk->td", unsorted.reshape(T, k, D), weights.float())
     return combined.to(x.dtype)

@@ -180,14 +180,60 @@ def quantize_projector_params(proj_params: dict) -> dict:
     return out
 
 
+class _MatmulF32(torch.autograd.Function):
+    """a [M, K] @ b [K, N], or a [E, M, K] @ b [E, K, N], of two bf16 CUDA
+    tensors with an f32 product: the card's bf16 tensor-core product with
+    f32 sums and output (``out_dtype=torch.float32``). The gradients are
+    f32 products of the f32 cotangent with the other operand, cast to each
+    operand's dtype, as JAX transposes a dot with an f32
+    ``preferred_element_type``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = (g @ b.float().transpose(-1, -2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = (a.float().transpose(-1, -2) @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ b [K, N], or a batched a [E, M, K] @ b [E, K, N], in
+    f32, as ``jnp.einsum(..., preferred_element_type=jnp.float32)``: the
+    product is never rounded to bf16. Two bf16 operands on the card take
+    the tensor cores with an f32 output; anything else is an f32 product
+    of the operands upcast (exact), which the card runs in full f32 (TF32
+    is off by default)."""
+    if b.dim() == 3:
+        if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+            return _MatmulF32.apply(a, b)
+        return a.float() @ b.float()
+    lead, K = a.shape[:-1], a.shape[-1]
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        out = _MatmulF32.apply(a.reshape(-1, K), b)
+    else:
+        out = a.reshape(-1, K).float() @ b.float()
+    return out.reshape(*lead, b.shape[-1])
+
+
 def linear(x: torch.Tensor, w, spec: str) -> torch.Tensor:
-    """einsum(spec, x, w) returning f32; a quantized weight's scale runs over
-    the spec's last output axis. The products are torch.matmul, as the JAX
-    package leaves them to XLA: on the card a bf16 x gives a bf16 product
-    (f32 accumulation, rounded once) before the f32 scale."""
+    """einsum(spec, x, w) returning f32, for a spec of the form
+    "...k,kn->...n" (x [..., in], one weight [in, out]); a quantized
+    weight's scale runs over the output axis. The product is f32 from
+    bf16 operands (``matmul_f32``), as the JAX package asks XLA for with
+    ``preferred_element_type=jnp.float32`` (quant.py:50-56)."""
+    ins, out = spec.split("->")
+    xs, ws = ins.split(",")
+    if len(ws) != 2 or xs[-1] != ws[0] or out != xs[:-1] + ws[1]:
+        raise ValueError(f"linear: spec {spec!r} is not of the form '...k,kn->...n'")
     if is_quantized(w):
-        return torch.einsum(spec, x, w["q"].to(x.dtype)).float() * w["s"]
-    return torch.einsum(spec, x, w).float()
+        return matmul_f32(x, w["q"].to(x.dtype)) * w["s"]
+    return matmul_f32(x, w)
 
 
 def pack_int4(q: torch.Tensor, group: int) -> torch.Tensor:

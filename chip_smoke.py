@@ -46,8 +46,22 @@
    same reference. Each path must launch its form's decode MoE kernel,
    ``gmm`` and the attention kernels, and none of the int4 kernels.
 
+8. Training: with the forms freed, the LoRA recipe
+   (recipes/config_lora.yaml) through ``train()`` at full width and depth
+   on a random bf16 base, its batch cut to 1, on text and 980px image rows
+   the script writes (the frozen ViT runs ``vit_flash``), and the full
+   recipe (recipes/config_full.yaml) at 2 decoder layers, batch 8 x 2048,
+   its mesh fields set to 1: 3 optimizer steps each (2 accumulated micro
+   steps a step), each micro step's ms, tokens/s, loss and gradient norm,
+   the peak memory, the device's busy share, the full recipe's epoch-end
+   checkpoint; the flash backward must launch on both, ``gmm_dlhs`` and
+   ``tgmm`` on the full recipe. Then one micro step of each at 2 layers
+   and 256 tokens on the card against the CPU's plain versions.
+
 Phase 2 also holds ``moe_decode``, ``moe_decode_quant`` and ``gmm`` at
-the forms' shapes. Each path sets every launch count to 0 just before it runs and reads them
+the forms' shapes, and the training kernels (the flash forward with row
+statistics and its backward at [1, 2048, 20, 128]; ``gmm_dlhs`` and
+``tgmm`` at the full recipe's 98,304 rows). Each path sets every launch count to 0 just before it runs and reads them
 just after. Any failure raises and exits non-zero; without a CUDA device
 the script exits non-zero before printing any result. The line before the
 last is the kernels' JSON record (``launches`` from the newest path that
@@ -57,6 +71,7 @@ device record.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -78,9 +93,10 @@ def _gpu_info() -> str:
 def _time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     """(device ms, wall ms) per call. Device time is the sum of the times of
     every kernel the call launched (the profiler's device events; its CPU
-    events carry the same time again); wall time is CUDA
-    events around back-to-back calls, which the host bounds when a call's
-    launches take longer to issue than to run."""
+    events carry the same time again); wall time is CUDA events around
+    back-to-back calls, which the host bounds when a call's launches take
+    longer to issue than to run. Profile early: after the serving phases'
+    profiles the profiler was seen to drop some of the card's events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -144,9 +160,26 @@ def _timed(at, kernel, plain, iters, plain_iters, bound, library=None) -> dict:
             "bound": bound, "lib": None if library is None else _time_ms(library, iters)[0]}
 
 
+def _print_timed(name: str, t: dict) -> None:
+    lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
+    print(f"  {name} {t['at']}: device time per call: kernel {t['k'][0]:.4f} ms, plain "
+          f"{t['p'][0]:.4f} ms, library {lib}, bound {t['bound'][0]:.4f} ms "
+          f"({t['bound'][1]}); wall per call: kernel {t['k'][1]:.4f} ms, plain "
+          f"{t['p'][1]:.4f} ms", flush=True)
+
+
 def _entry(t: dict) -> dict:
     return {"ms": t["k"][0], "plain_ms": t["p"][0], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["lib"]}
+
+
+def _record(results: dict, name: str, errs, timed) -> None:
+    """A kernel's record: the worst error over the shapes checked, its first
+    timed shape's numbers and every timed shape's ("times"), printed."""
+    results[name] = {"max_abs_err": max(errs), **_entry(timed[0]),
+                     "times": [{"at": t["at"], **_entry(t)} for t in timed]}
+    for t in timed:
+        _print_timed(name, t)
 
 
 def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_seq=384,
@@ -185,14 +218,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
         return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
     def record(name, errs, timed):
-        results[name] = {"max_abs_err": max(errs), **_entry(timed[0]),
-                         "times": [{"at": t["at"], **_entry(t)} for t in timed]}
-        for t in timed:
-            lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
-            print(f"  {name} {t['at']}: device time per call: kernel {t['k'][0]:.4f} ms, plain "
-                  f"{t['p'][0]:.4f} ms, library {lib}, bound {t['bound'][0]:.4f} ms "
-                  f"({t['bound'][1]}); wall per call: kernel {t['k'][1]:.4f} ms, plain "
-                  f"{t['p'][1]:.4f} ms", flush=True)
+        _record(results, name, errs, timed)
 
     # dense_int4: wqkv (F = 7680) and wo (F = 2560) at decode (T = 1), at
     # the 32-lane decode step (T = 32), at the 64- and 128-token prompt
@@ -681,21 +707,27 @@ KERNELS = {
     "moe_decode_quant": ("aria_tpu_torch/csrc/moe_decode_fp.cu",
                          "aria_tpu/ops/moe_decode_kernel.py:503"),
     "gmm": ("aria_tpu_torch/csrc/gmm.cu", "aria_tpu/ops/moe.py:204"),
+    "flash_causal_bwd": ("aria_tpu_torch/csrc/flash_bwd.cu",
+                         "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+    "gmm_dlhs": ("aria_tpu_torch/csrc/gmm.cu",
+                 "jax/experimental/pallas/ops/tpu/megablox/gmm.py:314"),
+    "tgmm": ("aria_tpu_torch/csrc/gmm.cu", "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
 INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
 FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("image-bf16", "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
+PATHS = ("train-full", "train-lora", "image-bf16", "lanes-int8", "image-int8", "paged", "lanes",
+         "image", "text")
 
 
 def _wrappers():
     from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
     from aria_tpu_torch.ops.dense_int4 import dense_int4
-    from aria_tpu_torch.ops.flash import flash_causal
+    from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd
     from aria_tpu_torch.ops.kv_write import kv_cache_write
-    from aria_tpu_torch.ops.moe import gmm
+    from aria_tpu_torch.ops.moe import gmm, gmm_dlhs, tgmm
     from aria_tpu_torch.ops.moe_decode_kernel import moe_decode, moe_decode_int4, moe_decode_quant
     from aria_tpu_torch.ops.moe_prefill_kernel import moe_prefill_int4
     from aria_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -706,7 +738,8 @@ def _wrappers():
             "vit_flash": vit_flash, "moe_prefill_int4": moe_prefill_int4,
             "kv_cache_write": kv_cache_write, "decode_attention_int4": decode_attention_int4,
             "paged_decode_attention": paged_decode_attention, "moe_decode": moe_decode,
-            "moe_decode_quant": moe_decode_quant, "gmm": gmm}
+            "moe_decode_quant": moe_decode_quant, "gmm": gmm,
+            "flash_causal_bwd": flash_causal_bwd, "gmm_dlhs": gmm_dlhs, "tgmm": tgmm}
 
 
 def _tree_map(fn, tree):
@@ -1771,6 +1804,410 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
     return launches
 
 
+TRAIN_SEQ = 2048  # the recipes' max_seq_length
+TRAIN_REF_SEQ = 256  # tokens of the 2-layer card-against-CPU training step
+
+
+def _grouped_mm_t(lhs, grad, sizes, ref):
+    """torch._grouped_mm as tgmm's yardstick: lhs^T [K, M] . grad [M, N]
+    grouped along M, bf16 operands, or None where the card's torch does not
+    take it."""
+    import torch
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    a, b = lhs.T, grad.to(torch.bfloat16)
+    try:
+        out = fn(a, b, offs=offs)
+    except (RuntimeError, TypeError, ValueError) as exc:
+        print(f"  library: torch._grouped_mm refuses the tgmm operands ({exc})", flush=True)
+        return None
+    if out.shape != ref.shape or _rel_err(out.float(), ref) > 1e-2:
+        print("  library: torch._grouped_mm gives another tgmm result; not timed", flush=True)
+        return None
+    return lambda: fn(a, b, offs=offs)
+
+
+def check_train_kernels(device, gen, cfg=None, batch=8):
+    """Phase 2, the train phase's kernels at the training shapes, each against
+    its plain version: the causal flash forward with row statistics and its
+    backward at [1, 2048, 20, 128] (sdpa forward + backward as the
+    yardstick), and the ragged backward at the full recipe's rows (2048 x
+    ``batch`` tokens x 6 slots, padded to 128, in the 64 routed experts, four
+    groups empty and the others straddling tiles): gmm_dlhs of the w1 and w2
+    layouts and tgmm of both (torch._grouped_mm as the yardstick). Returns
+    {name: record} as check_kernels does."""
+    import torch
+    import torch.nn.functional as F
+
+    from aria_tpu_torch import TextConfig
+    from aria_tpu_torch.ops import flash as fl
+    from aria_tpu_torch.ops import moe as tmoe
+
+    cfg = cfg or TextConfig()
+    H, Dh, D, I, E = (cfg.num_heads, cfg.head_dim, cfg.hidden_size, cfg.moe_intermediate_size,
+                      cfg.num_experts)
+    results = {}
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+    def record(name, errs, timed):
+        _record(results, name, errs, timed)
+
+    print("flash_causal_bwd (training shapes)", flush=True)
+    S = TRAIN_SEQ
+    q, k, v, do = (randn(1, S, H, Dh) for _ in range(4))
+    scale = Dh**-0.5
+    lse = torch.empty((1, H, S), device=device)
+    out = fl._forward(q, k, v, scale, lse)
+    if not torch.equal(out, fl.flash_causal(q, k, v)):
+        raise AssertionError("flash_causal: the forward with statistics gives other bits")
+    got = fl.flash_causal_bwd(q, k, v, out, do, lse)
+    ref = fl.flash_causal_bwd_plain(q, k, v, do)
+    errs = [_compare(f"flash_causal_bwd d{n} S={S}", a, b, 2e-2,
+                     "bf16 outputs; p and ds enter the kernel's products as bf16, the plain "
+                     "version's p as bf16 and ds in f32")
+            for n, a, b in zip("qkv", got, ref)]
+    pairs = S * (S + 1) // 2 * H  # (query, key) pairs under the causal mask
+    qkv_t = [t.transpose(1, 2) for t in (q, k, v)]
+
+    def sdpa_bwd():
+        leaves = [t.detach().requires_grad_() for t in qkv_t]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, do.transpose(1, 2))
+
+    # the backward's least work: s recomputed, dp, dv, dk, dq (5 products)
+    bwd = _timed(f"[1, {S}, {H}, {Dh}] (plain and library include their forward)",
+                 lambda: fl.flash_causal_bwd(q, k, v, out, do, lse),
+                 lambda: fl.flash_causal_bwd_plain(q, k, v, do), 10, 2,
+                 _bound(_nbytes(q, k, v, out, do, lse) + 3 * _nbytes(q), 5 * 2 * pairs * Dh),
+                 sdpa_bwd)
+    fwd = _timed(f"forward with row statistics [1, {S}, {H}, {Dh}]",
+                 lambda: fl._forward(q, k, v, scale, lse), lambda: fl.flash_causal_plain(q, k, v),
+                 10, 2, _bound(_nbytes(q, k, v, out, lse), 2 * 2 * pairs * Dh),
+                 lambda: F.scaled_dot_product_attention(*qkv_t, is_causal=True))
+    record("flash_causal_bwd", errs, [bwd])
+    _print_timed("flash_causal", fwd)
+    results["flash_causal_train"] = fwd
+    del q, k, v, do, out, lse, got, ref
+
+    print("gmm_dlhs, tgmm (training shapes)", flush=True)
+    M = -(-S * batch * cfg.moe_topk // 128) * 128
+    sizes = _ragged_sizes(gen, M, E)
+    used = int((sizes > 0).sum())
+    derrs, dtimed, terrs, ttimed = [], [], [], []
+    for label, trans in (("w1 [E, 2I, D]", True), ("w2 [E, I, D]", False)):
+        K, N = (D, 2 * I) if trans else (I, D)  # the forward's contraction and output
+        rhs = randn(E, N, K, scale=K**-0.5) if trans else randn(E, K, N, scale=K**-0.5)
+        lhs = randn(M, K)
+        # a bf16 cotangent times a bf16 combine weight, as in training
+        grad = (randn(M, N).float() * randn(M, 1).float()).contiguous()
+        got, ref = tmoe.gmm_dlhs(grad, rhs, sizes, not trans), tmoe.gmm_plain(grad, rhs, sizes,
+                                                                              not trans)
+        derrs.append(_compare(f"gmm_dlhs {label} M={M} ({used} of {E} groups)", got, ref, 1e-2,
+                              "exact products (hi + lo), f32 sums in another order, one bf16 "
+                              "rounding"))
+        # operations at the bf16 rate: the split operands are bf16-exact
+        bound = _bound(_nbytes(grad, sizes, got) + used * N * K * 2, 2 * M * N * K)
+        lib = _grouped_mm(grad.to(torch.bfloat16), rhs if trans else rhs.transpose(1, 2), sizes,
+                          ref)
+        dtimed.append(_timed(f"{label} M={M}", lambda a=(grad, rhs, sizes, not trans):
+                             tmoe.gmm_dlhs(*a), lambda a=(grad, rhs, sizes, not trans):
+                             tmoe.gmm_plain(*a), 5, 1, bound, lib))
+        del got, ref
+        got, ref = tmoe.tgmm(lhs, grad, sizes), tmoe.tgmm_plain(lhs, grad, sizes)
+        terrs.append(_compare(f"tgmm {label} M={M}", got, ref, 1e-2,
+                              "exact products (hi + lo), f32 sums in another order, one bf16 "
+                              "rounding"))
+        for e in torch.nonzero(sizes == 0).flatten().tolist():
+            if not torch.equal(got[e], torch.zeros_like(got[e])):
+                raise AssertionError(f"tgmm: empty group {e} is not zero")
+        bound = _bound(_nbytes(lhs, grad, sizes, got), 2 * M * N * K)
+        ttimed.append(_timed(f"{label} M={M}", lambda a=(lhs, grad, sizes): tmoe.tgmm(*a),
+                             lambda a=(lhs, grad, sizes): tmoe.tgmm_plain(*a), 5, 1, bound,
+                             _grouped_mm_t(lhs, grad, sizes, ref)))
+        del got, ref, rhs, lhs, grad
+    record("gmm_dlhs", derrs, dtimed)
+    record("tgmm", terrs, ttimed)
+    return results
+
+
+def _train_dataset(path, rows, images, seed):
+    """A jsonl dataset of ``rows`` chat rows drawn from ``seed``: long
+    random-word text (most of a 2048-token sequence), every ``images``-th
+    row (0: none) with one random 980px image."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(path, exist_ok=True)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def words(n):
+        return " ".join("".join(rng.choice(letters, rng.randint(2, 9))) for _ in range(n))
+
+    with open(os.path.join(path, "train.jsonl"), "w") as f:
+        for i in range(rows):
+            image = images and i % images == 0
+            user = [{"type": "text", "text": words(130 if image else 180)}]
+            row = {"messages": [{"role": "user", "content": user},
+                                {"role": "assistant", "content": [{"type": "text",
+                                                                   "text": words(90)}]}],
+                   "images": None, "video": None}
+            if image:
+                name = f"image{i}.png"
+                Image.fromarray(rng.randint(0, 256, (980, 980, 3), dtype=np.uint8)).save(
+                    os.path.join(path, name))
+                user.insert(0, {"type": "image"})
+                row["images"] = [name]
+            f.write(json.dumps(row) + "\n")
+
+
+def _busy_share(prof, first="flash_causal") -> tuple[float, float]:
+    """(device busy ms, window ms) over the profiled run, from the start of
+    the first kernel whose name holds ``first`` (the first step's first
+    attention) to the end of the last kernel; copies and fills are left
+    out, so that the checkpoint's device-to-host copies after the last
+    step do not count."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset")))
+    start = next(s for s, _, name in spans if first in name)
+    end = max(e for _, e, _ in spans)
+    busy, cursor = 0.0, start
+    for s, e, _ in spans:
+        if e <= cursor:
+            continue
+        busy += e - max(s, cursor)
+        cursor = e
+    return busy / 1e3, (end - start) / 1e3
+
+
+def _run_recipe(device, recipe, cfg, label, gpu, steps):
+    """``train()`` on the card under the profiler (kernels only), every launch
+    count set to 0 first; prints each micro step's metrics, the peak
+    memory and the device's busy share over the steps. Returns the launch
+    counts and the final state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aria_tpu_torch.train.loop import train
+
+    wrappers = _wrappers()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with (profile(activities=[ProfilerActivity.CUDA]) if cuda else
+          contextlib.nullcontext()) as prof:
+        state = train(recipe, cfg=cfg, max_steps=steps, device=device)
+        _sync(device)
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    busy, window = _busy_share(prof) if cuda else (float("nan"), float("nan"))
+    lines = [json.loads(line) for line in open(os.path.join(recipe.output_dir, "metrics.jsonl"))]
+    for line in lines:
+        print(f"  {label} micro step {line['step']}: {line['step_time_s'] * 1e3:.1f} ms, "
+              f"{line['tokens_per_s']:.1f} tokens/s, loss {line['loss']:.5f}, grad_norm "
+              f"{line['grad_norm']:.5f} ({gpu})", flush=True)
+    print(f"  {label}: {len(lines)} micro steps in {wall:.1f} s with set-up; peak memory "
+          f"{peak:.2f} GiB; device busy {busy:.1f} of {window:.1f} ms from the first "
+          f"attention kernel on (busy share {busy / window:.3f}, idle {1 - busy / window:.3f}; "
+          f"under the kernel profiler); launches: {launches}", flush=True)
+    if cuda:  # where the device time goes over the run (set-up included)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in events)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"    {e.key[:90]}: {e.self_device_time_total / 1e3:.1f} ms "
+                  f"({e.self_device_time_total / total:.3f} of the device time), "
+                  f"{e.count} calls", flush=True)
+    if len(lines) != steps or not all(
+            all(map(lambda v: v == v and abs(v) != float("inf"), line.values()))
+            for line in lines):
+        raise AssertionError(f"{label}: {len(lines)} micro steps logged, or non-finite metrics")
+    return launches, state
+
+
+def _train_reference(device, cfg, peft, seed, ref_layers=2):
+    """One micro step of a recipe at ``ref_layers`` layers and
+    ``TRAIN_REF_SEQ`` tokens on the card against the plain versions on the
+    CPU from the same weights:
+    the loss, the gradient norm, the gradients and the updated trainable
+    tree, each as a relative error, beside a witness (the card with one
+    bf16 ulp on half the embedding table, against the card)."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.models.aria import init_aria_params
+    from aria_tpu_torch.train import step as tstep
+    from aria_tpu_torch.train.lora import LoraConfig, init_lora_params
+
+    text = dataclasses.replace(cfg.text, num_layers=ref_layers)
+    small = cfg.replace(text=text)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = init_aria_params(small, gen, device=device)
+    rng = np.random.RandomState(seed)
+    ids = torch.as_tensor(rng.randint(0, text.vocab_size, (1, TRAIN_REF_SEQ)))
+    batch = {"input_ids": ids, "labels": ids.clone()}
+    tc = tstep.TrainConfig(learning_rate=5e-5, weight_decay=0.1, b2=0.95,
+                           freeze_projector=peft, total_steps=3, gradient_checkpointing=True)
+    lc = LoraConfig(rank=8, alpha=32.0)
+    lora = init_lora_params(small, lc, gen, device=device) if peft else None
+    if peft:  # B away from 0, so that the step moves A as well
+        for ab in lora["lm"]["layers"].values():
+            ab["b"].normal_(0, 0.02, generator=gen)
+
+    def run(dev, bump=False):
+        params = _tree_map(lambda t: t.to(dev).clone(), base)
+        if bump:
+            params["lm"]["embed"] = _bump_half(params["lm"]["embed"].cpu()).to(dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        caught = {}
+        if peft:
+            tree = _tree_map(lambda t: t.to(dev).clone(), lora)
+            opt = tstep.make_lora_optimizer(tc)
+        else:
+            tree = params
+            opt = tstep.make_optimizer(tc, params)
+        update = opt.update
+        opt.update = lambda g, st, p: (caught.update(g), update(g, st, p))
+        state = tstep.TrainState(tree, opt.init(tree), 0)
+        before = {k: v.detach().clone() for k, v in opt.trainable(tree)}
+        if peft:
+            _, m = tstep.lora_train_step(state, b, params, small, lc.scale, opt, True)
+        else:
+            _, m = tstep.train_step(state, b, small, tc, opt)
+        # kept in bf16 on the host: the full recipe's trees are 2.3 G values
+        return ({k: float(v) for k, v in m.items()},
+                {k: v.to(torch.bfloat16).cpu() for k, v in caught.items()},
+                {k: (v.detach().float() - before[k].float()).to(torch.bfloat16).cpu()
+                 for k, v in opt.trainable(tree)})
+
+    t0 = time.perf_counter()
+    # the witness runs on the card: the CPU's 2.3 G-weight step is the
+    # phase's slowest part, and a bump's spread does not depend on where
+    # the same arithmetic runs
+    got, ulp, ref = run(device), run(device, bump=True), run(torch.device("cpu"))
+    label = f"{'LoRA' if peft else 'full'} step, {ref_layers} layers, {TRAIN_REF_SEQ} tokens"
+
+    def tree_err(a, b):
+        num = sum(float(torch.linalg.norm(a[k].float() - b[k].float()) ** 2) for k in b)
+        return (num / sum(float(torch.linalg.norm(b[k].float()) ** 2) for k in b)) ** 0.5
+
+    def rel(a, b, key):
+        return abs(a[0][key] - b[0][key]) / abs(b[0][key])
+
+    checks = [("loss", rel(got, ref, "loss"), rel(ulp, got, "loss")),
+              ("grad_norm", rel(got, ref, "grad_norm"), rel(ulp, got, "grad_norm")),
+              ("gradients", tree_err(got[1], ref[1]), tree_err(ulp[1], got[1])),
+              ("update", tree_err(got[2], ref[2]), tree_err(ulp[2], got[2]))]
+    for name, err, witness in checks:
+        # the gradients of small weights carry bf16 noise relative to their
+        # size, and one Adam step is close to lr * sign(g), so a gradient
+        # near 0 flips its step: the gradients and the step are held to
+        # twice their witness where that exceeds the limit
+        limit = REF_LIMIT if name in ("loss", "grad_norm") else max(REF_LIMIT, 2 * witness)
+        print(f"  reference ({label}, CPU plain versions): {name} relative error {err:.3e} "
+              f"(limit {limit:.3e}); witness, the card with one bf16 ulp on half the "
+              f"embedding table against the card: {witness:.3e}", flush=True)
+        if not err <= limit:
+            raise AssertionError(f"training reference ({label}): {name} differs by {err}")
+    print(f"  reference ({label}): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_train(device, gen, cfg=None, gpu="", lora_batch=1, full_batch=8, full_layers=2,
+              steps=3, lora_images=2):
+    """The train phase (its kernels are checked in phase 2): the LoRA recipe
+    (recipes/config_lora.yaml) through ``train()`` at full width and depth
+    on the random bf16 base, its batch cut to ``lora_batch`` and every
+    ``lora_images``-th row with a 980px image (the frozen ViT runs
+    ``vit_flash``); the full recipe (recipes/config_full.yaml) at full width
+    and ``full_layers`` decoder layers, batch ``full_batch`` x 2048, text
+    rows, its mesh fields set to 1, saving the whole state at the epoch's
+    end under a temporary directory; then one step of each recipe at 2
+    layers on the card against the CPU. ``steps`` optimizer steps each (x
+    the recipes' 2 accumulated micro steps). Returns {path: launches}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.train.recipe import load_recipe
+
+    cfg = cfg or AriaConfig.aria_25b()
+    launches = {}
+    work = tempfile.mkdtemp(prefix="aria_train_")
+    try:
+        lora = load_recipe(os.path.join(HERE, "recipes", "config_lora.yaml"))
+        accum = lora.gradient_accumulation_steps
+        n_rows = steps * accum * lora_batch
+        _train_dataset(os.path.join(work, "lora_ds"), n_rows, lora_images, SEED)
+        lora = dataclasses.replace(lora, per_device_train_batch_size=lora_batch,
+                                   dataset_mixer={os.path.join(work, "lora_ds"): 1},
+                                   output_dir=os.path.join(work, "lora_out"))
+        print(f"train, LoRA recipe: {cfg.text.num_layers} layers, hidden {cfg.text.hidden_size}, "
+              f"{cfg.text.num_experts} experts, bf16 base; "
+              f"per_device_train_batch_size cut from 8 to {lora_batch} (the capacity path's "
+              f"[64, T, 3328] f32 buffers beside the 50.6 GB base); max_seq_length "
+              f"{lora.max_seq_length}, gradient_accumulation_steps {accum}, gradient "
+              f"checkpointing {lora.gradient_checkpointing}, rank {lora.lora_r}, alpha "
+              f"{lora.lora_alpha}; {n_rows} rows"
+              + (f", every {lora_images}-th with a 980px image" if lora_images else ""),
+              flush=True)
+        counts, _ = _run_recipe(device, lora, cfg, "LoRA", gpu, steps * accum)
+        for name in ("flash_causal", "flash_causal_bwd", "vit_flash"):
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the LoRA recipe")
+        launches["train-lora"] = counts
+        torch.cuda.empty_cache()
+
+        full = load_recipe(os.path.join(HERE, "recipes", "config_full.yaml"))
+        accum = full.gradient_accumulation_steps
+        n_rows = steps * accum * full_batch
+        _train_dataset(os.path.join(work, "full_ds"), n_rows, 0, SEED + 1)
+        full = dataclasses.replace(full, per_device_train_batch_size=full_batch, mesh_fsdp=1,
+                                   mesh_expert=1, dataset_mixer={os.path.join(work, "full_ds"): 1},
+                                   output_dir=os.path.join(work, "full_out"))
+        small = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=full_layers))
+        print(f"train, full recipe: {full_layers} decoder layers, hidden "
+              f"{cfg.text.hidden_size} (cut from {cfg.text.num_layers}), batch {full_batch} x "
+              f"{full.max_seq_length}, gradient_accumulation_steps {accum}, mesh_fsdp 2 and mesh_expert 4 set to 1 "
+              f"(one card), text rows", flush=True)
+        counts, state = _run_recipe(device, full, small, "full", gpu, steps * accum)
+        for name in ("flash_causal", "flash_causal_bwd", "gmm", "gmm_dlhs", "tgmm"):
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the full recipe")
+        launches["train-full"] = counts
+        ckpt = os.path.join(full.output_dir, "checkpoints")
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt) for f in fs)
+        state_file = os.path.join(ckpt, f"step_{state.step}", "state.pt")
+        # the last metrics line is written just before the epoch-end save starts
+        save_s = os.path.getmtime(state_file) - os.path.getmtime(
+            os.path.join(full.output_dir, "metrics.jsonl"))
+        print(f"  full recipe: the epoch-end checkpoint (params, moments, accumulator) holds "
+              f"{size / 2**30:.2f} GiB, written in {save_s:.1f} s (the files' times)",
+              flush=True)
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for peft in (True, False):
+        _train_reference(device, cfg, peft, SEED + 3)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -1804,6 +2241,10 @@ def main() -> int:
     t0 = done("build", t0)
     with torch.inference_mode():
         results = check_kernels(device, gen(2))
+    train_results = check_train_kernels(device, gen(9))
+    fwd = train_results.pop("flash_causal_train")
+    results["flash_causal"]["times"].append({"at": fwd["at"], **_entry(fwd)})
+    results.update(train_results)
     t0 = done("kernels", t0)
     lm, text_launches = run_slice(device, gen(3), gpu=gpu)
     t0 = done("text", t0)
@@ -1815,7 +2256,9 @@ def main() -> int:
     del lm  # the forms' models do not fit beside the int4 one
     t0 = done("paged", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))
-    done("forms", t0)
+    t0 = done("forms", t0)
+    launches.update(run_train(device, gen(8), gpu=gpu))
+    done("train", t0)
     for name in KERNELS:
         if not any(launches[path][name] for path in PATHS):
             raise AssertionError(f"{name} was launched on no path")

@@ -23,6 +23,7 @@ from aria_tpu_torch.ops import moe_prefill_kernel as mp
 from aria_tpu_torch.ops import paged_attention as pg
 from aria_tpu_torch.ops import vit_flash as vf
 from aria_tpu_torch.ops.quant import (
+    linear,
     quantize_dense_int4,
     quantize_expert_int4,
     quantize_weight,
@@ -449,3 +450,91 @@ def test_fp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tmoe.gmm(_randn(g, 128, 128), rhs, sizes.long(), True)
     with pytest.raises(ValueError):  # rhs not [E, N, K]
         tmoe.gmm(_randn(g, 128, 256), rhs, sizes, True)
+
+
+# ------------------------------------------------------------ training kernels
+
+
+@pytest.mark.parametrize("B,S,H", [(1, 64, 4), (2, 640, 4), (1, 2048, 20)])
+def test_flash_causal_backward_matches_plain(cuda, B, S, H):
+    """dq, dk, dv of the backward kernel against autograd of the plain
+    version on the same q, k, v, do (bf16; the forward's row statistics)."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v, do = (_randn(g, B, S, H, 128) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches = fl.flash_causal_bwd.launches
+    out = fl.flash_causal(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert fl.flash_causal_bwd.launches == launches + 1
+    # equal to the serving forward, which keeps no statistics
+    assert torch.equal(out.detach(), fl.flash_causal(q, k, v))
+    ref = fl.flash_causal_bwd_plain(q, k, v, do)
+    for name, a, b in zip("qkv", got, ref):
+        # bf16 outputs; p and ds enter their products as bf16 in the kernel,
+        # the plain version's p as bf16 and ds in f32
+        scale = b.float().abs().max().item()
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2 * scale,
+                                   msg=f"d{name}")
+
+
+@pytest.mark.parametrize("transpose_rhs", [True, False])
+def test_gmm_dlhs_and_tgmm_match_plain(cuda, transpose_rhs):
+    """The backward of the w1 ([E, 2I, D], transpose_rhs) and w2 ([E, I, D])
+    products at 512 x 8 rows in 66 groups, four of them empty and the
+    others straddling tiles: the f32 cotangent is a bf16 value times a
+    bf16 combine weight, as in training, so the split into bf16 hi + lo
+    is exact."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    E, I, D, M = 66, 1664, 2560, 4096
+    K, N = (D, 2 * I) if transpose_rhs else (I, D)
+    rhs = _randn(g, E, N, K, scale=K**-0.5) if transpose_rhs else _randn(g, E, K, N, scale=K**-0.5)
+    sizes = _groups(g, M, E, empty=(0, 7, 40, 41))
+    lhs = _randn(g, M, K)
+    grad = (_randn(g, M, N).float() * _randn(g, M, 1).float()).contiguous()
+    n_dlhs, n_tgmm = tmoe.gmm_dlhs.launches, tmoe.tgmm.launches
+    dlhs = tmoe.gmm_dlhs(grad, rhs, sizes, not transpose_rhs)
+    drhs = tmoe.tgmm(lhs, grad, sizes)
+    torch.cuda.synchronize()
+    assert (tmoe.gmm_dlhs.launches, tmoe.tgmm.launches) == (n_dlhs + 1, n_tgmm + 1)
+    ref = tmoe.gmm_plain(grad, rhs, sizes, not transpose_rhs)
+    assert dlhs.dtype == torch.bfloat16
+    # exact products (hi + lo), f32 sums in another order, one bf16 rounding
+    torch.testing.assert_close(dlhs.float(), ref, rtol=1e-2, atol=1e-3 * ref.abs().max().item())
+    ref = tmoe.tgmm_plain(lhs, grad, sizes)
+    assert drhs.shape == (E, K, N) and drhs.dtype == torch.bfloat16
+    torch.testing.assert_close(drhs.float(), ref, rtol=1e-2, atol=1e-3 * ref.abs().max().item())
+    for e in (0, 7, 40, 41):
+        assert torch.equal(drhs[e], torch.zeros_like(drhs[e]))
+
+
+def test_experts_ragged_backward_runs_the_kernels(cuda):
+    """Autograd through experts_ragged on the card launches gmm, gmm_dlhs
+    and tgmm, and its gradients agree with the plain versions' on the CPU."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    T, D, I, E, k = 200, 256, 128, 8, 2
+    x = _randn(g, T, D)
+    ids = torch.argsort(torch.rand(T, E, generator=g, device=cuda), 1)[:, :k].to(torch.int32)
+    w = torch.softmax(torch.randn(T, k, generator=g, device=cuda), 1).bfloat16()
+    w1, w2 = _randn(g, E, 2 * I, D, scale=D**-0.5), _randn(g, E, I, D, scale=I**-0.5)
+    cot = _randn(g, T, D)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (x, w, w1, w2)]
+        out = tmoe.experts_ragged(leaves[0], ids.to(dev), leaves[1], leaves[2], leaves[3])
+        grads.append([t.float().cpu() for t in torch.autograd.grad(out, leaves, cot.to(dev))])
+    for name, a, b in zip(("x", "weights", "w1", "w2"), *grads):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * b.abs().max().item(), msg=name)
+
+
+def test_lm_head_logits_are_the_f32_product(cuda):
+    """(f): the int8 lm_head's logits are the f32 product of the bf16
+    activations and the int8 weights times the f32 scales, never rounded
+    to bf16 (a logit near 20 would otherwise move by up to 0.0625)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = _randn(g, 1, 7, 2560)
+    head = quantize_weight(_randn(g, 2560, 100352, scale=2560**-0.5))
+    got = linear(x, head, "bsd,dv->bsv")
+    assert got.dtype == torch.float32
+    ref = (x.double() @ head["q"].double()) * head["s"].double()
+    torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)

@@ -287,18 +287,26 @@ def test_serving_init_has_the_jax_tree_and_serves(form):
 
 
 def test_forms_keep_the_checks(forms):
-    _, tlm = forms["int8"]
+    """What the port does not take raises; the capacity path (at most 2 x
+    top-k experts) and an unfused int8 tree, ported with training, give
+    the JAX package's logits."""
+    jlm, tlm = forms["int8"]
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ft=256"):
         tm.lm_forward(tlm, dataclasses.replace(T_TEXT, moe_intermediate_size=2304), toks)
-    with pytest.raises(NotImplementedError, match="fused"):
+    with pytest.raises(ValueError, match="expert stack"):
         tm.lm_forward(tlm, dataclasses.replace(T_TEXT, num_shared_experts=1), toks)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        tm.lm_forward(tlm, dataclasses.replace(T_TEXT, num_experts=4, num_shared_experts=6),
-                      torch.zeros((1, 200), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="MHA"):
         tm.lm_forward(tlm, dataclasses.replace(T_TEXT, num_kv_heads=1), toks)
-    unfused = tquant.quantize_params({"lm": from_jax(
-        _np(jm.init_lm_params(jax.random.PRNGKey(0), TEXT, dtype=jnp.float32)), device="cpu")})
-    with pytest.raises(NotImplementedError, match="fused"):
-        tm.lm_forward(unfused["lm"], T_TEXT, toks)
+    few = dataclasses.replace(TEXT, num_experts=4, num_shared_experts=6)
+    long_toks = np.asarray([LONG_PROMPT[:140] + LONG_PROMPT[:60]])
+    want = np.asarray(jm.lm_forward(jlm, few, jnp.asarray(long_toks)).logits)
+    got = tm.lm_forward(tlm, dataclasses.replace(T_TEXT, num_experts=4, num_shared_experts=6),
+                        torch.as_tensor(long_toks)).logits
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    unfused_j = jquant.quantize_params(
+        {"lm": jm.init_lm_params(jax.random.PRNGKey(0), TEXT, dtype=jnp.float32)})["lm"]
+    unfused = from_jax(_np(unfused_j), device="cpu")
+    want = np.asarray(jm.lm_forward(unfused_j, TEXT, jnp.asarray(toks.numpy())).logits)
+    got = tm.lm_forward(unfused, T_TEXT, toks).logits
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)

@@ -26,6 +26,7 @@ from aria_tpu.ops.rope import apply_rope as j_apply_rope
 from aria_tpu.ops.rope import precompute_rope as j_precompute_rope
 from aria_tpu_torch import config as tconfig
 from aria_tpu_torch.checkpoint.from_jax import from_jax, to_tensor
+from aria_tpu_torch.models import aria as taria
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models import projector as tproj
 from aria_tpu_torch.models import vit as tvit
@@ -33,6 +34,7 @@ from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import kv_write as kw
 from aria_tpu_torch.ops.paged_attention import PagedKVCache
 from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
+from aria_tpu_torch.train import lora as tlora
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = ("VisionConfig", "ProjectorConfig", "TextConfig", "AriaConfig")
@@ -104,6 +106,9 @@ def test_entry_points_build_on_the_card_or_raise(monkeypatch):
         lambda **kw: tproj.init_projector_params(cfg.projector, gen, **kw),
         lambda **kw: from_jax({"a": np.zeros(3, np.float32)}, **kw),
         lambda **kw: to_tensor(np.zeros(3, np.float32), **kw),
+        lambda **kw: tm.init_lm_params(cfg.text, gen, **kw),
+        lambda **kw: taria.init_aria_params(cfg, gen, **kw),
+        lambda **kw: tlora.init_lora_params(cfg, tlora.LoraConfig(rank=2), gen, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
