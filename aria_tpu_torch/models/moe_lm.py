@@ -419,7 +419,7 @@ def _project(x2d: torch.Tensor, w, layer: int) -> torch.Tensor:
     (moe_lm.py:368-369)."""
     if is_dense_int4(w):
         return dense_int4(x2d, w, layer)
-    return linear(x2d, _layer_weight(w, layer), "td,df->tf")
+    return linear(x2d, _layer_weight(w, layer))
 
 
 def _lora_delta(x: torch.Tensor, ab: Optional[dict], layer: int, scale: float):
@@ -570,11 +570,11 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
         else:
             out = experts_grouped(flat, indices, weights, w1l, w2l)
     if shared is None:  # the shared MLP (moe_lm.py:1049-1056)
-        h = linear(flat, _layer_weight(layers["shared_w1"], layer), "td,df->tf")
+        h = linear(flat, _layer_weight(layers["shared_w1"], layer))
         if lora and "shared_w1" in lora:
             h = h + _lora_delta(flat, lora["shared_w1"], layer, lora_scale)
         h = glu(h.to(flat.dtype))
-        shared_out = linear(h, _layer_weight(layers["shared_w2"], layer), "tf,fd->td")
+        shared_out = linear(h, _layer_weight(layers["shared_w2"], layer))
         if lora and "shared_w2" in lora:
             shared_out = shared_out + _lora_delta(h, lora["shared_w2"], layer, lora_scale)
         out = out + shared_out.to(flat.dtype)
@@ -690,5 +690,5 @@ def lm_forward(
         x = x[torch.arange(B, device=x.device), logit_position.long()][:, None]
     elif logit_position is not None:
         x = x[:, logit_position:logit_position + 1]
-    logits = linear(x, params["lm_head"], "bsd,dv->bsv")
+    logits = linear(x, params["lm_head"])
     return LMOutput(logits, cache, z_loss, aux_loss)

@@ -67,10 +67,10 @@ def projector_forward(
     queries = params["query"][None, :Q, :].expand(N, Q, E).to(x.dtype)
 
     q_in = layer_norm(queries, params["ln_q_w"], params["ln_q_b"], cfg.layer_norm_eps)
-    q1 = linear(q_in, params["q_proj"], "nqd,de->nqe").to(x.dtype)
+    q1 = linear(q_in, params["q_proj"]).to(x.dtype)
     kv_in = layer_norm(x, params["ln_kv_w"], params["ln_kv_b"], cfg.layer_norm_eps)
-    k1 = linear(kv_in, params["k_proj"], "npd,de->npe").to(x.dtype)
-    v1 = linear(kv_in, params["v_proj"], "npd,de->npe").to(x.dtype)
+    k1 = linear(kv_in, params["k_proj"]).to(x.dtype)
+    v1 = linear(kv_in, params["v_proj"]).to(x.dtype)
 
     in_w, in_b = params["attn_in_w"], params["attn_in_b"]
     q2 = torch.einsum("nqe,ef->nqf", q1, in_w[:, :E]) + in_b[:E]
@@ -80,9 +80,9 @@ def projector_forward(
     attend = None if kv_ignore_mask is None else torch.logical_not(kv_ignore_mask)[:, None, None, :]
     att = sdpa(q2.reshape(N, Q, H, Dh), k2.reshape(N, P, H, Dh), v2.reshape(N, P, H, Dh),
                attend).reshape(N, Q, E)
-    att = (linear(att, params["attn_out_w"], "nqe,ef->nqf") + params["attn_out_b"]).to(x.dtype)
-    att = (linear(att, params["linear_w"], "nqe,ef->nqf") + params["linear_b"]).to(x.dtype)
+    att = (linear(att, params["attn_out_w"]) + params["attn_out_b"]).to(x.dtype)
+    att = (linear(att, params["linear_w"]) + params["linear_b"]).to(x.dtype)
 
     h = layer_norm(att, params["ln_ffn_w"], params["ln_ffn_b"], cfg.layer_norm_eps)
-    h = gelu_tanh(linear(h, params["ffn_in"], "nqe,ef->nqf")).to(x.dtype)
-    return linear(h, params["ffn_out"], "nqf,fo->nqo").to(x.dtype)
+    h = gelu_tanh(linear(h, params["ffn_in"])).to(x.dtype)
+    return linear(h, params["ffn_out"]).to(x.dtype)

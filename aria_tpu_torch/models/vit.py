@@ -118,7 +118,7 @@ def vit_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
     # an int8 patch embedding makes the product bf16; the bias add then
     # promotes to the biases' dtype (vit.py:126-134)
     dtype = torch.bfloat16 if is_quantized(pw) else pw.dtype
-    x = linear(patches.to(dtype), pw, "npk,kd->npd").to(dtype) + params["patch_embed_b"]
+    x = linear(patches.to(dtype), pw).to(dtype) + params["patch_embed_b"]
     x = x + params["pos_embed"][pos_ids].to(dtype)
 
     N, P, D = x.shape
@@ -127,23 +127,23 @@ def vit_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
     attn_mask = pmask[:, None, None, :]
     layers = params["layers"]
 
-    def lin(t, name, bias, spec, layer):
+    def lin(t, name, bias, layer):
         w = layers[name]
         w = {k: v[layer] for k, v in w.items()} if is_quantized(w) else w[layer]
-        return (linear(t, w, spec) + layers[bias][layer]).to(x.dtype)
+        return (linear(t, w) + layers[bias][layer]).to(x.dtype)
 
     for layer in range(cfg.num_layers):
         normed = layer_norm(x, layers["ln1_w"][layer], layers["ln1_b"][layer],
                             cfg.layer_norm_eps)
-        q, k, v = (lin(normed, w, b, "npd,de->npe", layer).reshape(N, P, H, Dh)
+        q, k, v = (lin(normed, w, b, layer).reshape(N, P, H, Dh)
                    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
         if flash:
             att = vit_flash(q, k, v, pmask)
         else:
             att = sdpa(q, k, v, attn_mask)
-        x = x + lin(att.reshape(N, P, D), "wo", "bo", "npd,de->npe", layer)
+        x = x + lin(att.reshape(N, P, D), "wo", "bo", layer)
         normed = layer_norm(x, layers["ln2_w"][layer], layers["ln2_b"][layer],
                             cfg.layer_norm_eps)
-        mlp = gelu_tanh(lin(normed, "fc1_w", "fc1_b", "npd,df->npf", layer))
-        x = x + lin(mlp, "fc2_w", "fc2_b", "npf,fd->npd", layer)
+        mlp = gelu_tanh(lin(normed, "fc1_w", "fc1_b", layer))
+        x = x + lin(mlp, "fc2_w", "fc2_b", layer)
     return VisionOutput(x, pmask, torch.logical_not(pmask))

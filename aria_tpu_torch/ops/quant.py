@@ -221,16 +221,12 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, b.shape[-1])
 
 
-def linear(x: torch.Tensor, w, spec: str) -> torch.Tensor:
-    """einsum(spec, x, w) returning f32, for a spec of the form
-    "...k,kn->...n" (x [..., in], one weight [in, out]); a quantized
-    weight's scale runs over the output axis. The product is f32 from
-    bf16 operands (``matmul_f32``), as the JAX package asks XLA for with
-    ``preferred_element_type=jnp.float32`` (quant.py:50-56)."""
-    ins, out = spec.split("->")
-    xs, ws = ins.split(",")
-    if len(ws) != 2 or xs[-1] != ws[0] or out != xs[:-1] + ws[1]:
-        raise ValueError(f"linear: spec {spec!r} is not of the form '...k,kn->...n'")
+def linear(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., in] @ w [in, out] returning f32, the JAX package's
+    ``linear(x, w, spec)`` for its one form of spec ("...k,kn->...n"); a
+    quantized weight's scale runs over the output axis. The product is f32
+    from bf16 operands (``matmul_f32``), as the JAX package asks XLA for
+    with ``preferred_element_type=jnp.float32`` (quant.py:50-56)."""
     if is_quantized(w):
         return matmul_f32(x, w["q"].to(x.dtype)) * w["s"]
     return matmul_f32(x, w)

@@ -534,7 +534,7 @@ def test_lm_head_logits_are_the_f32_product(cuda):
     g = torch.Generator(device=cuda).manual_seed(4)
     x = _randn(g, 1, 7, 2560)
     head = quantize_weight(_randn(g, 2560, 100352, scale=2560**-0.5))
-    got = linear(x, head, "bsd,dv->bsv")
+    got = linear(x, head)
     assert got.dtype == torch.float32
     ref = (x.double() @ head["q"].double()) * head["s"].double()
     torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)

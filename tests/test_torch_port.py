@@ -148,8 +148,7 @@ def test_linear_matches_jax():
     x, w = rng.randn(2, 5, 64).astype(np.float32), rng.randn(64, 48).astype(np.float32)
     qw = jquant.quantize_weight(jnp.asarray(w))
     ref = jquant.linear(jnp.asarray(x), qw, "bsd,dv->bsv")
-    got = tquant.linear(torch.from_numpy(x), from_jax(jax.tree.map(_np, qw), device="cpu"),
-                        "bsd,dv->bsv")
+    got = tquant.linear(torch.from_numpy(x), from_jax(jax.tree.map(_np, qw), device="cpu"))
     # f32 products of exact int8 values; only the summation order differs
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-5, atol=1e-5)
 

@@ -342,15 +342,12 @@ def test_linear_products_are_f32_from_bf16_operands():
     x = torch.as_tensor(rng.randn(3, 5, 256).astype(np.float32)).bfloat16()
     w = torch.as_tensor(rng.randn(256, 96).astype(np.float32)).bfloat16()
     want = torch.einsum("bsd,df->bsf", x.double(), w.double()).float()
-    got = tquant.linear(x, w, "bsd,df->bsf")
+    got = tquant.linear(x, w)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
     q = tquant.quantize_weight(w.float())
     want_q = torch.einsum("bsd,df->bsf", x.double(), q["q"].double()).float() * q["s"]
-    torch.testing.assert_close(tquant.linear(x, q, "bsd,df->bsf"), want_q, rtol=1e-6,
-                               atol=1e-5)
-    with pytest.raises(ValueError, match="form"):
-        tquant.linear(x, w, "bsd,fd->bsf")
+    torch.testing.assert_close(tquant.linear(x, q), want_q, rtol=1e-6, atol=1e-5)
 
 
 @pytest.mark.parametrize("S", [8191, 8192])
