@@ -21,9 +21,19 @@ are checked.
 
 The JAX engine pads a group to a power of two rows to bound its compile
 count; the port has no compile and runs the rows it has (rows do not
-interact, so the tokens are the same). Guided decoding, multi-LoRA
-adapters, a serving mesh and per-token logprobs are not ported yet and
-raise ``NotImplementedError``.
+interact, so the tokens are the same). Guided decoding, a serving mesh and
+per-token logprobs are not ported yet and raise ``NotImplementedError``.
+
+Multi-LoRA (``adapters=``, an ``AdapterRegistry`` of
+``engine/multi_lora.py``): each request names an adapter at ``submit``
+(none is the base), and a prefill or decode step over rows that hold one
+passes the stacked factors and the rows' one-hot selector to
+``lm_forward``. A prefill group, chunk or decode step whose rows hold no
+adapter takes the plain call (server.py:514-536, :711-714), so base-only
+traffic keeps the int4 kernels; in a mixed batch the base rows take the
+blocked expert-LoRA path with the zero adapter. The paged engine salts its
+prefix keys with the adapter id, so pages are never shared across
+adapters (server.py:1099-1102).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import torch
 
 from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.engine.generate import _bucket
+from aria_tpu_torch.engine.multi_lora import AdapterRegistry, registry_for_params
 from aria_tpu_torch.engine.paged import PagePool
 from aria_tpu_torch.engine.sampling import apply_penalties, sample, update_counts
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
@@ -48,9 +59,8 @@ GROUP_ROWS = 32  # most requests in one grouped admission prefill (server.py:470
 
 _NOT_PORTED = {
     "mesh": "a serving mesh (ROADMAP queue 1, item 11: parallel/ on torch.distributed)",
-    "guided_fsm": "guided decoding (ROADMAP queue 1, item 7: the serving features)",
-    "adapters": "multi-LoRA adapters (ROADMAP queue 1, item 7: the serving features)",
-    "logprobs_topk": "per-token logprobs (ROADMAP queue 1, item 7: the serving features)",
+    "guided_fsm": "guided decoding (ROADMAP queue 1, item 6: the serving features)",
+    "logprobs_topk": "per-token logprobs (ROADMAP queue 1, item 6: the serving features)",
 }
 
 
@@ -73,6 +83,7 @@ class Request:
     done: bool = False
     error: Optional[str] = None
     cached_tokens: int = 0  # prompt positions served from the prefix cache (paged engine)
+    adapter_id: int = 0  # index into the engine's AdapterRegistry (0 = the base)
 
 
 class _LaneEngine:
@@ -82,7 +93,8 @@ class _LaneEngine:
     in admission, prefill and the cache."""
 
     def __init__(self, params: dict, cfg: AriaConfig, max_lanes: int, temperature: float,
-                 top_k: Optional[int], decode_chunk: int, rng_seed: int, **given):
+                 top_k: Optional[int], decode_chunk: int, rng_seed: int,
+                 adapters: Optional[AdapterRegistry], **given):
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(f"{type(self).__name__}({name}=...): "
@@ -94,6 +106,15 @@ class _LaneEngine:
         self.top_k = top_k
         self.decode_chunk = decode_chunk
         self.device = params["lm"]["final_norm"].device
+        if adapters is not None:
+            placed = {ab[f].device for ab in adapters.stacked["layers"].values() for f in "ab"}
+            if placed - {self.device}:
+                raise ValueError(f"adapters on {sorted(map(str, placed))}, the model on "
+                                 f"{self.device}")
+            # a base with fused shared experts needs the factors fused to match
+            adapters = registry_for_params(adapters, params["lm"]["layers"], cfg.text)
+        self.adapters = adapters
+        self.lane_adapter = np.zeros(self.B, np.int32)  # 0 = the base
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.lane_req: List[Optional[Request]] = [None] * self.B
         self.lane_pos = np.zeros(self.B, np.int32)  # next write position (host copy)
@@ -137,8 +158,9 @@ class _LaneEngine:
     ) -> int:
         if guided:
             raise ValueError("engine was built without a guided_fsm")
-        if adapter:
+        if adapter and self.adapters is None:
             raise ValueError("engine was built without adapters")
+        adapter_id = self.adapters.resolve(adapter) if self.adapters is not None else 0
         self._uid += 1
         if top_p is not None or min_p is not None:
             self._nucleus = True
@@ -149,7 +171,7 @@ class _LaneEngine:
             stop_token_ids=tuple(stop_token_ids), pixel_values=pixel_values,
             pixel_mask=pixel_mask, temperature=temperature, top_p=top_p, min_p=min_p,
             presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
-            repetition_penalty=repetition_penalty))
+            repetition_penalty=repetition_penalty, adapter_id=adapter_id))
         return self._uid
 
     def cancel(self, uid: int) -> bool:
@@ -210,10 +232,19 @@ class _LaneEngine:
             req.done = True
             self._finished.append(req)
         self.lane_req[lane] = None
+        self.lane_adapter[lane] = 0
         self.lane_top_p[lane] = 1.0
         self.lane_min_p[lane] = 0.0
         self.lane_pres[lane] = self.lane_freq[lane] = 0.0
         self.lane_rep[lane] = 1.0
+
+    def _lora_kwargs(self, ids) -> dict:
+        """``lm_forward``'s adapter arguments for rows with these adapter
+        ids: none when no row holds an adapter (the plain call)."""
+        if self.adapters is None or not np.any(ids):
+            return {}
+        return {"lora": self.adapters.stacked, "lora_scale": 1.0,
+                "lora_onehot": self.adapters.lane_onehot(ids)}
 
     def _take_finished(self) -> List[Request]:
         out, self._finished = self._finished, []
@@ -236,10 +267,11 @@ class _LaneEngine:
                                for a in (self.lane_pres, self.lane_freq, self.lane_rep))
         toks = self.lane_tok
         outs = []
+        lora = self._lora_kwargs(self.lane_adapter)
         for _ in range(self.decode_chunk):
             logits = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
-                                cache=self.cache, cache_pos=pos,
-                                page_table=page_table).logits[:, -1]
+                                cache=self.cache, cache_pos=pos, page_table=page_table,
+                                **lora).logits[:, -1]
             if self._penalties:
                 logits = apply_penalties(logits, self.lane_counts, self.lane_pmask, pres, freq, rep)
             nxt = sample(self.generator, logits, temps, self.top_k, top_p, min_p)
@@ -301,7 +333,7 @@ class BatchedEngine(_LaneEngine):
         logprobs_topk: Optional[int] = None,
     ):
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
-                         mesh=mesh, guided_fsm=guided_fsm, adapters=adapters,
+                         adapters, mesh=mesh, guided_fsm=guided_fsm,
                          logprobs_topk=logprobs_topk)
         # a multiple of 128, as the JAX engine allocates (server.py:103)
         self.S = -(-max_seq_len // 128) * 128
@@ -388,9 +420,12 @@ class BatchedEngine(_LaneEngine):
         lens_t = torch.as_tensor(true_lens, device=dev)
         lane_cache = KVCache.init(text, N, bucket, self.cache_dtype, device=dev)
         embeds = prepare_embeddings(self.params, self.cfg, tok_t, image_features=image_features)
+        ids = np.asarray([req.adapter_id for req in reqs], np.int32)
         logits = lm_forward(self.params["lm"], text, inputs_embeds=embeds,
                             positions=torch.arange(bucket, device=dev), cache=lane_cache,
-                            cache_pos=0, logit_position=lens_t - 1, causal_flash=True).logits[:, 0]
+                            cache_pos=0, logit_position=lens_t - 1, causal_flash=True,
+                            **self._lora_kwargs(ids)).logits[:, 0]
+        self.lane_adapter[lanes] = ids
         lanes_t = torch.as_tensor(lanes, device=dev)
         for name in ("k", "v", "k_scale", "v_scale"):
             src = getattr(lane_cache, name)
@@ -477,7 +512,7 @@ class PagedBatchedEngine(_LaneEngine):
         adapters=None,
     ):
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
-                         guided_fsm=guided_fsm, adapters=adapters)
+                         adapters, guided_fsm=guided_fsm)
         self.PS = page_size
         self.MAXP = -(-max_seq_len // page_size)
         self.S = self.MAXP * page_size
@@ -542,7 +577,8 @@ class PagedBatchedEngine(_LaneEngine):
         shared: list = []
         keys = None
         if self.prefix_cache and req.pixel_values is None:
-            keys = self._page_keys(req.prompt_tokens)
+            # an adapter changes the k/v of the same prompt: its own keys
+            keys = self._page_keys(req.prompt_tokens, salt=req.adapter_id)
             for key in keys[:(true_len - 1) // self.PS]:
                 page = self.pool.lookup(key)
                 if page is None:
@@ -558,6 +594,7 @@ class PagedBatchedEngine(_LaneEngine):
         self.lane_pages[lane] = pages
         self.lane_keys[lane] = keys
         self.lane_req[lane] = req
+        self.lane_adapter[lane] = req.adapter_id
         self.lane_state[lane] = self.PREFILL
         self.lane_pos[lane] = len(shared) * self.PS  # the cached chunks are skipped
         req.cached_tokens = len(shared) * self.PS
@@ -571,12 +608,12 @@ class PagedBatchedEngine(_LaneEngine):
         self.lane_embeds[lane] = self._embeds_for(req, n_chunks * self.C)
         return True
 
-    def _page_keys(self, tokens: Sequence[int]) -> list:
+    def _page_keys(self, tokens: Sequence[int], salt: int = 0) -> list:
         """A chain hash per full prompt page: key i commits to tokens[:(i + 1)
         * PS], so equal keys mean equal positions and history and the cached
-        KV holds verbatim. The hash starts from the JAX package's salt for
-        the base model (an adapter id of 0), so the keys are its keys."""
-        h = hashlib.sha1(np.int32(0).tobytes())
+        KV holds verbatim. The hash starts from ``salt``, the request's
+        adapter id, so the keys are the JAX package's."""
+        h = hashlib.sha1(np.int32(salt).tobytes())
         keys = []
         for i in range(len(tokens) // self.PS):
             h.update(np.asarray(tokens[i * self.PS:(i + 1) * self.PS], np.int32).tobytes())
@@ -649,7 +686,8 @@ class PagedBatchedEngine(_LaneEngine):
             positions=offsets[:, None] + torch.arange(C, dtype=torch.int32, device=dev)[None, :],
             cache=self.cache, cache_pos=offsets,
             logit_position=torch.as_tensor(logit_at, device=dev),
-            page_table=torch.as_tensor(self.page_table[lanes], device=dev)).logits[:, 0]
+            page_table=torch.as_tensor(self.page_table[lanes], device=dev),
+            **self._lora_kwargs(self.lane_adapter[lanes])).logits[:, 0]
         if self._penalties:  # a fresh request's output counts are zero
             pres, freq, rep = (torch.as_tensor(a[lanes], device=dev)
                                for a in (self.lane_pres, self.lane_freq, self.lane_rep))

@@ -29,7 +29,10 @@ kernel, and the others dequantize the layer's experts (int8 only, for this
 call) and take the ragged path (``experts_ragged``, two ``gmm`` kernels).
 In training, and wherever expert LoRA is given, the MoE is the JAX
 package's XLA dispatch: expert LoRA on the capacity path
-(``experts_grouped``), at most 32 tokens on ``experts_gather``, more on
+(``experts_grouped``; over quantized experts one block of experts at a
+time, dequantized by the ``expert_block_dequant`` kernel, with the
+multi-adapter selector of multi-LoRA serving), at most 32 tokens on
+``experts_gather``, more on
 ``experts_ragged`` when there are more than 2 x top-k experts (its
 backward is ``gmm_dlhs`` and ``tgmm``), else ``experts_grouped``; the
 router adds its z and aux losses, and there is no MoE slicing. LoRA
@@ -63,6 +66,7 @@ from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.attention import sdpa
 from aria_tpu_torch.ops.decode_attention import decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
+from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
 from aria_tpu_torch.ops.flash import flash_causal
 from aria_tpu_torch.ops.kv_write import kv_cache_write
 from aria_tpu_torch.ops.moe import (
@@ -102,6 +106,7 @@ from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
 
 MOE_CHUNK = 8192  # tokens per MoE slice of a long prefill (moe_lm.py:866-880)
 MOE_CHUNK_LONG = 2048  # the slice from 32768 tokens on
+LORA_EBLOCK = 0  # experts per block of _experts_lora_blocked where it divides E; 0: default
 
 
 @dataclasses.dataclass
@@ -422,22 +427,32 @@ def _project(x2d: torch.Tensor, w, layer: int) -> torch.Tensor:
     return linear(x2d, _layer_weight(w, layer))
 
 
-def _lora_delta(x: torch.Tensor, ab: Optional[dict], layer: int, scale: float):
-    """One layer's single-adapter LoRA delta x @ a @ b * scale in x's dtype
-    (moe_lm.py:264-280): the products in f32 (a and b are f32)."""
-    h = torch.einsum("...d,dr->...r", x.float(), ab["a"][layer].float())
-    return scale * torch.einsum("...r,rf->...f", h, ab["b"][layer].float()).to(x.dtype)
+def _lora_delta(x: torch.Tensor, ab: Optional[dict], layer: int, scale: float,
+                onehot: Optional[torch.Tensor] = None):
+    """One layer's LoRA delta x @ a @ b * scale in x's dtype (moe_lm.py:262-277),
+    the products in f32. Stacked factors (a [A, d, r]) with ``onehot``
+    compute every adapter's delta and select one per row: [A, B] over the
+    rows of x [B, S, d], or [A, T] over the tokens of x [T, d]."""
+    a, b = ab["a"][layer].float(), ab["b"][layer].float()
+    if onehot is not None and a.dim() == 3:
+        if x.dim() == 2:
+            out = torch.einsum("atr,arf->atf", torch.einsum("td,adr->atr", x.float(), a), b)
+            return scale * torch.einsum("atf,at->tf", out, onehot.float()).to(x.dtype)
+        out = torch.einsum("absr,arf->absf", torch.einsum("bsd,adr->absr", x.float(), a), b)
+        return scale * torch.einsum("absf,ab->bsf", out, onehot.float()).to(x.dtype)
+    h = torch.einsum("...d,dr->...r", x.float(), a)
+    return scale * torch.einsum("...r,rf->...f", h, b).to(x.dtype)
 
 
 def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, sin,
                cache: Optional[KVCache], cache_pos, use_flash: bool,
                lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
                paged: Optional[tuple] = None, lora: Optional[dict] = None,
-               lora_scale: float = 0.0):
+               lora_scale: float = 0.0, lora_onehot: Optional[torch.Tensor] = None):
     B, S, _ = x.shape
     qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1)
     if lora and "wqkv" in lora:
-        qkv = qkv + _lora_delta(x, lora["wqkv"], layer, lora_scale)
+        qkv = qkv + _lora_delta(x, lora["wqkv"], layer, lora_scale, lora_onehot)
     qkv = qkv.to(x.dtype)
     q_size = cfg.q_size
     kv_size = cfg.num_kv_heads * cfg.head_dim
@@ -463,7 +478,7 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     out = out.reshape(B, S, q_size)
     proj = _project(out.reshape(B * S, q_size), layers["wo"], layer).reshape(B, S, -1)
     if lora and "wo" in lora:
-        proj = proj + _lora_delta(out, lora["wo"], layer, lora_scale)
+        proj = proj + _lora_delta(out, lora["wo"], layer, lora_scale, lora_onehot)
     return proj.to(x.dtype)
 
 
@@ -493,19 +508,70 @@ def prefill_kernel_tile(I: int) -> Optional[int]:
     return next((f for f in (512, 256, 128) if I % f == 0), None)
 
 
+def lora_block_size(E: int) -> int:
+    """Experts per block of the blocked expert-LoRA path (moe_lm.py:733-736):
+    ``LORA_EBLOCK`` where it divides E, else the largest divisor of E that
+    is at most 16 (11 at 64 + 2 fused experts, in 6 blocks)."""
+    eb = LORA_EBLOCK
+    if eb <= 0 or E % eb:
+        eb = next((b for b in range(min(16, E), 0, -1) if E % b == 0), E)
+    return eb
+
+
+def _experts_lora_blocked(x: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor,
+                          w1q: dict, w2q: dict, lora: dict, lora_scale: float,
+                          lora_onehot: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """Expert LoRA over a quantized layer (int4 or int8 stacks [E, ...]), one
+    block of experts at a time (moe_lm.py:682-760): the adapters sit inside
+    the expert GLU, so the int4 kernels cannot run beneath them; the block's
+    float weights come from ``expert_block_dequant`` and go through the
+    capacity path with the adapters' factors of the block (sliced on axis
+    ndim - 3, which is E for single [E, ...] and stacked [A, E, ...]
+    factors). Slots outside the block take weight 0 and the id ``eb``,
+    which the dispatch sends to its trash row; the blocks' outputs are
+    summed in f32. A layer of at most 16 experts is one block, run without
+    the masking and the sum."""
+    E = (w1q["q4"] if "q4" in w1q else w1q["q"]).shape[0]
+    eb = lora_block_size(E)
+    lw1, lw2 = lora.get("w1"), lora.get("w2")
+
+    def block(tree, e0):
+        return None if tree is None else {f: v.narrow(v.dim() - 3, e0, eb)
+                                          for f, v in tree.items()}
+
+    def run(e0, il, wts):
+        return experts_grouped(x, il, wts, expert_block_dequant(w1q, "w1", e0, eb, dtype),
+                               expert_block_dequant(w2q, "w2", e0, eb, dtype),
+                               lora_w1=block(lw1, e0), lora_w2=block(lw2, e0),
+                               lora_scale=lora_scale, lora_onehot=lora_onehot)
+
+    if eb == E:
+        return run(0, indices, weights)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e0 in range(0, E, eb):
+        il = indices - e0
+        valid = (il >= 0) & (il < eb)
+        acc = acc + run(e0, torch.where(valid, il, eb),
+                        torch.where(valid, weights, torch.zeros_like(weights))).float()
+    return acc.to(dtype)
+
+
 def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared,
-             training: bool = False, lora: Optional[dict] = None, lora_scale: float = 0.0):
+             training: bool = False, lora: Optional[dict] = None, lora_scale: float = 0.0,
+             lora_onehot: Optional[torch.Tensor] = None):
     """The routed experts, and the shared ones fused in as always-on slots
     (``shared``) or as their own MLP (moe_lm.py:763-1057, single chip).
-    Returns (out [B, S, D], z_loss, aux_loss).
+    Returns (out [B, S, D], z_loss, aux_loss). ``lora_onehot`` is the
+    token-level [A, B*S] adapter selector of multi-adapter serving.
 
     A serving prefill of more than MOE_CHUNK tokens (MOE_CHUNK_LONG at
-    32768 and over) runs in slices of that size one after another, as the
-    JAX package's lax.map does; exact, as routing is per token. A token
-    count past the slice that is not a multiple of it raises
-    NotImplementedError: the JAX package runs it unsliced, and the port has
-    not been run at such sizes (prompt buckets are powers of two, so the
-    engine never makes one). Training is never sliced (moe_lm.py:871)."""
+    32768 and over) runs in slices of that size one after another, with
+    its slice of the selector, as the JAX package's lax.map does; exact, as
+    routing is per token. A token count past the slice that is not a
+    multiple of it raises NotImplementedError: the JAX package runs it
+    unsliced, and the port has not been run at such sizes (prompt buckets
+    are powers of two, so the engine never makes one). Training is never
+    sliced (moe_lm.py:871)."""
     B, S, D = x.shape
     flat = x.reshape(-1, D)
     T = flat.shape[0]
@@ -516,16 +582,19 @@ def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared,
                 f"an MoE call over {T} tokens, past the {chunk}-token slice and not a "
                 "multiple of it, is not ported")
         outs = [_moe_ffn_tokens(layers, cfg, layer, flat[i:i + chunk], shared, training, lora,
-                                lora_scale)[0] for i in range(0, T, chunk)]
+                                lora_scale,
+                                None if lora_onehot is None else lora_onehot[:, i:i + chunk])[0]
+                for i in range(0, T, chunk)]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return torch.cat(outs).reshape(B, S, D), zero, zero
     out, z_loss, aux_loss = _moe_ffn_tokens(layers, cfg, layer, flat, shared, training, lora,
-                                            lora_scale)
+                                            lora_scale, lora_onehot)
     return out.reshape(B, S, D), z_loss, aux_loss
 
 
 def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tensor, shared,
-                    training: bool, lora: Optional[dict], lora_scale: float):
+                    training: bool, lora: Optional[dict], lora_scale: float,
+                    lora_onehot: Optional[torch.Tensor] = None):
     T = flat.shape[0]
     w1, w2 = layers["w1"], layers["w2"]
     routing = route_topk(flat, layers["gate"][layer], cfg.moe_topk,
@@ -536,14 +605,19 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
         indices = torch.cat([indices, shared[0][:T]], dim=1)
         weights = torch.cat([weights, shared[1][:T]], dim=1)
     expert_lora = lora is not None and ("w1" in lora or "w2" in lora)
-    if expert_lora or training:
+    if expert_lora:  # inside the GLU: the capacity path (moe_lm.py:1010-1033)
+        lw = {n: {f: lora[n][f][layer] for f in ("a", "b")} for n in ("w1", "w2") if n in lora}
+        if isinstance(w1, dict):  # quantized: one block of experts at a time
+            w1l, w2l = ({k: v[layer] for k, v in w.items()} for w in (w1, w2))
+            out = _experts_lora_blocked(flat, indices, weights, w1l, w2l, lw, lora_scale,
+                                        lora_onehot, flat.dtype)
+        else:
+            out = experts_grouped(flat, indices, weights, w1[layer], w2[layer],
+                                  lora_w1=lw.get("w1"), lora_w2=lw.get("w2"),
+                                  lora_scale=lora_scale, lora_onehot=lora_onehot)
+    elif training:
         w1l, w2l = w1[layer], w2[layer]
-        if expert_lora:  # inside the GLU: the capacity path (moe_lm.py:1026-1033)
-            lw1, lw2 = (None if lora.get(n) is None else
-                        {f: lora[n][f][layer] for f in ("a", "b")} for n in ("w1", "w2"))
-            out = experts_grouped(flat, indices, weights, w1l, w2l, lora_w1=lw1, lora_w2=lw2,
-                                  lora_scale=lora_scale)
-        elif T <= GATHER_PATH_MAX_TOKENS:
+        if T <= GATHER_PATH_MAX_TOKENS:
             out = experts_gather(flat, indices, weights, w1l, w2l)
         elif cfg.num_experts > 2 * cfg.moe_topk:
             out = experts_ragged(flat, indices, weights, w1l, w2l)
@@ -572,11 +646,12 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
     if shared is None:  # the shared MLP (moe_lm.py:1049-1056)
         h = linear(flat, _layer_weight(layers["shared_w1"], layer))
         if lora and "shared_w1" in lora:
-            h = h + _lora_delta(flat, lora["shared_w1"], layer, lora_scale)
+            h = h + _lora_delta(flat, lora["shared_w1"], layer, lora_scale, lora_onehot)
         h = glu(h.to(flat.dtype))
         shared_out = linear(h, _layer_weight(layers["shared_w2"], layer))
         if lora and "shared_w2" in lora:
-            shared_out = shared_out + _lora_delta(h, lora["shared_w2"], layer, lora_scale)
+            shared_out = shared_out + _lora_delta(h, lora["shared_w2"], layer, lora_scale,
+                                                  lora_onehot)
         out = out + shared_out.to(flat.dtype)
     return out, routing.z_loss, routing.aux_loss
 
@@ -596,6 +671,7 @@ def lm_forward(
     training: bool = False,  # router losses, the training MoE dispatch
     lora: Optional[dict] = None,  # {"layers": {name: {"a": [L, ...], "b": [L, ...]}}}
     lora_scale: float = 0.0,
+    lora_onehot: Optional[torch.Tensor] = None,  # [A, B] selector over stacked [L, A, ...]
     remat: bool = False,  # recompute each layer in the backward
 ) -> LMOutput:
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
@@ -605,7 +681,10 @@ def lm_forward(
     ``PagedKVCache`` and token i of lane b attends logical positions up to
     ``cache_pos[b] + i``. The cache is updated in place and returned, with
     the router's z and aux losses summed over the layers (0 unless
-    ``training``)."""
+    ``training``). Multi-adapter serving (``engine/multi_lora.py``) passes
+    stacked factors with ``lora_scale=1.0`` and ``lora_onehot``: attention
+    takes the row selector, the MoE its token-level expansion (each row's
+    column repeated S times, moe_lm.py:1123-1126)."""
     if inputs_embeds is None:
         x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
     else:
@@ -621,10 +700,10 @@ def lm_forward(
                          + (f" + {cfg.num_shared_experts} fused shared" if fused else ""))
     lora_layers = lora["layers"] if lora is not None else None
     expert_lora = lora_layers is not None and ("w1" in lora_layers or "w2" in lora_layers)
-    if (training or expert_lora) and isinstance(w1, dict):
+    if training and isinstance(w1, dict):
         raise NotImplementedError(
-            "training or expert LoRA over quantized experts is QLoRA (_experts_lora_blocked "
-            "and _pin_default_layout, moe_lm.py:655-760): ROADMAP queue 2 item 3")
+            "training over quantized experts is QLoRA: its training path over the blocked "
+            "dequantize (_experts_lora_blocked) is not ported yet (ROADMAP queue 1 item 10)")
     many = B * S > DECODE_KERNEL_MAX_TOKENS
     if not training and many and int4 and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
         raise NotImplementedError(
@@ -667,14 +746,15 @@ def lm_forward(
         lengths = (cache_pos + S if per_lane else
                    torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device))
     shared = _shared_slots(cfg, B * S, x.dtype, x.device) if fused else None
+    tok_onehot = None if lora_onehot is None else torch.repeat_interleave(lora_onehot, S, dim=1)
 
     def layer_fn(x, layer):
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
-                           lengths, rows, paged, lora_layers, lora_scale)
+                           lengths, rows, paged, lora_layers, lora_scale, lora_onehot)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
-                                         lora_layers, lora_scale)
+                                         lora_layers, lora_scale, tok_onehot)
         return x + out, z_loss, aux_loss
 
     z_loss = aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)

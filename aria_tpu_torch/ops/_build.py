@@ -65,6 +65,8 @@ SIGNATURES = {
     "aria_gmm": [_P] * 4 + [_I] * 6 + [_P],
     # lhs, grad, group_sizes, out, M, K, N, E, stream
     "aria_tgmm": [_P] * 4 + [_I] * 4 + [_P],
+    # q, s, out, eb, R, D, group, mode, out_f32, stream
+    "aria_expert_dequant": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

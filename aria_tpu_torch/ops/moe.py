@@ -81,17 +81,20 @@ def experts_gather(x, indices, weights, w1, w2) -> torch.Tensor:
 def _dispatch_indices(indices: torch.Tensor, num_experts: int, capacity: int):
     """Per routing slot, its row in the [E*C] buffer (moe.py:104-124):
     returns (slot_dest [T*k], token_ids [T*k]), slots past an expert's
-    capacity sent to the trash row E*C."""
+    capacity sent to the trash row E*C. So is a slot whose id is E, the
+    blocked expert-LoRA path's mark of an expert outside the block: the JAX
+    function drops it by its out-of-range scatter, here it is counted in a
+    bin of its own and sent to the trash row explicitly."""
     T, k = indices.shape
     flat_e = indices.reshape(-1).long()
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.zeros(num_experts, dtype=torch.long, device=indices.device)
+    counts = torch.zeros(num_experts + 1, dtype=torch.long, device=indices.device)
     counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     ranks = torch.arange(T * k, device=indices.device) - starts[flat_e[order]]
     pos_in_expert = torch.empty_like(ranks).index_copy_(0, order, ranks)
-    slot_dest = torch.where(pos_in_expert < capacity, flat_e * capacity + pos_in_expert,
-                            num_experts * capacity)
+    keep = (pos_in_expert < capacity) & (flat_e < num_experts)
+    slot_dest = torch.where(keep, flat_e * capacity + pos_in_expert, num_experts * capacity)
     token_ids = torch.arange(T, device=indices.device).repeat_interleave(k)
     return slot_dest, token_ids
 
@@ -103,31 +106,51 @@ def experts_grouped(
     w1: torch.Tensor,  # [E, 2I, D]
     w2: torch.Tensor,  # [E, I, D]
     capacity: Optional[int] = None,
-    lora_w1: Optional[dict] = None,  # {"a": [E, D, r], "b": [E, r, 2I]}
-    lora_w2: Optional[dict] = None,  # {"a": [E, I, r], "b": [E, r, D]}
+    lora_w1: Optional[dict] = None,  # {"a": [E, D, r], "b": [E, r, 2I]}; multi: [A, E, ...]
+    lora_w2: Optional[dict] = None,  # {"a": [E, I, r], "b": [E, r, D]}; multi: [A, E, ...]
     lora_scale: float = 0.0,
+    lora_onehot: Optional[torch.Tensor] = None,  # [A, T] per-token adapter selector
 ) -> torch.Tensor:
     """The capacity path (moe.py:127-201): tokens scattered into an [E, C,
     D] buffer (C = T by default: dropless), batched products in f32 with
     the per-expert LoRA deltas inside the GLU (fc1 before it, fc2 after
     it), the gather back and the combine over k in f32. Returns [T, D] in
-    x's dtype. The multi-adapter selector of the JAX function is not
-    ported."""
+    x's dtype. With stacked factors ([A, E, ...]) and ``lora_onehot``,
+    every adapter's delta is computed over all buffers and each buffer row
+    takes its token's adapter: the selector is scattered into the buffers
+    with the tokens (moe.py:161-190). The LoRA products are f32."""
     T, D = x.shape
     E, k = w1.shape[0], indices.shape[1]
     C = T if capacity is None else capacity
     slot_dest, token_ids = _dispatch_indices(indices, E, C)
     buf = x.new_zeros((E * C + 1, D)).index_put((slot_dest,), x[token_ids])
     buf = buf[:E * C].reshape(E, C, D)
+    factors = lora_w1 or lora_w2
+    multi = lora_onehot is not None and factors is not None and factors["a"].dim() == 4
+    if multi:  # [E, C, A]: rows from different requests share an expert's buffer
+        A = lora_onehot.shape[0]
+        mhot = lora_onehot.new_zeros((E * C + 1, A)).float().index_put(
+            (slot_dest,), lora_onehot.T.float()[token_ids])
+        mhot = mhot[:E * C].reshape(E, C, A)
     h = matmul_f32(buf, w1.transpose(1, 2))
     if lora_w1 is not None:
-        hr = torch.einsum("ecd,edr->ecr", buf.float(), lora_w1["a"].float())
-        h = h + lora_scale * torch.einsum("ecr,erf->ecf", hr, lora_w1["b"].float())
+        if multi:
+            hr = torch.einsum("ecd,aedr->aecr", buf.float(), lora_w1["a"].float())
+            hd = torch.einsum("aecr,aerf->aecf", hr, lora_w1["b"].float())
+            h = h + lora_scale * torch.einsum("aecf,eca->ecf", hd, mhot)
+        else:
+            hr = torch.einsum("ecd,edr->ecr", buf.float(), lora_w1["a"].float())
+            h = h + lora_scale * torch.einsum("ecr,erf->ecf", hr, lora_w1["b"].float())
     h = glu(h.to(x.dtype))
     out = matmul_f32(h, w2)
     if lora_w2 is not None:
-        outr = torch.einsum("ecf,efr->ecr", h.float(), lora_w2["a"].float())
-        out = out + lora_scale * torch.einsum("ecr,erd->ecd", outr, lora_w2["b"].float())
+        if multi:
+            outr = torch.einsum("ecf,aefr->aecr", h.float(), lora_w2["a"].float())
+            outd = torch.einsum("aecr,aerd->aecd", outr, lora_w2["b"].float())
+            out = out + lora_scale * torch.einsum("aecd,eca->ecd", outd, mhot)
+        else:
+            outr = torch.einsum("ecf,efr->ecr", h.float(), lora_w2["a"].float())
+            out = out + lora_scale * torch.einsum("ecr,erd->ecd", outr, lora_w2["b"].float())
     out = torch.cat([out.to(x.dtype).reshape(E * C, D), x.new_zeros((1, D))])
     per_slot = out[slot_dest].reshape(T, k, D)
     combined = torch.einsum("tkd,tk->td", per_slot.float(), weights.float())

@@ -6,8 +6,8 @@ optimizer's ``MultiSteps`` (the whole loss, aux terms included, is
 averaged), checkpoints at the end of each epoch (and every
 ``save_every_steps``) with resume, and JSONL metrics. The recipe's mesh
 fields must be 1: meshes are ROADMAP queue 1 item 11. ``quantize_base``
-(QLoRA) raises: it takes the blocked expert-LoRA dequantize and
-``_pin_default_layout``, queue 2 item 3.
+(QLoRA) raises: the blocked expert-LoRA dequantize and its kernel are
+ported for serving, and only their training path is left (queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -114,8 +114,9 @@ def train(r: Recipe, cfg: Optional[AriaConfig] = None, max_steps: Optional[int] 
     if bad:
         raise NotImplementedError(f"{', '.join(bad)} != 1: meshes are ROADMAP queue 1 item 11")
     if r.use_peft and r.quantize_base:
-        raise NotImplementedError("quantize_base (QLoRA) takes _experts_lora_blocked and "
-                                  "_pin_default_layout: ROADMAP queue 2 item 3")
+        raise NotImplementedError("quantize_base (QLoRA): only the training path over the "
+                                  "blocked dequantize (_experts_lora_blocked) is left to port "
+                                  "(ROADMAP queue 1 item 10)")
     device = backend.device(device)
     cfg = cfg or AriaConfig.aria_25b()
     cfg = cfg.replace(text=dataclasses.replace(

@@ -22,20 +22,33 @@
    depth: ``encode_images`` with 2 ViT layers, and a 2-layer prefill over
    more than 128 tokens.
 5. The lanes path (bench.py's lanes child): ``BatchedEngine`` with 32
-   lanes and the int4 KV cache serves 32 x 200 tokens per round, a
-   warm-up round and a timed one; ``kv_cache_write`` and the int4
+   lanes and the int4 KV cache serves a warm-up round of 32 x 50 tokens
+   and a timed one of 32 x 200; ``kv_cache_write`` and the int4
    decode attention must launch. Then a profiled decode chunk, a greedy
    int8-KV check, and a 2-layer batched decode step against the CPU.
 6. The paged path (bench.py's lanes child with ``--paged --kv-int8``):
-   ``PagedBatchedEngine`` with 32 lanes on int8 pages serves 32 x 200
-   tokens per round through 128-token prefill chunks, a warm-up round and
-   a timed one; ``paged_decode_attention`` must launch once per layer of
+   ``PagedBatchedEngine`` with 32 lanes on int8 pages serves a warm-up
+   round of 32 x 50 tokens and a timed one of 32 x 200 through 128-token
+   prefill chunks; ``paged_decode_attention`` must launch once per layer of
    every decode step. Then a profiled prefill tick and decode chunk, where
    a row's result depends on the rows beside it (op by op), two
    prefix-cache rounds at the served chunk (the first request alone,
    reported; beside a companion, held, with two planted faults that must
    exceed the limit), the tight-pool request that stalls the JAX engine,
    and a 2-layer paged chunk and decode step against the CPU.
+6b. Adapters (multi-LoRA serving), while the int4 model is resident: three
+   adapters from the seed (the LoRA recipe's rank 8 and alpha 32 on all
+   six targets, rank 16, and rank 8 on attention only) in one
+   ``AdapterRegistry``; ``BatchedEngine(adapters=)`` with the int4 KV
+   cache serves 32 greedy 48-token prompts (8 on the base, 8 on each
+   adapter) x 64 tokens twice: the streams repeat, each adapter moves
+   some, and each decode step launches ``expert_block_dequant`` 12 times a
+   layer (336). Then a profiled mixed decode chunk (busy share, peak
+   memory), a base-only round equal token for token to the plain
+   ``BatchedEngine``'s, a 2-layer mixed prefill and decode step against
+   the CPU (held to 5e-2, its bf16 witness beside it), one layer's blocked
+   expert-LoRA MoE against the CPU (held to two bf16 roundings), and
+   ``PagedBatchedEngine(adapters=)``'s prefix keys salted by adapter.
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
    ViT and projector bf16. int8: bench.py's image request twice sampled
@@ -61,8 +74,9 @@
    versions, leaf by leaf.
 
 Phase 2 also holds ``moe_decode``, ``moe_decode_quant`` and ``gmm`` at
-the forms' shapes, and the training kernels at the train phase's shapes:
-the flash forward, its row log-sum-exp and its backward at
+the forms' shapes, ``expert_block_dequant`` at the adapters path's
+blocks (int4 and int8, bf16 and f32 out, bit-equal), and the training
+kernels at the train phase's shapes: the flash forward, its row log-sum-exp and its backward at
 [1, 2048, 20, 128] and [8, 2048, 20, 128]; ``gmm``, ``gmm_dlhs`` and
 ``tgmm`` at the full recipe's 98,304 rows. Each path sets every launch
 count to 0 just before it runs and reads them
@@ -320,6 +334,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     record("moe_prefill_int4", errs, timed)
     del w1, w2
     check_fp_experts(device, gen, cfg, lanes, results, randn, record)
+    check_expert_dequant(device, cfg, randn, record)
 
     # decode_attention over a 1024-position cache, int8 and bf16. The bf16
     # cache's library call is scaled_dot_product_attention with the length
@@ -691,6 +706,58 @@ def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
     del w1, w2
 
 
+def check_expert_dequant(device, cfg, randn, record):
+    """Phase 2, ``expert_block_dequant`` at the adapters path's shapes: the
+    second block of 11 experts of a full-width layer (the blocked
+    expert-LoRA path's block at 64 + 2 experts), int4 w1 [11, 3328, 2560]
+    and w2 [11, 1664, 2560], bf16 and f32 out, and the same blocks of the
+    int8 form; bit-equal to the plain version (the slice, then the
+    dequantize). Bound: the block's packed bytes and scales read once and
+    its float weights written once (of the int4 scales, the ng rows of sg
+    and row 0 of s8 that the function reads). No PyTorch call unpacks this
+    int4 layout: library none."""
+    import torch
+
+    from aria_tpu_torch.ops import expert_dequant as ed
+    from aria_tpu_torch.models.moe_lm import lora_block_size
+    from aria_tpu_torch.ops.quant import (
+        int4_group_count,
+        quantize_expert_int4,
+        quantize_weight,
+        with_s8,
+    )
+
+    D, I = cfg.hidden_size, cfg.moe_intermediate_size
+    eb = lora_block_size(cfg.num_experts + cfg.num_shared_experts)
+    ng = int4_group_count(D)
+    print(f"expert_block_dequant (blocks of {eb})", flush=True)
+    w1, w2 = randn(2 * eb, 2 * I, D, scale=D**-0.5), randn(2 * eb, I, D, scale=I**-0.5)
+    forms = {"int4": quantize_expert_int4(w1, w2),
+             "int8": (with_s8(quantize_weight(w1, input_axis=-1)),
+                      with_s8(quantize_weight(w2, input_axis=-2)))}
+    del w1, w2
+    errs, timed = [], []
+    for form, pair in forms.items():
+        for kind, w in zip(("w1", "w2"), pair):
+            blk = {k: v[eb:2 * eb] for k, v in w.items()}
+            # what the function reads: the rows of sg [E, 8, 2I] and s8 [E, 8, D]
+            # past ng and 0 are padding
+            read = (_nbytes(blk["q4"], blk["sg"][:, :ng] if kind == "w1" else blk["s8"][:, :1])
+                    if form == "int4" else _nbytes(blk["q"], blk["s"]))
+            for dtype in (torch.bfloat16, torch.float32):
+                args = (w, kind, eb, eb, dtype)
+                got, ref = ed.expert_block_dequant(*args), ed.expert_block_dequant_plain(*args)
+                label = f"{form} {kind} [{eb}, {got.shape[1]}, {D}] {str(dtype)[6:]}"
+                errs.append(_compare(f"expert_block_dequant {label}", got, ref, 0.0,
+                                     "bit-equal: one rounding of an exact product"))
+                timed.append(_timed(label, lambda a=args: ed.expert_block_dequant(*a),
+                                    lambda a=args: ed.expert_block_dequant_plain(*a), 50, 5,
+                                    _bound(read + _nbytes(got), got.numel())))
+                del got, ref
+    record("expert_block_dequant", errs, timed)  # int4 w1 bf16 first
+    del forms
+
+
 KERNELS = {
     "dense_int4": ("aria_tpu_torch/csrc/dense_int4.cu", "aria_tpu/ops/dense_int4.py:124"),
     "moe_decode_int4": ("aria_tpu_torch/csrc/moe_decode.cu",
@@ -716,19 +783,23 @@ KERNELS = {
     "gmm_dlhs": ("aria_tpu_torch/csrc/gmm.cu",
                  "jax/experimental/pallas/ops/tpu/megablox/gmm.py:314"),
     "tgmm": ("aria_tpu_torch/csrc/gmm.cu", "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573"),
+    "expert_block_dequant": ("aria_tpu_torch/csrc/expert_dequant.cu",
+                             "aria_tpu/models/moe_lm.py:655"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
 INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
 FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("train-full", "train-lora", "image-bf16", "lanes-int8", "image-int8", "paged", "lanes",
+PATHS = ("adapters", "train-full", "train-lora", "image-bf16", "lanes-int8", "image-int8",
+         "paged", "lanes",
          "image", "text")
 
 
 def _wrappers():
     from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
     from aria_tpu_torch.ops.dense_int4 import dense_int4
+    from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
     from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd
     from aria_tpu_torch.ops.kv_write import kv_cache_write
     from aria_tpu_torch.ops.moe import gmm, gmm_dlhs, tgmm
@@ -743,7 +814,8 @@ def _wrappers():
             "kv_cache_write": kv_cache_write, "decode_attention_int4": decode_attention_int4,
             "paged_decode_attention": paged_decode_attention, "moe_decode": moe_decode,
             "moe_decode_quant": moe_decode_quant, "gmm": gmm,
-            "flash_causal_bwd": flash_causal_bwd, "gmm_dlhs": gmm_dlhs, "tgmm": tgmm}
+            "flash_causal_bwd": flash_causal_bwd, "gmm_dlhs": gmm_dlhs, "tgmm": tgmm,
+            "expert_block_dequant": expert_block_dequant}
 
 
 def _tree_map(fn, tree):
@@ -1040,12 +1112,16 @@ MOE_KERNELS = ("act_quant_kernel", "gateup_kernel", "hquant_kernel", "down_kerne
 FP_MOE_KERNELS = ("fp_gateup_kernel", "fp_down_kernel", "fp_combine_kernel")  # moe_decode_fp.cu
 
 
+WARMUP_TOKENS = 50  # a warm-up round's tokens per request: one of bench.py's decode chunks
+
+
 def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu) -> float:
     """bench.py's lanes rounds on ``engine``: each submits ``lanes``
     prompts of 48 tokens drawn from ``np.random.RandomState(0).randint(5,
-    1000)`` with ``new_tokens`` each, times the grouped admission on its
-    own and the decode steps after it, and checks every request. Returns
-    the last round's wall ms per decode step."""
+    1000)`` with ``new_tokens`` each (the warm-up round at most
+    WARMUP_TOKENS), times the grouped admission on its own and the decode
+    steps after it, and checks every request. Returns the last round's wall
+    ms per decode step."""
     import numpy as np
     import torch
 
@@ -1053,8 +1129,9 @@ def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
     vocab = engine.cfg.text.vocab_size
     with torch.inference_mode():  # the engine's state is inference tensors
         for rnd in range(rounds):
+            n_new = new_tokens if rnd else min(new_tokens, WARMUP_TOKENS)
             for _ in range(lanes):
-                engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=new_tokens)
+                engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=n_new)
             _sync(device)
             t0 = time.perf_counter()
             engine._admit_all()  # the grouped admission, timed on its own
@@ -1069,7 +1146,7 @@ def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
             if len(finished) != lanes:
                 raise AssertionError(f"lanes round {rnd}: {len(finished)} of {lanes} finished")
             for r in finished:
-                if r.error or len(r.generated) != new_tokens:
+                if r.error or len(r.generated) != n_new:
                     raise AssertionError(f"lanes request {r.uid}: {len(r.generated)} tokens, "
                                          f"error {r.error}")
                 if not all(0 <= t < vocab for t in r.generated):
@@ -1109,7 +1186,8 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
     engine = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320, temperature=0.8,
                            top_k=200, decode_chunk=50, cache_dtype="int4", rng_seed=SEED)
     print(f"lanes: {lanes} lanes, int4 KV over {engine.S} positions, {new_tokens} tokens per "
-          f"request, {rounds} rounds (the first warms up)", flush=True)
+          f"request, {rounds} rounds (the first warms up, at most {WARMUP_TOKENS} tokens)",
+          flush=True)
     step_ms = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
@@ -1288,12 +1366,13 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2,
     rng = np.random.RandomState(0)
     print(f"paged: {lanes} lanes, int8 pages of {page_size} over {engine.S} positions, "
           f"{engine.pool.available + 1} pages, chunks of {chunk}, {new_tokens} tokens per "
-          f"request, {rounds} rounds (the first warms up)", flush=True)
+          f"request, {rounds} rounds (the first warms up, {WARMUP_TOKENS} tokens)", flush=True)
     pda = wrappers["paged_decode_attention"]
     with torch.inference_mode():  # the engine's state is inference tensors
         for rnd in range(rounds):
+            n_new = new_tokens if rnd else min(new_tokens, WARMUP_TOKENS)
             for _ in range(lanes):
-                engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=new_tokens)
+                engine.submit(rng.randint(5, top, 48).tolist(), max_new_tokens=n_new)
             _sync(device)
             t0 = time.perf_counter()
             while engine._admit():
@@ -1310,7 +1389,7 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2,
             if len(finished) != lanes:
                 raise AssertionError(f"paged round {rnd}: {len(finished)} of {lanes} finished")
             for r in finished:
-                if r.error or len(r.generated) != new_tokens:
+                if r.error or len(r.generated) != n_new:
                     raise AssertionError(f"paged request {r.uid}: {len(r.generated)} tokens, "
                                          f"error {r.error}")
                 if not all(0 <= t < text.vocab_size for t in r.generated):
@@ -1657,6 +1736,331 @@ def _paged_reference(device, lm, text, top, page_size, ref_layers=2):
           flush=True)
     if not rel <= REF_LIMIT:
         raise AssertionError(f"reference paged logits differ: relative error {rel}")
+
+
+ADAPTER_SPECS = {  # name: (rank, alpha, targets); the LoRA recipe's rank 8, alpha 32
+    "t1": (8, 32.0, None),
+    "t2": (16, 32.0, None),
+    "att": (8, 32.0, ("wqkv", "wo")),
+}
+ADAPTER_B_STD = 0.02  # b ~ N(0, 0.02^2): a delta of ~0.1-0.2 of the base projection
+
+
+def _make_adapters(device, gen, cfg):
+    """The adapters phase's three adapters in the training format, bf16, a
+    as ``init_lora_params`` draws it and b drawn too (its b = 0 would make
+    each adapter a no-op); returns ({name: tree}, {name: alpha / rank})."""
+    import torch
+
+    from aria_tpu_torch.train.lora import LoraConfig, init_lora_params
+
+    trees, scales = {}, {}
+    for name, (rank, alpha, targets) in ADAPTER_SPECS.items():
+        lc = LoraConfig(rank=rank, alpha=alpha, **({"target_modules": targets} if targets else {}))
+        tree = init_lora_params(cfg, lc, gen, device=device, dtype=torch.bfloat16)["lm"]
+        for ab in tree["layers"].values():
+            ab["b"] = (torch.randn(ab["b"].shape, generator=gen, device=device)
+                       * ADAPTER_B_STD).to(torch.bfloat16)
+        trees[name], scales[name] = tree, lc.scale
+    return trees, scales
+
+
+def _adapter_round(device, engine, wrappers, prompts, names, new_tokens, label, gpu):
+    """Greedy requests ``prompts[i]`` under adapter ``names[i]`` on
+    ``engine``, the grouped admission timed on its own and the decode steps
+    after it; returns (streams, step ms, {kernel: launches per decode
+    step})."""
+    uids = [engine.submit(p, max_new_tokens=new_tokens, adapter=a)
+            for p, a in zip(prompts, names)]
+    _sync(device)
+    t0 = time.perf_counter()
+    engine._admit_all()
+    _sync(device)
+    t1 = time.perf_counter()
+    admitted = {n: w.launches for n, w in wrappers.items()}
+    finished, chunks = [], 0
+    while engine.queue or engine._active_mask().any():
+        finished += engine.step()
+        chunks += 1
+    t2 = time.perf_counter()
+    fin = {r.uid: r for r in finished}
+    for uid in uids:
+        r = fin[uid]
+        if r.error or len(r.generated) != new_tokens:
+            raise AssertionError(f"{label} request {uid}: {len(r.generated)} tokens, {r.error}")
+        if not all(0 <= t < engine.cfg.text.vocab_size for t in r.generated):
+            raise AssertionError(f"{label} request {uid}: token out of range")
+    steps = chunks * engine.decode_chunk
+    per_step = {n: (w.launches - admitted[n]) / steps for n, w in wrappers.items()}
+    total = len(uids) * new_tokens
+    step_ms = (t2 - t1) / steps * 1e3
+    print(f"  {label}: {total} tokens in {t2 - t0:.3f} s = {total / (t2 - t0):.2f} tok/s "
+          f"aggregate; grouped admission {(t1 - t0) * 1e3:.1f} ms wall; decode {steps} steps, "
+          f"{step_ms:.2f} ms wall per step; expert_block_dequant "
+          f"{per_step['expert_block_dequant']:.0f} launches per step ({gpu})", flush=True)
+    return [fin[u].generated for u in uids], step_ms, per_step
+
+
+def run_adapters(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=64, ref_layers=2):
+    """The adapters phase: multi-LoRA serving over the int4 model (still
+    resident after the paged phase). Three adapters from the seed
+    (``ADAPTER_SPECS``) in one ``AdapterRegistry``; ``BatchedEngine(adapters=)``
+    with the int4 KV cache serves ``lanes`` greedy 48-token prompts, a
+    quarter on the base and a quarter on each adapter (each quarter the
+    same prompts), ``new_tokens`` each, twice: the streams repeat, every
+    adapter moves some stream, and each decode step launches
+    ``expert_block_dequant`` 12 times a layer (6 blocks of 11 experts, w1
+    and w2). Then a base-only round on the same engine, token for token the
+    plain ``BatchedEngine``'s (the same program), a profiled mixed decode
+    chunk (busy share), the peak memory, a 2-layer mixed prefill and decode
+    step and one layer's blocked MoE against the CPU, and
+    ``PagedBatchedEngine(adapters=)``'s prefix keys salted by adapter.
+    Returns each kernel's launch count over the mixed rounds."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.multi_lora import AdapterRegistry
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.moe_lm import lora_block_size
+
+    cfg = cfg or AriaConfig()
+    text = cfg.text
+    top = min(1000, text.vocab_size)
+    t0 = time.perf_counter()
+    trees, scales = _make_adapters(device, gen, cfg)
+    reg = AdapterRegistry(trees, scales, device=device)
+    del trees
+    wrappers = _wrappers()
+    kw = dict(max_lanes=lanes, max_seq_len=48 + new_tokens, temperature=0.0, decode_chunk=16,
+              cache_dtype="int4", rng_seed=SEED)
+    engine = BatchedEngine({"lm": lm}, cfg, adapters=reg, **kw)
+    E = text.num_experts + text.num_shared_experts
+    eb = lora_block_size(E)
+    want = 2 * (E // eb) * text.num_layers
+    names = [None, *ADAPTER_SPECS]
+    quarter = lanes // len(names)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(5, top, 48).tolist() for _ in range(quarter)]
+    print(f"adapters: {len(ADAPTER_SPECS)} adapters {dict(ADAPTER_SPECS)} (b ~ N(0, "
+          f"{ADAPTER_B_STD}^2)), set up in {time.perf_counter() - t0:.1f} s; {lanes} lanes "
+          f"({quarter} each on the base and {', '.join(ADAPTER_SPECS)}), int4 KV over "
+          f"{engine.S} positions, {new_tokens} greedy tokens, blocks of {eb} experts", flush=True)
+    mixed_names = [n for n in names for _ in range(quarter)]
+    mixed_prompts = prompts * len(names)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():  # count only what the mixed rounds launch
+        w.launches = 0
+    streams = []
+    with torch.inference_mode():  # the engine's state is inference tensors
+        for rnd in range(2):
+            got, mixed_ms, per_step = _adapter_round(
+                device, engine, wrappers, mixed_prompts, mixed_names, new_tokens,
+                f"mixed round {rnd}{' (warm-up)' if rnd == 0 else ''}", gpu)
+            streams.append(got)
+            deq = per_step["expert_block_dequant"]
+            if device.type == "cuda" and deq != want:
+                raise AssertionError(f"expert_block_dequant launched {deq} times per decode "
+                                     f"step, not {want}")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"  launches: {launches}", flush=True)
+    if streams[0] != streams[1]:
+        raise AssertionError("the repeated mixed round gave other streams")
+    base = streams[0][:quarter]
+    for i, name in enumerate(ADAPTER_SPECS, start=1):
+        moved = sum(s != b for s, b in zip(streams[0][i * quarter:(i + 1) * quarter], base))
+        print(f"  {name}: {moved} of {quarter} streams differ from the base's on the same "
+              f"prompts", flush=True)
+        if not moved:
+            raise AssertionError(f"adapter {name} moved no stream")
+
+    with torch.inference_mode():
+        if device.type == "cuda":  # a profiled mixed decode chunk: the busy share
+            uids = [engine.submit(p, max_new_tokens=new_tokens, adapter=a)
+                    for p, a in zip(mixed_prompts, mixed_names)]
+            steps, engine.decode_chunk = 2, 2
+            engine.step()  # admission and a first chunk, unprofiled
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.step()
+                torch.cuda.synchronize()
+            dev_ev = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in dev_ev) / steps / 1e3
+            deq = sum(e.self_device_time_total for e in dev_ev
+                      if "dequant_int4_kernel" in e.key) / steps / 1e3
+            print(f"  profiled mixed decode chunk ({steps} steps x {lanes} lanes): device busy "
+                  f"{busy:.3f} ms per step, of it expert_block_dequant {deq:.3f} ms; busy "
+                  f"share {busy / mixed_ms:.3f} of the {mixed_ms:.2f} ms step (profiler off); "
+                  f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+            print("  device time by kernel, mixed adapters decode:\n" + prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=12), flush=True)
+            for uid in uids:
+                engine.cancel(uid)
+            engine.step()
+            engine.decode_chunk = 16
+        base_prompts = [rng.randint(5, top, 48).tolist() for _ in range(lanes)]
+        counts0 = {n: w.launches for n, w in wrappers.items()}
+        got, base_ms, per_step = _adapter_round(device, engine, wrappers, base_prompts,
+                                                [None] * lanes, new_tokens,
+                                                "base-only round, adapters engine", gpu)
+        if wrappers["expert_block_dequant"].launches != counts0["expert_block_dequant"]:
+            raise AssertionError("a base-only round launched expert_block_dequant")
+        plain = BatchedEngine({"lm": lm}, cfg, **kw)
+        want_streams, _, _ = _adapter_round(device, plain, wrappers, base_prompts,
+                                            [None] * lanes, new_tokens,
+                                            "base-only round, plain engine", gpu)
+        if got != want_streams:
+            raise AssertionError("the base-only round differs from the plain engine's")
+        print(f"  base-only round: {lanes} streams equal the plain engine's; decode step "
+              f"{mixed_ms:.2f} ms with adapter lanes, {base_ms:.2f} ms without", flush=True)
+        fused = engine.adapters
+        del engine, plain
+        _adapters_reference(device, lm, text, fused, top, ref_layers)
+        del fused
+        _adapters_prefix(lm, cfg, reg, top)
+    return launches
+
+
+MOE_ULP_LIMIT = 4e-3  # two bf16 roundings (the block's output, the sum's), relative
+ADAPTER_REF_INPUTS = (5, 7)  # the numpy seeds of the 2-layer adapters reference's inputs
+WITNESS_DRAWS = 6
+
+
+def _adapters_reference(device, lm, text, reg, top, ref_layers=2):
+    """A 2-layer grouped prefill of 4 lanes (adapters t1, none, t2, att)
+    then one mixed decode step with per-lane positions, int8 KV, on the
+    card against the CPU's plain versions, on each of two inputs, held to
+    the limit and to its bf16 witness, each lane's error beside them. A
+    router near-tie makes a lane's error heavy-tailed: whether one draw of
+    the witness (one ulp on half the prompt embeddings) trips the tie is
+    chance, as it is for the card's roundings. So the witness is the
+    largest of ``WITNESS_DRAWS`` draws, run on the CPU as one batch of
+    the inputs' copies (a row's expert buffers then hold other rows too,
+    which moves only roundings). Then one layer's blocked expert-LoRA MoE
+    is held on its own, card against CPU, on the same 64 bf16 tokens and
+    routing, to MOE_ULP_LIMIT: without the router and the layers that
+    amplify a flip, the path differs only by its roundings."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.models.moe_lm import (
+        KVCache,
+        _experts_lora_blocked,
+        embed_tokens,
+        lm_forward,
+    )
+
+    cut = dataclasses.replace(text, num_layers=ref_layers)
+    small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}
+    lora = _tree_map(lambda v: v[:ref_layers].contiguous(), reg.stacked)
+    small_cpu, lora_cpu = (_tree_map(lambda v: v.cpu(), t) for t in (small, lora))
+    ids = [1, 0, 2, 3]
+    hot = reg.lane_onehot(ids)
+    lens = [5, 9, 14, 16]
+    inputs = []
+    for seed in ADAPTER_REF_INPUTS:
+        rng = np.random.RandomState(seed)
+        toks = torch.zeros((4, 16), dtype=torch.long)
+        for b, n in enumerate(lens):
+            toks[b, :n] = torch.from_numpy(rng.randint(5, top, n))
+        inputs.append((toks, torch.from_numpy(rng.randint(5, top, 4)).to(torch.int32)))
+    cpu = torch.device("cpu")
+
+    def step(params, lora_tree, dev, batch, bump=False):
+        """Logits [len(batch), 4, V] of the inputs in ``batch``, 4 lanes each."""
+        n = len(batch)
+        toks = torch.cat([t for t, _ in batch]).to(dev)
+        new = torch.cat([w for _, w in batch]).long().to(dev)
+        ml = dict(lora=lora_tree, lora_scale=1.0, lora_onehot=hot.repeat(1, n).to(dev))
+        emb = embed_tokens(params["embed"], toks)
+        if bump:
+            emb = _bump_half(emb)
+        cache = KVCache.init(cut, 4 * n, 128, torch.int8, device=dev)
+        lm_forward(params, cut, inputs_embeds=emb, positions=torch.arange(16, device=dev),
+                   cache=cache, cache_pos=0, logit_position=0, causal_flash=True, **ml)
+        pos = torch.tensor(lens * n, dtype=torch.int32, device=dev)
+        out = lm_forward(params, cut, new[:, None], positions=pos[:, None], cache=cache,
+                         cache_pos=pos, **ml).logits[:, 0].float().cpu()
+        return out.reshape(n, 4, -1)
+
+    K = WITNESS_DRAWS
+    ulps = step(small_cpu, lora_cpu, cpu, [x for x in inputs for _ in range(K)], bump=True)
+    failed = []
+    for i, (seed, x) in enumerate(zip(ADAPTER_REF_INPUTS, inputs)):
+        (got,), (ref,) = step(small, lora, device, [x]), step(small_cpu, lora_cpu, cpu, [x])
+        draws = [_rel_err(u, ref) for u in ulps[i * K:(i + 1) * K]]
+        rel, witness = _rel_err(got, ref), max(draws)
+        ulp = ulps[i * K + draws.index(witness)]
+        by_lane = [[f"{_rel_err(o[j], ref[j]):.3e}" for j in range(4)] for o in (got, ulp)]
+        print(f"  reference ({ref_layers} layers, int8 KV, input {seed}: a mixed prefill then "
+              f"decode step of 4 lanes on adapters {ids} at positions {lens}, CPU plain "
+              f"versions): relative logit error {rel:.3e} (limit {REF_LIMIT:.0e} and the "
+              f"witness; by lane {by_lane[0]}), top-1 agreement {_top1(got, ref):.3f}; witness, "
+              f"the largest of {K} draws of one bf16 ulp on half the prompt embeddings on the "
+              f"CPU: relative error {witness:.3e} (draws "
+              f"{[f'{d:.3e}' for d in draws]}; its lanes {by_lane[1]}), top-1 agreement "
+              f"{_top1(ulp, ref):.3f}", flush=True)
+        if not rel <= min(REF_LIMIT, witness):
+            failed.append(f"input {seed}: relative error {rel} (witness {witness})")
+
+    g = torch.Generator().manual_seed(SEED)
+    T, E = 64, text.num_experts
+    x = (torch.randn(T, text.hidden_size, generator=g) * 0.5).to(torch.bfloat16)
+    idx = torch.stack([torch.randperm(E, generator=g)[:text.moe_topk] for _ in range(T)])
+    idx = torch.cat([idx, torch.arange(E, E + text.num_shared_experts).expand(T, -1)], 1)
+    wts = torch.softmax(torch.randn(T, text.moe_topk, generator=g), -1)
+    wts = torch.cat([wts, torch.ones(T, text.num_shared_experts)], 1).to(torch.bfloat16)
+    sel = reg.lane_onehot([i % 4 for i in range(T)])
+    out = []
+    for params, lora_tree, dev in ((small, lora, device), (small_cpu, lora_cpu, cpu)):
+        w1, w2 = ({k: v[0] for k, v in params["layers"][n].items()} for n in ("w1", "w2"))
+        lw = {n: {f: lora_tree["layers"][n][f][0] for f in "ab"} for n in ("w1", "w2")}
+        out.append(_experts_lora_blocked(x.to(dev), idx.to(torch.int32).to(dev), wts.to(dev), w1,
+                                         w2, lw, 1.0, sel.to(dev), torch.bfloat16).float().cpu())
+    moe_rel = _rel_err(*out)
+    print(f"  blocked expert-LoRA MoE, layer 0, {T} tokens on the 4 adapters' rows, card "
+          f"against CPU: relative error {moe_rel:.3e} (limit {MOE_ULP_LIMIT:.0e}), "
+          f"{(out[0] != out[1]).float().mean().item():.4f} of the entries differ", flush=True)
+    if not moe_rel <= MOE_ULP_LIMIT:
+        failed.append(f"one layer's blocked expert-LoRA MoE: relative error {moe_rel}")
+    if failed:
+        raise AssertionError(f"the adapters reference differs: {failed}")
+
+
+def _adapters_prefix(lm, cfg, reg, top, prompt_len=300, page_size=256, chunk=128, new=8):
+    """``PagedBatchedEngine(adapters=)`` at full width, int8 pages: one
+    prompt of ``prompt_len`` tokens (one full page) under t1, then under
+    the base, then under t1 again, one request at a time. The base takes
+    none of t1's pages, the second t1 request takes the full page and gives
+    the first's stream."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.server import PagedBatchedEngine
+
+    eng = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=2, max_seq_len=512,
+                             page_size=page_size, prefill_chunk=chunk, temperature=0.0,
+                             decode_chunk=16, cache_dtype=torch.int8, adapters=reg)
+    prompt = np.random.RandomState(6).randint(5, top, prompt_len).tolist()
+    runs = []
+    for name in ("t1", None, "t1"):
+        uid = eng.submit(prompt, max_new_tokens=new, adapter=name)
+        (r,) = eng.run_until_complete()
+        if r.uid != uid or r.error or len(r.generated) != new:
+            raise AssertionError(f"paged adapters request {uid}: {r.error}")
+        runs.append((r.cached_tokens, r.generated))
+    cached = [c for c, _ in runs]
+    print(f"  paged prefix keys by adapter ({prompt_len}-token prompt, pages of {page_size}): "
+          f"cached tokens t1 {cached[0]}, base {cached[1]}, t1 again {cached[2]}; t1's streams "
+          f"{'equal' if runs[0][1] == runs[2][1] else 'differ'}, the base's "
+          f"{'differs' if runs[1][1] != runs[0][1] else 'equals t1'}", flush=True)
+    if cached != [0, 0, page_size * ((prompt_len - 1) // page_size)]:
+        raise AssertionError(f"prefix pages across adapters: cached tokens {cached}")
+    if runs[2][1] != runs[0][1]:
+        raise AssertionError("t1 over its cached page gave another stream")
 
 
 def _check_form_path(path, launches, form, image=True):
@@ -2383,8 +2787,10 @@ def main() -> int:
     launches["lanes"] = run_lanes(device, lm, gpu=gpu)
     t0 = done("lanes", t0)
     launches["paged"] = run_paged(device, lm, gpu=gpu)
-    del lm  # the forms' models do not fit beside the int4 one
     t0 = done("paged", t0)
+    launches["adapters"] = run_adapters(device, gen(10), lm, gpu=gpu)
+    del lm  # the forms' models do not fit beside the int4 one
+    t0 = done("adapters", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))
     t0 = done("forms", t0)
     launches.update(run_train(device, gen(8), gpu=gpu))

@@ -15,6 +15,7 @@ from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine
 from aria_tpu_torch.models.moe_lm import init_lm_params_serving_int4
 from aria_tpu_torch.ops import decode_attention as da
 from aria_tpu_torch.ops import dense_int4 as di
+from aria_tpu_torch.ops import expert_dequant as ed
 from aria_tpu_torch.ops import flash as fl
 from aria_tpu_torch.ops import kv_write as kw
 from aria_tpu_torch.ops import moe as tmoe
@@ -538,3 +539,30 @@ def test_lm_head_logits_are_the_f32_product(cuda):
     assert got.dtype == torch.float32
     ref = (x.double() @ head["q"].double()) * head["s"].double()
     torch.testing.assert_close(got.double(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["int4", "int8"])
+def test_expert_block_dequant_kernel_matches_plain(cuda, form):
+    """Blocks of 11 of a full-width layer of 66 experts, bf16 and f32 out:
+    bit-equal to the plain version (one rounding of an exact product)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    E, I, D = 22, 1664, 2560
+    if form == "int4":
+        w1, w2 = _expert_stack(g, 1, E, I, D)
+    else:
+        q1, _, q2, _ = _fp_stack(g, E, I, D, "int8")
+        s1 = torch.rand((1, E, 2 * I), generator=g, device=cuda) * 1e-2
+        s2 = torch.rand((1, E, D), generator=g, device=cuda) * 1e-2
+        w1, w2 = {"q": q1, "s": s1}, {"q": q2, "s": s2}
+    before = ed.expert_block_dequant.launches
+    for w, kind in ((w1, "w1"), (w2, "w2")):
+        layer = {k: v[0] for k, v in w.items()}
+        for e0 in (0, 11):
+            for dtype in (torch.bfloat16, torch.float32):
+                got = ed.expert_block_dequant(layer, kind, e0, 11, dtype)
+                want = ed.expert_block_dequant_plain(layer, kind, e0, 11, dtype)
+                assert got.dtype == dtype and got.shape == want.shape
+                assert torch.equal(got, want), (kind, e0, dtype)
+    assert ed.expert_block_dequant.launches == before + 8
+    with pytest.raises(IndexError):
+        ed.expert_block_dequant({k: v[0] for k, v in w1.items()}, "w1", 12, 11)

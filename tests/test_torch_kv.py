@@ -26,6 +26,7 @@ from aria_tpu.ops.rope import apply_rope as j_apply_rope
 from aria_tpu.ops.rope import precompute_rope as j_precompute_rope
 from aria_tpu_torch import config as tconfig
 from aria_tpu_torch.checkpoint.from_jax import from_jax, to_tensor
+from aria_tpu_torch.engine.multi_lora import AdapterRegistry
 from aria_tpu_torch.models import aria as taria
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models import projector as tproj
@@ -109,6 +110,7 @@ def test_entry_points_build_on_the_card_or_raise(monkeypatch):
         lambda **kw: tm.init_lm_params(cfg.text, gen, **kw),
         lambda **kw: taria.init_aria_params(cfg, gen, **kw),
         lambda **kw: tlora.init_lora_params(cfg, tlora.LoraConfig(rank=2), gen, **kw),
+        lambda **kw: AdapterRegistry({}, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -474,8 +474,9 @@ def test_oversized_request_reports_error(params):
 
 
 def test_not_ported_options_raise(params):
-    for kw in ({"guided_fsm": object()}, {"adapters": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            _paged(params[1], **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        _paged(params[1], guided_fsm=object())
     with pytest.raises(ValueError, match="guided_fsm"):
         _paged(params[1]).submit([1, 2], guided=True)
+    with pytest.raises(ValueError, match="without adapters"):  # adapters: test_torch_multi_lora
+        _paged(params[1]).submit([1, 2], adapter="t1")

@@ -240,13 +240,14 @@ def test_sampled_streams_are_seeded(params):
 
 
 def test_not_ported_options_raise(params):
-    for kw in ({"mesh": object()}, {"guided_fsm": object()}, {"adapters": object()},
-               {"logprobs_topk": 3}):
+    for kw in ({"mesh": object()}, {"guided_fsm": object()}, {"logprobs_topk": 3}):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             BatchedEngine(params[1], CFG, **kw)
     srv = BatchedEngine(params[1], CFG, max_lanes=1)
     with pytest.raises(ValueError, match="guided_fsm"):
         srv.submit([1, 2], guided=True)
+    with pytest.raises(ValueError, match="without adapters"):  # adapters: test_torch_multi_lora
+        srv.submit([1, 2], adapter="t1")
 
 
 def _sampling_inputs():
