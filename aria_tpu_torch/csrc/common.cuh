@@ -140,6 +140,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// D-groups of the int4 layouts (ops/quant.py int4_group_count): the largest
+// n <= 8 that divides D into groups of a multiple of 256, else 1
+__host__ inline int int4_group_count(int D) {
+  for (int n = 8; n > 1; --n)
+    if (D % n == 0 && (D / n) % 256 == 0) return n;
+  return 1;
+}
+
 // Set the dynamic shared memory limit when a launch needs more than 48 KB.
 template <typename K>
 __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {

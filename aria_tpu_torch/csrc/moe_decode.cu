@@ -9,7 +9,7 @@
 //   h[u]    = silu(xq.w1g[e]) * (xq.w1u[e])  in f32       gateup_kernel
 //   hq, sh  = int8 h per row over the whole intermediate  hquant_kernel
 //   part[u] = wd[e, t] * sh * c[e] * (hq . w2[e])          down_kernel
-//   out     = sum over u of part[u], cast to bf16          combine_kernel
+//   out     = sum over u of part[u], cast to bf16          moe_combine_kernel (moe_combine.cuh)
 //
 // u runs over the unique active experts (ids/valid from the wrapper's
 // bookkeeping, static size U = min(T*k, E)); an expert's weights are read
@@ -24,7 +24,7 @@
 // partial sums go through a [U, T, D] f32 buffer and are added in a fixed
 // order, so the result does not depend on scheduling (no atomics).
 
-#include "common.cuh"
+#include "moe_combine.cuh"
 
 namespace {
 
@@ -282,16 +282,6 @@ down_kernel(const int8_t* __restrict__ hq, const float* __restrict__ sh,
   }
 }
 
-__global__ void combine_kernel(const float* __restrict__ part, const int* __restrict__ valid,
-                               __nv_bfloat16* __restrict__ out, int TD, int U) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= TD) return;
-  float acc = 0.f;
-  for (int u = 0; u < U; ++u)
-    if (valid[u]) acc += part[(size_t)u * TD + idx];
-  out[idx] = __float2bfloat16(acc);
-}
-
 }  // namespace
 
 ARIA_EXPORT int aria_act_quant_int8(const void* x, void* xq, void* sx, int T, int D, int ng,
@@ -325,7 +315,7 @@ ARIA_EXPORT int aria_moe_w4a8(const void* xq, const void* sx, const void* ids, c
       E, layer);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int TD = T * D;
-  combine_kernel<<<(TD + 255) / 256, 256, 0, st>>>((const float*)part, (const int*)valid,
-                                                   (__nv_bfloat16*)out, TD, U);
+  moe_combine_kernel<<<(TD + 255) / 256, 256, 0, st>>>(
+      (const float*)part, (const int*)valid, (__nv_bfloat16*)out, TD, U);
   return cudaGetLastError();
 }

@@ -6,7 +6,7 @@
 //
 //   h[u]    = silu(x.w1g[e] * sg) * (x.w1u[e] * su), rounded to bf16   fp_gateup_kernel
 //   part[u] = wd[e, t] * ((h[u] . w2[e]) * s2)                         fp_down_kernel
-//   out     = sum of part[u] over u in ascending order, cast to bf16   fp_combine_kernel
+//   out     = sum of part[u] over u in ascending order, cast to bf16   moe_combine_kernel
 //
 // e = ids[u] runs over the unique active experts (the wrapper's
 // bookkeeping, static size U = min(T*k, E), entries with valid[u] = 0
@@ -30,7 +30,7 @@
 // per row: memory-bound at T = 1 and still below the bf16 ridge (~295
 // FLOP/byte) at T = 128.
 
-#include "common.cuh"
+#include "moe_combine.cuh"
 
 namespace {
 
@@ -291,16 +291,6 @@ fp_down_kernel(const __nv_bfloat16* __restrict__ h, const int* __restrict__ ids,
   }
 }
 
-__global__ void fp_combine_kernel(const float* __restrict__ part, const int* __restrict__ valid,
-                                  __nv_bfloat16* __restrict__ out, int TD, int U) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= TD) return;
-  float acc = 0.f;
-  for (int u = 0; u < U; ++u)
-    if (valid[u]) acc += part[(size_t)u * TD + idx];
-  out[idx] = __float2bfloat16(acc);
-}
-
 template <typename W, int MT>
 cudaError_t run(const void* x, const void* ids, const void* valid, const void* wd,
                 const void* w1, const void* s1, const void* w2, const void* s2, void* h,
@@ -322,8 +312,8 @@ cudaError_t run(const void* x, const void* ids, const void* valid, const void* w
       (const W*)w2, (const float*)s2, (float*)part, T, D, I, E, layer);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int TD = T * D;
-  fp_combine_kernel<<<(TD + 255) / 256, 256, 0, st>>>((const float*)part, (const int*)valid,
-                                                      (__nv_bfloat16*)out, TD, U);
+  moe_combine_kernel<<<(TD + 255) / 256, 256, 0, st>>>(
+      (const float*)part, (const int*)valid, (__nv_bfloat16*)out, TD, U);
   return cudaGetLastError();
 }
 

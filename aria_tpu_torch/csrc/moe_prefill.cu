@@ -309,19 +309,13 @@ down_kernel(const __nv_bfloat16* __restrict__ h, const int* __restrict__ tile_ex
   }
 }
 
-int group_size(int D) {
-  for (int n = 8; n > 1; --n)
-    if (D % n == 0 && (D / n) % 256 == 0) return D / n;
-  return D;
-}
-
 }  // namespace
 
 ARIA_EXPORT int aria_moe_prefill_glu(const void* x_seg, const void* tile_expert,
                                      const void* rows_used, const void* w1q4, const void* w1sg,
                                      void* h, int R, int D, int I, int E, int layer,
                                      void* stream) {
-  const int gs = group_size(D);
+  const int gs = D / aria::int4_group_count(D);
   if (R % TM || (gs / 2) % G_BKP || I % G_BN) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)G_STAGE;
   cudaError_t err = aria::allow_smem(glu_kernel, smem);

@@ -23,10 +23,11 @@ backward kernel), and decode attention over the cache for one new token;
 wqkv/wo go through ``dense_int4`` in the int4 form and through ``linear``
 (an f32 torch product, as the JAX package leaves it to XLA) in the others.
 The MoE (moe_lm.py:929-1044) takes, in serving, up to 128 tokens, the
-decode kernel of the form (``moe_decode_int4``, ``moe_decode_quant``,
-``moe_decode``); above that the int4 form takes the segmented prefill
-kernel, and the others dequantize the layer's experts (int8 only, for this
-call) and take the ragged path (``experts_ragged``, two ``gmm`` kernels).
+decode kernel of the form (``moe_decode_int4``, W4A8 unless ``MOE_A8`` is
+off, ``moe_decode_quant``, ``moe_decode``); above that the int4 form takes
+the segmented prefill kernel, and the others dequantize the layer's
+experts (int8 only, for this call) and take the ragged path
+(``experts_ragged``, two ``gmm`` kernels).
 In training, and wherever expert LoRA is given, the MoE is the JAX
 package's XLA dispatch: expert LoRA on the capacity path
 (``experts_grouped``; over quantized experts one block of experts at a
@@ -107,6 +108,13 @@ from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
 MOE_CHUNK = 8192  # tokens per MoE slice of a long prefill (moe_lm.py:866-880)
 MOE_CHUNK_LONG = 2048  # the slice from 32768 tokens on
 LORA_EBLOCK = 0  # experts per block of _experts_lora_blocked where it divides E; 0: default
+# The JAX package's off-by-default A/B switches, read at call time, with its
+# defaults: W4A8 wqkv / wo for a step of at most 32 rows (ARIA_TPU_DENSE_A8,
+# moe_lm.py:331-335); the W4A8 int4 decode MoE, False for bf16 activations
+# (ARIA_TPU_A8, moe_lm.py:962-973). The ViT's is models/vit.py's VIT_FLASH.
+DENSE_A8 = False
+MOE_A8 = True
+DENSE_A8_MAX_ROWS = 32
 
 
 @dataclasses.dataclass
@@ -420,10 +428,12 @@ def _layer_weight(w, layer: int):
 
 def _project(x2d: torch.Tensor, w, layer: int) -> torch.Tensor:
     """x [T, in] through one layer of wqkv or wo, in f32: a dense int4
-    stack through its kernel, an int8 or float one through ``linear``
+    stack through its kernel (W4A8 for at most 32 rows under ``DENSE_A8``,
+    moe_lm.py:320-345), an int8 or float one through ``linear``
     (moe_lm.py:368-369)."""
     if is_dense_int4(w):
-        return dense_int4(x2d, w, layer)
+        a8 = DENSE_A8 and x2d.shape[0] <= DENSE_A8_MAX_ROWS
+        return dense_int4(x2d, w, layer, act_int8=a8)
     return linear(x2d, _layer_weight(w, layer))
 
 
@@ -626,7 +636,7 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
     elif is_quantized_int4(w1):
         experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
         if T <= DECODE_KERNEL_MAX_TOKENS:
-            out = moe_decode_int4(flat, indices, weights, *experts)
+            out = moe_decode_int4(flat, indices, weights, *experts, act_int8=MOE_A8)
         else:
             out = experts_segmented_int4(flat, indices, weights, *experts)
     elif T <= DECODE_KERNEL_MAX_TOKENS:

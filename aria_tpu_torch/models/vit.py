@@ -7,7 +7,10 @@ matmul (a stride-14 valid conv); fractional position ids are bucketized
 in f32 as the JAX package does; the layer loop is a Python loop over the
 stacked [L, ...] leaves. Attention goes through the ``vit_flash`` kernel
 wrapper at 256 patches or more, and through the plain masked ``sdpa``
-below that (vit.py:142). No post-layernorm.
+below that (vit.py:142); with ``VIT_FLASH`` off (the JAX package's
+``ARIA_TPU_VIT_FLASH=0``, vit.py:157-177) the 256 patches or more go
+through ``flash_sdpa`` with the padding as segment ids, so pad patches
+attend each other only. No post-layernorm.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ from aria_tpu_torch.config import VisionConfig
 from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.activations import gelu_tanh
 from aria_tpu_torch.ops.attention import sdpa
+from aria_tpu_torch.ops.flash import flash_sdpa
 from aria_tpu_torch.ops.norms import layer_norm
 from aria_tpu_torch.ops.quant import is_quantized, linear
 from aria_tpu_torch.ops.vit_flash import vit_flash
 
 FLASH_MIN_PATCHES = 256
+VIT_FLASH = True  # the JAX package's ARIA_TPU_VIT_FLASH (default "1"), read at call time
 
 
 class VisionOutput(NamedTuple):
@@ -137,8 +142,10 @@ def vit_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
                             cfg.layer_norm_eps)
         q, k, v = (lin(normed, w, b, layer).reshape(N, P, H, Dh)
                    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-        if flash:
+        if flash and VIT_FLASH:
             att = vit_flash(q, k, v, pmask)
+        elif flash:
+            att = flash_sdpa(q, k, v, q_valid=pmask, kv_valid=pmask)
         else:
             att = sdpa(q, k, v, attn_mask)
         x = x + lin(att.reshape(N, P, D), "wo", "bo", layer)

@@ -32,6 +32,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, q4t, sg, out, T, D, F, layer, stream
     "aria_dense_int4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xq, sx, q4t, sg, out, T, D, F, layer, stream
+    "aria_dense_int4_a8": [_P] * 5 + [_I] * 4 + [_P],
     # q, k, v, k_scale, v_scale, lengths, out, B, H, S, layer, quantized, stream
     "aria_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, k_scale, v_scale, lengths, out, B, H/2, S, layer, stream
@@ -53,6 +55,8 @@ SIGNATURES = {
     "aria_moe_w4a8": [_P] * 15 + [_I] * 7 + [_P],
     # q, k, v, kv_valid, out, B, S, H, D, scale, stream
     "aria_vit_flash": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # q, k, v, q_valid, kv_valid, out, B, Sq, Sk, H, D, scale, stream
+    "aria_flash_segment": [_P] * 6 + [_I] * 5 + [_F, _P],
     # x_seg, tile_expert, rows_used, w1q4, w1sg, h, R, D, I, E, layer, stream
     "aria_moe_prefill_glu": [_P] * 6 + [_I] * 5 + [_P],
     # h, tile_expert, rows_used, w2q4, w2s8, out, R, D, I, E, layer, stream
@@ -61,6 +65,8 @@ SIGNATURES = {
     "aria_moe_decode_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # x, ids, valid, wd, w1, s1, w2, s2, h, part, out, T, D, I, E, U, layer, stream
     "aria_moe_decode_int8": [_P] * 11 + [_I] * 6 + [_P],
+    # x, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, part, out, T, D, I, E, U, layer, stream
+    "aria_moe_decode_q4": [_P] * 11 + [_I] * 6 + [_P],
     # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, lhs_f32, stream
     "aria_gmm": [_P] * 4 + [_I] * 6 + [_P],
     # lhs, grad, group_sizes, out, M, K, N, E, stream

@@ -1,5 +1,5 @@
-"""Causal flash attention, forward and backward (counterpart of the causal
-branch of aria_tpu/ops/flash.py:30-103).
+"""Flash attention (counterpart of aria_tpu/ops/flash.py:30-103): the causal
+forward and backward, and the non-causal form with segment ids.
 
 A from-zero prefill attends the fresh k/v of the whole prompt bucket
 (query i sees keys j <= i); the cache is written but not read
@@ -19,6 +19,19 @@ statistics, as it did before training existed.
 Off the card the plain version runs: masked sdpa, and its autograd
 gradient, as the JAX package runs ``flash_sdpa(causal=True)`` off the TPU
 (flash.py:47-59).
+
+``flash_segment`` is the non-causal form: the library kernel called with
+``SegmentIds`` (valid positions segment 1, padding 0) and causal=False,
+which is the ViT's attention when ``models/vit.py``'s ``VIT_FLASH`` is off
+(the JAX package's ``ARIA_TPU_VIT_FLASH=0``). Query i attends key j iff
+their segments are equal, so pad queries attend pad keys only. Kernel
+``csrc/flash_seg.cu``; it follows the library's numerics
+(flash_attention.py:395-472): unscaled bf16 q.k with f32 sums, then the
+scale in f32, an additive -0.7 * FLT_MAX where the segments differ, p
+rounded to v's dtype for p.v. At [1, 4900, 16, 72] it does 110.6 GFLOP,
+so it is bound by tensor-core throughput; its design is vit_flash's (both
+products on ``mma.sync``, K and V tiles in shared memory). ``flash_sdpa``
+takes the JAX signature and picks the form.
 """
 
 from __future__ import annotations
@@ -30,9 +43,10 @@ import torch
 
 from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops._build import library
-from aria_tpu_torch.ops.attention import causal_mask, sdpa
+from aria_tpu_torch.ops.attention import NEG_INF, causal_mask, sdpa
 
-HEAD_DIM = 128  # the kernels' head width
+HEAD_DIM = 128  # the causal kernels' head width
+SEGMENT_HEAD_DIMS = (64, 72)  # the ViT configs'; 72 is padded to 80 in shared memory
 
 
 def flash_causal_plain(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -124,3 +138,73 @@ def flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_causal.launches = 0
 flash_causal_bwd.launches = 0
+
+
+def flash_sdpa_plain(q, k, v, q_valid: Optional[torch.Tensor] = None,
+                     kv_valid: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal attention with segment ids in plain torch, in the
+    library kernel's order: f32 scores of q.k times ``scale``, plus
+    -0.7 * FLT_MAX where the query's segment differs from the key's, p =
+    exp(s - max) rounded to v's dtype for p.v, divided by its f32 sum."""
+    B, Sq, H, D = q.shape
+    scale = 1.0 / (D**0.5) if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if q_valid is not None or kv_valid is not None:
+        seg_q = torch.ones((B, Sq), dtype=torch.bool, device=q.device) if q_valid is None \
+            else q_valid
+        seg_k = torch.ones((B, k.shape[1]), dtype=torch.bool, device=q.device) \
+            if kv_valid is None else kv_valid
+        same = seg_q[:, None, :, None] == seg_k[:, None, None, :]
+        s = s + torch.where(same, 0.0, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (out / p.sum(dim=-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_valid: Optional[torch.Tensor] = None,
+                  kv_valid: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] with
+    segment ids from ``q_valid`` [B, Sq] and ``kv_valid`` [B, Sk] (None:
+    every position valid); returns [B, Sq, H, D] in q's dtype."""
+    tensors = [t for t in (q, k, v, q_valid, kv_valid) if t is not None]
+    if not backend.on_cuda(*tensors):
+        return flash_sdpa_plain(q, k, v, q_valid, kv_valid, scale)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if D not in SEGMENT_HEAD_DIMS:
+        raise ValueError(f"flash_segment: head dim {D}; the kernel takes {SEGMENT_HEAD_DIMS}")
+    backend.require(q, "q", torch.bfloat16, (B, Sq, H, D))
+    for name, t in (("k", k), ("v", v)):
+        backend.require(t, name, torch.bfloat16, (B, Sk, H, D))
+    for name, t, S in (("q_valid", q_valid, Sq), ("kv_valid", kv_valid, Sk)):
+        if t is not None:
+            backend.require(t, name, torch.bool, (B, S))
+    scale = 1.0 / (D**0.5) if scale is None else scale
+    out = torch.empty_like(q)
+    p = backend.ptr
+    err = library().aria_flash_segment(p(q), p(k), p(v), p(q_valid), p(kv_valid), p(out),
+                                       B, Sq, Sk, H, D, ctypes.c_float(scale), backend.stream())
+    backend.check(err, "flash_segment")
+    flash_segment.launches += 1
+    return out
+
+
+flash_segment.launches = 0
+
+
+def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False,
+               q_valid: Optional[torch.Tensor] = None,
+               kv_valid: Optional[torch.Tensor] = None,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """The JAX signature (flash.py:30): causal attention from position 0
+    through ``flash_causal``, non-causal attention with segment ids through
+    ``flash_segment``. Returns [B, Sq, H, D]."""
+    if not causal:
+        return flash_segment(q, k, v, q_valid, kv_valid, scale)
+    if q_valid is not None or kv_valid is not None:
+        raise NotImplementedError("flash_sdpa: causal attention with padding masks is on no "
+                                  "path of the port")
+    return flash_causal(q, k, v, scale)

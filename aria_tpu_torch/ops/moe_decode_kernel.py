@@ -1,23 +1,39 @@
 """The fused MoE FFN of a decode step, for at most 128 token rows, over the
 unique active experts (counterpart of aria_tpu/ops/moe_decode_kernel.py),
-in the three serving forms:
+in the serving forms:
 
-- ``moe_decode_int4`` (the ``act_int8=True`` form of the JAX function):
-  packed int4 experts with int8 activations (W4A8),
+- ``moe_decode_int4``: packed int4 experts, in the JAX function's two
+  forms, chosen by its ``act_int8`` keyword (False by default, as at
+  moe_decode_kernel.py:462; the model passes ``models/moe_lm.py``'s
+  ``MOE_A8``, True unless switched, as the JAX package reads
+  ``ARIA_TPU_A8``). Both compute
 
       out[t] = sum over slots s of wd[t, s] * (silu(x[t] . w1g[e]) * (x[t] . w1u[e])) . w2[e]
 
-  with x quantized to int8 per (token, D-group), int8 x int4 dots
-  accumulated exactly in int32, and h re-quantized to int8 per row over
-  the whole intermediate before the down projection
-  (moe_decode_kernel.py:215-285 with ft = I). Kernel ``csrc/moe_decode.cu``
-  (act_quant_int8, gate/up, h re-quantize, down projection and combine);
-  it replaces :450 with ``_kernel_q4_a8`` :288 and ``_ffn_q4_a8`` :227. A
-  decode step streams 3*I*D/2 bytes per active expert (6.4 MB at I =
-  1664, D = 2560) against about 4 integer operations per byte per row, so
-  it is bound by the expert-weight read; each expert's packed rows are
-  read once for all T rows and unpacked in registers, with ``__dp4a`` on
-  the masked raw bytes.
+  with gate and up the sums over D-groups of each group's dot times its
+  scale, and the down projection over w2 packed along the output axis,
+  times its column scale, in one intermediate tile (ft = I). A decode
+  step streams 3*I*D/2 bytes per active expert (6.4 MB at I = 1664, D =
+  2560), so both are bound by the expert-weight read; each expert's packed
+  rows are read once for all T rows and unpacked in registers.
+
+  * W4A8 (``act_int8=True``; ``_kernel_q4_a8`` :288, ``_ffn_q4_a8`` :227):
+    x quantized to int8 per (token, D-group), int8 x int4 dots accumulated
+    exactly in int32 (``__dp4a`` on the masked raw bytes), and h
+    re-quantized to int8 per row over the whole intermediate before the
+    down projection (:215-285). Kernel ``csrc/moe_decode.cu`` (act_quant_int8,
+    gate/up, h re-quantize, down projection and combine).
+  * bf16 activations (``act_int8=False``, ``moe_decode_int4_bf16``;
+    ``_kernel_q4`` :307, ``_ffn_q4`` :154): gate and up are f32 sums of
+    bf16 x times the int4 values, h = silu(gate) * up in f32 is rounded
+    to x's dtype, and the down product is over the int4 values of w2.
+    Kernel ``csrc/moe_decode_q4.cu``: the nibbles unpacked into bf16 in
+    registers (exact) and both products on ``mma.sync`` with f32 sums.
+    Here the port departs from ``_ffn_q4``: that function evaluates
+    xa.B + (xb/16 - xa).hi16 - 8 sum(xa) and rounds (xb/16 - xa) to
+    bf16, which its docstring calls exact and which is not (ROADMAP queue
+    3, fault (d)); the port computes the exact products, as it does in
+    ``moe_prefill_int4``.
 - ``moe_decode`` (bf16 experts, :389) and ``moe_decode_quant`` (int8
   experts with f32 per-output-channel scales, :503), both ``_ffn`` :81:
   gate and up are f32 dots of x with the weights in x's dtype (an int8
@@ -121,6 +137,27 @@ def moe_decode_int4_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: in
     return out.to(x.dtype)
 
 
+def _check_int4(name, x, w1q4, w1sg, w2q4, w2s8, layer: int, bad) -> tuple:
+    """Check what an int4 decode kernel takes; ``bad(D, I, gs)`` names the
+    widths it refuses. Returns (T, D, I, E, ng)."""
+    T, D = x.shape
+    L, E, I2, Dp = w1q4.shape
+    I = I2 // 2
+    ng = int4_group_count(D)
+    if T > DECODE_KERNEL_MAX_TOKENS:
+        raise ValueError(f"{name}: {T} rows, at most {DECODE_KERNEL_MAX_TOKENS}")
+    if D != 2 * Dp or bad(D, I, D // ng):
+        raise ValueError(f"{name}: unsupported D={D}, I={I}")
+    if not 0 <= layer < L:
+        raise IndexError(f"{name}: layer {layer} of {L}")
+    backend.require(x, "x", torch.bfloat16, (T, D))
+    backend.require(w1q4, "w1q4", torch.int8)
+    backend.require(w1sg, "w1sg", torch.bfloat16, (L, E, 8, I2))
+    backend.require(w2q4, "w2q4", torch.int8, (L, E, I, Dp))
+    backend.require(w2s8, "w2s8", torch.bfloat16, (L, E, 8, D))
+    return T, D, I, E, ng
+
+
 def moe_decode_int4(
     x: torch.Tensor,  # [T, D]
     indices: torch.Tensor,  # [T, k] int32 expert ids (shared experts included)
@@ -130,27 +167,19 @@ def moe_decode_int4(
     w2q4: torch.Tensor,  # int8 [L, E, I, D/2], whole-row nibble pairs
     w2s8: torch.Tensor,  # bf16 [L, E, 8, D], column scale c/7
     layer: int,
+    *,
+    act_int8: bool = False,
 ) -> torch.Tensor:
-    """Returns [T, D] in x's dtype."""
+    """Returns [T, D] in x's dtype: the W4A8 form with ``act_int8``, else
+    the bf16-activation form (``moe_decode_int4_bf16``)."""
     tensors = (x, indices, weights, w1q4, w1sg, w2q4, w2s8)
+    if not act_int8:
+        return moe_decode_int4_bf16(*tensors, layer)
     if not backend.on_cuda(*tensors):
         return moe_decode_int4_plain(*tensors, layer)
-    T, D = x.shape
-    L, E, I2, Dp = w1q4.shape
-    I = I2 // 2
-    ng = int4_group_count(D)
-    gs = D // ng
-    if T > DECODE_KERNEL_MAX_TOKENS:
-        raise ValueError(f"moe_decode_int4: {T} rows, at most {DECODE_KERNEL_MAX_TOKENS}")
-    if D != 2 * Dp or Dp % 128 or Dp > _MAX_PACKED_D or (gs // 2) % 16 or I % 16:
-        raise ValueError(f"moe_decode_int4: unsupported D={D}, I={I}")
-    if not 0 <= layer < L:
-        raise IndexError(f"moe_decode_int4: layer {layer} of {L}")
-    backend.require(x, "x", torch.bfloat16, (T, D))
-    backend.require(w1q4, "w1q4", torch.int8)
-    backend.require(w1sg, "w1sg", torch.bfloat16, (L, E, 8, I2))
-    backend.require(w2q4, "w2q4", torch.int8, (L, E, I, Dp))
-    backend.require(w2s8, "w2s8", torch.bfloat16, (L, E, 8, D))
+    T, D, I, E, ng = _check_int4(
+        "moe_decode_int4", x, w1q4, w1sg, w2q4, w2s8, layer,
+        lambda D, I, gs: (D // 2) % 128 or D // 2 > _MAX_PACKED_D or (gs // 2) % 16 or I % 16)
     ids, valid, wd = unique_meta(indices, weights, E)
     U = ids.shape[0]
     dev = x.device
@@ -174,6 +203,74 @@ def moe_decode_int4(
 
 
 moe_decode_int4.launches = 0
+
+
+def moe_decode_int4_bf16_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
+                               layer: int) -> torch.Tensor:
+    """The bf16-activation int4 FFN in plain torch, with exact products
+    (``moe_decode_int4`` with act_int8=False): per D-group the f32 dot of x
+    with the int4 values times the group's scale, summed over the groups
+    in ascending order; h rounded to x's dtype; the down dot with the int4
+    values times the column scale; the combine in ``unique_meta``'s
+    order."""
+    T, D = x.shape
+    E, I2 = w1q4.shape[1], w1q4.shape[2]
+    I = I2 // 2
+    ng = int4_group_count(D)
+    gs = D // ng
+    ids, valid, wd = unique_meta(indices, weights, E)
+    xg = x.float().reshape(T, ng, gs)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e, ok in zip(ids.tolist(), valid.tolist()):
+        if not ok:
+            continue
+        w1 = unpack_int4(w1q4[layer, e], gs, torch.float32).reshape(I2, ng, gs)
+        d = torch.einsum("tgc,rgc->tgr", xg, w1) * w1sg[layer, e, :ng].float()[None]
+        acc = d[:, 0]
+        for g in range(1, ng):
+            acc = acc + d[:, g]
+        gate, up = acc[:, :I], acc[:, I:]
+        h = (gate * torch.sigmoid(gate) * up).to(x.dtype).float()
+        w2 = unpack_int4(w2q4[layer, e], D, torch.float32)  # [I, D]
+        partial = (h @ w2) * w2s8[layer, e, 0].float()
+        out = out + wd[e][:, None] * partial
+    return out.to(x.dtype)
+
+
+def moe_decode_int4_bf16(
+    x: torch.Tensor,  # [T, D]
+    indices: torch.Tensor,  # [T, k] int32
+    weights: torch.Tensor,  # [T, k]
+    w1q4: torch.Tensor,  # int8 [L, E, 2I, D/2]
+    w1sg: torch.Tensor,  # bf16 [L, E, 8, 2I]
+    w2q4: torch.Tensor,  # int8 [L, E, I, D/2]
+    w2s8: torch.Tensor,  # bf16 [L, E, 8, D]
+    layer: int,
+) -> torch.Tensor:
+    """The bf16-activation form of ``moe_decode_int4``; returns [T, D] in
+    x's dtype."""
+    tensors = (x, indices, weights, w1q4, w1sg, w2q4, w2s8)
+    if not backend.on_cuda(*tensors):
+        return moe_decode_int4_bf16_plain(*tensors, layer)
+    T, D, I, E, _ = _check_int4(
+        "moe_decode_int4_bf16", x, w1q4, w1sg, w2q4, w2s8, layer,
+        lambda D, I, gs: (gs // 2) % 64 or (D // 2) % 32 or I % 64)
+    ids, valid, wd = unique_meta(indices, weights, E)
+    U = ids.shape[0]
+    dev = x.device
+    h = torch.empty((U, decode_rows(T), I), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((U, T, D), dtype=torch.float32, device=dev)
+    out = torch.empty((T, D), dtype=torch.bfloat16, device=dev)
+    p = backend.ptr
+    err = library().aria_moe_decode_q4(
+        p(x), p(ids), p(valid), p(wd), p(w1q4), p(w1sg), p(w2q4), p(w2s8), p(h), p(part),
+        p(out), T, D, I, E, U, layer, backend.stream())
+    backend.check(err, "moe_decode_int4_bf16")
+    moe_decode_int4_bf16.launches += 1
+    return out
+
+
+moe_decode_int4_bf16.launches = 0
 
 
 def decode_rows(T: int) -> int:

@@ -49,6 +49,16 @@
    the CPU (held to 5e-2, its bf16 witness beside it), one layer's blocked
    expert-LoRA MoE against the CPU (held to two bf16 roundings), and
    ``PagedBatchedEngine(adapters=)``'s prefix keys salted by adapter.
+6c. Variants, on the same int4 model: the JAX package's three
+   off-by-default kernel variants on (``DENSE_A8``, ``MOE_A8`` off,
+   ``VIT_FLASH`` off; restored afterwards). bench.py's image request
+   through ``Engine`` (a warm-up, one sampled 200-token request, two
+   greedy ones: each decode step launches ``dense_int4_a8`` 56 and
+   ``moe_decode_int4_bf16`` 28 times, the ViT ``flash_segment`` 27 times,
+   and neither ``vit_flash`` nor the W4A8 MoE launches) and the lanes
+   child through ``BatchedEngine`` (a warm-up and a timed round), a
+   profiled chunk, the A/B against the default's numbers from this call,
+   and a 2-layer prefill and decode step against the CPU.
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
    ViT and projector bf16. int8: bench.py's image request twice sampled
@@ -73,9 +83,11 @@
    each at 2 layers and 512 tokens on the card against the CPU's plain
    versions, leaf by leaf.
 
-Phase 2 also holds ``moe_decode``, ``moe_decode_quant`` and ``gmm`` at
-the forms' shapes, ``expert_block_dequant`` at the adapters path's
-blocks (int4 and int8, bf16 and f32 out, bit-equal), and the training
+Phase 2 also holds the variants' kernels at their path's shapes
+(``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
+kernel, ``flash_segment`` at 4,900 patches all valid and 3,150 valid),
+``moe_decode``, ``moe_decode_quant`` and ``gmm`` at the forms' shapes,
+``expert_block_dequant`` at the adapters path's blocks (int4 and int8, bf16 and f32 out, bit-equal), and the training
 kernels at the train phase's shapes: the flash forward, its row log-sum-exp and its backward at
 [1, 2048, 20, 128] and [8, 2048, 20, 128]; ``gmm``, ``gmm_dlhs`` and
 ``tgmm`` at the full recipe's 98,304 rows. Each path sets every launch
@@ -99,6 +111,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+
+
+# each serving phase's headline numbers, for the variants phase's A/B in the same call
+HEADLINE = {}
 
 
 def _gpu_info() -> str:
@@ -244,8 +260,13 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     # of 64-token prompts (T = 2048) and at the paged prefill tick's 32
     # lanes x one 128-token chunk (T = 4096). No PyTorch call takes this
     # int4 layout: library none.
-    print("dense_int4", flush=True)
-    errs, timed = [], []
+    #
+    # On the same inputs at T = 1 and 32, dense_int4_a8: the W4A8
+    # projections of a decode step under DENSE_A8. Exact integer dots and
+    # the plain version's f32 steps, each rounded once: bit-equal is the
+    # claim, printed; the limit is f32 rounding.
+    print("dense_int4, dense_int4_a8", flush=True)
+    errs, timed, errs8, timed8 = [], [], [], []
     tick = lanes * paged_chunk
     for F_out in ((cfg.num_heads + 2 * cfg.num_kv_heads) * Dh, D):
         w = quantize_dense_int4(randn(2, D, F_out, scale=D**-0.5))
@@ -254,13 +275,26 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
             got, ref = di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1)
             errs.append(_compare(f"dense_int4 T={T} F={F_out}", got, ref, 1e-4,
                                  "both f32 sums of exact products; order differs"))
+            read = _nbytes(x, w["q4t"][1], w["sg"][1]) + T * F_out * 4
             if T in (1, 32, 512, 2048, tick):
-                bound = _bound(_nbytes(x, w["q4t"][1], w["sg"][1]) + T * F_out * 4,
-                               2 * T * D * F_out)
                 timed.append(_timed(f"T={T} F={F_out}", lambda: di.dense_int4(x, w, 1),
                                     lambda: di.dense_int4_plain(x, w, 1),
-                                    {1: 200, 32: 100}.get(T, max(5, 20480 // T)), 5, bound))
+                                    {1: 200, 32: 100}.get(T, max(5, 20480 // T)), 5,
+                                    _bound(read, 2 * T * D * F_out)))
+            if T in (1, lanes):
+                got, ref = di.dense_int4(x, w, 1, act_int8=True), di.dense_int4_a8_plain(x, w, 1)
+                same = "bit-equal" if torch.equal(got, ref) else "NOT bit-equal"
+                errs8.append(_compare(f"dense_int4_a8 T={T} F={F_out} ({same})", got, ref, 1e-6,
+                                      "exact integer dots, then the same f32 steps"))
+                timed8.append(_timed(f"T={T} F={F_out}",
+                                     lambda: di.dense_int4(x, w, 1, act_int8=True),
+                                     lambda: di.dense_int4_a8_plain(x, w, 1),
+                                     200 if T == 1 else 100, 5,
+                                     _bound(read, 2 * T * D * F_out, "int8")))
+                print(f"  dense_int4_a8 T={T} F={F_out}: {timed8[-1]['k'][0]:.4f} ms against "
+                      f"dense_int4 (bf16 activations) {timed[-1]['k'][0]:.4f} ms", flush=True)
     record("dense_int4", errs, timed)  # wqkv at T = 1 first
+    record("dense_int4_a8", errs8, timed8)  # wqkv at T = 1 first
     del w
 
     # moe_decode_int4 (W4A8): 64 + 2 experts at full width, T = 1 (one
@@ -280,7 +314,9 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                 for leaf in dst:
                     dst[leaf][layer, e0:e0 + n] = src[leaf]
     expert_bytes = _nbytes(w1["q4"][1, 0], w1["sg"][1, 0], w2["q4"][1, 0], w2["s8"][1, 0])
-    errs, timed = [], []
+    # on the same inputs, moe_decode_int4_bf16, the bf16-activation form
+    # (MOE_A8 off): the A/B of the decode MoE
+    errs, timed, errs16, timed16 = [], [], [], []
     for T in (1, lanes, 64, 128):
         x = randn(T, D)
         logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
@@ -289,18 +325,31 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
         indices = torch.cat([idx, shared], dim=1).to(torch.int32)
         weights = torch.cat([torch.softmax(top, -1), torch.ones_like(shared, dtype=top.dtype)], 1).to(x.dtype)
         args = (x, indices, weights, w1["q4"], w1["sg"], w2["q4"], w2["s8"], 1)
-        got, ref = mk.moe_decode_int4(*args), mk.moe_decode_int4_plain(*args)
+        got, ref = mk.moe_decode_int4(*args, act_int8=True), mk.moe_decode_int4_plain(*args)
         errs.append(_compare(
             f"moe_decode_int4 T={T}", got, ref, 2e-2,
             "bf16 output rounding, plus one-step flips of the int8 h re-quantization "
             "where the f32 sum order differs"))
+        got, ref = mk.moe_decode_int4(*args), mk.moe_decode_int4_bf16_plain(*args)
+        errs16.append(_compare(
+            f"moe_decode_int4_bf16 T={T}", got, ref, 1e-2,
+            "exact products, f32 sums in another order; h rounds to bf16 on both sides, so a "
+            "sum at a rounding edge moves by one bf16 ulp; bf16 output"))
         if T in (1, lanes):
             used = int(torch.unique(indices).numel())
-            bound = _bound(used * expert_bytes + _nbytes(x, indices, weights, got),
-                           T * indices.shape[1] * 6 * I * D, "int8")
-            timed.append(_timed(f"T={T} ({used} experts)", lambda: mk.moe_decode_int4(*args),
-                                lambda: mk.moe_decode_int4_plain(*args), 100, 3, bound))
+            read = used * expert_bytes + _nbytes(x, indices, weights, got)
+            ops = T * indices.shape[1] * 6 * I * D
+            at = f"T={T} ({used} experts)"
+            timed.append(_timed(at, lambda: mk.moe_decode_int4(*args, act_int8=True),
+                                lambda: mk.moe_decode_int4_plain(*args), 100, 3,
+                                _bound(read, ops, "int8")))
+            timed16.append(_timed(at, lambda: mk.moe_decode_int4(*args),
+                                  lambda: mk.moe_decode_int4_bf16_plain(*args), 100, 3,
+                                  _bound(read, ops)))
+            print(f"  moe_decode_int4_bf16 {at}: {timed16[-1]['k'][0]:.4f} ms against the W4A8 "
+                  f"moe_decode_int4 {timed[-1]['k'][0]:.4f} ms", flush=True)
     record("moe_decode_int4", errs, timed)
+    record("moe_decode_int4_bf16", errs16, timed16)
 
     # moe_prefill_int4 on the same stacks: top-6 + 2 shared at T = 512 (the
     # image prompt's bucket), 129, 2048 (32 rows of 64-token prompts) and
@@ -577,6 +626,34 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
         _bound(4 * _nbytes(qkv[0]) + _nbytes(valid), 4 * VD * VH * P * P),
         lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in qkv),
                                                attn_mask=valid[:, None, None, :]))])
+
+    # flash_segment, the ViT's attention with VIT_FLASH off, on the same
+    # q, k, v: every patch valid, and a 980 x 630 crop (70 x 45 of the 70 x
+    # 70 patches valid, 3,150), compared on the valid rows. Library: sdpa
+    # with the boolean segment mask on the [B, H, S, D] views.
+    print("flash_segment", flush=True)
+    side = vision.patches_per_side
+    ragged = torch.zeros((side, side), dtype=torch.bool, device=device)
+    ragged[:, :side * 630 // 980] = True
+    errs, timed = [], []
+    for label, valid in (("all valid", torch.ones((1, P), dtype=torch.bool, device=device)),
+                         (f"{int(ragged.sum())} valid", ragged.reshape(1, P))):
+        got, ref = fl.flash_sdpa(*qkv, q_valid=valid, kv_valid=valid), fl.flash_sdpa_plain(
+            *qkv, valid, valid)
+        rows = valid[0]
+        errs.append(_compare(
+            f"flash_segment S={P} {label}", got[:, rows], ref[:, rows], 1e-2,
+            "valid rows; bf16 output, p rounds to bf16 for p.v against the running max in "
+            "the kernel and the row max in the plain version"))
+        seg = valid[:, None, :, None] == valid[:, None, None, :]
+        timed.append(_timed(
+            f"S={P} {label}", lambda: fl.flash_sdpa(*qkv, q_valid=valid, kv_valid=valid),
+            lambda: fl.flash_sdpa_plain(*qkv, valid, valid), 20, 3,
+            _bound(4 * _nbytes(qkv[0]) + 2 * _nbytes(valid), 4 * VD * VH * P * P),
+            lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in qkv),
+                                                   attn_mask=seg)))
+        del got, ref, seg
+    record("flash_segment", errs, timed)  # all valid first
     return results
 
 
@@ -785,25 +862,33 @@ KERNELS = {
     "tgmm": ("aria_tpu_torch/csrc/gmm.cu", "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573"),
     "expert_block_dequant": ("aria_tpu_torch/csrc/expert_dequant.cu",
                              "aria_tpu/models/moe_lm.py:655"),
+    "dense_int4_a8": ("aria_tpu_torch/csrc/dense_int4.cu", "aria_tpu/ops/dense_int4.py:97"),
+    "moe_decode_int4_bf16": ("aria_tpu_torch/csrc/moe_decode_q4.cu",
+                             "aria_tpu/ops/moe_decode_kernel.py:307"),
+    "flash_segment": ("aria_tpu_torch/csrc/flash_seg.cu", "aria_tpu/ops/flash.py:30"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
 INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
 FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("adapters", "train-full", "train-lora", "image-bf16", "lanes-int8", "image-int8",
-         "paged", "lanes",
-         "image", "text")
+PATHS = ("variants-lanes", "variants-image", "adapters", "train-full", "train-lora", "image-bf16",
+         "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
 
 
 def _wrappers():
     from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
-    from aria_tpu_torch.ops.dense_int4 import dense_int4
+    from aria_tpu_torch.ops.dense_int4 import dense_int4, dense_int4_a8
     from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
-    from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd
+    from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd, flash_segment
     from aria_tpu_torch.ops.kv_write import kv_cache_write
     from aria_tpu_torch.ops.moe import gmm, gmm_dlhs, tgmm
-    from aria_tpu_torch.ops.moe_decode_kernel import moe_decode, moe_decode_int4, moe_decode_quant
+    from aria_tpu_torch.ops.moe_decode_kernel import (
+        moe_decode,
+        moe_decode_int4,
+        moe_decode_int4_bf16,
+        moe_decode_quant,
+    )
     from aria_tpu_torch.ops.moe_prefill_kernel import moe_prefill_int4
     from aria_tpu_torch.ops.paged_attention import paged_decode_attention
     from aria_tpu_torch.ops.vit_flash import vit_flash
@@ -815,7 +900,8 @@ def _wrappers():
             "paged_decode_attention": paged_decode_attention, "moe_decode": moe_decode,
             "moe_decode_quant": moe_decode_quant, "gmm": gmm,
             "flash_causal_bwd": flash_causal_bwd, "gmm_dlhs": gmm_dlhs, "tgmm": tgmm,
-            "expert_block_dequant": expert_block_dequant}
+            "expert_block_dequant": expert_block_dequant, "dense_int4_a8": dense_int4_a8,
+            "moe_decode_int4_bf16": moe_decode_int4_bf16, "flash_segment": flash_segment}
 
 
 def _tree_map(fn, tree):
@@ -1072,6 +1158,7 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
             raise AssertionError(f"{name} was not launched by the image path")
     print(f"  image request (bench.py's): image-to-first-token {results[1].prefill_s * 1e3:.1f} "
           f"ms, decode {results[1].tokens_per_s:.2f} tok/s ({gpu})", flush=True)
+    HEADLINE["image"] = (results[1].prefill_s * 1e3, results[1].tokens_per_s)
 
     with torch.inference_mode():
         pv = torch.as_tensor(pixels, device=device)
@@ -1107,21 +1194,23 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+# the decode MoE's kernels, by name: csrc/moe_decode.cu (W4A8), moe_decode_fp.cu,
+# moe_decode_q4.cu; each path runs one form, and all three end in moe_combine_kernel
 MOE_KERNELS = ("act_quant_kernel", "gateup_kernel", "hquant_kernel", "down_kernel",
-               "combine_kernel")  # csrc/moe_decode.cu, the W4A8 MoE of a decode step
-FP_MOE_KERNELS = ("fp_gateup_kernel", "fp_down_kernel", "fp_combine_kernel")  # moe_decode_fp.cu
+               "moe_combine_kernel")
+FP_MOE_KERNELS = ("fp_gateup_kernel", "fp_down_kernel", "moe_combine_kernel")
 
 
 WARMUP_TOKENS = 50  # a warm-up round's tokens per request: one of bench.py's decode chunks
 
 
-def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu) -> float:
+def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu) -> tuple:
     """bench.py's lanes rounds on ``engine``: each submits ``lanes``
     prompts of 48 tokens drawn from ``np.random.RandomState(0).randint(5,
     1000)`` with ``new_tokens`` each (the warm-up round at most
     WARMUP_TOKENS), times the grouped admission on its own and the decode
     steps after it, and checks every request. Returns the last round's wall
-    ms per decode step."""
+    ms per decode step and its aggregate tok/s."""
     import numpy as np
     import torch
 
@@ -1160,7 +1249,7 @@ def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
                   f"{(t1 - t0) * 1e3:.1f} ms wall; decode {steps} steps, "
                   f"{step_ms:.2f} ms wall per step; {per_step:.1f} hand-kernel "
                   f"launches per step ({gpu})", flush=True)
-    return step_ms
+    return step_ms, total / (t2 - t0)
 
 
 def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
@@ -1188,7 +1277,8 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
     print(f"lanes: {lanes} lanes, int4 KV over {engine.S} positions, {new_tokens} tokens per "
           f"request, {rounds} rounds (the first warms up, at most {WARMUP_TOKENS} tokens)",
           flush=True)
-    step_ms = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
+    step_ms, tok_s = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
+    HEADLINE["lanes"] = (tok_s, step_ms)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
     for name in ("kv_cache_write", "decode_attention_int4"):
@@ -2063,6 +2153,196 @@ def _adapters_prefix(lm, cfg, reg, top, prompt_len=300, page_size=256, chunk=128
         raise AssertionError("t1 over its cached page gave another stream")
 
 
+Q4_MOE_KERNELS = ("q4_gateup_kernel", "q4_down_kernel", "moe_combine_kernel")
+
+
+@contextlib.contextmanager
+def variants_on():
+    """The JAX package's three kernel variants on (ARIA_TPU_DENSE_A8=1,
+    ARIA_TPU_A8=0, ARIA_TPU_VIT_FLASH=0), as the port's module constants,
+    restored afterwards, also when the body raises."""
+    from aria_tpu_torch.models import moe_lm, vit
+
+    saved = moe_lm.DENSE_A8, moe_lm.MOE_A8, vit.VIT_FLASH
+    moe_lm.DENSE_A8, moe_lm.MOE_A8, vit.VIT_FLASH = True, False, False
+    try:
+        yield
+    finally:
+        moe_lm.DENSE_A8, moe_lm.MOE_A8, vit.VIT_FLASH = saved
+
+
+def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200):
+    """The variants phase: the int4 model (still resident after the
+    adapters phase) with the three kernel variants on. bench.py's image
+    request through ``Engine.generate`` (int8 KV; cut to a 50-token warm-up,
+    one sampled 200-token request and two greedy 32-token ones): the ViT
+    runs ``flash_segment`` 27 times an image, each decode step
+    ``dense_int4_a8`` 56 times and ``moe_decode_int4_bf16`` 28 times, and
+    neither ``vit_flash`` nor the W4A8 ``moe_decode_int4`` launches. Then
+    bench.py's lanes child through ``BatchedEngine`` (32 lanes, int4 KV, a
+    warm-up round and a timed one of 200 tokens, T = 32 a decode step), a
+    profiled decode chunk, the A/B against the default configuration's
+    numbers from this call, and a 2-layer prefill and decode step against
+    the CPU. Returns the launch counts of the image and the lanes paths."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.projector import init_projector_params
+    from aria_tpu_torch.models.vit import init_vit_params
+    from aria_tpu_torch.ops.quant import quantize_projector_params, quantize_vit_params
+
+    cfg = cfg or AriaConfig()
+    text, vision = cfg.text, cfg.vision
+    L = text.num_layers
+    top = min(1000, text.vocab_size)
+    params = {
+        "lm": lm,
+        "vision": quantize_vit_params(init_vit_params(vision, gen, device=device)),
+        "projector": quantize_projector_params(init_projector_params(cfg.projector, gen,
+                                                                     device=device)),
+    }
+    side = vision.image_size
+    pixels = np.random.RandomState(SEED).randint(0, 256, (1, 3, side, side), dtype=np.uint8)
+    n_q = cfg.projector.query_count(vision.patches_per_side**2)
+    prompt = [11] * 8 + [cfg.image_token_id] * n_q + [13] * 8
+    sampled = dict(temperature=0.8, top_k=200, decode_chunk=50)
+    greedy = GenerationConfig(max_new_tokens=32, temperature=0.0, decode_chunk=50)
+    requests = [("image, variants, T 0.8 top-k 200 (warm-up)", prompt,
+                 GenerationConfig(max_new_tokens=50, **sampled)),
+                ("image, variants, T 0.8 top-k 200", prompt,
+                 GenerationConfig(max_new_tokens=new_tokens, **sampled)),
+                ("image greedy, variants", prompt, greedy),
+                ("image greedy again, variants", prompt, greedy)]
+    wrappers = _wrappers()
+    print(f"variants: DENSE_A8 on, MOE_A8 off, VIT_FLASH off (the JAX package's "
+          f"ARIA_TPU_DENSE_A8=1, ARIA_TPU_A8=0, ARIA_TPU_VIT_FLASH=0) on the {L}-layer int4 "
+          f"model", flush=True)
+    with variants_on():
+        engine = Engine(params, cfg, max_seq_len=1024, cache_dtype=torch.int8, rng_seed=SEED)
+        results, image = _serve(engine, requests, wrappers, text.vocab_size, gpu,
+                                pixel_values=pixels)
+        del engine
+        if results[2].tokens != results[3].tokens:
+            raise AssertionError("the repeated greedy image request gave another stream")
+        # the prefill's projections are W4A8 only in a bucket of at most 32
+        # rows, and its MoE the decode kernel only up to 128: not at the
+        # 512-token bucket of bench.py's request
+        n = len(requests)
+        bucket = max(32, 1 << (len(prompt) - 1).bit_length())
+        pre_a8, pre_dec = int(bucket <= 32), int(bucket <= 128)
+        steps, rem = divmod(image["moe_decode_int4_bf16"] - L * n * pre_dec, L)
+        want = {"flash_segment": vision.num_layers * n, "vit_flash": 0, "moe_decode_int4": 0,
+                "dense_int4": 2 * L * n * (1 - pre_a8), "moe_prefill_int4": L * n * (1 - pre_dec),
+                "dense_int4_a8": 2 * L * (steps + n * pre_a8)}
+        wrong = {k: (image[k], v) for k, v in want.items() if image[k] != v}
+        if wrong or rem or not steps:
+            raise AssertionError(f"variants image path launches (got, wanted): {wrong}; "
+                                 f"moe_decode_int4_bf16 {image['moe_decode_int4_bf16']}")
+        print(f"  {steps} decode steps: dense_int4_a8 {2 * L}, moe_decode_int4_bf16 {L} "
+              f"launches a step; flash_segment {vision.num_layers} an image; vit_flash and the "
+              f"W4A8 moe_decode_int4 none", flush=True)
+
+        for w in wrappers.values():  # count only what the lanes path launches
+            w.launches = 0
+        engine = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320,
+                               temperature=0.8, top_k=200, decode_chunk=50, cache_dtype="int4",
+                               rng_seed=SEED)
+        print(f"variants lanes: {lanes} lanes, int4 KV over {engine.S} positions, {new_tokens} "
+              f"tokens per request, a warm-up round of {WARMUP_TOKENS} and a timed one",
+              flush=True)
+        step_ms, tok_s = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, 2, gpu)
+        lanes_counts = {name: w.launches for name, w in wrappers.items()}
+        print(f"  launches: {lanes_counts}", flush=True)
+        for name in ("dense_int4_a8", "moe_decode_int4_bf16"):
+            if lanes_counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the variants lanes path")
+        for name in ("moe_decode_int4", "vit_flash"):
+            if lanes_counts[name]:
+                raise AssertionError(f"{name} was launched by the variants lanes path")
+        if device.type == "cuda":
+            with torch.inference_mode():
+                _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms,
+                                     label="variants lanes", moe_kernels=Q4_MOE_KERNELS)
+        del engine
+        ttft, rate = results[1].prefill_s * 1e3, results[1].tokens_per_s
+        d_img = HEADLINE.get("image", (float("nan"),) * 2)
+        d_lanes = HEADLINE.get("lanes", (float("nan"),) * 2)
+        print(f"  A/B in this call ({gpu}), variants against the default: image-to-first-token "
+              f"{ttft:.1f} ms (default {d_img[0]:.1f}), decode {rate:.2f} tok/s (default "
+              f"{d_img[1]:.2f}); {lanes} lanes {tok_s:.2f} tok/s at {step_ms:.2f} ms a step "
+              f"(default {d_lanes[0]:.2f} tok/s at {d_lanes[1]:.2f} ms)", flush=True)
+        with torch.inference_mode():
+            _variants_reference(device, lm, text, top)
+    return {"variants-image": image, "variants-lanes": lanes_counts}
+
+
+def _variants_reference(device, lm, text, top, ref_layers=2):
+    """With the variants on: a 2-layer prefill of 4 lanes x 16 tokens (64
+    rows: the bf16 projections and the bf16-activation MoE kernel) and one
+    decode step with per-lane positions (4 rows: the W4A8 projections and
+    the bf16-activation MoE), int8 KV, on the card against the CPU's plain
+    versions: the prefill's logits at each lane's last prompt position and
+    the decode step's, each held to the limit and to its bf16 witness, the
+    largest of ``WITNESS_DRAWS`` draws of one ulp on half the prompt
+    embeddings, run on the CPU as one batch of copies (its prefill then
+    takes the segmented MoE, the same exact products). The limit is
+    REF_LIMIT, or the smallest draw where that is larger."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.models.moe_lm import KVCache, embed_tokens, lm_forward
+
+    cut = dataclasses.replace(text, num_layers=ref_layers)
+    small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}
+    small_cpu = _tree_map(lambda v: v.cpu(), small)
+    rng = np.random.RandomState(8)
+    lens = [5, 9, 14, 16]
+    toks = torch.zeros((4, 16), dtype=torch.long)
+    for b, n in enumerate(lens):
+        toks[b, :n] = torch.from_numpy(rng.randint(5, top, n))
+    new = torch.from_numpy(rng.randint(5, top, 4))
+    cpu = torch.device("cpu")
+
+    def step(params, dev, copies=1, bump=False):
+        """(prefill logits, decode logits), each [copies, 4, V]."""
+        emb = embed_tokens(params["embed"], toks.repeat(copies, 1).to(dev))
+        if bump:
+            emb = _bump_half(emb)
+        B = 4 * copies
+        cache = KVCache.init(cut, B, 128, torch.int8, device=dev)
+        pos = torch.tensor(lens * copies, dtype=torch.int32, device=dev)
+        pre = lm_forward(params, cut, inputs_embeds=emb, positions=torch.arange(16, device=dev),
+                         cache=cache, cache_pos=0, logit_position=pos - 1,
+                         causal_flash=True).logits[:, 0]
+        dec = lm_forward(params, cut, new.repeat(copies)[:, None].to(dev),
+                         positions=pos[:, None], cache=cache, cache_pos=pos).logits[:, 0]
+        return tuple(t.float().cpu().reshape(copies, 4, -1) for t in (pre, dec))
+
+    K = WITNESS_DRAWS
+    got, ref, ulps = step(small, device), step(small_cpu, cpu), step(small_cpu, cpu, K, True)
+    failed = []
+    for i, label in enumerate(("prefill (last prompt positions)", "decode step")):
+        draws = [_rel_err(u, ref[i][0]) for u in ulps[i]]
+        rel, witness = _rel_err(got[i][0], ref[i][0]), max(draws)
+        # where every draw of bf16-level noise alone exceeds REF_LIMIT (the
+        # decode step's W4A8 projections flip int8 roundings), the limit is
+        # the smallest draw: no correct kernel could meet a tighter one
+        limit = max(REF_LIMIT, min(draws))
+        print(f"  reference, variants ({ref_layers} layers, int8 KV, 4 lanes at {lens}): "
+              f"{label} relative logit error {rel:.3e} (limit {limit:.3e} and the witness; "
+              f"by lane {[f'{_rel_err(got[i][0][j], ref[i][0][j]):.3e}' for j in range(4)]}), "
+              f"top-1 agreement {_top1(got[i][0], ref[i][0]):.3f}; witness, the largest of {K} "
+              f"draws of one bf16 ulp on half the prompt embeddings on the CPU: {witness:.3e} "
+              f"(draws {[f'{d:.3e}' for d in draws]})", flush=True)
+        if not rel <= min(limit, witness):
+            failed.append(f"{label}: relative error {rel} (limit {limit}, witness {witness})")
+    if failed:
+        raise AssertionError(f"the variants reference differs: {failed}")
+
+
 def _check_form_path(path, launches, form, image=True):
     """A forms path went through its form's kernels and left the int4 ones."""
     want = (FORM_DECODE[form], "gmm", "flash_causal")
@@ -2192,8 +2472,8 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
             print(f"lanes ({form} form): {lanes} lanes, bf16 KV over {lanes_engine.S} positions, "
                   f"{lanes_new} tokens per request, {lanes_rounds} rounds (the first warms up)",
                   flush=True)
-            step_ms = _lanes_rounds(device, lanes_engine, wrappers, lanes, top, lanes_new,
-                                    lanes_rounds, gpu)
+            step_ms, _ = _lanes_rounds(device, lanes_engine, wrappers, lanes, top, lanes_new,
+                                       lanes_rounds, gpu)
             counts = {name: w.launches for name, w in wrappers.items()}
             print(f"  launches: {counts}", flush=True)
             _check_form_path("lanes-int8", counts, form, image=False)
@@ -2789,8 +3069,10 @@ def main() -> int:
     launches["paged"] = run_paged(device, lm, gpu=gpu)
     t0 = done("paged", t0)
     launches["adapters"] = run_adapters(device, gen(10), lm, gpu=gpu)
-    del lm  # the forms' models do not fit beside the int4 one
     t0 = done("adapters", t0)
+    launches.update(run_variants(device, gen(11), lm, gpu=gpu))
+    del lm  # the forms' models do not fit beside the int4 one
+    t0 = done("variants", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))
     t0 = done("forms", t0)
     launches.update(run_train(device, gen(8), gpu=gpu))

@@ -70,7 +70,7 @@ def test_moe_decode_int4_kernel_matches_plain(cuda):
         args = (_randn(g, T, D), torch.tensor(ind, dtype=torch.int32, device=cuda),
                 torch.tensor(wts, dtype=torch.bfloat16, device=cuda),
                 w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
-        got, ref = mk.moe_decode_int4(*args), mk.moe_decode_int4_plain(*args)
+        got, ref = mk.moe_decode_int4(*args, act_int8=True), mk.moe_decode_int4_plain(*args)
         # bf16 output, plus rare one-step flips of the int8 h re-quantization
         # where the f32 sums run in another order
         err = (got.float() - ref.float()).abs().max()
@@ -566,3 +566,63 @@ def test_expert_block_dequant_kernel_matches_plain(cuda, form):
     assert ed.expert_block_dequant.launches == before + 8
     with pytest.raises(IndexError):
         ed.expert_block_dequant({k: v[0] for k, v in w1.items()}, "w1", 12, 11)
+
+
+@pytest.mark.parametrize("T", [1, 5, 32, 40])
+def test_dense_int4_a8_kernel_matches_plain(cuda, T):
+    """W4A8 wqkv and wo at full width: the integer dots are exact and the
+    float steps are the plain version's, each rounded once, so bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    before = di.dense_int4_a8.launches
+    for F in (7680, 2560):
+        w = quantize_dense_int4(_randn(g, 2, 2560, F, scale=2560**-0.5))
+        x = _randn(g, T, 2560)
+        got, ref = di.dense_int4(x, w, 1, act_int8=True), di.dense_int4_a8_plain(x, w, 1)
+        assert got.dtype == torch.float32 and torch.equal(got, ref), (T, F)
+    assert di.dense_int4_a8.launches == before + 2
+    with pytest.raises(TypeError):
+        di.dense_int4(x.float(), w, 1, act_int8=True)
+
+
+@pytest.mark.parametrize("T", [1, 5, 32, 128])
+def test_moe_decode_int4_bf16_kernel_matches_plain(cuda, T):
+    """The bf16-activation int4 MoE at full width, 64 + 2 experts."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    E, I, D = 66, 1664, 2560
+    w1, w2 = _expert_stack(g, 1, E, I, D)
+    ind, wts = _top6(g, T, E)
+    args = (_randn(g, T, D), ind, wts, w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
+    before = mk.moe_decode_int4_bf16.launches
+    got, ref = mk.moe_decode_int4(*args), mk.moe_decode_int4_bf16_plain(*args)
+    assert mk.moe_decode_int4_bf16.launches == before + 1
+    # exact products and f32 sums on both sides in another order; h rounds
+    # to bf16 on both, so a sum at a rounding edge moves by one bf16 ulp;
+    # bf16 output
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= 1e-2 * ref.float().abs().max(), (T, err.item())
+    with pytest.raises(ValueError):  # more rows than a decode step has
+        mk.moe_decode_int4(_randn(g, 129, D), *_top6(g, 129, E), *args[3:])
+
+
+@pytest.mark.parametrize("B,S,H,D,valid", [(1, 4900, 16, 72, (4900,)), (1, 4900, 16, 72, (3150,)),
+                                            (2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (100,))])
+def test_flash_segment_kernel_matches_plain(cuda, B, S, H, D, valid):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(g, B, S, H, D) for _ in range(3))
+    mask = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    for b, n in enumerate(valid):
+        mask[b, :n] = True
+    before = fl.flash_segment.launches
+    got = fl.flash_sdpa(q, k, v, q_valid=mask, kv_valid=mask)
+    ref = fl.flash_sdpa_plain(q, k, v, mask, mask)
+    assert fl.flash_segment.launches == before + 1
+    # every row: pad queries attend pad keys on both sides; bf16 output, p
+    # rounds to bf16 before p.v relative to the running max in the kernel
+    # and to the row max in the plain version
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    unmasked = fl.flash_segment(q, k, v)
+    torch.testing.assert_close(unmasked.float(), fl.flash_sdpa_plain(q, k, v).float(),
+                               rtol=1e-2, atol=1e-2)
+    for bad in (60, 80, 128):  # the kernel takes the ViT's head dims only
+        with pytest.raises(ValueError):
+            fl.flash_segment(*(_randn(g, 1, 64, 2, bad) for _ in range(3)))

@@ -96,7 +96,8 @@ def test_moe_decode_int4_a8_matches_jax(moe_case, T):
                             q1["q4"], q1["sg"], q2["q4"], q2["s8"], jnp.int32(1),
                             ft=128, interpret=True, act_int8=True)
     got = mk.moe_decode_int4(torch.from_numpy(x), torch.from_numpy(ind), torch.from_numpy(w),
-                             _t(q1["q4"]), _t(q1["sg"]), _t(q2["q4"]), _t(q2["s8"]), 1)
+                             _t(q1["q4"]), _t(q1["sg"]), _t(q2["q4"]), _t(q2["s8"]), 1,
+                             act_int8=True)
     # the integer dots are exact on both sides and the f32 steps run in the
     # same order; what is left is the last ulp of sigmoid and of the sums
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)

@@ -92,6 +92,26 @@ def test_port_imports_nothing_of_jax(path):
             assert top not in banned, f"{path.name}:{node.lineno} imports {name}"
 
 
+ENV_READERS = {"aria_tpu_torch/ops/_build.py"}  # finds nvcc through CUDA_HOME
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "aria_tpu_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_environment_variable(path):
+    """The JAX package's switches are module constants in the port
+    (``LORA_EBLOCK``, ``DENSE_A8``, ``MOE_A8``, ``VIT_FLASH``): no module but
+    the build reads the environment."""
+    if str(path.relative_to(ROOT)) in ENV_READERS:
+        return
+    env = {"environ", "environb", "getenv", "getenvb"}
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Attribute) and node.attr in env:
+            raise AssertionError(f"{path.name}:{node.lineno} reads os.{node.attr}")
+        if isinstance(node, ast.ImportFrom) and node.module == "os":
+            names = {a.name for a in node.names} & env
+            assert not names, f"{path.name}:{node.lineno} imports {names} from os"
+
+
 def test_entry_points_build_on_the_card_or_raise(monkeypatch):
     """Without a card every entry point that builds tensors raises, unless
     the caller asks for the CPU; none falls back."""

@@ -108,9 +108,9 @@ def served(params):
     real = tm.moe_decode_int4, tm.experts_segmented_int4
 
     def counted(fn, branch):
-        def call(x, *args):
+        def call(x, *args, **kw):
             rows[branch].append(x.shape[0])
-            return fn(x, *args)
+            return fn(x, *args, **kw)
         return call
 
     with pytest.MonkeyPatch.context() as mp:
