@@ -114,7 +114,6 @@ LORA_EBLOCK = 0  # experts per block of _experts_lora_blocked where it divides E
 # (ARIA_TPU_A8, moe_lm.py:962-973). The ViT's is models/vit.py's VIT_FLASH.
 DENSE_A8 = False
 MOE_A8 = True
-DENSE_A8_MAX_ROWS = 32
 
 
 @dataclasses.dataclass
@@ -432,7 +431,7 @@ def _project(x2d: torch.Tensor, w, layer: int) -> torch.Tensor:
     moe_lm.py:320-345), an int8 or float one through ``linear``
     (moe_lm.py:368-369)."""
     if is_dense_int4(w):
-        a8 = DENSE_A8 and x2d.shape[0] <= DENSE_A8_MAX_ROWS
+        a8 = DENSE_A8 and x2d.shape[0] <= 32  # decode steps only (moe_lm.py:334)
         return dense_int4(x2d, w, layer, act_int8=a8)
     return linear(x2d, _layer_weight(w, layer))
 

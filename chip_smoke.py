@@ -58,7 +58,10 @@
    and neither ``vit_flash`` nor the W4A8 MoE launches) and the lanes
    child through ``BatchedEngine`` (a warm-up and a timed round), a
    profiled chunk, the A/B against the default's numbers from this call,
-   and a 2-layer prefill and decode step against the CPU.
+   a 2-layer prefill (held to 5e-2 and its bf16 witness) and decode step
+   (reported beside its witness) against the CPU, and layer 0's W4A8
+   projections and bf16-activation MoE against the CPU on the same rows
+   and routing (held to their rounding).
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
    ViT and projector bf16. int8: bench.py's image request twice sampled
@@ -85,7 +88,8 @@
 
 Phase 2 also holds the variants' kernels at their path's shapes
 (``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
-kernel, ``flash_segment`` at 4,900 patches all valid and 3,150 valid),
+kernel, ``flash_segment`` at 4,900 patches all valid and 3,150 valid, to
+an absolute 3e-3),
 ``moe_decode``, ``moe_decode_quant`` and ``gmm`` at the forms' shapes,
 ``expert_block_dequant`` at the adapters path's blocks (int4 and int8, bf16 and f32 out, bit-equal), and the training
 kernels at the train phase's shapes: the flash forward, its row log-sum-exp and its backward at
@@ -111,10 +115,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-
-
-# each serving phase's headline numbers, for the variants phase's A/B in the same call
-HEADLINE = {}
 
 
 def _gpu_info() -> str:
@@ -153,8 +153,9 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     return device_us / iters / 1e3, wall
 
 
-def _compare(name, got, ref, tol: float, why: str) -> float:
-    """max |got - ref| must be <= tol * max(1, max |ref|)."""
+def _compare(name, got, ref, tol: float, why: str, absolute: bool = False) -> float:
+    """max |got - ref| must be <= tol * max(1, max |ref|), or <= tol where
+    ``absolute``."""
     import torch
 
     if got.shape != ref.shape:
@@ -163,12 +164,17 @@ def _compare(name, got, ref, tol: float, why: str) -> float:
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
     err = (g - r).abs().max().item()
-    bound = tol * max(1.0, r.abs().max().item())
+    bound = tol if absolute else tol * max(1.0, r.abs().max().item())
     print(f"  {name}: max_abs_err {err:.3e} (limit {bound:.3e}: {why})", flush=True)
     if err > bound:
         raise AssertionError(f"{name}: max_abs_err {err} > {bound}")
     return err
 
+
+# flash_segment's limit at the ViT's [1, 4900, 16, 72], absolute: about 3x
+# the 9.8e-4 (one bf16 ulp of its largest outputs, ~0.14) it reads on the
+# card; dropping the last partial key tile (36 keys) moves an output by ~5e-2
+FLASH_SEG_ATOL = 3e-3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
@@ -629,8 +635,10 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
 
     # flash_segment, the ViT's attention with VIT_FLASH off, on the same
     # q, k, v: every patch valid, and a 980 x 630 crop (70 x 45 of the 70 x
-    # 70 patches valid, 3,150), compared on the valid rows. Library: sdpa
-    # with the boolean segment mask on the [B, H, S, D] views.
+    # 70 patches valid, 3,150), compared on the valid rows to an absolute
+    # limit (the outputs are ~0.024 in rms, so a limit relative to 1 would
+    # pass a dropped key tile). Library: sdpa with the boolean segment mask
+    # on the [B, H, S, D] views.
     print("flash_segment", flush=True)
     side = vision.patches_per_side
     ragged = torch.zeros((side, side), dtype=torch.bool, device=device)
@@ -642,9 +650,16 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
             *qkv, valid, valid)
         rows = valid[0]
         errs.append(_compare(
-            f"flash_segment S={P} {label}", got[:, rows], ref[:, rows], 1e-2,
-            "valid rows; bf16 output, p rounds to bf16 for p.v against the running max in "
-            "the kernel and the row max in the plain version"))
+            f"flash_segment S={P} {label}", got[:, rows], ref[:, rows], FLASH_SEG_ATOL,
+            "valid rows, absolute; bf16 output, p rounds to bf16 for p.v against the running "
+            "max in the kernel and the row max in the plain version", absolute=True))
+        if label == "all valid":  # what the limit must catch: the last 36-key tile left out
+            moved = (fl.flash_sdpa_plain(*(t[:, :P - 36] if i else t for i, t in enumerate(qkv)))
+                     .float() - ref.float()).abs().max().item()
+            print(f"  flash_segment S={P}: the plain version without the last 36 keys moves an "
+                  f"output by {moved:.3e} (limit {FLASH_SEG_ATOL:.0e})", flush=True)
+            if not moved > FLASH_SEG_ATOL:
+                raise AssertionError("flash_segment's limit does not see a dropped key tile")
         seg = valid[:, None, :, None] == valid[:, None, None, :]
         timed.append(_timed(
             f"S={P} {label}", lambda: fl.flash_sdpa(*qkv, q_valid=valid, kv_valid=valid),
@@ -1113,7 +1128,8 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
     ``Engine.generate``: one uint8 980px crop, the prompt [11]*8 + [9]*256 +
     [13]*8 (a 512-token bucket), int8 KV, the ViT and projector
     random-initialised and int8-quantized as bench.py builds them. Returns
-    each kernel's launch count in this phase."""
+    each kernel's launch count in this phase and the timed request's
+    (image-to-first-token ms, decode tok/s)."""
     import numpy as np
     import torch
 
@@ -1158,7 +1174,6 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
             raise AssertionError(f"{name} was not launched by the image path")
     print(f"  image request (bench.py's): image-to-first-token {results[1].prefill_s * 1e3:.1f} "
           f"ms, decode {results[1].tokens_per_s:.2f} tok/s ({gpu})", flush=True)
-    HEADLINE["image"] = (results[1].prefill_s * 1e3, results[1].tokens_per_s)
 
     with torch.inference_mode():
         pv = torch.as_tensor(pixels, device=device)
@@ -1184,7 +1199,7 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
             raise AssertionError(f"reference image features differ: relative error {rel}")
         rng = np.random.RandomState(SEED + 1)
         _lm_reference(lm, text, [int(t) for t in rng.randint(1, text.vocab_size, 200)], device)
-    return launches
+    return launches, (results[1].prefill_s * 1e3, results[1].tokens_per_s)
 
 
 def _sync(device):
@@ -1260,7 +1275,8 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
     with 200 new tokens each; one warm-up round and one timed one. Then a
     profiled decode chunk, a greedy check with the int8 KV cache and a
     2-layer batched decode step against the CPU's plain versions. Returns
-    each kernel's launch count over the rounds."""
+    each kernel's launch count over the rounds and the timed round's
+    (tok/s, decode-step ms)."""
     import torch
 
     from aria_tpu_torch import AriaConfig
@@ -1278,7 +1294,6 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
           f"request, {rounds} rounds (the first warms up, at most {WARMUP_TOKENS} tokens)",
           flush=True)
     step_ms, tok_s = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
-    HEADLINE["lanes"] = (tok_s, step_ms)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
     for name in ("kv_cache_write", "decode_attention_int4"):
@@ -1291,7 +1306,7 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
         del engine
         _lanes_greedy_check(device, lm, cfg, top)
         _lanes_reference(device, lm, text, top)
-    return launches
+    return launches, (tok_s, step_ms)
 
 
 def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label="lanes",
@@ -2171,7 +2186,8 @@ def variants_on():
         moe_lm.DENSE_A8, moe_lm.MOE_A8, vit.VIT_FLASH = saved
 
 
-def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200):
+def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200,
+                 default_image=(float("nan"),) * 2, default_lanes=(float("nan"),) * 2):
     """The variants phase: the int4 model (still resident after the
     adapters phase) with the three kernel variants on. bench.py's image
     request through ``Engine.generate`` (int8 KV; cut to a 50-token warm-up,
@@ -2182,8 +2198,10 @@ def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200):
     bench.py's lanes child through ``BatchedEngine`` (32 lanes, int4 KV, a
     warm-up round and a timed one of 200 tokens, T = 32 a decode step), a
     profiled decode chunk, the A/B against the default configuration's
-    numbers from this call, and a 2-layer prefill and decode step against
-    the CPU. Returns the launch counts of the image and the lanes paths."""
+    numbers from this call (``default_image``: run_image's (first-token
+    ms, tok/s); ``default_lanes``: run_lanes' (tok/s, step ms)), and the
+    2-layer reference. Returns the launch counts of the image and the
+    lanes paths."""
     import numpy as np
     import torch
 
@@ -2268,8 +2286,7 @@ def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200):
                                      label="variants lanes", moe_kernels=Q4_MOE_KERNELS)
         del engine
         ttft, rate = results[1].prefill_s * 1e3, results[1].tokens_per_s
-        d_img = HEADLINE.get("image", (float("nan"),) * 2)
-        d_lanes = HEADLINE.get("lanes", (float("nan"),) * 2)
+        d_img, d_lanes = default_image, default_lanes
         print(f"  A/B in this call ({gpu}), variants against the default: image-to-first-token "
               f"{ttft:.1f} ms (default {d_img[0]:.1f}), decode {rate:.2f} tok/s (default "
               f"{d_img[1]:.2f}); {lanes} lanes {tok_s:.2f} tok/s at {step_ms:.2f} ms a step "
@@ -2279,21 +2296,31 @@ def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200):
     return {"variants-image": image, "variants-lanes": lanes_counts}
 
 
+A8_PROJ_LIMIT = 1e-6  # relative: exact integer dots, then the same f32 steps on both sides
+
+
 def _variants_reference(device, lm, text, top, ref_layers=2):
     """With the variants on: a 2-layer prefill of 4 lanes x 16 tokens (64
     rows: the bf16 projections and the bf16-activation MoE kernel) and one
     decode step with per-lane positions (4 rows: the W4A8 projections and
     the bf16-activation MoE), int8 KV, on the card against the CPU's plain
-    versions: the prefill's logits at each lane's last prompt position and
-    the decode step's, each held to the limit and to its bf16 witness, the
-    largest of ``WITNESS_DRAWS`` draws of one ulp on half the prompt
-    embeddings, run on the CPU as one batch of copies (its prefill then
-    takes the segmented MoE, the same exact products). The limit is
-    REF_LIMIT, or the smallest draw where that is larger."""
+    versions, each beside its bf16 witness, the largest of
+    ``WITNESS_DRAWS`` draws of one ulp on half the prompt embeddings, run
+    on the CPU as one batch of copies (its prefill then takes the
+    segmented MoE, the same exact products). The prefill is held to
+    REF_LIMIT and to its witness. The decode step is reported beside its
+    witness and not held: its W4A8 projections turn a bf16-level
+    difference upstream into a flipped int8 rounding, so even the witness's
+    draws exceed REF_LIMIT. What holds the decode step's kernels is the
+    check after it: layer 0's W4A8 wqkv and wo and its bf16-activation MoE,
+    card against CPU on the same bf16 rows and routing, at 4 and 32 rows,
+    held to their rounding: A8_PROJ_LIMIT for the projections,
+    MOE_ULP_LIMIT for the MoE."""
     import numpy as np
     import torch
 
-    from aria_tpu_torch.models.moe_lm import KVCache, embed_tokens, lm_forward
+    from aria_tpu_torch.models.moe_lm import KVCache, _project, embed_tokens, lm_forward
+    from aria_tpu_torch.ops.moe_decode_kernel import moe_decode_int4
 
     cut = dataclasses.replace(text, num_layers=ref_layers)
     small = {**lm, "layers": _tree_map(lambda v: v[:ref_layers].contiguous(), lm["layers"])}
@@ -2324,21 +2351,51 @@ def _variants_reference(device, lm, text, top, ref_layers=2):
     K = WITNESS_DRAWS
     got, ref, ulps = step(small, device), step(small_cpu, cpu), step(small_cpu, cpu, K, True)
     failed = []
-    for i, label in enumerate(("prefill (last prompt positions)", "decode step")):
+    for i, (label, held) in enumerate((("prefill (last prompt positions)", True),
+                                       ("decode step", False))):
         draws = [_rel_err(u, ref[i][0]) for u in ulps[i]]
         rel, witness = _rel_err(got[i][0], ref[i][0]), max(draws)
-        # where every draw of bf16-level noise alone exceeds REF_LIMIT (the
-        # decode step's W4A8 projections flip int8 roundings), the limit is
-        # the smallest draw: no correct kernel could meet a tighter one
-        limit = max(REF_LIMIT, min(draws))
         print(f"  reference, variants ({ref_layers} layers, int8 KV, 4 lanes at {lens}): "
-              f"{label} relative logit error {rel:.3e} (limit {limit:.3e} and the witness; "
+              f"{label} relative logit error {rel:.3e} "
+              f"({f'limit {REF_LIMIT:.0e} and the witness' if held else 'not held'}; "
               f"by lane {[f'{_rel_err(got[i][0][j], ref[i][0][j]):.3e}' for j in range(4)]}), "
               f"top-1 agreement {_top1(got[i][0], ref[i][0]):.3f}; witness, the largest of {K} "
               f"draws of one bf16 ulp on half the prompt embeddings on the CPU: {witness:.3e} "
               f"(draws {[f'{d:.3e}' for d in draws]})", flush=True)
-        if not rel <= min(limit, witness):
-            failed.append(f"{label}: relative error {rel} (limit {limit}, witness {witness})")
+        if held and not rel <= min(REF_LIMIT, witness):
+            failed.append(f"{label}: relative error {rel} (witness {witness})")
+
+    g = torch.Generator().manual_seed(SEED)
+    E = text.num_experts
+    experts = [tuple(p["layers"][n][leaf] for n, leaf in (("w1", "q4"), ("w1", "sg"),
+                                                           ("w2", "q4"), ("w2", "s8")))
+               for p in (small, small_cpu)]
+    for T in (4, 32):
+        x = torch.randn(T, text.hidden_size, generator=g).to(torch.bfloat16)
+        for name in ("wqkv", "wo"):
+            out = [_project(x.to(dev), p["layers"][name], 0).cpu()
+                   for p, dev in ((small, device), (small_cpu, cpu))]
+            rel = _rel_err(*out)
+            print(f"  W4A8 {name}, layer 0, {T} rows, card against CPU: relative error "
+                  f"{rel:.3e} (limit {A8_PROJ_LIMIT:.0e}), "
+                  f"{(out[0] != out[1]).float().mean().item():.4f} of the entries differ",
+                  flush=True)
+            if not rel <= A8_PROJ_LIMIT:
+                failed.append(f"W4A8 {name} at {T} rows: relative error {rel}")
+        idx = torch.stack([torch.randperm(E, generator=g)[:text.moe_topk] for _ in range(T)])
+        idx = torch.cat([idx, torch.arange(E, E + text.num_shared_experts).expand(T, -1)], 1)
+        wts = torch.softmax(torch.randn(T, text.moe_topk, generator=g), -1)
+        wts = torch.cat([wts, torch.ones(T, text.num_shared_experts)], 1).to(torch.bfloat16)
+        out = [moe_decode_int4(x.to(dev), idx.to(torch.int32).to(dev), wts.to(dev), *ex, 0,
+                               act_int8=False).float().cpu()
+               for ex, dev in zip(experts, (device, cpu))]
+        rel = _rel_err(*out)
+        print(f"  bf16-activation int4 MoE, layer 0, {T} rows, card against CPU: relative "
+              f"error {rel:.3e} (limit {MOE_ULP_LIMIT:.0e}), "
+              f"{(out[0] != out[1]).float().mean().item():.4f} of the entries differ",
+              flush=True)
+        if not rel <= MOE_ULP_LIMIT:
+            failed.append(f"bf16-activation MoE at {T} rows: relative error {rel}")
     if failed:
         raise AssertionError(f"the variants reference differs: {failed}")
 
@@ -3062,15 +3119,17 @@ def main() -> int:
     t0 = done("kernels", t0)
     lm, text_launches = run_slice(device, gen(3), gpu=gpu)
     t0 = done("text", t0)
-    launches = {"text": text_launches, "image": run_image(device, gen(4), lm, gpu=gpu)}
+    launches = {"text": text_launches}
+    launches["image"], image_headline = run_image(device, gen(4), lm, gpu=gpu)
     t0 = done("image", t0)
-    launches["lanes"] = run_lanes(device, lm, gpu=gpu)
+    launches["lanes"], lanes_headline = run_lanes(device, lm, gpu=gpu)
     t0 = done("lanes", t0)
     launches["paged"] = run_paged(device, lm, gpu=gpu)
     t0 = done("paged", t0)
     launches["adapters"] = run_adapters(device, gen(10), lm, gpu=gpu)
     t0 = done("adapters", t0)
-    launches.update(run_variants(device, gen(11), lm, gpu=gpu))
+    launches.update(run_variants(device, gen(11), lm, gpu=gpu, default_image=image_headline,
+                                 default_lanes=lanes_headline))
     del lm  # the forms' models do not fit beside the int4 one
     t0 = done("variants", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))

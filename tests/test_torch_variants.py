@@ -180,7 +180,6 @@ def test_switches_hold_the_jax_defaults(monkeypatch):
     assert tm.DENSE_A8 is (os.environ.get("ARIA_TPU_DENSE_A8", "0") == "1") is False
     assert tm.MOE_A8 is (os.environ.get("ARIA_TPU_A8", "1") != "0") is True
     assert tvit.VIT_FLASH is vit_flash_enabled() is True
-    assert tm.DENSE_A8_MAX_ROWS == 32
     # the wrappers' keywords and their defaults are the JAX functions'
     for port, jax_fn, name in ((mk.moe_decode_int4, j_moe_decode_int4, "act_int8"),
                                (di.dense_int4, j_dense_int4, "act_int8"),
@@ -235,6 +234,18 @@ def test_dense_int4_a8_matches_jax(dense_case, T, dtype):
     # the switch matters: int8 activations against bf16 ones, ~1% apart
     bf = di.dense_int4(xt, tw, 1).numpy()
     assert 1e-4 < _rel(got.numpy(), bf) < 2e-2
+
+
+def test_dense_a8_takes_steps_of_at_most_32_rows(dense_case, monkeypatch):
+    """The model's projections are W4A8 only under DENSE_A8 and only for a
+    step of at most 32 rows (moe_lm.py:334): bit for bit the A8 product at
+    32 rows, the bf16 one at 33 and with the switch off."""
+    rng, D, _, tw = dense_case
+    for on, T, a8 in ((True, 32, True), (True, 33, False), (False, 1, False)):
+        monkeypatch.setattr(tm, "DENSE_A8", on)
+        x = torch.from_numpy(rng.randn(T, D).astype(np.float32)).to(torch.bfloat16)
+        want = di.dense_int4_a8_plain(x, tw, 1) if a8 else di.dense_int4(x, tw, 1)
+        np.testing.assert_array_equal(tm._project(x, tw, 1).numpy(), want.numpy())
 
 
 # ------------------------------------------------------------ bf16-activation MoE
