@@ -14,6 +14,12 @@
 // no cross-lane reduction), then the warp updates its online softmax once
 // per tile and accumulates p*v with each lane owning 4 of the 128 dims
 // (coalesced value rows). The 8 warps' (m, s, acc) merge at the end.
+//
+// Both kernels here also have the stats form of the reference
+// (`return_stats=True`, decode_attention.py:221-226, :278-289, :311-313),
+// which context-parallel decode runs on each rank's block of positions
+// (parallel/cp_cache.py): the same loop, with the warps' merge written out
+// as f32 (acc, m, s) instead of acc / s in bf16.
 
 #include "common.cuh"
 
@@ -30,7 +36,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
                         const KT* __restrict__ v, const float* __restrict__ ks,
                         const float* __restrict__ vs, const int* __restrict__ lengths,
-                        __nv_bfloat16* __restrict__ out, int B, int H, int S, int layer) {
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
+                        float* __restrict__ m_out, float* __restrict__ s_out, int B, int H,
+                        int S, int layer) {
   __shared__ float qs[D];
   __shared__ float red_m[WARPS], red_s[WARPS];
   __shared__ float red_acc[WARPS][D];
@@ -83,7 +91,16 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
       tot += red_s[w] * e;
       a += red_acc[w][threadIdx.x] * e;
     }
-    out[((size_t)b * H + h) * D + threadIdx.x] = __float2bfloat16(a / tot);
+    const size_t o = ((size_t)b * H + h) * D + threadIdx.x;
+    if (acc_out != nullptr) {  // the stats form: unnormalised, for a merge
+      acc_out[o] = a;
+      if (threadIdx.x == 0) {
+        m_out[(size_t)b * H + h] = M;
+        s_out[(size_t)b * H + h] = tot;
+      }
+    } else {
+      out[o] = __float2bfloat16(a / tot);
+    }
   }
 }
 
@@ -128,7 +145,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 decode_attention_p4_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
                            const int8_t* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
                            const __nv_bfloat16* __restrict__ vs, const int* __restrict__ lengths,
-                           __nv_bfloat16* __restrict__ out, int B, int Hp, int S, int layer) {
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ acc_out,
+                           float* __restrict__ m_out, float* __restrict__ s_out, int B, int Hp,
+                           int S, int layer) {
   __shared__ float qs[2][D];
   __shared__ float red_m[2][WARPS], red_s[2][WARPS];
   __shared__ float red_acc[2][WARPS][D];
@@ -203,38 +222,56 @@ decode_attention_p4_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __
       tot += red_s[sel][w] * e;
       a += red_acc[sel][w][d] * e;
     }
-    out[((size_t)b * H + pair + sel * Hp) * D + d] = __float2bfloat16(tot > 0.f ? a / tot : 0.f);
+    const size_t bh = (size_t)b * H + pair + sel * Hp;
+    if (acc_out != nullptr) {  // the stats form: unnormalised, for a merge
+      acc_out[bh * D + d] = a;
+      if (d == 0) {
+        m_out[bh] = M;
+        s_out[bh] = tot;
+      }
+    } else {
+      out[bh * D + d] = __float2bfloat16(tot > 0.f ? a / tot : 0.f);
+    }
   }
 }
 
 }  // namespace
 
+// With acc non-null (the stats form of decode_attention.py:221-226), the
+// kernels write the unnormalised accumulator acc [B, H, 128], the running
+// max m [B, H] and the denominator s [B, H], all f32, where the normal form
+// divides and rounds to bf16 into out. A lane with no position leaves m at
+// the finite NEG_INF and acc = s = 0, which a merge's exp(m - m_g) removes.
 ARIA_EXPORT int aria_decode_attention_p4(const void* q, const void* k, const void* v,
                                          const void* k_scale, const void* v_scale,
-                                         const void* lengths, void* out, int B, int Hp, int S,
-                                         int layer, void* stream) {
+                                         const void* lengths, void* out, void* acc, void* m,
+                                         void* s, int B, int Hp, int S, int layer,
+                                         void* stream) {
   dim3 grid(Hp, B);
   decode_attention_p4_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v,
       (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, (const int*)lengths,
-      (__nv_bfloat16*)out, B, Hp, S, layer);
+      (__nv_bfloat16*)out, (float*)acc, (float*)m, (float*)s, B, Hp, S, layer);
   return cudaGetLastError();
 }
 
 ARIA_EXPORT int aria_decode_attention(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,
-                                      const void* lengths, void* out, int B, int H, int S,
-                                      int layer, int quantized, void* stream) {
+                                      const void* lengths, void* out, void* acc, void* m,
+                                      void* s, int B, int H, int S, int layer, int quantized,
+                                      void* stream) {
   dim3 grid(H, B);
   cudaStream_t st = (cudaStream_t)stream;
   if (quantized) {
     decode_attention_kernel<int8_t><<<grid, WARPS * 32, 0, st>>>(
         (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v, (const float*)k_scale,
-        (const float*)v_scale, (const int*)lengths, (__nv_bfloat16*)out, B, H, S, layer);
+        (const float*)v_scale, (const int*)lengths, (__nv_bfloat16*)out, (float*)acc, (float*)m,
+        (float*)s, B, H, S, layer);
   } else {
     decode_attention_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, nullptr,
-        nullptr, (const int*)lengths, (__nv_bfloat16*)out, B, H, S, layer);
+        nullptr, (const int*)lengths, (__nv_bfloat16*)out, (float*)acc, (float*)m, (float*)s, B,
+        H, S, layer);
   }
   return cudaGetLastError();
 }

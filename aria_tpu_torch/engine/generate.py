@@ -17,6 +17,18 @@ packed into bytes, ``models/moe_lm.KVCache``). Speculative decoding,
 guided decoding and penalties are not ported for the single stream yet and
 raise ``NotImplementedError`` (the batched engine, ``engine/server.py``,
 has the penalties).
+
+``mesh`` (``parallel/mesh.py``, over a ``torch.distributed`` group: every
+rank builds the same Engine on the same parameters and calls ``generate``
+with the same arguments) serves one stream from a cache sharded over the
+ranks (generate.py:97-150): each rank allocates its block of it, heads
+over ``model`` (all of them for int4) and positions over ``context``. The
+parameters stay replicated, as the JAX layout of the int4 serving form
+keeps all but the expert stacks. The prefill writes the positions of this
+rank's block; under ``context`` it attends the written cache blockwise, and
+decode merges the ranks' partial softmaxes (``parallel/cp_cache.py``).
+Every rank returns the same tokens: they sample from generators seeded
+alike, as the JAX engine draws from its one key.
 """
 
 from __future__ import annotations
@@ -82,9 +94,11 @@ class Engine:
         max_seq_len: int = 2048,
         cache_dtype=torch.bfloat16,
         rng_seed: int = 0,
+        mesh=None,  # parallel/mesh.Mesh: this rank's view of a serving mesh
     ):
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         # a multiple of 512, as the JAX engine allocates (generate.py:103)
         self.max_seq_len = -(-max_seq_len // 512) * 512
         self.cache_dtype = cache_dtype
@@ -122,7 +136,8 @@ class Engine:
         tokens[0, :true_len] = torch.as_tensor(list(prompt_tokens), dtype=torch.long)
         top_p = None if gen.top_p is None else torch.full((1,), float(gen.top_p), device=dev)
         min_p = None if gen.min_p is None else torch.full((1,), float(gen.min_p), device=dev)
-        cache = KVCache.init(self.cfg.text, 1, self.max_seq_len, self.cache_dtype, device=dev)
+        cache = KVCache.init(self.cfg.text, 1, self.max_seq_len, self.cache_dtype, device=dev,
+                             mesh=self.mesh)
         lm, text_cfg = self.params["lm"], self.cfg.text
 
         t0 = time.perf_counter()
@@ -134,7 +149,8 @@ class Engine:
         embeds = prepare_embeddings(self.params, self.cfg, tokens, image_features=feats)
         out = lm_forward(lm, text_cfg, inputs_embeds=embeds,
                          positions=torch.arange(bucket, device=dev), cache=cache,
-                         cache_pos=0, logit_position=true_len - 1, causal_flash=True)
+                         cache_pos=0, logit_position=true_len - 1, causal_flash=True,
+                         mesh=self.mesh)
         cur = self._sample(out.logits[:, 0], gen, top_p, min_p)
         first = int(cur[0])  # waits for the prefill
         t1 = time.perf_counter()
@@ -149,7 +165,7 @@ class Engine:
             for _ in range(n):
                 out = lm_forward(lm, text_cfg, cur[:, None].long(),
                                  positions=torch.full((1,), pos, device=dev),
-                                 cache=cache, cache_pos=pos)
+                                 cache=cache, cache_pos=pos, mesh=self.mesh)
                 cur = self._sample(out.logits[:, -1], gen, top_p, min_p)
                 chunk.append(cur)
                 pos += 1

@@ -21,8 +21,16 @@ are checked.
 
 The JAX engine pads a group to a power of two rows to bound its compile
 count; the port has no compile and runs the rows it has (rows do not
-interact, so the tokens are the same). Guided decoding, a serving mesh and
-per-token logprobs are not ported yet and raise ``NotImplementedError``.
+interact, so the tokens are the same). Guided decoding and per-token
+logprobs are not ported yet and raise ``NotImplementedError``; so does a
+serving mesh for the paged engine.
+
+``BatchedEngine(mesh=)`` shards its cache by head over the ``model`` axis
+of a serving mesh (``parallel/mesh.py``), as the JAX engine does
+(server.py:108-125): every rank holds all lanes and H / model heads of
+each, runs the same steps on replicated parameters, and decode attention
+gathers the heads (``parallel/cp_cache.py``). As in the JAX engine, the
+int4 cache, whose bytes pair heads across the shards, is refused.
 
 Multi-LoRA (``adapters=``, an ``AdapterRegistry`` of
 ``engine/multi_lora.py``): each request names an adapter at ``submit``
@@ -58,7 +66,7 @@ from aria_tpu_torch.ops.paged_attention import PagedKVCache
 GROUP_ROWS = 32  # most requests in one grouped admission prefill (server.py:470-477)
 
 _NOT_PORTED = {
-    "mesh": "a serving mesh (ROADMAP queue 1, item 11: parallel/ on torch.distributed)",
+    "mesh": "a serving mesh for the paged engine (ROADMAP queue 1, item 11)",
     "guided_fsm": "guided decoding (ROADMAP queue 1, item 6: the serving features)",
     "logprobs_topk": "per-token logprobs (ROADMAP queue 1, item 6: the serving features)",
 }
@@ -101,6 +109,7 @@ class _LaneEngine:
                                           f"{_NOT_PORTED[name]} is not ported yet")
         self.cfg = cfg
         self.params = params
+        self.mesh = None  # BatchedEngine's serving mesh
         self.B = max_lanes
         self.temperature = temperature
         self.top_k = top_k
@@ -271,7 +280,7 @@ class _LaneEngine:
         for _ in range(self.decode_chunk):
             logits = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
                                 cache=self.cache, cache_pos=pos, page_table=page_table,
-                                **lora).logits[:, -1]
+                                mesh=self.mesh, **lora).logits[:, -1]
             if self._penalties:
                 logits = apply_penalties(logits, self.lane_counts, self.lane_pmask, pres, freq, rep)
             nxt = sample(self.generator, logits, temps, self.top_k, top_p, min_p)
@@ -333,12 +342,21 @@ class BatchedEngine(_LaneEngine):
         logprobs_topk: Optional[int] = None,
     ):
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
-                         adapters, mesh=mesh, guided_fsm=guided_fsm,
-                         logprobs_topk=logprobs_topk)
+                         adapters, guided_fsm=guided_fsm, logprobs_topk=logprobs_topk)
+        if mesh is not None:
+            if mesh.shape["context"] > 1:
+                raise NotImplementedError(
+                    "BatchedEngine(mesh=) with a context axis: the batched engine shards its "
+                    "cache over model only, as the JAX engine does; context parallelism serves "
+                    "through Engine(mesh=) (ROADMAP queue 1, item 11)")
+            if cache_dtype == "int4":
+                raise ValueError("an int4 KV cache pairs heads across the model shards")
+        self.mesh = mesh
         # a multiple of 128, as the JAX engine allocates (server.py:103)
         self.S = -(-max_seq_len // 128) * 128
         self.cache_dtype = cache_dtype
-        self.cache = KVCache.init(cfg.text, self.B, self.S, cache_dtype, device=self.device)
+        self.cache = KVCache.init(cfg.text, self.B, self.S, cache_dtype, device=self.device,
+                                  mesh=mesh)
 
     @torch.inference_mode()
     def step(self) -> List[Request]:
@@ -418,13 +436,13 @@ class BatchedEngine(_LaneEngine):
             samp[row] = self._req_sampling(req)
         tok_t = torch.as_tensor(tokens, device=dev)
         lens_t = torch.as_tensor(true_lens, device=dev)
-        lane_cache = KVCache.init(text, N, bucket, self.cache_dtype, device=dev)
+        lane_cache = KVCache.init(text, N, bucket, self.cache_dtype, device=dev, mesh=self.mesh)
         embeds = prepare_embeddings(self.params, self.cfg, tok_t, image_features=image_features)
         ids = np.asarray([req.adapter_id for req in reqs], np.int32)
         logits = lm_forward(self.params["lm"], text, inputs_embeds=embeds,
                             positions=torch.arange(bucket, device=dev), cache=lane_cache,
                             cache_pos=0, logit_position=lens_t - 1, causal_flash=True,
-                            **self._lora_kwargs(ids)).logits[:, 0]
+                            mesh=self.mesh, **self._lora_kwargs(ids)).logits[:, 0]
         self.lane_adapter[lanes] = ids
         lanes_t = torch.as_tensor(lanes, device=dev)
         for name in ("k", "v", "k_scale", "v_scale"):
@@ -510,9 +528,10 @@ class PagedBatchedEngine(_LaneEngine):
         prefix_cache: bool = True,
         guided_fsm=None,
         adapters=None,
+        mesh=None,
     ):
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
-                         adapters, guided_fsm=guided_fsm)
+                         adapters, guided_fsm=guided_fsm, mesh=mesh)
         self.PS = page_size
         self.MAXP = -(-max_seq_len // page_size)
         self.S = self.MAXP * page_size

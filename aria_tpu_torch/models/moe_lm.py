@@ -103,6 +103,11 @@ from aria_tpu_torch.ops.quant import (
     with_s8,
 )
 from aria_tpu_torch.ops.rope import apply_rope, precompute_rope
+from aria_tpu_torch.parallel.cp_cache import (
+    cp_cached_prefill_attention,
+    local_cache_shape,
+    mesh_decode_attention,
+)
 
 
 MOE_CHUNK = 8192  # tokens per MoE slice of a long prefill (moe_lm.py:866-880)
@@ -132,18 +137,23 @@ class KVCache:
 
     @staticmethod
     def init(cfg: TextConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-             device="cuda") -> "KVCache":
-        """On the card unless ``device`` names another."""
+             device="cuda", mesh=None) -> "KVCache":
+        """On the card unless ``device`` names another. With a serving
+        ``mesh`` (``parallel/mesh.py``), this rank's block: heads over
+        ``model`` (all of them for int4, whose bytes pair heads), positions
+        over ``context``."""
         device = backend.device(device)
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq, cfg.head_dim)
         if dtype == "int4":
             if cfg.num_kv_heads % 2:
                 raise ValueError("an int4 KV cache packs head pairs: the head count must be even")
+            shape = local_cache_shape(shape, mesh, packed4=True)
             pshape = shape[:2] + (cfg.num_kv_heads // 2,) + shape[3:]
             return KVCache(torch.zeros(pshape, dtype=torch.int8, device=device),
                            torch.zeros(pshape, dtype=torch.int8, device=device),
                            torch.ones(shape[:-1], dtype=torch.bfloat16, device=device),
                            torch.ones(shape[:-1], dtype=torch.bfloat16, device=device))
+        shape = local_cache_shape(shape, mesh, packed4=False)
         k = torch.zeros(shape, dtype=dtype, device=device)
         v = torch.zeros(shape, dtype=dtype, device=device)
         if dtype == torch.int8:
@@ -370,30 +380,66 @@ def quantize_kv(cache: KVCache, k_t: torch.Tensor, v_t: torch.Tensor):
     return (*packed, *scales)
 
 
+class _Block(NamedTuple):
+    """This rank's block of a cache sharded over a serving mesh: heads
+    [h0, h0 + heads), positions [s0, s0 + the cache's S) of ``max_seq``."""
+    h0: int
+    heads: int
+    s0: int
+    max_seq: int
+
+
+def _cache_block(cache: KVCache, cfg: TextConfig, mesh) -> _Block:
+    if mesh is None:
+        return _Block(0, cfg.num_kv_heads, 0, cache.max_seq)
+    h0, heads = (0, cfg.num_kv_heads) if cache.packed4 else mesh.block(
+        "model", cfg.num_kv_heads)
+    cp_n = mesh.shape["context"]
+    return _Block(h0, heads, mesh.coords["context"] * cache.max_seq, cp_n * cache.max_seq)
+
+
 def _write_cache(cache: KVCache, layer: int, pos, k: torch.Tensor, v: torch.Tensor,
-                 rows: Optional[torch.Tensor]):
+                 rows: Optional[torch.Tensor], block: Optional[_Block] = None):
     """Write k/v [B, S, H, D] of layer ``layer`` in place: at positions
     pos..pos+S of every lane for an int ``pos`` (moe_lm.py:472-482), or at
     pos[b]..pos[b]+S of lane b for a [B] int32 tensor (moe_lm.py:483-532):
     one position per lane through ``kv_cache_write`` (``rows`` the lane
-    ids), more by an indexed write."""
+    ids), more by an indexed write.
+
+    On a mesh the cache is this rank's ``block``: only its heads are
+    written, and only the positions that fall in it, at the local offset; a
+    decode token lands on the rank that owns its position (the kernel and
+    its plain version skip a slot outside the block), as the JAX package's
+    GSPMD scatter places it."""
     B, S = k.shape[:2]
-    kq, vq, ks, vs = quantize_kv(cache, k.transpose(1, 2), v.transpose(1, 2))  # [B, H, S, D]
+    if block is None:
+        block = _Block(0, k.shape[2], 0, cache.max_seq)
+    hs = slice(block.h0, block.h0 + block.heads)
+    kq, vq, ks, vs = quantize_kv(cache, k[:, :, hs].transpose(1, 2),
+                                 v[:, :, hs].transpose(1, 2))  # [B, H, S, D]
     if not isinstance(pos, torch.Tensor):
-        if pos + S > cache.max_seq:
-            raise ValueError(f"cache write at {pos}+{S} past max_seq {cache.max_seq}")
-        cache.k[layer, :, :, pos:pos + S] = kq
-        cache.v[layer, :, :, pos:pos + S] = vq
+        if pos + S > block.max_seq:
+            raise ValueError(f"cache write at {pos}+{S} past max_seq {block.max_seq}")
+        lo, hi = max(pos, block.s0), min(pos + S, block.s0 + cache.max_seq)
+        if lo >= hi:
+            return
+        src, dst = slice(lo - pos, hi - pos), slice(lo - block.s0, hi - block.s0)
+        cache.k[layer, :, :, dst] = kq[:, :, src]
+        cache.v[layer, :, :, dst] = vq[:, :, src]
         if cache.quantized:
-            cache.k_scale[layer, :, :, pos:pos + S] = ks
-            cache.v_scale[layer, :, :, pos:pos + S] = vs
+            cache.k_scale[layer, :, :, dst] = ks[:, :, src]
+            cache.v_scale[layer, :, :, dst] = vs[:, :, src]
         return
     if S == 1:
         scales = (cache.k_scale, cache.v_scale, ks[..., 0].contiguous(),
                   vs[..., 0].contiguous()) if cache.quantized else ()
-        kv_cache_write(cache.k, cache.v, layer, rows, pos, kq[:, :, 0].contiguous(),
+        slots = pos - block.s0 if block.s0 else pos
+        kv_cache_write(cache.k, cache.v, layer, rows, slots, kq[:, :, 0].contiguous(),
                        vq[:, :, 0].contiguous(), *scales)
         return
+    if block.max_seq != cache.max_seq:
+        raise NotImplementedError("a per-lane write of several positions into a cache "
+                                  "sharded by position is not ported")
     # positions must lie inside the cache here: an index past it raises
     dev = k.device
     bi = torch.arange(B, device=dev)[:, None, None]
@@ -457,7 +503,8 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
                cache: Optional[KVCache], cache_pos, use_flash: bool,
                lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
                paged: Optional[tuple] = None, lora: Optional[dict] = None,
-               lora_scale: float = 0.0, lora_onehot: Optional[torch.Tensor] = None):
+               lora_scale: float = 0.0, lora_onehot: Optional[torch.Tensor] = None,
+               mesh=None, block: Optional[_Block] = None, cp_mask=None):
     B, S, _ = x.shape
     qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1)
     if lora and "wqkv" in lora:
@@ -471,16 +518,24 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None and paged is None:
-        _write_cache(cache, layer, cache_pos, k, v, rows)
+        _write_cache(cache, layer, cache_pos, k, v, rows, block)
     if paged is not None:
         out = _paged_attention(cache, layer, q, k, v, lengths, *paged)
     elif use_flash:
         # from-zero prefill: causal attention over the fresh k/v equals
         # attending the cache prefix, so the cache is written but not read
         out = flash_causal(q, k, v.contiguous())
+    elif cache is not None and S == 1 and mesh is not None:
+        # serving-mesh decode (moe_lm.py:584-599): this rank's heads and
+        # block of positions, partials merged over `context`
+        out = mesh_decode_attention(q[:, 0], cache, layer, lengths, mesh)[:, None].to(q.dtype)
     elif cache is not None and S == 1:
         out = decode_attention(q[:, 0], cache.k, cache.v, layer, lengths,
                                cache.k_scale, cache.v_scale)[:, None]
+    elif cache is not None and cp_mask is not None:
+        # cached prefill under context parallelism (moe_lm.py:600-609): the
+        # query chunk against this rank's block of the just-written cache
+        out = cp_cached_prefill_attention(q, cache, layer, cp_mask, mesh)
     else:
         raise NotImplementedError(
             "attention over a cache for more than one new token at a time is not ported")
@@ -682,6 +737,7 @@ def lm_forward(
     lora_scale: float = 0.0,
     lora_onehot: Optional[torch.Tensor] = None,  # [A, B] selector over stacked [L, A, ...]
     remat: bool = False,  # recompute each layer in the backward
+    mesh=None,  # serving mesh (parallel/mesh.py): ``cache`` is this rank's block
 ) -> LMOutput:
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
@@ -693,7 +749,16 @@ def lm_forward(
     ``training``). Multi-adapter serving (``engine/multi_lora.py``) passes
     stacked factors with ``lora_scale=1.0`` and ``lora_onehot``: attention
     takes the row selector, the MoE its token-level expansion (each row's
-    column repeated S times, moe_lm.py:1123-1126)."""
+    column repeated S times, moe_lm.py:1123-1126).
+
+    With a serving ``mesh`` the parameters are replicated and ``cache`` is
+    this rank's block (``KVCache.init(mesh=)``), sharded by head over
+    ``model`` and by position over ``context`` (moe_lm.py:308-317,
+    :584-616): writes land in the block, decode goes through
+    ``mesh_decode_attention``, and a prefill takes causal flash over the
+    fresh k/v when ``context`` is 1, else the blockwise
+    ``cp_cached_prefill_attention`` over the written cache. Every rank
+    returns the same logits."""
     if inputs_embeds is None:
         x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
     else:
@@ -730,7 +795,17 @@ def lm_forward(
     cos, sin = precompute_rope(positions, cfg.head_dim, cfg.rope_base)
     if causal_flash is None:
         causal_flash = cache is None
-    use_flash = bool(causal_flash) and (S > 1 or cache is None) and page_table is None
+    cp_n = mesh.shape["context"] if mesh is not None else 1
+    if mesh is not None and (page_table is not None or training or cache is None):
+        raise NotImplementedError(
+            "a serving mesh takes a contiguous cache, in serving: paged caches, training and "
+            "uncached attention over a mesh are not ported (ROADMAP queue 1 item 11)")
+    if mesh is not None and cfg.num_heads % mesh.shape["model"]:
+        raise ValueError(f"{cfg.num_heads} heads over model={mesh.shape['model']}")
+    # under context parallelism a prefill reads the written cache blockwise
+    # (moe_lm.py:600-616): flash over fresh k/v only with one position block
+    use_flash = (bool(causal_flash) and (S > 1 or cache is None) and page_table is None
+                 and cp_n == 1)
     if cache is not None and cache_pos is None:
         raise ValueError("a cache needs cache_pos")
     paged = None
@@ -754,13 +829,20 @@ def lm_forward(
     if cache is not None and not use_flash:
         lengths = (cache_pos + S if per_lane else
                    torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device))
+    block = _cache_block(cache, cfg, mesh) if cache is not None and paged is None else None
+    cp_mask = None
+    if cp_n > 1 and S > 1:  # kv_pos <= cache_pos + i over every position of the mesh
+        kv_pos = torch.arange(block.max_seq, device=x.device)
+        qi = (cache_pos[:, None] if per_lane else cache_pos) + torch.arange(S, device=x.device)
+        cp_mask = (kv_pos <= qi[..., None]).reshape(-1, 1, S, block.max_seq)
     shared = _shared_slots(cfg, B * S, x.dtype, x.device) if fused else None
     tok_onehot = None if lora_onehot is None else torch.repeat_interleave(lora_onehot, S, dim=1)
 
     def layer_fn(x, layer):
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
-                           lengths, rows, paged, lora_layers, lora_scale, lora_onehot)
+                           lengths, rows, paged, lora_layers, lora_scale, lora_onehot, mesh,
+                           block, cp_mask)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
                                          lora_layers, lora_scale, tok_onehot)

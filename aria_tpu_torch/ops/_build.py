@@ -34,10 +34,11 @@ SIGNATURES = {
     "aria_dense_int4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xq, sx, q4t, sg, out, T, D, F, layer, stream
     "aria_dense_int4_a8": [_P] * 5 + [_I] * 4 + [_P],
-    # q, k, v, k_scale, v_scale, lengths, out, B, H, S, layer, quantized, stream
-    "aria_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, k_scale, v_scale, lengths, out, B, H/2, S, layer, stream
-    "aria_decode_attention_p4": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, B, H, S, layer, quantized,
+    # stream (acc, m, s NULL but in the stats form, out NULL in it)
+    "aria_decode_attention": [_P] * 10 + [_I] * 5 + [_P],
+    # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, B, H/2, S, layer, stream
+    "aria_decode_attention_p4": [_P] * 10 + [_I] * 4 + [_P],
     # q, k, v, k_scale, v_scale, table, lengths, out, B, H, NP, PS, MAXP, layer,
     # quantized, stream
     "aria_paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],

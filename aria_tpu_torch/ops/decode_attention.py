@@ -21,6 +21,13 @@ The packed-int4 cache has a kernel of its own in the same source
 (decode_attention.py:80): one block per (head pair, lane) reads each byte
 once for both heads and unpacks the nibbles in registers.
 
+``decode_attention_stats`` (``return_stats=True``, decode_attention.py:
+221-226) runs either kernel in its stats form: the unnormalised f32
+accumulator with the running max and the denominator, which
+context-parallel decode merges across the ranks' blocks of positions
+(``parallel/cp_cache.py``). It counts its launches apart from the normal
+form's.
+
 Numerics as in the JAX kernel: q is scaled by 1/sqrt(D) in f32 and cast
 to bf16 (to q's dtype for a bf16 cache); a quantized cache multiplies the
 scores by k_scale and the probabilities by v_scale, the denominator sums
@@ -67,7 +74,12 @@ def decode_attention_plain(
     lengths: torch.Tensor,  # [B] int32
     k_scale: Optional[torch.Tensor] = None,  # [L, B, H, S]: f32 int8, bf16 int4
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_stats: bool = False,
+):
+    """[B, H, D]; with ``return_stats``, the unnormalised accumulator
+    (acc [B, H, D] f32, m [B, H] f32, s [B, H] f32) that
+    ``parallel/cp_cache.py`` merges: acc / s is the output before its
+    rounding. A lane of length 0 gives m = NEG_INF and acc = s = 0."""
     quantized = k_scale is not None
     cdt = torch.bfloat16 if quantized else q.dtype
     qs = _scaled_query(q, quantized)
@@ -79,13 +91,18 @@ def decode_attention_plain(
     if quantized:
         scores = scores * k_scale[layer].float()
     pos = torch.arange(k.shape[2], device=q.device)
-    scores = torch.where(pos[None, None, :] < lengths[:, None, None], scores,
-                         torch.full_like(scores, NEG_INF))
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    valid = pos[None, None, :] < lengths[:, None, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    if return_stats:  # an empty lane sums nothing (the kernels skip it)
+        p = torch.where(valid, p, torch.zeros_like(p))
     denom = p.sum(dim=-1, keepdim=True)
     pv = (p * v_scale[layer].float() if quantized else p).to(cdt).float()
-    out = torch.einsum("bhs,bhsd->bhd", pv, v) / denom
-    return out.to(torch.bfloat16 if quantized else q.dtype)
+    acc = torch.einsum("bhs,bhsd->bhd", pv, v)
+    if return_stats:
+        return acc, m[..., 0], denom[..., 0]
+    return (acc / denom).to(torch.bfloat16 if quantized else q.dtype)
 
 
 def decode_attention(
@@ -96,39 +113,20 @@ def decode_attention(
     lengths: torch.Tensor,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_stats: bool = False,
+):
     """Returns [B, H, D]: bf16 for a quantized cache, q's dtype for a bf16
-    one."""
+    one. With ``return_stats``, (acc, m, s) through
+    ``decode_attention_stats``."""
+    if return_stats:
+        return decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
     quantized = k_scale is not None
     extra = (k_scale, v_scale) if quantized else ()
     if not backend.on_cuda(q, k_cache, v_cache, lengths, *extra):
         return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
     if is_packed4(k_cache, k_scale):
         return decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
-    B, H, D = q.shape
-    L, _, _, S, _ = k_cache.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"decode_attention: head dim {D}, the kernel takes {HEAD_DIM}")
-    if not 0 <= layer < L:
-        raise IndexError(f"decode_attention: layer {layer} of {L}")
-    cache_dtype = torch.int8 if quantized else torch.bfloat16
-    backend.require(k_cache, "k_cache", cache_dtype, (L, B, H, S, D))
-    backend.require(v_cache, "v_cache", cache_dtype, (L, B, H, S, D))
-    backend.require(lengths, "lengths", torch.int32, (B,))
-    if quantized:
-        backend.require(k_scale, "k_scale", torch.float32, (L, B, H, S))
-        backend.require(v_scale, "v_scale", torch.float32, (L, B, H, S))
-    qs = _scaled_query(q, quantized).contiguous()
-    backend.require(qs, "q", torch.bfloat16, (B, H, D))
-    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
-    null = backend.ptr(None)
-    err = library().aria_decode_attention(
-        backend.ptr(qs), backend.ptr(k_cache), backend.ptr(v_cache),
-        backend.ptr(k_scale) if quantized else null,
-        backend.ptr(v_scale) if quantized else null,
-        backend.ptr(lengths), backend.ptr(out), B, H, S, layer, int(quantized),
-        backend.stream())
-    backend.check(err, "decode_attention")
+    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats=False)
     decode_attention.launches += 1
     return out
 
@@ -138,29 +136,74 @@ def decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
     cache); it counts its own launches."""
     if not backend.on_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
         return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
-    B, H, D = q.shape
-    L, _, Hp, S, _ = k_cache.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"decode_attention: head dim {D}, the kernel takes {HEAD_DIM}")
-    if H != 2 * Hp:
-        raise ValueError(f"decode_attention: {H} query heads over {Hp} packed head pairs")
-    if not 0 <= layer < L:
-        raise IndexError(f"decode_attention: layer {layer} of {L}")
-    backend.require(k_cache, "k_cache", torch.int8, (L, B, Hp, S, D))
-    backend.require(v_cache, "v_cache", torch.int8, (L, B, Hp, S, D))
-    backend.require(k_scale, "k_scale", torch.bfloat16, (L, B, H, S))
-    backend.require(v_scale, "v_scale", torch.bfloat16, (L, B, H, S))
-    backend.require(lengths, "lengths", torch.int32, (B,))
-    qs = _scaled_query(q, True).contiguous()
-    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
-    p = backend.ptr
-    err = library().aria_decode_attention_p4(
-        p(qs), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(lengths), p(out),
-        B, Hp, S, layer, backend.stream())
-    backend.check(err, "decode_attention (int4)")
+    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats=False)
     decode_attention_int4.launches += 1
     return out
 
 
+def decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale=None, v_scale=None):
+    """The stats form (decode_attention.py:221-226) for a bf16, int8 or
+    packed-int4 cache: (acc [B, H, D] f32 unnormalised, m [B, H] f32, s
+    [B, H] f32), acc / s being the attention output before its rounding.
+    A lane of length 0 gives m = NEG_INF (finite) and acc = s = 0. It
+    counts its own launches, whatever the cache's form."""
+    extra = (k_scale, v_scale) if k_scale is not None else ()
+    if not backend.on_cuda(q, k_cache, v_cache, lengths, *extra):
+        return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale,
+                                      return_stats=True)
+    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats=True)
+    decode_attention_stats.launches += 1
+    return out
+
+
+def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool):
+    """Check the arguments and launch the kernel of the cache's form: the
+    bf16 / int8 kernel or the packed-int4 one, normal or stats."""
+    quantized = k_scale is not None
+    packed = is_packed4(k_cache, k_scale)
+    B, H, D = q.shape
+    L, _, Hc, S, _ = k_cache.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"decode_attention: head dim {D}, the kernel takes {HEAD_DIM}")
+    if packed and H != 2 * Hc:
+        raise ValueError(f"decode_attention: {H} query heads over {Hc} packed head pairs")
+    if not 0 <= layer < L:
+        raise IndexError(f"decode_attention: layer {layer} of {L}")
+    cache_dtype = torch.int8 if quantized else torch.bfloat16
+    backend.require(k_cache, "k_cache", cache_dtype, (L, B, H // 2 if packed else H, S, D))
+    backend.require(v_cache, "v_cache", cache_dtype, (L, B, H // 2 if packed else H, S, D))
+    backend.require(lengths, "lengths", torch.int32, (B,))
+    if quantized:
+        sdt = torch.bfloat16 if packed else torch.float32
+        backend.require(k_scale, "k_scale", sdt, (L, B, H, S))
+        backend.require(v_scale, "v_scale", sdt, (L, B, H, S))
+    qs = _scaled_query(q, quantized).contiguous()
+    backend.require(qs, "q", torch.bfloat16, (B, H, D))
+    p, null = backend.ptr, backend.ptr(None)
+    if stats:
+        acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+        m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+        s = torch.empty((B, H), dtype=torch.float32, device=q.device)
+        out, res = None, (acc, m, s)
+    else:
+        out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
+        acc = m = s = None
+        res = out
+    outs = (p(out), p(acc), p(m), p(s))
+    if packed:
+        err = library().aria_decode_attention_p4(
+            p(qs), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(lengths), *outs,
+            B, Hc, S, layer, backend.stream())
+    else:
+        err = library().aria_decode_attention(
+            p(qs), p(k_cache), p(v_cache), p(k_scale) if quantized else null,
+            p(v_scale) if quantized else null, p(lengths), *outs, B, H, S, layer,
+            int(quantized), backend.stream())
+    backend.check(err, "decode_attention" + (" (int4)" if packed else "")
+                  + (" stats" if stats else ""))
+    return res
+
+
 decode_attention.launches = 0
 decode_attention_int4.launches = 0
+decode_attention_stats.launches = 0

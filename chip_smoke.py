@@ -62,6 +62,19 @@
    (reported beside its witness) against the CPU, and layer 0's W4A8
    projections and bf16-activation MoE against the CPU on the same rows
    and routing (held to their rounding).
+6d. Context-parallel serving (cp), after the int4 model is freed: two
+   ranks share cuda:0 over gloo (NCCL refuses two ranks on one device),
+   spawned by ``parallel/distributed.run_ranks``, each with the full int4
+   model from the phase's seed. ``Engine(mesh=context 2)`` with an int8
+   cache of 8,704 positions (4,352 a rank) serves a 6,000-token prompt with
+   64 greedy tokens: ``decode_attention_stats`` launches 28 times a decode
+   step on each rank and the normal decode kernel never; prefill s, tok/s,
+   peak memory and the agreement with one card's engine are printed. Held:
+   2 layers of the same weights with a bf16 cache, the CP engine's
+   first-token and 8 decode steps' logits within 1e-2 of one card's
+   (bf16-activation MoE; the W4A8 reading printed beside), rank 1's
+   partials left out above it; ``BatchedEngine(mesh=model 2)`` with an
+   int8 cache, 8 lanes x 32 greedy tokens, equal to one card's.
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
    ViT and projector bf16. int8: bench.py's image request twice sampled
@@ -90,6 +103,10 @@ Phase 2 also holds the variants' kernels at their path's shapes
 (``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
 kernel, ``flash_segment`` at 4,900 patches all valid and 3,150 valid, to
 an absolute 3e-3),
+``decode_attention_stats`` (the stats form of decode attention) over one
+rank's block of the cp phase's cache, bf16, int8 and int4, at 1 and 32
+lanes (absolute on acc / s, ``STATS_LIMIT``), and two blocks merged
+against one launch over both,
 ``moe_decode``, ``moe_decode_quant`` and ``gmm`` at the forms' shapes,
 ``expert_block_dequant`` at the adapters path's blocks (int4 and int8, bf16 and f32 out, bit-equal), and the training
 kernels at the train phase's shapes: the flash forward, its row log-sum-exp and its backward at
@@ -456,6 +473,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                             lambda: da.decode_attention_plain(*args), 200, 10, bound))
     record("decode_attention_int4", errs, timed)
     del kp, vp
+    check_decode_stats(device, gen, cfg, randn, record, lanes)
 
     # paged_decode_attention at the paged path's shapes: 32 lanes on page
     # tables shuffled over the engine's default pool (1 + 2 pages per
@@ -850,6 +868,149 @@ def check_expert_dequant(device, cfg, randn, record):
     del forms
 
 
+# decode_attention_stats against its plain version, absolute on acc / s and
+# scaled by max |ref|: about 3x the largest the card read (1.185e-3 to
+# 2.256e-3 over the three forms at 1 and 32 lanes; NVIDIA H100 80GB HBM3,
+# 700 W). The merge of two blocks against one normal launch over both:
+# about 3x its readings (2.639e-3 to 3.301e-3, the normal kernel's bf16
+# output rounding); the merge without block 1 read 0.4363-0.6174.
+STATS_LIMIT = {"int8": 7e-3, "bf16": 7e-3, "int4": 7e-3}
+STATS_MERGE_LIMIT = 1e-2
+CP_BLOCK = 4352  # one rank's block of the cp phase's 8,704-position cache
+
+
+def _stats_err(got, ref, lengths) -> float:
+    """max |acc/s - ref acc/s| over the lanes with a position, over max
+    |ref acc/s|; lanes of length 0 must give the finite NEG_INF and acc = s
+    = 0 on both sides."""
+    import torch
+
+    from aria_tpu_torch.ops.decode_attention import NEG_INF
+
+    full = lengths > 0
+    for name, (acc, m, s) in (("kernel", got), ("plain", ref)):
+        if not (torch.isfinite(acc).all() and torch.isfinite(s).all()):
+            raise AssertionError(f"decode_attention_stats ({name}): non-finite acc or s")
+        if not ((m[~full] == NEG_INF).all() and (acc[~full] == 0).all()
+                and (s[~full] == 0).all()):
+            raise AssertionError(f"decode_attention_stats ({name}): an empty lane is not "
+                                 "(m = -1e30, acc = s = 0)")
+    if not full.any():
+        return 0.0
+    out = got[0][full] / got[2][full][..., None]
+    want = ref[0][full] / ref[2][full][..., None]
+    return ((out - want).abs().max() / want.abs().max()).item()
+
+
+def _merge_blocks(parts):
+    """The exact merge of parts' (acc, m, s) (parallel/cp_cache.py's, on one
+    device): acc / s of the sum over blocks with corr = exp(m - max m)."""
+    import torch
+
+    m_g = torch.stack([m for _, m, _ in parts]).amax(0)
+    acc = sum(a * torch.exp(m - m_g)[..., None] for a, m, _ in parts)
+    s = sum(s * torch.exp(m - m_g) for _, m, s in parts)
+    return acc / torch.clamp_min(s, 1e-30)[..., None]
+
+
+def check_decode_stats(device, gen, cfg, randn, record, lanes=32, block=CP_BLOCK):
+    """Phase 2's ``decode_attention_stats``: the stats form over one rank's
+    block of the cp phase's cache (4,352 positions, 20 heads), bf16, int8
+    and packed int4, at one lane with local lengths 4,352, 1,648 and 0 and
+    at ``lanes`` lanes from 0 to the block, against its plain version; the
+    merge of two blocks against the normal kernel over both (8,704
+    positions, length 6,000), with the merge that leaves block 1 out as the
+    planted fault; and the times at one lane over the whole block beside
+    the bound and, for bf16, sdpa over the block (no stats)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aria_tpu_torch.ops import decode_attention as da
+
+    print("decode_attention_stats", flush=True)
+    H, Dh, L = cfg.num_heads, cfg.head_dim, 2
+
+    def caches(B, S):
+        kf, vf = randn(L, B, H, S, Dh), randn(L, B, H, S, Dh)
+        ks, vs = (torch.clamp_min(t.float().abs().amax(-1), 1e-6) / 127.0 for t in (kf, vf))
+        kq, vq = (torch.round(t.float() / sc[..., None]).to(torch.int8)
+                  for t, sc in ((kf, ks), (vf, vs)))
+        kp, vp = (torch.randint(-128, 128, (L, B, H // 2, S, Dh), generator=gen, device=device,
+                                dtype=torch.int8) for _ in range(2))
+        ks4, vs4 = ((torch.rand((L, B, H, S), generator=gen, device=device) * 0.3 + 0.02)
+                    .to(torch.bfloat16) for _ in range(2))
+        return {"int8": (kq, vq, ks, vs), "bf16": (kf, vf), "int4": (kp, vp, ks4, vs4)}
+
+    errs, timed = [], []
+    for B, lens in ((1, [block, 1648, 0]), (lanes, None)):
+        forms = caches(B, block)
+        q = randn(B, H, Dh)
+        for label, cache in forms.items():
+            for n in (lens or [None]):
+                lengths = (torch.full((1,), n, dtype=torch.int32, device=device) if n is not None
+                           else torch.linspace(0, block, B, device=device).round().int())
+                args = (q, cache[0], cache[1], 1, lengths, *cache[2:])
+                got, ref = da.decode_attention_stats(*args), da.decode_attention_plain(
+                    *args, return_stats=True)
+                err = _stats_err(got, ref, lengths)
+                at = f"len={n}" if n is not None else f"B={B} len=0..{block}"
+                limit = STATS_LIMIT[label]
+                print(f"  decode_attention_stats {label} {at} of {block}: acc/s max_abs_err "
+                      f"{err:.3e} of max |ref| (limit {limit:.0e}: the plain version rounds p "
+                      "(times v_scale) to bf16 against the lane's max, the kernel against its "
+                      "warps' running max); m max diff "
+                      f"{(got[1] - ref[1]).abs().max().item():.3e}", flush=True)
+                if not err <= limit:
+                    raise AssertionError(f"decode_attention_stats {label} {at}: {err} > {limit}")
+                errs.append(err)
+        if B == 1:
+            n = block
+            lengths = torch.full((1,), n, dtype=torch.int32, device=device)
+            mask = torch.ones((1, 1, 1, block), dtype=torch.bool, device=device)
+            for label, cache in forms.items():
+                args = (q, cache[0], cache[1], 1, lengths, *cache[2:])
+                Hc = H // 2 if label == "int4" else H
+                per = {"int8": 1, "bf16": 2, "int4": 1}[label]
+                sc_bytes = {"int8": 4, "bf16": 0, "int4": 2}[label]
+                nbytes = 2 * n * Hc * Dh * per + 2 * n * H * sc_bytes + _nbytes(q) + B * H * (
+                    Dh + 2) * 4
+                library = None
+                if label == "bf16":
+                    kf, vf = cache
+                    library = lambda kf=kf, vf=vf: F.scaled_dot_product_attention(
+                        q[:, :, None], kf[1], vf[1], attn_mask=mask)
+                timed.append(_timed(f"{label} len={n} of {block}",
+                                    lambda a=args: da.decode_attention_stats(*a),
+                                    lambda a=args: da.decode_attention_plain(*a, return_stats=True),
+                                    200, 10, _bound(nbytes, 4 * n * H * Dh), library))
+        del forms
+
+    # two blocks against one normal launch over both
+    S2, n = 2 * block, 6000
+    lengths = torch.full((1,), n, dtype=torch.int32, device=device)
+    q = randn(1, H, Dh)
+    for label, cache in caches(1, S2).items():
+        whole = da.decode_attention(q, cache[0], cache[1], 1, lengths, *cache[2:]).float()
+        parts = []
+        for b in range(2):
+            local = [t[:, :, :, b * block:(b + 1) * block].contiguous() for t in cache]
+            len_b = torch.clamp(lengths - b * block, 0, block).to(torch.int32)
+            parts.append(da.decode_attention_stats(q, local[0], local[1], 1, len_b, *local[2:]))
+        scale = whole.abs().max().item()
+        err = (_merge_blocks(parts) - whole).abs().max().item() / scale
+        fault = (_merge_blocks(parts[:1]) - whole).abs().max().item() / scale
+        print(f"  decode_attention_stats {label}: two blocks of {block} merged against one "
+              f"decode_attention over {S2} positions (length {n}): {err:.3e} of max |ref| (limit "
+              f"{STATS_MERGE_LIMIT:.0e}: the normal kernel's bf16 output); block 1 left out: "
+              f"{fault:.3e}", flush=True)
+        if not err <= STATS_MERGE_LIMIT:
+            raise AssertionError(f"decode_attention_stats {label}: merge {err} > limit")
+        if not fault > STATS_MERGE_LIMIT:
+            raise AssertionError(f"decode_attention_stats {label}: the merge without block 1 "
+                                 "passes the limit")
+    record("decode_attention_stats", errs, timed)  # int8 at one lane first
+
+
 KERNELS = {
     "dense_int4": ("aria_tpu_torch/csrc/dense_int4.cu", "aria_tpu/ops/dense_int4.py:124"),
     "moe_decode_int4": ("aria_tpu_torch/csrc/moe_decode.cu",
@@ -881,18 +1042,24 @@ KERNELS = {
     "moe_decode_int4_bf16": ("aria_tpu_torch/csrc/moe_decode_q4.cu",
                              "aria_tpu/ops/moe_decode_kernel.py:307"),
     "flash_segment": ("aria_tpu_torch/csrc/flash_seg.cu", "aria_tpu/ops/flash.py:30"),
+    "decode_attention_stats": ("aria_tpu_torch/csrc/decode_attention.cu",
+                               "aria_tpu/ops/decode_attention.py:221"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
 INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
 FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("variants-lanes", "variants-image", "adapters", "train-full", "train-lora", "image-bf16",
-         "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
+PATHS = ("cp", "variants-lanes", "variants-image", "adapters", "train-full", "train-lora",
+         "image-bf16", "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
 
 
 def _wrappers():
-    from aria_tpu_torch.ops.decode_attention import decode_attention, decode_attention_int4
+    from aria_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_int4,
+        decode_attention_stats,
+    )
     from aria_tpu_torch.ops.dense_int4 import dense_int4, dense_int4_a8
     from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
     from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd, flash_segment
@@ -916,7 +1083,8 @@ def _wrappers():
             "moe_decode_quant": moe_decode_quant, "gmm": gmm,
             "flash_causal_bwd": flash_causal_bwd, "gmm_dlhs": gmm_dlhs, "tgmm": tgmm,
             "expert_block_dequant": expert_block_dequant, "dense_int4_a8": dense_int4_a8,
-            "moe_decode_int4_bf16": moe_decode_int4_bf16, "flash_segment": flash_segment}
+            "moe_decode_int4_bf16": moe_decode_int4_bf16, "flash_segment": flash_segment,
+            "decode_attention_stats": decode_attention_stats}
 
 
 def _tree_map(fn, tree):
@@ -2400,6 +2568,257 @@ def _variants_reference(device, lm, text, top, ref_layers=2):
         raise AssertionError(f"the variants reference differs: {failed}")
 
 
+# The 2-layer bf16-cache CP engine against one card, relative L2 of the
+# first-token and 8 decode steps' logits, held with the bf16-activation MoE
+# (MOE_A8 off): the CP prefill's f32 attention and the flash kernel's bf16
+# probabilities differ by bf16 rounding, which the W4A8 MoE's int8
+# re-quantization turns into flips (its reading, 1.547e-2 on the card, is
+# printed beside the held one). Rank 1's partials left out read 0.628.
+CP_REF_LIMIT = 1e-2
+CP_SIZES = {
+    "prompt": 6000,  # tokens (bucket 8,192): both blocks hold prompt positions
+    "max_seq": 8256,  # -> 8,704 positions, a block of 4,352 per rank
+    "new": 64,
+    # the 2-layer reference: blocks of 768, both holding prompt positions
+    "ref_prompt": 900, "ref_seq": 1536, "ref_steps": 8,
+    "lanes": 8, "lane_prompt": 48, "lane_new": 32,  # BatchedEngine over model 2
+}
+
+
+def _cp_logits(lm, text, prompt, cache, mesh, steps=0, feed=None, witness=False):
+    """The prefill's logits at the prompt's last position, then ``steps``
+    decode steps fed ``feed`` (else their own greedy tokens): ([1 + steps,
+    V] f32 logits, the tokens fed). ``witness``: one bf16 ulp on half the
+    prompt's embeddings (``_bump_half``)."""
+    import torch
+
+    from aria_tpu_torch.engine.generate import _bucket
+    from aria_tpu_torch.models.moe_lm import embed_tokens, lm_forward
+
+    dev = cache.k.device
+    n, bucket = len(prompt), _bucket(len(prompt))
+    tokens = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    tokens[0, :n] = torch.tensor(prompt, device=dev)
+    embeds = embed_tokens(lm["embed"], tokens, dtype=lm["final_norm"].dtype)
+    if witness:
+        embeds = _bump_half(embeds.cpu()).to(dev)
+    out = [lm_forward(lm, text, inputs_embeds=embeds, positions=torch.arange(bucket, device=dev),
+                      cache=cache, cache_pos=0, logit_position=n - 1, causal_flash=True,
+                      mesh=mesh).logits[0, 0].float()]
+    fed = []
+    for i in range(steps):
+        tok = int(out[-1].argmax()) if feed is None else feed[i]
+        fed.append(tok)
+        out.append(lm_forward(lm, text, torch.tensor([[tok]], device=dev),
+                              positions=torch.full((1,), n + i, device=dev), cache=cache,
+                              cache_pos=n + i, mesh=mesh).logits[0, -1].float())
+    return torch.stack(out), fed
+
+
+@contextlib.contextmanager
+def moe_a8_off():
+    """The bf16-activation decode MoE (the JAX package's ARIA_TPU_A8=0),
+    restored afterwards."""
+    from aria_tpu_torch.models import moe_lm
+
+    saved, moe_lm.MOE_A8 = moe_lm.MOE_A8, False
+    try:
+        yield
+    finally:
+        moe_lm.MOE_A8 = saved
+
+
+def _cp_rank(rank: int, seed: int, device_type: str = "cuda", cfg=None,
+             sizes: dict = CP_SIZES) -> dict:
+    """One rank of the cp phase, on cuda:0 beside the other (gloo). Returns
+    its readings and the launch counts of the CP engine's request. On the
+    CPU (``device_type``, with a small ``cfg`` and ``sizes``: a rehearsal)
+    the wrappers run their plain versions and count no launch."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.moe_lm import KVCache, init_lm_params_serving_int4
+    from aria_tpu_torch.parallel import cp_cache
+    from aria_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    on_card = device_type == "cuda"
+    device = torch.device(device_type, 0 if on_card else None)
+    if on_card:
+        torch.cuda.set_device(device)
+    cfg = cfg or AriaConfig()
+    text = cfg.text
+    z = sizes
+    say = lambda msg: print(f"  [rank {rank}] {msg}", flush=True)  # noqa: E731
+    t0 = time.perf_counter()
+    lm = init_lm_params_serving_int4(text, torch.Generator(device=device).manual_seed(seed),
+                                     device=device)
+    _sync(device)
+    say(f"int4 serving form ({text.num_layers} layers) initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    mesh = make_mesh(MeshConfig(context=2))
+    rng = np.random.RandomState(seed)
+    prompt = [int(t) for t in rng.randint(1, text.vocab_size, z["prompt"])]
+    greedy = GenerationConfig(max_new_tokens=z["new"], temperature=0.0, decode_chunk=z["new"])
+    out: dict = {}
+
+    with torch.inference_mode():
+        # the CP engine: int8 KV, this rank's 4,352 positions
+        engine = Engine({"lm": lm}, cfg, max_seq_len=z["max_seq"], cache_dtype=torch.int8,
+                        rng_seed=SEED, mesh=mesh)
+        wrappers = _wrappers()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():  # count only the CP request
+            w.launches = 0
+        res = engine.generate(prompt, greedy)
+        out["launches"] = {name: w.launches for name, w in wrappers.items()}
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        out.update(tokens=res.tokens, prefill_s=res.prefill_s, tok_s=res.tokens_per_s)
+        steps = len(res.tokens) - 1
+        say(f"Engine(mesh=context 2, int8 KV, {engine.max_seq_len} positions): {z['prompt']}-token "
+            f"prompt, {len(res.tokens)} greedy tokens; prefill {res.prefill_s:.3f} s, decode "
+            f"{res.tokens_per_s:.2f} tok/s, peak {out['peak_gib']:.2f} GiB; launches "
+            f"{ {k: v for k, v in out['launches'].items() if v} }")
+        want = text.num_layers * steps if on_card else 0
+        if out["launches"]["decode_attention_stats"] != want:
+            raise AssertionError(f"decode_attention_stats launched "
+                                 f"{out['launches']['decode_attention_stats']} times, not {want}")
+        if out["launches"]["decode_attention"] or out["launches"]["decode_attention_int4"]:
+            raise AssertionError("the normal decode kernel launched in CP decode")
+        if len(res.tokens) != z["new"] or not all(0 <= t < text.vocab_size for t in res.tokens):
+            raise AssertionError("the CP engine's tokens")
+
+        # reported: the CP engine against one card's on the same weights and
+        # prompt (the CP prefill reads the int8 cache, one card's fresh k/v)
+        cache = KVCache.init(text, 1, engine.max_seq_len, torch.int8, device=device, mesh=mesh)
+        cp_first = _cp_logits(lm, text, prompt, cache, mesh)[0][0]
+        del cache
+        if not torch.isfinite(cp_first).all():
+            raise AssertionError("non-finite CP prefill logits")
+        if int(cp_first.argmax()) != res.tokens[0]:
+            raise AssertionError("the CP prefill's argmax is not the first token")
+        if rank == 0:
+            single = Engine({"lm": lm}, cfg, max_seq_len=z["max_seq"], cache_dtype=torch.int8,
+                            rng_seed=SEED).generate(prompt, greedy)
+            shared = next((i for i, (a, b) in enumerate(zip(res.tokens, single.tokens))
+                           if a != b), len(res.tokens))
+            firsts = []
+            for witness in (False, True):
+                cache = KVCache.init(text, 1, engine.max_seq_len, torch.int8, device=device)
+                firsts.append(_cp_logits(lm, text, prompt, cache, None, witness=witness)[0][0])
+                del cache
+            out.update(shared=shared, first_rel=_rel_err(cp_first, firsts[0]),
+                       first_witness=_rel_err(firsts[1], firsts[0]),
+                       single_prefill_s=single.prefill_s, single_tok_s=single.tokens_per_s)
+            say(f"one card's Engine on the same weights and prompt: prefill "
+                f"{single.prefill_s:.3f} s, {single.tokens_per_s:.2f} tok/s; shared prefix "
+                f"{shared} of {z['new']} tokens; first-token logits relative L2 "
+                f"{out['first_rel']:.3e} (reported: CP reads the int8 cache it wrote); witness, "
+                f"one card with one bf16 ulp on half the embeddings: {out['first_witness']:.3e}")
+
+        # held: 2 layers of the same weights with a bf16 cache, the CP
+        # engine's prefill and 8 decode steps against one card's
+        cut = dataclasses.replace(text, num_layers=2)
+        small = {**lm, "layers": _tree_map(lambda v: v[:2], lm["layers"])}
+        ref_prompt = [int(t) for t in rng.randint(1, text.vocab_size, z["ref_prompt"])]
+
+        def two_layers(m, feed=None):
+            cache = KVCache.init(cut, 1, z["ref_seq"], torch.bfloat16, device=device, mesh=m)
+            return _cp_logits(small, cut, ref_prompt, cache, m, z["ref_steps"], feed)
+
+        def against_one_card(dtype=torch.bfloat16, fault=False):
+            cache = KVCache.init(cut, 1, z["ref_seq"], dtype, device=device)
+            one, fed = _cp_logits(small, cut, ref_prompt, cache, None, z["ref_steps"])
+            cache = KVCache.init(cut, 1, z["ref_seq"], dtype, device=device, mesh=mesh)
+            real = cp_cache._sum_partials
+
+            def without_rank1(buf, m):  # the planted fault: rank 1's partials left out
+                return real(torch.zeros_like(buf) if m.coords["context"] == 1 else buf, m)
+
+            cp_cache._sum_partials = without_rank1 if fault else real
+            try:
+                cp, _ = _cp_logits(small, cut, ref_prompt, cache, mesh, z["ref_steps"], fed)
+            finally:
+                cp_cache._sum_partials = real
+            return _rel_err(cp, one)
+
+        w4a8, int8_read = against_one_card(), against_one_card(torch.int8)
+        with moe_a8_off():
+            rel, rel_fault = against_one_card(), against_one_card(fault=True)
+        out.update(ref_rel=rel, ref_fault=rel_fault, ref_w4a8=w4a8, ref_int8=int8_read)
+        say(f"2 layers, bf16 cache of {z['ref_seq']}, {z['ref_prompt']}-token prompt and "
+            f"{z['ref_steps']} decode steps, bf16-activation MoE: CP against one card relative "
+            f"L2 {rel:.3e} (limit {CP_REF_LIMIT:.0e}); rank 1's partials left out: "
+            f"{rel_fault:.3e}. Reported: with the default W4A8 MoE {w4a8:.3e}; an int8 cache "
+            f"(CP reads it, one card attends fresh k/v) {int8_read:.3e}")
+        if not rel <= CP_REF_LIMIT:
+            raise AssertionError(f"CP 2-layer logits differ from one card's: {rel}")
+        if not rel_fault > CP_REF_LIMIT:
+            raise AssertionError("the merge without rank 1 passes the CP limit")
+
+        # held: BatchedEngine over model 2, token for token against one card's
+        tp = make_mesh(MeshConfig(model=2))
+        prompts = [[int(t) for t in rng.randint(1, text.vocab_size, z["lane_prompt"])]
+                   for _ in range(z["lanes"])]
+
+        def serve(m):
+            srv = BatchedEngine({"lm": lm}, cfg, max_lanes=z["lanes"], max_seq_len=128,
+                                decode_chunk=16, cache_dtype=torch.int8, rng_seed=SEED, mesh=m)
+            uids = [srv.submit(p, max_new_tokens=z["lane_new"]) for p in prompts]
+            t = time.perf_counter()
+            fin = {r.uid: r for r in srv.run_until_complete()}
+            return [fin[u].generated for u in uids], time.perf_counter() - t
+
+        streams, secs = serve(tp)
+        out["lanes_s"] = secs
+        say(f"BatchedEngine(mesh=model 2, int8 KV): {z['lanes']} lanes x {z['lane_new']} greedy "
+            f"tokens in {secs:.2f} s")
+        if rank == 0:
+            single, secs1 = serve(None)
+            same = sum(a == b for a, b in zip(streams, single))
+            say(f"one card's BatchedEngine: {secs1:.2f} s; {same} of {z['lanes']} streams equal")
+            if streams != single:
+                raise AssertionError("BatchedEngine(mesh=model 2) differs from one card's")
+        out["lane_streams"] = streams
+    return out
+
+
+def run_cp(gpu="", device_type="cuda", cfg=None, sizes=CP_SIZES):
+    """The cp phase: context-parallel serving, 2 ranks sharing cuda:0 over
+    gloo (NCCL refuses two ranks on one device), each with the full-width,
+    full-depth int4 model drawn from the phase's seed. ``Engine(mesh=
+    context 2)`` serves a 6,000-token prompt with 64 greedy tokens from an
+    int8 cache of 8,704 positions, 4,352 a rank; ``decode_attention_stats``
+    must launch 28 times a decode step on each rank and the normal decode
+    kernel never. Reported: prefill s, tok/s, peak memory, the prefix
+    shared with one card's engine and the first-token logits' relative
+    error (the CP prefill attends the int8 cache it wrote). Held: the
+    2-layer bf16-cache CP engine within ``CP_REF_LIMIT`` of one card's
+    (prefill and 8 decode steps), with rank 1's partials left out above
+    it; ``BatchedEngine(mesh=model 2)`` token for token equal to one
+    card's. Both ranks must return the same tokens. Returns rank 0's
+    launch counts of the CP request."""
+    from aria_tpu_torch.parallel.distributed import run_ranks
+
+    outs = run_ranks(_cp_rank, 2, SEED + 12, device_type, cfg, sizes, backend="gloo",
+                     timeout_s=600)
+    if outs[0]["tokens"] != outs[1]["tokens"] or outs[0]["lane_streams"] != outs[1][
+            "lane_streams"]:
+        raise AssertionError("the ranks returned different tokens")
+    print(f"  cp ({gpu}): prefill {outs[0]['prefill_s']:.3f} / {outs[1]['prefill_s']:.3f} s, "
+          f"decode {outs[0]['tok_s']:.2f} / {outs[1]['tok_s']:.2f} tok/s, peak "
+          f"{outs[0]['peak_gib']:.2f} / {outs[1]['peak_gib']:.2f} GiB (rank 0 / 1); one card "
+          f"prefill {outs[0]['single_prefill_s']:.3f} s, {outs[0]['single_tok_s']:.2f} tok/s; "
+          f"shared prefix {outs[0]['shared']} of {sizes['new']}; first-token relative L2 "
+          f"{outs[0]['first_rel']:.3e} (witness {outs[0]['first_witness']:.3e}); 2-layer {outs[0]['ref_rel']:.3e} (fault "
+          f"{outs[0]['ref_fault']:.3e}; W4A8 {outs[0]['ref_w4a8']:.3e}; int8 cache "
+          f"{outs[0]['ref_int8']:.3e})", flush=True)
+    return outs[0]["launches"]
+
+
 def _check_form_path(path, launches, form, image=True):
     """A forms path went through its form's kernels and left the int4 ones."""
     want = (FORM_DECODE[form], "gmm", "flash_causal")
@@ -3132,6 +3551,8 @@ def main() -> int:
                                  default_lanes=lanes_headline))
     del lm  # the forms' models do not fit beside the int4 one
     t0 = done("variants", t0)
+    launches["cp"] = run_cp(gpu=gpu)
+    t0 = done("cp", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))
     t0 = done("forms", t0)
     launches.update(run_train(device, gen(8), gpu=gpu))

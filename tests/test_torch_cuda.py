@@ -631,3 +631,97 @@ def test_flash_segment_kernel_matches_plain(cuda, B, S, H, D, valid, rtol):
     for bad in (60, 80, 128):  # the kernel takes the ViT's head dims only
         with pytest.raises(ValueError):
             fl.flash_segment(*(_randn(g, 1, 64, 2, bad) for _ in range(3)))
+
+
+def _stats_caches(g, cuda, L, B, H, S, D):
+    """bf16, int8 (amax / 127 scales) and packed-int4 caches of one shape."""
+    k, v = _randn(g, L, B, H, S, D), _randn(g, L, B, H, S, D)
+    ks, vs = (torch.clamp_min(t.float().abs().amax(-1), 1e-6) * (1.0 / 127.0) for t in (k, v))
+    kq, vq = (torch.round(t.float() / sc[..., None]).to(torch.int8) for t, sc in ((k, ks), (v, vs)))
+    kp, vp = (torch.randint(-128, 128, (L, B, H // 2, S, D), generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    ks4, vs4 = ((torch.rand((L, B, H, S), generator=g, device=cuda) * 0.3 + 0.02)
+                .to(torch.bfloat16) for _ in range(2))
+    return {"bf16": (k, v), "int8": (kq, vq, ks, vs), "int4": (kp, vp, ks4, vs4)}
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_decode_attention_stats_kernel_matches_plain(cuda, cache):
+    """The stats form over one block of the cp phase's cache (4,352
+    positions, 20 heads) at lengths 0, 1, 1,648 and the whole block: acc / s
+    within 3e-3 of max |ref| (the plain version rounds p, times v_scale, to
+    bf16 against the lane's max, the kernel against its warps' running max),
+    m to f32 rounding, and an empty lane exactly m = -1e30, acc = s = 0."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, H, S, D = 2, 20, 4352, 128
+    lengths = torch.tensor([0, 1, 1648, S], dtype=torch.int32, device=cuda)
+    forms = _stats_caches(g, cuda, L, 4, H, S, D)
+    args = (_randn(g, 4, H, D), *forms[cache][:2], 1, lengths, *forms[cache][2:])
+    launches = da.decode_attention_stats.launches
+    acc, m, s = da.decode_attention(*args, return_stats=True)
+    torch.cuda.synchronize()
+    assert da.decode_attention_stats.launches == launches + 1
+    racc, rm, rs = da.decode_attention_plain(*args, return_stats=True)
+    assert (m[0] == da.NEG_INF).all() and (acc[0] == 0).all() and (s[0] == 0).all()
+    out, ref = acc[1:] / s[1:, :, None], racc[1:] / rs[1:, :, None]
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 3e-3
+    torch.testing.assert_close(m[1:], rm[1:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s[1:], rs[1:], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_decode_attention_stats_merge_of_two_blocks_matches_one_launch(cuda, cache):
+    """Two blocks of 4,352 positions through the stats form, merged as
+    parallel/cp_cache.py merges them (corr = exp(m - max m)), against the
+    normal kernel over all 8,704 (length 6,000): within the normal kernel's
+    bf16 output rounding; without block 1 the merge is far off."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    L, H, block, D = 2, 20, 4352, 128
+    forms = _stats_caches(g, cuda, L, 1, H, 2 * block, D)
+    q = _randn(g, 1, H, D)
+    lengths = torch.tensor([6000], dtype=torch.int32, device=cuda)
+    cache_args = forms[cache]
+    whole = da.decode_attention(q, *cache_args[:2], 1, lengths, *cache_args[2:]).float()
+    parts = []
+    for b in range(2):
+        local = [t[:, :, :, b * block:(b + 1) * block].contiguous() for t in cache_args]
+        len_b = torch.clamp(lengths - b * block, 0, block).to(torch.int32)
+        parts.append(da.decode_attention_stats(q, *local[:2], 1, len_b, *local[2:]))
+
+    def merge(ps):
+        m_g = torch.stack([m for _, m, _ in ps]).amax(0)
+        acc = sum(a * torch.exp(m - m_g)[..., None] for a, m, _ in ps)
+        return acc / sum(s * torch.exp(m - m_g) for _, m, s in ps)[..., None]
+
+    scale = whole.abs().max()
+    assert ((merge(parts) - whole).abs().max() / scale).item() <= 1e-2
+    assert ((merge(parts[:1]) - whole).abs().max() / scale).item() > 1e-2
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_kv_cache_write_slot_outside_the_block_leaves_the_cache(cuda, cache):
+    """A rank's block of a cache sharded by position: a decode token whose
+    slot falls before or past the block writes nothing, in the kernel as in
+    its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    L, R, H, S, D = 2, 3, 20, 256, 128
+    Hc = H // 2 if cache == "int4" else H
+    if cache == "bf16":
+        k, v, kn, vn = (_randn(g, *shape) for shape in [(L, R, Hc, S, D)] * 2 + [(R, Hc, D)] * 2)
+        scales = ()
+    else:
+        k, v, kn, vn = (torch.randint(-128, 128, shape, generator=g, device=cuda,
+                                      dtype=torch.int8)
+                        for shape in [(L, R, Hc, S, D)] * 2 + [(R, Hc, D)] * 2)
+        sdt = torch.float32 if cache == "int8" else torch.bfloat16
+        scales = tuple(torch.rand(shape, generator=g, device=cuda).to(sdt)
+                       for shape in [(L, R, H, S)] * 2 + [(R, H)] * 2)
+    rows = torch.arange(R, dtype=torch.int32, device=cuda)
+    slots = torch.tensor([-1, S, 5000], dtype=torch.int32, device=cuda)  # global - block start
+    before = [t.clone() for t in (k, v) + scales[:2]]
+    plain = [t.clone() for t in before]
+    kw.kv_cache_write(k, v, 1, rows, slots, kn, vn, *scales)
+    kw.kv_cache_write_plain(plain[0], plain[1], 1, rows, slots, kn, vn, *plain[2:], *scales[2:])
+    torch.cuda.synchronize()
+    for got, want, ref in zip((k, v) + scales[:2], before, plain):
+        assert torch.equal(got, want) and torch.equal(ref, want)

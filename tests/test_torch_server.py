@@ -41,7 +41,8 @@ from aria_tpu_torch.checkpoint.from_jax import from_jax
 from aria_tpu_torch.config import config_from_dict
 from aria_tpu_torch.engine import sampling as tsampling
 from aria_tpu_torch.engine.generate import Engine, GenerationConfig
-from aria_tpu_torch.engine.server import BatchedEngine, Request
+from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine, Request
+from aria_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
 torch.set_num_threads(1)
 
@@ -240,9 +241,14 @@ def test_sampled_streams_are_seeded(params):
 
 
 def test_not_ported_options_raise(params):
-    for kw in ({"mesh": object()}, {"guided_fsm": object()}, {"logprobs_topk": 3}):
+    # BatchedEngine(mesh=) is ported over the model axis (test_torch_cp_cache.py);
+    # a context axis, and any mesh of the paged engine, are not
+    context = Mesh(MeshConfig(context=2), 0, {"model": None, "context": None})
+    for kw in ({"mesh": context}, {"guided_fsm": object()}, {"logprobs_topk": 3}):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             BatchedEngine(params[1], CFG, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        PagedBatchedEngine(params[1], CFG, mesh=Mesh(MeshConfig(), 0, {}))
     srv = BatchedEngine(params[1], CFG, max_lanes=1)
     with pytest.raises(ValueError, match="guided_fsm"):
         srv.submit([1, 2], guided=True)
