@@ -1,124 +1,387 @@
 // flash_causal: causal attention forward over fresh q/k/v [B, S, H, 128]
 // bf16 (query i attends keys j <= i), output bf16, online softmax in f32.
 //
-// Replaces the causal forward of aria_tpu/ops/flash.py:30 flash_sdpa (the
-// library Pallas TPU flash_attention at :61-101), as the prefill attends
-// the whole prompt bucket: the cache is written but not read.
+// Replaces the causal forward of aria_tpu/ops/flash.py:30 flash_sdpa, the
+// library Pallas TPU flash kernel `_flash_attention_kernel_single_batch`
+// (jax/experimental/pallas/ops/tpu/flash_attention.py:342-472), whose
+// rounding points it keeps: unscaled bf16 q.k^T with f32 sums, then
+// s *= scale in f32; p = exp(s - m) in f32, the denominator summing the f32
+// p; p rounded to bf16 for p.v; one rounding of acc / l to bf16. The scale
+// is not folded into q. The exponentials are exp2f(s * log2(e) - m *
+// log2(e)), which moves p by a few ulps against expf.
 //
-// Bound: FLOPs, 4*S^2*128 per head halved by causality; at the prompt
-// buckets of this path (S <= 128) the kernel is latency-bound. Block =
-// 8 warps = 8 consecutive query rows of one (b, h); the block stages key
-// and value tiles of 32 positions in shared memory (f32, key rows padded
-// to 129 words so that lane j reading row j is free of bank conflicts).
-// Each lane scores one key of the tile against its warp's query row; the
-// warp updates its online softmax once per tile and accumulates p*v with
-// lane owning dims lane + 32*i. Any S works: tiles are masked at S and at
-// the causal edge. p is rounded to bf16 for p*v and kept in f32 for the
-// softmax sum, as in the TPU kernel. Scalar FMA, no tensor cores: speed
-// is later work.
+// Bound: 4 * S(S+1)/2 * 128 FLOPs per (b, h) at 989 TFLOP/s (bf16 tensor
+// cores); 26 GFLOP, 0.0217 ms, at [1, 2048, 20, 128]. The design is
+// Hopper's: both products on wgmma (m64n128k16, bf16 -> f32), K and V
+// brought by TMA.
+//
+// - A block takes one (b, h) and a tile of 128 query rows: two consumer
+//   warpgroups of 64 rows each and one producer warpgroup, of which one
+//   thread starts the TMA loads. setmaxnreg moves the producer's registers
+//   to the consumers at run time, but ptxas compiles the consumers to the
+//   launch's 168 registers: P is packed to bf16 as it is made, so that they
+//   fit without spills or serialised wgmmas. Where B * H * ceil(S/128)
+//   blocks would leave SMs idle, or S <= 64, the tile is 64 rows with one
+//   consumer warpgroup; the choice is made from the shapes and the card's
+//   SM count (an argument: ops/backend.py sm_count) alone.
+// - Q is loaded once. K and V tiles of 128 keys go through a ring of 2
+//   stages (32 KB + 32 KB each), each tile as two boxes of 64 columns with
+//   the 128-byte swizzle, completion on an mbarrier per stage for K and for
+//   V; an empty barrier per stage gives the slot back. The tensor maps are
+//   rank 4 over (d, h, s, b), built on the host per call.
+// - S = Q K^T: A (Q) and B (K, K-major as stored) from shared memory, 8
+//   k-steps over d. The softmax runs on the accumulator fragment: each
+//   thread holds 2 rows x 32 columns, the row max reduced over the 4
+//   threads of a quad. P goes to bf16 in registers as the A operand of
+//   O += P V, whose B (V, MN-major) is read through the descriptor's
+//   transpose bit.
+// - Keys are walked only up to the query tile's diagonal, and the mask is
+//   applied on the diagonal tile and at S only. Query tiles run longest
+//   (last) first. TMA zero-fills rows past S; keys >= S are masked and rows
+//   >= S are not stored, so any S works.
 //
 // With a non-null `lse` the kernel also writes each query row's f32
-// log-sum-exp of its scaled scores, lse [B, H, S] = m + log(s), which the
+// log-sum-exp of its scaled scores, lse [B, H, S] = m + log(l), which the
 // backward (flash_bwd.cu) recomputes the probabilities from; the output
-// is the same with or without it.
+// is the same bits with or without it.
+
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int D = 128;
-constexpr int WARPS = 8;  // query rows per block
-constexpr int KT = 32;    // key positions per tile
-constexpr int KSTRIDE = D + 1;
+constexpr int KT = 128;                  // keys per tile
+constexpr int STAGES = 2;
+constexpr int ROW_BYTES = 128;           // one swizzled row: 64 bf16
+constexpr int TILE_BYTES = KT * D * 2;   // one K or V tile: two boxes of 16 KB
+constexpr int BOX_BYTES = KT * ROW_BYTES;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(WARPS * 32)
-flash_causal_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, float scale) {
-  __shared__ float qs[WARPS][D];
-  __shared__ float ks[KT * KSTRIDE];
-  __shared__ float vs[KT * D];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * WARPS;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int qi = q0 + warp;
-  const size_t row_stride = (size_t)H * D;  // between consecutive positions
-  const size_t base = (size_t)b * S * row_stride + (size_t)h * D;
+// ---- TMA
+// one box of the rank-4 map (d, h, s, b) at (c0, c1, c2, c3) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
+}
 
-  for (int i = threadIdx.x; i < WARPS * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    qs[r][d] = (q0 + r < S) ? aria::bf2f(q[base + (size_t)(q0 + r) * row_stride + d]) : 0.f;
+// ---- wgmma
+// a shared-memory matrix descriptor with the 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of the registers across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ARIA_D64                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define ARIA_F8(i)                                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ARIA_F64 \
+  ARIA_F8(0), ARIA_F8(8), ARIA_F8(16), ARIA_F8(24), ARIA_F8(32), ARIA_F8(40), ARIA_F8(48), ARIA_F8(56)
+
+// d (+)= A B: 64 x 128 x 16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ARIA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ARIA_F64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B: A (64 x 16 bf16) from registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ARIA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ARIA_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef ARIA_F64
+#undef ARIA_F8
+#undef ARIA_D64
+
+template <int NWG>
+struct Layout {
+  static constexpr int ROWS = 64 * NWG;            // query rows per block
+  static constexpr int Q_BYTES = ROWS * D * 2;     // two boxes of ROWS x 64
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
+  // q, full_k[STAGES], full_v[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+};
+
+template <int NWG>
+constexpr int threads() { return 128 * (NWG + 1); }  // the producer warpgroup and the consumers
+
+template <int NWG>
+__global__ void __launch_bounds__(threads<NWG>(), 1)
+flash_causal_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, float scale) {
+  using L = Layout<NWG>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = aria::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle needs 1024-byte alignment
+  const uint32_t sq = base, sk = base + L::K_OFF, sv = base + L::V_OFF;
+  const uint32_t bar = base + L::BAR_OFF;
+  const uint32_t bar_q = bar;
+  auto bar_k = [&](int st) { return bar + 8 * (1 + st); };
+  auto bar_v = [&](int st) { return bar + 8 * (1 + STAGES + st); };
+  auto bar_e = [&](int st) { return bar + 8 * (1 + 2 * STAGES + st); };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tile = gridDim.y - 1 - blockIdx.y;  // the longest tiles first
+  const int q0 = tile * L::ROWS;
+  const int n_kt = (min(S, q0 + L::ROWS) - 1) / KT + 1;  // key tiles up to the diagonal
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    aria::mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      aria::mbar_init(bar_k(st), 1);
+      aria::mbar_init(bar_v(st), 1);
+      aria::mbar_init(bar_e(st), 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float m = aria::NEG_INF, s = 0.f, acc[D / 32];
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
-
-  const int last = min(q0 + WARPS, S) - 1;  // the block's last query row
-  for (int t0 = 0; t0 <= last; t0 += KT) {
-    __syncthreads();  // previous tile consumed (and qs staged)
-    for (int i = threadIdx.x; i < KT * D / 8; i += blockDim.x) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int j = t0 + r;
-      uint4 kw = make_uint4(0, 0, 0, 0), vw = make_uint4(0, 0, 0, 0);
-      if (j < S) {
-        kw = *reinterpret_cast<const uint4*>(k + base + (size_t)j * row_stride + c);
-        vw = *reinterpret_cast<const uint4*>(v + base + (size_t)j * row_stride + c);
-      }
-      const uint32_t kv[4] = {kw.x, kw.y, kw.z, kw.w};
-      const uint32_t vv[4] = {vw.x, vw.y, vw.z, vw.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ks[r * KSTRIDE + c + 2 * e] = aria::bf_lo(kv[e]);
-        ks[r * KSTRIDE + c + 2 * e + 1] = aria::bf_hi(kv[e]);
-        vs[r * D + c + 2 * e] = aria::bf_lo(vv[e]);
-        vs[r * D + c + 2 * e + 1] = aria::bf_hi(vv[e]);
+  if (wg == 0) {  // the producer: one thread starts every load
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      aria::mbar_expect_tx(bar_q, L::Q_BYTES);
+      tma_load(sq, &qmap, bar_q, 0, h, q0, b);
+      tma_load(sq + L::ROWS * ROW_BYTES, &qmap, bar_q, 64, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % STAGES;
+        if (j >= STAGES) aria::mbar_wait(bar_e(st), ((j / STAGES) - 1) & 1);
+        const uint32_t kd = sk + st * TILE_BYTES, vd = sv + st * TILE_BYTES;
+        aria::mbar_expect_tx(bar_k(st), TILE_BYTES);
+        tma_load(kd, &kmap, bar_k(st), 0, h, j * KT, b);
+        tma_load(kd + BOX_BYTES, &kmap, bar_k(st), 64, h, j * KT, b);
+        aria::mbar_expect_tx(bar_v(st), TILE_BYTES);
+        tma_load(vd, &vmap, bar_v(st), 0, h, j * KT, b);
+        tma_load(vd + BOX_BYTES, &vmap, bar_v(st), 64, h, j * KT, b);
       }
     }
-    __syncthreads();
-    if (qi < S && t0 <= qi) {  // warp-uniform
-      const int j = t0 + lane;
-      float sc = aria::NEG_INF;
-      if (j <= qi) {
-        float d = 0.f;
-#pragma unroll 16
-        for (int e = 0; e < D; ++e) d += qs[warp][e] * ks[lane * KSTRIDE + e];
-        sc = d * scale;
-      }
-      const float mn = fmaxf(m, aria::warp_max(sc));
-      const float corr = expf(m - mn);
-      const float pr = j <= qi ? expf(sc - mn) : 0.f;
-      s = s * corr + aria::warp_sum(pr);
-      // p enters p.v rounded to bf16 (the sum s keeps it in f32), as the
-      // TPU kernel's dot(p.astype(v.dtype), v) does
-      const float pv = __bfloat162float(__float2bfloat16(pr));
+    return;
+  }
+
+  // a consumer warpgroup: 64 query rows
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int row0 = q0 + cw * 64;            // the warpgroup's first row
+  const int ra = row0 + warp * 16 + lane / 4, rb = ra + 8;  // this thread's two rows
+  const int c2 = 2 * (lane % 4);            // its first column in each 8-column block
+
+  float o[64];
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[i] *= corr;
-      const int nvalid = min(KT, qi - t0 + 1);
-      for (int jj = 0; jj < nvalid; ++jj) {
-        const float pj = __shfl_sync(aria::FULL_MASK, pv, jj);
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float ma = aria::NEG_INF, mb = aria::NEG_INF, la = 0.f, lb = 0.f;  // l: this thread's part
+
+  aria::mbar_wait(bar_q, 0);
+  const uint32_t qa = sq + cw * 64 * ROW_BYTES;
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % STAGES;
+    const uint32_t ph = (j / STAGES) & 1;
+    const uint32_t kb = sk + st * TILE_BYTES, vb = sv + st * TILE_BYTES;
+    float s[64];
+    aria::mbar_wait(bar_k(st), ph);
+    wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) acc[i] += pj * vs[jj * D + lane + 32 * i];
-      }
-      m = mn;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns into the box's 64
+      wgmma_ss(s, sw128_desc(qa + (kk / 4) * L::ROWS * ROW_BYTES + off, 16, 1024),
+               sw128_desc(kb + (kk / 4) * BOX_BYTES + off, 16, 1024), kk > 0);
     }
-  }
-  if (qi < S) {
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    const int key0 = j * KT;
+    const bool edge = key0 + KT - 1 > row0 || key0 + KT > S;  // the diagonal or the end
+    float mxa = aria::NEG_INF, mxb = aria::NEG_INF;
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i)
-      out[base + (size_t)qi * row_stride + lane + 32 * i] = __float2bfloat16(acc[i] / s);
-    if (lse != nullptr && lane == 0) lse[((size_t)b * H + h) * S + qi] = m + logf(s);
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& sa = s[4 * n + e];
+        float& sb = s[4 * n + 2 + e];
+        sa *= scale;
+        sb *= scale;
+        if (edge) {
+          const int key = key0 + 8 * n + c2 + e;
+          if (key > ra || key >= S) sa = aria::NEG_INF;
+          if (key > rb || key >= S) sb = aria::NEG_INF;
+        }
+        mxa = fmaxf(mxa, sa);
+        mxb = fmaxf(mxb, sb);
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mxa = fmaxf(mxa, __shfl_xor_sync(aria::FULL_MASK, mxa, x));
+      mxb = fmaxf(mxb, __shfl_xor_sync(aria::FULL_MASK, mxb, x));
+    }
+    const float mna = fmaxf(ma, mxa), mnb = fmaxf(mb, mxb);
+    const float corra = exp2f((ma - mna) * LOG2E), corrb = exp2f((mb - mnb) * LOG2E);
+    const float mla = mna * LOG2E, mlb = mnb * LOG2E;
+    // p, packed to bf16 as wgmma's A fragment as it is made: k-step t holds
+    // keys 16t..16t+15, the accumulator's column blocks 2t and 2t+1 (the
+    // scores die as they are packed, which keeps the registers down)
+    float suma = 0.f, sumb = 0.f;
+    uint32_t pa[32];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        p[i] = exp2f(fmaf(s[8 * t + i], LOG2E, (i & 2) ? -mlb : -mla));
+      suma += p[0] + p[1] + p[4] + p[5];
+      sumb += p[2] + p[3] + p[6] + p[7];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[4 * t + i] = aria::pack_bf16(p[2 * i], p[2 * i + 1]);
+    }
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      o[4 * n] *= corra;
+      o[4 * n + 1] *= corra;
+      o[4 * n + 2] *= corrb;
+      o[4 * n + 3] *= corrb;
+    }
+    la = la * corra + suma;
+    lb = lb * corrb + sumb;
+    ma = mna;
+    mb = mnb;
+
+    aria::mbar_wait(bar_v(st), ph);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < KT / 16; ++t)  // 16 keys a step; the second 64 columns at LBO
+      wgmma_rs(o, pa + 4 * t, sw128_desc(vb + t * 16 * ROW_BYTES, BOX_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+    if (lane == 0) aria::mbar_arrive(bar_e(st));
   }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    la += __shfl_xor_sync(aria::FULL_MASK, la, x);
+    lb += __shfl_xor_sync(aria::FULL_MASK, lb, x);
+  }
+  const size_t row_stride = (size_t)H * D;
+  __nv_bfloat16* oa = out + ((size_t)b * S + ra) * row_stride + (size_t)h * D;
+  __nv_bfloat16* ob = oa + 8 * row_stride;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const int d = 8 * n + c2;
+    if (ra < S)
+      *reinterpret_cast<uint32_t*>(oa + d) = aria::pack_bf16(o[4 * n] / la, o[4 * n + 1] / la);
+    if (rb < S)
+      *reinterpret_cast<uint32_t*>(ob + d) =
+          aria::pack_bf16(o[4 * n + 2] / lb, o[4 * n + 3] / lb);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lrow = lse + ((size_t)b * H + h) * S;
+    if (ra < S) lrow[ra] = ma + logf(la);
+    if (rb < S) lrow[rb] = mb + logf(lb);
+  }
+}
+
+// ---- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// [B, S, H, 128] bf16 as the rank-4 map (d, h, s, b), boxes of 64 x 1 x rows x 1
+bool make_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NWG>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
+           int H, float scale, cudaStream_t stream) {
+  using L = Layout<NWG>;
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, B, S, H, L::ROWS) || !make_map(&km, k, B, S, H, KT) ||
+      !make_map(&vm, v, B, S, H, KT))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = aria::allow_smem(flash_causal_kernel<NWG>, L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + L::ROWS - 1) / L::ROWS);
+  flash_causal_kernel<NWG><<<grid, threads<NWG>(), L::BYTES, stream>>>(
+      qm, km, vm, (__nv_bfloat16*)out, (float*)lse, S, H, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// lse: f32 [B, H, S], or null (serving)
+// lse: f32 [B, H, S], or null (serving); sms: the card's SM count
 ARIA_EXPORT int aria_flash_causal(const void* q, const void* k, const void* v, void* out,
-                                  void* lse, int B, int S, int H, float scale, void* stream) {
-  dim3 grid((S + WARPS - 1) / WARPS, H, B);
-  flash_causal_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, (float*)lse, S, H, scale);
-  return cudaGetLastError();
+                                  void* lse, int B, int S, int H, float scale, int sms,
+                                  void* stream) {
+  if (S <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
+  // 64-row tiles where 128-row ones would leave SMs idle, or wasted rows
+  const bool small = S <= 64 || (long)B * H * ((S + 127) / 128) < sms;
+  return small ? launch<1>(q, k, v, out, lse, B, S, H, scale, (cudaStream_t)stream)
+               : launch<2>(q, k, v, out, lse, B, S, H, scale, (cudaStream_t)stream);
 }

@@ -34,19 +34,18 @@ SIGNATURES = {
     "aria_dense_int4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xq, sx, q4t, sg, out, T, D, F, layer, stream
     "aria_dense_int4_a8": [_P] * 5 + [_I] * 4 + [_P],
-    # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, B, H, S, layer, quantized,
-    # stream (acc, m, s NULL but in the stats form, out NULL in it)
-    "aria_decode_attention": [_P] * 10 + [_I] * 5 + [_P],
-    # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, B, H/2, S, layer, stream
-    "aria_decode_attention_p4": [_P] * 10 + [_I] * 4 + [_P],
+    # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, ws, counters, B, Hx, S, layer,
+    # kind, P, stream (acc, m, s NULL but in the stats form, out NULL in it; ws and
+    # counters NULL when P = 1)
+    "aria_decode_attention": [_P] * 12 + [_I] * 6 + [_P],
     # q, k, v, k_scale, v_scale, table, lengths, out, B, H, NP, PS, MAXP, layer,
     # quantized, stream
     "aria_paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
     # k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, rows, slots,
     # B, R, Hc, S, row_bytes, Hs, scale_bytes, layer, stream
     "aria_kv_write": [_P] * 10 + [_I] * 8 + [_P],
-    # q, k, v, out, lse, B, S, H, scale, stream
-    "aria_flash_causal": [_P] * 5 + [_I] * 3 + [_F, _P],
+    # q, k, v, out, lse, B, S, H, scale, sms, stream
+    "aria_flash_causal": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, o, do, lse, di, dq, dk, dv, B, S, H, scale, stream
     "aria_flash_causal_bwd": [_P] * 10 + [_I] * 3 + [_F, _P],
     # x, xq, sx, T, D, ng, stream

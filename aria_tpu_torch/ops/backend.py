@@ -13,6 +13,7 @@ through (``chip_smoke.py`` resets and reads them).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,6 +52,13 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     """A tensor's device address for a ``c_void_p`` argument (None -> NULL)."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+@functools.cache
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors, read once per device: the
+    kernels that size their grids by it take it from here."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def stream() -> ctypes.c_void_p:

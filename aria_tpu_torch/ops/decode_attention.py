@@ -9,30 +9,36 @@ scales have twice the cache's head planes (decode_attention.py:234-236).
 Its bytes hold head h in the low nibble as (value + 8) and head h + H/2
 in the high nibble (``unpack_heads``).
 
-Kernel: ``csrc/decode_attention.cu``. It replaces ``decode_attention`` of
-aria_tpu/ops/decode_attention.py:208 (``_make_kernel`` :154,
-``_attend_block`` :26) for bf16 and int8 caches. It reads 2*len*D bytes
-per head (int8) against about 4 FLOPs per byte, so it is bound by the
-cache read; one block per (head, lane) runs an online softmax over tiles
-of 32 positions and skips every position at or past the lane's length.
-
-The packed-int4 cache has a kernel of its own in the same source
-(``decode_attention_p4_kernel``), replacing ``_attend_block_p4``
-(decode_attention.py:80): one block per (head pair, lane) reads each byte
-once for both heads and unpacks the nibbles in registers.
+Kernel: ``csrc/decode_attention.cu``, one CUDA kernel in three forms of
+cache (bf16, int8, packed int4) and two of output (normal, stats). It
+replaces ``decode_attention`` of aria_tpu/ops/decode_attention.py:208
+(``_attend_block`` :26, ``_attend_block_p4`` :80, the stats form of
+:221-226). It is bound by the cache read, so the grid is split over
+positions as well as heads and lanes: ``split_count(B, heads, S, sms)``
+splits (from the shapes and the card's SM count alone; ``lengths`` lies on
+the device and is never read on the host), each block staging its chunk's key and value rows in shared
+memory with bulk copies, and the block that finishes a (lane, head) last
+merging the partials (acc, m, s) exactly, in the same launch. The packed
+int4 cache is read once for both heads of a pair (one block per pair).
 
 ``decode_attention_stats`` (``return_stats=True``, decode_attention.py:
-221-226) runs either kernel in its stats form: the unnormalised f32
-accumulator with the running max and the denominator, which
-context-parallel decode merges across the ranks' blocks of positions
-(``parallel/cp_cache.py``). It counts its launches apart from the normal
-form's.
+221-226) is the stats form: the unnormalised f32 accumulator with the
+running max and the denominator, which context-parallel decode merges
+across the ranks' blocks of positions (``parallel/cp_cache.py``). It
+counts its launches apart from the normal form's. Each wrapper counts one
+launch per call, whatever the split.
+
+``decode_attention_split_plain`` renders the split in plain torch: the
+stats form over each chunk, merged as cp_cache.py merges the ranks'
+blocks. The tests hold it against the JAX kernel.
 
 Numerics as in the JAX kernel: q is scaled by 1/sqrt(D) in f32 and cast
 to bf16 (to q's dtype for a bf16 cache); a quantized cache multiplies the
 scores by k_scale and the probabilities by v_scale, the denominator sums
 the probabilities before v_scale; the output is bf16 for a quantized
-cache. With int4, p * v_scale rounds to bf16 before it multiplies v.
+cache. With an int8 or int4 cache p * v_scale rounds to bf16 before it
+multiplies v; the plain version (like the JAX kernel) also rounds p for a
+bf16 cache, which the kernel keeps in f32 (its source says why).
 """
 
 from __future__ import annotations
@@ -46,6 +52,29 @@ from aria_tpu_torch.ops._build import library
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the kernel's head width
+SPLIT_UNIT = 256  # positions: at most ceil(S / SPLIT_UNIT) splits
+SPLIT_ALIGN = 64  # positions: the chunks' boundaries (the kernel's tile)
+
+
+def split_count(B: int, heads: int, S: int, sms: int) -> int:
+    """P, the kernel's splits over positions, from the lanes ``B``, the
+    blocks per lane ``heads`` (heads, or head pairs of an int4 cache), the
+    cache capacity ``S`` and the card's SM count ``sms`` (132 on an H100
+    SXM): enough blocks for two on every SM, at least ``SPLIT_UNIT``
+    positions a split."""
+    units = -(-S // SPLIT_UNIT)
+    return max(1, min(units, -(-2 * sms // (B * heads))))
+
+
+def split_bounds(S: int, P: int) -> list[tuple[int, int]]:
+    """The positions [start, end) of each of the P splits: split i takes the
+    tiles [i U / P, (i + 1) U / P) of U = ceil(S / SPLIT_ALIGN), so the
+    chunks differ by at most one tile and together cover [0, S) exactly."""
+    if not 1 <= P <= -(-S // SPLIT_UNIT):
+        raise ValueError(f"decode_attention: {P} splits of a {S}-position cache")
+    tiles = -(-S // SPLIT_ALIGN)
+    return [(SPLIT_ALIGN * (i * tiles // P), min(S, SPLIT_ALIGN * ((i + 1) * tiles // P)))
+            for i in range(P)]
 
 
 def _scaled_query(q: torch.Tensor, quantized: bool) -> torch.Tensor:
@@ -105,6 +134,45 @@ def decode_attention_plain(
     return (acc / denom).to(torch.bfloat16 if quantized else q.dtype)
 
 
+def merge_partials(parts):
+    """The exact merge of partial (acc, m, s) over disjoint blocks of
+    positions, as ``parallel/cp_cache.py`` merges the ranks': m = max m_i,
+    acc = sum acc_i exp(m_i - m), s = sum s_i exp(m_i - m), in f32."""
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    corr = [torch.exp(p[1] - m) for p in parts]
+    acc = sum(p[0] * c[..., None] for p, c in zip(parts, corr))
+    s = sum(p[2] * c for p, c in zip(parts, corr))
+    return acc, m, s
+
+
+def split_partials(q, k_cache, v_cache, layer, lengths, k_scale=None, v_scale=None,
+                   splits: int = 1):
+    """The kernel's partials in plain torch: ``decode_attention_plain``'s
+    stats form over each chunk of ``split_bounds(S, splits)``, at the
+    lengths clipped to the chunk."""
+    parts = []
+    for start, end in split_bounds(k_cache.shape[3], splits):
+        local = [None if t is None else t[:, :, :, start:end]
+                 for t in (k_cache, v_cache, k_scale, v_scale)]
+        len_loc = torch.clamp(lengths - start, 0, end - start).to(lengths.dtype)
+        parts.append(decode_attention_plain(q, local[0], local[1], layer, len_loc, local[2],
+                                            local[3], return_stats=True))
+    return parts
+
+
+def decode_attention_split_plain(q, k_cache, v_cache, layer, lengths, k_scale=None,
+                                 v_scale=None, splits: int = 1, return_stats: bool = False):
+    """The kernel's split in plain torch: ``split_partials`` merged by
+    ``merge_partials``. The normal form is acc / s rounded to the output
+    dtype, 0 for a lane of length 0."""
+    acc, m, s = merge_partials(split_partials(q, k_cache, v_cache, layer, lengths, k_scale,
+                                              v_scale, splits))
+    if return_stats:
+        return acc, m, s
+    out = torch.where(s[..., None] > 0, acc / torch.clamp_min(s, 1e-30)[..., None], 0.0)
+    return out.to(torch.bfloat16 if k_scale is not None else q.dtype)
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -114,34 +182,41 @@ def decode_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     return_stats: bool = False,
+    *,
+    splits: Optional[int] = None,
 ):
     """Returns [B, H, D]: bf16 for a quantized cache, q's dtype for a bf16
     one. With ``return_stats``, (acc, m, s) through
-    ``decode_attention_stats``."""
+    ``decode_attention_stats``. ``splits`` forces the kernel's split over
+    positions (tests and ``chip_smoke.py``); None takes ``split_count``."""
     if return_stats:
-        return decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
+        return decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale, v_scale,
+                                      splits=splits)
     quantized = k_scale is not None
     extra = (k_scale, v_scale) if quantized else ()
     if not backend.on_cuda(q, k_cache, v_cache, lengths, *extra):
         return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
     if is_packed4(k_cache, k_scale):
-        return decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
-    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats=False)
+        return decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale,
+                                     splits=splits)
+    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, False, splits)
     decode_attention.launches += 1
     return out
 
 
-def decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale):
-    """The packed-int4 kernel (``decode_attention`` takes it for such a
+def decode_attention_int4(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, *,
+                          splits: Optional[int] = None):
+    """The packed-int4 form (``decode_attention`` takes it for such a
     cache); it counts its own launches."""
     if not backend.on_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
         return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale)
-    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats=False)
+    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, False, splits)
     decode_attention_int4.launches += 1
     return out
 
 
-def decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale=None, v_scale=None):
+def decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale=None, v_scale=None, *,
+                           splits: Optional[int] = None):
     """The stats form (decode_attention.py:221-226) for a bf16, int8 or
     packed-int4 cache: (acc [B, H, D] f32 unnormalised, m [B, H] f32, s
     [B, H] f32), acc / s being the attention output before its rounding.
@@ -151,14 +226,31 @@ def decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale=None, v_
     if not backend.on_cuda(q, k_cache, v_cache, lengths, *extra):
         return decode_attention_plain(q, k_cache, v_cache, layer, lengths, k_scale, v_scale,
                                       return_stats=True)
-    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats=True)
+    out = _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, True, splits)
     decode_attention_stats.launches += 1
     return out
 
 
-def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool):
-    """Check the arguments and launch the kernel of the cache's form: the
-    bf16 / int8 kernel or the packed-int4 one, normal or stats."""
+_workspaces: dict = {}  # device -> (f32 partials, zeroed counters)
+
+
+def _workspace(device, floats: int, counters: int):
+    """The split's workspace on ``device``, grown to at least the sizes
+    asked: partials, and counters the kernel leaves at 0. Calls run in the
+    order of one stream, so one workspace per device serves them all."""
+    ws, cnt = _workspaces.get(device, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1 << 12), dtype=torch.int32, device=device)
+    _workspaces[device] = (ws, cnt)
+    return ws, cnt
+
+
+def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool,
+            splits: Optional[int]):
+    """Check the arguments and launch the kernel in the cache's form (bf16,
+    int8 or packed int4), normal or stats, split over positions."""
     quantized = k_scale is not None
     packed = is_packed4(k_cache, k_scale)
     B, H, D = q.shape
@@ -177,6 +269,13 @@ def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool):
         sdt = torch.bfloat16 if packed else torch.float32
         backend.require(k_scale, "k_scale", sdt, (L, B, H, S))
         backend.require(v_scale, "v_scale", sdt, (L, B, H, S))
+    if quantized and S % 8:
+        raise ValueError(f"decode_attention: a quantized cache of {S} positions; the kernel "
+                         "stages the scales in 16-byte copies and takes S % 8 == 0")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("k_scale", k_scale),
+                    ("v_scale", v_scale)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
     qs = _scaled_query(q, quantized).contiguous()
     backend.require(qs, "q", torch.bfloat16, (B, H, D))
     p, null = backend.ptr, backend.ptr(None)
@@ -189,16 +288,17 @@ def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool):
         out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
         acc = m = s = None
         res = out
-    outs = (p(out), p(acc), p(m), p(s))
-    if packed:
-        err = library().aria_decode_attention_p4(
-            p(qs), p(k_cache), p(v_cache), p(k_scale), p(v_scale), p(lengths), *outs,
-            B, Hc, S, layer, backend.stream())
-    else:
-        err = library().aria_decode_attention(
-            p(qs), p(k_cache), p(v_cache), p(k_scale) if quantized else null,
-            p(v_scale) if quantized else null, p(lengths), *outs, B, H, S, layer,
-            int(quantized), backend.stream())
+    P = split_count(B, Hc, S, backend.sm_count(q.device)) if splits is None else splits
+    if not 1 <= P <= -(-S // SPLIT_UNIT):
+        raise ValueError(f"decode_attention: {P} splits of a {S}-position cache")
+    ws = cnt = None
+    if P > 1:
+        ws, cnt = _workspace(q.device, B * Hc * P * (H // Hc) * (D + 2), B * Hc)
+    kind = 2 if packed else int(quantized)
+    err = library().aria_decode_attention(
+        p(qs), p(k_cache), p(v_cache), p(k_scale) if quantized else null,
+        p(v_scale) if quantized else null, p(lengths), p(out), p(acc), p(m), p(s), p(ws),
+        p(cnt), B, Hc, S, layer, kind, P, backend.stream())
     backend.check(err, "decode_attention" + (" (int4)" if packed else "")
                   + (" stats" if stats else ""))
     return res

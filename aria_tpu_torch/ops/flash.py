@@ -7,10 +7,12 @@ A from-zero prefill attends the fresh k/v of the whole prompt bucket
 it.
 
 Kernels: ``csrc/flash.cu`` replaces the forward of ``flash_sdpa``'s
-library Pallas TPU flash kernel (:61-101): one block takes 8 query rows of
-one (lane, head), stages key and value tiles of 32 positions in shared
-memory and keeps the online softmax in f32 (scalar FMA; any S works). In
-training it also writes each row's f32 log-sum-exp, and
+library Pallas TPU flash kernel (:61-101): one block takes 128 query rows
+of one (lane, head) (64 where that would leave SMs idle), two warpgroups
+run both products on wgmma from K and V tiles that a producer brings by
+TMA into a ring of shared memory, and the online softmax stays in f32 on
+the accumulators (any S works). In training it also writes each row's f32
+log-sum-exp, and
 ``csrc/flash_bwd.cu`` replaces the library's backward
 (flash_attention.py:254-300, the dkv and dq kernels) on tensor cores;
 their notes give the designs. Serving calls the forward without the
@@ -79,7 +81,7 @@ def _forward(q, k, v, scale: float, lse: Optional[torch.Tensor]) -> torch.Tensor
     out = torch.empty_like(q)
     err = library().aria_flash_causal(
         backend.ptr(q), backend.ptr(k), backend.ptr(v), backend.ptr(out), backend.ptr(lse),
-        B, S, H, ctypes.c_float(scale), backend.stream())
+        B, S, H, ctypes.c_float(scale), backend.sm_count(q.device), backend.stream())
     backend.check(err, "flash_causal")
     flash_causal.launches += 1
     return out

@@ -9,7 +9,12 @@
    image, lanes, paged and forms paths give it, with the tolerance stated beside each,
    timing kernel, plain version and, where one exists, one PyTorch call
    of the same function, beside the kernel's bound (bytes over the memory
-   rate or operations over the peak rate, the larger).
+   rate or operations over the peak rate, the larger). At long context:
+   the causal flash forward at 8,192 and 32,768 prompt tokens (the latter
+   held on its first and last 128 rows), decode attention at one lane over
+   32,768 positions (int4, int8, bf16), both held row by row beside a
+   planted fault, and decode attention with its split over positions
+   forced to 1 against the split the wrapper picks.
 3. The text path: random-init the full-width 28-layer, 64+2-expert int4
    serving model on the card, build ``Engine(max_seq_len=1024, int8 KV)``
    and answer three text requests through ``Engine.generate``; the four
@@ -211,18 +216,22 @@ def _bound(nbytes: float, ops: float, kind: str = "bf16") -> tuple[float, str]:
 
 
 def _timed(at, kernel, plain, iters, plain_iters, bound, library=None) -> dict:
-    """One timed shape: device and wall ms of kernel and plain version, the
-    bound, and the device ms of one PyTorch call of the same function."""
-    return {"at": at, "k": _time_ms(kernel, iters), "p": _time_ms(plain, plain_iters),
+    """One timed shape: device and wall ms of kernel and plain version (None
+    where the plain version cannot run whole: "n/a"), the bound, and the
+    device ms of one PyTorch call of the same function."""
+    return {"at": at, "k": _time_ms(kernel, iters),
+            "p": (None, None) if plain is None else _time_ms(plain, plain_iters),
             "bound": bound, "lib": None if library is None else _time_ms(library, iters)[0]}
 
 
 def _print_timed(name: str, t: dict) -> None:
     lib = "none" if t["lib"] is None else f"{t['lib']:.4f} ms"
+    plain = ("n/a (rows only)", "n/a") if t["p"][0] is None else (
+        f"{t['p'][0]:.4f} ms", f"{t['p'][1]:.4f} ms")
     print(f"  {name} {t['at']}: device time per call: kernel {t['k'][0]:.4f} ms, plain "
-          f"{t['p'][0]:.4f} ms, library {lib}, bound {t['bound'][0]:.4f} ms "
+          f"{plain[0]}, library {lib}, bound {t['bound'][0]:.4f} ms "
           f"({t['bound'][1]}); wall per call: kernel {t['k'][1]:.4f} ms, plain "
-          f"{t['p'][1]:.4f} ms", flush=True)
+          f"{plain[1]}", flush=True)
 
 
 def _entry(t: dict) -> dict:
@@ -687,6 +696,8 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                                                    attn_mask=seg)))
         del got, ref, seg
     record("flash_segment", errs, timed)  # all valid first
+    del qkv
+    check_long_context(device, cfg, randn, results)
     return results
 
 
@@ -907,9 +918,9 @@ def _merge_blocks(parts):
     device): acc / s of the sum over blocks with corr = exp(m - max m)."""
     import torch
 
-    m_g = torch.stack([m for _, m, _ in parts]).amax(0)
-    acc = sum(a * torch.exp(m - m_g)[..., None] for a, m, _ in parts)
-    s = sum(s * torch.exp(m - m_g) for _, m, s in parts)
+    from aria_tpu_torch.ops.decode_attention import merge_partials
+
+    acc, _, s = merge_partials(parts)
     return acc / torch.clamp_min(s, 1e-30)[..., None]
 
 
@@ -931,15 +942,7 @@ def check_decode_stats(device, gen, cfg, randn, record, lanes=32, block=CP_BLOCK
     H, Dh, L = cfg.num_heads, cfg.head_dim, 2
 
     def caches(B, S):
-        kf, vf = randn(L, B, H, S, Dh), randn(L, B, H, S, Dh)
-        ks, vs = (torch.clamp_min(t.float().abs().amax(-1), 1e-6) / 127.0 for t in (kf, vf))
-        kq, vq = (torch.round(t.float() / sc[..., None]).to(torch.int8)
-                  for t, sc in ((kf, ks), (vf, vs)))
-        kp, vp = (torch.randint(-128, 128, (L, B, H // 2, S, Dh), generator=gen, device=device,
-                                dtype=torch.int8) for _ in range(2))
-        ks4, vs4 = ((torch.rand((L, B, H, S), generator=gen, device=device) * 0.3 + 0.02)
-                    .to(torch.bfloat16) for _ in range(2))
-        return {"int8": (kq, vq, ks, vs), "bf16": (kf, vf), "int4": (kp, vp, ks4, vs4)}
+        return _decode_forms(device, gen, randn, H, Dh, B, S, L)
 
     errs, timed = [], []
     for B, lens in ((1, [block, 1648, 0]), (lanes, None)):
@@ -1009,6 +1012,235 @@ def check_decode_stats(device, gen, cfg, randn, record, lanes=32, block=CP_BLOCK
             raise AssertionError(f"decode_attention_stats {label}: the merge without block 1 "
                                  "passes the limit")
     record("decode_attention_stats", errs, timed)  # int8 at one lane first
+
+
+LONG_PROMPTS = (8192, 32768)  # flash_causal's long prompts: the cp phase's and bench.py's ctx
+LONG_CACHE, LONG_LEN = 32896, 32768  # bench.py's ctx child: --ctx 32768, max_seq 32,896
+EDGE_ROWS = 128  # at 32K, the first and the last EDGE_ROWS query rows are held to plain
+KEY_TILE = 128  # flash_causal's key tile: the planted fault leaves the last one out
+# flash_causal at the long prompts and decode attention at long context,
+# held row by row (one query row of one head): max |got - ref| over max
+# |ref| of that row, since a row that averages thousands of keys is a
+# hundred times smaller than the first rows. About 3x the sound reading,
+# one bf16 ulp of a row's largest output (2^-7 = 7.8e-3 at the bottom of a
+# binade): flash read 7.752e-3-7.812e-3 on the card at 8K and 32K, decode
+# over 32K positions 4.808e-3-5.988e-3 (NVIDIA H100 80GB HBM3, 700 W). The
+# planted faults must read above it: the late rows without their last key
+# tile read 0.2248-0.3892, the merge without one split's partial
+# 8.444e-2-0.5289.
+LONG_ROW_LIMIT = 2.5e-2
+
+
+def _row_err(got, ref) -> float:
+    """max over rows (vectors along the last dimension) of max |got - ref|
+    over max |ref| of that row."""
+    g, r = got.float(), ref.float()
+    return ((g - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _hold_rows(name, got, ref, why: str, fault=None) -> float:
+    """``got`` within LONG_ROW_LIMIT of ``ref`` by ``_row_err``, and the
+    planted ``fault`` (what, an output with it) above the limit. Returns
+    max |got - ref|."""
+    import torch
+
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = _row_err(got, ref)
+    planted = None if fault is None else _row_err(fault[1], ref)
+    print(f"  {name}: {err:.3e} of its row's max |ref| (limit {LONG_ROW_LIMIT:.1e}: {why})"
+          + ("" if fault is None else f"; planted fault, {fault[0]}: {planted:.3e}"), flush=True)
+    if not err <= LONG_ROW_LIMIT:
+        raise AssertionError(f"{name}: {err} of the row's max |ref| > {LONG_ROW_LIMIT}")
+    if fault is not None and not planted > LONG_ROW_LIMIT:
+        raise AssertionError(f"{name}: the planted fault ({fault[0]}) passes the limit")
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def _causal_rows_plain(q, k, v, rows, scale, keys=None):
+    """flash_causal_plain's numerics (ops/attention.py sdpa) for the query
+    rows ``rows`` alone, over their causal keys below ``keys`` (all of them
+    by default): [B, len(rows), H, D]."""
+    import torch
+
+    from aria_tpu_torch.ops.attention import NEG_INF
+
+    keys = int(rows.max()) + 1 if keys is None else keys
+    logits = torch.einsum("bqhd,bkhd->bhqk", q[:, rows].float(), k[:, :keys].float()) * scale
+    mask = torch.arange(keys, device=q.device)[None, :] <= rows[:, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v[:, :keys].float())
+    return out.to(q.dtype)
+
+
+def _decode_forms(device, gen, randn, H, Dh, B, S, L=2):
+    """bf16, int8 (f32 amax / 127 scales) and packed-int4 (bf16 scales)
+    caches [L, B, H or H/2, S, Dh] as decode_attention's argument tails."""
+    import torch
+
+    kf, vf = randn(L, B, H, S, Dh), randn(L, B, H, S, Dh)
+    ks, vs = (torch.clamp_min(t.float().abs().amax(-1), 1e-6) / 127.0 for t in (kf, vf))
+    kq, vq = (torch.round(t.float() / sc[..., None]).to(torch.int8)
+              for t, sc in ((kf, ks), (vf, vs)))
+    kp, vp = (torch.randint(-128, 128, (L, B, H // 2, S, Dh), generator=gen, device=device,
+                            dtype=torch.int8) for _ in range(2))
+    ks4, vs4 = ((torch.rand((L, B, H, S), generator=gen, device=device) * 0.3 + 0.02)
+                .to(torch.bfloat16) for _ in range(2))
+    return {"int8": (kq, vq, ks, vs), "bf16": (kf, vf), "int4": (kp, vp, ks4, vs4)}
+
+
+def _decode_bytes(label, n, H, Dh, q) -> int:
+    """The bytes decode attention must move over n positions of one lane:
+    keys, values and scales read once, the query read and the output
+    written once."""
+    per = {"int8": 2 * H * Dh + 2 * H * 4, "bf16": 2 * H * Dh * 2,
+           "int4": H // 2 * Dh * 2 + H * 2 * 2}[label]
+    return n * per + 2 * _nbytes(q)
+
+
+def _without_one_split(args, S, label, sms):
+    """The planted fault of the split checks: (what, (acc, m, s)), the
+    plain version's partials over the heuristic's chunks merged with the
+    middle chunk's left out."""
+    from aria_tpu_torch.ops import decode_attention as da
+
+    P = da.split_count(1, args[0].shape[1] // (2 if label == "int4" else 1), S, sms)
+    parts = da.split_partials(*args, splits=P)
+    del parts[P // 2]
+    return f"split {P // 2} of {P} left out of the merge", da.merge_partials(parts)
+
+
+def check_long_context(device, cfg, randn, results):
+    """Phase 2 at long context: flash_causal (serving form) at [1, 8192,
+    20, 128] and [1, 32768, 20, 128] against its plain version (at 32K the
+    plain version cannot run whole: the first and the last 128 query rows
+    against the plain attention of those rows), timed beside the bound and
+    sdpa; decode_attention's normal form at one lane over 32,768 of 32,896
+    positions, int4, int8 and bf16, against the plain version and timed
+    beside the bound (sdpa for bf16); and the kernel with its split forced to
+    P = 1 against the heuristic's P at one lane over 4,352 and 32,768
+    positions, every cache form and both outputs, within the stats limit of
+    each other, each call one launch by the counters. The first two are
+    held row by row (``_hold_rows``), each with a planted fault that the
+    limit must catch: the late rows without their last key tile (flash),
+    the merge without one split's partial (decode); the split check has the
+    second fault too."""
+    import torch
+    import torch.nn.functional as F
+
+    from aria_tpu_torch.ops import backend
+    from aria_tpu_torch.ops import decode_attention as da
+    from aria_tpu_torch.ops import flash as fl
+
+    H, Dh = cfg.num_heads, cfg.head_dim
+    sms = backend.sm_count(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+
+    print("flash_causal (long prompts)", flush=True)
+    errs, timed = [], []
+    for S in LONG_PROMPTS:
+        qkv = [randn(1, S, H, Dh) for _ in range(3)]
+        got = fl.flash_causal(*qkv)
+        why = ("bf16 output; both round p to bf16 before p.v, the plain version after "
+               "normalising it")
+        late = torch.arange(S - EDGE_ROWS, S, device=device)
+        dropped = (f"rows {S - EDGE_ROWS}..{S - 1} without keys {S - KEY_TILE}..",
+                   _causal_rows_plain(*qkv, late, Dh**-0.5, keys=S - KEY_TILE))
+        if S == LONG_PROMPTS[0]:
+            fault = got.clone()
+            fault[:, late] = dropped[1]
+            errs.append(_hold_rows(f"flash_causal B=1 S={S}", got, fl.flash_causal_plain(*qkv),
+                                   why, (dropped[0], fault)))
+            plain = lambda qkv=qkv: fl.flash_causal_plain(*qkv)
+            del fault
+        else:
+            for rows in (torch.arange(EDGE_ROWS, device=device), late):
+                errs.append(_hold_rows(
+                    f"flash_causal B=1 S={S} rows {int(rows[0])}..{int(rows[-1])}", got[:, rows],
+                    _causal_rows_plain(*qkv, rows, Dh**-0.5), why,
+                    dropped if rows is late else None))
+            plain = None
+        del dropped
+        del got
+        timed.append(_timed(f"B=1 S={S}", lambda qkv=qkv: fl.flash_causal(*qkv), plain, 3, 2,
+                            _bound(4 * _nbytes(qkv[0]), H * 4 * Dh * S * (S + 1) / 2),
+                            lambda qkv=qkv: F.scaled_dot_product_attention(
+                                *(t.transpose(1, 2) for t in qkv), is_causal=True)))
+        _print_timed("flash_causal", timed[-1])
+        del qkv, plain
+    _extend(results["flash_causal"], errs, timed)
+
+    print(f"decode_attention, decode_attention_int4 (one lane over {LONG_LEN} of {LONG_CACHE})",
+          flush=True)
+    forms = _decode_forms(device, gen, randn, H, Dh, 1, LONG_CACHE)
+    q = randn(1, H, Dh)
+    lengths = torch.full((1,), LONG_LEN, dtype=torch.int32, device=device)
+    mask = (torch.arange(LONG_CACHE, device=device) < LONG_LEN)[None, None, None, :]
+    for label, cache in forms.items():
+        name = "decode_attention_int4" if label == "int4" else "decode_attention"
+        args = (q, cache[0], cache[1], 1, lengths, *cache[2:])
+        what, (acc, _, s) = _without_one_split(args, LONG_CACHE, label, sms)
+        err = _hold_rows(f"{name} {label} len={LONG_LEN} of {LONG_CACHE}",
+                         da.decode_attention(*args), da.decode_attention_plain(*args),
+                         "bf16 output; p (times v_scale) rounds to bf16 against the chunk's "
+                         "running max in the kernel and the lane's max in the plain version",
+                         (what, acc / s[..., None]))
+        library = None
+        if label == "bf16":
+            library = lambda kf=cache[0], vf=cache[1]: F.scaled_dot_product_attention(
+                q[:, :, None], kf[1], vf[1], attn_mask=mask)
+        t = _timed(f"{label} len={LONG_LEN} of {LONG_CACHE}", lambda a=args: da.decode_attention(*a),
+                   lambda a=args: da.decode_attention_plain(*a), 50, 3,
+                   _bound(_decode_bytes(label, LONG_LEN, H, Dh, q), 4 * LONG_LEN * H * Dh), library)
+        _print_timed(name, t)
+        _extend(results[name], [err], [t])
+
+    print("decode_attention split over positions against no split", flush=True)
+    counters = {"normal": {"int8": da.decode_attention, "bf16": da.decode_attention,
+                           "int4": da.decode_attention_int4},
+                "stats": da.decode_attention_stats}
+    errs = []
+    for S, n, cases in ((CP_BLOCK, CP_BLOCK, _decode_forms(device, gen, randn, H, Dh, 1, CP_BLOCK)),
+                        (LONG_CACHE, LONG_LEN, forms)):
+        lengths = torch.full((1,), n, dtype=torch.int32, device=device)
+        for label, cache in cases.items():
+            args = (q, cache[0], cache[1], 1, lengths, *cache[2:])
+            P = da.split_count(1, H // 2 if label == "int4" else H, S, sms)
+            what, without = _without_one_split(args, S, label, sms)
+            for form in ("normal", "stats"):
+                stats = form == "stats"
+                counter = counters["stats"] if stats else counters["normal"][label]
+                before = counter.launches
+                one = da.decode_attention(*args, return_stats=stats, splits=1)
+                split = da.decode_attention(*args, return_stats=stats)
+                if counter.launches != before + 2:
+                    raise AssertionError(f"decode_attention {label} {form}: "
+                                         f"{counter.launches - before} launches for two calls")
+                if stats:
+                    err, fault = _stats_err(split, one, lengths), _stats_err(without, one, lengths)
+                else:
+                    top = one.float().abs().max()
+                    err = ((split.float() - one.float()).abs().max() / top).item()
+                    fault = ((without[0] / without[2][..., None] - one.float()).abs().max()
+                             / top).item()
+                limit = STATS_LIMIT[label]
+                print(f"  decode_attention {label} {form} len={n} of {S}: P={P} against P=1: "
+                      f"{err:.3e} of max |P=1| (limit {limit:.0e}: f32 partials merged in "
+                      f"another order; the normal form's bf16 output); planted fault, {what}: "
+                      f"{fault:.3e}", flush=True)
+                if not err <= limit:
+                    raise AssertionError(f"decode_attention {label} {form}: split {err} > {limit}")
+                if not fault > limit:
+                    raise AssertionError(f"decode_attention {label} {form}: the merge without "
+                                         "one split passes the limit")
+                errs.append(err)
+        del cases
+    _extend(results["decode_attention_stats"], errs, [])
+    del forms
 
 
 KERNELS = {

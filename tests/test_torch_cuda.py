@@ -725,3 +725,106 @@ def test_kv_cache_write_slot_outside_the_block_leaves_the_cache(cuda, cache):
     torch.cuda.synchronize()
     for got, want, ref in zip((k, v) + scales[:2], before, plain):
         assert torch.equal(got, want) and torch.equal(ref, want)
+
+
+# ------------------------------------------------------------ the redesigned attention kernels
+
+FLASH_S = (1, 37, 64, 65, 127, 128, 129, 509, 512, 2047, 2048)
+
+
+def _causal_lse(q, k, scale):
+    """Each query row's log-sum-exp of its scaled causal scores [B, H, S]."""
+    S = q.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    above = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    return torch.logsumexp(scores.masked_fill_(above, float("-inf")), -1)
+
+
+@pytest.mark.parametrize("S", FLASH_S)
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_flash_causal_wgmma_matches_plain(cuda, B, S):
+    """The wgmma + TMA forward (64- and 128-row query tiles, ragged S)
+    against the plain version at 1e-2 (bf16 output; both round p to bf16
+    before p.v, the plain version after normalising it), its row
+    log-sum-exp within 1e-4 of the f32 reference, and the same bits with and
+    without the statistics; one launch a call. The references run a few
+    lanes at a time."""
+    g = torch.Generator(device=cuda).manual_seed(B * 4096 + S)
+    H, D = 20, 128
+    q, k, v = (_randn(g, B, S, H, D) for _ in range(3))
+    launches = fl.flash_causal.launches
+    out = fl.flash_causal(q, k, v)
+    torch.cuda.synchronize()
+    assert fl.flash_causal.launches == launches + 1
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    assert torch.equal(fl._forward(q, k, v, D**-0.5, lse), out)
+    step = max(1, (1 << 22) // (S * S))
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        torch.testing.assert_close(out[sl].float(), fl.flash_causal_plain(q[sl], k[sl], v[sl]).float(),
+                                   rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(lse[sl], _causal_lse(q[sl], k[sl], D**-0.5), rtol=0, atol=1e-4)
+
+
+DECODE_LENGTHS = (0, 1, 255, 256, 257)  # and the whole cache
+
+
+def _decode_check(args, full, splits, stats_limit=3e-3):
+    """The kernel's normal and stats forms at ``splits`` against the plain
+    version: lanes with positions to 1e-2 (normal, bf16 output) and acc / s
+    within ``stats_limit`` of max |ref|, m and s to f32 rounding; lanes of
+    length 0 exactly 0 (normal) and m = -1e30, acc = s = 0 (stats); one
+    launch a call, whatever the split."""
+    packed = da.is_packed4(args[1], args[5] if len(args) > 5 else None)
+    counter = da.decode_attention_int4 if packed else da.decode_attention
+    launches = (counter.launches, da.decode_attention_stats.launches)
+    got = da.decode_attention(*args, splits=splits)
+    acc, m, s = da.decode_attention(*args, return_stats=True, splits=splits)
+    torch.cuda.synchronize()
+    assert (counter.launches, da.decode_attention_stats.launches) == (launches[0] + 1,
+                                                                      launches[1] + 1)
+    ref = da.decode_attention_plain(*args)
+    racc, rm, rs = da.decode_attention_plain(*args, return_stats=True)
+    assert (got[~full] == 0).all()
+    assert (m[~full] == da.NEG_INF).all() and (acc[~full] == 0).all() and (s[~full] == 0).all()
+    if not full.any():
+        return
+    torch.testing.assert_close(got[full].float(), ref[full].float(), rtol=1e-2, atol=1e-2)
+    out, want = acc[full] / s[full][..., None], racc[full] / rs[full][..., None]
+    assert ((out - want).abs().max() / want.abs().max()).item() <= stats_limit
+    torch.testing.assert_close(m[full], rm[full], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s[full], rs[full], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_decode_attention_split_matches_plain(cuda, cache, splits):
+    """Every form and both outputs at P = 1 and at the heuristic's P, lanes
+    of lengths 0, 1, 255, 256, 257 and the whole 4,352 positions: six lanes
+    in one call, and each length alone in one lane (P = 14, 17 for int4)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    L, H, S, D = 2, 20, 4352, 128
+    lens = list(DECODE_LENGTHS) + [S]
+    forms = _stats_caches(g, cuda, L, len(lens), H, S, D)
+    c = forms[cache]
+    q = _randn(g, len(lens), H, D)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _decode_check((q, c[0], c[1], 1, lengths, *c[2:]), lengths > 0, splits)
+    for i, n in enumerate(lens):
+        one = [t[:, i:i + 1].contiguous() for t in c]
+        lane = torch.tensor([n], dtype=torch.int32, device=cuda)
+        _decode_check((q[i:i + 1], one[0], one[1], 1, lane, *one[2:]), lane > 0, splits)
+
+
+@pytest.mark.parametrize("splits", [None, 2])
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int4"])
+def test_decode_attention_32_ragged_lanes_match_plain(cuda, cache, splits):
+    """32 lanes over 384 positions at ragged lengths from 0 to 384 (the
+    heuristic gives P = 1; forced P = 2, the most 384 positions take,
+    splits each lane in two)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    L, B, H, S, D = 2, 32, 20, 384, 128
+    c = _stats_caches(g, cuda, L, B, H, S, D)[cache]
+    lengths = torch.randint(0, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, S], dtype=torch.int32, device=cuda)
+    _decode_check((_randn(g, B, H, D), c[0], c[1], 1, lengths, *c[2:]), lengths > 0, splits)
