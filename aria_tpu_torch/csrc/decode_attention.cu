@@ -13,15 +13,9 @@
 // where head p is the low nibble, lo = (byte & 0xF) - 8, and head p + H/2
 // the high nibble, hi = byte >> 4 (arithmetic shift of the signed byte).
 // Numerics as the TPU kernel: the denominator sums the f32 probabilities;
-// with an int8 or int4 cache p * v_scale rounds to bf16 before it multiplies
-// v (decode_attention.py:53); each product q * k is exact in f32. With a
-// bf16 cache the TPU kernel (and the plain version) round p to bf16 too;
-// here p stays f32, a deviation from the reference: rounded on both sides
-// of a context-parallel merge against different maxima, it moved a 2-layer
-// CP model's decode logits to 2.919e-2 of one card's, past the 1e-2 that
-// chip_smoke.py's cp phase holds (one decode step's router near-tie;
-// 5.504e-3 unrounded). PERF.md records the readings and the witness that
-// would settle it.
+// p (times v_scale with an int8 or int4 cache) rounds to bf16 before it
+// multiplies v (decode_attention.py:53: compute_t is the bf16 query's type
+// with a bf16 cache); each product q * k is exact in f32.
 //
 // Bound: the cache read, 2 * len * 128 bytes per head (int8; twice that for
 // bf16, per head pair for int4) against about 4 FLOPs per byte:
@@ -262,7 +256,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __re
       for (int x = LPP; x < 32; x <<= 1) sum += __shfl_xor_sync(aria::FULL_MASK, sum, x);
       s[t] = s[t] * corr + sum;
       m[t] = mn;
-      pw[t] = valid ? (KIND == BF16 ? pr : aria::bf16_round(pr * sc_[t][1])) : 0.f;
+      pw[t] = valid ? aria::bf16_round(KIND == BF16 ? pr : pr * sc_[t][1]) : 0.f;
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[t][e] *= corr;
     }

@@ -45,9 +45,7 @@
 // backward (flash_bwd.cu) recomputes the probabilities from; the output
 // is the same bits with or without it.
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,77 +56,6 @@ constexpr int ROW_BYTES = 128;           // one swizzled row: 64 bf16
 constexpr int TILE_BYTES = KT * D * 2;   // one K or V tile: two boxes of 16 KB
 constexpr int BOX_BYTES = KT * ROW_BYTES;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// ---- TMA
-// one box of the rank-4 map (d, h, s, b) at (c0, c1, c2, c3) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-         "r"(c3)
-      : "memory");
-}
-
-// ---- wgmma
-// a shared-memory matrix descriptor with the 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of the registers across the
-// asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ARIA_D64                                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
-  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63}"
-#define ARIA_F8(i)                                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ARIA_F64 \
-  ARIA_F8(0), ARIA_F8(8), ARIA_F8(16), ARIA_F8(24), ARIA_F8(32), ARIA_F8(40), ARIA_F8(48), ARIA_F8(56)
-
-// d (+)= A B: 64 x 128 x 16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ARIA_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ARIA_F64
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B: A (64 x 16 bf16) from registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ARIA_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ARIA_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ARIA_F64
-#undef ARIA_F8
-#undef ARIA_D64
 
 template <int NWG>
 struct Layout {
@@ -181,18 +108,18 @@ flash_causal_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_const
     if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       aria::mbar_expect_tx(bar_q, L::Q_BYTES);
-      tma_load(sq, &qmap, bar_q, 0, h, q0, b);
-      tma_load(sq + L::ROWS * ROW_BYTES, &qmap, bar_q, 64, h, q0, b);
+      aria::tma_load(sq, &qmap, bar_q, 0, h, q0, b);
+      aria::tma_load(sq + L::ROWS * ROW_BYTES, &qmap, bar_q, 64, h, q0, b);
       for (int j = 0; j < n_kt; ++j) {
         const int st = j % STAGES;
         if (j >= STAGES) aria::mbar_wait(bar_e(st), ((j / STAGES) - 1) & 1);
         const uint32_t kd = sk + st * TILE_BYTES, vd = sv + st * TILE_BYTES;
         aria::mbar_expect_tx(bar_k(st), TILE_BYTES);
-        tma_load(kd, &kmap, bar_k(st), 0, h, j * KT, b);
-        tma_load(kd + BOX_BYTES, &kmap, bar_k(st), 64, h, j * KT, b);
+        aria::tma_load(kd, &kmap, bar_k(st), 0, h, j * KT, b);
+        aria::tma_load(kd + BOX_BYTES, &kmap, bar_k(st), 64, h, j * KT, b);
         aria::mbar_expect_tx(bar_v(st), TILE_BYTES);
-        tma_load(vd, &vmap, bar_v(st), 0, h, j * KT, b);
-        tma_load(vd + BOX_BYTES, &vmap, bar_v(st), 64, h, j * KT, b);
+        aria::tma_load(vd, &vmap, bar_v(st), 0, h, j * KT, b);
+        aria::tma_load(vd + BOX_BYTES, &vmap, bar_v(st), 64, h, j * KT, b);
       }
     }
     return;
@@ -218,16 +145,16 @@ flash_causal_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_const
     const uint32_t kb = sk + st * TILE_BYTES, vb = sv + st * TILE_BYTES;
     float s[64];
     aria::mbar_wait(bar_k(st), ph);
-    wgmma_fence();
+    aria::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // 16 columns into the box's 64
-      wgmma_ss(s, sw128_desc(qa + (kk / 4) * L::ROWS * ROW_BYTES + off, 16, 1024),
-               sw128_desc(kb + (kk / 4) * BOX_BYTES + off, 16, 1024), kk > 0);
+      aria::wgmma_ss<0, 0>(s, aria::sw128_desc(qa + (kk / 4) * L::ROWS * ROW_BYTES + off, 16, 1024),
+                           aria::sw128_desc(kb + (kk / 4) * BOX_BYTES + off, 16, 1024), kk > 0);
     }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(s);
+    aria::wgmma_commit();
+    aria::wgmma_wait<0>();
+    aria::fence_regs(s);
 
     const int key0 = j * KT;
     const bool edge = key0 + KT - 1 > row0 || key0 + KT > S;  // the diagonal or the end
@@ -286,14 +213,15 @@ flash_causal_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_const
     mb = mnb;
 
     aria::mbar_wait(bar_v(st), ph);
-    fence_regs(o);
-    wgmma_fence();
+    aria::fence_regs(o);
+    aria::wgmma_fence();
 #pragma unroll
     for (int t = 0; t < KT / 16; ++t)  // 16 keys a step; the second 64 columns at LBO
-      wgmma_rs(o, pa + 4 * t, sw128_desc(vb + t * 16 * ROW_BYTES, BOX_BYTES, 1024));
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(o);
+      aria::wgmma_rs<1>(o, pa + 4 * t,
+                        aria::sw128_desc(vb + t * 16 * ROW_BYTES, BOX_BYTES, 1024));
+    aria::wgmma_commit();
+    aria::wgmma_wait<0>();
+    aria::fence_regs(o);
     if (lane == 0) aria::mbar_arrive(bar_e(st));
   }
 
@@ -322,39 +250,13 @@ flash_causal_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_const
 }
 
 // ---- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // [B, S, H, 128] bf16 as the rank-4 map (d, h, s, b), boxes of 64 x 1 x rows x 1
 bool make_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return aria::make_map(map, t, 4, dims, strides, box);
 }
 
 template <int NWG>

@@ -67,10 +67,14 @@ SIGNATURES = {
     "aria_moe_decode_int8": [_P] * 11 + [_I] * 6 + [_P],
     # x, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, part, out, T, D, I, E, U, layer, stream
     "aria_moe_decode_q4": [_P] * 11 + [_I] * 6 + [_P],
-    # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, lhs_f32, stream
-    "aria_gmm": [_P] * 4 + [_I] * 6 + [_P],
-    # lhs, grad, group_sizes, out, M, K, N, E, stream
-    "aria_tgmm": [_P] * 4 + [_I] * 4 + [_P],
+    # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, stream
+    "aria_gmm": [_P] * 4 + [_I] * 5 + [_P],
+    # x, hi, lo, flags, M, N, stream
+    "aria_split_hi_lo": [_P] * 4 + [_I] * 2 + [_P],
+    # hi, lo, flags, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, stream
+    "aria_gmm_dlhs": [_P] * 6 + [_I] * 5 + [_P],
+    # lhs, hi, lo, flags, group_sizes, out, M, K, N, E, stream
+    "aria_tgmm": [_P] * 6 + [_I] * 4 + [_P],
     # q, s, out, eb, R, D, group, mode, out_f32, stream
     "aria_expert_dequant": [_P] * 3 + [_I] * 6 + [_P],
 }

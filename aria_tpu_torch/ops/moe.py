@@ -16,8 +16,11 @@ differentiates them as megablox's custom VJP does (megablox/ops.py:63-106):
 the lhs gradient is ``gmm`` of the cotangent with the rhs, transpose_rhs
 flipped, in the lhs dtype (``gmm_dlhs``), and the rhs gradient is ``tgmm``
 of the lhs and the cotangent, in the rhs dtype (transposed back for w1).
-Kernels: ``csrc/gmm.cu`` (``aria_gmm`` forward and lhs gradient,
-``aria_tgmm``); its notes give the tiling and the f32 split.
+On the card the f32 cotangent is split once a backward into bf16 hi and lo
+planes with a flag per 128-row tile where lo is not zero (``split_hi_lo``),
+and both gradients take the split. Kernels: ``csrc/gmm.cu`` (``aria_gmm``
+forward, ``aria_split_hi_lo``, ``aria_gmm_dlhs``, ``aria_tgmm``); its notes
+give the tiling and the split.
 """
 
 from __future__ import annotations
@@ -187,18 +190,45 @@ def tgmm_plain(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _gmm_launch(lhs, rhs, group_sizes, out, transpose_rhs: bool, lhs_f32: bool) -> None:
-    M, K = lhs.shape
-    E, N = rhs.shape[0], out.shape[1]
-    if M % GMM_ROWS or K % 32 or N % 128:
-        raise ValueError(f"gmm: unsupported M={M}, K={K}, N={N}")
-    backend.require(lhs, "lhs", torch.float32 if lhs_f32 else torch.bfloat16, (M, K))
-    backend.require(rhs, "rhs", torch.bfloat16, (E, N, K) if transpose_rhs else (E, K, N))
-    backend.require(group_sizes, "group_sizes", torch.int32, (E,))
+SPLIT_ROWS = 128  # rows per flag of split_hi_lo: gmm_dlhs's row tile, two tgmm chunks
+
+
+def split_hi_lo_plain(x: torch.Tensor):
+    """f32 x [M, N] as bf16 hi = bf16(x) and lo = bf16(x - hi), and int32
+    flags [ceil(M / 128)], 1 where a 128-row tile has a non-zero lo.
+    hi + lo is x exactly for values of at most 16 significant bits."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    M = x.shape[0]
+    nz = (lo != 0).any(dim=1)
+    nz = F.pad(nz, (0, -M % SPLIT_ROWS)).reshape(-1, SPLIT_ROWS)
+    return hi, lo, nz.any(dim=1).to(torch.int32)
+
+
+def split_hi_lo(x: torch.Tensor):
+    """The cotangent split that gmm_dlhs and tgmm take on the card (one
+    launch): (hi, lo, flags), as ``split_hi_lo_plain``."""
+    if not backend.on_cuda(x):
+        return split_hi_lo_plain(x)
+    M, N = x.shape
+    backend.require(x, "x", torch.float32, (M, N))
+    if N % 4:
+        raise ValueError(f"split_hi_lo: unsupported N={N}")
+    hi = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    lo = torch.empty_like(hi)
+    flags = torch.empty((-(-M // SPLIT_ROWS),), dtype=torch.int32, device=x.device)
     p = backend.ptr
-    err = library().aria_gmm(p(lhs), p(rhs), p(group_sizes), p(out), M, K, N, E,
-                             int(transpose_rhs), int(lhs_f32), backend.stream())
-    backend.check(err, "gmm")
+    err = library().aria_split_hi_lo(p(x), p(hi), p(lo), p(flags), M, N, backend.stream())
+    backend.check(err, "split_hi_lo")
+    split_hi_lo.launches += 1
+    return hi, lo, flags
+
+
+def _require_split(split, M: int, N: int) -> None:
+    hi, lo, flags = split
+    backend.require(hi, "hi", torch.bfloat16, (M, N))
+    backend.require(lo, "lo", torch.bfloat16, (M, N))
+    backend.require(flags, "flags", torch.int32, (-(-M // SPLIT_ROWS),))
 
 
 def gmm(
@@ -211,34 +241,59 @@ def gmm(
     [M, N] f32, as megablox's ``gmm`` with ``preferred_element_type=f32``."""
     if not backend.on_cuda(lhs, rhs, group_sizes):
         return gmm_plain(lhs, rhs, group_sizes, transpose_rhs)
+    M, K = lhs.shape
+    E = rhs.shape[0]
     N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
-    out = torch.empty((lhs.shape[0], N), dtype=torch.float32, device=lhs.device)
-    _gmm_launch(lhs, rhs, group_sizes, out, transpose_rhs, lhs_f32=False)
+    if M % GMM_ROWS or K % 32 or N % 128:
+        raise ValueError(f"gmm: unsupported M={M}, K={K}, N={N}")
+    backend.require(lhs, "lhs", torch.bfloat16, (M, K))
+    backend.require(rhs, "rhs", torch.bfloat16, (E, N, K) if transpose_rhs else (E, K, N))
+    backend.require(group_sizes, "group_sizes", torch.int32, (E,))
+    out = torch.empty((M, N), dtype=torch.float32, device=lhs.device)
+    p = backend.ptr
+    err = library().aria_gmm(p(lhs), p(rhs), p(group_sizes), p(out), M, K, N, E,
+                             int(transpose_rhs), backend.stream())
+    backend.check(err, "gmm")
     gmm.launches += 1
     return out
 
 
 def gmm_dlhs(grad: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
-             transpose_rhs: bool, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The lhs gradient of ``gmm``: grad [M, N] f32 . rhs (``transpose_rhs``
-    as the forward's flipped), in ``out_dtype``, summed in f32 (megablox
-    ops.py:80-88). On the card: grad f32, out bf16."""
+             transpose_rhs: bool, out_dtype=torch.bfloat16, split=None) -> torch.Tensor:
+    """The lhs gradient of ``gmm``: grad [M, K] f32 . rhs (``transpose_rhs``
+    as the forward's flipped), [M, N] in ``out_dtype``, summed in f32
+    (megablox ops.py:80-88). On the card: grad f32, out bf16, through
+    ``split_hi_lo(grad)``, or the ``split`` given (hi, lo, flags)."""
     if not backend.on_cuda(grad, rhs, group_sizes):
         return gmm_plain(grad, rhs, group_sizes, transpose_rhs).to(out_dtype)
     if out_dtype != torch.bfloat16:
         raise TypeError(f"gmm_dlhs: the kernel gives bf16, not {out_dtype}")
+    M, K = grad.shape
+    E = rhs.shape[0]
     N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
-    out = torch.empty((grad.shape[0], N), dtype=torch.bfloat16, device=grad.device)
-    _gmm_launch(grad, rhs, group_sizes, out, transpose_rhs, lhs_f32=True)
+    if M % GMM_ROWS or K % 32 or N % 128:
+        raise ValueError(f"gmm_dlhs: unsupported M={M}, K={K}, N={N}")
+    backend.require(grad, "grad", torch.float32, (M, K))
+    backend.require(rhs, "rhs", torch.bfloat16, (E, N, K) if transpose_rhs else (E, K, N))
+    backend.require(group_sizes, "group_sizes", torch.int32, (E,))
+    split = split_hi_lo(grad) if split is None else split
+    _require_split(split, M, K)
+    hi, lo, flags = split
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=grad.device)
+    p = backend.ptr
+    err = library().aria_gmm_dlhs(p(hi), p(lo), p(flags), p(rhs), p(group_sizes), p(out), M, K,
+                                  N, E, int(transpose_rhs), backend.stream())
+    backend.check(err, "gmm_dlhs")
     gmm_dlhs.launches += 1
     return out
 
 
 def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
-         out_dtype=torch.bfloat16) -> torch.Tensor:
+         out_dtype=torch.bfloat16, split=None) -> torch.Tensor:
     """The rhs gradient of ``gmm`` (megablox ``tgmm``, ops.py:89-97):
     out[g] = lhs[rows of g]^T . grad[rows of g], [E, K, N] in
-    ``out_dtype``. On the card: lhs bf16, grad f32, out bf16."""
+    ``out_dtype``. On the card: lhs bf16, grad f32, out bf16, through
+    ``split_hi_lo(grad)``, or the ``split`` given (hi, lo, flags)."""
     if not backend.on_cuda(lhs, grad, group_sizes):
         return tgmm_plain(lhs, grad, group_sizes, out_dtype)
     M, K = lhs.shape
@@ -250,16 +305,20 @@ def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
     backend.require(lhs, "lhs", torch.bfloat16, (M, K))
     backend.require(grad, "grad", torch.float32, (M, N))
     backend.require(group_sizes, "group_sizes", torch.int32, (E,))
+    split = split_hi_lo(grad) if split is None else split
+    _require_split(split, M, N)
+    hi, lo, flags = split
     out = torch.empty((E, K, N), dtype=torch.bfloat16, device=lhs.device)
     p = backend.ptr
-    err = library().aria_tgmm(p(lhs), p(grad), p(group_sizes), p(out), M, K, N, E,
-                              backend.stream())
+    err = library().aria_tgmm(p(lhs), p(hi), p(lo), p(flags), p(group_sizes), p(out), M, K, N,
+                              E, backend.stream())
     backend.check(err, "tgmm")
     tgmm.launches += 1
     return out
 
 
 gmm.launches = 0
+split_hi_lo.launches = 0
 gmm_dlhs.launches = 0
 tgmm.launches = 0
 
@@ -278,10 +337,13 @@ class _Gmm(torch.autograd.Function):
         lhs, rhs, group_sizes = ctx.saved_tensors
         grad = grad.contiguous()
         dlhs = drhs = None
+        # on the card both gradients take one split of the cotangent
+        split = split_hi_lo(grad) if backend.on_cuda(grad) and any(
+            ctx.needs_input_grad[:2]) else None
         if ctx.needs_input_grad[0]:
-            dlhs = gmm_dlhs(grad, rhs, group_sizes, not ctx.transpose_rhs, lhs.dtype)
+            dlhs = gmm_dlhs(grad, rhs, group_sizes, not ctx.transpose_rhs, lhs.dtype, split)
         if ctx.needs_input_grad[1]:
-            drhs = tgmm(lhs, grad, group_sizes, rhs.dtype)
+            drhs = tgmm(lhs, grad, group_sizes, rhs.dtype, split)
             if ctx.transpose_rhs:
                 drhs = drhs.transpose(1, 2)
         return dlhs, drhs, None, None

@@ -509,6 +509,95 @@ def test_gmm_dlhs_and_tgmm_match_plain(cuda, transpose_rhs):
         assert torch.equal(drhs[e], torch.zeros_like(drhs[e]))
 
 
+@pytest.mark.parametrize("transpose_rhs", [True, False])
+def test_gmm_backward_bf16_exact_cotangent_takes_one_product(cuda, transpose_rhs):
+    """Training's w1 cotangent, the f32 upcast of a bf16 gradient: the split
+    flags no tile, the kernels match the plain versions, and they give the
+    same bits as with every flag set (the lo products then add zeros)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    E, I, D, M = 66, 1664, 2560, 4096
+    K, N = (D, 2 * I) if transpose_rhs else (I, D)
+    rhs = _randn(g, E, N, K, scale=K**-0.5) if transpose_rhs else _randn(g, E, K, N, scale=K**-0.5)
+    sizes = _groups(g, M, E, empty=(0, 7, 40, 41))
+    lhs = _randn(g, M, K)
+    grad = _randn(g, M, N).float()
+    split = tmoe.split_hi_lo(grad)
+    assert int(split[2].sum()) == 0 and not split[1].any()
+    both = (split[0], split[1], torch.ones_like(split[2]))
+    dlhs = tmoe.gmm_dlhs(grad, rhs, sizes, not transpose_rhs, split=split)
+    drhs = tmoe.tgmm(lhs, grad, sizes, split=split)
+    assert torch.equal(dlhs, tmoe.gmm_dlhs(grad, rhs, sizes, not transpose_rhs, split=both))
+    assert torch.equal(drhs, tmoe.tgmm(lhs, grad, sizes, split=both))
+    ref = tmoe.gmm_plain(grad, rhs, sizes, not transpose_rhs)
+    torch.testing.assert_close(dlhs.float(), ref, rtol=1e-2, atol=1e-3 * ref.abs().max().item())
+    ref = tmoe.tgmm_plain(lhs, grad, sizes)
+    torch.testing.assert_close(drhs.float(), ref, rtol=1e-2, atol=1e-3 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("M,N", [(4096, 3328), (4000, 2560), (96, 256)])
+def test_split_hi_lo_kernel_matches_plain(cuda, M, N):
+    """The split kernel against its plain version, bit for bit, for a
+    16-bit cotangent with one 128-row tile bf16-exact, and a bf16-exact one."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = (_randn(g, M, N).float() * _randn(g, M, 1).float()).contiguous()
+    x[:128] = _randn(g, min(M, 128), N).float()
+    for grad in (x, _randn(g, M, N).float()):
+        launches = tmoe.split_hi_lo.launches
+        got = tmoe.split_hi_lo(grad)
+        torch.cuda.synchronize()
+        assert tmoe.split_hi_lo.launches == launches + 1
+        for a, b in zip(got, tmoe.split_hi_lo_plain(grad)):
+            assert torch.equal(a, b)
+    assert tmoe.split_hi_lo(x)[2][0].item() == 0
+
+
+@pytest.mark.parametrize("transpose_rhs", [True, False])
+def test_gmm_backward_cancellation_witness(cuda, transpose_rhs):
+    """gmm_dlhs: one row whose cotangent is 1 + 2^-12 and -1 at two
+    contraction columns whose rhs rows are equal; tgmm: a group of two rows
+    with equal lhs and cotangents (1 + 2^-12) v and -v. The exact results are
+    2^-12 times the shared values, held to 1e-2 of their own size (one bf16
+    rounding); with every flag cleared (the lo product skipped) they read
+    about 1."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    E, I, D, M, eps = 66, 1664, 2560, 4096, 2.0**-12
+    K, N = (D, 2 * I) if transpose_rhs else (I, D)
+    rhs = _randn(g, E, N, K, scale=K**-0.5) if transpose_rhs else _randn(g, E, K, N, scale=K**-0.5)
+    sizes = _groups(g, M, E, empty=(0, 7, 40, 41))
+    sizes[6] -= 2
+    sizes[7] = 2
+    start = torch.cumsum(sizes, 0) - sizes
+    r1, r3, c1, c2 = int(start[7]), int(start[8]), 3, 200
+    lhs = _randn(g, M, K)
+    lhs[r1 + 1] = lhs[r1]
+    grad = (_randn(g, M, N).float() * _randn(g, M, 1).float()).contiguous()
+    v = grad[r1].bfloat16().float()
+    grad[r1], grad[r1 + 1] = v * (1 + eps), -v
+    grad[r3] = 0
+    grad[r3, c1], grad[r3, c2] = 1 + eps, -1.0
+    if transpose_rhs:  # gmm_dlhs reads rhs [E, 2I, D] with contraction rows
+        rhs[8, c2] = rhs[8, c1]
+        b = rhs[8, c1]
+    else:  # [E, I, D] transposed: contraction columns
+        rhs[8, :, c2] = rhs[8, :, c1]
+        b = rhs[8, :, c1]
+    want_d = b.double() * eps
+    want_t = torch.outer(lhs[r1].double(), v.double()) * eps
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    split = tmoe.split_hi_lo(grad)
+    fault = (split[0], split[1], torch.zeros_like(split[2]))
+    for sp, ok in ((split, True), (fault, False)):
+        d = rel(tmoe.gmm_dlhs(grad, rhs, sizes, not transpose_rhs, split=sp)[r3], want_d)
+        t = rel(tmoe.tgmm(lhs, grad, sizes, split=sp)[7], want_t)
+        if ok:
+            assert d <= 1e-2 and t <= 1e-2, (d, t)
+        else:
+            assert d > 0.5 and t > 0.5, (d, t)
+
+
 def test_experts_ragged_backward_runs_the_kernels(cuda):
     """Autograd through experts_ragged on the card launches gmm, gmm_dlhs
     and tgmm, and its gradients agree with the plain versions' on the CPU."""
@@ -520,10 +609,12 @@ def test_experts_ragged_backward_runs_the_kernels(cuda):
     w1, w2 = _randn(g, E, 2 * I, D, scale=D**-0.5), _randn(g, E, I, D, scale=I**-0.5)
     cot = _randn(g, T, D)
     grads = []
+    splits = tmoe.split_hi_lo.launches
     for dev in (cuda, torch.device("cpu")):
         leaves = [t.to(dev).clone().requires_grad_() for t in (x, w, w1, w2)]
         out = tmoe.experts_ragged(leaves[0], ids.to(dev), leaves[1], leaves[2], leaves[3])
         grads.append([t.float().cpu() for t in torch.autograd.grad(out, leaves, cot.to(dev))])
+    assert tmoe.split_hi_lo.launches == splits + 2  # one split for each product's backward
     for name, a, b in zip(("x", "weights", "w1", "w2"), *grads):
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * b.abs().max().item(), msg=name)
 
