@@ -91,7 +91,7 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
 }
 
 // ---- warp-level tensor-core products (moe_prefill.cu, vit_flash.cu,
-// moe_decode_fp.cu, gmm.cu): bf16
+// moe_decode_fp.cu, moe_decode_q4.cu, flash_seg.cu): bf16
 // operands, f32 sums, operand tiles staged in shared memory with cp.async.
 
 // c[0..3] += a (16x16, row) . b (16x8, col): the fragments of PTX's m16n8k16
@@ -140,8 +140,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- mbarriers (flash.cu, decode_attention.cu): completion of TMA and bulk
-// copies into shared memory
+// ---- mbarriers (flash.cu, flash_bwd.cu, gmm.cu, decode_attention.cu):
+// completion of TMA and bulk copies into shared memory
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }

@@ -250,22 +250,13 @@ flash_causal_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_const
 }
 
 // ---- host side
-// [B, S, H, 128] bf16 as the rank-4 map (d, h, s, b), boxes of 64 x 1 x rows x 1
-bool make_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return aria::make_map(map, t, 4, dims, strides, box);
-}
-
 template <int NWG>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
            int H, float scale, cudaStream_t stream) {
   using L = Layout<NWG>;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, S, H, L::ROWS) || !make_map(&km, k, B, S, H, KT) ||
-      !make_map(&vm, v, B, S, H, KT))
+  if (!aria::bshd_map(&qm, q, B, S, H, L::ROWS) || !aria::bshd_map(&km, k, B, S, H, KT) ||
+      !aria::bshd_map(&vm, v, B, S, H, KT))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = aria::allow_smem(flash_causal_kernel<NWG>, L::BYTES);
   if (err != cudaSuccess) return (int)err;

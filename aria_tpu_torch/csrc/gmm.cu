@@ -12,19 +12,27 @@
 // whose rows the groups cover. The forward takes a bf16 lhs and gives an
 // f32 out.
 //
-// The work is the groups' 128-row tiles in order, at most M/128 + E - 1 of
-// them: a tile that straddles a group boundary is computed once for each
-// group it touches and stores only that group's rows, as megablox visits
-// it; an empty group has no tile. Each block finds its own (group, tile) by
-// walking group_sizes, so the grid is sized from M alone and nothing waits
-// on the host; blocks past the last tile exit at once.
+// The work is row tiles of 128 rows, at most M/128 + E - 1 of them; an
+// empty group has none. Each block finds its own (group, tile) by a
+// warp-parallel scan of group_sizes, so the grid is sized from M and E
+// alone and nothing waits on the host; blocks past the last tile exit at
+// once. The forward's tiles start at each group's first row: a group of n
+// rows is ceil(n / 128) tiles, whose rows past the group are loaded (TMA
+// boxes start at any row) and not stored, so each tile reads its expert's
+// weights for rows of that expert only. The backward's tiles are the
+// tensor's aligned 128-row tiles that a group touches, as megablox visits
+// them (a tile that straddles a group boundary is computed once for each
+// group and stores only that group's rows), because the split's flags are
+// per aligned tile.
 //
-// The forward (gmm_kernel): a block computes 128 rows x 128 columns with 8
-// warps (2 x 4, 64 x 32 each) on mma.sync m16n8k16, bf16 operands and f32
-// sums, the K loop in steps of 32 through a 3-stage cp.async pipeline;
-// fragments come from shared memory by ldmatrix (with .trans for the
-// N-contiguous rhs). A row's sums run over K in the same order whatever M
-// and the groups are, so a row gets the same bits at every row count.
+// The forward (gmm_fwd_kernel) is gmm_dlhs's kernel below with the lhs as
+// its one plane: 128 x 256 tiles, a producer warpgroup whose one thread
+// starts TMA loads into a 4-stage ring of 48 KB stages, two consumer
+// warpgroups on wgmma m64n256k16, and an f32 epilogue that stores this
+// group's rows as float2 pairs. A row's sums run over K in the same order
+// (64 columns a stage, 16 a product) at every row count and at every
+// position in its tile, so a row gets the same bits whatever M and the
+// groups are.
 //
 // The backward. Both gradients take the f32 cotangent [M, N]: with an f32
 // operand megablox computes in f32 (megablox/common.py:54-65). The split
@@ -77,174 +85,20 @@
 // issued.
 //
 // Bound: at 512 prompt tokens x 8 slots (M = 4,096) the w1 product reads
-// the 66 experts' 1.12 GB once and does 70 GFLOP: bytes, 0.34 ms. In
-// training at M = 98,304 every product is bound by operations (2 M N K at
-// 989 TFLOP/s: 1.694 ms for w1, 0.847 for w2, twice that with the lo
-// products); the split by bytes (one f32 read and two bf16 writes of the
-// cotangent: 0.78 ms for w1's).
+// the 66 experts' 1.12 GB once and does 70 GFLOP: bytes, 0.34 ms (with
+// tiles aligned to the tensor, a group of ~60 rows that straddles two tiles
+// would read its expert twice). In training at M = 98,304 every product is
+// bound by operations (2 M N K at 989 TFLOP/s: 1.694 ms for w1, 0.847 for
+// w2, twice that with the lo products); the split by bytes (one f32 read
+// and two bf16 writes of the cotangent: 0.78 ms for w1's).
 
 #include "hopper.cuh"
 
 namespace {
 
-using aria::cp_async16;
-using aria::cp_async_commit;
-using aria::cp_async_wait;
-using aria::ldmatrix_x4;
-using aria::ldmatrix_x4_trans;
-using aria::mma_bf16;
 using aria::pack_bf16;
 
-constexpr int TM = 128;       // rows per tile
-constexpr int TN = 128;       // columns per block
-constexpr int BK = 32;        // contraction depth per pipeline stage
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;  // 8 warps: 2 along rows x 4 along columns
-constexpr int AS = BK + 8;    // bf16 per staged lhs row (and per rhs row, K contiguous)
-constexpr int BSN = TN + 8;   // bf16 per staged rhs row, N contiguous
-constexpr int A_ELEMS = TM * AS;
-constexpr int B_ELEMS = TN * AS > BK * BSN ? TN * AS : BK * BSN;
-constexpr int STAGE = A_ELEMS + B_ELEMS;  // bf16 elements per pipeline stage
-
-// the w-th of the groups' 128-row tiles: its group e, tile and the group's
-// rows [gstart, gend); false past the last tile (block-uniform)
-__device__ __forceinline__ bool group_tile(const int* __restrict__ group_sizes, int E, int M,
-                                           int w, int& e, int& tile, int& gstart, int& gend) {
-  e = -1;
-  for (int gi = 0, start = 0, seen = 0; gi < E; ++gi) {
-    const int sz = group_sizes[gi];
-    if (sz > 0) {
-      const int first = start / TM, n = (start + sz - 1) / TM - first + 1;
-      if (w < seen + n) {
-        e = gi, tile = first + (w - seen), gstart = start, gend = min(start + sz, M);
-        break;
-      }
-      seen += n;
-    }
-    start += sz;
-  }
-  return e >= 0 && tile * TM < M;
-}
-
-template <bool KMAJOR>
-__global__ void __launch_bounds__(THREADS)
-gmm_kernel(const __nv_bfloat16* __restrict__ lhs, const __nv_bfloat16* __restrict__ rhs,
-           const int* __restrict__ group_sizes, float* __restrict__ out, int M, int K, int N,
-           int E) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  int e, tile, gstart, gend;
-  if (!group_tile(group_sizes, E, M, blockIdx.y, e, tile, gstart, gend)) return;
-  const int row0 = tile * TM, n0 = blockIdx.x * TN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
-  const __nv_bfloat16* rhs_e = rhs + (size_t)e * N * K;
-
-  auto load = [&](int c, int s) {
-    const int k0 = c * BK;
-    __nv_bfloat16* as = smem + s * STAGE;
-    __nv_bfloat16* bs = as + A_ELEMS;
-    for (int i = threadIdx.x; i < TM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), q = i % (BK / 8);
-      cp_async16(as + r * AS + q * 8, lhs + (size_t)(row0 + r) * K + k0 + q * 8);
-    }
-    if constexpr (KMAJOR) {  // TN rows of rhs, BK of K each
-      for (int i = threadIdx.x; i < TN * (BK / 8); i += THREADS) {
-        const int r = i / (BK / 8), q = i % (BK / 8);
-        cp_async16(bs + r * AS + q * 8, rhs_e + (size_t)(n0 + r) * K + k0 + q * 8);
-      }
-    } else {  // BK rows of rhs, TN of N each
-      for (int i = threadIdx.x; i < BK * (TN / 8); i += THREADS) {
-        const int r = i / (TN / 8), q = i % (TN / 8);
-        cp_async16(bs + r * BSN + q * 8, rhs_e + (size_t)(k0 + r) * N + n0 + q * 8);
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
-
-  const int nk = K / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nk; ++c) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // chunk c is in; chunk c - 1's stage is free to refill
-    if (c + STAGES - 1 < nk) load(c + STAGES - 1, (c + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const __nv_bfloat16* as = smem + (c % STAGES) * STAGE;
-    const __nv_bfloat16* bs = as + A_ELEMS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      // A: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15)
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(a[mi], as + r * AS + ks * 16 + (lane >> 4) * 8);
-      }
-      // B: per pair of n-tiles, matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
-      // (n 8-15, k 0-7), (n 8-15, k 8-15)
-      uint32_t b[4][2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        uint32_t r[4];
-        if constexpr (KMAJOR) {
-          const int n = wn * 32 + p * 16 + (lane >> 4) * 8 + (lane & 7);
-          ldmatrix_x4(r, bs + n * AS + ks * 16 + ((lane >> 3) & 1) * 8);
-        } else {
-          const int k = ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-          ldmatrix_x4_trans(r, bs + k * BSN + wn * 32 + p * 16 + (lane >> 4) * 8);
-        }
-        b[2 * p][0] = r[0], b[2 * p][1] = r[1];
-        b[2 * p + 1][0] = r[2], b[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a[mi], b[nj][0], b[nj][1]);
-    }
-  }
-
-  // store this group's rows only
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row0 + wm * 64 + mi * 16 + g + 8 * hr;
-      if (row < gstart || row >= gend) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = n0 + wn * 32 + nj * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
-            make_float2(acc[mi][nj][2 * hr], acc[mi][nj][2 * hr + 1]);
-      }
-    }
-  }
-}
-
-template <bool KMAJOR>
-int launch(const void* lhs, const void* rhs, const void* group_sizes, void* out, int M, int K,
-           int N, int E, cudaStream_t st) {
-  const size_t smem = (size_t)STAGES * STAGE * sizeof(__nv_bfloat16);
-  cudaError_t err = aria::allow_smem(gmm_kernel<KMAJOR>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(N / TN, M / TM + E - 1);
-  gmm_kernel<KMAJOR><<<grid, THREADS, smem, st>>>(
-      (const __nv_bfloat16*)lhs, (const __nv_bfloat16*)rhs, (const int*)group_sizes,
-      (float*)out, M, K, N, E);
-  return cudaGetLastError();
-}
+constexpr int TM = 128;  // rows per tile
 
 // ---- the split: f32 x [M, N] -> bf16 hi, lo [M, N], flags [ceil(M / 128)]
 constexpr int SPLIT_THREADS = 256;
@@ -293,29 +147,41 @@ __device__ __forceinline__ float (&half(float (&d)[128], int h))[64] {
   return *reinterpret_cast<float(*)[64]>(d + 64 * h);
 }
 
+// two neighbouring outputs as a bf16 pair or an f32 pair
+__device__ __forceinline__ void put2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<uint32_t*>(o) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void put2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+
 // a consumer's 64 x 128 accumulator (wgmma's fragment: this thread's rows
-// ra and ra + 8, columns 8j + 2(lane % 4) and the next) into bf16 rows of
-// `out` (row stride ld), the rows in [lo_row, hi_row) only
-__device__ __forceinline__ void store_rows(const float (&d)[64], __nv_bfloat16* out, size_t ld,
-                                           int row0, int col0, int lo_row, int hi_row) {
+// ra and ra + 8, columns 8j + 2(lane % 4) and the next) into rows of `out`
+// (row stride ld), the rows in [lo_row, hi_row) only
+template <typename T>
+__device__ __forceinline__ void store_rows(const float (&d)[64], T* out, size_t ld, int row0,
+                                           int col0, int lo_row, int hi_row) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int ra = row0 + warp * 16 + lane / 4, c2 = 2 * (lane % 4);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = ra + 8 * hr;
     if (row < lo_row || row >= hi_row) continue;
-    __nv_bfloat16* o = out + (size_t)row * ld + col0 + c2;
+    T* o = out + (size_t)row * ld + col0 + c2;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j) = pack_bf16(d[4 * j + 2 * hr], d[4 * j + 2 * hr + 1]);
+    for (int j = 0; j < 16; ++j) put2(o + 8 * j, d[4 * j + 2 * hr], d[4 * j + 2 * hr + 1]);
   }
 }
 
-// group_tile by a warp-parallel scan of 32 groups at a time: each warp of
-// the block finds the same answer in a few loads' time, where the forward's
-// walk takes one dependent step a group
+// the w-th row tile of the groups' rows: its group e, first row row0 and
+// the group's rows [gstart, gend); false past the last tile (block-uniform).
+// ALIGNED: the tensor's 128-row tiles that each group touches, else
+// ceil(n / 128) tiles from each group's first row. A warp-parallel scan of
+// 32 groups at a time: each warp of the block finds the same answer in a
+// few loads' time.
+template <bool ALIGNED>
 __device__ __forceinline__ bool group_tile_scan(const int* __restrict__ group_sizes, int E, int M,
-                                                int w, int& e, int& tile, int& gstart,
+                                                int w, int& e, int& row0, int& gstart,
                                                 int& gend) {
   const int lane = threadIdx.x % 32;
   int rows = 0, tiles = 0;  // before this chunk of groups
@@ -328,7 +194,9 @@ __device__ __forceinline__ bool group_tile_scan(const int* __restrict__ group_si
       if (lane >= o) incl += v;
     }
     const int start = rows + incl - sz;
-    const int n = sz > 0 ? (start + sz - 1) / TM - start / TM + 1 : 0;
+    const int n = sz <= 0  ? 0
+                  : ALIGNED ? (start + sz - 1) / TM - start / TM + 1
+                            : (sz + TM - 1) / TM;
     int nincl = n;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -342,8 +210,9 @@ __device__ __forceinline__ bool group_tile_scan(const int* __restrict__ group_si
       e = base + src;
       gstart = __shfl_sync(aria::FULL_MASK, start, src);
       gend = min(gstart + __shfl_sync(aria::FULL_MASK, sz, src), M);
-      tile = gstart / TM + (w - __shfl_sync(aria::FULL_MASK, seen, src));
-      return tile * TM < M;
+      const int i = w - __shfl_sync(aria::FULL_MASK, seen, src);
+      row0 = ALIGNED ? (gstart / TM + i) * TM : gstart + i * TM;
+      return row0 < M;
     }
     rows += __shfl_sync(aria::FULL_MASK, incl, 31);
     tiles += __shfl_sync(aria::FULL_MASK, nincl, 31);
@@ -351,7 +220,7 @@ __device__ __forceinline__ bool group_tile_scan(const int* __restrict__ group_si
   return false;
 }
 
-// ---- gmm_dlhs on wgmma
+// ---- the forward and gmm_dlhs on wgmma
 namespace dl {
 constexpr int BM = 128, BN = 256, BKW = 64;
 constexpr int A_BYTES = BM * ROW_BYTES;  // one plane's 128 x 64 tile: 16 KB
@@ -379,10 +248,11 @@ __device__ __forceinline__ void init_ring(uint32_t bars) {
   }
 }
 
-// gmm_dlhs's producer thread: every load of the block. TWO brings the lo
-// plane, HALF1 the rhs of the tile's second 128 columns.
+// the producer thread of the forward and gmm_dlhs: every load of the block.
+// TWO brings gmm_dlhs's lo plane, HALF1 the rhs of the tile's second 128
+// columns.
 template <bool MN_RHS, bool TWO, bool HALF1>
-__device__ __forceinline__ void dlhs_produce(const CUtensorMap* hi_map, const CUtensorMap* lo_map,
+__device__ __forceinline__ void ring_produce(const CUtensorMap* hi_map, const CUtensorMap* lo_map,
                                              const CUtensorMap* rhs_map, uint32_t base, int e,
                                              int row0, int n0, int nk) {
   using namespace dl;
@@ -407,13 +277,13 @@ __device__ __forceinline__ void dlhs_produce(const CUtensorMap* hi_map, const CU
   }
 }
 
-// a gmm_dlhs consumer warpgroup: rows cw * 64 .. + 64 of the tile, all 256
-// columns. Each stage's products are one straight run between a fence and a
+// a consumer warpgroup of the forward or gmm_dlhs: rows cw * 64 .. + 64 of
+// the tile, all 256 columns. Each stage's products are one straight run between a fence and a
 // commit (a branch between two products makes ptxas fence, and so
 // serialise, every one of them), and one group stays in flight: stage c - 1
 // goes back to the producer once stage c's products are issued.
 template <bool MN_RHS, bool TWO, bool HALF1>
-__device__ __forceinline__ void dlhs_consume(float (&acc)[128], uint32_t base, int cw, int nk) {
+__device__ __forceinline__ void ring_consume(float (&acc)[128], uint32_t base, int cw, int nk) {
   using namespace dl;
   using R = Ring<TWO>;
   const int lane = threadIdx.x % 32;
@@ -445,6 +315,46 @@ __device__ __forceinline__ void dlhs_consume(float (&acc)[128], uint32_t base, i
   aria::fence_regs(acc);
 }
 
+// the forward: lhs [M, K] as the one plane, out f32; MN_RHS: rhs [E, K, N]
+// (B MN-major, w2), else [E, N, K] (w1, transpose_rhs)
+template <bool MN_RHS>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gmm_fwd_kernel(const __grid_constant__ CUtensorMap lhs_map,
+               const __grid_constant__ CUtensorMap rhs_map, const int* __restrict__ group_sizes,
+               float* __restrict__ out, int M, int K, int N, int E) {
+  using namespace dl;
+  using R = Ring<false>;
+  int e, row0, gstart, gend;
+  if (!group_tile_scan<false>(group_sizes, E, M, blockIdx.y, e, row0, gstart, gend)) return;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (aria::smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle's alignment
+  const int n0 = blockIdx.x * BN;
+  const bool half1 = n0 + 128 < N;  // the tile's second 128 columns exist
+  const int nk = (K + BKW - 1) / BKW;
+  init_ring<R::STAGES>(base + R::BAR_OFF);
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread starts every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {  // the one plane: no lo map
+      const CUtensorMap *lm = &lhs_map, *rm = &rhs_map;
+      if (half1) ring_produce<MN_RHS, false, true>(lm, lm, rm, base, e, row0, n0, nk);
+      else ring_produce<MN_RHS, false, false>(lm, lm, rm, base, e, row0, n0, nk);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1;
+  float acc[128];
+  zero_acc(acc);
+  if (half1) ring_consume<MN_RHS, false, true>(acc, base, cw, nk);
+  else ring_consume<MN_RHS, false, false>(acc, base, cw, nk);
+  const int r0 = row0 + cw * 64;
+  store_rows(half(acc, 0), out, N, r0, n0, gstart, gend);
+  if (half1) store_rows(half(acc, 1), out, N, r0, n0 + 128, gstart, gend);
+}
+
 // MN_RHS: rhs [E, K, N] (B MN-major, w1's backward); else [E, N, K]
 template <bool MN_RHS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -454,12 +364,12 @@ gmm_dlhs_kernel(const __grid_constant__ CUtensorMap hi_map,
                 const int* __restrict__ flags, __nv_bfloat16* __restrict__ out, int M, int K,
                 int N, int E) {
   using namespace dl;
-  int e, tile, gstart, gend;
-  if (!group_tile_scan(group_sizes, E, M, blockIdx.y, e, tile, gstart, gend)) return;
+  int e, row0, gstart, gend;
+  if (!group_tile_scan<true>(group_sizes, E, M, blockIdx.y, e, row0, gstart, gend)) return;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (aria::smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle's alignment
-  const int row0 = tile * BM, n0 = blockIdx.x * BN;
-  const bool two = flags[tile] != 0;  // the lo product: block-uniform
+  const int n0 = blockIdx.x * BN;
+  const bool two = flags[row0 / TM] != 0;  // the lo product: block-uniform
   const bool half1 = n0 + 128 < N;    // the tile's second 128 columns exist
   const int nk = (K + BKW - 1) / BKW;
   if (two) init_ring<Ring<true>::STAGES>(base + Ring<true>::BAR_OFF);
@@ -471,11 +381,11 @@ gmm_dlhs_kernel(const __grid_constant__ CUtensorMap hi_map,
     if (threadIdx.x == 0) {
       const CUtensorMap *hm = &hi_map, *lm = &lo_map, *rm = &rhs_map;
       if (two) {
-        if (half1) dlhs_produce<MN_RHS, true, true>(hm, lm, rm, base, e, row0, n0, nk);
-        else dlhs_produce<MN_RHS, true, false>(hm, lm, rm, base, e, row0, n0, nk);
+        if (half1) ring_produce<MN_RHS, true, true>(hm, lm, rm, base, e, row0, n0, nk);
+        else ring_produce<MN_RHS, true, false>(hm, lm, rm, base, e, row0, n0, nk);
       } else {
-        if (half1) dlhs_produce<MN_RHS, false, true>(hm, lm, rm, base, e, row0, n0, nk);
-        else dlhs_produce<MN_RHS, false, false>(hm, lm, rm, base, e, row0, n0, nk);
+        if (half1) ring_produce<MN_RHS, false, true>(hm, lm, rm, base, e, row0, n0, nk);
+        else ring_produce<MN_RHS, false, false>(hm, lm, rm, base, e, row0, n0, nk);
       }
     }
     return;
@@ -486,11 +396,11 @@ gmm_dlhs_kernel(const __grid_constant__ CUtensorMap hi_map,
   float acc[128];
   zero_acc(acc);
   if (two) {
-    if (half1) dlhs_consume<MN_RHS, true, true>(acc, base, cw, nk);
-    else dlhs_consume<MN_RHS, true, false>(acc, base, cw, nk);
+    if (half1) ring_consume<MN_RHS, true, true>(acc, base, cw, nk);
+    else ring_consume<MN_RHS, true, false>(acc, base, cw, nk);
   } else {
-    if (half1) dlhs_consume<MN_RHS, false, true>(acc, base, cw, nk);
-    else dlhs_consume<MN_RHS, false, false>(acc, base, cw, nk);
+    if (half1) ring_consume<MN_RHS, false, true>(acc, base, cw, nk);
+    else ring_consume<MN_RHS, false, false>(acc, base, cw, nk);
   }
   const int r0 = row0 + cw * 64;
   store_rows(half(acc, 0), out, N, r0, n0, gstart, gend);
@@ -675,10 +585,26 @@ bool map3d(CUtensorMap* map, const void* t, int E, int rows, int cols, int box_r
 // [E, N, K] (megablox transpose_rhs=True); 0: [E, K, N]
 ARIA_EXPORT int aria_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out,
                          int M, int K, int N, int E, int rhs_kmajor, void* stream) {
-  if (M % TM || K % BK || N % TN || E < 1) return (int)cudaErrorInvalidValue;
+  if (M % TM || K % 32 || N % 128 || E < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap lm, rm;
+  const bool ok = map2d(&lm, lhs, M, K, dl::BM) &&
+                  (rhs_kmajor ? map3d(&rm, rhs, E, N, K, dl::BN) : map3d(&rm, rhs, E, K, N, 64));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + dl::BN - 1) / dl::BN, M / TM + E - 1);
   cudaStream_t st = (cudaStream_t)stream;
-  return rhs_kmajor ? launch<true>(lhs, rhs, group_sizes, out, M, K, N, E, st)
-                    : launch<false>(lhs, rhs, group_sizes, out, M, K, N, E, st);
+  cudaError_t err;
+  if (rhs_kmajor) {
+    err = aria::allow_smem(gmm_fwd_kernel<false>, dl::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    gmm_fwd_kernel<false><<<grid, WG_THREADS, dl::SMEM, st>>>(lm, rm, (const int*)group_sizes,
+                                                             (float*)out, M, K, N, E);
+  } else {
+    err = aria::allow_smem(gmm_fwd_kernel<true>, dl::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    gmm_fwd_kernel<true><<<grid, WG_THREADS, dl::SMEM, st>>>(lm, rm, (const int*)group_sizes,
+                                                            (float*)out, M, K, N, E);
+  }
+  return (int)cudaGetLastError();
 }
 
 // x f32 [M, N] -> hi, lo bf16 [M, N] and flags int32 [ceil(M / 128)]

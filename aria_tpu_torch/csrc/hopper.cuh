@@ -1,7 +1,8 @@
-// Hopper pieces shared by the wgmma kernels (flash.cu, gmm.cu): TMA loads
-// of tensor-map boxes, the 128-byte-swizzle shared-memory descriptor, the
-// wgmma fences and the m64n128k16 and m64n256k16 bf16 products (transpose
-// bits as template arguments), and the host-side tensor map.
+// Hopper pieces shared by the wgmma kernels (flash.cu, flash_bwd.cu,
+// gmm.cu): TMA loads of tensor-map boxes, the 128-byte-swizzle shared-memory
+// descriptor, the wgmma fences and the m64n64k16, m64n128k16 and m64n256k16
+// bf16 products (transpose bits as template arguments), and the host-side
+// tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -65,10 +66,15 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accesses of the registers across the
 // asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+
+#define ARIA_D32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
 #define ARIA_D64                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
@@ -78,8 +84,21 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #define ARIA_F8(i)                                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ARIA_F64 \
-  ARIA_F8(0), ARIA_F8(8), ARIA_F8(16), ARIA_F8(24), ARIA_F8(32), ARIA_F8(40), ARIA_F8(48), ARIA_F8(56)
+#define ARIA_F32 ARIA_F8(0), ARIA_F8(8), ARIA_F8(16), ARIA_F8(24)
+#define ARIA_F64 ARIA_F32, ARIA_F8(32), ARIA_F8(40), ARIA_F8(48), ARIA_F8(56)
+
+// d (+)= A B: 64 x 64 x 16, bf16 operands from shared memory, f32 sums;
+// TA / TB: 0 for a K-major operand, 1 for an MN-major one
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ARIA_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : ARIA_F32
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
 
 // d (+)= A B: 64 x 128 x 16, bf16 operands from shared memory, f32 sums;
 // TA / TB: 0 for a K-major operand, 1 for an MN-major one
@@ -130,16 +149,13 @@ __device__ __forceinline__ void wgmma_ss256(float (&d)[128], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-__device__ __forceinline__ void fence_regs(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 #undef ARIA_F128
 #undef ARIA_D128
 #undef ARIA_F64
+#undef ARIA_F32
 #undef ARIA_F8
 #undef ARIA_D64
+#undef ARIA_D32
 
 // ---- host side
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -177,6 +193,15 @@ __host__ inline bool make_map(CUtensorMap* map, const void* base, int rank,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// attention's [B, S, H, 128] bf16 as the rank-4 map (d, h, s, b), boxes of
+// 64 d x 1 x rows x 1
+__host__ inline bool bshd_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
+  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {256, (cuuint64_t)H * 256, (cuuint64_t)S * H * 256};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return make_map(map, t, 4, dims, strides, box);
 }
 
 }  // namespace aria

@@ -46,8 +46,8 @@ SIGNATURES = {
     "aria_kv_write": [_P] * 10 + [_I] * 8 + [_P],
     # q, k, v, out, lse, B, S, H, scale, sms, stream
     "aria_flash_causal": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-    # q, k, v, o, do, lse, di, dq, dk, dv, B, S, H, scale, stream
-    "aria_flash_causal_bwd": [_P] * 10 + [_I] * 3 + [_F, _P],
+    # q, k, v, o, do, lse, ws, dq_acc, counters, dq, dk, dv, B, S, H, scale, stream
+    "aria_flash_causal_bwd": [_P] * 12 + [_I] * 3 + [_F, _P],
     # x, xq, sx, T, D, ng, stream
     "aria_act_quant_int8": [_P, _P, _P, _I, _I, _I, _P],
     # xq, sx, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, hq, sh, hsum, part, out,

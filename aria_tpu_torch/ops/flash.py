@@ -14,9 +14,11 @@ TMA into a ring of shared memory, and the online softmax stays in f32 on
 the accumulators (any S works). In training it also writes each row's f32
 log-sum-exp, and
 ``csrc/flash_bwd.cu`` replaces the library's backward
-(flash_attention.py:254-300, the dkv and dq kernels) on tensor cores;
-their notes give the designs. Serving calls the forward without the
-statistics, as it did before training existed.
+(flash_attention.py:254-300, the dkv and dq kernels) with one wgmma + TMA
+pass over key tiles of 128 keys, which adds each key tile's part of dq
+into an f32 scratch in key-tile order (so dq's bits repeat); their notes
+give the designs. Serving calls the forward without the statistics, as it
+did before training existed.
 
 Off the card the plain version runs: masked sdpa, and its autograd
 gradient, as the JAX package runs ``flash_sdpa(causal=True)`` off the TPU
@@ -96,12 +98,17 @@ def flash_causal_bwd(q, k, v, out, dout, lse, scale: Optional[float] = None):
     for name, t in (("out", out), ("dout", dout)):
         backend.require(t, name, torch.bfloat16, (B, S, H, D))
     backend.require(lse, "lse", torch.float32, (B, H, S))
-    di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # scratch over S rounded up to the kernel's 64-query tiles: lse * log2(e)
+    # and di, dq's f32 sums, and a zeroed counter per query tile
+    nqt = -(-S // 64)
+    ws = torch.empty((2, B, H, nqt * 64), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, H, nqt * 64, D), dtype=torch.float32, device=q.device)
+    counters = torch.zeros((B, H, nqt), dtype=torch.int32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     p = backend.ptr
     err = library().aria_flash_causal_bwd(
-        p(q), p(k), p(v), p(out), p(dout), p(lse), p(di), p(dq), p(dk), p(dv), B, S, H,
-        ctypes.c_float(scale), backend.stream())
+        p(q), p(k), p(v), p(out), p(dout), p(lse), p(ws), p(dq_acc), p(counters), p(dq), p(dk),
+        p(dv), B, S, H, ctypes.c_float(scale), backend.stream())
     backend.check(err, "flash_causal_bwd")
     flash_causal_bwd.launches += 1
     return dq, dk, dv

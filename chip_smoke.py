@@ -717,10 +717,11 @@ def _ragged_sizes(gen, M: int, E: int, empty=(0, 7, 40, 41)):
     return sizes
 
 
-def _grouped_mm(lhs, rhs_kn, sizes, ref):
-    """torch._grouped_mm on the same rows and groups (rhs as [E, K, N],
-    output rounded to bf16), the library yardstick of gmm, or None where
-    the card's torch has no such call or it does not take these operands."""
+def _grouped_mm(lhs, rhs_kn, sizes, ref, out_dtype=None):
+    """torch._grouped_mm on the same rows and groups (rhs as [E, K, N]),
+    output in ``out_dtype`` (None: the operands' bf16), the library
+    yardstick of gmm, or None where the card's torch has no such call or it
+    does not take these operands."""
     import torch
 
     fn = getattr(torch, "_grouped_mm", None)
@@ -728,15 +729,31 @@ def _grouped_mm(lhs, rhs_kn, sizes, ref):
         print("  library: torch._grouped_mm is missing", flush=True)
         return None
     offs = torch.cumsum(sizes, 0).to(torch.int32)
-    try:  # its output is bf16, the operands' type
-        out = fn(lhs, rhs_kn, offs=offs)
+    kw = {} if out_dtype is None else {"out_dtype": out_dtype}
+    try:
+        out = fn(lhs, rhs_kn, offs=offs, **kw)
     except (RuntimeError, TypeError, ValueError) as exc:
-        print(f"  library: torch._grouped_mm refuses these operands ({exc})", flush=True)
+        args = "".join(f"{k}={v}" for k, v in kw.items())
+        print(f"  library: torch._grouped_mm({args}) refuses these operands ({exc})", flush=True)
         return None
     if _rel_err(out.float(), ref) > 1e-2:
         print("  library: torch._grouped_mm gives another result; not timed", flush=True)
         return None
-    return lambda: fn(lhs, rhs_kn, offs=offs)
+    return lambda: fn(lhs, rhs_kn, offs=offs, **kw)
+
+
+def _gmm_library(lhs, rhs_kn, sizes, ref, at: str):
+    """gmm's yardstick: torch._grouped_mm with an f32 output, as gmm gives,
+    where the card's torch takes it, else with its bf16 output; the
+    bf16-output call's device ms is printed beside."""
+    import torch
+
+    bf16 = _grouped_mm(lhs, rhs_kn, sizes, ref)
+    f32 = _grouped_mm(lhs, rhs_kn, sizes, ref, torch.float32)
+    if bf16 is not None:
+        print(f"  gmm {at}: torch._grouped_mm with bf16 out {_time_ms(bf16, 5)[0]:.4f} ms; the "
+              f"library time below has {'f32' if f32 else 'bf16'} out", flush=True)
+    return f32 or bf16
 
 
 def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
@@ -812,11 +829,14 @@ def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
             errs.append(_compare(f"gmm {label} M={M} ({used} of {E} groups)", got, ref, 1e-4,
                                  "exact bf16 products, f32 sums in another order"))
             bound = _bound(_nbytes(lhs, sizes) + used * N * K * 2 + M * N * 4, 2 * M * N * K)
-            library = _grouped_mm(lhs, rhs.transpose(1, 2) if trans else rhs, sizes, ref)
+            library = _gmm_library(lhs, rhs.transpose(1, 2) if trans else rhs, sizes, ref,
+                                   f"{label} M={M}")
             timed.append(_timed(f"{label} M={M}", lambda a=(lhs, rhs, sizes, trans): tmoe.gmm(*a),
                                 lambda a=(lhs, rhs, sizes, trans): tmoe.gmm_plain(*a),
                                 max(5, 81920 // M), 3, bound, library))
-    # row 0 alone in a 128-row call against among 4096 rows in 62 groups
+    # row 0 alone in a 128-row call against among 4096 rows in 62 groups;
+    # then a row of expert 1 at offset 77 of its group's first tile among
+    # 4096 rows, and at offset 30 in a 256-row call
     sizes = _ragged_sizes(gen, 4096, E)
     first = int(torch.nonzero(sizes)[0])
     alone = torch.zeros(E, dtype=torch.int32, device=device)
@@ -826,7 +846,17 @@ def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
                                                             True)
     if not torch.equal(many[0], one[0]):
         raise AssertionError("gmm: row 0 gets other bits at 4096 rows than at 128")
-    print("  gmm row 0: equal bits alone in a 128-row call and among 4096 rows", flush=True)
+    sizes_a = torch.cat([torch.tensor([50, 300], dtype=torch.int32, device=device),
+                         _ragged_sizes(gen, 4096 - 350, E - 2)])
+    sizes_b = torch.zeros(E, dtype=torch.int32, device=device)
+    sizes_b[:2] = torch.tensor([10, 246], dtype=torch.int32, device=device)
+    lhs_b = randn(256, D)
+    lhs_b[40] = lhs[127]
+    many, few = tmoe.gmm(lhs, w1[1], sizes_a, True), tmoe.gmm(lhs_b, w1[1], sizes_b, True)
+    if not torch.equal(many[127], few[40]):
+        raise AssertionError("gmm: a row gets other bits at offset 77 of its tile than at 30")
+    print("  gmm rows: equal bits alone in a 128-row call and among 4096 rows, and mid-tile at "
+          "offsets 77 and 30", flush=True)
     record("gmm", errs, timed)  # w1 at M = 4096 first
     del w1, w2
 
@@ -3260,7 +3290,8 @@ def check_train_kernels(device, gen, results, cfg=None, batch=8):
     its plain version, added to ``results`` (check_kernels' records): the
     causal flash forward with its row log-sum-exp and its backward at
     [1, 2048, 20, 128] (the LoRA recipe) and [``batch``, 2048, 20, 128]
-    (the full recipe), sdpa forward + backward as the yardstick; the ragged
+    (the full recipe), sdpa's backward alone as the yardstick (its forward +
+    backward printed beside); the ragged
     forward and backward at the full recipe's rows (2048 x ``batch``
     tokens x 6 slots, padded to 128, in the 64 routed experts, four groups
     empty and the others straddling tiles): gmm of the w1 and w2 layouts;
@@ -3298,6 +3329,8 @@ def check_train_kernels(device, gen, results, cfg=None, batch=8):
         _compare(f"flash_causal row log-sum-exp B={B} S={S}", lse, _causal_lse(q, k, scale), 1e-4,
                  "f32 scores of bf16 q and k, f32 exponent sums in another order")
         got = fl.flash_causal_bwd(q, k, v, out, do, lse)
+        if not all(map(torch.equal, got, fl.flash_causal_bwd(q, k, v, out, do, lse))):
+            raise AssertionError("flash_causal_bwd: a second call gives other bits")
         ref = fl.flash_causal_bwd_plain(q, k, v, do)
         berrs += [_compare(f"flash_causal_bwd d{n} B={B} S={S}", a, b, 2e-2,
                            "bf16 outputs; p and ds enter the kernel's products as bf16, the "
@@ -3307,17 +3340,29 @@ def check_train_kernels(device, gen, results, cfg=None, batch=8):
         pairs = B * S * (S + 1) // 2 * H  # (query, key) pairs under the causal mask
         qkv_t = [t.transpose(1, 2) for t in (q, k, v)]
 
-        def sdpa_bwd(qkv_t=qkv_t, do=do):
+        def sdpa_fwd_bwd(qkv_t=qkv_t, do=do):
             leaves = [t.detach().requires_grad_() for t in qkv_t]
             o = F.scaled_dot_product_attention(*leaves, is_causal=True)
             torch.autograd.grad(o, leaves, do.transpose(1, 2))
 
+        # sdpa's backward alone: its forward runs once, outside the timed call
+        leaves = [t.detach().requires_grad_() for t in qkv_t]
+        o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        do_t = do.transpose(1, 2)
+
+        def sdpa_bwd(o=o_sdpa, leaves=leaves, do_t=do_t):
+            torch.autograd.grad(o, leaves, do_t, retain_graph=True)
+
         # the backward's least work: s recomputed, dp, dv, dk, dq (5 products)
         btimed.append(_timed(
-            f"[{B}, {S}, {H}, {Dh}] (plain and library include their forward)",
+            f"[{B}, {S}, {H}, {Dh}] (the plain version includes its forward; library: sdpa's "
+            f"backward alone)",
             lambda a=(q, k, v, out, do, lse): fl.flash_causal_bwd(*a),
             lambda a=(q, k, v, do): fl.flash_causal_bwd_plain(*a), 10, 2,
             _bound(_nbytes(q, k, v, out, do, lse) + 3 * _nbytes(q), 5 * 2 * pairs * Dh), sdpa_bwd))
+        print(f"  flash_causal_bwd [{B}, {S}, {H}, {Dh}]: sdpa forward + backward "
+              f"{_time_ms(sdpa_fwd_bwd, 10)[0]:.4f} ms", flush=True)
+        del leaves, o_sdpa, do_t
         ftimed.append(_timed(
             f"forward with row statistics [{B}, {S}, {H}, {Dh}]",
             lambda a=(q, k, v, scale, lse): fl._forward(*a),
@@ -3345,7 +3390,8 @@ def check_train_kernels(device, gen, results, cfg=None, batch=8):
         gerrs.append(_compare(f"gmm {label} M={M} ({used} of {E} groups)", got, ref, 1e-4,
                               "exact bf16 products, f32 sums in another order"))
         bound = _bound(_nbytes(lhs, sizes) + used * N * K * 2 + M * N * 4, 2 * M * N * K)
-        lib = _grouped_mm(lhs, rhs.transpose(1, 2) if trans else rhs, sizes, ref)
+        lib = _gmm_library(lhs, rhs.transpose(1, 2) if trans else rhs, sizes, ref,
+                           f"{label} M={M}")
         gtimed.append(_timed(f"{label} M={M}", lambda a=fwd: tmoe.gmm(*a),
                              lambda a=fwd: tmoe.gmm_plain(*a), 5, 1, bound, lib))
         del got, ref
@@ -3526,14 +3572,14 @@ def _busy_share(prof, first="flash_causal") -> tuple[float, float]:
 
 
 # the profiler's name of each kernel the train phase launches once per
-# wrapper call (the flash backward's three kernels once each), for the
-# profile's completeness check
+# wrapper call (the flash backward's two kernels once each), for the
+# profile's completeness check; the gmm forward and gmm_dlhs have names of
+# their own
 TRAIN_KERNEL_EVENTS = {
     "flash_causal": (r"\bflash_causal_kernel\b",),
-    "flash_causal_bwd": (r"\bflash_bwd_di_kernel\b", r"\bflash_bwd_dkv_kernel\b",
-                         r"\bflash_bwd_dq_kernel\b"),
+    "flash_causal_bwd": (r"\bflash_bwd_di_kernel\b", r"\bflash_bwd_kernel\b"),
     "vit_flash": (r"\bvit_flash_kernel\b",),
-    "gmm": (r"\bgmm_kernel<",),
+    "gmm": (r"\bgmm_fwd_kernel<",),
     "split_hi_lo": (r"\bsplit_kernel\b",),
     "gmm_dlhs": (r"\bgmm_dlhs_kernel<",),
     "tgmm": (r"\btgmm_kernel\b",),

@@ -398,14 +398,14 @@ def _groups(g, M, E, empty):
 
 @pytest.mark.parametrize("transpose_rhs", [True, False])
 def test_gmm_kernel_matches_plain(cuda, transpose_rhs):
-    """The w1 layout [E, 2I, D] and the w2 layout [E, I, D] at 512 x 8 and
-    2048 x 8 rows, 66 groups with empty ones and tiles that straddle group
-    boundaries."""
+    """The w1 layout [E, 2I, D] and the w2 layout [E, I, D] at 512 x 8,
+    2048 x 8 and the full recipe's 2048 x 8 x 6 rows, 66 groups with empty
+    ones and groups that start and end inside 128-row tiles."""
     g = torch.Generator(device=cuda).manual_seed(0)
     E, I, D = 66, 1664, 2560
     K, N = (D, 2 * I) if transpose_rhs else (I, D)
     rhs = _randn(g, E, N, K, scale=K**-0.5) if transpose_rhs else _randn(g, E, K, N, scale=K**-0.5)
-    for M in (4096, 16384):
+    for M in (4096, 16384, 98304):
         sizes = _groups(g, M, E, empty=(0, 7, 40, 41))
         lhs = _randn(g, M, K)
         launches = tmoe.gmm.launches
@@ -418,7 +418,10 @@ def test_gmm_kernel_matches_plain(cuda, transpose_rhs):
 
 
 def test_gmm_row_gets_the_same_bits_at_every_row_count(cuda):
-    """Row 0 alone in a 128-row call and among 4096 rows in 66 groups."""
+    """Row 0 alone in a 128-row call and among 4096 rows in 66 groups; and a
+    row of group 1 at offset 77 of its group's first tile among 4096 rows
+    (group 0 holds 50) against the same row at offset 30 in a 256-row call
+    (group 0 holds 10), both layouts."""
     g = torch.Generator(device=cuda).manual_seed(1)
     E, K, N = 66, 2560, 3328
     rhs = _randn(g, E, N, K, scale=K**-0.5)
@@ -429,6 +432,33 @@ def test_gmm_row_gets_the_same_bits_at_every_row_count(cuda):
     big = tmoe.gmm(lhs, rhs, sizes, True)
     one = tmoe.gmm(lhs[:128].contiguous(), rhs, small, True)
     assert torch.equal(big[0], one[0])
+    sizes_a = torch.cat([torch.tensor([50, 300], dtype=torch.int32, device=cuda),
+                         _groups(g, 4096 - 350, E - 2, empty=(3,))])
+    sizes_b = torch.zeros(E, dtype=torch.int32, device=cuda)
+    sizes_b[:2] = torch.tensor([10, 246], dtype=torch.int32, device=cuda)
+    for w, trans in ((rhs, True), (_randn(g, E, K, N, scale=K**-0.5), False)):
+        lhs_b = _randn(g, 256, K)
+        lhs_b[40] = lhs[127]
+        many, few = tmoe.gmm(lhs, w, sizes_a, trans), tmoe.gmm(lhs_b, w, sizes_b, trans)
+        assert torch.equal(many[127], few[40])
+
+
+@pytest.mark.parametrize("transpose_rhs", [True, False])
+def test_gmm_groups_inside_tiles_match_plain(cuda, transpose_rhs):
+    """Groups of 1 to 127 rows that start and end inside 128-row tiles,
+    empty groups between them, and one group over several tiles: every
+    row held against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    E, K, N = 12, 512, 384
+    rhs = _randn(g, E, N, K, scale=K**-0.5) if transpose_rhs else _randn(g, E, K, N, scale=K**-0.5)
+    sizes = torch.tensor([37, 0, 90, 5, 127, 1, 0, 64, 200, 3, 100, 269], dtype=torch.int32,
+                         device=cuda)
+    assert int(sizes.sum()) % 128 == 0
+    lhs = _randn(g, int(sizes.sum()), K)
+    got = tmoe.gmm(lhs, rhs, sizes, transpose_rhs)
+    ref = tmoe.gmm_plain(lhs, rhs, sizes, transpose_rhs)
+    # exact bf16 products, f32 sums in another order
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
 
 
 def test_fp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -456,7 +486,8 @@ def test_fp_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # ------------------------------------------------------------ training kernels
 
 
-@pytest.mark.parametrize("B,S,H", [(1, 64, 4), (2, 640, 4), (1, 2048, 20)])
+@pytest.mark.parametrize("B,S,H", [(1, 64, 4), (2, 640, 4), (1, 1000, 20), (1, 2048, 20),
+                                   (8, 2048, 20)])
 def test_flash_causal_backward_matches_plain(cuda, B, S, H):
     """dq, dk, dv of the backward kernel against autograd of the plain
     version on the same q, k, v, do (bf16; the forward's row statistics)."""
@@ -477,6 +508,21 @@ def test_flash_causal_backward_matches_plain(cuda, B, S, H):
         scale = b.float().abs().max().item()
         torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2 * scale,
                                    msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,S", [(1, 1000), (4, 2048)])
+def test_flash_causal_backward_bits_repeat(cuda, B, S):
+    """dq, dk and dv get the same bits from a second call: the key tiles add
+    to dq in their order, whatever order the blocks run in."""
+    g = torch.Generator(device=cuda).manual_seed(B * 4096 + S)
+    q, k, v, do = (_randn(g, B, S, 20, 128) for _ in range(4))
+    lse = torch.empty((B, 20, S), dtype=torch.float32, device=cuda)
+    out = fl._forward(q, k, v, 128**-0.5, lse)
+    first = fl.flash_causal_bwd(q, k, v, out, do, lse)
+    for _ in range(3):
+        again = fl.flash_causal_bwd(q, k, v, out, do, lse)
+        for name, a, b in zip("qkv", first, again):
+            assert torch.equal(a, b), f"d{name}"
 
 
 @pytest.mark.parametrize("transpose_rhs", [True, False])

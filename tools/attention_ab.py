@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the port's causal flash forward and decode attention, for
-two checkouts on one card, in turns (A, B, B, A).
+"""Device times of the port's causal flash forward and backward and decode
+attention, for two checkouts on one card, in turns (A, B, B, A).
 
     python3 tools/attention_ab.py PARENT_DIR CHANGE_DIR [--iters 20]
 
@@ -9,7 +9,11 @@ directory given, builds its kernels there, and times on random inputs from
 a seed, 20 heads of 128 (the flagship's attention):
 
 - ``flash_causal`` (serving form) at [1, 512], [8, 2048], [32, 64], [1, 8192]
-  and [1, 32768], and with its row statistics at [1, 2048];
+  and [1, 32768], and with its row statistics at [1, 2048], each with a
+  hash of its output's bits;
+- ``flash_causal_bwd`` at [1, 2048] and [8, 2048] (the LoRA and the full
+  recipe's shapes), beside sdpa's backward alone (its forward run once,
+  outside the timed call) and sdpa's forward + backward;
 - ``decode_attention`` at one lane over 1,000 of 1,024 positions (int8,
   bf16), at 32 lanes over 48..320 of 384 (packed int4) and at one lane over
   32,768 of 32,896 (int4, int8, bf16);
@@ -19,13 +23,15 @@ a seed, 20 heads of 128 (the flagship's attention):
 with ``scaled_dot_product_attention`` beside each flash shape and each bf16
 decode shape. Times are the card's kernel time per call from
 ``torch.profiler`` (the sum over the call's kernels). It prints the card's
-name and power limit, one line per shape and turn, and one JSON line per
-turn.
+name and power limit, one line per shape and turn, one JSON line per turn,
+and whether the forward's bits agree in every turn (exit 1 where they do
+not: the forward is the control when the backward changes).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -51,6 +57,12 @@ def _device_ms(fn, iters: int) -> float:
     return us / iters / 1e3
 
 
+def _bits(t) -> str:
+    import torch
+
+    return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def measure(iters: int) -> dict:
     import torch
     import torch.nn.functional as F
@@ -73,8 +85,29 @@ def measure(iters: int) -> dict:
         qt = [t.transpose(1, 2) for t in (q, k, v)]
         out[f"flash [{B}, {S}]" + (" with lse" if stats else "")] = {
             "ms": _device_ms(lambda: fl._forward(q, k, v, D**-0.5, lse), n),
-            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(*qt, is_causal=True), n)}
+            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(*qt, is_causal=True), n),
+            "bits": _bits(fl._forward(q, k, v, D**-0.5, lse))}
         del q, k, v, qt, lse
+
+    for B in (1, 8):
+        S = 2048
+        q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        o = fl._forward(q, k, v, D**-0.5, lse)
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        do_t = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            lv = [t.detach().requires_grad_() for t in leaves]
+            torch.autograd.grad(F.scaled_dot_product_attention(*lv, is_causal=True), lv, do_t)
+
+        out[f"flash_bwd [{B}, {S}]"] = {
+            "ms": _device_ms(lambda: fl.flash_causal_bwd(q, k, v, o, do, lse), iters),
+            "sdpa_bwd_ms": _device_ms(
+                lambda: torch.autograd.grad(o_sdpa, leaves, do_t, retain_graph=True), iters),
+            "sdpa_fwd_bwd_ms": _device_ms(sdpa_fwd_bwd, iters)}
+        del q, k, v, do, lse, o, leaves, o_sdpa, do_t
 
     # the caches of chip_smoke.py next to this tool, whichever checkout is timed
     spec = importlib.util.spec_from_file_location(
@@ -121,6 +154,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {gpu}", flush=True)
     a, b = (os.path.abspath(d) for d in args.dirs)
+    bits = {}
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", "--iters",
                                str(args.iters)], cwd=root, capture_output=True, text=True,
@@ -130,10 +164,16 @@ def main() -> int:
             return proc.returncode
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         for shape, rec in times.items():
-            sdpa = f", sdpa {rec['sdpa_ms']:.4f} ms" if "sdpa_ms" in rec else ""
-            print(f"{label} ({root}) {shape}: {rec['ms']:.4f} ms{sdpa}", flush=True)
+            extra = "".join(f", {k[:-3]} {v:.4f} ms" for k, v in rec.items()
+                            if k.endswith("_ms"))
+            print(f"{label} ({root}) {shape}: {rec['ms']:.4f} ms{extra}", flush=True)
+            if "bits" in rec:
+                bits.setdefault(shape, set()).add(rec["bits"])
         print(json.dumps({"turn": label, "dir": root, "ms": times}), flush=True)
-    return 0
+    differ = sorted(shape for shape, seen in bits.items() if len(seen) > 1)
+    print(f"flash forward output bits: {'the same in every turn' if not differ else 'DIFFER: '}"
+          f"{', '.join(differ)}", flush=True)
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

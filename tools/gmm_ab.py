@@ -6,26 +6,24 @@ one card, in turns (A, B, B, A).
 
 Each turn is a fresh process that imports ``aria_tpu_torch`` from the
 directory given, builds its kernels there, and times on random inputs from
-a seed, the flagship's experts (64 routed, D 2560, I 1664; four groups
-empty, the others random and straddling 128-row tiles) at M = 16,384 and
-98,304 rows (the full recipe's 2048 x 8 x 6), for the w1 ([E, 2I, D],
+a seed, the flagship's experts (D 2560, I 1664; four groups empty, the
+others random and straddling 128-row tiles) in the w1 ([E, 2I, D],
 transpose_rhs) and w2 ([E, I, D]) layouts:
 
-- ``gmm``, the forward (the control: unchanged code times the same in both
-  checkouts when the card and host are);
-- ``gmm_dlhs`` and ``tgmm`` as the backward calls them, for a bf16-exact
-  cotangent (w1's in training: the f32 upcast of a bf16 gradient) and a
-  16-bit one (w2's: a bf16 gradient times a bf16 combine weight). The
-  public call's time (with its cotangent split where the checkout has
-  one), and where the checkout has ``split_hi_lo``, the split alone and
-  each kernel given the split;
-- ``torch._grouped_mm`` beside each (bf16 operands, bf16 out);
-- the causal flash forward at [8, 2048, 20, 128] with its row statistics,
-  timed, with a hash of its output's bits: the two checkouts must agree.
+- the subject, ``gmm``, the forward: at M = 4,096 rows in 66 experts (the
+  image prefill's 512 x 8 slots), 16,384 and 98,304 in 64 (the full
+  recipe's 2048 x 8 x 6), beside ``torch._grouped_mm`` with bf16 and, where
+  the card's torch takes it, f32 output (gmm gives f32);
+- the controls at 98,304 rows: the cotangent split (``split_hi_lo``) and
+  ``gmm_dlhs`` and ``tgmm`` given the split, for a bf16-exact cotangent
+  (w1's in training: the f32 upcast of a bf16 gradient) and a 16-bit one
+  (w2's: a bf16 gradient times a bf16 combine weight), each with a hash of
+  its output's bits: the two checkouts must agree.
 
 Times are the card's kernel time per call from ``torch.profiler`` (the sum
 over the call's kernels). It prints the card's name and power limit, one
-line per case and turn, and one JSON line per turn.
+line per case and turn, one JSON line per turn, and whether the controls'
+bits agree in every turn (exit 1 where they do not).
 """
 
 from __future__ import annotations
@@ -37,8 +35,9 @@ import os
 import subprocess
 import sys
 
-E, D, I = 64, 2560, 1664
-ROWS = (16384, 98304)
+D, I = 2560, 1664
+FORWARD = ((4096, 66), (16384, 64), (98304, 64))  # (rows, experts)
+CONTROL_ROWS, CONTROL_E = 98304, 64
 
 
 def _device_ms(fn, iters: int) -> float:
@@ -57,7 +56,7 @@ def _device_ms(fn, iters: int) -> float:
     return us / iters / 1e3
 
 
-def _sizes(gen, M: int):
+def _sizes(gen, M: int, E: int):
     import torch
 
     w = torch.rand(E, generator=gen, device=gen.device)
@@ -67,66 +66,73 @@ def _sizes(gen, M: int):
     return sizes
 
 
+def _bits(t) -> str:
+    import torch
+
+    raw = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def measure(iters: int) -> dict:
     import torch
 
-    from aria_tpu_torch.ops import flash as fl
     from aria_tpu_torch.ops import moe as tmoe
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    has_split = hasattr(tmoe, "split_hi_lo")
     lib = getattr(torch, "_grouped_mm", None)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
-    out = {}
-    q, k, v = (randn(8, 2048, 20, 128) for _ in range(3))
-    lse = torch.empty((8, 20, 2048), dtype=torch.float32, device=dev)
-    o = fl._forward(q, k, v, 128**-0.5, lse)
-    out["flash [8, 2048] with lse"] = {
-        "ms": _device_ms(lambda: fl._forward(q, k, v, 128**-0.5, lse), iters),
-        "bits": hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]}
-    del q, k, v, lse, o
+    def layouts(E, trans):
+        K, N = (D, 2 * I) if trans else (I, D)  # the forward's contraction and output
+        rhs = randn(E, N, K, scale=K**-0.5) if trans else randn(E, K, N, scale=K**-0.5)
+        return K, N, rhs, (rhs.transpose(1, 2) if trans else rhs)
 
-    for M in ROWS:
-        sizes = _sizes(gen, M)
+    out = {}
+    for M, E in FORWARD:
+        sizes = _sizes(gen, M, E)
         offs = torch.cumsum(sizes, 0).to(torch.int32)
         for label, trans in (("w1", True), ("w2", False)):
-            K, N = (D, 2 * I) if trans else (I, D)  # the forward's contraction and output
-            rhs = randn(E, N, K, scale=K**-0.5) if trans else randn(E, K, N, scale=K**-0.5)
+            K, N, rhs, rhs_kn = layouts(E, trans)
             lhs = randn(M, K)
-            rhs_kn = rhs.transpose(1, 2) if trans else rhs
             rec = {"ms": _device_ms(lambda: tmoe.gmm(lhs, rhs, sizes, trans), iters)}
             if lib is not None:
-                rec["library_ms"] = _device_ms(lambda: lib(lhs, rhs_kn, offs=offs), iters)
-            out[f"gmm {label} M={M}"] = rec
-            grads = {"bf16-exact": randn(M, N).float(),
-                     "16-bit": (randn(M, N).float() * randn(M, 1).float()).contiguous()}
-            for kind, grad in grads.items():
-                at = f"{label} M={M} {kind}"
-                gb = grad.to(torch.bfloat16)
-                d = {"ms": _device_ms(lambda: tmoe.gmm_dlhs(grad, rhs, sizes, not trans), iters)}
-                t = {"ms": _device_ms(lambda: tmoe.tgmm(lhs, grad, sizes), iters)}
-                if has_split:
-                    sp = tmoe.split_hi_lo(grad)
-                    out[f"split {at}"] = {"ms": _device_ms(lambda: tmoe.split_hi_lo(grad), iters),
-                                          "flagged": int(sp[2].sum())}
-                    d["kernel_ms"] = _device_ms(
-                        lambda: tmoe.gmm_dlhs(grad, rhs, sizes, not trans, split=sp), iters)
-                    t["kernel_ms"] = _device_ms(lambda: tmoe.tgmm(lhs, grad, sizes, split=sp),
-                                                iters)
-                    del sp
-                if lib is not None:
-                    d_rhs = rhs if trans else rhs.transpose(1, 2)
-                    d["library_ms"] = _device_ms(lambda: lib(gb, d_rhs, offs=offs), iters)
-                    lt = lhs.T
-                    t["library_ms"] = _device_ms(lambda: lib(lt, gb, offs=offs), iters)
-                out[f"gmm_dlhs {at}"], out[f"tgmm {at}"] = d, t
-                del gb
-            del grads, rhs, lhs, rhs_kn
+                rec["library_bf16_ms"] = _device_ms(lambda: lib(lhs, rhs_kn, offs=offs), iters)
+                try:
+                    lib(lhs, rhs_kn, offs=offs, out_dtype=torch.float32)
+                    rec["library_f32_ms"] = _device_ms(
+                        lambda: lib(lhs, rhs_kn, offs=offs, out_dtype=torch.float32), iters)
+                except (RuntimeError, TypeError, ValueError) as exc:
+                    rec["library_f32"] = f"refused: {str(exc).splitlines()[0][:80]}"
+            out[f"gmm {label} M={M} E={E}"] = rec
+            del rhs, rhs_kn, lhs
             torch.cuda.empty_cache()
+
+    M, E = CONTROL_ROWS, CONTROL_E
+    sizes = _sizes(gen, M, E)
+    for label, trans in (("w1", True), ("w2", False)):
+        K, N, rhs, _ = layouts(E, trans)
+        lhs = randn(M, K)
+        grads = {"bf16-exact": randn(M, N).float(),
+                 "16-bit": (randn(M, N).float() * randn(M, 1).float()).contiguous()}
+        for kind, grad in grads.items():
+            at = f"{label} M={M} {kind}"
+            sp = tmoe.split_hi_lo(grad)
+            out[f"split {at}"] = {"ms": _device_ms(lambda: tmoe.split_hi_lo(grad), iters),
+                                  "bits": _bits(torch.cat([sp[0], sp[1]]))}
+            d = tmoe.gmm_dlhs(grad, rhs, sizes, not trans, split=sp)
+            out[f"gmm_dlhs {at}"] = {
+                "ms": _device_ms(lambda: tmoe.gmm_dlhs(grad, rhs, sizes, not trans, split=sp),
+                                 iters), "bits": _bits(d)}
+            t = tmoe.tgmm(lhs, grad, sizes, split=sp)
+            out[f"tgmm {at}"] = {
+                "ms": _device_ms(lambda: tmoe.tgmm(lhs, grad, sizes, split=sp), iters),
+                "bits": _bits(t)}
+            del sp, d, t
+        del grads, rhs, lhs
+        torch.cuda.empty_cache()
     return out
 
 
@@ -145,7 +151,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {gpu}", flush=True)
     a, b = (os.path.abspath(d) for d in args.dirs)
-    bits = set()
+    bits = {}
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", "--iters",
                                str(args.iters)], cwd=root, capture_output=True, text=True,
@@ -159,11 +165,13 @@ def main() -> int:
                               for k, v in rec.items() if k != "ms")
             print(f"{label} ({root}) {case}: {rec['ms']:.4f} ms" + (f"; {extra}" if extra else ""),
                   flush=True)
-        bits.add(times["flash [8, 2048] with lse"]["bits"])
+            if "bits" in rec:
+                bits.setdefault(case, set()).add(rec["bits"])
         print(json.dumps({"turn": label, "dir": root, "ms": times}), flush=True)
-    print(f"flash forward output bits: {'the same' if len(bits) == 1 else 'DIFFER'} in every "
-          f"turn", flush=True)
-    return 0 if len(bits) == 1 else 1
+    differ = sorted(case for case, seen in bits.items() if len(seen) > 1)
+    print(f"controls' output bits: {'the same in every turn' if not differ else 'DIFFER: '}"
+          f"{', '.join(differ)}", flush=True)
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":
