@@ -18,6 +18,7 @@ from typing import Any, Optional
 import torch
 
 from aria_tpu_torch.config import AriaConfig, config_from_dict
+from aria_tpu_torch.ops import backend
 
 
 def save_checkpoint(path: str, tree: Any, cfg: Optional[AriaConfig] = None, step: int = 0
@@ -32,10 +33,12 @@ def save_checkpoint(path: str, tree: Any, cfg: Optional[AriaConfig] = None, step
             json.dump(dataclasses.asdict(cfg), f, indent=2)
 
 
-def load_checkpoint(path: str, step: int = 0, device="cpu") -> tuple[Any, Optional[AriaConfig]]:
-    """(tree, config or None), the tensors on ``device``."""
+def load_checkpoint(path: str, step: int = 0, device="cuda"
+                    ) -> tuple[Any, Optional[AriaConfig]]:
+    """(tree, config or None), the tensors on ``device``: the card unless
+    the caller names another (``backend.device``: no card raises)."""
     tree = torch.load(os.path.join(os.path.abspath(path), f"step_{step}", "state.pt"),
-                      map_location=device, weights_only=True)
+                      map_location=backend.device(device), weights_only=True)
     cfg = None
     cfg_file = os.path.join(path, "config.json")
     if os.path.exists(cfg_file):

@@ -90,8 +90,8 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   o[2] = bf_lo(w.y); o[3] = bf_hi(w.y);
 }
 
-// ---- warp-level tensor-core products (moe_prefill.cu, vit_flash.cu,
-// moe_decode_fp.cu, moe_decode_q4.cu, flash_seg.cu): bf16
+// ---- warp-level tensor-core products (moe_prefill.cu, moe_decode_fp.cu,
+// moe_decode_q4.cu): bf16
 // operands, f32 sums, operand tiles staged in shared memory with cp.async.
 
 // c[0..3] += a (16x16, row) . b (16x8, col): the fragments of PTX's m16n8k16
@@ -101,21 +101,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory: lanes 8j..8j+7 give the row
-// addresses of matrix j, and lane i receives row i/4, columns 2(i%4) and
-// 2(i%4)+1 of each (with .trans: rows 2(i%4) and 2(i%4)+1 of column i/4)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

@@ -1,8 +1,9 @@
 // Hopper pieces shared by the wgmma kernels (flash.cu, flash_bwd.cu,
-// gmm.cu): TMA loads of tensor-map boxes, the 128-byte-swizzle shared-memory
-// descriptor, the wgmma fences and the m64n64k16, m64n128k16 and m64n256k16
-// bf16 products (transpose bits as template arguments), and the host-side
-// tensor maps.
+// gmm.cu, vit_attention.cu): TMA loads of tensor-map boxes, the
+// 128-byte-swizzle and the unswizzled shared-memory descriptors, the wgmma
+// fences and the m64n8k16, m64n64k16, m64n128k16 and m64n256k16 bf16
+// products (transpose bits as template arguments), and the host-side tensor
+// maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -50,6 +51,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// An unswizzled (interleaved) descriptor: the operand is core matrices of 8
+// rows x 16 bytes, 128 contiguous bytes each. K-major: LBO steps to the next
+// 8 columns of K, SBO to the next 8 rows of M or N. MN-major: LBO steps to
+// the next 8 rows of K, SBO to the next 8 columns of M or N.
+__device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -123,6 +133,28 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 64
+template <int TB>
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ARIA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : ARIA_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 8
+template <int TB>
+__device__ __forceinline__ void wgmma_rs8(float (&d)[4], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+      ", {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
 #define ARIA_D128                                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
@@ -180,28 +212,33 @@ __host__ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of the given rank as a tensor map with the 128-byte
-// swizzle: dims innermost first, strides in bytes of dims 1.., box in
-// elements (box[0] = 64: one swizzled 128-byte row). Elements past a dim's
-// end load as zeros.
+// A bf16 tensor of the given rank as a tensor map, by default with the
+// 128-byte swizzle: dims innermost first, strides in bytes of dims 1.., box
+// in elements (box[0] = 64: one swizzled 128-byte row). Elements past a
+// dim's end load as zeros.
 __host__ inline bool make_map(CUtensorMap* map, const void* base, int rank,
                               const cuuint64_t* dims, const cuuint64_t* strides,
-                              const cuuint32_t* box) {
+                              const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// attention's [B, S, H, 128] bf16 as the rank-4 map (d, h, s, b), boxes of
-// 64 d x 1 x rows x 1
-__host__ inline bool bshd_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
-  const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {256, (cuuint64_t)H * 256, (cuuint64_t)S * H * 256};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return make_map(map, t, 4, dims, strides, box);
+// attention's [B, S, H, D] bf16 as the rank-4 map (d, h, s, b), boxes of
+// 64 d x 1 x rows x 1 with the 128-byte swizzle, or of `width` (< 64) d
+// unswizzled
+__host__ inline bool bshd_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows,
+                              int D = 128, int width = 64) {
+  const cuuint64_t row = 2 * (cuuint64_t)D;  // bytes
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, (cuuint64_t)H * row, (cuuint64_t)S * H * row};
+  const cuuint32_t box[4] = {(cuuint32_t)width, 1, (cuuint32_t)rows, 1};
+  return make_map(map, t, 4, dims, strides, box,
+                  width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace aria

@@ -29,13 +29,13 @@ gradient, as the JAX package runs ``flash_sdpa(causal=True)`` off the TPU
 which is the ViT's attention when ``models/vit.py``'s ``VIT_FLASH`` is off
 (the JAX package's ``ARIA_TPU_VIT_FLASH=0``). Query i attends key j iff
 their segments are equal, so pad queries attend pad keys only. Kernel
-``csrc/flash_seg.cu``; it follows the library's numerics
+``csrc/vit_attention.cu`` (its segment form; ``vit_flash``'s kernel body,
+whose notes give the design); it follows the library's numerics
 (flash_attention.py:395-472): unscaled bf16 q.k with f32 sums, then the
 scale in f32, an additive -0.7 * FLT_MAX where the segments differ, p
 rounded to v's dtype for p.v. At [1, 4900, 16, 72] it does 110.6 GFLOP,
-so it is bound by tensor-core throughput; its design is vit_flash's (both
-products on ``mma.sync``, K and V tiles in shared memory). ``flash_sdpa``
-takes the JAX signature and picks the form.
+so it is bound by tensor-core throughput. ``flash_sdpa`` takes the JAX
+signature and picks the form.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from aria_tpu_torch.ops._build import library
 from aria_tpu_torch.ops.attention import NEG_INF, causal_mask, sdpa
 
 HEAD_DIM = 128  # the causal kernels' head width
-SEGMENT_HEAD_DIMS = (64, 72)  # the ViT configs'; 72 is padded to 80 in shared memory
+SEGMENT_HEAD_DIMS = (64, 72)  # the ViT configs'
 
 
 def flash_causal_plain(q, k, v, scale: Optional[float] = None) -> torch.Tensor:

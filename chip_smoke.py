@@ -641,39 +641,60 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     record("flash_causal", errs, timed)  # B = 1, S = 64 first
     del qkv
 
-    # vit_flash over the 4,900 patches of a 980px crop, 16 heads of 72,
-    # with every key valid and with half of them; library: sdpa with the
-    # key mask on the [B, H, S, D] views
+    # vit_flash over the 4,900 patches of a 980px crop, 16 heads of 72:
+    # every key valid, a prefix of half, and a 980 x 630 crop (70 x 45 of the
+    # 70 x 70 patches valid, 3,150, interleaved with padding inside every
+    # 128-key tile), compared on the valid rows, and a second call's bits;
+    # the limit must see the last partial key tile (36 keys) left out.
+    # Library: sdpa with the key mask on the [B, H, S, D] views.
     print("vit_flash", flush=True)
     P, VH, VD = vision.patches_per_side**2, vision.num_heads, vision.head_dim
-    errs = []
-    qkv = [randn(1, P, VH, VD) for _ in range(3)]
-    for n in (P, P // 2):
-        valid = torch.zeros((1, P), dtype=torch.bool, device=device)
-        valid[0, :n] = True
-        got, ref = vfl.vit_flash(*qkv, valid), vfl.vit_flash_plain(*qkv, valid)
-        errs.append(_compare(
-            f"vit_flash S={P} valid={n}", got[:, :n], ref[:, :n], 1e-2,
-            "valid rows; bf16 output, p rounds to bf16 for p.v unnormalised in the "
-            "kernel and normalised in the plain version"))
-    valid = torch.ones((1, P), dtype=torch.bool, device=device)
-    record("vit_flash", errs, [_timed(
-        f"S={P} all valid", lambda: vfl.vit_flash(*qkv, valid),
-        lambda: vfl.vit_flash_plain(*qkv, valid), 20, 3,
-        _bound(4 * _nbytes(qkv[0]) + _nbytes(valid), 4 * VD * VH * P * P),
-        lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in qkv),
-                                               attn_mask=valid[:, None, None, :]))])
-
-    # flash_segment, the ViT's attention with VIT_FLASH off, on the same
-    # q, k, v: every patch valid, and a 980 x 630 crop (70 x 45 of the 70 x
-    # 70 patches valid, 3,150), compared on the valid rows to an absolute
-    # limit (the outputs are ~0.024 in rms, so a limit relative to 1 would
-    # pass a dropped key tile). Library: sdpa with the boolean segment mask
-    # on the [B, H, S, D] views.
-    print("flash_segment", flush=True)
     side = vision.patches_per_side
     ragged = torch.zeros((side, side), dtype=torch.bool, device=device)
     ragged[:, :side * 630 // 980] = True
+    prefix = torch.zeros((1, P), dtype=torch.bool, device=device)
+    prefix[0, :P // 2] = True
+    masks = (("all valid", torch.ones((1, P), dtype=torch.bool, device=device), True),
+             (f"{P // 2} valid (prefix)", prefix, False),
+             (f"{int(ragged.sum())} valid", ragged.reshape(1, P), True))  # label, mask, timed
+    errs, timed = [], []
+    qkv = [randn(1, P, VH, VD) for _ in range(3)]
+    for label, valid, time_it in masks:
+        got, ref = vfl.vit_flash(*qkv, valid), vfl.vit_flash_plain(*qkv, valid)
+        rows = valid[0]
+        errs.append(_compare(
+            f"vit_flash S={P} {label}", got[:, rows], ref[:, rows], 1e-2,
+            "valid rows; bf16 output, p rounds to bf16 for p.v unnormalised in the "
+            "kernel and normalised in the plain version"))
+        if not torch.equal(vfl.vit_flash(*qkv, valid), got):
+            raise AssertionError(f"vit_flash {label}: a second call gives other bits")
+        if label == "all valid":  # what the limit must catch: the last 36-key tile left out
+            cut = valid.clone()
+            cut[0, P - 36:] = False
+            moved = (vfl.vit_flash_plain(*qkv, cut).float() - ref.float()).abs().max().item()
+            limit = 1e-2 * max(1.0, ref.float().abs().max().item())
+            print(f"  vit_flash S={P}: the plain version without the last 36 keys moves an output "
+                  f"by {moved:.3e} (limit {limit:.3e}); a second call gives the same bits",
+                  flush=True)
+            if not moved > limit:
+                raise AssertionError("vit_flash's limit does not see a dropped key tile")
+        if time_it:
+            timed.append(_timed(
+                f"S={P} {label}", lambda: vfl.vit_flash(*qkv, valid),
+                lambda: vfl.vit_flash_plain(*qkv, valid), 20, 3,
+                _bound(4 * _nbytes(qkv[0]) + _nbytes(valid), 4 * VD * VH * P * P),
+                lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in qkv),
+                                                       attn_mask=valid[:, None, None, :])))
+        del got, ref
+    record("vit_flash", errs, timed)  # all valid first
+
+    # flash_segment, the ViT's attention with VIT_FLASH off, on the same
+    # q, k, v: every patch valid, and the 980 x 630 crop, compared on the
+    # valid rows to an absolute limit (the outputs are ~0.024 in rms, so a
+    # limit relative to 1 would pass a dropped key tile), and a second
+    # call's bits. Library: sdpa with the boolean segment mask on the
+    # [B, H, S, D] views.
+    print("flash_segment", flush=True)
     errs, timed = [], []
     for label, valid in (("all valid", torch.ones((1, P), dtype=torch.bool, device=device)),
                          (f"{int(ragged.sum())} valid", ragged.reshape(1, P))):
@@ -684,6 +705,8 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
             f"flash_segment S={P} {label}", got[:, rows], ref[:, rows], FLASH_SEG_ATOL,
             "valid rows, absolute; bf16 output, p rounds to bf16 for p.v against the running "
             "max in the kernel and the row max in the plain version", absolute=True))
+        if not torch.equal(fl.flash_sdpa(*qkv, q_valid=valid, kv_valid=valid), got):
+            raise AssertionError(f"flash_segment {label}: a second call gives other bits")
         if label == "all valid":  # what the limit must catch: the last 36-key tile left out
             moved = (fl.flash_sdpa_plain(*(t[:, :P - 36] if i else t for i, t in enumerate(qkv)))
                      .float() - ref.float()).abs().max().item()
@@ -1284,7 +1307,7 @@ KERNELS = {
     "decode_attention": ("aria_tpu_torch/csrc/decode_attention.cu",
                          "aria_tpu/ops/decode_attention.py:208"),
     "flash_causal": ("aria_tpu_torch/csrc/flash.cu", "aria_tpu/ops/flash.py:30"),
-    "vit_flash": ("aria_tpu_torch/csrc/vit_flash.cu", "aria_tpu/ops/vit_flash.py:91"),
+    "vit_flash": ("aria_tpu_torch/csrc/vit_attention.cu", "aria_tpu/ops/vit_flash.py:91"),
     "moe_prefill_int4": ("aria_tpu_torch/csrc/moe_prefill.cu",
                          "aria_tpu/ops/moe_prefill_kernel.py:120"),
     "kv_cache_write": ("aria_tpu_torch/csrc/kv_write.cu", "aria_tpu/ops/kv_write.py:91"),
@@ -1309,7 +1332,7 @@ KERNELS = {
     "dense_int4_a8": ("aria_tpu_torch/csrc/dense_int4.cu", "aria_tpu/ops/dense_int4.py:97"),
     "moe_decode_int4_bf16": ("aria_tpu_torch/csrc/moe_decode_q4.cu",
                              "aria_tpu/ops/moe_decode_kernel.py:307"),
-    "flash_segment": ("aria_tpu_torch/csrc/flash_seg.cu", "aria_tpu/ops/flash.py:30"),
+    "flash_segment": ("aria_tpu_torch/csrc/vit_attention.cu", "aria_tpu/ops/flash.py:30"),
     "decode_attention_stats": ("aria_tpu_torch/csrc/decode_attention.cu",
                                "aria_tpu/ops/decode_attention.py:221"),
 }
@@ -3578,7 +3601,7 @@ def _busy_share(prof, first="flash_causal") -> tuple[float, float]:
 TRAIN_KERNEL_EVENTS = {
     "flash_causal": (r"\bflash_causal_kernel\b",),
     "flash_causal_bwd": (r"\bflash_bwd_di_kernel\b", r"\bflash_bwd_kernel\b"),
-    "vit_flash": (r"\bvit_flash_kernel\b",),
+    "vit_flash": (r"\bvit_attention_kernel<\d+, 0>",),
     "gmm": (r"\bgmm_fwd_kernel<",),
     "split_hi_lo": (r"\bsplit_kernel\b",),
     "gmm_dlhs": (r"\bgmm_dlhs_kernel<",),

@@ -241,20 +241,73 @@ def test_flash_causal_kernel_matches_plain(cuda):
                                    rtol=1e-2, atol=1e-2)
 
 
+def _valid_mask(cuda, B, S, valid):
+    """[B, S] bool: a prefix of each length in ``valid``, or "crop": a 980 x
+    630 crop's 70 x 45 of the 70 x 70 patches (3,150 valid, interleaved with
+    padding inside every 128-key tile)."""
+    if valid == "crop":
+        side = int(S**0.5)
+        grid = torch.zeros((side, side), dtype=torch.bool, device=cuda)
+        grid[:, :side * 630 // 980] = True
+        return grid.reshape(1, S).expand(B, S).contiguous()
+    mask = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    for b, n in enumerate(valid):
+        mask[b, :n] = True
+    return mask
+
+
 @pytest.mark.parametrize("B,S,H,D,valid", [(1, 4900, 16, 72, (4900,)), (1, 4900, 16, 72, (2450,)),
+                                            (1, 4900, 16, 72, "crop"),
                                             (2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (129,))])
 def test_vit_flash_kernel_matches_plain(cuda, B, S, H, D, valid):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (_randn(g, B, S, H, D) for _ in range(3))
-    kv_valid = torch.zeros((B, S), dtype=torch.bool, device=cuda)
-    for b, n in enumerate(valid):
-        kv_valid[b, :n] = True
+    kv_valid = _valid_mask(cuda, B, S, valid)
     got, ref = vf.vit_flash(q, k, v, kv_valid), vf.vit_flash_plain(q, k, v, kv_valid)
     # valid query rows only (padding rows are garbage by contract); bf16
     # output, and p rounds to bf16 before p.v unnormalised in the kernel,
     # normalised in the plain version
-    for b, n in enumerate(valid):
-        torch.testing.assert_close(got[b, :n].float(), ref[b, :n].float(), rtol=1e-2, atol=1e-2)
+    for b in range(B):
+        rows = kv_valid[b]
+        torch.testing.assert_close(got[b, rows].float(), ref[b, rows].float(), rtol=1e-2,
+                                   atol=1e-2)
+
+
+def _vit_forms(q, k, v, mask):
+    """The two forms of the ViT's attention kernel on one mask, each with
+    its plain version."""
+    return {"vit": (lambda: vf.vit_flash(q, k, v, mask), lambda: vf.vit_flash_plain(q, k, v, mask)),
+            "segment": (lambda: fl.flash_segment(q, k, v, mask, mask),
+                        lambda: fl.flash_sdpa_plain(q, k, v, mask, mask))}
+
+
+@pytest.mark.parametrize("form", ["vit", "segment"])
+@pytest.mark.parametrize("B,S,H,valid", [(1, 4900, 16, "crop"), (2, 300, 2, (300, 137))])
+def test_vit_attention_bits_repeat(cuda, form, B, S, H, valid):
+    """A second call of either form gives the same bits (no atomics, one
+    order of sums)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_randn(g, B, S, H, 72) for _ in range(3))
+    run, _ = _vit_forms(q, k, v, _valid_mask(cuda, B, S, valid))[form]
+    assert torch.equal(run(), run())
+
+
+@pytest.mark.parametrize("form", ["vit", "segment"])
+@pytest.mark.parametrize("B,S,H,valid", [(1, 4900, 2, "crop"), (2, 300, 2, (300, 137))])
+def test_vit_attention_large_logits_match_plain(cuda, form, B, S, H, valid):
+    """q and k at 6x their scale, so that a row's running max moves by
+    tens across its key tiles and the rescale of O and l by alpha carries
+    the result: valid rows (the vit form; every row, the segment form)
+    within one bf16 ulp of the element plus 1e-2 (vit) or 3e-3 (segment)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k = (_randn(g, B, S, H, 72, scale=6.0) for _ in range(2))
+    v = _randn(g, B, S, H, 72)
+    mask = _valid_mask(cuda, B, S, valid)
+    run, plain = _vit_forms(q, k, v, mask)[form]
+    got, ref = run(), plain()
+    rows = mask if form == "vit" else torch.ones_like(mask)
+    torch.testing.assert_close(got[rows].float(), ref[rows].float(), rtol=2**-7,
+                               atol=1e-2 if form == "vit" else 3e-3)
 
 
 def _expert_stack(g, L, E, I, D):
@@ -746,14 +799,13 @@ def test_moe_decode_int4_bf16_kernel_matches_plain(cuda, T):
 # shorter rows' outputs reach ~1, so they also take one bf16 ulp of the element.
 @pytest.mark.parametrize("B,S,H,D,valid,rtol", [(1, 4900, 16, 72, (4900,), 0.0),
                                                  (1, 4900, 16, 72, (3150,), 0.0),
+                                                 (1, 4900, 16, 72, "crop", 0.0),
                                                  (2, 300, 2, 72, (300, 137), 2**-7),
                                                  (1, 129, 4, 64, (100,), 2**-7)])
 def test_flash_segment_kernel_matches_plain(cuda, B, S, H, D, valid, rtol):
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (_randn(g, B, S, H, D) for _ in range(3))
-    mask = torch.zeros((B, S), dtype=torch.bool, device=cuda)
-    for b, n in enumerate(valid):
-        mask[b, :n] = True
+    mask = _valid_mask(cuda, B, S, valid)
     before = fl.flash_segment.launches
     got = fl.flash_sdpa(q, k, v, q_valid=mask, kv_valid=mask)
     ref = fl.flash_sdpa_plain(q, k, v, mask, mask)
@@ -768,6 +820,29 @@ def test_flash_segment_kernel_matches_plain(cuda, B, S, H, D, valid, rtol):
     for bad in (60, 80, 128):  # the kernel takes the ViT's head dims only
         with pytest.raises(ValueError):
             fl.flash_segment(*(_randn(g, 1, 64, 2, bad) for _ in range(3)))
+
+
+# Sq != Sk: the query tiles follow Sq and the key tiles and masks Sk. The
+# first case's queries are the crop's first 300 patches over its 4,900 keys.
+@pytest.mark.parametrize("B,Sq,Sk,H,D,q_valid,kv_valid,rtol", [
+    (1, 300, 4900, 16, 72, "crop", "crop", 0.0),
+    (2, 129, 300, 2, 72, (129, 60), (300, 137), 2**-7),
+    (1, 300, 129, 4, 64, (250,), (100,), 2**-7)])
+def test_flash_segment_kernel_takes_sq_other_than_sk(cuda, B, Sq, Sk, H, D, q_valid, kv_valid,
+                                                      rtol):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = _randn(g, B, Sq, H, D)
+    k, v = (_randn(g, B, Sk, H, D) for _ in range(2))
+    qm = _valid_mask(cuda, B, Sk, q_valid)[:, :Sq].contiguous() if q_valid == "crop" \
+        else _valid_mask(cuda, B, Sq, q_valid)
+    km = _valid_mask(cuda, B, Sk, kv_valid)
+    before = fl.flash_segment.launches
+    got = fl.flash_sdpa(q, k, v, q_valid=qm, kv_valid=km)
+    assert fl.flash_segment.launches == before + 1 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), fl.flash_sdpa_plain(q, k, v, qm, km).float(),
+                               rtol=rtol, atol=3e-3)
+    torch.testing.assert_close(fl.flash_segment(q, k, v).float(),
+                               fl.flash_sdpa_plain(q, k, v).float(), rtol=rtol, atol=3e-3)
 
 
 def _stats_caches(g, cuda, L, B, H, S, D):

@@ -29,7 +29,7 @@ from aria_tpu.ops import backend as jbackend
 from aria_tpu.train import lora as jlora
 from aria_tpu.train import step as jstep
 from aria_tpu_torch.checkpoint.from_jax import from_jax
-from aria_tpu_torch.checkpoint.io import latest_step, load_checkpoint
+from aria_tpu_torch.checkpoint.io import latest_step, load_checkpoint, save_checkpoint
 from aria_tpu_torch.config import config_from_dict
 from aria_tpu_torch.train import step as tstep
 from aria_tpu_torch.train.loop import train
@@ -217,7 +217,7 @@ def test_train_runs_the_recipes_and_checkpoints(tmp_path, peft):
     assert lines[0]["loss"] != lines[-1]["loss"]
     ckpt = os.path.join(r.output_dir, "checkpoints")
     assert latest_step(ckpt) == 3
-    saved, cfg = load_checkpoint(ckpt, 3)
+    saved, cfg = load_checkpoint(ckpt, 3, device="cpu")
     assert cfg.text.moe_aux_loss_coeff == recipe.moe_aux_loss_coeff
     assert saved["step"] == 3 and saved["opt_state"]["count"] == 3
     if peft:
@@ -258,6 +258,19 @@ def test_grad_accum_and_cli(tmp_path):
           "--gradient_accumulation_steps", "1", "--max_seq_length", "64", "--dtype", "float32"])
     lines = [json.loads(line) for line in open(out / "metrics.jsonl")]
     assert len(lines) == 2 and all(np.isfinite(line["loss"]) for line in lines)
+
+
+def test_load_checkpoint_defaults_to_the_card(tmp_path, monkeypatch):
+    """The port's rule for entry points: the card unless the caller names
+    another device; without a card the default raises and nothing falls
+    back to the CPU."""
+    save_checkpoint(str(tmp_path), {"w": torch.arange(3.0), "step": 2}, T_CFG, step=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(str(tmp_path), 2)
+    tree, cfg = load_checkpoint(str(tmp_path), 2, device="cpu")
+    assert tree["w"].device.type == "cpu" and torch.equal(tree["w"], torch.arange(3.0))
+    assert tree["step"] == 2 and cfg == T_CFG
 
 
 def test_train_refuses_what_is_not_ported(tmp_path, monkeypatch):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the port's causal flash forward and backward and decode
-attention, for two checkouts on one card, in turns (A, B, B, A).
+"""Device times of the port's causal flash forward and backward, the ViT's
+attention and decode attention, for two checkouts on one card, in turns
+(A, B, B, A).
 
     python3 tools/attention_ab.py PARENT_DIR CHANGE_DIR [--iters 20]
 
@@ -14,6 +15,12 @@ a seed, 20 heads of 128 (the flagship's attention):
 - ``flash_causal_bwd`` at [1, 2048] and [8, 2048] (the LoRA and the full
   recipe's shapes), beside sdpa's backward alone (its forward run once,
   outside the timed call) and sdpa's forward + backward;
+- ``vit_flash`` and ``flash_segment`` (the ViT's attention and its form
+  under ``VIT_FLASH = False``) at [1, 4900, 16, 72], every patch valid and a
+  980 x 630 crop's 3,150 (70 x 45 of the 70 x 70 patches), beside sdpa with
+  the key mask and with the segment mask, each with a hash of its output's
+  bits, and ``vit_flash`` at the card tests' small shapes [2, 300, 2, 72]
+  (300 and 137 valid) and [1, 129, 4, 64];
 - ``decode_attention`` at one lane over 1,000 of 1,024 positions (int8,
   bf16), at 32 lanes over 48..320 of 384 (packed int4) and at one lane over
   32,768 of 32,896 (int4, int8, bf16);
@@ -22,10 +29,13 @@ a seed, 20 heads of 128 (the flagship's attention):
 
 with ``scaled_dot_product_attention`` beside each flash shape and each bf16
 decode shape. Times are the card's kernel time per call from
-``torch.profiler`` (the sum over the call's kernels). It prints the card's
-name and power limit, one line per shape and turn, one JSON line per turn,
-and whether the forward's bits agree in every turn (exit 1 where they do
-not: the forward is the control when the backward changes).
+``torch.profiler`` (the sum over the call's kernels); a reading of zero
+(the profiler dropped the call's events) is taken again once and otherwise
+fails the turn, and is never printed as a time. It prints the card's name
+and power limit, one line per shape and turn, one JSON line per turn, and
+whether the causal forward's bits agree in every turn and each checkout's
+ViT outputs in its own turns (exit 1 where either does not: the causal
+forward is the control when another kernel changes).
 """
 
 from __future__ import annotations
@@ -48,13 +58,17 @@ def _device_ms(fn, iters: int) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3
+    for _ in range(2):  # a reading of zero is a dropped profile, not a time: once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    raise RuntimeError("the profiler recorded no kernel time for a timed call, twice: "
+                       "no time can be read from this turn")
 
 
 def _bits(t) -> str:
@@ -69,6 +83,7 @@ def measure(iters: int) -> dict:
 
     from aria_tpu_torch.ops import decode_attention as da
     from aria_tpu_torch.ops import flash as fl
+    from aria_tpu_torch.ops import vit_flash as vf
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -108,6 +123,38 @@ def measure(iters: int) -> dict:
                 lambda: torch.autograd.grad(o_sdpa, leaves, do_t, retain_graph=True), iters),
             "sdpa_fwd_bwd_ms": _device_ms(sdpa_fwd_bwd, iters)}
         del q, k, v, do, lse, o, leaves, o_sdpa, do_t
+
+    P, VH, VD, side = 4900, 16, 72, 70
+    q, k, v = (randn(1, P, VH, VD) for _ in range(3))
+    qt = [t.transpose(1, 2) for t in (q, k, v)]
+    crop = torch.zeros((side, side), dtype=torch.bool, device=dev)
+    crop[:, :side * 630 // 980] = True
+    for label, valid in (("all valid", torch.ones((1, P), dtype=torch.bool, device=dev)),
+                         ("3150 valid", crop.reshape(1, P))):
+        key_mask = valid[:, None, None, :]
+        seg_mask = valid[:, None, :, None] == valid[:, None, None, :]
+        out[f"vit_flash [1, {P}, {VH}, {VD}] {label}"] = {
+            "ms": _device_ms(lambda: vf.vit_flash(q, k, v, valid), iters),
+            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                *qt, attn_mask=key_mask), iters),
+            "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
+        out[f"flash_segment [1, {P}, {VH}, {VD}] {label}"] = {
+            "ms": _device_ms(lambda: fl.flash_segment(q, k, v, valid, valid), iters),
+            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                *qt, attn_mask=seg_mask), iters),
+            "vit_bits": _bits(fl.flash_segment(q, k, v, valid, valid))}
+        del seg_mask
+    del q, k, v, qt
+    for B, S, VH, VD, lens in ((2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (129,))):
+        q, k, v = (randn(B, S, VH, VD) for _ in range(3))
+        qt = [t.transpose(1, 2) for t in (q, k, v)]
+        valid = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        out[f"vit_flash [{B}, {S}, {VH}, {VD}]"] = {
+            "ms": _device_ms(lambda: vf.vit_flash(q, k, v, valid), iters),
+            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                *qt, attn_mask=valid[:, None, None, :]), iters),
+            "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
+        del q, k, v, qt
 
     # the caches of chip_smoke.py next to this tool, whichever checkout is timed
     spec = importlib.util.spec_from_file_location(
@@ -154,7 +201,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {gpu}", flush=True)
     a, b = (os.path.abspath(d) for d in args.dirs)
-    bits = {}
+    bits, own_bits = {}, {}
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", "--iters",
                                str(args.iters)], cwd=root, capture_output=True, text=True,
@@ -169,11 +216,16 @@ def main() -> int:
             print(f"{label} ({root}) {shape}: {rec['ms']:.4f} ms{extra}", flush=True)
             if "bits" in rec:
                 bits.setdefault(shape, set()).add(rec["bits"])
+            if "vit_bits" in rec:  # its own checkout's output, turn to turn
+                own_bits.setdefault((label, shape), set()).add(rec["vit_bits"])
         print(json.dumps({"turn": label, "dir": root, "ms": times}), flush=True)
     differ = sorted(shape for shape, seen in bits.items() if len(seen) > 1)
     print(f"flash forward output bits: {'the same in every turn' if not differ else 'DIFFER: '}"
           f"{', '.join(differ)}", flush=True)
-    return 1 if differ else 0
+    own = sorted(f"{label} {shape}" for (label, shape), seen in own_bits.items() if len(seen) > 1)
+    print(f"ViT attention output bits, each checkout in its own turns: "
+          f"{'the same' if not own else 'DIFFER: '}{', '.join(own)}", flush=True)
+    return 1 if differ or own else 0
 
 
 if __name__ == "__main__":
