@@ -6,15 +6,41 @@
 // [L, F, D/2] int8 (biased-lo bytes, within-group pairing over D: packed
 // column j of D-group g holds element g*gs + j in the low nibble and
 // g*gs + gs/2 + j in the high one) with bf16 scales sg [L, 8, F], row g =
-// D-group g.
+// D-group g:
 //
-// Bound: at decode (T = 1) it is a matvec over F*D/2 bytes of weights
-// (9.8 MB for wqkv at D = 2560, F = 7680): memory-bound, 2 FLOPs per
-// weight. The design reads each weight row once per block of TM token rows:
-// a warp owns an output column, each lane streams 16-byte chunks of the
-// row, unpacks the nibbles in registers, and takes its x values from a
-// shared-memory copy of the block's token rows; the f32 partial of each
-// chunk is scaled by its group's scale, then the warp reduces.
+//   out[t, f] = sum over D-groups g, ascending, of (x_g[t] . W_g[f]) * sg[g, f]
+//
+// with each group's dot an f32 sum of exact products. The kernel computes the
+// transposed tile out^T = W . x^T on wgmma: the packed weights are the M side
+// (64 output features a consumer warpgroup), the token rows the N side (8,
+// 16, 32, 64 or 128 a block). TMA brings the packed W tile (128 or 64
+// bytes of a row a stage, swizzled) and the x tiles it meets (K-major B
+// operands, 128-byte swizzle) into a ring; one producer thread keeps it
+// full. Each consumer thread reads its A fragments' packed bytes from
+// shared memory and unpacks the nibbles in registers to bf16, where -8..7
+// are exact (a prmt, two lop3 and a bf16x2 fma a byte pair: 128 + n built
+// in the mantissa, then 136 taken away), and issues wgmma with A from
+// registers: 16 packed bytes feed two k-steps, their low nibbles against x's
+// columns g*gs + j.., their high ones against g*gs + gs/2 + j.. (x is never
+// permuted). A D-group's f32 sum is its own accumulator set; at the group's
+// end it is scaled by sg[g, f] and added to the total, in group order.
+//
+// Bound: at T <= 32 the weight read (9.8 MB for wqkv at D = 2560, F =
+// 7680), each weight byte read once, one consumer warpgroup of 64 rows a
+// block and a ring of 96 KB, W rows of 128 bytes a stage (TMA's cost goes
+// by the row as much as by the byte). At T <= 8 a block's work is too short
+// to hide a load's latency, so K is split over the D-groups too (64 rows x
+// one group: 600 blocks for wqkv, 200 for wo): each block writes its
+// group's sums to an f32 workspace, and the last of a row tile's blocks to
+// finish (an atomic counter, left at 0) scales and adds them in group order
+// with the unsplit kernel's steps, so a row's bits do not depend on T.
+// At 8 < T <= 32 a block takes every group (120 blocks for wqkv, 40 for wo)
+// with most of its 80 KB of weights in flight at once. Above 32 rows the
+// bf16 tensor cores (2 T D F operations, 161 GFLOP for wqkv at T = 4096):
+// two consumer warpgroups of 64 rows share each x tile (128 x 128 tiles),
+// one unpacking while the other's products run, and the group totals wait
+// in shared memory. The products are exact and every sum runs in a fixed
+// order, so the result does not depend on scheduling.
 //
 // dense_int4_a8_kernel replaces the W4A8 variant (`_kernel_a8` :97, the
 // act_int8=True branch of :124): x arrives quantized to int8 per (token,
@@ -37,83 +63,276 @@
 // G_g in one lane, which applies the float steps. The 8 sum(xa) term is
 // per (row, group) and computed once per block.
 
-#include "common.cuh"
+#include <tuple>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int COLS = 2;  // output columns per warp
-constexpr int TM = 8;    // token rows per block
+constexpr int WARPS = 8;   // dense_int4_a8: 8 warps a block
 
-__global__ void __launch_bounds__(WARPS * 32)
-dense_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q4t,
-                  const __nv_bfloat16* __restrict__ sg, float* __restrict__ out,
-                  int T, int D, int F, int layer, int gs) {
+// ---- dense_int4 on wgmma
+constexpr int XROW = 128;        // an x box row: 64 bf16 under the 128-byte swizzle
+template <int TN, int NWG, bool SPLIT>
+struct Tile {
+  // packed bytes of a W row a stage: 128 (a 128-byte-swizzled box row, two x
+  // boxes a side) at most 32 rows, where the weight read bounds the call and
+  // TMA's cost goes by the row; 64 (a 64-byte-swizzled row, one x box a
+  // side) above, where the ring must leave room for the group totals
+  static constexpr int PB = TN > 32 ? 64 : 128;
+  static constexpr int XBOXES = PB / 64;           // x boxes of 64 bf16 a side
+  // NWG consumer warpgroups of 64 W rows each, then the producer: a warp
+  // beside one consumer, a warpgroup beside two (setmaxnreg moves its
+  // registers to them)
+  static constexpr int ROWS = 64 * NWG;            // W rows (output features) a block
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int THREADS = CONSUMERS + (NWG == 1 ? 32 : 128);
+  static constexpr int W_BYTES = ROWS * PB;
+  static constexpr int X_BYTES = XBOXES * TN * XROW;  // the low or the high nibbles' x
+  static constexpr int STAGE = W_BYTES + 2 * X_BYTES;
+  // above 32 rows the group totals wait in shared memory, out of the registers;
+  // at most 32 rows (the weight read bounds the call) a deep ring keeps most
+  // of a block's 80 KB of weights in flight at once
+  static constexpr bool TOT_SMEM = TN > 32;
+  // (a split block streams one group, 2 stages at D = 2560: a ring of 2)
+  static constexpr int STAGES = SPLIT ? 2 : TOT_SMEM ? 4 : 96 * 1024 / STAGE;
+
+  static constexpr int BAR = STAGE * STAGES;
+  static constexpr int TOT = BAR + 16 * STAGES;
+  static constexpr int SMEM = TOT + (TOT_SMEM ? CONSUMERS * TN / 2 * 4 : 0) + 1024;
+};
+
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// a W box row of PB bytes under the PB-byte swizzle: 16-byte chunk c of row
+// r sits at chunk c ^ (r % 8) (128 bytes) or c ^ (r / 2 % 4) (64 bytes)
+template <int PB>
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  const int chunk = PB == 128 ? (col >> 4) ^ (row & 7) : ((col >> 4) ^ (row >> 1)) & 3;
+  return row * PB + (chunk << 4) + (col & 15);
+}
+
+// two packed bytes b0 | b1 << 8 as the bf16 pairs (lo(b0), lo(b1)) and
+// (hi(b0), hi(b1)): each nibble n = value + 8 (the high one's sign bit
+// flipped) goes into the mantissa of 128 (0x4300), and 136 (0x4308) is
+// taken away, all exact
+__device__ __forceinline__ void unpack2(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t t = __byte_perm(v, 0, 0x4140);  // b0 | b1 << 16
+  const uint32_t l = (t & 0x000F000Fu) | 0x43004300u;
+  const uint32_t h = ((t >> 4) & 0x000F000Fu) ^ 0x43084308u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(lo) : "r"(l), "r"(0x3F803F80u), "r"(0xC308C308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(h), "r"(0x3F803F80u), "r"(0xC308C308u));
+}
+
+// d += A B, m64 nTN k16, A from registers, B K-major in shared memory
+template <int TN>
+__device__ __forceinline__ void wgmma_a(float (&d)[TN / 2], const uint32_t* a, uint64_t db) {
+  if constexpr (TN == 8) aria::wgmma_rs8<0>(d, a, db);
+  else if constexpr (TN == 16) aria::wgmma_rs16<0>(d, a, db);
+  else if constexpr (TN == 32) aria::wgmma_rs32<0>(d, a, db);
+  else if constexpr (TN == 64) aria::wgmma_rs64<0>(d, a, db);
+  else aria::wgmma_rs<0>(d, a, db);
+}
+
+// SPLIT (T <= TN): block (x, g) takes W rows 64x.. over D-group g only, and
+// the last of the row tile's blocks adds the groups; else block (x, y) takes
+// W rows 64 NWG x.. and token rows TN y.. over every group. TAIL: a D-group
+// is not whole stages (small widths), so the fragments past its end are
+// zeroed.
+template <int TN, int NWG, bool SPLIT, bool TAIL>
+__global__ void __launch_bounds__(Tile<TN, NWG, SPLIT>::THREADS, 1)
+dense_int4_kernel(const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap x_map, const __nv_bfloat16* __restrict__ sg,
+                  float* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int T, int D, int F, int layer, int ng) {
+  using C = Tile<TN, NWG, SPLIT>;
+  constexpr int NA = TN / 2, PB = C::PB;  // accumulator registers, packed bytes a stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [TM][D]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t0 = blockIdx.y * TM;
-  const int tm = min(TM, T - t0);
-  const int Dp = D >> 1, gsp = gs >> 1;
-
-  {  // stage the block's token rows (8 bf16 per 16-byte copy)
-    const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)t0 * D);
-    uint4* dst = reinterpret_cast<uint4*>(xs);
-    for (int i = threadIdx.x; i < tm * D / 8; i += blockDim.x) dst[i] = src[i];
+  __shared__ int last;
+  const uint32_t base = (aria::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + C::BAR;
+  const int f0 = blockIdx.x * C::ROWS;
+  const int t0 = SPLIT ? 0 : blockIdx.y * TN;
+  const int g0 = SPLIT ? blockIdx.y : 0;  // this block's first group
+  const int gs = D / ng, gsp = gs / 2, spg = (gsp + PB - 1) / PB;
+  const int nk = (SPLIT ? 1 : ng) * spg;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      aria::mbar_init(bars + 8 * s, 1);
+      aria::mbar_init(bars + 8 * (C::STAGES + s), 4 * NWG);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int nch = Dp / 16;
-  for (int cc = 0; cc < COLS; ++cc) {
-    const int f = (blockIdx.x * WARPS + warp) * COLS + cc;
-    if (f >= F) break;  // warp-uniform
-    const int8_t* row = q4t + ((size_t)layer * F + f) * Dp;
-    float acc[TM];
-#pragma unroll
-    for (int t = 0; t < TM; ++t) acc[t] = 0.f;
-
-    for (int c = lane; c < nch; c += 32) {
-      const uint4 w = *reinterpret_cast<const uint4*>(row + c * 16);
-      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-      const int p0 = c * 16;
-      const int g = p0 / gsp;
-      const int q0 = p0 - g * gsp;
-      const float s = aria::bf2f(sg[((size_t)layer * 8 + g) * F + f]);
-      float lo[16], hi[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int b = aria::sbyte(ws[i >> 2], i & 3);
-        lo[i] = (float)((b & 15) - 8);
-        hi[i] = (float)(b >> 4);  // arithmetic shift: sign-extends
-      }
-#pragma unroll
-      for (int t = 0; t < TM; ++t) {
-        if (t < tm) {
-          const uint4* xa = reinterpret_cast<const uint4*>(xs + t * D + g * gs + q0);
-          const uint4* xb = reinterpret_cast<const uint4*>(xs + t * D + g * gs + gsp + q0);
-          float d = 0.f;
-#pragma unroll
-          for (int v = 0; v < 2; ++v) {
-            const uint4 a = xa[v], bb = xb[v];
-            const uint32_t av[4] = {a.x, a.y, a.z, a.w};
-            const uint32_t bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int i = v * 8 + k * 2;
-              d += aria::bf_lo(av[k]) * lo[i] + aria::bf_hi(av[k]) * lo[i + 1];
-              d += aria::bf_lo(bv[k]) * hi[i] + aria::bf_hi(bv[k]) * hi[i + 1];
-            }
-          }
-          acc[t] += d * s;
+  if (threadIdx.x >= C::CONSUMERS) {  // the producer: one thread starts every load
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == C::CONSUMERS) {
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % C::STAGES, g = g0 + c / spg, jg = (c % spg) * PB;
+        const uint32_t st = base + s * C::STAGE, full = bars + 8 * s;
+        if (c >= C::STAGES) aria::mbar_wait(bars + 8 * (C::STAGES + s), (c / C::STAGES - 1) & 1);
+        aria::mbar_expect_tx(full, C::STAGE);
+        aria::tma_load(st, &w_map, full, g * gsp + jg, f0, layer);  // rows past F: zeros
+        for (int b = 0; b < C::XBOXES; ++b) {  // x rows past T: zeros
+          const uint32_t xb = st + C::W_BYTES + b * TN * XROW;
+          aria::tma_load(xb, &x_map, full, g * gs + jg + 64 * b, t0);
+          aria::tma_load(xb + C::X_BYTES, &x_map, full, g * gs + gsp + jg + 64 * b, t0);
         }
       }
     }
+    return;
+  }
+
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int q = lane / 4, r = lane % 4;
+  const int ra = 64 * cw + 16 * warp + q, rb = ra + 8;  // this thread's rows of the W box
+  float* tot_s = reinterpret_cast<float*>(smem_raw + (base - aria::smem_u32(smem_raw)) + C::TOT);
+  const __nv_bfloat16* sga = sg + (size_t)layer * 8 * F + min(f0 + ra, F - 1);
+  const __nv_bfloat16* sgb = sg + (size_t)layer * 8 * F + min(f0 + rb, F - 1);
+  float acc[NA], tot[C::TOT_SMEM ? 1 : NA];
 #pragma unroll
-    for (int t = 0; t < TM; ++t) {
-      const float v = aria::warp_sum(acc[t]);
-      if (lane == 0 && t < tm) out[(size_t)(t0 + t) * F + f] = v;
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (C::TOT_SMEM ? 1 : NA); ++i) tot[i] = 0.f;
+  __nv_bfloat16 sa, sb;  // the group's scales of both rows, loaded at its first stage
+
+  // a stage's products are one batch: its A fragments unpacked (k16 steps of
+  // 16 packed bytes, each feeding a low- and a high-nibble product), then
+  // the products issued, then the batch before waited for, so a stage's
+  // unpacking overlaps the stage before's products
+  for (int c = 0; c < nk; ++c) {
+    const int s = c % C::STAGES, js = c % spg;
+    const uint32_t w = base + s * C::STAGE, xl = w + C::W_BYTES, xh = xl + C::X_BYTES;
+    if (js == 0) sa = sga[(size_t)(g0 + c / spg) * F], sb = sgb[(size_t)(g0 + c / spg) * F];
+    aria::mbar_wait(bars + 8 * s, (c / C::STAGES) & 1);
+    uint32_t alo[PB / 16][4], ahi[PB / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < PB / 16; ++kk) {
+      // packed bytes 16kk + 2r, +1 (k 2r, 2r + 1) and 16kk + 8 + 2r, +1 of both rows
+      unpack2(lds16(w + swz<PB>(ra, 16 * kk + 2 * r)), alo[kk][0], ahi[kk][0]);
+      unpack2(lds16(w + swz<PB>(rb, 16 * kk + 2 * r)), alo[kk][1], ahi[kk][1]);
+      unpack2(lds16(w + swz<PB>(ra, 16 * kk + 8 + 2 * r)), alo[kk][2], ahi[kk][2]);
+      unpack2(lds16(w + swz<PB>(rb, 16 * kk + 8 + 2 * r)), alo[kk][3], ahi[kk][3]);
+      if constexpr (TAIL) {  // past the group's end the fragment is 0
+        const bool ok = js * PB + 16 * kk < gsp;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) alo[kk][i] = ok ? alo[kk][i] : 0u, ahi[kk][i] = ok ? ahi[kk][i] : 0u;
+      }
+    }
+    aria::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PB / 16; ++kk) {
+      const uint32_t off = kk / 4 * TN * XROW + kk % 4 * 32;  // the x box, 16 columns into it
+      wgmma_a<TN>(acc, alo[kk], aria::sw128_desc(xl + off, 16, 1024));
+      wgmma_a<TN>(acc, ahi[kk], aria::sw128_desc(xh + off, 16, 1024));
+    }
+    aria::wgmma_commit();
+    aria::wgmma_wait<1>();
+    if (c > 0 && lane == 0) aria::mbar_arrive(bars + 8 * (C::STAGES + (c - 1) % C::STAGES));
+    if (js == spg - 1) {  // the end of D-group g: scale, add to the total in group order
+      aria::wgmma_wait<0>();
+      aria::fence_regs(acc);
+      const float fa = aria::bf2f(sa), fb = aria::bf2f(sb);
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {  // acc[4j..4j+3]: rows ra, ra, rb, rb
+        if constexpr (C::TOT_SMEM) {
+          float4* ts = reinterpret_cast<float4*>(tot_s) + j * C::CONSUMERS + threadIdx.x;
+          float4 t4 = c < spg ? make_float4(0.f, 0.f, 0.f, 0.f) : *ts;
+          t4.x = __fmaf_rn(acc[4 * j], fa, t4.x);
+          t4.y = __fmaf_rn(acc[4 * j + 1], fa, t4.y);
+          t4.z = __fmaf_rn(acc[4 * j + 2], fb, t4.z);
+          t4.w = __fmaf_rn(acc[4 * j + 3], fb, t4.w);
+          *ts = t4;
+        } else if constexpr (SPLIT) {  // the group's own sums: the last block scales them
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[4 * j + e] = acc[4 * j + e];
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tot[4 * j + e] = __fmaf_rn(acc[4 * j + e], e < 2 ? fa : fb, tot[4 * j + e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * j + e] = 0.f;
+      }
     }
   }
+
+  // tot[4j + e]: row ra (e < 2) or rb, token 8j + 2r + (e & 1)
+  if constexpr (!SPLIT) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int t = t0 + 8 * (i / 4) + 2 * r + (i & 1), f = f0 + ((i & 2) ? rb : ra);
+      const float v = C::TOT_SMEM ? tot_s[((i / 4) * C::CONSUMERS + threadIdx.x) * 4 + i % 4]
+                                  : tot[C::TOT_SMEM ? 0 : i];
+      if (t < T && f < F) out[(size_t)t * F + f] = v;
+    }
+  } else {
+    static_assert(NWG == 1 && !C::TOT_SMEM, "the split takes one warpgroup of few rows");
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int t = 8 * (i / 4) + 2 * r + (i & 1), f = f0 + ((i & 2) ? rb : ra);
+      if (t < T && f < F) ws[((size_t)g0 * T + t) * F + f] = tot[C::TOT_SMEM ? 0 : i];
+    }
+    __threadfence();
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (threadIdx.x == 0) last = atomicAdd(&counters[blockIdx.x], 1) == ng - 1;
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (!last) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int t = 8 * (i / 4) + 2 * r + (i & 1), f = f0 + ((i & 2) ? rb : ra);
+      // the groups' sums, all loads first, scaled and added in group order
+      // as the unsplit kernel does: a row's bits do not depend on the rows
+      // beside it
+      if (t < T && f < F) {
+        float v[8], sc[8];
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          v[g] = g < ng ? __ldcg(ws + ((size_t)g * T + t) * F + f) : 0.f;
+          sc[g] = g < ng ? aria::bf2f(sg[((size_t)layer * 8 + g) * F + f]) : 0.f;
+        }
+        float a = 0.f;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) a = g < ng ? __fmaf_rn(v[g], sc[g], a) : a;
+        out[(size_t)t * F + f] = a;
+      }
+    }
+    if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next call
+  }
+}
+
+template <int TN, int NWG, bool SPLIT>
+cudaError_t launch_dense(const void* x, const void* q4t, const void* sg, void* out, void* ws,
+                         void* counters, int T, int D, int F, int L, int layer, int ng,
+                         cudaStream_t st) {
+  using C = Tile<TN, NWG, SPLIT>;
+  CUtensorMap wm, xm;
+  const cuuint64_t wdims[3] = {(cuuint64_t)D / 2, (cuuint64_t)F, (cuuint64_t)L};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)D / 2, (cuuint64_t)F * D / 2};
+  const cuuint32_t wbox[3] = {C::PB, C::ROWS, 1};
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)T};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t xbox[2] = {64, TN};
+  const auto wswz = C::PB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  if (!aria::make_map(&wm, q4t, 3, wdims, wstrides, wbox, wswz, CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      !aria::make_map(&xm, x, 2, xdims, xstrides, xbox))
+    return cudaErrorInvalidValue;
+  const bool tail = D / ng / 2 % C::PB != 0;
+  const auto kernel =
+      tail ? dense_int4_kernel<TN, NWG, SPLIT, true> : dense_int4_kernel<TN, NWG, SPLIT, false>;
+  cudaError_t err = aria::allow_smem(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + C::ROWS - 1) / C::ROWS, SPLIT ? ng : (T + TN - 1) / TN);
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(wm, xm, (const __nv_bfloat16*)sg, (float*)out,
+                                           (float*)ws, (int*)counters, T, D, F, layer, ng);
+  return cudaGetLastError();
 }
 
 // Reduce v[0..N) over the 16 lanes of a half-warp: while more than one
@@ -245,17 +464,22 @@ cudaError_t launch_a8(const void* xq, const void* sx, const void* q4t, const voi
 
 }  // namespace
 
+// x bf16 [T, D], q4t int8 [L, F, D/2], sg bf16 [L, 8, F], out f32 [T, F].
+// Given ws (ng * T * F f32) and counters (ceil(F / 64) int32 zeroed, which
+// the kernel leaves zeroed), K is split over the D-groups: T <= 8 only.
 ARIA_EXPORT int aria_dense_int4(const void* x, const void* q4t, const void* sg, void* out,
-                                int T, int D, int F, int layer, void* stream) {
-  const int gs = D / aria::int4_group_count(D);
-  const size_t smem = (size_t)TM * D * sizeof(__nv_bfloat16);
-  cudaError_t err = aria::allow_smem(dense_int4_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((F + WARPS * COLS - 1) / (WARPS * COLS), (T + TM - 1) / TM);
-  dense_int4_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)q4t, (const __nv_bfloat16*)sg, (float*)out,
-      T, D, F, layer, gs);
-  return cudaGetLastError();
+                                void* ws, void* counters, int T, int D, int F, int L, int layer,
+                                void* stream) {
+  const int ng = aria::int4_group_count(D);
+  if (T < 1 || D % 32 || (D / ng / 2) % 16 || F < 1 || (ws != nullptr && T > 8))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const auto args = std::make_tuple(x, q4t, sg, out, ws, counters, T, D, F, L, layer, ng, st);
+  if (ws != nullptr) return std::apply(launch_dense<8, 1, true>, args);
+  if (T <= 16) return std::apply(launch_dense<16, 1, false>, args);
+  if (T <= 32) return std::apply(launch_dense<32, 1, false>, args);
+  if (T <= 64) return std::apply(launch_dense<64, 2, false>, args);
+  return std::apply(launch_dense<128, 2, false>, args);
 }
 
 ARIA_EXPORT int aria_dense_int4_a8(const void* xq, const void* sx, const void* q4t,

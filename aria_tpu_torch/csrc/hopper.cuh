@@ -1,9 +1,8 @@
 // Hopper pieces shared by the wgmma kernels (flash.cu, flash_bwd.cu,
 // gmm.cu, vit_attention.cu): TMA loads of tensor-map boxes, the
 // 128-byte-swizzle and the unswizzled shared-memory descriptors, the wgmma
-// fences and the m64n8k16, m64n64k16, m64n128k16 and m64n256k16 bf16
-// products (transpose bits as template arguments), and the host-side tensor
-// maps.
+// fences and the m64n8k16 to m64n256k16 bf16 products (transpose bits as
+// template arguments), and the host-side tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -144,6 +143,28 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t* a, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 32
+template <int TB>
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : ARIA_F8(0), ARIA_F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 16
+template <int TB>
+__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : ARIA_F8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
 // d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 8
 template <int TB>
 __device__ __forceinline__ void wgmma_rs8(float (&d)[4], const uint32_t* a, uint64_t db) {
@@ -212,18 +233,19 @@ __host__ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of the given rank as a tensor map, by default with the
-// 128-byte swizzle: dims innermost first, strides in bytes of dims 1.., box
-// in elements (box[0] = 64: one swizzled 128-byte row). Elements past a
-// dim's end load as zeros.
+// A tensor of the given rank (bf16 unless `type` says otherwise) as a
+// tensor map, by default with the 128-byte swizzle: dims innermost first,
+// strides in bytes of dims 1.., box in elements (box[0] = 64 bf16: one
+// swizzled 128-byte row). Elements past a dim's end load as zeros.
 __host__ inline bool make_map(CUtensorMap* map, const void* base, int rank,
                               const cuuint64_t* dims, const cuuint64_t* strides,
                               const cuuint32_t* box,
-                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,7 +1,7 @@
-// The decode MoE kernels' combine (moe_decode.cu, moe_decode_fp.cu,
-// moe_decode_q4.cu): out = the sum of the valid experts' parts [U, T*D] in
-// u order, in f32, cast to bf16. A fixed order, so the result does not
-// depend on scheduling.
+// The bf16-activation and float decode MoE kernels' combine
+// (moe_decode_fp.cu, moe_decode_q4.cu): out = the sum of the valid experts'
+// parts [U, T*D] in u order, in f32, cast to bf16. A fixed order, so the
+// result does not depend on scheduling.
 #pragma once
 
 #include "common.cuh"

@@ -1,38 +1,151 @@
-// moe_decode_int4, W4A8 form: the fused GLU MoE FFN over the unique active
-// experts, for T <= 128 token rows, plus act_quant_int8.
+// moe_decode_int4, W4A8 form: the fused GLU MoE FFN over the routed
+// (token, expert) pairs, for T <= 128 token rows, plus act_quant_int8.
 //
 // Replaces aria_tpu/ops/moe_decode_kernel.py:450 moe_decode_int4 with
-// act_int8=True (`_kernel_q4_a8` :288, `_ffn_q4_a8` :227) and
-// act_quant_int8 (:215):
+// act_int8=True (`_kernel_q4_a8` :288, `_ffn_q4_a8` :227), act_quant_int8
+// (:215) and `_unique_meta` (:44). For each pair p = (token t, slot s) of
+// the T*k routing slots, with e = indices[t, s]:
 //
-//   xq, sx  = int8 x per (token, D-group)                 act_quant_kernel
-//   h[u]    = silu(xq.w1g[e]) * (xq.w1u[e])  in f32       gateup_kernel
-//   hq, sh  = int8 h per row over the whole intermediate  hquant_kernel
-//   part[u] = wd[e, t] * sh * c[e] * (hq . w2[e])          down_kernel
-//   out     = sum over u of part[u], cast to bf16          moe_combine_kernel (moe_combine.cuh)
+//   xq, sx  = int8 x per (token, D-group)                  prep_kernel
+//   h[p]    = silu(sum_g (G_g . sx) . sg) * (the same for up) in f32,
+//             G_g the exact int32 dot of D-group g          gateup_kernel
+//   hq, sh  = int8 h per pair over the whole intermediate   hquant_kernel
+//   part[p] = w[t, s] * ((P . sh) . c), P the exact int32
+//             down dot                                      down_kernel
+//   out[t]  = the sum of t's parts, cast to bf16            combine_kernel
 //
-// u runs over the unique active experts (ids/valid from the wrapper's
-// bookkeeping, static size U = min(T*k, E)); an expert's weights are read
-// once for all T rows. Weights are biased-lo packed int4 (B = 16*hi +
-// lo + 8): with int8 activations, dp4a on the masked raw bytes gives exact
-// int32 dots, x.lo = dp4a(x, B & 0x0F) - 8*sum(x) and
-// x.hi = dp4a(x, B & 0xF0) >> 4, so no nibble is ever shifted out.
+// Only routed rows. The reference runs every token row through every
+// active expert and multiplies the rows that did not pick it by a zero
+// combine weight; at T = 32 that is 66 x 32 rows for 256 real pairs. Here
+// prep_kernel lists the pairs sorted by expert (stable: ascending token
+// within an expert; the lists of ops/moe_decode_kernel.py:routed_rows) and
+// copies each token's int8 row and scales to its pairs' places, so an
+// expert's rows are contiguous and come by TMA boxes; its last block writes
+// each unique expert's id, flag, first place and count (unique_meta's ids:
+// slot order at T = 1, else ascending). h, hq and the f32 partials are one
+// row a pair, [T*k, .]. The combine adds a token's pairs in the reference's
+// order (ascending expert id; slot order at T = 1) from 0, so every output
+// bit is the reference's: an unrouted row adds 0 * partial, which leaves a
+// finite sum as it is (the only difference is a non-finite partial of an
+// unrouted row, which the reference would spread; ROADMAP queue 3).
 //
-// Bound: the expert weights, 3*I*D/2 bytes per active expert (6.4 MB at
-// I = 1664, D = 2560; 51 MB per layer for the 8 slots of a decode step)
-// against ~4 int ops per byte per token row: memory-bound at decode. The
-// partial sums go through a [U, T, D] f32 buffer and are added in a fixed
-// order, so the result does not depend on scheduling (no atomics).
+// Integer products on the tensor cores: mma.sync m16n8k32 s8 x s8 -> s32,
+// weights the M side (16 rows of w1, or 16 packed columns of w2), token
+// rows the N side in tiles of 8, 32 token rows a block. The nibbles are
+// unpacked in registers to int8 times 16, exactly: with a biased-lo byte
+// B = 16 hi + (lo + 8), B & 0xF0 is 16 hi as a signed byte, and
+// ((B << 4) ^ 0x80) & 0xF0 is 16 lo (three bit operations a word of four
+// bytes). So x.lo + x.hi over a group is one int32 sum of two products,
+// 16 G, shifted right by 4 at the group's end: two products and one
+// accumulator, where the TPU identity on the raw bytes (xa.B - xa.hi16 -
+// 8 sum(xa) + (xb.hi16 >> 4)) needs three products or two accumulators and
+// the bias. Each int32 group sum is then scaled and added in _ffn_q4_a8's
+// order with __fmul_rn / __fadd_rn, so the kernel is bit-equal to
+// moe_decode_int4_plain up to the last ulp of expf in the sigmoid.
+//
+// w1: within-group nibble pairing, so the 128 packed bytes of a stage feed
+// the low nibbles against x's columns g*gs + j.. and the high ones against
+// g*gs + gs/2 + j..; each thread takes 32 contiguous packed bytes of a row
+// and the same 32 x bytes (the contraction's order within the 32 is free,
+// as long as both operands share it). w2 pairs over the output axis (byte
+// j of row i holds columns j and j + D/2) and its contraction axis is the
+// rows: 4x4 byte transposes (prmt) turn four rows of four packed columns
+// into the K-contiguous words the fragments take.
+//
+// Bound: the used experts' weights, 3*I*D/2 bytes each (6.4 MB at I =
+// 1664, D = 2560), read once a call through a TMA ring (4 stages of 24 KB
+// for gate/up, 4 of 20 KB for down, each weight row 128 bytes a box row)
+// fed by one producer thread; blocks are 64 intermediate columns x 32 token
+// rows of an expert for gate/up (26 a chunk of an expert) and 128 packed
+// columns (256 outputs) x 32 token rows for down (10), so one stream's 8
+// experts fill 208 and 80 blocks. The group scales and the epilogues'
+// scales are loaded into shared memory while the ring fills. The int32
+// sums are exact in any order and every float step runs in a fixed order,
+// so the result does not depend on scheduling (no atomics).
 
-#include "moe_combine.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int GU_WARPS = 8;   // gate/up rows per block (one per warp)
-constexpr int GU_TT = 16;     // token rows staged at a time
-constexpr int GU_MAXCH = 4;   // 16-byte chunks per lane per row: D/2 <= 2048
-constexpr int DN_TT = 8;      // token rows per pass of the down projection
-constexpr int DN_SLICES = 4;  // warps splitting the intermediate axis
+using aria::smem_u32;
+
+constexpr int TOK = 32;                  // token rows a block takes
+constexpr int NT = TOK / 8;              // n-tiles of 8 rows
+constexpr int CONSUMERS = 4;             // consumer warps
+constexpr int THREADS = 32 * (CONSUMERS + 1);  // and one producer warp
+constexpr int XBOX = 8 * 128;            // a box of 8 int8 rows x 128 bytes
+// gate/up: 64 intermediate columns a block (16 a warp), 64 gate rows and the
+// 64 up rows of the same columns, 128 packed bytes (256 elements of D) a stage
+constexpr int GU_I = 64;
+constexpr int GU_PB = 128;
+constexpr int GU_WBOX = GU_I * GU_PB;                 // 8 KB
+constexpr int GU_STAGE = 2 * GU_WBOX + 2 * NT * XBOX;  // w1, x lo, x hi: 24 KB
+constexpr int GU_STAGES = 4;
+// down: 128 packed columns (256 outputs) a block, 128 rows of w2 a stage;
+// warp w takes packed columns 32w..
+constexpr int DN_J = 128;
+constexpr int DN_K = 128;
+constexpr int DN_WBOX = DN_K * DN_J;             // 16 KB
+constexpr int DN_STAGE = DN_WBOX + NT * XBOX;    // w2, hq: 20 KB
+constexpr int DN_STAGES = 4;
+
+// the ring's stages, its full and empty barriers, then EXTRA bytes of the
+// block's scales (read in the epilogues, loaded while the ring fills)
+template <int STAGE, int STAGES, int EXTRA>
+struct Ring {
+  static constexpr int BAR = STAGE * STAGES;
+  static constexpr int SCALES = BAR + 16 * STAGES;
+  static constexpr int BYTES = SCALES + EXTRA + 1024;  // + slack for the alignment
+};
+using GURing = Ring<GU_STAGE, GU_STAGES, (8 * 2 * GU_I + TOK * 8) * 4>;  // sg [8][2][64], sx [32][8]
+using DNRing = Ring<DN_STAGE, DN_STAGES, (2 * DN_J + 2 * TOK) * 4>;      // c [128], sh, w [32]
+
+// a box row of 128 bytes under the 128-byte swizzle: its 16-byte chunks
+// are permuted by the row's index within each 1024-byte atom
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+// a box row of 64 bytes under the 64-byte swizzle: chunk ^= (row / 2) % 4
+__device__ __forceinline__ uint32_t sw64(int row, int col) {
+  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// four biased-lo packed bytes as int8 words of 16 lo and of 16 hi (exact)
+__device__ __forceinline__ uint32_t lo16(uint32_t w) { return ((w << 4) ^ 0x80808080u) & 0xF0F0F0F0u; }
+__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
+
+// c += a (16 x 32 s8, row) . b (32 x 8 s8, col), s32 sums
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4x4 byte transpose: words a..d hold rows i..i+3 of 4 packed columns;
+// column k's word gets bytes (a_k, b_k, c_k, d_k)
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                           uint32_t* col) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
+  const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
 
 __global__ void act_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
                                  float* __restrict__ sx, int D, int ng) {
@@ -63,100 +176,289 @@ __global__ void act_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __
   }
 }
 
-__global__ void __launch_bounds__(GU_WARPS * 32)
-gateup_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-              const int* __restrict__ ids, const int* __restrict__ valid,
-              const int8_t* __restrict__ w1q4, const __nv_bfloat16* __restrict__ w1sg,
-              float* __restrict__ h, int T, int D, int I, int E, int ng, int layer) {
+// Block t < T: quantize token t, find each of its pairs' place in the list
+// sorted by expert (the pairs of experts below e, then those of earlier
+// tokens on e) and copy the int8 row, its scales and its combine weight
+// there. Block T: each unique expert's id, flag, first place and count,
+// [4][U]. Each phase runs across the block's warps at once.
+__global__ void __launch_bounds__(256)
+prep_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ind,
+            const void* __restrict__ wts, int w_bf16, int8_t* __restrict__ xs,
+            float* __restrict__ sxs, float* __restrict__ wsort, int* __restrict__ pos,
+            int* __restrict__ meta, int T, int k, int D, int ng, int E, int U) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* xs = reinterpret_cast<int8_t*>(smem_raw);                  // [GU_TT][D]
-  float* sxs = reinterpret_cast<float*>(smem_raw + GU_TT * D);        // [GU_TT][8]
-  const int u = blockIdx.y;
-  if (!valid[u]) return;  // block-uniform
-  const int e = ids[u];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * GU_WARPS + warp;
-  const bool rok = r < I;
-  const int Dp = D / 2, gs = D / ng, gsp = gs / 2, nch = Dp / 16;
-  const size_t ebase = (size_t)layer * E + e;
+  __shared__ float sxl[8];
+  const int n = T * k, t = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  int* sind = reinterpret_cast<int*>(smem_raw);  // [n]
+  for (int j = threadIdx.x; j < n; j += blockDim.x) sind[j] = ind[j];
 
-  uint4 wg[GU_MAXCH], wu[GU_MAXCH];
-  float sgg[GU_MAXCH], sgu[GU_MAXCH];
-  int grp[GU_MAXCH];
-#pragma unroll
-  for (int kk = 0; kk < GU_MAXCH; ++kk) {
-    const int c = lane + 32 * kk;
-    wg[kk] = wu[kk] = make_uint4(0, 0, 0, 0);
-    sgg[kk] = sgu[kk] = 0.f;
-    grp[kk] = 0;
-    if (rok && c < nch) {
-      const int g = (c * 16) / gsp;
-      grp[kk] = g;
-      wg[kk] = *reinterpret_cast<const uint4*>(w1q4 + (ebase * 2 * I + r) * Dp + c * 16);
-      wu[kk] = *reinterpret_cast<const uint4*>(w1q4 + (ebase * 2 * I + I + r) * Dp + c * 16);
-      sgg[kk] = aria::bf2f(w1sg[(ebase * 8 + g) * 2 * I + r]);
-      sgu[kk] = aria::bf2f(w1sg[(ebase * 8 + g) * 2 * I + I + r]);
+  if (t == T) {  // the unique experts
+    int* cnt = sind + n;  // [E]
+    for (int e = threadIdx.x; e < E; e += blockDim.x) cnt[e] = 0;
+    __syncthreads();
+    for (int j = threadIdx.x; j < n; j += blockDim.x) atomicAdd(&cnt[sind[j]], 1);
+    __syncthreads();
+    if (warp != 0) return;
+    int* ids = meta;
+    int* valid = meta + U;
+    int* first = meta + 2 * U;
+    int* count = meta + 3 * U;
+    if (T == 1) {  // the token's slots in order
+      for (int u = lane; u < U; u += 32) {
+        const int e = sind[u];
+        int below = 0;
+        for (int s = 0; s < k; ++s) below += sind[s] < e;
+        ids[u] = e, valid[u] = 1, first[u] = below, count[u] = 1;
+      }
+      return;
     }
+    // present experts ascending, then absent ones flagged invalid: a scan
+    // of E, 32 experts at a time
+    int present = 0;
+    for (int e0 = 0; e0 < E; e0 += 32)
+      present += __popc(__ballot_sync(aria::FULL_MASK, e0 + lane < E && cnt[e0 + lane] > 0));
+    int up = 0, ua = present, run = 0;  // places so far: present, absent; rows so far
+    const unsigned below_me = (1u << lane) - 1;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane, c = e < E ? cnt[e] : 0;
+      const unsigned pres = __ballot_sync(aria::FULL_MASK, c > 0);
+      const unsigned absent = __ballot_sync(aria::FULL_MASK, e < E && c == 0);
+      int incl = c;  // inclusive scan of the counts
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(aria::FULL_MASK, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (c > 0) {
+        const int u = up + __popc(pres & below_me);
+        if (u < U) ids[u] = e, valid[u] = 1, first[u] = run + incl - c, count[u] = c;
+      } else if (e < E) {
+        const int u = ua + __popc(absent & below_me);
+        if (u < U) ids[u] = e, valid[u] = 0, first[u] = n, count[u] = 0;
+      }
+      up += __popc(pres), ua += __popc(absent);
+      run += __shfl_sync(aria::FULL_MASK, incl, 31);
+    }
+    return;
   }
 
-  for (int t0 = 0; t0 < T; t0 += GU_TT) {
-    const int tt = min(GU_TT, T - t0);
-    __syncthreads();
-    {
-      const uint4* src = reinterpret_cast<const uint4*>(xq + (size_t)t0 * D);
-      uint4* dst = reinterpret_cast<uint4*>(xs);
-      for (int i = threadIdx.x; i < tt * D / 16; i += blockDim.x) dst[i] = src[i];
-      for (int i = threadIdx.x; i < tt * 8; i += blockDim.x) sxs[i] = sx[(size_t)t0 * 8 + i];
-    }
-    __syncthreads();
-    for (int t = 0; t < tt; ++t) {
-      float ga = 0.f, ua = 0.f;
+  float* xf = reinterpret_cast<float*>(sind + n);  // [D]
+  int* place = reinterpret_cast<int*>(xf + D);     // [k]
+  for (int i = threadIdx.x; i < D; i += blockDim.x) xf[i] = aria::bf2f(x[(size_t)t * D + i]);
+  __syncthreads();
+  // each warp: the group amax of groups warp, warp + nw.. (as act_quant_int8
+  // computes it), then the places of slots warp, warp + nw..
+  const int gs = D / ng;
+  for (int g = warp; g < 8; g += nw) {
+    float a = 0.f;
+    for (int i = lane; g < ng && i < gs; i += 32) a = fmaxf(a, fabsf(xf[g * gs + i]));
+    a = aria::warp_max(a);
+    if (lane == 0) sxl[g] = g < ng ? fmaxf(a * (1.f / 127.f), 1e-8f) : 0.f;
+  }
+  for (int s = warp; s < k; s += nw) {
+    const int e = sind[t * k + s];
+    int c = 0;
+    for (int j = lane; j < n; j += 32) c += (sind[j] < e) + (sind[j] == e && j < t * k);
+    c = aria::warp_sum_int(c);
+    if (lane == 0) place[s] = c;
+  }
+  __syncthreads();
+  // 16 elements a thread at a time (a group holds whole chunks), stored to
+  // every place of the token
+  for (int ch = threadIdx.x; ch < D / 16; ch += blockDim.x) {
+    const float sc = sxl[ch * 16 / gs];
+    uint32_t wv[4];
 #pragma unroll
-      for (int kk = 0; kk < GU_MAXCH; ++kk) {
-        const int c = lane + 32 * kk;
-        if (rok && c < nch) {
-          const int g = grp[kk];
-          const int q0 = c * 16 - g * gsp;
-          const uint4 a4 = *reinterpret_cast<const uint4*>(xs + t * D + g * gs + q0);
-          const uint4 b4 = *reinterpret_cast<const uint4*>(xs + t * D + g * gs + gsp + q0);
-          const int xa[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
-          const int xb[4] = {(int)b4.x, (int)b4.y, (int)b4.z, (int)b4.w};
-          const uint32_t gw[4] = {wg[kk].x, wg[kk].y, wg[kk].z, wg[kk].w};
-          const uint32_t uw[4] = {wu[kk].x, wu[kk].y, wu[kk].z, wu[kk].w};
-          int sa = 0, dgl = 0, dgh = 0, dul = 0, duh = 0;
+    for (int v = 0; v < 4; ++v) {
+      uint32_t word = 0;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            sa = __dp4a(xa[i], 0x01010101, sa);
-            dgl = __dp4a(xa[i], (int)(gw[i] & 0x0F0F0F0Fu), dgl);
-            dgh = __dp4a(xb[i], (int)(gw[i] & 0xF0F0F0F0u), dgh);
-            dul = __dp4a(xa[i], (int)(uw[i] & 0x0F0F0F0Fu), dul);
-            duh = __dp4a(xb[i], (int)(uw[i] & 0xF0F0F0F0u), duh);
-          }
-          const float s = sxs[t * 8 + g];
-          ga += (float)(dgl - 8 * sa + (dgh >> 4)) * s * sgg[kk];
-          ua += (float)(dul - 8 * sa + (duh >> 4)) * s * sgu[kk];
-        }
+      for (int b = 0; b < 4; ++b) {
+        const float qv = fminf(fmaxf(rintf(xf[ch * 16 + 4 * v + b] / sc), -127.f), 127.f);
+        word |= (uint32_t)(uint8_t)(int8_t)qv << (8 * b);
       }
-      ga = aria::warp_sum(ga);
-      ua = aria::warp_sum(ua);
-      if (lane == 0 && rok) {
-        const float sig = 1.f / (1.f + expf(-ga));
-        h[((size_t)u * T + t0 + t) * I + r] = (ga * sig) * ua;
-      }
+      wv[v] = word;
     }
+    const uint4 q4 = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+    for (int s = 0; s < k; ++s) reinterpret_cast<uint4*>(xs + (size_t)place[s] * D)[ch] = q4;
+  }
+  for (int s = threadIdx.x; s < k; s += blockDim.x) {
+    const int p = place[s], j = t * k + s;
+    for (int g = 0; g < 8; ++g) sxs[p * 8 + g] = sxl[g];
+    wsort[p] = w_bf16 ? aria::bf2f(reinterpret_cast<const __nv_bfloat16*>(wts)[j])
+                      : reinterpret_cast<const float*>(wts)[j];
+    pos[j] = p;
   }
 }
 
-__global__ void hquant_kernel(const float* __restrict__ h, const int* __restrict__ valid,
-                              int8_t* __restrict__ hq, float* __restrict__ sh,
-                              int* __restrict__ hsum, int T, int I) {
+// the block's expert, its first sorted row for this chunk and the chunk's
+// row count; false where the block has no rows (block-uniform)
+__device__ __forceinline__ bool block_rows(const int* __restrict__ meta, int U, int u, int chunk,
+                                           int& e, int& row0, int& rows) {
+  if (!meta[U + u]) return false;
+  const int cnt = meta[3 * U + u];
+  if (chunk * TOK >= cnt) return false;
+  e = meta[u];
+  row0 = meta[2 * U + u] + chunk * TOK;
+  rows = min(TOK, cnt - chunk * TOK);
+  return true;
+}
+
+template <int STAGES>
+__device__ __forceinline__ void init_bars(uint32_t bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      aria::mbar_init(bars + 8 * s, 1);
+      aria::mbar_init(bars + 8 * (STAGES + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+gateup_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap x_map,
+              const int* __restrict__ meta, const float* __restrict__ sxs,
+              const __nv_bfloat16* __restrict__ w1sg, float* __restrict__ h, int D, int I, int E,
+              int U, int ng, int layer, int chunks) {
+  const int chunk = blockIdx.x % chunks, i0 = blockIdx.x / chunks * GU_I;
+  int e, row0, rows;
+  if (!block_rows(meta, U, blockIdx.y, chunk, e, row0, rows)) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + GURing::BAR;
+  init_bars<GU_STAGES>(bars);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nt = (rows + 7) / 8;
+  const int le = layer * E + e;
+  const int gs = D / ng, gsp = gs / 2, nk = D / 2 / GU_PB, spg = gsp / GU_PB;
+
+  if (warp == CONSUMERS) {  // the producer: one thread starts every load
+    if (lane == 0) {
+      const uint32_t bytes = 2 * GU_WBOX + 2 * nt * XBOX;
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % GU_STAGES;
+        const uint32_t st = base + s * GU_STAGE, full = bars + 8 * s;
+        if (c >= GU_STAGES) aria::mbar_wait(bars + 8 * (GU_STAGES + s), (c / GU_STAGES - 1) & 1);
+        aria::mbar_expect_tx(full, bytes);
+        aria::tma_load(st, &w1_map, full, c * GU_PB, i0, le);
+        aria::tma_load(st + GU_WBOX, &w1_map, full, c * GU_PB, I + i0, le);
+        const int g = c / spg, xc = g * gs + (c - g * spg) * GU_PB;
+        for (int b = 0; b < nt; ++b) {
+          aria::tma_load(st + 2 * GU_WBOX + b * XBOX, &x_map, full, xc, row0 + 8 * b);
+          aria::tma_load(st + 2 * GU_WBOX + (NT + b) * XBOX, &x_map, full, xc + gsp, row0 + 8 * b);
+        }
+      }
+    }
+    return;
+  }
+
+  float* sg_s = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + GURing::SCALES);
+  float* sx_s = sg_s + 8 * 2 * GU_I;
+  for (int i = threadIdx.x; i < ng * 2 * GU_I; i += 32 * CONSUMERS) {
+    const int g = i / (2 * GU_I), m = i / GU_I % 2, row = min(i0 + i % GU_I, I - 1);
+    sg_s[i] = aria::bf2f(w1sg[((size_t)le * 8 + g) * 2 * I + m * I + row]);
+  }
+  for (int i = threadIdx.x; i < rows * 8; i += 32 * CONSUMERS) sx_s[i] = sxs[(size_t)row0 * 8 + i];
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * CONSUMERS) : "memory");
+  const int q = lane >> 2, r = lane & 3;
+  int acc[2][NT][4];      // [gate, up][n-tile]: 16 G of the current group
+  float tot[2][NT][4];    // the scaled sum over the groups so far
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0, tot[m][n][i] = 0.f;
+  const int wrow = warp * 16 + q;  // this thread's rows wrow and wrow + 8 of each box
+
+  for (int c = 0; c < nk; ++c) {
+    const int s = c % GU_STAGES;
+    const uint32_t st = base + s * GU_STAGE;
+    aria::mbar_wait(bars + 8 * s, (c / GU_STAGES) & 1);
+    uint32_t w[2][2][8];  // [gate, up][row wrow, wrow + 8]: packed bytes 32r..32r+31
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const uint4 t4 = lds128(st + m * GU_WBOX + sw128(wrow + 8 * hr, 32 * r + 16 * v));
+          w[m][hr][4 * v] = t4.x, w[m][hr][4 * v + 1] = t4.y;
+          w[m][hr][4 * v + 2] = t4.z, w[m][hr][4 * v + 3] = t4.w;
+        }
+    // n-tile by n-tile: token row q's x bytes 32r..32r+31, low and high
+    // columns, against the weights' k steps t: packed bytes 32r + 8t.. (a0,
+    // a1) and 32r + 8t + 4.. (a2, a3), unpacked anew for each n-tile
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      if (n < nt) {
+        uint32_t xl[8], xh[8];
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const uint4 a = lds128(st + 2 * GU_WBOX + n * XBOX + sw128(q, 32 * r + 16 * v));
+          const uint4 b = lds128(st + 2 * GU_WBOX + (NT + n) * XBOX + sw128(q, 32 * r + 16 * v));
+          xl[4 * v] = a.x, xl[4 * v + 1] = a.y, xl[4 * v + 2] = a.z, xl[4 * v + 3] = a.w;
+          xh[4 * v] = b.x, xh[4 * v + 1] = b.y, xh[4 * v + 2] = b.z, xh[4 * v + 3] = b.w;
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const uint32_t alo[4] = {lo16(w[m][0][2 * t]), lo16(w[m][1][2 * t]),
+                                     lo16(w[m][0][2 * t + 1]), lo16(w[m][1][2 * t + 1])};
+            const uint32_t ahi[4] = {hi16(w[m][0][2 * t]), hi16(w[m][1][2 * t]),
+                                     hi16(w[m][0][2 * t + 1]), hi16(w[m][1][2 * t + 1])};
+            mma_s8(acc[m][n], alo, xl[2 * t], xl[2 * t + 1]);
+            mma_s8(acc[m][n], ahi, xh[2 * t], xh[2 * t + 1]);
+          }
+      }
+    __syncwarp();
+    if (lane == 0) aria::mbar_arrive(bars + 8 * (GU_STAGES + s));
+
+    if ((c + 1) % spg == 0) {  // the end of D-group g: (G . sx) . sg, added in group order
+      const int g = c / spg;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float sgv[2] = {sg_s[(g * 2 + m) * GU_I + wrow], sg_s[(g * 2 + m) * GU_I + wrow + 8]};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          if (n < nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int tok = min(n * 8 + 2 * r + (i & 1), rows - 1);
+              const float sx = sx_s[tok * 8 + g];
+              const float d = __fmul_rn(__fmul_rn((float)(acc[m][n][i] >> 4), sx), sgv[i >> 1]);
+              tot[m][n][i] = g == 0 ? d : __fadd_rn(tot[m][n][i], d);
+              acc[m][n][i] = 0;
+            }
+          }
+      }
+    }
+  }
+
+  // h = silu(gate) * up in f32, one row a pair
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if (n < nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int tok = n * 8 + 2 * r + (i & 1), col = i0 + wrow + 8 * (i >> 1);
+        if (tok < rows && col < I) {
+          const float gt = tot[0][n][i], up = tot[1][n][i];
+          const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-gt)));
+          h[(size_t)(row0 + tok) * I + col] = __fmul_rn(__fmul_rn(gt, sig), up);
+        }
+      }
+    }
+}
+
+__global__ void hquant_kernel(const float* __restrict__ h, int8_t* __restrict__ hq,
+                              float* __restrict__ sh, int I) {
   __shared__ float redf[32];
-  __shared__ int redi[32];
-  const int t = blockIdx.x, u = blockIdx.y;
-  if (!valid[u]) return;
+  const int p = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const size_t row = (size_t)u * T + t;
-  const float* hr = h + row * I;
+  const float* hr = h + (size_t)p * I;
   float a = 0.f;
   for (int i = threadIdx.x; i < I; i += blockDim.x) a = fmaxf(a, fabsf(hr[i]));
   a = aria::warp_max(a);
@@ -165,121 +467,163 @@ __global__ void hquant_kernel(const float* __restrict__ h, const int* __restrict
   float amax = 0.f;
   for (int w = 0; w < nw; ++w) amax = fmaxf(amax, redf[w]);
   const float sc = fmaxf(amax * (1.f / 127.f), 1e-8f);
-  int sum = 0;
-  for (int i = threadIdx.x; i < I; i += blockDim.x) {
-    const int qv = (int)fminf(fmaxf(rintf(hr[i] / sc), -127.f), 127.f);
-    hq[row * I + i] = (int8_t)qv;
-    sum += qv;
-  }
-  sum = aria::warp_sum_int(sum);
-  if (lane == 0) redi[warp] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int tot = 0;
-    for (int w = 0; w < nw; ++w) tot += redi[w];
-    hsum[row] = tot;
-    sh[row] = sc;
-  }
+  for (int i = threadIdx.x; i < I; i += blockDim.x)
+    hq[(size_t)p * I + i] = (int8_t)fminf(fmaxf(rintf(hr[i] / sc), -127.f), 127.f);
+  if (threadIdx.x == 0) sh[p] = sc;
 }
 
-// 4x4 byte transpose: words a..d hold rows i..i+3 of 4 packed columns;
-// column k's word gets bytes (a_k, b_k, c_k, d_k)
-__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
-                                           uint32_t* col) {
-  const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
-  const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
-  col[0] = __byte_perm(t0, t1, 0x5410);
-  col[1] = __byte_perm(t0, t1, 0x7632);
-  col[2] = __byte_perm(t2, t3, 0x5410);
-  col[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-__global__ void __launch_bounds__(DN_SLICES * 32)
-down_kernel(const int8_t* __restrict__ hq, const float* __restrict__ sh,
-            const int* __restrict__ hsum, const int* __restrict__ ids,
-            const int* __restrict__ valid, const float* __restrict__ wd,
-            const int8_t* __restrict__ w2q4, const __nv_bfloat16* __restrict__ w2s8,
-            float* __restrict__ part, int T, int D, int I, int E, int layer) {
+__global__ void __launch_bounds__(THREADS, 2)
+down_kernel(const __grid_constant__ CUtensorMap w2_map, const __grid_constant__ CUtensorMap hq_map,
+            const int* __restrict__ meta, const float* __restrict__ sh,
+            const float* __restrict__ wsort, const __nv_bfloat16* __restrict__ w2s8,
+            float* __restrict__ part, int D, int I, int E, int U, int layer, int chunks) {
+  const int chunk = blockIdx.x % chunks, j0 = blockIdx.x / chunks * DN_J;
+  int e, row0, rows;
+  if (!block_rows(meta, U, blockIdx.y, chunk, e, row0, rows)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* red = reinterpret_cast<int*>(smem_raw);                           // [SL][TT][128][2]
-  int8_t* hs = reinterpret_cast<int8_t*>(smem_raw + DN_SLICES * DN_TT * 128 * 2 * sizeof(int));
-  const int u = blockIdx.y;
-  if (!valid[u]) return;
-  const int e = ids[u];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + DNRing::BAR;
+  init_bars<DN_STAGES>(bars);
+  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Dp = D / 2;
-  const int j0 = blockIdx.x * 128;
-  const size_t ebase = (size_t)layer * E + e;
-  const int8_t* wbase = w2q4 + ebase * I * Dp + j0 + lane * 4;
-  const int nq = I / 4, qps = nq / DN_SLICES;
+  const int nt = (rows + 7) / 8;
+  const int le = layer * E + e;
+  const int nk = (I + DN_K - 1) / DN_K;
 
-  for (int t0 = 0; t0 < T; t0 += DN_TT) {
-    const int tt = min(DN_TT, T - t0);
-    __syncthreads();
-    {
-      const uint4* src = reinterpret_cast<const uint4*>(hq + ((size_t)u * T + t0) * I);
-      uint4* dst = reinterpret_cast<uint4*>(hs);
-      for (int i = threadIdx.x; i < tt * I / 16; i += blockDim.x) dst[i] = src[i];
+  if (warp == CONSUMERS) {  // the producer
+    if (lane == 0) {
+      const uint32_t bytes = DN_WBOX + nt * XBOX;
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % DN_STAGES;
+        const uint32_t st = base + s * DN_STAGE, full = bars + 8 * s;
+        if (c >= DN_STAGES) aria::mbar_wait(bars + 8 * (DN_STAGES + s), (c / DN_STAGES - 1) & 1);
+        aria::mbar_expect_tx(full, bytes);
+        aria::tma_load(st, &w2_map, full, j0, c * DN_K, le);  // rows past I load as zeros
+        for (int b = 0; b < nt; ++b)
+          aria::tma_load(st + DN_WBOX + b * XBOX, &hq_map, full, c * DN_K, row0 + 8 * b);
+      }
     }
-    __syncthreads();
-    int alo[DN_TT][4], ahi[DN_TT][4];
+    return;
+  }
+
+  const size_t c8 = (size_t)le * 8 * D;  // row 0 of s8: the column scales c/7
+  float* cs_s = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + DNRing::SCALES);
+  float* sh_s = cs_s + 2 * DN_J;
+  float* w_s = sh_s + TOK;
+  for (int i = threadIdx.x; i < 2 * DN_J; i += 32 * CONSUMERS)
+    cs_s[i] = aria::bf2f(w2s8[c8 + j0 + i % DN_J + i / DN_J * (D / 2)]);
+  for (int i = threadIdx.x; i < rows; i += 32 * CONSUMERS) sh_s[i] = sh[row0 + i], w_s[i] = wsort[row0 + i];
+  const int q = lane >> 2, r = lane & 3;
+  const int jb = 32 * warp;
+  int acc[2][2][NT][4];  // [m][lo, hi][n-tile]: 16 P
 #pragma unroll
-    for (int t = 0; t < DN_TT; ++t)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) alo[t][k] = ahi[t][k] = 0;
-    for (int qd = warp * qps; qd < (warp + 1) * qps; ++qd) {
-      const int i = qd * 4;
-      const uint32_t a = *reinterpret_cast<const uint32_t*>(wbase + (size_t)i * Dp);
-      const uint32_t b = *reinterpret_cast<const uint32_t*>(wbase + (size_t)(i + 1) * Dp);
-      const uint32_t c = *reinterpret_cast<const uint32_t*>(wbase + (size_t)(i + 2) * Dp);
-      const uint32_t d = *reinterpret_cast<const uint32_t*>(wbase + (size_t)(i + 3) * Dp);
-      uint32_t col[4];
-      transpose4(a, b, c, d, col);
-      int clo[4], chi[4];
+    for (int lh = 0; lh < 2; ++lh)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        clo[k] = (int)(col[k] & 0x0F0F0F0Fu);
-        chi[k] = (int)(col[k] & 0xF0F0F0F0u);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][lh][n][i] = 0;
+
+  for (int c = 0; c < nk; ++c) {
+    const int s = c % DN_STAGES;
+    const uint32_t st = base + s * DN_STAGE;
+    aria::mbar_wait(bars + 8 * s, (c / DN_STAGES) & 1);
+#pragma unroll
+    for (int step = 0; step < DN_K / 32; ++step) {
+      const int ib = 32 * step;
+      uint32_t rw[8];  // rows ib + 4r + cc and ib + 16 + 4r + cc, packed columns jb + 4q..
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        rw[cc] = lds32(st + sw128(ib + 4 * r + cc, jb + 4 * q));
+        rw[4 + cc] = lds32(st + sw128(ib + 16 + 4 * r + cc, jb + 4 * q));
+      }
+      uint32_t t1[4], t2[4];  // column jb + 4q + cc: rows ib + 4r.. and ib + 16 + 4r..
+      transpose4(rw[0], rw[1], rw[2], rw[3], t1);
+      transpose4(rw[4], rw[5], rw[6], rw[7], t2);
+      uint32_t a[2][2][4];  // [m][lo, hi]: rows q, q + 8 = columns jb + 4q + 2m, + 1
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint32_t raw[4] = {t1[2 * m], t1[2 * m + 1], t2[2 * m], t2[2 * m + 1]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[m][0][i] = lo16(raw[i]), a[m][1][i] = hi16(raw[i]);
       }
 #pragma unroll
-      for (int t = 0; t < DN_TT; ++t) {
-        if (t < tt) {
-          const int hv = *reinterpret_cast<const int*>(hs + t * I + i);
+      for (int n = 0; n < NT; ++n)
+        if (n < nt) {
+          const uint32_t hb = st + DN_WBOX + n * XBOX;
+          const uint32_t b0 = lds32(hb + sw128(q, ib + 4 * r));
+          const uint32_t b1 = lds32(hb + sw128(q, ib + 16 + 4 * r));
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            alo[t][k] = __dp4a(hv, clo[k], alo[t][k]);
-            ahi[t][k] = __dp4a(hv, chi[k], ahi[t][k]);
-          }
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int lh = 0; lh < 2; ++lh) mma_s8(acc[m][lh][n], a[m][lh], b0, b1);
         }
+    }
+    __syncwarp();
+    if (lane == 0) aria::mbar_arrive(bars + 8 * (DN_STAGES + s));
+  }
+
+  // the scales: sh and w a pair, c a column (every consumer's loads are
+  // behind this barrier)
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * CONSUMERS) : "memory");
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    if (n < nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int tok = n * 8 + 2 * r + (i & 1);
+        if (tok >= rows) continue;
+        const float shp = sh_s[tok], wp = w_s[tok];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int lh = 0; lh < 2; ++lh) {
+            const int P = acc[m][lh][n][i] >> 4;
+            const int col = jb + 4 * q + 2 * m + (i >> 1);  // of the block's 128
+            const float cs = cs_s[lh * DN_J + col];
+            part[(size_t)(row0 + tok) * D + j0 + col + lh * (D / 2)] =
+                __fmul_rn(wp, __fmul_rn(__fmul_rn((float)P, shp), cs));
+          }
       }
     }
-#pragma unroll
-    for (int t = 0; t < DN_TT; ++t)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int jj = lane * 4 + k;
-        red[((warp * DN_TT + t) * 128 + jj) * 2 + 0] = alo[t][k];
-        red[((warp * DN_TT + t) * 128 + jj) * 2 + 1] = ahi[t][k];
+}
+
+// out[t] = the sum from 0 of token t's parts in the reference's order:
+// ascending expert id (sorted), or slot order (T = 1)
+__global__ void combine_kernel(const float* __restrict__ part, const int* __restrict__ ind,
+                               const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
+                               int D, int k, int sorted) {
+  extern __shared__ int order[];  // [k]: the places of t's pairs, in order
+  const int t = blockIdx.y;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < k; ++s) {
+      const int e = ind[t * k + s];
+      int at = s;
+      if (sorted) {
+        at = 0;
+        for (int s2 = 0; s2 < k; ++s2) at += ind[t * k + s2] < e;
       }
-    __syncthreads();
-    const int jj = threadIdx.x;  // one packed column per thread
-    for (int t = 0; t < tt; ++t) {
-      int lo = 0, hi = 0;
-#pragma unroll
-      for (int w = 0; w < DN_SLICES; ++w) {
-        lo += red[((w * DN_TT + t) * 128 + jj) * 2 + 0];
-        hi += red[((w * DN_TT + t) * 128 + jj) * 2 + 1];
-      }
-      const size_t row = (size_t)u * T + t0 + t;
-      const float s = sh[row];
-      const float wv = wd[(size_t)e * T + t0 + t];
-      const int dlo = j0 + jj, dhi = j0 + jj + Dp;
-      const float clo_s = aria::bf2f(w2s8[ebase * 8 * D + dlo]);
-      const float chi_s = aria::bf2f(w2s8[ebase * 8 * D + dhi]);
-      part[row * D + dlo] = (float)(lo - 8 * hsum[row]) * s * clo_s * wv;
-      part[row * D + dhi] = (float)(hi >> 4) * s * chi_s * wv;
+      order[at] = pos[t * k + s];
     }
   }
+  __syncthreads();
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= D) return;
+  float acc = 0.f;
+  for (int j = 0; j < k; ++j) acc = __fadd_rn(acc, part[(size_t)order[j] * D + d]);
+  out[(size_t)t * D + d] = __float2bfloat16(acc);
+}
+
+// int8 [outer][rows][cols] as a rank-3 map (or rank 2 with outer = 0),
+// boxes of box_cols x box_rows
+bool map_u8(CUtensorMap* map, const void* t, int outer, int rows, int cols, int box_cols,
+            int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols, (cuuint64_t)rows * cols};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  return aria::make_map(map, t, outer ? 3 : 2, dims, strides, box, swizzle,
+                        CU_TENSOR_MAP_DATA_TYPE_UINT8);
 }
 
 }  // namespace
@@ -291,31 +635,50 @@ ARIA_EXPORT int aria_act_quant_int8(const void* x, void* xq, void* sx, int T, in
   return cudaGetLastError();
 }
 
-ARIA_EXPORT int aria_moe_w4a8(const void* xq, const void* sx, const void* ids, const void* valid,
-                              const void* wd, const void* w1q4, const void* w1sg,
-                              const void* w2q4, const void* w2s8, void* h, void* hq, void* sh,
-                              void* hsum, void* part, void* out, int T, int D, int I, int E,
-                              int U, int ng, int layer, void* stream) {
+// x bf16 [T, D]; ind int32 [T, k]; wts [T, k] bf16 (w_bf16) or f32; the
+// stacks w1q4 [L, E, 2I, D/2], w1sg [L, E, 8, 2I], w2q4 [L, E, I, D/2],
+// w2s8 [L, E, 8, D]. Scratch, one row a pair (n = T*k): xs int8 [n, D],
+// sxs f32 [n, 8], wsort f32 [n], pos int32 [n], meta int32 [4, U], h f32
+// [n, I], hq int8 [n, I], sh f32 [n], part f32 [n, D]; out bf16 [T, D].
+ARIA_EXPORT int aria_moe_w4a8(const void* x, const void* ind, const void* wts, int w_bf16,
+                              const void* w1q4, const void* w1sg, const void* w2q4,
+                              const void* w2s8, void* xs, void* sxs, void* wsort, void* pos,
+                              void* meta, void* h, void* hq, void* sh, void* part, void* out,
+                              int T, int k, int D, int I, int L, int E, int U, int ng, int layer,
+                              void* stream) {
+  const int gsp = D / ng / 2;
+  if (T < 1 || T > 128 || k < 1 || D % 256 || gsp % GU_PB || I % 16 || U < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n = T * k;
+  CUtensorMap w1m, xm, w2m, hm;
+  if (!map_u8(&w1m, w1q4, L * E, 2 * I, D / 2, GU_PB, GU_I, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_u8(&xm, xs, 0, n, D, 128, 8, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_u8(&w2m, w2q4, L * E, I, D / 2, DN_J, DN_K, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_u8(&hm, hq, 0, n, I, 128, 8, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t gu_smem = (size_t)GU_TT * D + GU_TT * 8 * sizeof(float);
-  cudaError_t err = aria::allow_smem(gateup_kernel, gu_smem);
+  const size_t prep_smem = 4 * ((size_t)n + max(D + k, E));
+  cudaError_t err = aria::allow_smem(prep_kernel, prep_smem);
   if (err != cudaSuccess) return err;
-  gateup_kernel<<<dim3((I + GU_WARPS - 1) / GU_WARPS, U), GU_WARPS * 32, gu_smem, st>>>(
-      (const int8_t*)xq, (const float*)sx, (const int*)ids, (const int*)valid,
-      (const int8_t*)w1q4, (const __nv_bfloat16*)w1sg, (float*)h, T, D, I, E, ng, layer);
+  prep_kernel<<<T + 1, 256, prep_smem, st>>>(
+      (const __nv_bfloat16*)x, (const int*)ind, wts, w_bf16, (int8_t*)xs, (float*)sxs,
+      (float*)wsort, (int*)pos, (int*)meta, T, k, D, ng, E, U);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  hquant_kernel<<<dim3(T, U), 256, 0, st>>>((const float*)h, (const int*)valid, (int8_t*)hq,
-                                            (float*)sh, (int*)hsum, T, I);
+  const int chunks = (T + TOK - 1) / TOK;
+  if ((err = aria::allow_smem(gateup_kernel, GURing::BYTES)) != cudaSuccess) return err;
+  gateup_kernel<<<dim3((I + GU_I - 1) / GU_I * chunks, U), THREADS, GURing::BYTES, st>>>(
+      w1m, xm, (const int*)meta, (const float*)sxs, (const __nv_bfloat16*)w1sg, (float*)h, D, I,
+      E, U, ng, layer, chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t dn_smem = (size_t)DN_SLICES * DN_TT * 128 * 2 * sizeof(int) + (size_t)DN_TT * I;
+  hquant_kernel<<<n, 256, 0, st>>>((const float*)h, (int8_t*)hq, (float*)sh, I);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t dn_smem = DNRing::BYTES;
   if ((err = aria::allow_smem(down_kernel, dn_smem)) != cudaSuccess) return err;
-  down_kernel<<<dim3(D / 2 / 128, U), DN_SLICES * 32, dn_smem, st>>>(
-      (const int8_t*)hq, (const float*)sh, (const int*)hsum, (const int*)ids, (const int*)valid,
-      (const float*)wd, (const int8_t*)w2q4, (const __nv_bfloat16*)w2s8, (float*)part, T, D, I,
-      E, layer);
+  down_kernel<<<dim3(D / 2 / DN_J * chunks, U), THREADS, dn_smem, st>>>(
+      w2m, hm, (const int*)meta, (const float*)sh, (const float*)wsort,
+      (const __nv_bfloat16*)w2s8, (float*)part, D, I, E, U, layer, chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int TD = T * D;
-  moe_combine_kernel<<<(TD + 255) / 256, 256, 0, st>>>(
-      (const float*)part, (const int*)valid, (__nv_bfloat16*)out, TD, U);
+  combine_kernel<<<dim3((D + 255) / 256, T), 256, 4 * k, st>>>(
+      (const float*)part, (const int*)ind, (const int*)pos, (__nv_bfloat16*)out, D, k, T > 1);
   return cudaGetLastError();
 }

@@ -30,8 +30,9 @@ LINK_FLAGS = [*ARCH, "-shared"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (all return int: the cudaError_t)
 SIGNATURES = {
-    # x, q4t, sg, out, T, D, F, layer, stream
-    "aria_dense_int4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, q4t, sg, out, ws, counters, T, D, F, L, layer, stream (ws and counters
+    # NULL but where K is split over the D-groups, at most 8 rows)
+    "aria_dense_int4": [_P] * 6 + [_I] * 5 + [_P],
     # xq, sx, q4t, sg, out, T, D, F, layer, stream
     "aria_dense_int4_a8": [_P] * 5 + [_I] * 4 + [_P],
     # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, ws, counters, B, Hx, S, layer,
@@ -50,9 +51,9 @@ SIGNATURES = {
     "aria_flash_causal_bwd": [_P] * 12 + [_I] * 3 + [_F, _P],
     # x, xq, sx, T, D, ng, stream
     "aria_act_quant_int8": [_P, _P, _P, _I, _I, _I, _P],
-    # xq, sx, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, hq, sh, hsum, part, out,
-    # T, D, I, E, U, ng, layer, stream
-    "aria_moe_w4a8": [_P] * 15 + [_I] * 7 + [_P],
+    # x, indices, weights, w_bf16, w1q4, w1sg, w2q4, w2s8, xs, sxs, wsort, pos, meta, h, hq,
+    # sh, part, out, T, k, D, I, L, E, U, ng, layer, stream
+    "aria_moe_w4a8": [_P] * 3 + [_I] + [_P] * 14 + [_I] * 9 + [_P],
     # q, k, v, kv_valid, out, B, S, H, D, scale, stream
     "aria_vit_flash": [_P] * 5 + [_I] * 4 + [_F, _P],
     # q, k, v, q_valid, kv_valid, out, B, Sq, Sk, H, D, scale, stream

@@ -61,6 +61,24 @@ def sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+_workspaces: dict = {}  # device -> (f32 partials, zeroed counters)
+
+
+def workspace(dev: torch.device, floats: int, counters: int):
+    """The split kernels' workspace on ``dev`` (decode attention over
+    positions, ``dense_int4`` over D-groups), grown to at least the sizes
+    asked: f32 partials, and int32 counters each kernel leaves at 0. Calls
+    run in the order of one stream, so one workspace per device serves
+    them all."""
+    ws, cnt = _workspaces.get(dev, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1 << 12), dtype=torch.int32, device=dev)
+    _workspaces[dev] = (ws, cnt)
+    return ws, cnt
+
+
 def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 

@@ -231,22 +231,6 @@ def decode_attention_stats(q, k_cache, v_cache, layer, lengths, k_scale=None, v_
     return out
 
 
-_workspaces: dict = {}  # device -> (f32 partials, zeroed counters)
-
-
-def _workspace(device, floats: int, counters: int):
-    """The split's workspace on ``device``, grown to at least the sizes
-    asked: partials, and counters the kernel leaves at 0. Calls run in the
-    order of one stream, so one workspace per device serves them all."""
-    ws, cnt = _workspaces.get(device, (None, None))
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=device)
-    if cnt is None or cnt.numel() < counters:
-        cnt = torch.zeros(max(counters, 1 << 12), dtype=torch.int32, device=device)
-    _workspaces[device] = (ws, cnt)
-    return ws, cnt
-
-
 def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool,
             splits: Optional[int]):
     """Check the arguments and launch the kernel in the cache's form (bf16,
@@ -293,7 +277,7 @@ def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool,
         raise ValueError(f"decode_attention: {P} splits of a {S}-position cache")
     ws = cnt = None
     if P > 1:
-        ws, cnt = _workspace(q.device, B * Hc * P * (H // Hc) * (D + 2), B * Hc)
+        ws, cnt = backend.workspace(q.device, B * Hc * P * (H // Hc) * (D + 2), B * Hc)
     kind = 2 if packed else int(quantized)
     err = library().aria_decode_attention(
         p(qs), p(k_cache), p(v_cache), p(k_scale) if quantized else null,

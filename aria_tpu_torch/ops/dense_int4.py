@@ -3,10 +3,12 @@
 
 Kernels: ``csrc/dense_int4.cu``, in the JAX function's two forms.
 ``dense_int4`` replaces its bf16-activation kernel (aria_tpu/ops/
-dense_int4.py:124, ``_kernel`` :68). At decode (T = 1) it is a matvec over
-F*D/2 bytes of packed weights, 2 FLOPs per weight, so it is bound by the
-weight read from device memory; the kernel reads each packed row once per
-block of 8 token rows and unpacks the nibbles in registers.
+dense_int4.py:124, ``_kernel`` :68): one wgmma kernel for every T, the
+packed weights the M side with their nibbles unpacked in registers to
+bf16, the token rows the N side. At decode (T <= 32) it is bound by the
+F*D/2 bytes of packed weights (up to 8 rows it splits K over the D-groups,
+through the split workspace of ``backend.workspace``); at prefill by the
+bf16 tensor cores.
 ``dense_int4_a8`` replaces the W4A8 kernel (``_kernel_a8`` :97, the
 ``act_int8=True`` branch): x quantized to int8 per (token, D-group) by
 ``act_quant_int8`` (its kernel in ``csrc/moe_decode.cu``), exact int32 dots
@@ -29,6 +31,11 @@ from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops._build import library
 from aria_tpu_torch.ops.moe_decode_kernel import act_quant_int8
 from aria_tpu_torch.ops.quant import dequantize_dense_int4, int4_group_count, unpack_int4
+
+
+# up to this many rows the kernel splits K over the D-groups (the most it
+# takes): a block's work is then too short to hide a load's latency
+SPLIT_MAX_TOKENS = 8
 
 
 def dense_int4_plain(x: torch.Tensor, w: dict, layer: int) -> torch.Tensor:
@@ -103,9 +110,12 @@ def dense_int4(x: torch.Tensor, w: dict, layer: int, act_int8: bool = False) -> 
         return dense_int4_plain(x, w, layer)
     T, D, F = _check(x, w, layer, "dense_int4")
     out = torch.empty((T, F), dtype=torch.float32, device=x.device)
-    err = library().aria_dense_int4(
-        backend.ptr(x), backend.ptr(q4t), backend.ptr(sg), backend.ptr(out),
-        T, D, F, layer, backend.stream())
+    ws = cnt = None
+    if T <= SPLIT_MAX_TOKENS:
+        ws, cnt = backend.workspace(x.device, int4_group_count(D) * T * F, -(-F // 64))
+    p = backend.ptr
+    err = library().aria_dense_int4(p(x), p(q4t), p(sg), p(out), p(ws), p(cnt), T, D, F,
+                                    q4t.shape[0], layer, backend.stream())
     backend.check(err, "dense_int4")
     dense_int4.launches += 1
     return out

@@ -47,8 +47,15 @@ class RouterOutput(NamedTuple):
 def route_topk(x: torch.Tensor, gate_weight: torch.Tensor, topk: int, *,
                z_loss_coeff: float = 0.0, aux_loss_coeff: float = 0.0,
                training: bool = False) -> RouterOutput:
-    """x [T, D], gate_weight [E, D] (f32); logits in f32."""
-    logits = x.float() @ gate_weight.float().T
+    """x [T, D], gate_weight [E, D] (f32); logits in f32. On the card the
+    f32 product picks its algorithm by the row count, so a row would get
+    other bits beside other rows (a cached prefix page would differ from a
+    recomputed one): serving takes the product in f64, rounded once to
+    f32, which leaves each row's logits as they are at any row count."""
+    if x.is_cuda and not training:
+        logits = (x.double() @ gate_weight.double().T).float()
+    else:
+        logits = x.float() @ gate_weight.float().T
     top_logits, top_indices = torch.topk(logits, topk, dim=-1)
     scores = torch.softmax(top_logits, dim=-1)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -19,10 +19,13 @@ in the serving forms:
 
   * W4A8 (``act_int8=True``; ``_kernel_q4_a8`` :288, ``_ffn_q4_a8`` :227):
     x quantized to int8 per (token, D-group), int8 x int4 dots accumulated
-    exactly in int32 (``__dp4a`` on the masked raw bytes), and h
-    re-quantized to int8 per row over the whole intermediate before the
-    down projection (:215-285). Kernel ``csrc/moe_decode.cu`` (act_quant_int8,
-    gate/up, h re-quantize, down projection and combine).
+    exactly in int32, and h re-quantized to int8 per row over the whole
+    intermediate before the down projection (:215-285). Kernel
+    ``csrc/moe_decode.cu``: the routed (token, expert) pairs only, listed
+    by expert as ``routed_rows`` lists them, the products on int8 tensor
+    cores (mma.sync s8) with the nibbles unpacked in registers, in five
+    launches (the lists with act_quant_int8, gate/up, h re-quantize, down
+    projection, combine).
   * bf16 activations (``act_int8=False``, ``moe_decode_int4_bf16``;
     ``_kernel_q4`` :307, ``_ffn_q4`` :154): gate and up are f32 sums of
     bf16 x times the int4 values, h = silu(gate) * up in f32 is rounded
@@ -46,9 +49,11 @@ in the serving forms:
   all rows, 25.6 MB (bf16) or 12.8 MB (int8) per expert at flagship
   width, so bound by that read.
 
-The FFN runs once per UNIQUE active expert for all T rows; the combine
-goes through a dense [E, T] weight table (``unique_meta``, the counterpart
-of ``_unique_meta`` :44-78).
+The bf16 and int8 forms run the FFN once per UNIQUE active expert for all
+T rows and combine through a dense [E, T] weight table (``unique_meta``,
+the counterpart of ``_unique_meta`` :44-78); the W4A8 form runs each
+expert on the rows that picked it (``routed_rows``) and adds each token's
+pairs in ``unique_meta``'s order, which gives the same bits.
 """
 
 from __future__ import annotations
@@ -60,7 +65,6 @@ from aria_tpu_torch.ops._build import library
 from aria_tpu_torch.ops.quant import int4_group_count, unpack_int4
 
 DECODE_KERNEL_MAX_TOKENS = 128
-_MAX_PACKED_D = 2048  # D/2 bytes a gate/up warp holds in registers
 
 
 def unique_meta(indices: torch.Tensor, weights: torch.Tensor, E: int):
@@ -89,6 +93,32 @@ def unique_meta(indices: torch.Tensor, weights: torch.Tensor, E: int):
     return order.to(torch.int32), present[order].to(torch.int32), wd
 
 
+def routed_rows(indices: torch.Tensor, E: int):
+    """The (token, slot) pairs listed by expert, with static sizes and no
+    host sync: what ``csrc/moe_decode.cu``'s first launch computes.
+
+    Returns (order, pos, ids, valid, first, count), int64: ``order`` [T*k]
+    the pairs p = t*k + s sorted by expert id, stable (ascending token
+    within an expert), ``pos`` [T*k] each pair's place in that list;
+    ``ids`` and ``valid`` [U] are ``unique_meta``'s, and unique expert u's
+    pairs are ``order[first[u] : first[u] + count[u]]`` (count 0 where
+    invalid). A shared expert, which every token takes, lists every token."""
+    T, k = indices.shape
+    U = min(T * k, E)
+    flat = indices.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(T * k, device=flat.device))
+    cnt = torch.bincount(flat, minlength=E)
+    below = torch.cumsum(cnt, 0) - cnt
+    if T == 1:
+        ids = flat
+        valid = torch.ones(U, dtype=torch.int64, device=flat.device)
+    else:
+        ids = torch.argsort((cnt == 0).long(), stable=True)[:U]
+        valid = (cnt[ids] > 0).long()
+    return order, pos, ids, valid, below[ids] * valid + T * k * (1 - valid), cnt[ids]
+
+
 def act_quant_int8(x: torch.Tensor, ng: int):
     """Per-(token, D-group) symmetric int8 (moe_decode_kernel.py:215-224).
     Returns (xq int8 [T, D], sx f32 [T, 8] with columns 0..ng-1 used).
@@ -104,36 +134,69 @@ def act_quant_int8(x: torch.Tensor, ng: int):
     return xq.reshape(T, D), torch.cat([sx, pad], dim=1)
 
 
-def moe_decode_int4_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: int):
-    """The same FFN in plain torch. Integer dots run in float64, where
-    every product and sum of int8 x int4 values at these widths is exact,
-    so they equal the kernel's int32 sums; the float steps follow
-    _ffn_q4_a8's order."""
-    T, D = x.shape
-    E, I2 = w1q4.shape[1], w1q4.shape[2]
+def _ffn_a8(xq, sx, w1q4, w1sg, w2q4, w2s8, layer: int, e: int) -> torch.Tensor:
+    """``_ffn_q4_a8`` of expert e on the int8 rows xq [R, D] with their
+    group scales sx [R, 8]: the partial [R, D] f32 before the combine
+    weight. Integer dots run in float64, where every product and sum of
+    int8 x int4 values at these widths is exact, so they equal the
+    kernel's int32 sums; the float steps follow _ffn_q4_a8's order."""
+    R, D = xq.shape
+    I2 = w1q4.shape[2]
     I = I2 // 2
     ng = int4_group_count(D)
     gs = D // ng
-    ids, valid, wd = unique_meta(indices, weights, E)
-    xq, sx = act_quant_int8(x, ng)
-    xg = xq.double().reshape(T, ng, gs)
+    w1 = unpack_int4(w1q4[layer, e], gs, torch.float64).reshape(I2, ng, gs)
+    G = torch.einsum("tgc,rgc->tgr", xq.double().reshape(R, ng, gs), w1).float()  # exact
+    d = G * sx[:, :ng, None] * w1sg[layer, e, :ng].float()[None]
+    acc = d[:, 0]
+    for g in range(1, ng):
+        acc = acc + d[:, g]
+    gate, up = acc[:, :I], acc[:, I:]
+    h = gate * torch.sigmoid(gate) * up
+    sh = torch.clamp_min(h.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0), 1e-8)
+    hq = torch.clamp(torch.round(h / sh), -127, 127)
+    w2 = unpack_int4(w2q4[layer, e], D, torch.float64)  # [I, D]
+    return (hq.double() @ w2).float() * sh * w2s8[layer, e, 0].float()
+
+
+def moe_decode_int4_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: int):
+    """The same FFN in plain torch, as the TPU kernel runs it: every token
+    row through every unique active expert, added with its combine weight
+    (zero for a row that did not pick the expert) in ``unique_meta``'s
+    order."""
+    T, D = x.shape
+    ids, valid, wd = unique_meta(indices, weights, w1q4.shape[1])
+    xq, sx = act_quant_int8(x, int4_group_count(D))
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for e, ok in zip(ids.tolist(), valid.tolist()):
-        if not ok:
-            continue
-        w1 = unpack_int4(w1q4[layer, e], gs, torch.float64).reshape(I2, ng, gs)
-        G = torch.einsum("tgc,rgc->tgr", xg, w1).float()  # exact int sums
-        d = G * sx[:, :ng, None] * w1sg[layer, e, :ng].float()[None]
-        acc = d[:, 0]
-        for g in range(1, ng):
-            acc = acc + d[:, g]
-        gate, up = acc[:, :I], acc[:, I:]
-        h = gate * torch.sigmoid(gate) * up
-        sh = torch.clamp_min(h.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0), 1e-8)
-        hq = torch.clamp(torch.round(h / sh), -127, 127)
-        w2 = unpack_int4(w2q4[layer, e], D, torch.float64)  # [I, D]
-        partial = (hq.double() @ w2).float() * sh * w2s8[layer, e, 0].float()
-        out = out + wd[e][:, None] * partial
+        if ok:
+            out = out + wd[e][:, None] * _ffn_a8(xq, sx, w1q4, w1sg, w2q4, w2s8, layer, e)
+    return out.to(x.dtype)
+
+
+def moe_decode_int4_routed_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
+                                 layer: int) -> torch.Tensor:
+    """The W4A8 FFN over the routed pairs only, in plain torch, as
+    ``csrc/moe_decode.cu`` computes it: each expert on the rows of the
+    tokens that picked it (``routed_rows``), one partial row a pair times
+    its combine weight, and each token's pairs added from 0 in
+    ``unique_meta``'s order. The bits equal ``moe_decode_int4_plain``'s:
+    the terms it adds beyond these are 0 * a finite partial."""
+    T, D = x.shape
+    k = indices.shape[1]
+    order, pos, ids, valid, first, count = routed_rows(indices, w1q4.shape[1])
+    xq, sx = act_quant_int8(x, int4_group_count(D))
+    w = weights.reshape(-1).float()
+    part = torch.empty((T * k, D), dtype=torch.float32, device=x.device)
+    for e, ok, a, n in zip(*(v.tolist() for v in (ids, valid, first, count))):
+        if ok:
+            pairs = order[a:a + n]
+            rows = _ffn_a8(xq[pairs // k], sx[pairs // k], w1q4, w1sg, w2q4, w2s8, layer, e)
+            part[a:a + n] = w[pairs, None] * rows
+    rank = torch.argsort(indices.long(), dim=1) if T > 1 else torch.arange(k)[None].expand(T, k)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out = out + part[pos.reshape(T, k).gather(1, rank[:, j:j + 1].to(x.device))[:, 0]]
     return out.to(x.dtype)
 
 
@@ -177,29 +240,43 @@ def moe_decode_int4(
         return moe_decode_int4_bf16(*tensors, layer)
     if not backend.on_cuda(*tensors):
         return moe_decode_int4_plain(*tensors, layer)
+    return _w4a8(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer)["out"]
+
+
+def _w4a8(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: int) -> dict:
+    """Launch ``csrc/moe_decode.cu`` on CUDA tensors; returns its output
+    and scratch by name ("out"; the pair lists "pos" and "meta" [ids,
+    valid, first, count] that ``routed_rows`` specifies; ...)."""
     T, D, I, E, ng = _check_int4(
         "moe_decode_int4", x, w1q4, w1sg, w2q4, w2s8, layer,
-        lambda D, I, gs: (D // 2) % 128 or D // 2 > _MAX_PACKED_D or (gs // 2) % 16 or I % 16)
-    ids, valid, wd = unique_meta(indices, weights, E)
-    U = ids.shape[0]
-    dev = x.device
-    xq = torch.empty((T, D), dtype=torch.int8, device=dev)
-    sx = torch.empty((T, 8), dtype=torch.float32, device=dev)
-    h = torch.empty((U, T, I), dtype=torch.float32, device=dev)
-    hq = torch.empty((U, T, I), dtype=torch.int8, device=dev)
-    sh = torch.empty((U, T), dtype=torch.float32, device=dev)
-    hsum = torch.empty((U, T), dtype=torch.int32, device=dev)
-    part = torch.empty((U, T, D), dtype=torch.float32, device=dev)
-    out = torch.empty((T, D), dtype=torch.bfloat16, device=dev)
-    lib, p, st = library(), backend.ptr, backend.stream()
-    err = lib.aria_act_quant_int8(p(x), p(xq), p(sx), T, D, ng, st)
-    backend.check(err, "act_quant_int8")
-    err = lib.aria_moe_w4a8(
-        p(xq), p(sx), p(ids), p(valid), p(wd), p(w1q4), p(w1sg), p(w2q4), p(w2s8),
-        p(h), p(hq), p(sh), p(hsum), p(part), p(out), T, D, I, E, U, ng, layer, st)
+        lambda D, I, gs: (D // 2) % 128 or (gs // 2) % 16 or I % 16)
+    L, k = w1q4.shape[0], indices.shape[1]
+    if indices.dtype != torch.int32:
+        indices = indices.to(torch.int32)
+    if weights.dtype not in (torch.bfloat16, torch.float32):
+        weights = weights.float()
+    backend.require(indices, "indices", torch.int32, (T, k))
+    backend.require(weights, "weights", weights.dtype, (T, k))
+    n, U, dev = T * k, min(T * k, E), x.device
+    buf = {"xs": torch.empty((n, D), dtype=torch.int8, device=dev),
+           "sxs": torch.empty((n, 8), dtype=torch.float32, device=dev),
+           "wsort": torch.empty(n, dtype=torch.float32, device=dev),
+           "pos": torch.empty(n, dtype=torch.int32, device=dev),
+           "meta": torch.empty((4, U), dtype=torch.int32, device=dev),
+           "h": torch.empty((n, I), dtype=torch.float32, device=dev),
+           "hq": torch.empty((n, I), dtype=torch.int8, device=dev),
+           "sh": torch.empty(n, dtype=torch.float32, device=dev),
+           "part": torch.empty((n, D), dtype=torch.float32, device=dev),
+           "out": torch.empty((T, D), dtype=torch.bfloat16, device=dev)}
+    p = backend.ptr
+    err = library().aria_moe_w4a8(
+        p(x), p(indices), p(weights), int(weights.dtype == torch.bfloat16), p(w1q4), p(w1sg),
+        p(w2q4), p(w2s8), *(p(buf[name]) for name in (
+            "xs", "sxs", "wsort", "pos", "meta", "h", "hq", "sh", "part", "out")),
+        T, k, D, I, L, E, U, ng, layer, backend.stream())
     backend.check(err, "moe_decode_int4")
     moe_decode_int4.launches += 1
-    return out
+    return buf
 
 
 moe_decode_int4.launches = 0

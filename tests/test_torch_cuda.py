@@ -45,36 +45,131 @@ def _randn(gen, *shape, scale=1.0, dtype=torch.bfloat16):
     return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
 
 
-def test_dense_int4_kernel_matches_plain(cuda):
+# wqkv, wo, and two widths of one D-group: whole 64-byte stages, and a
+# group of 80 packed bytes whose last stage is partly past its end
+@pytest.mark.parametrize("D,F", [(2560, 7680), (2560, 2560), (256, 384), (160, 200)])
+def test_dense_int4_kernel_matches_plain(cuda, D, F):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for F in (7680, 2560):  # wqkv, wo
-        w = quantize_dense_int4(_randn(g, 2, 2560, F, scale=2560**-0.5))
-        for T in (1, 64, 128, 512):
-            x = _randn(g, T, 2560)
-            # both are f32 sums of exact products; only the order differs
-            torch.testing.assert_close(di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1),
-                                       rtol=1e-4, atol=1e-4)
-    assert di.dense_int4.launches >= 8
+    w = quantize_dense_int4(_randn(g, 2, D, F, scale=D**-0.5))
+    before = di.dense_int4.launches
+    for T in (1, 7, 12, 32, 33, 129, 512, 4096):  # every tile form of the kernel
+        x = _randn(g, T, D)
+        got = di.dense_int4(x, w, 1)
+        # both are f32 sums of exact products; only the order differs
+        torch.testing.assert_close(got, di.dense_int4_plain(x, w, 1), rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, di.dense_int4(x, w, 1))  # the split's sum order is fixed
+    assert di.dense_int4.launches == before + 16
 
 
-def test_moe_decode_int4_kernel_matches_plain(cuda):
+def test_dense_int4_row_gets_the_same_bits_at_every_row_count(cuda):
+    """A row's output does not depend on the rows beside it, through every
+    tile form (the split over D-groups at few rows included): a cached
+    prefix page must equal a recomputed one."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = quantize_dense_int4(_randn(g, 1, 2560, 7680, scale=2560**-0.5))
+    row = _randn(g, 1, 2560)
+    ref = di.dense_int4(row, w, 0)
+    for T in (2, 7, 9, 12, 32, 33, 64, 65, 129, 300):
+        x = _randn(g, T, 2560)
+        for at in (0, T - 1):
+            x[at] = row[0]
+            assert torch.equal(di.dense_int4(x, w, 0)[at], ref[0]), (T, at)
+
+
+def _w4a8_stack(g, E, I=1664, D=2560):
+    return quantize_expert_int4(_randn(g, 1, E, 2 * I, D, scale=D**-0.5),
+                                _randn(g, 1, E, I, D, scale=I**-0.5))
+
+
+def _w4a8_routing(rng, cuda, T, E, k, skip=()):
+    """top-k of the routed experts but ``skip`` plus the 2 shared ones."""
+    routed = np.array([e for e in range(E - 2) if e not in skip])
+    idx = routed[np.argsort(-rng.randn(T, len(routed)), axis=1)[:, :k]]
+    ind = np.concatenate([idx, np.broadcast_to([E - 2, E - 1], (T, 2))], 1)
+    wts = np.concatenate([rng.dirichlet(np.ones(k), T), np.ones((T, 2))], 1)
+    return (torch.tensor(ind, dtype=torch.int32, device=cuda),
+            torch.tensor(wts, dtype=torch.bfloat16, device=cuda))
+
+
+@pytest.mark.parametrize("E,k", [(10, 2), (66, 6)])
+def test_moe_decode_int4_kernel_matches_plain(cuda, E, k):
     g = torch.Generator(device=cuda).manual_seed(0)
-    E, I, D, k = 10, 1664, 2560, 2
-    w1, w2 = quantize_expert_int4(_randn(g, 1, E, 2 * I, D, scale=D**-0.5),
-                                  _randn(g, 1, E, I, D, scale=I**-0.5))
-    rng = np.random.RandomState(0)
-    for T in (1, 5, 64):
-        idx = np.argsort(-rng.randn(T, E - 2), axis=1)[:, :k]
-        ind = np.concatenate([idx, np.broadcast_to([E - 2, E - 1], (T, 2))], 1)
-        wts = np.concatenate([rng.dirichlet(np.ones(k), T), np.ones((T, 2))], 1)
-        args = (_randn(g, T, D), torch.tensor(ind, dtype=torch.int32, device=cuda),
-                torch.tensor(wts, dtype=torch.bfloat16, device=cuda),
+    w1, w2 = _w4a8_stack(g, E)
+    rng = np.random.RandomState(E)
+    before = mk.moe_decode_int4.launches
+    for T in (1, 5, 32, 64, 128):
+        args = (_randn(g, T, 2560), *_w4a8_routing(rng, cuda, T, E, k),
                 w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
         got, ref = mk.moe_decode_int4(*args, act_int8=True), mk.moe_decode_int4_plain(*args)
-        # bf16 output, plus rare one-step flips of the int8 h re-quantization
-        # where the f32 sums run in another order
+        # the same integers and float steps in the same order: bit-equal but
+        # for the last ulp of expf, which can flip one int8 step of h
         err = (got.float() - ref.float()).abs().max()
         assert err <= 2e-2 * ref.float().abs().max(), (T, err)
+        assert (got != ref).float().mean() < 1e-2, (T, (got != ref).sum())
+    assert mk.moe_decode_int4.launches == before + 5
+
+
+def test_route_topk_row_gets_the_same_bits_at_every_row_count(cuda):
+    """The serving router's logits, and so its choice and weights, do not
+    depend on the rows beside a row (a cached prefix page must equal a
+    recomputed one)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    gate = torch.randn((64, 2560), generator=g, device=cuda) * 2560**-0.5
+    row = _randn(g, 1, 2560)
+    ref = tmoe.route_topk(row, gate, 6)
+    for T in (2, 7, 32, 112, 256, 896, 4096):
+        x = _randn(g, T, 2560)
+        for at in (0, T - 1):
+            x[at] = row[0]
+            got = tmoe.route_topk(x, gate, 6)
+            assert torch.equal(got.indices[at], ref.indices[0]), (T, at)
+            assert torch.equal(got.weights[at], ref.weights[0]), (T, at)
+
+
+def test_moe_decode_int4_row_gets_the_same_bits_at_every_row_count(cuda):
+    """Above one row (where the combine takes the slots in expert order) a
+    token's output does not depend on the tokens beside it."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    E, k = 66, 6
+    w1, w2 = _w4a8_stack(g, E)
+    stacks = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
+    rng = np.random.RandomState(2)
+    row, (rind, rw) = _randn(g, 1, 2560), _w4a8_routing(rng, cuda, 1, E, k)
+    ref = None
+    for T in (2, 7, 32, 33, 112, 114, 128):
+        x = _randn(g, T, 2560)
+        ind, wts = _w4a8_routing(rng, cuda, T, E, k)
+        for at in (0, T - 1):
+            x[at], ind[at], wts[at] = row[0], rind[0], rw[0]
+            got = mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True)[at]
+            ref = got if ref is None else ref
+            assert torch.equal(got, ref), (T, at)
+
+
+def test_moe_decode_int4_kernel_lists_the_routed_rows(cuda):
+    """The kernel's pair lists are routed_rows', an expert no token picks is
+    left out, and a second call repeats every bit."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    E, k = 66, 6
+    w1, w2 = _w4a8_stack(g, E)
+    rng = np.random.RandomState(1)
+    for T in (1, 32, 128):
+        ind, wts = _w4a8_routing(rng, cuda, T, E, k, skip=(5,))
+        args = (_randn(g, T, 2560), ind, wts, w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
+        buf = mk._w4a8(*args)
+        order, pos, ids, valid, first, count = mk.routed_rows(ind, E)
+        assert torch.equal(buf["pos"].long(), pos)
+        meta = buf["meta"].long()
+        assert torch.equal(meta[0][valid == 1], ids[valid == 1]) and torch.equal(meta[1], valid)
+        assert torch.equal(meta[2][valid == 1], first[valid == 1])
+        assert torch.equal(meta[3], count)
+        assert 5 not in meta[0][meta[1] == 1].tolist()
+        again = mk._w4a8(*args)["out"]
+        assert torch.equal(buf["out"], again)
+        # the unpicked expert's weights are not read
+        w1q4 = w1["q4"].clone()
+        w1q4[0, 5] = 0
+        assert torch.equal(mk._w4a8(args[0], ind, wts, w1q4, *args[4:])["out"], again)
 
 
 def test_decode_attention_kernel_matches_plain(cuda):

@@ -87,7 +87,7 @@ def _routing(rng, T, E, ns=2, k=2):
     return np.concatenate([idx, shared], 1).astype(np.int32), w.astype(np.float32)
 
 
-@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("T", [1, 5, 32])
 def test_moe_decode_int4_a8_matches_jax(moe_case, T):
     rng, D, E, q1, q2 = moe_case
     x = rng.randn(T, D).astype(np.float32)
