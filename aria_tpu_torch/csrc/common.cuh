@@ -159,6 +159,23 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// the same wait as one PTX loop: with no branch in the C++ code, ptxas does
+// not take the wgmma products that follow it for a divergent path (which
+// makes it serialize them, C7518)
+__device__ __forceinline__ void mbar_wait_loop(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n .reg .u32 n;\n mov.u32 n, 0;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra DONE;\n"
+      " add.u32 n, n, 1;\n"
+      " setp.lt.u32 p, n, 67108864;\n"
+      " @p bra WAIT;\n"
+      " trap;\n"
+      "DONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
 // a contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) from global to shared memory, completing on the mbarrier
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,

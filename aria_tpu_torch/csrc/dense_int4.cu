@@ -102,41 +102,9 @@ struct Tile {
   static constexpr int SMEM = TOT + (TOT_SMEM ? CONSUMERS * TN / 2 * 4 : 0) + 1024;
 };
 
-__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
-  unsigned short v;
-  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
-  return v;
-}
-
-// a W box row of PB bytes under the PB-byte swizzle: 16-byte chunk c of row
-// r sits at chunk c ^ (r % 8) (128 bytes) or c ^ (r / 2 % 4) (64 bytes)
-template <int PB>
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  const int chunk = PB == 128 ? (col >> 4) ^ (row & 7) : ((col >> 4) ^ (row >> 1)) & 3;
-  return row * PB + (chunk << 4) + (col & 15);
-}
-
-// two packed bytes b0 | b1 << 8 as the bf16 pairs (lo(b0), lo(b1)) and
-// (hi(b0), hi(b1)): each nibble n = value + 8 (the high one's sign bit
-// flipped) goes into the mantissa of 128 (0x4300), and 136 (0x4308) is
-// taken away, all exact
-__device__ __forceinline__ void unpack2(uint32_t v, uint32_t& lo, uint32_t& hi) {
-  const uint32_t t = __byte_perm(v, 0, 0x4140);  // b0 | b1 << 16
-  const uint32_t l = (t & 0x000F000Fu) | 0x43004300u;
-  const uint32_t h = ((t >> 4) & 0x000F000Fu) ^ 0x43084308u;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(lo) : "r"(l), "r"(0x3F803F80u), "r"(0xC308C308u));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(h), "r"(0x3F803F80u), "r"(0xC308C308u));
-}
-
-// d += A B, m64 nTN k16, A from registers, B K-major in shared memory
-template <int TN>
-__device__ __forceinline__ void wgmma_a(float (&d)[TN / 2], const uint32_t* a, uint64_t db) {
-  if constexpr (TN == 8) aria::wgmma_rs8<0>(d, a, db);
-  else if constexpr (TN == 16) aria::wgmma_rs16<0>(d, a, db);
-  else if constexpr (TN == 32) aria::wgmma_rs32<0>(d, a, db);
-  else if constexpr (TN == 64) aria::wgmma_rs64<0>(d, a, db);
-  else aria::wgmma_rs<0>(d, a, db);
-}
+using aria::lds16;
+using aria::swz;
+using aria::unpack2;
 
 // SPLIT (T <= TN): block (x, g) takes W rows 64x.. over D-group g only, and
 // the last of the row tile's blocks adds the groups; else block (x, y) takes
@@ -229,8 +197,8 @@ dense_int4_kernel(const __grid_constant__ CUtensorMap w_map,
 #pragma unroll
     for (int kk = 0; kk < PB / 16; ++kk) {
       const uint32_t off = kk / 4 * TN * XROW + kk % 4 * 32;  // the x box, 16 columns into it
-      wgmma_a<TN>(acc, alo[kk], aria::sw128_desc(xl + off, 16, 1024));
-      wgmma_a<TN>(acc, ahi[kk], aria::sw128_desc(xh + off, 16, 1024));
+      aria::wgmma_rsn<TN>(acc, alo[kk], aria::sw128_desc(xl + off, 16, 1024));
+      aria::wgmma_rsn<TN>(acc, ahi[kk], aria::sw128_desc(xh + off, 16, 1024));
     }
     aria::wgmma_commit();
     aria::wgmma_wait<1>();

@@ -1,8 +1,9 @@
 // Hopper pieces shared by the wgmma kernels (flash.cu, flash_bwd.cu,
-// gmm.cu, vit_attention.cu): TMA loads of tensor-map boxes, the
-// 128-byte-swizzle and the unswizzled shared-memory descriptors, the wgmma
-// fences and the m64n8k16 to m64n256k16 bf16 products (transpose bits as
-// template arguments), and the host-side tensor maps.
+// gmm.cu, vit_attention.cu, dense_int4.cu, moe_prefill.cu): TMA loads of
+// tensor-map boxes, the 128-byte-swizzle and the unswizzled shared-memory
+// descriptors, the wgmma fences and the m64n8k16 to m64n256k16 bf16
+// products (transpose bits as template arguments), the packed int4 weights
+// unpacked into A fragments, and the host-side tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -81,6 +82,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for A fragments in registers: they are complete before the
+// products that read them are issued
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]), "+r"(a[i][3])::"memory");
+}
+
 #define ARIA_D32                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -121,59 +131,143 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// d += A B: A (64 x 16 bf16) from registers, B from shared memory (TB as above)
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory (TB as above)
 template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db,
+                                         int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ARIA_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : ARIA_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
-// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 64
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory, N = 64
 template <int TB>
-__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t* a, uint64_t db,
+                                           int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ARIA_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : ARIA_F32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
-// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 32
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory, N = 32
 template <int TB>
-__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t* a, uint64_t db,
+                                           int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : ARIA_F8(0), ARIA_F8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
-// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 16
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory, N = 16
 template <int TB>
-__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t* a, uint64_t db,
+                                           int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}"
       ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
       : ARIA_F8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
-// d += A B: A (64 x 16 bf16) from registers, B from shared memory, N = 8
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory, N = 8
 template <int TB>
-__device__ __forceinline__ void wgmma_rs8(float (&d)[4], const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_rs8(float (&d)[4], const uint32_t* a, uint64_t db,
+                                          int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %9, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
       ", {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory, N = 48
+template <int TB>
+__device__ __forceinline__ void wgmma_rs48(float (&d)[24], const uint32_t* a, uint64_t db,
+                                           int accumulate = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}"
+      ", {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : ARIA_F8(0), ARIA_F8(8), ARIA_F8(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// d (+)= A B: A (64 x 16 bf16) from registers, B from shared memory, N = 96
+template <int TB>
+__device__ __forceinline__ void wgmma_rs96(float (&d)[48], const uint32_t* a, uint64_t db,
+                                           int accumulate = 1) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : ARIA_F8(0), ARIA_F8(8), ARIA_F8(16), ARIA_F8(24), ARIA_F8(32), ARIA_F8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// d (+)= A B, m64 nTN k16, A from registers, B K-major in shared memory
+// (TN: 8, 16, 32, 48, 64, 96 or 128)
+template <int TN>
+__device__ __forceinline__ void wgmma_rsn(float (&d)[TN / 2], const uint32_t* a, uint64_t db,
+                                          int accumulate = 1) {
+  if constexpr (TN == 8) wgmma_rs8<0>(d, a, db, accumulate);
+  else if constexpr (TN == 16) wgmma_rs16<0>(d, a, db, accumulate);
+  else if constexpr (TN == 32) wgmma_rs32<0>(d, a, db, accumulate);
+  else if constexpr (TN == 48) wgmma_rs48<0>(d, a, db, accumulate);
+  else if constexpr (TN == 64) wgmma_rs64<0>(d, a, db, accumulate);
+  else if constexpr (TN == 96) wgmma_rs96<0>(d, a, db, accumulate);
+  else wgmma_rs<0>(d, a, db, accumulate);
+}
+
+// ---- packed int4 weights (biased-lo bytes: B = 16 hi + (lo + 8)) as bf16
+// A fragments
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// a box row of PB bytes under the PB-byte swizzle: 16-byte chunk c of row
+// r sits at chunk c ^ (r % 8) (128 bytes) or c ^ (r / 2 % 4) (64 bytes)
+template <int PB>
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  const int chunk = PB == 128 ? (col >> 4) ^ (row & 7) : ((col >> 4) ^ (row >> 1)) & 3;
+  return row * PB + (chunk << 4) + (col & 15);
+}
+
+// the nibbles at bits `shift`..+3 of bytes 0 and 2 of t as the bf16 pair
+// (byte 0's, byte 2's): the nibble n = value + 8 (for the high nibble,
+// `key` 0x43084308 flips its sign bit; for the low one, 0x43004300) goes
+// into the mantissa of 128 (0x4300), and 136 (0x4308) is taken away, all
+// exact
+__device__ __forceinline__ uint32_t nibbles_bf16(uint32_t t, int shift, uint32_t key) {
+  const uint32_t u = ((t >> shift) & 0x000F000Fu) ^ key;
+  uint32_t v;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(v) : "r"(u), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return v;
+}
+
+// two packed bytes b0 | b1 << 8 as the bf16 pairs (lo(b0), lo(b1)) and
+// (hi(b0), hi(b1)): a prmt, two lop3 and a bf16x2 fma each
+__device__ __forceinline__ void unpack2(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t t = __byte_perm(v, 0, 0x4140);  // b0 | b1 << 16
+  lo = nibbles_bf16(t, 0, 0x43004300u);
+  hi = nibbles_bf16(t, 4, 0x43084308u);
 }
 
 #define ARIA_D128                                                                             \

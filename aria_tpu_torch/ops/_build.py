@@ -58,10 +58,10 @@ SIGNATURES = {
     "aria_vit_flash": [_P] * 5 + [_I] * 4 + [_F, _P],
     # q, k, v, q_valid, kv_valid, out, B, Sq, Sk, H, D, scale, stream
     "aria_flash_segment": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # x_seg, tile_expert, rows_used, w1q4, w1sg, h, R, D, I, E, layer, stream
-    "aria_moe_prefill_glu": [_P] * 6 + [_I] * 5 + [_P],
-    # h, tile_expert, rows_used, w2q4, w2s8, out, R, D, I, E, layer, stream
-    "aria_moe_prefill_down": [_P] * 6 + [_I] * 5 + [_P],
+    # x_seg, tile_expert, tile_rows, w1q4, w1sg, h, R, D, I, L, E, layer, stream
+    "aria_moe_prefill_glu": [_P] * 6 + [_I] * 6 + [_P],
+    # h, tile_expert, tile_rows, w2q4, w2s8, out, R, D, I, L, E, layer, stream
+    "aria_moe_prefill_down": [_P] * 6 + [_I] * 6 + [_P],
     # x, ids, valid, wd, w1, w2, h, part, out, T, D, I, E, U, layer, stream
     "aria_moe_decode_bf16": [_P] * 9 + [_I] * 6 + [_P],
     # x, ids, valid, wd, w1, s1, w2, s2, h, part, out, T, D, I, E, U, layer, stream

@@ -2,23 +2,28 @@
 (counterpart of aria_tpu/ops/moe_prefill_kernel.py).
 
 Routing slots are sorted by expert into segments padded to 128 rows
-(``segment_dispatch``), so every 128-row tile belongs to one expert; the
-grouped GLU-FFN runs tile by tile (``moe_prefill_int4``), and the slots
-are gathered back and combined in f32 (``experts_segmented_int4``). The
-segment buffer has the static worst-case row count R = ceil((T*k +
-E*127)/128)*128, so nothing waits on the host.
+(``segment_dispatch``), so every 128-row tile belongs to one expert and
+holds that expert's routed rows first; the grouped GLU-FFN runs tile by
+tile (``moe_prefill_int4``), and the slots are gathered back and combined
+in f32 (``experts_segmented_int4``). The segment buffer has the static
+worst-case row count R = ceil((T*k + E*127)/128)*128, and each tile's
+count of routed rows is computed on the device, so nothing waits on the
+host.
 
 Kernel: ``csrc/moe_prefill.cu`` (glu, then down). It replaces
 ``moe_prefill_int4`` of aria_tpu/ops/moe_prefill_kernel.py:120 (``_k1_glu``
-:52, ``_k2_down`` :91). At a 512-token prompt with 6 routed + 2 shared
-experts about 72 tiles of 128 rows run per layer at 25.6 MFLOP per row,
-so it is bound by tensor-core throughput: both products are warp-level
-``mma.sync`` on int4 values unpacked into bf16 in registers, with f32
-sums, and tiles past the last used row are skipped on the device.
+:52, ``_k2_down`` :91). Both products run on wgmma with the packed
+weights as the M side, unpacked into bf16 in registers, and the tile's
+token rows as the N side, brought by TMA: a tile of n routed rows runs at
+N = n rounded up to 16, 32, 48, 64, 96 or 128, its other rows are written
+as zeros (a zero row's output), and a tile of no routed row is skipped. At
+a 512-token prompt it is bound by the used experts' weight bytes, above
+~1,000 tokens by the bf16 tensor cores (6 I D operations a routed row).
 
 Numerics: the products are exact (int4 values are exact in bf16), with
-f32 sums and the D-group scales applied per group, and h is rounded to
-x's dtype between the two products. The TPU kernels instead compute
+f32 sums and the D-group scales applied per group in group order, and h
+is rounded to x's dtype between the two products. A row's bits do not
+depend on how many rows share its tile. The TPU kernels instead compute
 xa.B + (xb/16 - xa).hi16 - 8 sum(xa) and round (xb/16 - xa) to bf16,
 which puts them ~2.7e-2 (relative) from the int4 GLU-FFN at bf16; that
 rounding is not reproduced.
@@ -40,8 +45,9 @@ def segment_dispatch(indices: torch.Tensor, num_experts: int):
     the JAX function (moe_prefill_kernel.py:196-224).
 
     Returns (dest_row int32 [T*k], tile_expert int32 [R // 128], R,
-    rows_used int32 [1]): slot i goes to row ``dest_row[i]`` of the [R, D]
-    segment buffer; tiles at or past ``rows_used`` hold only padding."""
+    tile_rows int32 [R // 128]): slot i goes to row ``dest_row[i]`` of the
+    [R, D] segment buffer, and the first ``tile_rows[t]`` rows of tile t
+    are routed slots (its others, and the tiles of 0, hold padding)."""
     T, k = indices.shape
     dev = indices.device
     flat_e = indices.reshape(-1).long()
@@ -59,16 +65,18 @@ def segment_dispatch(indices: torch.Tensor, num_experts: int):
     tile_starts = torch.arange(R // TM, device=dev) * TM
     tile_expert = torch.clamp(
         torch.searchsorted(pstarts, tile_starts, right=True) - 1, 0, num_experts - 1)
-    rows_used = padded.sum().reshape(1)
+    # the tile's expert's rows that reach past the tile's start, at most 128
+    tile_rows = torch.clamp(pstarts[tile_expert] + counts[tile_expert] - tile_starts, 0, TM)
     return (dest_row.to(torch.int32), tile_expert.to(torch.int32), R,
-            rows_used.to(torch.int32))
+            tile_rows.to(torch.int32))
 
 
 def moe_prefill_int4_plain(x_seg, tile_expert, w1q4, w1sg, w2q4, w2s8, layer: int,
-                           rows_used: torch.Tensor) -> torch.Tensor:
+                           tile_rows: torch.Tensor) -> torch.Tensor:
     """The same FFN on each expert's weights dequantized to f32; h is
     rounded to x's dtype between the products, as the kernel does. Every
-    tile is computed (``rows_used`` only lets the kernel skip)."""
+    row of every tile is computed (``tile_rows`` only lets the kernel
+    skip)."""
     R, D = x_seg.shape
     I = w1q4.shape[2] // 2
     out = torch.zeros((R, D), dtype=torch.float32, device=x_seg.device)
@@ -92,18 +100,19 @@ def moe_prefill_int4(
     w2q4: torch.Tensor,  # int8 [L, E, I, D/2]
     w2s8: torch.Tensor,  # bf16 [L, E, 8, D]
     layer: int,
-    rows_used: torch.Tensor,  # int32 [1], from segment_dispatch (or R for every tile)
+    tile_rows: torch.Tensor,  # int32 [R // 128] routed rows per tile, from segment_dispatch
 ) -> torch.Tensor:
     """Segmented grouped GLU-FFN over the packed int4 stacks; returns
-    [R, D] f32. Rows of tiles at or past ``rows_used`` are left unwritten."""
+    [R, D] f32. Only each tile's first ``tile_rows`` rows are computed: its
+    other rows are zeros, and the rows of a tile of 0 are left unwritten."""
     tensors = (x_seg, tile_expert, w1q4, w1sg, w2q4, w2s8)
-    if not backend.on_cuda(*tensors, rows_used):
-        return moe_prefill_int4_plain(*tensors, layer, rows_used)
+    if not backend.on_cuda(*tensors, tile_rows):
+        return moe_prefill_int4_plain(*tensors, layer, tile_rows)
     R, D = x_seg.shape
     L, E, I2, Dp = w1q4.shape
     I = I2 // 2
     gs = D // int4_group_count(D)
-    if R % TM or D != 2 * Dp or (gs // 2) % 64 or Dp % 64 or I % 64:
+    if R % TM or D != 2 * Dp or (gs // 2) % 128 or Dp % 64 or I % 128:
         raise ValueError(f"moe_prefill_int4: unsupported R={R}, D={D}, I={I}")
     if not 0 <= layer < L:
         raise IndexError(f"moe_prefill_int4: layer {layer} of {L}")
@@ -113,15 +122,15 @@ def moe_prefill_int4(
     backend.require(w1sg, "w1sg", torch.bfloat16, (L, E, 8, I2))
     backend.require(w2q4, "w2q4", torch.int8, (L, E, I, Dp))
     backend.require(w2s8, "w2s8", torch.bfloat16, (L, E, 8, D))
-    backend.require(rows_used, "rows_used", torch.int32, (1,))
+    backend.require(tile_rows, "tile_rows", torch.int32, (R // TM,))
     h = torch.empty((R, I), dtype=torch.bfloat16, device=x_seg.device)
     out = torch.empty((R, D), dtype=torch.float32, device=x_seg.device)
     lib, p, st = library(), backend.ptr, backend.stream()
-    err = lib.aria_moe_prefill_glu(p(x_seg), p(tile_expert), p(rows_used), p(w1q4), p(w1sg),
-                                   p(h), R, D, I, E, layer, st)
+    err = lib.aria_moe_prefill_glu(p(x_seg), p(tile_expert), p(tile_rows), p(w1q4), p(w1sg),
+                                   p(h), R, D, I, L, E, layer, st)
     backend.check(err, "moe_prefill_int4 (glu)")
-    err = lib.aria_moe_prefill_down(p(h), p(tile_expert), p(rows_used), p(w2q4), p(w2s8),
-                                    p(out), R, D, I, E, layer, st)
+    err = lib.aria_moe_prefill_down(p(h), p(tile_expert), p(tile_rows), p(w2q4), p(w2s8),
+                                    p(out), R, D, I, L, E, layer, st)
     backend.check(err, "moe_prefill_int4 (down)")
     moe_prefill_int4.launches += 1
     return out
@@ -144,11 +153,11 @@ def expert_slots(
     rows gathered back."""
     T, D = x.shape
     k = indices.shape[1]
-    dest_row, tile_expert, R, rows_used = segment_dispatch(indices, w1q4.shape[1])
+    dest_row, tile_expert, R, tile_rows = segment_dispatch(indices, w1q4.shape[1])
     dest = dest_row.long()
     x_seg = torch.zeros((R, D), dtype=x.dtype, device=x.device)
     x_seg[dest] = x.repeat_interleave(k, dim=0)
-    out_seg = moe_prefill_int4(x_seg, tile_expert, w1q4, w1sg, w2q4, w2s8, layer, rows_used)
+    out_seg = moe_prefill_int4(x_seg, tile_expert, w1q4, w1sg, w2q4, w2s8, layer, tile_rows)
     return out_seg[dest].reshape(T, k, D)
 
 

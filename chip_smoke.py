@@ -276,7 +276,9 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     from aria_tpu_torch.ops import moe_prefill_kernel as mp
     from aria_tpu_torch.ops import paged_attention as pg
     from aria_tpu_torch.ops import vit_flash as vfl
-    from aria_tpu_torch.ops.quant import (dequantize_dense_int4, quantize_dense_int4,
+    from aria_tpu_torch.ops import moe as tmoe
+    from aria_tpu_torch.ops.quant import (dequantize_dense_int4, dequantize_w1_int4,
+                                          dequantize_w2_int4, quantize_dense_int4,
                                           quantize_expert_int4)
 
     cfg = cfg or TextConfig()
@@ -402,33 +404,63 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
 
     # moe_prefill_int4 on the same stacks: top-6 + 2 shared at T = 512 (the
     # image prompt's bucket), 129, 2048 (32 rows of 64-token prompts) and
-    # 4096 (the paged prefill tick), rows past the used tiles skipped
+    # 4096 (the paged prefill tick); each tile computes its routed rows, and
+    # its other rows must read exactly 0. The bound counts the routed rows
+    # (T x 8), the padded tiles' bound is printed beside it, and so is a
+    # yardstick: torch._grouped_mm over the same tiles with the used
+    # experts' weights dequantized to bf16 (bf16 out, the two products
+    # only: not a call of the same function).
     print("moe_prefill_int4", flush=True)
     errs, timed = [], []
+    w1bf = dequantize_w1_int4({"q4": w1["q4"][1], "sg": w1["sg"][1]})  # [E, 2I, D]
+    w2bf = dequantize_w2_int4({"q4": w2["q4"][1], "s8": w2["s8"][1]})  # [E, I, D]
     for T in dict.fromkeys((512, 129, lanes * 64, tick)):
         logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
         _, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
         shared = torch.arange(cfg.num_experts, E, device=device).expand(T, -1)
         indices = torch.cat([idx, shared], dim=1).to(torch.int32)
-        dest, tile_e, R, rows_used = mp.segment_dispatch(indices, E)
+        dest, tile_e, R, tile_rows = mp.segment_dispatch(indices, E)
         x_seg = torch.zeros((R, D), dtype=torch.bfloat16, device=device)
         x_seg[dest.long()] = randn(T, D).repeat_interleave(indices.shape[1], dim=0)
-        args = (x_seg, tile_e, w1["q4"], w1["sg"], w2["q4"], w2["s8"], 1, rows_used)
-        used = int(rows_used)
+        args = (x_seg, tile_e, w1["q4"], w1["sg"], w2["q4"], w2["s8"], 1, tile_rows)
+        tiles = int((tile_rows > 0).sum())
+        used = tiles * mp.TM
+        routed = (torch.arange(used, device=device) % mp.TM
+                  < tile_rows[:tiles].repeat_interleave(mp.TM))
         got, ref = mp.moe_prefill_int4(*args), mp.moe_prefill_int4_plain(*args)
         errs.append(_compare(
-            f"moe_prefill_int4 T={T} ({used // mp.TM} of {R // mp.TM} tiles used)",
-            got[:used], ref[:used], 1e-2,
+            f"moe_prefill_int4 T={T} ({tiles} of {R // mp.TM} tiles used)",
+            got[:used][routed], ref[:used][routed], 1e-2,
             "exact products, f32 sums in another order; h rounds to bf16 between the "
             "products on both sides, so a sum at a rounding edge moves by one bf16 ulp"))
+        if (got[:used][~routed] != 0).any():
+            raise AssertionError(f"moe_prefill_int4 T={T}: a row past its tile's count is not 0")
         if T != 129:
-            n_exp = int(torch.unique(tile_e[:used // mp.TM]).numel())
-            bound = _bound(n_exp * expert_bytes + _nbytes(x_seg[:used], got[:used]),
-                           used * 6 * I * D)
-            timed.append(_timed(f"T={T} ({used // mp.TM} tiles)",
+            n_exp = int(torch.unique(tile_e[:tiles]).numel())
+            slots = T * indices.shape[1]
+            bound = _bound(n_exp * expert_bytes + slots * D * (2 + 4), slots * 6 * I * D)
+            padded = _bound(n_exp * expert_bytes + _nbytes(x_seg[:used], got[:used]),
+                            used * 6 * I * D)
+            timed.append(_timed(f"T={T} ({tiles} tiles)",
                                 lambda: mp.moe_prefill_int4(*args),
                                 lambda: mp.moe_prefill_int4_plain(*args),
                                 max(5, 10240 // T), 3, bound))
+            sizes = (torch.bincount(tile_e[:tiles], minlength=E) * mp.TM).to(torch.int32)
+            ref1 = tmoe.gmm_plain(x_seg[:used], w1bf, sizes, True)
+            hbf = (F.silu(ref1[:, :I]) * ref1[:, I:]).to(torch.bfloat16)
+            ref2 = tmoe.gmm_plain(hbf, w2bf, sizes, False)
+            lib1 = _grouped_mm(x_seg[:used], w1bf.transpose(1, 2), sizes, ref1)
+            lib2 = _grouped_mm(hbf, w2bf, sizes, ref2)
+            yard = ("not timed" if lib1 is None or lib2 is None else
+                    f"{_time_ms(lib1, 10)[0] + _time_ms(lib2, 10)[0]:.4f} ms")
+            print(f"  moe_prefill_int4 T={T}: {timed[-1]['k'][0]:.4f} ms; bound on the routed "
+                  f"rows ({slots}) {bound[0]:.4f} ms ({bound[1]}), on the padded tiles ({used} "
+                  f"rows) {padded[0]:.4f} ms ({padded[1]}); torch._grouped_mm over the same "
+                  f"tiles, weights dequantized to bf16, bf16 out: {yard}", flush=True)
+            del ref1, hbf, ref2
+    del w1bf, w2bf
+    _prefill_row_bits(mp, (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 1), randn, device, gen, cfg,
+                      E)
     record("moe_prefill_int4", errs, timed)
     del w1, w2
     check_fp_experts(device, gen, cfg, lanes, results, randn, record)
@@ -790,6 +822,43 @@ def _gmm_library(lhs, rhs_kn, sizes, ref, at: str):
         print(f"  gmm {at}: torch._grouped_mm with bf16 out {_time_ms(bf16, 5)[0]:.4f} ms; the "
               f"library time below has {'f32' if f32 else 'bf16'} out", flush=True)
     return f32 or bf16
+
+
+def _prefill_row_bits(mp, experts, randn, device, gen, cfg, E):
+    """moe_prefill_int4 gives a row the same bits whatever the rows beside
+    it: alone in its expert's tile, among 40 or 128, at another place in
+    the tile, and token 0's slots in a 129- and a 512-token prompt."""
+    import torch
+
+    row = randn(1, cfg.hidden_size)
+    tile_e = torch.tensor([5], dtype=torch.int32, device=device)
+    seen = []
+    for n, at in ((1, 0), (40, 17), (128, 100)):
+        x_seg = torch.zeros((mp.TM, cfg.hidden_size), dtype=torch.bfloat16, device=device)
+        x_seg[:n] = randn(n, cfg.hidden_size)
+        x_seg[at] = row[0]
+        rows = torch.tensor([n], dtype=torch.int32, device=device)
+        seen.append(mp.moe_prefill_int4(x_seg, tile_e, *experts, rows)[at])
+    if not all(torch.equal(s, seen[0]) for s in seen[1:]):
+        raise AssertionError("moe_prefill_int4: a row gets other bits among 1, 40, 128 rows")
+    slots = []
+    for T in (129, 512):
+        logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
+        top = torch.topk(logits, cfg.moe_topk, dim=-1).indices
+        top[0] = torch.arange(cfg.moe_topk, device=device)
+        shared = torch.arange(cfg.num_experts, E, device=device).expand(T, -1)
+        indices = torch.cat([top, shared], dim=1).to(torch.int32)
+        x = randn(T, cfg.hidden_size)
+        x[0] = row[0]
+        dest, tile_e, R, tile_rows = mp.segment_dispatch(indices, E)
+        x_seg = torch.zeros((R, cfg.hidden_size), dtype=torch.bfloat16, device=device)
+        x_seg[dest.long()] = x.repeat_interleave(indices.shape[1], dim=0)
+        out = mp.moe_prefill_int4(x_seg, tile_e, *experts, tile_rows)
+        slots.append(out[dest[:indices.shape[1]].long()])
+    if not torch.equal(slots[0], slots[1]):
+        raise AssertionError("moe_prefill_int4: token 0 gets other bits at T = 129 and 512")
+    print("  moe_prefill_int4 rows: equal bits alone in its tile, among 40 and 128 rows (at "
+          "rows 0, 17, 100), and token 0's 8 slots at T = 129 and 512", flush=True)
 
 
 def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
@@ -1594,6 +1663,43 @@ def _image_prefill(device, params, cfg, engine, pv, prompt, first_token, gpu):
     for label, ev in (("ViT + projector", enc_ev), ("LM prefill", pre_ev)):
         print(f"  device time by kernel, {label} ({gpu}):\n"
               + ev.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    _prefill_moe_shares(lambda: prefill(feats), pre_ms, gpu)
+
+
+def _prefill_moe_shares(prefill, pre_ms: float, gpu: str) -> None:
+    """What the LM prefill's MoE FFN costs beside its kernel: the calls of
+    ``experts_segmented_int4`` of one prefill, recorded, run again under the
+    profiler, with the device time of moe_prefill_int4's two kernels and of
+    ``segment_dispatch`` alone; the rest is the glue around them (the x_seg
+    zero fill and scatter, the gather and the einsum)."""
+    from aria_tpu_torch.models import moe_lm
+    from aria_tpu_torch.ops import moe_prefill_kernel as mp
+
+    calls, fn = [], moe_lm.experts_segmented_int4
+
+    def recorded(*args):
+        calls.append(args)
+        return fn(*args)
+
+    moe_lm.experts_segmented_int4 = recorded
+    try:
+        prefill()
+    finally:
+        moe_lm.experts_segmented_int4 = fn
+    moe_ms, moe_ev = _device_ms(lambda: [fn(*a) for a in calls])
+    disp_ms = _device_ms(lambda: [mp.segment_dispatch(a[1], a[3].shape[1]) for a in calls])[0]
+    kern = {name: sum(e.self_device_time_total for e in moe_ev if name in e.key) / 1e3
+            for name in ("prefill_glu", "prefill_down")}
+    glue = moe_ms - sum(kern.values())
+
+    def share(ms):
+        return f"{ms:.2f} ms ({100 * ms / pre_ms:.1f}%)"
+
+    print(f"  LM prefill's MoE FFN ({len(calls)} calls of experts_segmented_int4, {gpu}): "
+          f"{share(moe_ms)} of {pre_ms:.1f} ms device; moe_prefill_int4 glu "
+          f"{share(kern['prefill_glu'])}, down {share(kern['prefill_down'])}; the torch glue "
+          f"{share(glue)}: segment_dispatch {share(disp_ms)}, the x_seg zero fill and "
+          f"scatter, the gather and the einsum {share(glue - disp_ms)}", flush=True)
 
 
 def run_image(device, gen, lm, cfg=None, gpu=""):

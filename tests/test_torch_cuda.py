@@ -420,9 +420,36 @@ def _expert_stack(g, L, E, I, D):
     return w1, w2
 
 
-@pytest.mark.parametrize("T", [512, 129])
+def _prefill_segments(ind, x, E):
+    """x's rows scattered into the padded expert segments: (x_seg, dest,
+    tile_expert, tile_rows)."""
+    dest, tile_e, R, tile_rows = mp.segment_dispatch(ind, E)
+    x_seg = torch.zeros((R, x.shape[1]), dtype=x.dtype, device=x.device)
+    x_seg[dest.long()] = x.repeat_interleave(ind.shape[1], dim=0)
+    return x_seg, dest, tile_e, tile_rows
+
+
+def _hold_prefill(x_seg, tile_e, tile_rows, experts):
+    """The kernel against its plain version on each tile's routed rows, and
+    the rows past each tile's count exactly 0; returns the plain output."""
+    used = 128 * int((tile_rows > 0).sum())
+    ref = mp.moe_prefill_int4_plain(x_seg, tile_e, *experts, tile_rows)
+    got = mp.moe_prefill_int4(x_seg, tile_e, *experts, tile_rows)
+    routed = (torch.arange(used, device=x_seg.device) % 128
+              < tile_rows.repeat_interleave(128)[:used])
+    # exact products and f32 sums on both sides, in another order; h rounds
+    # to bf16 between the products on both, so a sum near a rounding edge of
+    # h moves one row's input to the down product by one bf16 ulp
+    err = (got[:used][routed] - ref[:used][routed]).abs().max()
+    assert err <= 1e-2 * ref.abs().max(), err.item()
+    assert torch.equal(got[:used][~routed], torch.zeros_like(got[:used][~routed]))
+    return ref
+
+
+@pytest.mark.parametrize("T", [129, 512, 2048, 4096])
 def test_moe_prefill_int4_kernel_matches_plain(cuda, T):
-    """64 routed + 2 shared experts at full width, top-6 + 2 shared."""
+    """64 routed + 2 shared experts at full width, top-6 + 2 shared: the
+    routed rows only, then 128 rows in every tile."""
     g = torch.Generator(device=cuda).manual_seed(0)
     E, I, D = 66, 1664, 2560
     w1, w2 = _expert_stack(g, 1, E, I, D)
@@ -432,29 +459,68 @@ def test_moe_prefill_int4_kernel_matches_plain(cuda, T):
     wts = torch.cat([torch.softmax(top.values, -1), torch.ones((T, 2), device=cuda)], 1)
     x = _randn(g, T, D)
     experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
-    dest, tile_e, R, rows_used = mp.segment_dispatch(ind, E)
-    x_seg = torch.zeros((R, D), dtype=torch.bfloat16, device=cuda)
-    x_seg[dest.long()] = x.repeat_interleave(8, dim=0)
-    # every tile, padding included (zeros in, zeros out), then the used ones
-    used = int(rows_used)
-    ref = mp.moe_prefill_int4_plain(x_seg, tile_e, *experts, rows_used)
-    for n in (R, used):
-        got = mp.moe_prefill_int4(x_seg, tile_e, *experts,
-                                  torch.tensor([n], dtype=torch.int32, device=cuda))
-        # exact products and f32 sums on both sides, in another order; h
-        # rounds to bf16 between the products on both, so a sum near a
-        # rounding edge of h moves one row's input to the down product by
-        # one bf16 ulp
-        err = (got[:n] - ref[:n]).abs().max()
-        assert err <= 1e-2 * ref.abs().max(), (n, err.item())
-    # the whole FFN, with tiles past the used rows skipped
+    x_seg, dest, tile_e, tile_rows = _prefill_segments(ind, x, E)
+    ref = _hold_prefill(x_seg, tile_e, tile_rows, experts)
+    full = torch.full_like(tile_rows, 128)  # every row of every tile, padding included
+    _hold_prefill(x_seg, tile_e, full, experts)
+    # the whole FFN
+    before = mp.moe_prefill_int4.launches
     got = mp.experts_segmented_int4(x, ind, wts.to(x.dtype), *experts)
-    assert mp.moe_prefill_int4.launches >= 3
+    assert mp.moe_prefill_int4.launches == before + 1
     with torch.no_grad():
         vals = ref[dest.long()].reshape(T, 8, D)
         ref = torch.einsum("tkd,tk->td", vals, wts.to(x.dtype).float()).to(x.dtype)
     err = (got.float() - ref.float()).abs().max()
     assert err <= 1e-2 * ref.float().abs().max(), err.item()
+
+
+def test_moe_prefill_int4_kernel_takes_every_tile_width(cuda):
+    """Experts of 1, 15, 16, 17, 127 and 128 rows (and 129: a full tile and
+    one of 1, and none) at a small width, each on its own tile width."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    E, I, D = 8, 128, 512
+    w1, w2 = _expert_stack(g, 2, E, I, D)
+    counts = (1, 15, 16, 17, 127, 128, 0, 129)
+    ind = torch.repeat_interleave(torch.arange(E, device=cuda),
+                                  torch.tensor(counts, device=cuda))
+    ind = ind[torch.randperm(ind.numel(), generator=g, device=cuda)].to(torch.int32)[:, None]
+    x_seg, _, tile_e, tile_rows = _prefill_segments(ind, _randn(g, ind.shape[0], D), E)
+    assert sorted(tile_rows.tolist()) == sorted([0] * (tile_rows.numel() - 8) +
+                                                [1, 15, 16, 17, 127, 128, 128, 1])
+    _hold_prefill(x_seg, tile_e, tile_rows, (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 1))
+
+
+def test_moe_prefill_int4_row_gets_the_same_bits_at_every_row_count(cuda):
+    """A row's output does not depend on how many rows share its tile (it
+    alone, 40 or 128, at any place in the tile) or on T: a cached prefix
+    page must equal a recomputed one."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    E, I, D = 66, 1664, 2560
+    w1, w2 = _expert_stack(g, 1, E, I, D)
+    experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
+    row = _randn(g, 1, D)
+    tile_e = torch.tensor([5], dtype=torch.int32, device=cuda)
+    seen = []
+    for n, at in ((1, 0), (40, 17), (40, 39), (128, 100), (128, 0)):
+        x_seg = torch.zeros((128, D), dtype=torch.bfloat16, device=cuda)
+        x_seg[:n] = _randn(g, n, D)
+        x_seg[at] = row[0]
+        rows = torch.tensor([n], dtype=torch.int32, device=cuda)
+        seen.append(mp.moe_prefill_int4(x_seg, tile_e, *experts, rows)[at])
+    for other in seen[1:]:
+        assert torch.equal(other, seen[0])
+    # token 0, routed to the same 8 experts, in a 129- and a 512-token prompt
+    slots = []
+    for T in (129, 512):
+        top = torch.topk(torch.randn((T, 64), generator=g, device=cuda), 6, dim=-1).indices
+        top[0] = torch.arange(6, device=cuda)
+        ind = torch.cat([top, torch.arange(64, 66, device=cuda).expand(T, 2)], 1)
+        x = _randn(g, T, D)
+        x[0] = row[0]
+        x_seg, dest, tile_e, tile_rows = _prefill_segments(ind.to(torch.int32), x, E)
+        out = mp.moe_prefill_int4(x_seg, tile_e, *experts, tile_rows)
+        slots.append(out[dest[:8].long()])
+    assert torch.equal(slots[0], slots[1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -479,16 +545,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         vf.vit_flash(q, q, q, torch.ones((1, 64), dtype=torch.int32, device=cuda))
     w1, w2 = _expert_stack(g, 1, 4, 128, 512)
     tile_e = torch.zeros(2, dtype=torch.int32, device=cuda)
-    used = torch.tensor([256], dtype=torch.int32, device=cuda)
+    rows = torch.tensor([128, 72], dtype=torch.int32, device=cuda)
     experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"])
     with pytest.raises(TypeError):
-        mp.moe_prefill_int4(_randn(g, 256, 512, dtype=torch.float32), tile_e, *experts, 0, used)
+        mp.moe_prefill_int4(_randn(g, 256, 512, dtype=torch.float32), tile_e, *experts, 0, rows)
     with pytest.raises(ValueError):  # rows not whole 128-row tiles
-        mp.moe_prefill_int4(_randn(g, 200, 512), tile_e, *experts, 0, used)
+        mp.moe_prefill_int4(_randn(g, 200, 512), tile_e, *experts, 0, rows)
     with pytest.raises(IndexError):
-        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 1, used)
-    with pytest.raises(TypeError):  # the used row count is int32
-        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 0, used.long())
+        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 1, rows)
+    with pytest.raises(TypeError):  # the tiles' row counts are int32
+        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 0, rows.long())
+    with pytest.raises(ValueError):  # one count a tile
+        mp.moe_prefill_int4(_randn(g, 256, 512), tile_e, *experts, 0, rows[:1])
 
 
 def _fp_stack(g, E, I, D, form):

@@ -244,13 +244,52 @@ def test_segment_dispatch_matches_jax(T, k):
     E = 10
     ind, _, _ = _prefill_routing(T, T, E, k)
     dest_j, tile_j, R_j = j_segment_dispatch(jnp.asarray(ind), E)
-    dest, tile, R, rows_used = mp.segment_dispatch(torch.from_numpy(ind), E)
-    assert R == R_j and dest.dtype == tile.dtype == torch.int32
+    dest, tile, R, tile_rows = mp.segment_dispatch(torch.from_numpy(ind), E)
+    assert R == R_j and dest.dtype == tile.dtype == tile_rows.dtype == torch.int32
     np.testing.assert_array_equal(dest.numpy(), np.asarray(dest_j))
     np.testing.assert_array_equal(tile.numpy(), np.asarray(tile_j))
-    counts = np.bincount(ind.reshape(-1), minlength=E)
-    assert int(rows_used) == int((-(-counts // mp.TM) * mp.TM).sum())
-    assert int(dest.max()) < int(rows_used)
+    # each tile's routed rows, from where the JAX function sends the slots
+    implied = np.bincount(np.asarray(dest_j) // mp.TM, minlength=R // mp.TM)
+    np.testing.assert_array_equal(tile_rows.numpy(), implied)
+
+
+@pytest.mark.parametrize("counts", [(0, 128, 129, 1, 127, 0), (256, 0, 0, 5), (1, 1, 1, 300)])
+def test_segment_dispatch_tile_rows_at_the_tile_edges(counts):
+    """Experts no slot picks, of exactly 128 and of 129 routed slots (and 1,
+    127, 256, 300), against the counts the JAX function's dest_row and
+    tile_expert imply: a tile's routed rows are its first ones, all of its
+    expert's, and the tiles with rows come first."""
+    E = len(counts)
+    rng = np.random.RandomState(sum(counts))
+    ind = rng.permutation(np.repeat(np.arange(E), counts)).astype(np.int32)[:, None]
+    dest_j, tile_j, R = j_segment_dispatch(jnp.asarray(ind), E)
+    _, tile, _, tile_rows = mp.segment_dispatch(torch.from_numpy(ind), E)
+    dest_j, tile_j = np.asarray(dest_j), np.asarray(tile_j)
+    implied = np.bincount(dest_j // mp.TM, minlength=R // mp.TM)
+    np.testing.assert_array_equal(tile_rows.numpy(), implied)
+    expected = [r for c in counts for r in [mp.TM] * (c // mp.TM) + [c % mp.TM] * (c % mp.TM > 0)]
+    assert implied.tolist() == expected + [0] * (R // mp.TM - len(expected))
+    for t, n in enumerate(implied):
+        rows = np.sort(dest_j[dest_j // mp.TM == t]) - t * mp.TM
+        np.testing.assert_array_equal(rows, np.arange(n))
+        assert (ind[dest_j // mp.TM == t, 0] == tile_j[t]).all()
+
+
+def test_moe_prefill_int4_plain_computes_every_row(prefill_case):
+    """On the CPU the wrapper runs the plain version, which takes the tiles'
+    routed-row counts and computes every row of every tile all the same:
+    the counts only let the kernel skip."""
+    D, E, _, experts = prefill_case
+    ind, _, rng = _prefill_routing(17, 150, E)
+    x = torch.from_numpy(rng.randn(150, D).astype(np.float32))
+    dest, tile_e, R, tile_rows = mp.segment_dispatch(torch.from_numpy(ind), E)
+    x_seg = torch.zeros((R, D))
+    x_seg[dest.long()] = x.repeat_interleave(ind.shape[1], dim=0)
+    x_seg[R - 1] = 1.0  # a padding row past every count
+    got = mp.moe_prefill_int4(x_seg, tile_e, *experts, 0, tile_rows)
+    full = mp.moe_prefill_int4(x_seg, tile_e, *experts, 0, torch.full_like(tile_rows, mp.TM))
+    assert torch.equal(got, full)
+    assert got[R - 1].abs().max() > 0
 
 
 @pytest.mark.parametrize("T,layer", [(129, 0), (160, 1)])
@@ -280,9 +319,10 @@ def test_moe_prefill_int4_matches_jax_f32(prefill_case):
     x_seg = jnp.zeros((R, D), jnp.float32).at[dest].set(jnp.asarray(x)[jnp.arange(T * 4) // 4])
     ref = np.asarray(j_moe_prefill_int4(x_seg, tile_e, *experts_j, jnp.int32(1), ft=128,
                                         interpret=True))
+    _, _, _, tile_rows = mp.segment_dispatch(torch.from_numpy(ind), E)
     got = mp.moe_prefill_int4(torch.from_numpy(np.asarray(x_seg)),
                               torch.from_numpy(np.asarray(tile_e)), *experts, 1,
-                              torch.tensor([R], dtype=torch.int32)).numpy()
+                              tile_rows).numpy()
     assert got.shape == (R, D) and got.dtype == np.float32
     # every row, padding rows included (zeros in, zeros out on both sides)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())

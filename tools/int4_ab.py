@@ -4,6 +4,11 @@ card, in turns (A, B, B, A).
 
     python3 tools/int4_ab.py PARENT_DIR CHANGE_DIR [--iters 20]
 
+with the parent unpacked from git into a directory that .gitignore lists,
+for example ``mkdir -p tmp/parent && git archive HEAD~1 | tar -x -C
+tmp/parent``, then ``python3 tools/int4_ab.py tmp/parent .`` from the root
+of the change's checkout, on the machine with the card.
+
 Each turn is a fresh process that imports ``aria_tpu_torch`` from the
 directory given, builds its kernels there, and times on random inputs from
 a seed, at the flagship's widths (D 2560, I 1664, 64 routed experts top-6
@@ -15,6 +20,11 @@ plus 2 shared):
   yardstick of what the unpacking costs, not a call of the same function);
 - ``moe_decode_int4`` in its W4A8 form at T = 1, 32 and 128 rows, one
   layer of 66 experts;
+- ``moe_prefill_int4`` on the same layer at T = 512, 2048 and 4096 rows
+  (each token's slots scattered into the padded expert segments by the
+  checkout's own ``segment_dispatch``, whose fourth value the kernel
+  takes), the routing drawn from the seed after the cases above, so both
+  checkouts time the same tiles;
 - the controls, kernels neither checkout should change: ``dense_int4_a8``
   (wqkv, T = 32) and ``moe_decode_int4_bf16`` (T = 32), each with a hash of
   its output's bits: the two checkouts must agree.
@@ -38,6 +48,7 @@ D, I, ROUTED, TOPK, SHARED = 2560, 1664, 64, 6, 2
 DENSE = {"wqkv": 7680, "wo": 2560}
 DENSE_T = (1, 32, 512, 2048, 4096)
 MOE_T = (1, 32, 128)
+PREFILL_T = (512, 2048, 4096)
 
 
 def _device_ms(fn, iters: int) -> float:
@@ -70,6 +81,7 @@ def measure(iters: int) -> dict:
 
     from aria_tpu_torch.ops import dense_int4 as di
     from aria_tpu_torch.ops import moe_decode_kernel as mk
+    from aria_tpu_torch.ops import moe_prefill_kernel as mp
     from aria_tpu_torch.ops.quant import (dequantize_dense_int4, quantize_dense_int4,
                                           quantize_expert_int4)
 
@@ -115,6 +127,16 @@ def measure(iters: int) -> dict:
             out["control moe_decode_int4_bf16 T=32"] = {
                 "ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks), iters),
                 "bits": _bits(b16)}
+    for T in PREFILL_T:
+        logits = torch.randn((T, ROUTED), generator=gen, device=dev)
+        idx = torch.topk(logits, TOPK, dim=-1).indices
+        shared = torch.arange(ROUTED, E, device=dev).expand(T, -1)
+        ind = torch.cat([idx, shared], 1).to(torch.int32)
+        dest, tile_e, R, rows = mp.segment_dispatch(ind, E)
+        x_seg = torch.zeros((R, D), dtype=torch.bfloat16, device=dev)
+        x_seg[dest.long()] = randn(T, D).repeat_interleave(TOPK + SHARED, dim=0)
+        out[f"moe_prefill_int4 T={T}"] = {
+            "ms": _device_ms(lambda: mp.moe_prefill_int4(x_seg, tile_e, *stacks, rows), iters)}
     return out
 
 
