@@ -90,9 +90,9 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   o[2] = bf_lo(w.y); o[3] = bf_hi(w.y);
 }
 
-// ---- warp-level tensor-core products (moe_prefill.cu, moe_decode_fp.cu,
-// moe_decode_q4.cu): bf16
-// operands, f32 sums, operand tiles staged in shared memory with cp.async.
+// ---- warp-level tensor-core products (moe_decode_fp.cu, moe_decode_bf16x.cu
+// and others): bf16 operands, f32 sums, operand tiles staged in shared
+// memory with cp.async or TMA.
 
 // c[0..3] += a (16x16, row) . b (16x8, col): the fragments of PTX's m16n8k16
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {

@@ -1,5 +1,6 @@
 // Hopper pieces shared by the wgmma kernels (flash.cu, flash_bwd.cu,
-// gmm.cu, vit_attention.cu, dense_int4.cu, moe_prefill.cu): TMA loads of
+// gmm.cu, vit_attention.cu, dense_int4.cu, moe_prefill.cu) and the decode
+// MoE's TMA rings (moe_decode.cu, moe_decode_bf16x.cu): TMA loads of
 // tensor-map boxes, the 128-byte-swizzle and the unswizzled shared-memory
 // descriptors, the wgmma fences and the m64n8k16 to m64n256k16 bf16
 // products (transpose bits as template arguments), the packed int4 weights
@@ -242,6 +243,13 @@ __device__ __forceinline__ uint32_t lds16(uint32_t addr) {
   return v;
 }
 
+// (a & b) ^ c as one lop3 (C++ with two constants compiles to two)
+__device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 // a box row of PB bytes under the PB-byte swizzle: 16-byte chunk c of row
 // r sits at chunk c ^ (r % 8) (128 bytes) or c ^ (r / 2 % 4) (64 bytes)
 template <int PB>
@@ -256,7 +264,7 @@ __device__ __forceinline__ uint32_t swz(int row, int col) {
 // into the mantissa of 128 (0x4300), and 136 (0x4308) is taken away, all
 // exact
 __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t t, int shift, uint32_t key) {
-  const uint32_t u = ((t >> shift) & 0x000F000Fu) ^ key;
+  const uint32_t u = and_xor(t >> shift, 0x000F000Fu, key);
   uint32_t v;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(v) : "r"(u), "r"(0x3F803F80u), "r"(0xC308C308u));
   return v;

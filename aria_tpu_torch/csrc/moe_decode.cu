@@ -17,17 +17,13 @@
 // Only routed rows. The reference runs every token row through every
 // active expert and multiplies the rows that did not pick it by a zero
 // combine weight; at T = 32 that is 66 x 32 rows for 256 real pairs. Here
-// prep_kernel lists the pairs sorted by expert (stable: ascending token
-// within an expert; the lists of ops/moe_decode_kernel.py:routed_rows) and
-// copies each token's int8 row and scales to its pairs' places, so an
-// expert's rows are contiguous and come by TMA boxes; its last block writes
-// each unique expert's id, flag, first place and count (unique_meta's ids:
-// slot order at T = 1, else ascending). h, hq and the f32 partials are one
+// prep_kernel (moe_pairs.cuh) lists the pairs sorted by expert and copies
+// each token's int8 row and scales to its pairs' places, so an expert's rows
+// are contiguous and come by TMA boxes. h, hq and the f32 partials are one
 // row a pair, [T*k, .]. The combine adds a token's pairs in the reference's
-// order (ascending expert id; slot order at T = 1) from 0, so every output
-// bit is the reference's: an unrouted row adds 0 * partial, which leaves a
-// finite sum as it is (the only difference is a non-finite partial of an
-// unrouted row, which the reference would spread; ROADMAP queue 3).
+// order from 0, so every output bit is the reference's (the only difference
+// is a non-finite partial of an unrouted row, which the reference would
+// spread; ROADMAP queue 3).
 //
 // Integer products on the tensor cores: mma.sync m16n8k32 s8 x s8 -> s32,
 // weights the M side (16 rows of w1, or 16 packed columns of w2), token
@@ -63,11 +59,9 @@
 // sums are exact in any order and every float step runs in a fixed order,
 // so the result does not depend on scheduling (no atomics).
 
-#include "hopper.cuh"
+#include "moe_pairs.cuh"
 
 namespace {
-
-using aria::smem_u32;
 
 constexpr int TOK = 32;                  // token rows a block takes
 constexpr int NT = TOK / 8;              // n-tiles of 8 rows
@@ -88,39 +82,8 @@ constexpr int DN_K = 128;
 constexpr int DN_WBOX = DN_K * DN_J;             // 16 KB
 constexpr int DN_STAGE = DN_WBOX + NT * XBOX;    // w2, hq: 20 KB
 constexpr int DN_STAGES = 4;
-
-// the ring's stages, its full and empty barriers, then EXTRA bytes of the
-// block's scales (read in the epilogues, loaded while the ring fills)
-template <int STAGE, int STAGES, int EXTRA>
-struct Ring {
-  static constexpr int BAR = STAGE * STAGES;
-  static constexpr int SCALES = BAR + 16 * STAGES;
-  static constexpr int BYTES = SCALES + EXTRA + 1024;  // + slack for the alignment
-};
 using GURing = Ring<GU_STAGE, GU_STAGES, (8 * 2 * GU_I + TOK * 8) * 4>;  // sg [8][2][64], sx [32][8]
 using DNRing = Ring<DN_STAGE, DN_STAGES, (2 * DN_J + 2 * TOK) * 4>;      // c [128], sh, w [32]
-
-// a box row of 128 bytes under the 128-byte swizzle: its 16-byte chunks
-// are permuted by the row's index within each 1024-byte atom
-__device__ __forceinline__ uint32_t sw128(int row, int col) {
-  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
-}
-// a box row of 64 bytes under the 64-byte swizzle: chunk ^= (row / 2) % 4
-__device__ __forceinline__ uint32_t sw64(int row, int col) {
-  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
 
 // four biased-lo packed bytes as int8 words of 16 lo and of 16 hi (exact)
 __device__ __forceinline__ uint32_t lo16(uint32_t w) { return ((w << 4) ^ 0x80808080u) & 0xF0F0F0F0u; }
@@ -176,121 +139,6 @@ __global__ void act_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __
   }
 }
 
-// Block t < T: quantize token t, find each of its pairs' place in the list
-// sorted by expert (the pairs of experts below e, then those of earlier
-// tokens on e) and copy the int8 row, its scales and its combine weight
-// there. Block T: each unique expert's id, flag, first place and count,
-// [4][U]. Each phase runs across the block's warps at once.
-__global__ void __launch_bounds__(256)
-prep_kernel(const __nv_bfloat16* __restrict__ x, const int* __restrict__ ind,
-            const void* __restrict__ wts, int w_bf16, int8_t* __restrict__ xs,
-            float* __restrict__ sxs, float* __restrict__ wsort, int* __restrict__ pos,
-            int* __restrict__ meta, int T, int k, int D, int ng, int E, int U) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float sxl[8];
-  const int n = T * k, t = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  int* sind = reinterpret_cast<int*>(smem_raw);  // [n]
-  for (int j = threadIdx.x; j < n; j += blockDim.x) sind[j] = ind[j];
-
-  if (t == T) {  // the unique experts
-    int* cnt = sind + n;  // [E]
-    for (int e = threadIdx.x; e < E; e += blockDim.x) cnt[e] = 0;
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += blockDim.x) atomicAdd(&cnt[sind[j]], 1);
-    __syncthreads();
-    if (warp != 0) return;
-    int* ids = meta;
-    int* valid = meta + U;
-    int* first = meta + 2 * U;
-    int* count = meta + 3 * U;
-    if (T == 1) {  // the token's slots in order
-      for (int u = lane; u < U; u += 32) {
-        const int e = sind[u];
-        int below = 0;
-        for (int s = 0; s < k; ++s) below += sind[s] < e;
-        ids[u] = e, valid[u] = 1, first[u] = below, count[u] = 1;
-      }
-      return;
-    }
-    // present experts ascending, then absent ones flagged invalid: a scan
-    // of E, 32 experts at a time
-    int present = 0;
-    for (int e0 = 0; e0 < E; e0 += 32)
-      present += __popc(__ballot_sync(aria::FULL_MASK, e0 + lane < E && cnt[e0 + lane] > 0));
-    int up = 0, ua = present, run = 0;  // places so far: present, absent; rows so far
-    const unsigned below_me = (1u << lane) - 1;
-    for (int e0 = 0; e0 < E; e0 += 32) {
-      const int e = e0 + lane, c = e < E ? cnt[e] : 0;
-      const unsigned pres = __ballot_sync(aria::FULL_MASK, c > 0);
-      const unsigned absent = __ballot_sync(aria::FULL_MASK, e < E && c == 0);
-      int incl = c;  // inclusive scan of the counts
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(aria::FULL_MASK, incl, o);
-        if (lane >= o) incl += v;
-      }
-      if (c > 0) {
-        const int u = up + __popc(pres & below_me);
-        if (u < U) ids[u] = e, valid[u] = 1, first[u] = run + incl - c, count[u] = c;
-      } else if (e < E) {
-        const int u = ua + __popc(absent & below_me);
-        if (u < U) ids[u] = e, valid[u] = 0, first[u] = n, count[u] = 0;
-      }
-      up += __popc(pres), ua += __popc(absent);
-      run += __shfl_sync(aria::FULL_MASK, incl, 31);
-    }
-    return;
-  }
-
-  float* xf = reinterpret_cast<float*>(sind + n);  // [D]
-  int* place = reinterpret_cast<int*>(xf + D);     // [k]
-  for (int i = threadIdx.x; i < D; i += blockDim.x) xf[i] = aria::bf2f(x[(size_t)t * D + i]);
-  __syncthreads();
-  // each warp: the group amax of groups warp, warp + nw.. (as act_quant_int8
-  // computes it), then the places of slots warp, warp + nw..
-  const int gs = D / ng;
-  for (int g = warp; g < 8; g += nw) {
-    float a = 0.f;
-    for (int i = lane; g < ng && i < gs; i += 32) a = fmaxf(a, fabsf(xf[g * gs + i]));
-    a = aria::warp_max(a);
-    if (lane == 0) sxl[g] = g < ng ? fmaxf(a * (1.f / 127.f), 1e-8f) : 0.f;
-  }
-  for (int s = warp; s < k; s += nw) {
-    const int e = sind[t * k + s];
-    int c = 0;
-    for (int j = lane; j < n; j += 32) c += (sind[j] < e) + (sind[j] == e && j < t * k);
-    c = aria::warp_sum_int(c);
-    if (lane == 0) place[s] = c;
-  }
-  __syncthreads();
-  // 16 elements a thread at a time (a group holds whole chunks), stored to
-  // every place of the token
-  for (int ch = threadIdx.x; ch < D / 16; ch += blockDim.x) {
-    const float sc = sxl[ch * 16 / gs];
-    uint32_t wv[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float qv = fminf(fmaxf(rintf(xf[ch * 16 + 4 * v + b] / sc), -127.f), 127.f);
-        word |= (uint32_t)(uint8_t)(int8_t)qv << (8 * b);
-      }
-      wv[v] = word;
-    }
-    const uint4 q4 = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-    for (int s = 0; s < k; ++s) reinterpret_cast<uint4*>(xs + (size_t)place[s] * D)[ch] = q4;
-  }
-  for (int s = threadIdx.x; s < k; s += blockDim.x) {
-    const int p = place[s], j = t * k + s;
-    for (int g = 0; g < 8; ++g) sxs[p * 8 + g] = sxl[g];
-    wsort[p] = w_bf16 ? aria::bf2f(reinterpret_cast<const __nv_bfloat16*>(wts)[j])
-                      : reinterpret_cast<const float*>(wts)[j];
-    pos[j] = p;
-  }
-}
-
 // the block's expert, its first sorted row for this chunk and the chunk's
 // row count; false where the block has no rows (block-uniform)
 __device__ __forceinline__ bool block_rows(const int* __restrict__ meta, int U, int u, int chunk,
@@ -304,17 +152,6 @@ __device__ __forceinline__ bool block_rows(const int* __restrict__ meta, int U, 
   return true;
 }
 
-template <int STAGES>
-__device__ __forceinline__ void init_bars(uint32_t bars) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      aria::mbar_init(bars + 8 * s, 1);
-      aria::mbar_init(bars + 8 * (STAGES + s), CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 2)
 gateup_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap x_map,
               const int* __restrict__ meta, const float* __restrict__ sxs,
@@ -326,7 +163,7 @@ gateup_kernel(const __grid_constant__ CUtensorMap w1_map, const __grid_constant_
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bars = base + GURing::BAR;
-  init_bars<GU_STAGES>(bars);
+  init_bars<GU_STAGES>(bars, CONSUMERS);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nt = (rows + 7) / 8;
@@ -483,7 +320,7 @@ down_kernel(const __grid_constant__ CUtensorMap w2_map, const __grid_constant__ 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bars = base + DNRing::BAR;
-  init_bars<DN_STAGES>(bars);
+  init_bars<DN_STAGES>(bars, CONSUMERS);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nt = (rows + 7) / 8;
@@ -589,43 +426,6 @@ down_kernel(const __grid_constant__ CUtensorMap w2_map, const __grid_constant__ 
     }
 }
 
-// out[t] = the sum from 0 of token t's parts in the reference's order:
-// ascending expert id (sorted), or slot order (T = 1)
-__global__ void combine_kernel(const float* __restrict__ part, const int* __restrict__ ind,
-                               const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
-                               int D, int k, int sorted) {
-  extern __shared__ int order[];  // [k]: the places of t's pairs, in order
-  const int t = blockIdx.y;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < k; ++s) {
-      const int e = ind[t * k + s];
-      int at = s;
-      if (sorted) {
-        at = 0;
-        for (int s2 = 0; s2 < k; ++s2) at += ind[t * k + s2] < e;
-      }
-      order[at] = pos[t * k + s];
-    }
-  }
-  __syncthreads();
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  float acc = 0.f;
-  for (int j = 0; j < k; ++j) acc = __fadd_rn(acc, part[(size_t)order[j] * D + d]);
-  out[(size_t)t * D + d] = __float2bfloat16(acc);
-}
-
-// int8 [outer][rows][cols] as a rank-3 map (or rank 2 with outer = 0),
-// boxes of box_cols x box_rows
-bool map_u8(CUtensorMap* map, const void* t, int outer, int rows, int cols, int box_cols,
-            int box_rows, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols, (cuuint64_t)rows * cols};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  return aria::make_map(map, t, outer ? 3 : 2, dims, strides, box, swizzle,
-                        CU_TENSOR_MAP_DATA_TYPE_UINT8);
-}
-
 }  // namespace
 
 ARIA_EXPORT int aria_act_quant_int8(const void* x, void* xq, void* sx, int T, int D, int ng,
@@ -651,19 +451,15 @@ ARIA_EXPORT int aria_moe_w4a8(const void* x, const void* ind, const void* wts, i
     return (int)cudaErrorInvalidValue;
   const int n = T * k;
   CUtensorMap w1m, xm, w2m, hm;
-  if (!map_u8(&w1m, w1q4, L * E, 2 * I, D / 2, GU_PB, GU_I, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !map_u8(&xm, xs, 0, n, D, 128, 8, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !map_u8(&w2m, w2q4, L * E, I, D / 2, DN_J, DN_K, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !map_u8(&hm, hq, 0, n, I, 128, 8, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!map_rows(&w1m, w1q4, L * E, 2 * I, D / 2, GU_PB, GU_I, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_rows(&xm, xs, 0, n, D, 128, 8, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_rows(&w2m, w2q4, L * E, I, D / 2, DN_J, DN_K, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_rows(&hm, hq, 0, n, I, 128, 8, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t prep_smem = 4 * ((size_t)n + max(D + k, E));
-  cudaError_t err = aria::allow_smem(prep_kernel, prep_smem);
+  cudaError_t err = launch_prep<true>(x, ind, wts, w_bf16, xs, sxs, wsort, pos, meta, nullptr,
+                                      T, k, D, ng, E, U, st);
   if (err != cudaSuccess) return err;
-  prep_kernel<<<T + 1, 256, prep_smem, st>>>(
-      (const __nv_bfloat16*)x, (const int*)ind, wts, w_bf16, (int8_t*)xs, (float*)sxs,
-      (float*)wsort, (int*)pos, (int*)meta, T, k, D, ng, E, U);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int chunks = (T + TOK - 1) / TOK;
   if ((err = aria::allow_smem(gateup_kernel, GURing::BYTES)) != cudaSuccess) return err;
   gateup_kernel<<<dim3((I + GU_I - 1) / GU_I * chunks, U), THREADS, GURing::BYTES, st>>>(
@@ -678,7 +474,5 @@ ARIA_EXPORT int aria_moe_w4a8(const void* x, const void* ind, const void* wts, i
       w2m, hm, (const int*)meta, (const float*)sh, (const float*)wsort,
       (const __nv_bfloat16*)w2s8, (float*)part, D, I, E, U, layer, chunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  combine_kernel<<<dim3((D + 255) / 256, T), 256, 4 * k, st>>>(
-      (const float*)part, (const int*)ind, (const int*)pos, (__nv_bfloat16*)out, D, k, T > 1);
-  return cudaGetLastError();
+  return launch_combine(part, ind, pos, out, T, k, D, st);
 }

@@ -64,10 +64,11 @@ SIGNATURES = {
     "aria_moe_prefill_down": [_P] * 6 + [_I] * 6 + [_P],
     # x, ids, valid, wd, w1, w2, h, part, out, T, D, I, E, U, layer, stream
     "aria_moe_decode_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    # x, ids, valid, wd, w1, s1, w2, s2, h, part, out, T, D, I, E, U, layer, stream
-    "aria_moe_decode_int8": [_P] * 11 + [_I] * 6 + [_P],
-    # x, ids, valid, wd, w1q4, w1sg, w2q4, w2s8, h, part, out, T, D, I, E, U, layer, stream
-    "aria_moe_decode_q4": [_P] * 11 + [_I] * 6 + [_P],
+    # x, indices, weights, w_bf16, w1, s1, w2, s2 (int4: w1q4, w1sg, w2q4, w2s8; int8: w1q,
+    # its s8, w2q, its s8), xs, wsort, pos, meta, work, h, part, out, T, k, D, I, L, E, U,
+    # layer, stream
+    "aria_moe_bf16x_int4": [_P] * 3 + [_I] + [_P] * 12 + [_I] * 8 + [_P],
+    "aria_moe_bf16x_int8": [_P] * 3 + [_I] + [_P] * 12 + [_I] * 8 + [_P],
     # lhs, rhs, group_sizes, out, M, K, N, E, rhs_kmajor, stream
     "aria_gmm": [_P] * 4 + [_I] * 5 + [_P],
     # x, hi, lo, flags, M, N, stream

@@ -30,13 +30,15 @@ in the serving forms:
     ``_kernel_q4`` :307, ``_ffn_q4`` :154): gate and up are f32 sums of
     bf16 x times the int4 values, h = silu(gate) * up in f32 is rounded
     to x's dtype, and the down product is over the int4 values of w2.
-    Kernel ``csrc/moe_decode_q4.cu``: the nibbles unpacked into bf16 in
-    registers (exact) and both products on ``mma.sync`` with f32 sums.
-    Here the port departs from ``_ffn_q4``: that function evaluates
-    xa.B + (xb/16 - xa).hi16 - 8 sum(xa) and rounds (xb/16 - xa) to
-    bf16, which its docstring calls exact and which is not (ROADMAP queue
-    3, fault (d)); the port computes the exact products, as it does in
-    ``moe_prefill_int4``.
+    Kernel ``csrc/moe_decode_bf16x.cu``: the routed pairs only, on the W4A8
+    form's pair lists, with the nibbles unpacked into bf16 in registers
+    (exact) and both products on ``mma.sync`` with f32 sums, in four
+    launches (the lists and the bf16 rows by expert, gate/up, down,
+    combine). Here the port departs from ``_ffn_q4``: that function
+    evaluates xa.B + (xb/16 - xa).hi16 - 8 sum(xa) and rounds (xb/16 - xa)
+    to bf16, which its docstring calls exact and which is not (ROADMAP
+    queue 3, fault (d)); the port computes the exact products, as it does
+    in ``moe_prefill_int4``.
 - ``moe_decode`` (bf16 experts, :389) and ``moe_decode_quant`` (int8
   experts with f32 per-output-channel scales, :503), both ``_ffn`` :81:
   gate and up are f32 dots of x with the weights in x's dtype (an int8
@@ -44,16 +46,19 @@ in the serving forms:
   * up in f32 is rounded to x's dtype, and the down dot (times its scale)
   is added to the output with the token's combine weight, expert by
   expert in ascending order (the JAX grid's order with one intermediate
-  tile). Kernel ``csrc/moe_decode_fp.cu``, templated on the weight type:
-  tensor-core products that stream each active expert's weights once for
-  all rows, 25.6 MB (bf16) or 12.8 MB (int8) per expert at flagship
-  width, so bound by that read.
+  tile). ``moe_decode``'s kernel is ``csrc/moe_decode_fp.cu``: tensor-core
+  products that stream each active expert's 25.6 MB of weights (flagship
+  width) once for all T rows, padded to 16-128. ``moe_decode_quant``'s is
+  ``csrc/moe_decode_bf16x.cu``'s int8 form: the routed pairs only, 12.8 MB
+  an expert, the int8 values converted to bf16 in registers (exact).
 
-The bf16 and int8 forms run the FFN once per UNIQUE active expert for all
-T rows and combine through a dense [E, T] weight table (``unique_meta``,
-the counterpart of ``_unique_meta`` :44-78); the W4A8 form runs each
-expert on the rows that picked it (``routed_rows``) and adds each token's
-pairs in ``unique_meta``'s order, which gives the same bits.
+``moe_decode`` runs the FFN once per UNIQUE active expert for all T rows
+and combines through a dense [E, T] weight table (``unique_meta``, the
+counterpart of ``_unique_meta`` :44-78); the other forms run each expert
+on the rows that picked it (``routed_rows``) and add each token's pairs in
+``unique_meta``'s order. The added terms are the same but for the 0 *
+partial of a row that did not pick an expert, so in plain torch the two
+give the same bits (``*_routed_plain`` against ``*_plain``).
 """
 
 from __future__ import annotations
@@ -174,30 +179,38 @@ def moe_decode_int4_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: in
     return out.to(x.dtype)
 
 
-def moe_decode_int4_routed_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
-                                 layer: int) -> torch.Tensor:
-    """The W4A8 FFN over the routed pairs only, in plain torch, as
-    ``csrc/moe_decode.cu`` computes it: each expert on the rows of the
-    tokens that picked it (``routed_rows``), one partial row a pair times
-    its combine weight, and each token's pairs added from 0 in
-    ``unique_meta``'s order. The bits equal ``moe_decode_int4_plain``'s:
-    the terms it adds beyond these are 0 * a finite partial."""
+def _routed(x, indices, weights, E: int, partial) -> torch.Tensor:
+    """The routed pairs' FFN and combine, as the routed kernels compute
+    them: ``partial(e, tokens)`` gives expert e's partial rows of those
+    tokens [n, D] f32, before the combine weight; each pair's row times its
+    combine weight is listed by expert as ``routed_rows`` lists the pairs,
+    and each token's pairs are added from 0 in ``unique_meta``'s order."""
     T, D = x.shape
     k = indices.shape[1]
-    order, pos, ids, valid, first, count = routed_rows(indices, w1q4.shape[1])
-    xq, sx = act_quant_int8(x, int4_group_count(D))
+    order, pos, ids, valid, first, count = routed_rows(indices, E)
     w = weights.reshape(-1).float()
     part = torch.empty((T * k, D), dtype=torch.float32, device=x.device)
     for e, ok, a, n in zip(*(v.tolist() for v in (ids, valid, first, count))):
         if ok:
             pairs = order[a:a + n]
-            rows = _ffn_a8(xq[pairs // k], sx[pairs // k], w1q4, w1sg, w2q4, w2s8, layer, e)
-            part[a:a + n] = w[pairs, None] * rows
+            part[a:a + n] = w[pairs, None] * partial(e, pairs // k)
     rank = torch.argsort(indices.long(), dim=1) if T > 1 else torch.arange(k)[None].expand(T, k)
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for j in range(k):
         out = out + part[pos.reshape(T, k).gather(1, rank[:, j:j + 1].to(x.device))[:, 0]]
     return out.to(x.dtype)
+
+
+def moe_decode_int4_routed_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
+                                 layer: int) -> torch.Tensor:
+    """The W4A8 FFN over the routed pairs only, in plain torch, as
+    ``csrc/moe_decode.cu`` computes it: each expert on the rows of the
+    tokens that picked it. The bits equal ``moe_decode_int4_plain``'s: the
+    integer dots are exact, and the terms it adds beyond these are 0 * a
+    finite partial."""
+    xq, sx = act_quant_int8(x, int4_group_count(x.shape[1]))
+    return _routed(x, indices, weights, w1q4.shape[1],
+                   lambda e, tok: _ffn_a8(xq[tok], sx[tok], w1q4, w1sg, w2q4, w2s8, layer, e))
 
 
 def _check_int4(name, x, w1q4, w1sg, w2q4, w2s8, layer: int, bad) -> tuple:
@@ -219,6 +232,18 @@ def _check_int4(name, x, w1q4, w1sg, w2q4, w2s8, layer: int, bad) -> tuple:
     backend.require(w2q4, "w2q4", torch.int8, (L, E, I, Dp))
     backend.require(w2s8, "w2s8", torch.bfloat16, (L, E, 8, D))
     return T, D, I, E, ng
+
+
+def _pair_args(indices, weights, T: int, k: int):
+    """The routing as the pair-list kernels take it: int32 indices, bf16 or
+    f32 weights (converted only where the caller's are neither)."""
+    if indices.dtype != torch.int32:
+        indices = indices.to(torch.int32)
+    if weights.dtype not in (torch.bfloat16, torch.float32):
+        weights = weights.float()
+    backend.require(indices, "indices", torch.int32, (T, k))
+    backend.require(weights, "weights", weights.dtype, (T, k))
+    return indices, weights
 
 
 def moe_decode_int4(
@@ -251,12 +276,7 @@ def _w4a8(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: int) -> dict:
         "moe_decode_int4", x, w1q4, w1sg, w2q4, w2s8, layer,
         lambda D, I, gs: (D // 2) % 128 or (gs // 2) % 16 or I % 16)
     L, k = w1q4.shape[0], indices.shape[1]
-    if indices.dtype != torch.int32:
-        indices = indices.to(torch.int32)
-    if weights.dtype not in (torch.bfloat16, torch.float32):
-        weights = weights.float()
-    backend.require(indices, "indices", torch.int32, (T, k))
-    backend.require(weights, "weights", weights.dtype, (T, k))
+    indices, weights = _pair_args(indices, weights, T, k)
     n, U, dev = T * k, min(T * k, E), x.device
     buf = {"xs": torch.empty((n, D), dtype=torch.int8, device=dev),
            "sxs": torch.empty((n, 8), dtype=torch.float32, device=dev),
@@ -281,37 +301,105 @@ def _w4a8(x, indices, weights, w1q4, w1sg, w2q4, w2s8, layer: int) -> dict:
 
 moe_decode_int4.launches = 0
 
+PAIR_CHUNK = 16  # the rows of a work-list entry of the bf16-activation kernels
 
-def moe_decode_int4_bf16_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
-                               layer: int) -> torch.Tensor:
-    """The bf16-activation int4 FFN in plain torch, with exact products
-    (``moe_decode_int4`` with act_int8=False): per D-group the f32 dot of x
-    with the int4 values times the group's scale, summed over the groups
-    in ascending order; h rounded to x's dtype; the down dot with the int4
-    values times the column scale; the combine in ``unique_meta``'s
-    order."""
+
+def _bf16x(name, x, indices, weights, w1, s1, w2, s2, layer: int, int4: bool) -> dict:
+    """Launch ``csrc/moe_decode_bf16x.cu`` on CUDA tensors, the int4 form
+    (w1q4, w1sg, w2q4, w2s8) or the int8 one (w1q, its s8, w2q, its s8);
+    returns its output and scratch by name ("out"; the pair lists "pos"
+    and "meta" as in ``_w4a8``; "work", an entry u | chunk << 16 for each
+    PAIR_CHUNK rows of unique expert u, then -1; ...)."""
     T, D = x.shape
-    E, I2 = w1q4.shape[1], w1q4.shape[2]
+    if int4:
+        T, D, I, E, _ = _check_int4(name, x, w1, s1, w2, s2, layer,
+                                    lambda D, I, gs: (gs // 2) % 128 or (D // 2) % 128 or I % 8)
+    else:
+        L, E, I2, _ = w1.shape
+        I = I2 // 2
+        if T > DECODE_KERNEL_MAX_TOKENS:
+            raise ValueError(f"{name}: {T} rows, at most {DECODE_KERNEL_MAX_TOKENS}")
+        if D % 128 or I % 8:
+            raise ValueError(f"{name}: unsupported D={D}, I={I}")
+        if not 0 <= layer < L:
+            raise IndexError(f"{name}: layer {layer} of {L}")
+        backend.require(x, "x", torch.bfloat16, (T, D))
+        backend.require(w1, "w1q", torch.int8, (L, E, I2, D))
+        backend.require(s1, "w1 s8", torch.float32, (L, E, 8, I2))
+        backend.require(w2, "w2q", torch.int8, (L, E, I, D))
+        backend.require(s2, "w2 s8", torch.float32, (L, E, 8, D))
+    L, k = w1.shape[0], indices.shape[1]
+    indices, weights = _pair_args(indices, weights, T, k)
+    n, U, dev = T * k, min(T * k, E), x.device
+    buf = {"xs": torch.empty((n, D), dtype=torch.bfloat16, device=dev),
+           "wsort": torch.empty(n, dtype=torch.float32, device=dev),
+           "pos": torch.empty(n, dtype=torch.int32, device=dev),
+           "meta": torch.empty((4, U), dtype=torch.int32, device=dev),
+           "work": torch.empty(U + -(-n // PAIR_CHUNK), dtype=torch.int32, device=dev),
+           "h": torch.empty((n, I), dtype=torch.bfloat16, device=dev),
+           "part": torch.empty((n, D), dtype=torch.float32, device=dev),
+           "out": torch.empty((T, D), dtype=torch.bfloat16, device=dev)}
+    lib, p = library(), backend.ptr
+    launch = lib.aria_moe_bf16x_int4 if int4 else lib.aria_moe_bf16x_int8
+    err = launch(
+        p(x), p(indices), p(weights), int(weights.dtype == torch.bfloat16), p(w1), p(s1), p(w2),
+        p(s2), *(p(buf[name]) for name in ("xs", "wsort", "pos", "meta", "work", "h", "part",
+                                           "out")),
+        T, k, D, I, L, E, U, layer, backend.stream())
+    backend.check(err, name)
+    return buf
+
+
+def _ffn_q4_bf16(x, w1q4, w1sg, w2q4, w2s8, layer: int, e: int) -> torch.Tensor:
+    """Expert e's bf16-activation int4 FFN of the rows x [T, D], with exact
+    products: per D-group the f32 dot of x with the int4 values times the
+    group's scale, summed over the groups in ascending order; h rounded to
+    x's dtype; the down dot with the int4 values times the column scale.
+    The partial [T, D] f32, before the combine weight."""
+    T, D = x.shape
+    I2 = w1q4.shape[2]
     I = I2 // 2
     ng = int4_group_count(D)
     gs = D // ng
-    ids, valid, wd = unique_meta(indices, weights, E)
+    w1 = unpack_int4(w1q4[layer, e], gs, torch.float32).reshape(I2, ng, gs)
     xg = x.float().reshape(T, ng, gs)
+    d = torch.einsum("tgc,rgc->tgr", xg, w1) * w1sg[layer, e, :ng].float()[None]
+    acc = d[:, 0]
+    for g in range(1, ng):
+        acc = acc + d[:, g]
+    gate, up = acc[:, :I], acc[:, I:]
+    h = (gate * torch.sigmoid(gate) * up).to(x.dtype).float()
+    w2 = unpack_int4(w2q4[layer, e], D, torch.float32)  # [I, D]
+    return (h @ w2) * w2s8[layer, e, 0].float()
+
+
+def moe_decode_int4_bf16_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
+                               layer: int) -> torch.Tensor:
+    """The bf16-activation int4 FFN in plain torch (``moe_decode_int4``
+    with act_int8=False): every token row through every unique active
+    expert (``_ffn_q4_bf16``), added with its combine weight (zero for a
+    row that did not pick the expert) in ``unique_meta``'s order."""
+    T, D = x.shape
+    ids, valid, wd = unique_meta(indices, weights, w1q4.shape[1])
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for e, ok in zip(ids.tolist(), valid.tolist()):
-        if not ok:
-            continue
-        w1 = unpack_int4(w1q4[layer, e], gs, torch.float32).reshape(I2, ng, gs)
-        d = torch.einsum("tgc,rgc->tgr", xg, w1) * w1sg[layer, e, :ng].float()[None]
-        acc = d[:, 0]
-        for g in range(1, ng):
-            acc = acc + d[:, g]
-        gate, up = acc[:, :I], acc[:, I:]
-        h = (gate * torch.sigmoid(gate) * up).to(x.dtype).float()
-        w2 = unpack_int4(w2q4[layer, e], D, torch.float32)  # [I, D]
-        partial = (h @ w2) * w2s8[layer, e, 0].float()
-        out = out + wd[e][:, None] * partial
+        if ok:
+            out = out + wd[e][:, None] * _ffn_q4_bf16(x, w1q4, w1sg, w2q4, w2s8, layer, e)
     return out.to(x.dtype)
+
+
+def moe_decode_int4_bf16_routed_plain(x, indices, weights, w1q4, w1sg, w2q4, w2s8,
+                                      layer: int) -> torch.Tensor:
+    """The bf16-activation int4 FFN over the routed pairs only, in plain
+    torch, as ``csrc/moe_decode_bf16x.cu`` computes it: each pair's partial
+    row of its expert times its combine weight, each token's pairs added
+    from 0 in ``unique_meta``'s order. An expert's products run over all T
+    rows and the routed ones are kept: a CPU matmul's bits depend on its
+    row count, and these are ``moe_decode_int4_bf16_plain``'s, so the two
+    are bit-equal (the terms it adds beyond these are 0 * a finite
+    partial)."""
+    return _routed(x, indices, weights, w1q4.shape[1],
+                   lambda e, tok: _ffn_q4_bf16(x, w1q4, w1sg, w2q4, w2s8, layer, e)[tok])
 
 
 def moe_decode_int4_bf16(
@@ -329,20 +417,7 @@ def moe_decode_int4_bf16(
     tensors = (x, indices, weights, w1q4, w1sg, w2q4, w2s8)
     if not backend.on_cuda(*tensors):
         return moe_decode_int4_bf16_plain(*tensors, layer)
-    T, D, I, E, _ = _check_int4(
-        "moe_decode_int4_bf16", x, w1q4, w1sg, w2q4, w2s8, layer,
-        lambda D, I, gs: (gs // 2) % 64 or (D // 2) % 32 or I % 64)
-    ids, valid, wd = unique_meta(indices, weights, E)
-    U = ids.shape[0]
-    dev = x.device
-    h = torch.empty((U, decode_rows(T), I), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((U, T, D), dtype=torch.float32, device=dev)
-    out = torch.empty((T, D), dtype=torch.bfloat16, device=dev)
-    p = backend.ptr
-    err = library().aria_moe_decode_q4(
-        p(x), p(ids), p(valid), p(wd), p(w1q4), p(w1sg), p(w2q4), p(w2s8), p(h), p(part),
-        p(out), T, D, I, E, U, layer, backend.stream())
-    backend.check(err, "moe_decode_int4_bf16")
+    out = _bf16x("moe_decode_int4_bf16", *tensors, layer, int4=True)["out"]
     moe_decode_int4_bf16.launches += 1
     return out
 
@@ -351,70 +426,53 @@ moe_decode_int4_bf16.launches = 0
 
 
 def decode_rows(T: int) -> int:
-    """The token rows the bf16 and int8 kernels compute: T rounded up to
-    16, 32, 64 or 128 (the rows past T are zeros)."""
+    """The token rows ``moe_decode``'s kernel computes: T rounded up to 16,
+    32, 64 or 128 (the rows past T are zeros)."""
     return next(r for r in (16, 32, 64, 128) if T <= r)
 
 
+def _ffn_fp(xf, w1, w2, layer: int, e: int, dtype, s1=None, s2=None) -> torch.Tensor:
+    """``_ffn`` (moe_decode_kernel.py:81-99) of expert e on the f32 rows xf
+    [T, D]: f32 dots with the weights cast to ``dtype`` (x's); for int8
+    weights the scales ``s1`` (w1's s8) and ``s2`` (w2's s8) after each
+    dot; h rounded to ``dtype`` before the down dot. The partial [T, D]
+    f32, before the combine weight."""
+    I = w1.shape[2] // 2
+    w = w1[layer, e].to(dtype).float()
+    gate, up = xf @ w[:I].T, xf @ w[I:].T
+    if s1 is not None:
+        gate = gate * s1[layer, e, 0, :I]
+        up = up * s1[layer, e, 0, I:]
+    h = (gate * torch.sigmoid(gate)) * up
+    partial = h.to(dtype).float() @ w2[layer, e].to(dtype).float()
+    if s2 is not None:
+        partial = partial * s2[layer, e, 0]
+    return partial
+
+
 def moe_decode_plain(x, indices, weights, w1, w2, layer: int, s1=None, s2=None):
-    """``_ffn`` (moe_decode_kernel.py:81-99) over the unique experts in
-    ascending order, in plain torch: f32 dots of x with the weights cast to
-    x's dtype; for int8 weights the scales ``s1`` (w1's s8) and ``s2``
-    (w2's s8) after each dot; h rounded to x's dtype before the down dot;
-    the result cast to x's dtype."""
+    """``_ffn`` over the unique experts in ascending order, in plain torch
+    (``_ffn_fp``), each added with its combine weight (zero for a row that
+    did not pick the expert); the result cast to x's dtype."""
     T, D = x.shape
-    E, I = w1.shape[1], w1.shape[2] // 2
-    ids, valid, wd = unique_meta(indices, weights, E)
+    ids, valid, wd = unique_meta(indices, weights, w1.shape[1])
     xf = x.float()
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
     for e, ok in zip(ids.tolist(), valid.tolist()):
-        if not ok:
-            continue
-        w = w1[layer, e].to(x.dtype).float()
-        gate, up = xf @ w[:I].T, xf @ w[I:].T
-        if s1 is not None:
-            gate = gate * s1[layer, e, 0, :I]
-            up = up * s1[layer, e, 0, I:]
-        h = (gate * torch.sigmoid(gate)) * up
-        partial = h.to(x.dtype).float() @ w2[layer, e].to(x.dtype).float()
-        if s2 is not None:
-            partial = partial * s2[layer, e, 0]
-        out = out + wd[e][:, None] * partial
+        if ok:
+            out = out + wd[e][:, None] * _ffn_fp(xf, w1, w2, layer, e, x.dtype, s1, s2)
     return out.to(x.dtype)
 
 
-def _launch_fp(name, x, indices, weights, w1, s1, w2, s2, layer: int) -> torch.Tensor:
-    """Check what ``csrc/moe_decode_fp.cu`` takes and launch it."""
-    T, D = x.shape
-    L, E, I2, _ = w1.shape
-    I = I2 // 2
-    if T > DECODE_KERNEL_MAX_TOKENS:
-        raise ValueError(f"{name}: {T} rows, at most {DECODE_KERNEL_MAX_TOKENS}")
-    if D % 64 or I % 64:
-        raise ValueError(f"{name}: unsupported D={D}, I={I}")
-    if not 0 <= layer < L:
-        raise IndexError(f"{name}: layer {layer} of {L}")
-    backend.require(x, "x", torch.bfloat16, (T, D))
-    backend.require(w1, "w1", w1.dtype, (L, E, I2, D))
-    backend.require(w2, "w2", w1.dtype, (L, E, I, D))
-    if s1 is not None:
-        backend.require(s1, "w1 s8", torch.float32, (L, E, 8, I2))
-        backend.require(s2, "w2 s8", torch.float32, (L, E, 8, D))
-    ids, valid, wd = unique_meta(indices, weights, E)
-    U = ids.shape[0]
-    dev = x.device
-    h = torch.empty((U, decode_rows(T), I), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((U, T, D), dtype=torch.float32, device=dev)
-    out = torch.empty((T, D), dtype=torch.bfloat16, device=dev)
-    lib, p, st = library(), backend.ptr, backend.stream()
-    head = (p(x), p(ids), p(valid), p(wd))
-    tail = (p(h), p(part), p(out), T, D, I, E, U, layer, st)
-    if s1 is None:
-        err = lib.aria_moe_decode_bf16(*head, p(w1), p(w2), *tail)
-    else:
-        err = lib.aria_moe_decode_int8(*head, p(w1), p(s1), p(w2), p(s2), *tail)
-    backend.check(err, name)
-    return out
+def moe_decode_quant_routed_plain(x, indices, weights, w1q, w1s8, w2q, w2s8,
+                                  layer: int) -> torch.Tensor:
+    """``moe_decode_quant`` over the routed pairs only, in plain torch, as
+    ``csrc/moe_decode_bf16x.cu`` computes it (see
+    ``moe_decode_int4_bf16_routed_plain``): bit-equal to
+    ``moe_decode_plain`` with the int8 stacks."""
+    xf = x.float()
+    return _routed(x, indices, weights, w1q.shape[1],
+                   lambda e, tok: _ffn_fp(xf, w1q, w2q, layer, e, x.dtype, w1s8, w2s8)[tok])
 
 
 def moe_decode(
@@ -425,11 +483,32 @@ def moe_decode(
     w2: torch.Tensor,  # bf16 [L, E, I, D]
     layer: int,
 ) -> torch.Tensor:
-    """bf16 experts; returns [T, D] in x's dtype."""
+    """bf16 experts; returns [T, D] in x's dtype. On CUDA tensors, launches
+    ``csrc/moe_decode_fp.cu``."""
     if not backend.on_cuda(x, indices, weights, w1, w2):
         return moe_decode_plain(x, indices, weights, w1, w2, layer)
-    backend.require(w1, "w1", torch.bfloat16)
-    out = _launch_fp("moe_decode", x, indices, weights, w1, None, w2, None, layer)
+    T, D = x.shape
+    L, E, I2, _ = w1.shape
+    I = I2 // 2
+    if T > DECODE_KERNEL_MAX_TOKENS:
+        raise ValueError(f"moe_decode: {T} rows, at most {DECODE_KERNEL_MAX_TOKENS}")
+    if D % 64 or I % 64:
+        raise ValueError(f"moe_decode: unsupported D={D}, I={I}")
+    if not 0 <= layer < L:
+        raise IndexError(f"moe_decode: layer {layer} of {L}")
+    backend.require(x, "x", torch.bfloat16, (T, D))
+    backend.require(w1, "w1", torch.bfloat16, (L, E, I2, D))
+    backend.require(w2, "w2", torch.bfloat16, (L, E, I, D))
+    ids, valid, wd = unique_meta(indices, weights, E)
+    U = ids.shape[0]
+    dev = x.device
+    h = torch.empty((U, decode_rows(T), I), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((U, T, D), dtype=torch.float32, device=dev)
+    out = torch.empty((T, D), dtype=torch.bfloat16, device=dev)
+    p = backend.ptr
+    err = library().aria_moe_decode_bf16(p(x), p(ids), p(valid), p(wd), p(w1), p(w2), p(h),
+                                         p(part), p(out), T, D, I, E, U, layer, backend.stream())
+    backend.check(err, "moe_decode")
     moe_decode.launches += 1
     return out
 
@@ -445,10 +524,10 @@ def moe_decode_quant(
     layer: int,
 ) -> torch.Tensor:
     """int8 experts; returns [T, D] in x's dtype."""
-    if not backend.on_cuda(x, indices, weights, w1q, w1s8, w2q, w2s8):
+    tensors = (x, indices, weights, w1q, w1s8, w2q, w2s8)
+    if not backend.on_cuda(*tensors):
         return moe_decode_plain(x, indices, weights, w1q, w2q, layer, w1s8, w2s8)
-    backend.require(w1q, "w1q", torch.int8)
-    out = _launch_fp("moe_decode_quant", x, indices, weights, w1q, w1s8, w2q, w2s8, layer)
+    out = _bf16x("moe_decode_quant", *tensors, layer, int4=False)["out"]
     moe_decode_quant.launches += 1
     return out
 

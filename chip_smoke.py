@@ -107,7 +107,7 @@
 
 Phase 2 also holds the variants' kernels at their path's shapes
 (``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
-kernel, ``flash_segment`` at 4,900 patches all valid and 3,150 valid, to
+kernel with its row bits, ``flash_segment`` at 4,900 patches all valid and 3,150 valid, to
 an absolute 3e-3),
 ``decode_attention_stats`` (the stats form of decode attention) over one
 rank's block of the cp phase's cache, bf16, int8 and int4, at 1 and 32
@@ -363,7 +363,8 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                     dst[leaf][layer, e0:e0 + n] = src[leaf]
     expert_bytes = _nbytes(w1["q4"][1, 0], w1["sg"][1, 0], w2["q4"][1, 0], w2["s8"][1, 0])
     # on the same inputs, moe_decode_int4_bf16, the bf16-activation form
-    # (MOE_A8 off): the A/B of the decode MoE
+    # (MOE_A8 off; the routed-pair kernel of csrc/moe_decode_bf16x.cu): the
+    # A/B of the decode MoE, timed at 1, 32 and 128 too
     errs, timed, errs16, timed16 = [], [], [], []
     for T in (1, lanes, 64, 128):
         x = randn(T, D)
@@ -382,7 +383,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
             "one int8 step of h; bf16 output"))
         got, ref = mk.moe_decode_int4(*args), mk.moe_decode_int4_bf16_plain(*args)
         errs16.append(_compare(
-            f"moe_decode_int4_bf16 T={T}", got, ref, 1e-2,
+            f"moe_decode_int4_bf16 T={T} ({_differ(got, ref)})", got, ref, 1e-2,
             "exact products, f32 sums in another order; h rounds to bf16 on both sides, so a "
             "sum at a rounding edge moves by one bf16 ulp; bf16 output"))
         if T in (1, lanes, 128):
@@ -393,12 +394,14 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
             timed.append(_timed(at, lambda: mk.moe_decode_int4(*args, act_int8=True),
                                 lambda: mk.moe_decode_int4_plain(*args), 100, 3,
                                 _bound(read, ops, "int8")))
-        if T in (1, lanes):
+        if T in (1, lanes, 128):
             timed16.append(_timed(at, lambda: mk.moe_decode_int4(*args),
                                   lambda: mk.moe_decode_int4_bf16_plain(*args), 100, 3,
                                   _bound(read, ops)))
             print(f"  moe_decode_int4_bf16 {at}: {timed16[-1]['k'][0]:.4f} ms against the W4A8 "
                   f"moe_decode_int4 {timed[-1]['k'][0]:.4f} ms", flush=True)
+    _decode_row_bits("moe_decode_int4_bf16", mk.moe_decode_int4_bf16,
+                     (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 1), randn, device, gen, cfg, E)
     record("moe_decode_int4", errs, timed)
     record("moe_decode_int4_bf16", errs16, timed16)
 
@@ -861,11 +864,51 @@ def _prefill_row_bits(mp, experts, randn, device, gen, cfg, E):
           "rows 0, 17, 100), and token 0's 8 slots at T = 129 and 512", flush=True)
 
 
+def _differ(got, ref) -> str:
+    """How many elements of a kernel's output differ from its plain
+    version's, for a check's label."""
+    n = int((got != ref).sum())
+    return "bit-equal" if n == 0 else f"{n} of {got.numel()} elements differ"
+
+
+def _decode_row_bits(name, wrapper, stacks, randn, device, gen, cfg, E):
+    """A routed decode MoE kernel gives a token the same bits whatever the
+    tokens beside it: alone (its slots in ascending expert order, the order
+    the combine takes above one row), and as the first and the last of 32
+    and of 128 rows under random top-k routing."""
+    import torch
+
+    D, k = cfg.hidden_size, cfg.moe_topk
+    row = randn(1, D)
+    top = torch.randperm(cfg.num_experts, generator=gen, device=device)[:k].sort().values
+    shared = torch.arange(cfg.num_experts, E, device=device)
+    rind = torch.cat([top, shared])[None].to(torch.int32)
+    rw = torch.cat([torch.softmax(torch.randn(k, generator=gen, device=device), -1),
+                    torch.ones(E - cfg.num_experts, device=device)])[None].to(torch.bfloat16)
+    ref = wrapper(row, rind, rw, *stacks)[0]
+    for T in (32, 128):
+        x = randn(T, D)
+        logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
+        top, idx = torch.topk(logits, k, dim=-1)
+        ind = torch.cat([idx, shared.expand(T, -1)], 1).to(torch.int32)
+        wts = torch.cat([torch.softmax(top, -1), torch.ones((T, E - cfg.num_experts),
+                                                            device=device)], 1).to(torch.bfloat16)
+        for at in (0, T - 1):
+            x[at], ind[at], wts[at] = row[0], rind[0], rw[0]
+            if not torch.equal(wrapper(x, ind, wts, *stacks)[at], ref):
+                raise AssertionError(f"{name}: a token gets other bits at row {at} of {T}")
+    print(f"  {name} rows: a token's bits equal alone, and as the first and the last of 32 "
+          "and of 128 rows", flush=True)
+
+
 def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
     """Phase 2, the bf16 and int8 forms' expert kernels at full width on
     ``L`` layers of 64 + 2 experts (a whole 28-layer bf16 stack is 47 GB):
     ``moe_decode`` and ``moe_decode_quant`` under top-6 + 2 shared random
-    routing at T = 1 (one stream), the lanes' T and 128; ``gmm`` in both
+    routing at T = 1 (one stream), the lanes' T, 64 and 128 (timed at 1 and
+    the lanes' T, ``moe_decode_quant`` at 128 too), the count of elements
+    that differ from the plain version printed, and ``moe_decode_quant``'s
+    row bits at every row count (``_decode_row_bits``); ``gmm`` in both
     layouts at the image prefill's 512 x 8 rows and the lanes admission's
     2048 x 8, four groups empty and tiles straddling the others, and row
     0's bits alone in a 128-row call against among 4096 rows."""
@@ -892,7 +935,7 @@ def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
     print("moe_decode, moe_decode_quant", flush=True)
     errs = {name: [] for name in per_expert}
     timed = {name: [] for name in per_expert}
-    for T in dict.fromkeys((1, lanes, 128)):
+    for T in dict.fromkeys((1, lanes, 64, 128)):
         x = randn(T, D)
         logits = torch.randn((T, cfg.num_experts), generator=gen, device=device)
         top, idx = torch.topk(logits, cfg.moe_topk, dim=-1)
@@ -909,15 +952,17 @@ def check_fp_experts(device, gen, cfg, lanes, results, randn, record, L=2):
             kernel = getattr(mk, name)
             got, ref = kernel(*args), mk.moe_decode_plain(*plain_args)
             errs[name].append(_compare(
-                f"{name} T={T} ({used} experts)", got, ref, 1e-2,
+                f"{name} T={T} ({used} experts; {_differ(got, ref)})", got, ref, 1e-2,
                 "exact products, f32 sums in another order; h and the output round to bf16 on "
                 "both sides, so a sum at a rounding edge of h moves by one bf16 ulp"))
-            if T < 128:
+            if T in (1, lanes) or (T == 128 and name == "moe_decode_quant"):
                 bound = _bound(used * per_expert[name] + _nbytes(x, indices, weights, got),
                                T * indices.shape[1] * 6 * I * D)
                 timed[name].append(_timed(
                     f"T={T} ({used} experts)", lambda k=kernel, a=args: k(*a),
                     lambda a=plain_args: mk.moe_decode_plain(*a), 100, 3, bound))
+    _decode_row_bits("moe_decode_quant", mk.moe_decode_quant,
+                     (q1["q"], q1["s8"], q2["q"], q2["s8"], 1), randn, device, gen, cfg, E)
     for name in per_expert:
         record(name, errs[name], timed[name])  # T = 1 first
     del q1, q2
@@ -1399,7 +1444,7 @@ KERNELS = {
                                "aria_tpu/engine/paged.py:150"),
     "moe_decode": ("aria_tpu_torch/csrc/moe_decode_fp.cu",
                    "aria_tpu/ops/moe_decode_kernel.py:389"),
-    "moe_decode_quant": ("aria_tpu_torch/csrc/moe_decode_fp.cu",
+    "moe_decode_quant": ("aria_tpu_torch/csrc/moe_decode_bf16x.cu",
                          "aria_tpu/ops/moe_decode_kernel.py:503"),
     "gmm": ("aria_tpu_torch/csrc/gmm.cu", "aria_tpu/ops/moe.py:204"),
     "flash_causal_bwd": ("aria_tpu_torch/csrc/flash_bwd.cu",
@@ -1412,7 +1457,7 @@ KERNELS = {
     "expert_block_dequant": ("aria_tpu_torch/csrc/expert_dequant.cu",
                              "aria_tpu/models/moe_lm.py:655"),
     "dense_int4_a8": ("aria_tpu_torch/csrc/dense_int4.cu", "aria_tpu/ops/dense_int4.py:97"),
-    "moe_decode_int4_bf16": ("aria_tpu_torch/csrc/moe_decode_q4.cu",
+    "moe_decode_int4_bf16": ("aria_tpu_torch/csrc/moe_decode_bf16x.cu",
                              "aria_tpu/ops/moe_decode_kernel.py:307"),
     "flash_segment": ("aria_tpu_torch/csrc/vit_attention.cu", "aria_tpu/ops/flash.py:30"),
     "decode_attention_stats": ("aria_tpu_torch/csrc/decode_attention.cu",
@@ -1788,11 +1833,15 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-# the decode MoE's kernels, by name: csrc/moe_decode.cu (W4A8), moe_decode_fp.cu,
-# moe_decode_q4.cu; each path runs one form, the last two end in moe_combine_kernel
+# the decode MoE's kernels, by name: csrc/moe_decode.cu (W4A8) and
+# moe_decode_bf16x.cu (bf16 activations: the int4 form under the variants,
+# and the int8 form), both on moe_pairs.cuh's prep_kernel and combine_kernel;
+# moe_decode_fp.cu's bf16 experts end in moe_combine_kernel. Each path runs
+# one form.
 MOE_KERNELS = ("prep_kernel", "gateup_kernel", "hquant_kernel", "down_kernel",
                "combine_kernel")
-FP_MOE_KERNELS = ("fp_gateup_kernel", "fp_down_kernel", "moe_combine_kernel")
+BF16X_MOE_KERNELS = ("prep_kernel", "bf16x_gateup_kernel", "bf16x_down_kernel",
+                     "combine_kernel")
 
 
 WARMUP_TOKENS = 50  # a warm-up round's tokens per request: one of bench.py's decode chunks
@@ -2747,9 +2796,6 @@ def _adapters_prefix(lm, cfg, reg, top, prompt_len=300, page_size=256, chunk=128
         raise AssertionError("t1 over its cached page gave another stream")
 
 
-Q4_MOE_KERNELS = ("q4_gateup_kernel", "q4_down_kernel", "moe_combine_kernel")
-
-
 @contextlib.contextmanager
 def variants_on():
     """The JAX package's three kernel variants on (ARIA_TPU_DENSE_A8=1,
@@ -2862,7 +2908,7 @@ def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200,
         if device.type == "cuda":
             with torch.inference_mode():
                 _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms,
-                                     label="variants lanes", moe_kernels=Q4_MOE_KERNELS)
+                                     label="variants lanes", moe_kernels=BF16X_MOE_KERNELS)
         del engine
         ttft, rate = results[1].prefill_s * 1e3, results[1].tokens_per_s
         d_img, d_lanes = default_image, default_lanes
@@ -3373,7 +3419,7 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
             if device.type == "cuda":
                 with torch.inference_mode():
                     _profile_lanes_chunk(lanes_engine, lanes, top, lanes_new, step_ms,
-                                         label="lanes-int8", moe_kernels=FP_MOE_KERNELS)
+                                         label="lanes-int8", moe_kernels=BF16X_MOE_KERNELS)
             del lanes_engine
         with torch.inference_mode():
             _form_reference(params["lm"], text, ref_prompt, device)

@@ -578,12 +578,13 @@ def _top6(g, T, E):
 
 @pytest.mark.parametrize("form", ["bf16", "int8"])
 def test_moe_decode_fp_kernels_match_plain(cuda, form):
-    """moe_decode (bf16) and moe_decode_quant (int8) at full width, 64 + 2
-    experts, top-6 + 2 shared, T = 1, 32 and 128."""
+    """moe_decode (bf16) and moe_decode_quant (int8, the routed-pair kernel
+    of csrc/moe_decode_bf16x.cu) at full width, 64 + 2 experts, top-6 + 2
+    shared, T = 1, 5, 32 and 128."""
     g = torch.Generator(device=cuda).manual_seed(0)
     E, I, D = 66, 1664, 2560
     w1, s1, w2, s2 = _fp_stack(g, E, I, D, form)
-    for T in (1, 32, 128):
+    for T in (1, 5, 32, 128):
         ind, wts = _top6(g, T, E)
         x = _randn(g, T, D)
         if form == "bf16":
@@ -601,6 +602,9 @@ def test_moe_decode_fp_kernels_match_plain(cuda, form):
         # moves by one bf16 ulp
         err = (got.float() - ref.float()).abs().max()
         assert err <= 1e-2 * ref.float().abs().max(), (T, err.item())
+    if form == "int8":
+        with pytest.raises(ValueError):  # more rows than a decode step has
+            mk.moe_decode_quant(_randn(g, 129, D), *_top6(g, 129, E), w1, s1, w2, s2, 0)
 
 
 def _groups(g, M, E, empty):
@@ -955,6 +959,80 @@ def test_moe_decode_int4_bf16_kernel_matches_plain(cuda, T):
     assert err <= 1e-2 * ref.float().abs().max(), (T, err.item())
     with pytest.raises(ValueError):  # more rows than a decode step has
         mk.moe_decode_int4(_randn(g, 129, D), *_top6(g, 129, E), *args[3:])
+
+
+def _bf16x_case(g, form, E=66, I=1664, D=2560):
+    """One layer of 64 + 2 experts at full width for a routed bf16-activation
+    kernel (csrc/moe_decode_bf16x.cu): the wrapper, its routed-pair plain
+    version, and the stacks both take after (x, indices, weights)."""
+    if form == "int4":
+        w1, w2 = _expert_stack(g, 1, E, I, D)
+        return (mk.moe_decode_int4_bf16, mk.moe_decode_int4_bf16_routed_plain,
+                (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0))
+    q1, s1, q2, s2 = _fp_stack(g, E, I, D, "int8")
+    return mk.moe_decode_quant, mk.moe_decode_quant_routed_plain, (q1, s1, q2, s2, 0)
+
+
+@pytest.mark.parametrize("form", ["int4", "int8"])
+def test_bf16x_row_gets_the_same_bits_at_every_row_count(cuda, form):
+    """A token's output bits do not depend on the tokens beside it: alone
+    (its slots in ascending expert order, the order the combine takes above
+    one row), among 32 rows and among 128, as the first and the last row;
+    its pairs then sit in other chunks at other offsets."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    E = 66
+    wrapper, _, stacks = _bf16x_case(g, form)
+    rng = np.random.RandomState(5)
+    row, (rind, rw) = _randn(g, 1, 2560), _w4a8_routing(rng, cuda, 1, E, 6)
+    up = torch.argsort(rind[0])
+    rind, rw = rind[:, up], rw[:, up]
+    ref = wrapper(row, rind, rw, *stacks)[0]
+    for T in (32, 128):
+        x = _randn(g, T, 2560)
+        ind, wts = _w4a8_routing(rng, cuda, T, E, 6)
+        for at in (0, T - 1):
+            x[at], ind[at], wts[at] = row[0], rind[0], rw[0]
+            assert torch.equal(wrapper(x, ind, wts, *stacks)[at], ref), (T, at)
+
+
+@pytest.mark.parametrize("form", ["int4", "int8"])
+def test_bf16x_kernel_lists_the_routed_rows(cuda, form):
+    """At T = 128, an expert that one token picks (1 row), the shared
+    experts (128 rows: 8 work-list entries each) and two experts that no
+    token picks: the kernel matches its routed-pair plain version, launches
+    once a call, lists the pairs as routed_rows does, and its work list
+    holds one entry for each 16-row chunk of each picked expert, in u order,
+    then -1; the unpicked experts' weights are not read, and a second call
+    repeats every bit."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    E, T = 66, 128
+    wrapper, plain, stacks = _bf16x_case(g, form)
+    rng = np.random.RandomState(6)
+    ind, wts = _w4a8_routing(rng, cuda, T, E, 6, skip=(5, 9))
+    ind[7, 0] = 5
+    x = _randn(g, T, 2560)
+    before = wrapper.launches
+    got = wrapper(x, ind, wts, *stacks)
+    assert wrapper.launches == before + 1
+    ref = plain(x, ind, wts, *stacks)
+    err = (got.float() - ref.float()).abs().max()
+    assert err <= 1e-2 * ref.float().abs().max(), err.item()
+    buf = mk._bf16x("bf16x", x, ind, wts, *stacks, int4=form == "int4")
+    order, pos, ids, valid, first, count = mk.routed_rows(ind, E)
+    assert torch.equal(buf["pos"].long(), pos)
+    meta, ok = buf["meta"].long(), valid == 1
+    assert torch.equal(meta[0][ok], ids[ok]) and torch.equal(meta[1], valid)
+    assert torch.equal(meta[2][ok], first[ok]) and torch.equal(meta[3], count)
+    assert count[ids == 5].tolist() == [1] and count[ids >= E - 2].tolist() == [T, T]
+    assert 9 not in ids[ok].tolist()
+    want = [u | c << 16 for u in range(len(ids)) if valid[u]
+            for c in range(-(-int(count[u]) // mk.PAIR_CHUNK))]
+    work = buf["work"].tolist()
+    assert work == want + [-1] * (len(work) - len(want))
+    assert torch.equal(buf["out"], got)
+    w1 = stacks[0].clone()
+    w1[0, 9] = 0
+    assert torch.equal(wrapper(x, ind, wts, w1, *stacks[1:]), got)
 
 
 # At the ViT's 4,900 patches the outputs are ~0.024 in rms and ~0.14 at most:

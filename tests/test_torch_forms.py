@@ -177,6 +177,24 @@ def test_moe_decode_matches_jax(forms, form, T):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("T", [1, 5, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_quant_routed_plain_is_the_plain_version(forms, T, dtype):
+    """The routed-pair statement of moe_decode_quant (what
+    csrc/moe_decode_bf16x.cu computes) gives the bits of the plain version
+    over every unique expert, layer 1 of the int8 stacks."""
+    _, tlm = forms["int8"]
+    x, ind, wts = _routing(T, 100 + T)
+    t1, t2 = tlm["layers"]["w1"], tlm["layers"]["w2"]
+    x, wts = torch.from_numpy(x).to(dtype), torch.from_numpy(wts).to(dtype)
+    got = mk.moe_decode_quant_routed_plain(x, torch.from_numpy(ind), wts, t1["q"], t1["s8"],
+                                           t2["q"], t2["s8"], 1)
+    ref = mk.moe_decode_plain(x, torch.from_numpy(ind), wts, t1["q"], t2["q"], 1, t1["s8"],
+                              t2["s8"])
+    assert got.dtype == ref.dtype == dtype
+    assert torch.equal(got, ref)
+
+
 def test_moe_decode_bf16_activations_match_jax(forms):
     """bf16 x: h and the output round to bf16 on both sides, so a sum at a
     rounding edge may move one element by a bf16 ulp of h."""

@@ -289,6 +289,22 @@ def test_moe_decode_int4_bf16_matches_jax(moe_case, T):
     assert np.abs(got.numpy() - ref).max() < 1e-4 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("T", [1, 5, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_decode_int4_bf16_routed_plain_is_the_plain_version(moe_case, T, dtype):
+    """The routed-pair statement of the bf16-activation int4 FFN (what
+    csrc/moe_decode_bf16x.cu computes) gives the bits of the plain version
+    over every unique expert."""
+    rng, D, E, _, experts = moe_case
+    ind, w = _routing(rng, T, E)
+    args = (torch.from_numpy(rng.randn(T, D).astype(np.float32)).to(dtype),
+            torch.from_numpy(ind), torch.from_numpy(w).to(dtype), *experts, 1)
+    got = mk.moe_decode_int4_bf16_routed_plain(*args)
+    ref = mk.moe_decode_int4_bf16_plain(*args)
+    assert got.dtype == ref.dtype == dtype
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("T", [1, 8, 32])
 def test_moe_decode_int4_bf16_is_the_int4_ffn(moe_case, T):
     """At bf16 the port computes the GLU-FFN over the int4 weights: held to

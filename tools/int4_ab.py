@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the port's int4 serving kernels, for two checkouts on one
-card, in turns (A, B, B, A).
+"""Device times of the port's int4 and int8 serving kernels, for two
+checkouts on one card, in turns (A, B, B, A).
 
     python3 tools/int4_ab.py PARENT_DIR CHANGE_DIR [--iters 20]
 
@@ -18,16 +18,20 @@ plus 2 shared):
   T = 1, 32, 512, 2048 and 4096 rows, and beside each prefill shape
   ``torch.matmul`` of x by the weight already dequantized to bf16 (a
   yardstick of what the unpacking costs, not a call of the same function);
-- ``moe_decode_int4`` in its W4A8 form at T = 1, 32 and 128 rows, one
-  layer of 66 experts;
+- ``moe_decode_int4`` in its W4A8 form and in its bf16-activation form
+  (``moe_decode_int4_bf16``) at T = 1, 32 and 128 rows, one layer of 66
+  experts;
+- ``moe_decode_quant`` at T = 1, 32 and 128 rows on one layer of 66 int8
+  experts;
 - ``moe_prefill_int4`` on the same layer at T = 512, 2048 and 4096 rows
   (each token's slots scattered into the padded expert segments by the
   checkout's own ``segment_dispatch``, whose fourth value the kernel
   takes), the routing drawn from the seed after the cases above, so both
   checkouts time the same tiles;
-- the controls, kernels neither checkout should change: ``dense_int4_a8``
-  (wqkv, T = 32) and ``moe_decode_int4_bf16`` (T = 32), each with a hash of
-  its output's bits: the two checkouts must agree.
+- the controls, kernels neither checkout should change, each with a hash
+  of its output's bits that the two checkouts must agree on:
+  ``dense_int4_a8`` (wqkv, T = 32), the W4A8 ``moe_decode_int4`` (T = 32)
+  and ``moe_decode`` (bf16 experts, T = 32, 66 experts).
 
 Times are the card's kernel time per call from ``torch.profiler`` (the sum
 over the call's kernels). It prints the card's name and power limit, one
@@ -83,7 +87,7 @@ def measure(iters: int) -> dict:
     from aria_tpu_torch.ops import moe_decode_kernel as mk
     from aria_tpu_torch.ops import moe_prefill_kernel as mp
     from aria_tpu_torch.ops.quant import (dequantize_dense_int4, quantize_dense_int4,
-                                          quantize_expert_int4)
+                                          quantize_expert_int4, quantize_weight, with_s8)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -108,25 +112,42 @@ def measure(iters: int) -> dict:
                     "bits": _bits(a8)}
         del w, wbf
     E = ROUTED + SHARED
-    w1, w2 = quantize_expert_int4(randn(1, E, 2 * I, D, scale=D**-0.5),
-                                  randn(1, E, I, D, scale=I**-0.5))
-    stacks = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
-    for T in MOE_T:
+
+    def routing(T):
         logits = torch.randn((T, ROUTED), generator=gen, device=dev)
         top, idx = torch.topk(logits, TOPK, dim=-1)
         shared = torch.arange(ROUTED, E, device=dev).expand(T, -1)
         ind = torch.cat([idx, shared], 1).to(torch.int32)
         wts = torch.cat([torch.softmax(top, -1), torch.ones_like(shared, dtype=top.dtype)],
                         1).to(torch.bfloat16)
+        return ind, wts
+
+    w1, w2 = quantize_expert_int4(randn(1, E, 2 * I, D, scale=D**-0.5),
+                                  randn(1, E, I, D, scale=I**-0.5))
+    stacks = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], 0)
+    for T in MOE_T:
+        ind, wts = routing(T)
         x = randn(T, D)
-        out[f"moe_decode_int4 W4A8 T={T}"] = {
-            "ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True),
-                             iters)}
+        rec = {"ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True),
+                                iters)}
         if T == 32:
-            b16 = mk.moe_decode_int4(x, ind, wts, *stacks)
-            out["control moe_decode_int4_bf16 T=32"] = {
-                "ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks), iters),
-                "bits": _bits(b16)}
+            rec["bits"] = _bits(mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True))
+        out[f"{'control ' if T == 32 else ''}moe_decode_int4 W4A8 T={T}"] = rec
+        out[f"moe_decode_int4_bf16 T={T}"] = {
+            "ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks), iters)}
+    a, b = randn(1, E, 2 * I, D, scale=D**-0.5), randn(1, E, I, D, scale=I**-0.5)
+    q1, q2 = with_s8(quantize_weight(a, input_axis=-1)), with_s8(quantize_weight(b, input_axis=-2))
+    int8 = (q1["q"], q1["s8"], q2["q"], q2["s8"], 0)
+    for T in MOE_T:
+        ind, wts = routing(T)
+        x = randn(T, D)
+        out[f"moe_decode_quant T={T}"] = {
+            "ms": _device_ms(lambda: mk.moe_decode_quant(x, ind, wts, *int8), iters)}
+        if T == 32:
+            out["control moe_decode bf16 T=32"] = {
+                "ms": _device_ms(lambda: mk.moe_decode(x, ind, wts, a, b, 0), iters),
+                "bits": _bits(mk.moe_decode(x, ind, wts, a, b, 0))}
+    del a, b, q1, q2, int8
     for T in PREFILL_T:
         logits = torch.randn((T, ROUTED), generator=gen, device=dev)
         idx = torch.topk(logits, TOPK, dim=-1).indices
