@@ -48,41 +48,9 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// ---- decode attention's per-position math (decode_attention.cu,
-// paged_attention.cu): one key row of HEAD_DIM against the f32 query in
-// shared memory, and 4 consecutive values of one value row, as f32.
+// ---- decode attention (decode_attention.cu): its head width, and 4
+// consecutive values of one bf16 value row as f32
 constexpr int HEAD_DIM = 128;
-
-__device__ __forceinline__ float dot_row(const int8_t* kr, const float* qs) {
-  float d = 0.f;
-#pragma unroll
-  for (int c = 0; c < HEAD_DIM / 16; ++c) {
-    const uint4 w = reinterpret_cast<const uint4*>(kr)[c];
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 16; ++i) d += qs[c * 16 + i] * (float)sbyte(ws[i >> 2], i & 3);
-  }
-  return d;
-}
-
-__device__ __forceinline__ float dot_row(const __nv_bfloat16* kr, const float* qs) {
-  float d = 0.f;
-#pragma unroll
-  for (int c = 0; c < HEAD_DIM / 8; ++c) {
-    const uint4 w = reinterpret_cast<const uint4*>(kr)[c];
-    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      d += qs[c * 8 + 2 * k] * bf_lo(ws[k]) + qs[c * 8 + 2 * k + 1] * bf_hi(ws[k]);
-  }
-  return d;
-}
-
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = (float)sbyte(w, i);
-}
 
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   const uint2 w = *reinterpret_cast<const uint2*>(p);

@@ -43,33 +43,51 @@
 // order, so the result does not depend on scheduling.
 //
 // dense_int4_a8_kernel replaces the W4A8 variant (`_kernel_a8` :97, the
-// act_int8=True branch of :124): x arrives quantized to int8 per (token,
-// D-group) with f32 scales sx [T, 8] (aria_act_quant_int8 in
-// moe_decode.cu), and
+// act_int8=True branch of :124): x quantized to int8 per (token, D-group)
+// with f32 scales sx [T, 8] (act_quant_int8's arithmetic), and
 //
 //   out[t, f] = sum over D-groups g, ascending, of (G_g[t, f] * sx[t, g]) * sg[g, f]
 //
 // where G_g is the exact int32 dot of the int8 activations with the int4
-// values, taken with dp4a on the masked raw bytes: xa.lo = dp4a(xa, B & 0x0F)
-// - 8 sum(xa) and xb.hi = dp4a(xb, B & 0xF0) >> 4 (the TPU kernel's
-// xa@B - xa@hi16 - 8 sum(xa) + (xb@hi16 >> 4), the same integers). The
-// integer part is exact in any order and the float steps are the TPU
-// kernel's, each rounded once (no fused multiply-add), so the result is
-// bit-equal to the plain version. Bound: the weight read, as above; each
-// packed row is read once for all TA (<= 32) token rows of a block. A
-// half-warp owns an output column: each lane takes a 16-byte chunk of a
-// group at a time, dp4a against every staged row (the two halves share
-// each x load), and a reduce-scatter over the half-warp leaves each row's
-// G_g in one lane, which applies the float steps. The 8 sum(xa) term is
-// per (row, group) and computed once per block.
+// values. Bound: the weight read, as above. Design: the W4A8 decode MoE's
+// gate/up kernel (moe_decode.cu) for one weight matrix. The products run on
+// the int8 tensor cores, mma.sync m16n8k32 s8 x s8 -> s32: the packed W rows
+// the M side (16 a consumer warp, 64 a block), the token rows the N side in
+// tiles of 8. Each thread unpacks its rows' nibbles in registers to int8
+// words of 16 lo and 16 hi (hopper.cuh lo16 / hi16, three bit operations a
+// word), so a D-group's two products (the low nibbles against x's columns
+// g*gs + j.., the high ones against g*gs + gs/2 + j..) sum to 16 G in
+// int32, shifted right by 4 at the group's end. One producer
+// thread keeps a TMA ring of W boxes (64 rows of 128 packed bytes, swizzled)
+// full, and the consumers wait on it with one PTX loop (mbar_wait_loop).
+//
+// - At most 8 rows (SPLIT), K is split over the D-groups as dense_int4 does:
+//   block (x, g) takes W rows 64x.. over group g alone (600 blocks for wqkv
+//   at D = 2560, 200 for wo), so a call has all its weight bytes in flight
+//   at once. The block quantizes its group of the bf16 x rows itself, with
+//   act_quant_int8's arithmetic (the same amax, scale and rounding, so the
+//   same bits), into shared memory: one launch a call, no xq or sx in device
+//   memory. It writes (G * sx) * sg to the workspace; the last of a row
+//   tile's blocks (an atomic counter, left at 0) adds the groups in order.
+// - Above 8 rows, act_quant_kernel (below: one block a row, one warp a
+//   group, one pass) quantizes x first and a block takes 64 W rows x 16 or
+//   32 token rows over every group, the x boxes (lo and hi columns of the
+//   stage) coming through the same ring. Its 8 consumer warps take an
+//   m-tile and half the n-tiles each, and keep the low and the high
+//   nibbles' products in separate accumulators, so each warp has four or
+//   two independent products in flight (one warp an m-tile, with one
+//   accumulator chain, left a block latency-bound).
+//
+// The integer sums are exact in any order, and the float steps are the TPU
+// kernel's, (G * sx) * sg with __fmul_rn, added in ascending group order
+// with __fadd_rn, so the result is bit-equal to the plain version and a
+// row's bits do not depend on the rows beside it.
 
 #include <tuple>
 
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int WARPS = 8;   // dense_int4_a8: 8 warps a block
 
 // ---- dense_int4 on wgmma
 constexpr int XROW = 128;        // an x box row: 64 bf16 under the 128-byte swizzle
@@ -303,130 +321,371 @@ cudaError_t launch_dense(const void* x, const void* q4t, const void* sg, void* o
   return cudaGetLastError();
 }
 
-// Reduce v[0..N) over the 16 lanes of a half-warp: while more than one
-// value is held, a reduce-scatter step halves them (the lane keeps the
-// half its OFF bit selects, adding the partner's sums of it); then full
-// butterfly sums. Returns the first row the lane holds; it holds
-// max(N / 16, 1) consecutive rows in v[0..).
-template <int OFF, int H, int N>
-__device__ __forceinline__ int reduce_half(int (&v)[N], int lane, int row0) {
-  if constexpr (OFF == 0) {
-    return row0;
-  } else if constexpr (H >= 2) {
-    constexpr int h = H / 2;
-    const bool up = lane & OFF;
-#pragma unroll
-    for (int i = 0; i < h; ++i) {
-      const int send = up ? v[i] : v[i + h];
-      const int keep = up ? v[i + h] : v[i];
-      v[i] = keep + __shfl_xor_sync(aria::FULL_MASK, send, OFF);
-    }
-    return reduce_half<OFF / 2, h>(v, lane, row0 + (up ? h : 0));
-  } else {
-    v[0] += __shfl_xor_sync(aria::FULL_MASK, v[0], OFF);
-    return reduce_half<OFF / 2, 1>(v, lane, row0);
+// ---- dense_int4_a8 on int8 mma.sync
+constexpr int A8_ROWS = 64;                // W rows (output features) a block: 4 m-tiles of 16
+constexpr int A8_PB = 128;                 // packed bytes of a W row a stage
+constexpr int A8_WBOX = A8_ROWS * A8_PB;   // 8 KB
+
+// act_quant_int8 (above 8 rows): one block a token row, warp g its D-group
+// g: the group's amax, scale max(amax / 127, 1e-8), rint(x / scale)
+// clamped to +-127, 8 values a lane at a time (gs % 8 == 0)
+__global__ void __launch_bounds__(256)
+act_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
+                 float* __restrict__ sx, int D, int ng) {
+  const int t = blockIdx.x, g = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (g >= ng) {
+    if (lane == 0) sx[t * 8 + g] = 0.f;
+    return;
   }
+  const int gs = D / ng;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)t * D + g * gs);
+  float a = 0.f;
+  for (int c = lane; c < gs / 8; c += 32) {
+    const uint4 v = xr[c];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      a = fmaxf(a, fmaxf(fabsf(aria::bf_lo(w[k])), fabsf(aria::bf_hi(w[k]))));
+  }
+  const float sc = fmaxf(aria::warp_max(a) * (1.f / 127.f), 1e-8f);
+  uint2* qr = reinterpret_cast<uint2*>(xq + (size_t)t * D + g * gs);
+  for (int c = lane; c < gs / 8; c += 32) {
+    const uint4 v = xr[c];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float e = k & 1 ? aria::bf_hi(w[k / 2]) : aria::bf_lo(w[k / 2]);
+      const float qv = fminf(fmaxf(rintf(e / sc), -127.f), 127.f);
+      o[k / 4] |= (uint32_t)(uint8_t)(int8_t)qv << (8 * (k % 4));
+    }
+    qr[c] = make_uint2(o[0], o[1]);
+  }
+  if (lane == 0) sx[t * 8 + g] = sc;
 }
 
-template <int TA>
-__global__ void __launch_bounds__(WARPS * 32)
-dense_int4_a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                     const int8_t* __restrict__ q4t, const __nv_bfloat16* __restrict__ sg,
-                     float* __restrict__ out, int T, int D, int F, int layer, int ng) {
-  constexpr int HELD = TA >= 16 ? TA / 16 : 1;  // rows a lane holds after the reduction
-  constexpr int DUP = TA >= 16 ? 0 : 16 / TA - 1;  // lane bits that hold copies of a row
+// NT n-tiles of 8 token rows a block, WN consumer warps an m-tile of 16 W
+// rows (each NT / WN n-tiles: more warps keep more independent products in
+// flight); SPLIT: one D-group a block, x quantized in the block into XS
+template <int NT, int WN, bool SPLIT>
+struct A8 {
+  static constexpr int TN = 8 * NT;
+  static constexpr int CW = 4 * WN;                   // consumer warps
+  static constexpr int NTW = NT / WN;                 // a warp's n-tiles
+  static constexpr int THREADS = 32 * (CW + 1);       // and one producer warp
+  static constexpr int XBOX = SPLIT ? 0 : TN * 128;   // x's low (or high) columns of a stage
+  static constexpr int STAGE = A8_WBOX + 2 * XBOX;
+  // a split block streams one group (2 stages at D = 2560); above, one block
+  // an SM streams 80 KB (wqkv, 10 stages) and keeps all of it in flight
+  static constexpr int STAGES = SPLIT ? 2 : 12;
+  static constexpr int BAR = STAGE * STAGES;
+  static constexpr int SG = BAR + 16 * STAGES;      // f32 [8][A8_ROWS]: the block's group scales
+  static constexpr int SX = SG + 8 * A8_ROWS * 4;   // f32 [TN][8] (SPLIT: [8], its group)
+  static constexpr int XS = SX + (SPLIT ? 8 : TN * 8) * 4;
+  // SPLIT: int8 [lo, hi][8 rows][xw], xw = the group's stages' bytes + 16
+  // (a row's 16-byte shift keeps the fragments' loads free of bank conflicts)
+  static int bytes(int spg) { return XS + (SPLIT ? 2 * 8 * (spg * A8_PB + 16) : 0) + 1024; }
+};
+
+// SPLIT (T <= 8): block (x, g) takes W rows 64x.. over D-group g, x its bf16
+// rows; else block (x, y) takes W rows 64x.. and token rows TN y.. of xq
+// (x_map) over every group, with sx. TAIL: a D-group is not whole stages
+// (one group of D/2 packed bytes, not a multiple of 128), so x's words past
+// its end are zeroed.
+template <int NT, int WN, bool SPLIT, bool TAIL>
+__global__ void __launch_bounds__(A8<NT, WN, SPLIT>::THREADS)
+dense_int4_a8_kernel(const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ CUtensorMap x_map,
+                     const __nv_bfloat16* __restrict__ x, const float* __restrict__ sx,
+                     const __nv_bfloat16* __restrict__ sg, float* __restrict__ out,
+                     float* __restrict__ ws, int* __restrict__ counters, int T, int D, int F,
+                     int layer, int ng) {
+  using C = A8<NT, WN, SPLIT>;
+  constexpr int CW = C::CW, NTW = C::NTW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* xs = reinterpret_cast<int8_t*>(smem_raw);                  // [TA][D]
-  float* sxs = reinterpret_cast<float*>(smem_raw + (size_t)TA * D);  // [TA][8]
-  int* sas = reinterpret_cast<int*>(sxs + TA * 8);                   // [TA][8]: 8 sum(xa)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, hl = lane & 15;
-  const int t0 = blockIdx.y * TA;
-  const int tm = min(TA, T - t0);
-  const int Dp = D >> 1, gs = D / ng, gsp = gs >> 1;
-
-  {  // stage the block's token rows (16 bytes per copy); rows past T are zeros
-    const uint4* src = reinterpret_cast<const uint4*>(xq + (size_t)t0 * D);
-    uint4* dst = reinterpret_cast<uint4*>(xs);
-    for (int i = threadIdx.x; i < TA * D / 16; i += blockDim.x)
-      dst[i] = i < tm * D / 16 ? src[i] : make_uint4(0, 0, 0, 0);
-    for (int i = threadIdx.x; i < TA * 8; i += blockDim.x)
-      sxs[i] = i < tm * 8 ? sx[(size_t)t0 * 8 + i] : 0.f;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TA * ng; i += blockDim.x) {  // the bias of each (row, group)
-    const int t = i / ng, g = i % ng;
-    const int* xa = reinterpret_cast<const int*>(xs + (size_t)t * D + g * gs);
-    int a = 0;
-    for (int w = 0; w < gsp / 4; ++w) a = __dp4a(xa[w], 0x01010101, a);
-    sas[t * 8 + g] = 8 * a;
+  __shared__ int last;
+  const uint32_t raw = aria::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bars = base + C::BAR;
+  const int f0 = blockIdx.x * A8_ROWS;
+  const int t0 = SPLIT ? 0 : blockIdx.y * C::TN;
+  const int g0 = SPLIT ? blockIdx.y : 0;  // this block's first group
+  const int gs = D / ng, gsp = gs / 2, spg = (gsp + A8_PB - 1) / A8_PB;
+  const int ngb = SPLIT ? 1 : ng;         // this block's groups
+  const int nk = ngb * spg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      aria::mbar_init(bars + 8 * s, 1);
+      aria::mbar_init(bars + 8 * (C::STAGES + s), CW);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // a half-warp per output column: 16 lanes stream the column's packed row
-  // 16 bytes at a time and share each x load with the other half's column
-  const int f = (blockIdx.x * WARPS + warp) * 2 + (lane >> 4);
-  const bool fok = f < F;
-  const int8_t* row = q4t + ((size_t)layer * F + min(f, F - 1)) * Dp;
-  float acc[HELD];
-#pragma unroll
-  for (int i = 0; i < HELD; ++i) acc[i] = 0.f;
-  int r0 = 0;
-  for (int g = 0; g < ng; ++g) {
-    int lo[TA], hi[TA];
-#pragma unroll
-    for (int t = 0; t < TA; ++t) lo[t] = hi[t] = 0;
-    for (int c = hl; c < gsp / 16; c += 16) {
-      const uint4 b = *reinterpret_cast<const uint4*>(row + g * gsp + c * 16);
-      const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
-      int blo[4], bhi[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        blo[k] = (int)(bw[k] & 0x0F0F0F0Fu);
-        bhi[k] = (int)(bw[k] & 0xF0F0F0F0u);
-      }
-#pragma unroll
-      for (int t = 0; t < TA; ++t) {
-        const int8_t* xr = xs + (size_t)t * D + g * gs + c * 16;
-        const uint4 a4 = *reinterpret_cast<const uint4*>(xr);
-        const uint4 b4 = *reinterpret_cast<const uint4*>(xr + gsp);
-        const int xa[4] = {(int)a4.x, (int)a4.y, (int)a4.z, (int)a4.w};
-        const int xb[4] = {(int)b4.x, (int)b4.y, (int)b4.z, (int)b4.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          lo[t] = __dp4a(xa[k], blo[k], lo[t]);
-          hi[t] = __dp4a(xb[k], bhi[k], hi[t]);
+  if (warp == CW) {  // the producer: one thread starts every load
+    if (lane == 0) {
+      for (int c = 0; c < nk; ++c) {
+        const int s = c % C::STAGES, g = g0 + c / spg, jg = (c % spg) * A8_PB;
+        const uint32_t st = base + s * C::STAGE, full = bars + 8 * s;
+        if (c >= C::STAGES) aria::mbar_wait(bars + 8 * (C::STAGES + s), (c / C::STAGES - 1) & 1);
+        aria::mbar_expect_tx(full, C::STAGE);
+        aria::tma_load(st, &w_map, full, g * gsp + jg, f0, layer);  // rows past F: zeros
+        if constexpr (!SPLIT) {  // x rows past T: zeros
+          aria::tma_load(st + A8_WBOX, &x_map, full, g * gs + jg, t0);
+          aria::tma_load(st + A8_WBOX + C::XBOX, &x_map, full, g * gs + gsp + jg, t0);
         }
       }
     }
-    // xa.lo = xa.(B & 0x0F) - 8 sum(xa); xb.hi = xb.(B & 0xF0) >> 4 (a multiple of 16)
+    return;
+  }
+
+  // the block's group scales (and, above 8 rows, its rows' x scales) while
+  // the ring fills: the loads first, stored to shared memory after x's
+  float* sg_s = reinterpret_cast<float*>(sbase + C::SG);
+  float* sx_s = reinterpret_cast<float*>(sbase + C::SX);
+  constexpr int NSG = (8 * A8_ROWS + 32 * CW - 1) / (32 * CW);
+  float sgv[NSG];
 #pragma unroll
-    for (int t = 0; t < TA; ++t) lo[t] += hi[t] >> 4;
-    r0 = reduce_half<8, TA>(lo, lane, 0);
-    const float s = fok ? aria::bf2f(sg[((size_t)layer * 8 + g) * F + f]) : 0.f;
+  for (int j = 0; j < NSG; ++j) {
+    const int i = threadIdx.x + j * 32 * CW, row = min(f0 + i % A8_ROWS, F - 1);
+    sgv[j] = i < ngb * A8_ROWS ? aria::bf2f(sg[((size_t)layer * 8 + g0 + i / A8_ROWS) * F + row])
+                               : 0.f;
+  }
+  const int xw = spg * A8_PB + 16;
+  const uint32_t xs = base + C::XS;
+  if constexpr (SPLIT) {
+    // group g0 of each x row, quantized as act_quant_int8 does, 8 values a
+    // lane at a time (gsp % 8 == 0), into [lo, hi][row][xw] int8; past the
+    // group's end, and rows past T, zeros
+    unsigned char* xq = sbase + C::XS;
+    static_assert(CW == 4, "a split block's warp quantizes rows w and w + 4");
+    const uint4* xr[2];
+    bool live[2];
 #pragma unroll
-    for (int i = 0; i < HELD; ++i) {
-      const int t = r0 + i;
-      const int G = lo[i] - sas[t * 8 + g];
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn((float)G, sxs[t * 8 + g]), s));
+    for (int h = 0; h < 2; ++h) {  // both rows' loads in flight together
+      const int t = warp + 4 * h;
+      live[h] = t < T;
+      xr[h] = reinterpret_cast<const uint4*>(x + (size_t)min(t, T - 1) * D + g0 * gs);
+    }
+    // 8 values as 8 bytes of int8 (act_quant_int8's rounding and clamp)
+    auto quant8 = [](const uint4& v, float sc) {
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      uint32_t o[2] = {0u, 0u};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float e = k & 1 ? aria::bf_hi(w[k / 2]) : aria::bf_lo(w[k / 2]);
+        const float qv = fminf(fmaxf(rintf(e / sc), -127.f), 127.f);
+        o[k / 4] |= (uint32_t)(uint8_t)(int8_t)qv << (8 * (k % 4));
+      }
+      return make_uint2(o[0], o[1]);
+    };
+    auto amax8 = [](const uint4& v, float a) {
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        a = fmaxf(a, fmaxf(fabsf(aria::bf_lo(w[k])), fabsf(aria::bf_hi(w[k]))));
+      return a;
+    };
+    float sc[2];
+    if (gsp == 256) {
+      // the flagship's groups (512 of D): lane l holds chunk l of each half,
+      // read once, the row's amax and its bytes from the same registers
+      uint4 v[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          v[h][half] = live[h] ? xr[h][32 * half + lane] : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sc[h] = fmaxf(aria::warp_max(amax8(v[h][1], amax8(v[h][0], 0.f))) * (1.f / 127.f), 1e-8f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<uint2*>(xq + (half * 8 + warp + 4 * h) * xw + 8 * lane) =
+              live[h] ? quant8(v[h][half], sc[h]) : make_uint2(0u, 0u);
+    } else {
+      float a[2] = {0.f, 0.f};
+      for (int c = lane; c < gs / 8; c += 32) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) a[h] = live[h] ? amax8(xr[h][c], a[h]) : a[h];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) sc[h] = fmaxf(aria::warp_max(a[h]) * (1.f / 127.f), 1e-8f);
+      for (int c = lane; c < spg * A8_PB / 8; c += 32)  // 8 bytes of each half
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            *reinterpret_cast<uint2*>(xq + (half * 8 + warp + 4 * h) * xw + 8 * c) =
+                live[h] && c < gsp / 8 ? quant8(xr[h][half * gsp / 8 + c], sc[h])
+                                       : make_uint2(0u, 0u);
+    }
+    if (lane == 0) sx_s[warp] = sc[0], sx_s[warp + 4] = sc[1];
+  } else {
+    for (int i = threadIdx.x; i < C::TN * 8; i += 32 * CW)
+      sx_s[i] = sx[(size_t)min(t0 + i / 8, T - 1) * 8 + i % 8];
+  }
+#pragma unroll
+  for (int j = 0; j < NSG; ++j) {
+    const int i = threadIdx.x + j * 32 * CW;
+    if (i < ngb * A8_ROWS) sg_s[i] = sgv[j];
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(32 * CW) : "memory");
+
+  const int q = lane >> 2, r = lane & 3;
+  const int wrow = warp % 4 * 16 + q;  // this thread's rows wrow and wrow + 8 of the W box
+  const int n0 = warp / 4 * NTW;       // this warp's first n-tile
+  int acc[NTW][2][4];                  // [n-tile][lo, hi]: 16 G of the current group
+  float tot[NTW][4];                   // the scaled sum over the groups so far
+#pragma unroll
+  for (int n = 0; n < NTW; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][0][i] = acc[n][1][i] = 0, tot[n][i] = 0.f;
+
+  for (int c = 0; c < nk; ++c) {
+    const int s = c % C::STAGES, js = c % spg;
+    const uint32_t st = base + s * C::STAGE;
+    aria::mbar_wait_loop(bars + 8 * s, (c / C::STAGES) & 1);
+    // rows wrow, wrow + 8: packed bytes 32r..32r+31 (word k: bytes 32r + 4k..),
+    // unpacked to 16 lo and 16 hi
+    uint32_t alo[2][8], ahi[2][8];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const uint4 t4 = aria::lds128(st + aria::sw128(wrow + 8 * hr, 32 * r + 16 * v));
+        const uint32_t w4[4] = {t4.x, t4.y, t4.z, t4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          alo[hr][4 * v + k] = aria::lo16(w4[k]), ahi[hr][4 * v + k] = aria::hi16(w4[k]);
+      }
+    // token row q's x bytes 32r..32r+31 of each n-tile, low and high columns
+    uint32_t xl[NTW][8], xh[NTW][8];
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const uint32_t al =
+            SPLIT ? xs + q * xw + js * A8_PB + 32 * r + 16 * v
+                  : st + A8_WBOX + (n0 + n) * 1024 + aria::sw128(q, 32 * r + 16 * v);
+        const uint32_t ah = SPLIT ? al + 8 * xw : al + C::XBOX;
+        const uint4 a = aria::lds128(al), b = aria::lds128(ah);
+        xl[n][4 * v] = a.x, xl[n][4 * v + 1] = a.y, xl[n][4 * v + 2] = a.z, xl[n][4 * v + 3] = a.w;
+        xh[n][4 * v] = b.x, xh[n][4 * v + 1] = b.y, xh[n][4 * v + 2] = b.z, xh[n][4 * v + 3] = b.w;
+        if constexpr (TAIL && !SPLIT) {  // past the group's end x is 0
+#pragma unroll
+          for (int k = 4 * v; k < 4 * v + 4; ++k) {
+            const bool ok = js * A8_PB + 32 * r + 4 * k < gsp;
+            xl[n][k] = ok ? xl[n][k] : 0u, xh[n][k] = ok ? xh[n][k] : 0u;
+          }
+        }
+      }
+    __syncwarp();
+    if (lane == 0) aria::mbar_arrive(bars + 8 * (C::STAGES + s));  // the stage is in registers
+    // k step t: the weights' packed bytes 32r + 8t.. (a0, a1) and 32r + 8t +
+    // 4.. (a2, a3) against the same x bytes (both operands take one order
+    // within the 32); the n-tiles' and the halves' products are independent
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint32_t lo[4] = {alo[0][2 * t], alo[1][2 * t], alo[0][2 * t + 1], alo[1][2 * t + 1]};
+      const uint32_t hi[4] = {ahi[0][2 * t], ahi[1][2 * t], ahi[0][2 * t + 1], ahi[1][2 * t + 1]};
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        aria::mma_s8(acc[n][0], lo, xl[n][2 * t], xl[n][2 * t + 1]);
+        aria::mma_s8(acc[n][1], hi, xh[n][2 * t], xh[n][2 * t + 1]);
+      }
+    }
+
+    if (js == spg - 1) {  // the end of a D-group: (G * sx) * sg, added in group order
+      const int gb = c / spg;  // of the block's groups
+      const float sa = sg_s[gb * A8_ROWS + wrow], sb = sg_s[gb * A8_ROWS + wrow + 8];
+#pragma unroll
+      for (int n = 0; n < NTW; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int tok = (n0 + n) * 8 + 2 * r + (i & 1);
+          const float sxv = SPLIT ? sx_s[tok] : sx_s[tok * 8 + gb];
+          const int G = (acc[n][0][i] + acc[n][1][i]) >> 4;
+          const float d = __fmul_rn(__fmul_rn((float)G, sxv), i < 2 ? sa : sb);
+          tot[n][i] = gb == 0 ? d : __fadd_rn(tot[n][i], d);
+          acc[n][0][i] = acc[n][1][i] = 0;
+        }
     }
   }
-  if (fok && (hl & DUP) == 0) {
+
+  // tot[n][i]: row wrow (i < 2) or wrow + 8, token (n0 + n)*8 + 2r + (i & 1)
+  if constexpr (!SPLIT) {
 #pragma unroll
-    for (int i = 0; i < HELD; ++i)
-      if (r0 + i < tm) out[(size_t)(t0 + r0 + i) * F + f] = acc[i];
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + (n0 + n) * 8 + 2 * r + (i & 1), f = f0 + wrow + 8 * (i >> 1);
+        if (t < T && f < F) out[(size_t)t * F + f] = tot[n][i];
+      }
+  } else {
+    static_assert(NTW == 1, "the split takes one n-tile a warp");
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = 2 * r + (i & 1), f = f0 + wrow + 8 * (i >> 1);
+      if (t < T && f < F) ws[((size_t)g0 * T + t) * F + f] = tot[0][i];
+    }
+    __threadfence();
+    asm volatile("bar.sync 1, %0;\n" :: "n"(32 * CW) : "memory");
+    if (threadIdx.x == 0) last = atomicAdd(&counters[blockIdx.x], 1) == ng - 1;
+    asm volatile("bar.sync 1, %0;\n" :: "n"(32 * CW) : "memory");
+    if (!last) return;
+    __threadfence();
+    // the last block: the groups' terms (all loads first) added in group
+    // order, as the unsplit form adds them
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = 2 * r + (i & 1), f = f0 + wrow + 8 * (i >> 1);
+      if (t < T && f < F) {
+        float v[8];
+#pragma unroll
+        for (int g = 0; g < 8; ++g) v[g] = g < ng ? __ldcg(ws + ((size_t)g * T + t) * F + f) : 0.f;
+        float a = v[0];
+#pragma unroll
+        for (int g = 1; g < 8; ++g) a = g < ng ? __fadd_rn(a, v[g]) : a;
+        out[(size_t)t * F + f] = a;
+      }
+    }
+    if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next call
   }
 }
 
-template <int TA>
-cudaError_t launch_a8(const void* xq, const void* sx, const void* q4t, const void* sg, void* out,
-                      int T, int D, int F, int layer, int ng, cudaStream_t st) {
-  const size_t smem = (size_t)TA * D + TA * 8 * (sizeof(float) + sizeof(int));
-  cudaError_t err = aria::allow_smem(dense_int4_a8_kernel<TA>, smem);
+template <int NT, int WN, bool SPLIT>
+cudaError_t launch_a8(const void* x, const void* xq, const void* sx, const void* q4t,
+                      const void* sg, void* out, void* ws, void* counters, int T, int D, int F,
+                      int L, int layer, int ng, cudaStream_t st) {
+  using C = A8<NT, WN, SPLIT>;
+  CUtensorMap wm, xm{};
+  const cuuint64_t wdims[3] = {(cuuint64_t)D / 2, (cuuint64_t)F, (cuuint64_t)L};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)D / 2, (cuuint64_t)F * D / 2};
+  const cuuint32_t wbox[3] = {A8_PB, A8_ROWS, 1};
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)T};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)D};
+  const cuuint32_t xbox[2] = {128, C::TN};
+  if (!aria::make_map(&wm, q4t, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_DATA_TYPE_UINT8) ||
+      (!SPLIT && !aria::make_map(&xm, xq, 2, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_128B,
+                                 CU_TENSOR_MAP_DATA_TYPE_UINT8)))
+    return cudaErrorInvalidValue;
+  const int spg = (D / ng / 2 + A8_PB - 1) / A8_PB;
+  const bool tail = D / ng / 2 % A8_PB != 0;
+  const auto kernel = tail ? dense_int4_a8_kernel<NT, WN, SPLIT, true>
+                           : dense_int4_a8_kernel<NT, WN, SPLIT, false>;
+  const int smem = C::bytes(spg);
+  cudaError_t err = aria::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((F + WARPS * 2 - 1) / (WARPS * 2), (T + TA - 1) / TA);
-  dense_int4_a8_kernel<TA><<<grid, WARPS * 32, smem, st>>>(
-      (const int8_t*)xq, (const float*)sx, (const int8_t*)q4t, (const __nv_bfloat16*)sg,
-      (float*)out, T, D, F, layer, ng);
+  const dim3 grid((F + A8_ROWS - 1) / A8_ROWS, SPLIT ? ng : (T + C::TN - 1) / C::TN);
+  kernel<<<grid, C::THREADS, smem, st>>>(wm, xm, (const __nv_bfloat16*)x, (const float*)sx,
+                                         (const __nv_bfloat16*)sg, (float*)out, (float*)ws,
+                                         (int*)counters, T, D, F, layer, ng);
   return cudaGetLastError();
 }
 
@@ -450,13 +709,31 @@ ARIA_EXPORT int aria_dense_int4(const void* x, const void* q4t, const void* sg, 
   return std::apply(launch_dense<128, 2, false>, args);
 }
 
-ARIA_EXPORT int aria_dense_int4_a8(const void* xq, const void* sx, const void* q4t,
-                                   const void* sg, void* out, int T, int D, int F, int layer,
+// The W4A8 form. T <= 8: x bf16 [T, D] (quantized in the kernel), ws (ng *
+// T * F f32) and counters (ceil(F / 64) int32 zeroed, which the kernel leaves
+// zeroed), xq and sx unused; above, xq int8 [T, D] and sx f32 [T, 8] from
+// aria_act_quant_int8, x, ws and counters unused. q4t int8 [L, F, D/2], sg
+// bf16 [L, 8, F], out f32 [T, F].
+ARIA_EXPORT int aria_dense_int4_a8(const void* x, const void* xq, const void* sx,
+                                   const void* q4t, const void* sg, void* out, void* ws,
+                                   void* counters, int T, int D, int F, int L, int layer,
                                    void* stream) {
   const int ng = aria::int4_group_count(D);
-  if (T < 1 || D % 32 || (D / ng / 2) % 16) return (int)cudaErrorInvalidValue;
+  if (T < 1 || D % 32 || (D / ng / 2) % 16 || F < 1 || (T <= 8 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (T == 1) return launch_a8<1>(xq, sx, q4t, sg, out, T, D, F, layer, ng, st);
-  if (T <= 8) return launch_a8<8>(xq, sx, q4t, sg, out, T, D, F, layer, ng, st);
-  return launch_a8<32>(xq, sx, q4t, sg, out, T, D, F, layer, ng, st);
+  const auto args = std::make_tuple(x, xq, sx, q4t, sg, out, ws, counters, T, D, F, L, layer,
+                                    ng, st);
+  if (T <= 8) return std::apply(launch_a8<1, 1, true>, args);
+  if (T <= 16) return std::apply(launch_a8<2, 2, false>, args);
+  return std::apply(launch_a8<4, 2, false>, args);
+}
+
+// x bf16 [T, D] -> xq int8 [T, D], sx f32 [T, 8] (columns ng.. zero)
+ARIA_EXPORT int aria_act_quant_int8(const void* x, void* xq, void* sx, int T, int D, int ng,
+                                    void* stream) {
+  if (T < 1 || ng < 1 || ng > 8 || D % ng || (D / ng) % 8) return (int)cudaErrorInvalidValue;
+  act_quant_kernel<<<T, 256, 0, (cudaStream_t)stream>>>((const __nv_bfloat16*)x, (int8_t*)xq,
+                                                        (float*)sx, D, ng);
+  return cudaGetLastError();
 }

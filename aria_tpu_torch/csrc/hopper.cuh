@@ -4,7 +4,8 @@
 // tensor-map boxes, the 128-byte-swizzle and the unswizzled shared-memory
 // descriptors, the wgmma fences and the m64n8k16 to m64n256k16 bf16
 // products (transpose bits as template arguments), the packed int4 weights
-// unpacked into A fragments, and the host-side tensor maps.
+// unpacked into bf16 A fragments of wgmma or int8 ones of mma.sync, and the
+// host-side tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
@@ -256,6 +257,39 @@ template <int PB>
 __device__ __forceinline__ uint32_t swz(int row, int col) {
   const int chunk = PB == 128 ? (col >> 4) ^ (row & 7) : ((col >> 4) ^ (row >> 1)) & 3;
   return row * PB + (chunk << 4) + (col & 15);
+}
+
+// a box row of 128 bytes under the 128-byte swizzle (swz<128> for the
+// mma.sync kernels): its 16-byte chunks are permuted by the row's index
+// within each 1024-byte atom
+__device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+// ---- packed int4 weights as int8 A fragments of mma.sync m16n8k32
+// (moe_decode.cu, dense_int4.cu): four biased-lo packed bytes as int8 words
+// of 16 lo and of 16 hi, exactly (B & 0xF0 is 16 hi as a signed byte, and
+// ((B << 4) ^ 0x80) & 0xF0 is 16 lo), so x.lo + x.hi over a D-group is one
+// int32 sum of two products, 16 G, shifted right by 4 at the group's end
+__device__ __forceinline__ uint32_t lo16(uint32_t w) {
+  return ((w << 4) ^ 0x80808080u) & 0xF0F0F0F0u;
+}
+__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
+
+// c += a (16 x 32 s8, row) . b (32 x 8 s8, col), s32 sums
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // the nibbles at bits `shift`..+3 of bytes 0 and 2 of t as the bf16 pair

@@ -1,10 +1,10 @@
 // moe_decode_int4, W4A8 form: the fused GLU MoE FFN over the routed
-// (token, expert) pairs, for T <= 128 token rows, plus act_quant_int8.
+// (token, expert) pairs, for T <= 128 token rows.
 //
 // Replaces aria_tpu/ops/moe_decode_kernel.py:450 moe_decode_int4 with
-// act_int8=True (`_kernel_q4_a8` :288, `_ffn_q4_a8` :227), act_quant_int8
-// (:215) and `_unique_meta` (:44). For each pair p = (token t, slot s) of
-// the T*k routing slots, with e = indices[t, s]:
+// act_int8=True (`_kernel_q4_a8` :288, `_ffn_q4_a8` :227), its
+// act_quant_int8 (:215, in prep_kernel) and `_unique_meta` (:44). For each
+// pair p = (token t, slot s) of the T*k routing slots, with e = indices[t, s]:
 //
 //   xq, sx  = int8 x per (token, D-group)                  prep_kernel
 //   h[p]    = silu(sum_g (G_g . sx) . sg) * (the same for up) in f32,
@@ -85,18 +85,9 @@ constexpr int DN_STAGES = 4;
 using GURing = Ring<GU_STAGE, GU_STAGES, (8 * 2 * GU_I + TOK * 8) * 4>;  // sg [8][2][64], sx [32][8]
 using DNRing = Ring<DN_STAGE, DN_STAGES, (2 * DN_J + 2 * TOK) * 4>;      // c [128], sh, w [32]
 
-// four biased-lo packed bytes as int8 words of 16 lo and of 16 hi (exact)
-__device__ __forceinline__ uint32_t lo16(uint32_t w) { return ((w << 4) ^ 0x80808080u) & 0xF0F0F0F0u; }
-__device__ __forceinline__ uint32_t hi16(uint32_t w) { return w & 0xF0F0F0F0u; }
-
-// c += a (16 x 32 s8, row) . b (32 x 8 s8, col), s32 sums
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using aria::hi16;
+using aria::lo16;
+using aria::mma_s8;
 
 // 4x4 byte transpose: words a..d hold rows i..i+3 of 4 packed columns;
 // column k's word gets bytes (a_k, b_k, c_k, d_k)
@@ -108,35 +99,6 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, u
   col[1] = __byte_perm(t0, t1, 0x7632);
   col[2] = __byte_perm(t2, t3, 0x5410);
   col[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-__global__ void act_quant_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
-                                 float* __restrict__ sx, int D, int ng) {
-  __shared__ float red[32];
-  const int t = blockIdx.x;
-  const int gs = D / ng;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  for (int g = 0; g < 8; ++g) {
-    if (g >= ng) {
-      if (threadIdx.x == 0) sx[t * 8 + g] = 0.f;
-      continue;
-    }
-    const __nv_bfloat16* xr = x + (size_t)t * D + g * gs;
-    float a = 0.f;
-    for (int i = threadIdx.x; i < gs; i += blockDim.x) a = fmaxf(a, fabsf(aria::bf2f(xr[i])));
-    a = aria::warp_max(a);
-    if (lane == 0) red[warp] = a;
-    __syncthreads();
-    float amax = 0.f;
-    for (int w = 0; w < nw; ++w) amax = fmaxf(amax, red[w]);
-    __syncthreads();
-    const float sc = fmaxf(amax * (1.f / 127.f), 1e-8f);
-    for (int i = threadIdx.x; i < gs; i += blockDim.x) {
-      const float qv = fminf(fmaxf(rintf(aria::bf2f(xr[i]) / sc), -127.f), 127.f);
-      xq[(size_t)t * D + g * gs + i] = (int8_t)qv;
-    }
-    if (threadIdx.x == 0) sx[t * 8 + g] = sc;
-  }
 }
 
 // the block's expert, its first sorted row for this chunk and the chunk's
@@ -427,13 +389,6 @@ down_kernel(const __grid_constant__ CUtensorMap w2_map, const __grid_constant__ 
 }
 
 }  // namespace
-
-ARIA_EXPORT int aria_act_quant_int8(const void* x, void* xq, void* sx, int T, int D, int ng,
-                                    void* stream) {
-  act_quant_kernel<<<T, 256, 0, (cudaStream_t)stream>>>((const __nv_bfloat16*)x, (int8_t*)xq,
-                                                        (float*)sx, D, ng);
-  return cudaGetLastError();
-}
 
 // x bf16 [T, D]; ind int32 [T, k]; wts [T, k] bf16 (w_bf16) or f32; the
 // stacks w1q4 [L, E, 2I, D/2], w1sg [L, E, 8, 2I], w2q4 [L, E, I, D/2],

@@ -28,18 +28,9 @@ using aria::smem_u32;
 
 constexpr int PAIR_CHUNK = 16;  // the rows of a work-list entry
 
-// a box row of 128 bytes under the 128-byte swizzle: its 16-byte chunks
-// are permuted by the row's index within each 1024-byte atom
-__device__ __forceinline__ uint32_t sw128(int row, int col) {
-  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
-}
+using aria::lds128;
+using aria::sw128;
 
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
-  return v;
-}
 __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));

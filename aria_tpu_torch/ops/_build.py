@@ -33,15 +33,16 @@ SIGNATURES = {
     # x, q4t, sg, out, ws, counters, T, D, F, L, layer, stream (ws and counters
     # NULL but where K is split over the D-groups, at most 8 rows)
     "aria_dense_int4": [_P] * 6 + [_I] * 5 + [_P],
-    # xq, sx, q4t, sg, out, T, D, F, layer, stream
-    "aria_dense_int4_a8": [_P] * 5 + [_I] * 4 + [_P],
+    # x, xq, sx, q4t, sg, out, ws, counters, T, D, F, L, layer, stream (x, ws and
+    # counters at most 8 rows, xq and sx above; the others NULL)
+    "aria_dense_int4_a8": [_P] * 8 + [_I] * 5 + [_P],
     # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, ws, counters, B, Hx, S, layer,
     # kind, P, stream (acc, m, s NULL but in the stats form, out NULL in it; ws and
     # counters NULL when P = 1)
     "aria_decode_attention": [_P] * 12 + [_I] * 6 + [_P],
-    # q, k, v, k_scale, v_scale, table, lengths, out, B, H, NP, PS, MAXP, layer,
-    # quantized, stream
-    "aria_paged_decode_attention": [_P] * 8 + [_I] * 7 + [_P],
+    # q, k, v, k_scale, v_scale, table, lengths, out, ws, counters, B, H, NP, PS, MAXP,
+    # layer, quantized, P, qscale, stream (ws and counters NULL when P = 1)
+    "aria_paged_decode_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
     # k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, rows, slots,
     # B, R, Hc, S, row_bytes, Hs, scale_bytes, layer, stream
     "aria_kv_write": [_P] * 10 + [_I] * 8 + [_P],

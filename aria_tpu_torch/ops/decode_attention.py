@@ -18,7 +18,9 @@ positions as well as heads and lanes: ``split_count(B, heads, S, sms)``
 splits (from the shapes and the card's SM count alone; ``lengths`` lies on
 the device and is never read on the host), each block staging its chunk's key and value rows in shared
 memory with bulk copies, and the block that finishes a (lane, head) last
-merging the partials (acc, m, s) exactly, in the same launch. The packed
+merging the partials (acc, m, s) exactly, in the same launch. Block row y
+takes the y-th longest lane (read on the device), so the long lanes start
+first and a lane's bits do not depend on which block computes it. The packed
 int4 cache is read once for both heads of a pair (one block per pair).
 
 ``decode_attention_stats`` (``return_stats=True``, decode_attention.py:
@@ -72,7 +74,17 @@ def split_bounds(S: int, P: int) -> list[tuple[int, int]]:
     chunks differ by at most one tile and together cover [0, S) exactly."""
     if not 1 <= P <= -(-S // SPLIT_UNIT):
         raise ValueError(f"decode_attention: {P} splits of a {S}-position cache")
+    return chunk_bounds(S, P)
+
+
+def chunk_bounds(S: int, P: int) -> list[tuple[int, int]]:
+    """The kernel's chunks for any P up to one per SPLIT_ALIGN positions
+    (``split_bounds`` without its floor of SPLIT_UNIT positions a split;
+    the paged form's plan, ``paged_attention.paged_split_count``, takes
+    smaller chunks)."""
     tiles = -(-S // SPLIT_ALIGN)
+    if not 1 <= P <= tiles:
+        raise ValueError(f"decode_attention: {P} chunks of {S} positions")
     return [(SPLIT_ALIGN * (i * tiles // P), min(S, SPLIT_ALIGN * ((i + 1) * tiles // P)))
             for i in range(P)]
 
@@ -146,12 +158,12 @@ def merge_partials(parts):
 
 
 def split_partials(q, k_cache, v_cache, layer, lengths, k_scale=None, v_scale=None,
-                   splits: int = 1):
+                   splits: int = 1, bounds=None):
     """The kernel's partials in plain torch: ``decode_attention_plain``'s
-    stats form over each chunk of ``split_bounds(S, splits)``, at the
-    lengths clipped to the chunk."""
+    stats form over each chunk of ``split_bounds(S, splits)`` (or of
+    ``bounds``), at the lengths clipped to the chunk."""
     parts = []
-    for start, end in split_bounds(k_cache.shape[3], splits):
+    for start, end in bounds or split_bounds(k_cache.shape[3], splits):
         local = [None if t is None else t[:, :, :, start:end]
                  for t in (k_cache, v_cache, k_scale, v_scale)]
         len_loc = torch.clamp(lengths - start, 0, end - start).to(lengths.dtype)

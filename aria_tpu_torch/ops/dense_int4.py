@@ -10,12 +10,16 @@ F*D/2 bytes of packed weights (up to 8 rows it splits K over the D-groups,
 through the split workspace of ``backend.workspace``); at prefill by the
 bf16 tensor cores.
 ``dense_int4_a8`` replaces the W4A8 kernel (``_kernel_a8`` :97, the
-``act_int8=True`` branch): x quantized to int8 per (token, D-group) by
-``act_quant_int8`` (its kernel in ``csrc/moe_decode.cu``), exact int32 dots
-with the int4 values on the masked raw bytes, then per group
-``(G * sx) * sg`` summed over the groups in ascending order, as the TPU
-kernel does. The model takes it for the attention projections of a step of
-at most 32 rows when ``models/moe_lm.py``'s ``DENSE_A8`` is set.
+``act_int8=True`` branch): x quantized to int8 per (token, D-group) with
+``act_quant_int8``'s arithmetic, exact int32 dots with the int4 values on
+the int8 tensor cores (``mma.sync`` m16n8k32, the nibbles unpacked in
+registers), then per group ``(G * sx) * sg`` summed over the groups in
+ascending order, as the TPU kernel does: bit-equal to the plain version.
+Up to 8 rows it splits K over the D-groups like ``dense_int4`` and each
+block quantizes its group of x itself (one launch); above, the
+``act_quant_int8`` launch (in the same source) comes first. The model
+takes it for the attention projections of a step of at most 32 rows when
+``models/moe_lm.py``'s ``DENSE_A8`` is set.
 
 The weight format is the JAX package's, byte for byte: out-major
 ``q4t`` int8 [L, F, D/2] with within-group nibble pairing over D and bf16
@@ -33,8 +37,8 @@ from aria_tpu_torch.ops.moe_decode_kernel import act_quant_int8
 from aria_tpu_torch.ops.quant import dequantize_dense_int4, int4_group_count, unpack_int4
 
 
-# up to this many rows the kernel splits K over the D-groups (the most it
-# takes): a block's work is then too short to hide a load's latency
+# up to this many rows both kernels split K over the D-groups (the most
+# they take): a block's work is then too short to hide a load's latency
 SPLIT_MAX_TOKENS = 8
 
 
@@ -87,13 +91,20 @@ def dense_int4_a8(x: torch.Tensor, w: dict, layer: int) -> torch.Tensor:
     if not backend.on_cuda(x, q4t, sg):
         return dense_int4_a8_plain(x, w, layer)
     T, D, F = _check(x, w, layer, "dense_int4_a8")
+    if x.data_ptr() % 16:
+        raise ValueError("dense_int4_a8: x is not 16-byte aligned")
     ng = int4_group_count(D)
-    xq = torch.empty((T, D), dtype=torch.int8, device=x.device)
-    sx = torch.empty((T, 8), dtype=torch.float32, device=x.device)
     out = torch.empty((T, F), dtype=torch.float32, device=x.device)
     lib, p, st = library(), backend.ptr, backend.stream()
-    backend.check(lib.aria_act_quant_int8(p(x), p(xq), p(sx), T, D, ng, st), "act_quant_int8")
-    err = lib.aria_dense_int4_a8(p(xq), p(sx), p(q4t), p(sg), p(out), T, D, F, layer, st)
+    xq = sx = ws = cnt = None
+    if T <= SPLIT_MAX_TOKENS:  # the kernel quantizes x itself
+        ws, cnt = backend.workspace(x.device, ng * T * F, -(-F // 64))
+    else:
+        xq = torch.empty((T, D), dtype=torch.int8, device=x.device)
+        sx = torch.empty((T, 8), dtype=torch.float32, device=x.device)
+        backend.check(lib.aria_act_quant_int8(p(x), p(xq), p(sx), T, D, ng, st), "act_quant_int8")
+    err = lib.aria_dense_int4_a8(p(x), p(xq), p(sx), p(q4t), p(sg), p(out), p(ws), p(cnt), T, D,
+                                 F, q4t.shape[0], layer, st)
     backend.check(err, "dense_int4_a8")
     dense_int4_a8.launches += 1
     return out

@@ -18,16 +18,25 @@ indexed write. A position past the table (a lane can run past S inside a
 decode chunk) resolves to page -1 and is dropped, as the JAX package's
 scatter drops its out-of-range index.
 
-Kernel: ``csrc/paged_attention.cu`` (``paged_decode_attention``). It
-replaces ``paged_decode_attention`` of aria_tpu/engine/paged.py:150
-(``_kernel`` :117, ``_kernel_q`` :132, on ``_attend_block`` of
-ops/decode_attention.py:26). One block per (head, lane) reads the lane's
-page ids from the table and visits only the positions below the lane's
-length, where the TPU grid visits all MAXP pages and masks; it never reads
-past the MAXP-th page. Numerics as the TPU kernel: q scaled by 1/sqrt(D)
-in f32 and cast to bf16 (int8 pages) or q's dtype, scores times k_scale,
-the denominator summing p before v_scale, ``p * v_scale`` rounded to the
-compute dtype before it multiplies v; bf16 output for int8 pages.
+Kernel: ``csrc/decode_attention.cu`` (``aria_paged_decode_attention``),
+the decode-attention kernel body read through the page table. It replaces
+``paged_decode_attention`` of aria_tpu/engine/paged.py:150 (``_kernel``
+:117, ``_kernel_q`` :132, on ``_attend_block`` of
+ops/decode_attention.py:26). The grid is (heads, lanes, P), split over the
+MAXP * PS positions by ``paged_split_count`` (from the shapes and the
+card's SM count alone: never from ``lengths``, which lies on the device,
+so the grid is fixed for a given batch), block row y taking the y-th
+longest lane; each block brings its chunk's
+32-position tiles from the pages the table names with bulk copies into a
+shared-memory ring, a block past its lane's length writes the empty
+partial at once, and the last block of a (lane, head) merges the P
+partials in split order, so a lane's bits do not depend on the other
+lanes. A page id outside the pool is read as masked rather than followed;
+a lane's length is capped at MAXP * PS; a lane of length 0 gives 0.
+Numerics as the TPU kernel: q scaled by 1/sqrt(D) in f32 and cast to bf16
+(int8 pages) or q's dtype (a bf16 query in the kernel), scores times
+k_scale, the denominator summing p before v_scale, ``p * v_scale`` rounded
+to the compute dtype before it multiplies v; bf16 output for int8 pages.
 """
 
 from __future__ import annotations
@@ -40,10 +49,13 @@ import torch
 from aria_tpu_torch.config import TextConfig
 from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops._build import library
-from aria_tpu_torch.ops.decode_attention import HEAD_DIM, _scaled_query, decode_attention_plain
+from aria_tpu_torch.ops.decode_attention import (HEAD_DIM, SPLIT_ALIGN, _scaled_query,
+                                                 chunk_bounds, decode_attention_plain,
+                                                 merge_partials, split_partials)
 from aria_tpu_torch.ops.kv_write import kv_cache_write
 
-TILE = 32  # positions per warp tile of the kernel: a page holds whole tiles
+TILE = 32  # positions per tile of the kernel: a page holds whole tiles
+PAGED_CHUNK = 128  # positions: the shortest chunk of the split
 
 
 @dataclasses.dataclass
@@ -154,14 +166,62 @@ def paged_decode_attention_plain(q: torch.Tensor, cache: PagedKVCache, layer: in
     return decode_attention_plain(q, k[None], v[None], 0, lengths, *scales)
 
 
+def paged_split_count(B: int, heads: int, maxp: int, page_size: int, sms: int) -> int:
+    """P, the kernel's splits over a lane's ``maxp * page_size`` positions,
+    from the shapes and the card's SM count alone (132 on an H100 SXM),
+    never from the lengths: enough blocks for two on every SM, as
+    ``decode_attention.split_count`` aims, with chunks of at least
+    ``PAGED_CHUNK`` positions. The kernel starts the longest lanes first, so
+    where the lanes alone fill the card (the paged path's 32 lanes x 20
+    heads) one block a lane's head measured fastest; at a few lanes (4 x
+    20) the split takes chunks of 128 (PERF.md §6)."""
+    S = maxp * page_size
+    return max(1, min(-(-S // PAGED_CHUNK), -(-2 * sms // (B * heads))))
+
+
+def paged_split_bounds(maxp: int, page_size: int, P: int) -> list[tuple[int, int]]:
+    """The positions [start, end) of each of the P splits of a lane's
+    ``maxp * page_size`` positions: the decode kernel's chunks, boundaries
+    at multiples of ``SPLIT_ALIGN``, covering them exactly."""
+    return chunk_bounds(maxp * page_size, P)
+
+
+def paged_decode_attention_split_plain(q, cache: PagedKVCache, layer: int, page_table,
+                                       lengths, splits: int = 1) -> torch.Tensor:
+    """The kernel's split in plain torch: the lanes' pages gathered, the
+    stats form over each chunk of ``paged_split_bounds``, merged as the
+    kernel's last block merges; 0 for a lane of length 0."""
+    k, v = _lane_rows(cache.k, layer, page_table), _lane_rows(cache.v, layer, page_table)
+    scales = (None, None)
+    if cache.quantized:
+        scales = (_lane_rows(cache.k_scale, layer, page_table)[None],
+                  _lane_rows(cache.v_scale, layer, page_table)[None])
+    maxp, PS = page_table.shape[1], cache.page_size
+    lengths = torch.clamp(lengths, max=maxp * PS).to(lengths.dtype)
+    acc, m, s = merge_partials(split_partials(q, k[None], v[None], 0, lengths, *scales,
+                                              bounds=paged_split_bounds(maxp, PS, splits)))
+    out = torch.where(s[..., None] > 0, acc / torch.clamp_min(s, 1e-30)[..., None], 0.0)
+    return out.to(torch.bfloat16 if cache.quantized else q.dtype)
+
+
 def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
-                           page_table: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                           page_table: torch.Tensor, lengths: torch.Tensor, *,
+                           splits: Optional[int] = None) -> torch.Tensor:
     """q [B, H, D] (unscaled) over each lane's pages up to lengths[b]:
-    [B, H, D], bf16 for int8 pages, q's dtype for bf16 ones."""
-    quantized = cache.quantized
-    extra = (cache.k_scale, cache.v_scale) if quantized else ()
+    [B, H, D], bf16 for int8 pages, q's dtype for bf16 ones. ``splits``
+    forces the kernel's split over positions (tests and ``chip_smoke.py``);
+    None takes ``paged_split_count``."""
+    extra = (cache.k_scale, cache.v_scale) if cache.quantized else ()
     if not backend.on_cuda(q, cache.k, cache.v, page_table, lengths, *extra):
         return paged_decode_attention_plain(q, cache, layer, page_table, lengths)
+    out = _launch(q, cache, layer, page_table, lengths, splits)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def _launch(q, cache: PagedKVCache, layer: int, page_table, lengths, splits: Optional[int]):
+    """Check the arguments, choose the split and launch the kernel."""
+    quantized = cache.quantized
     B, H, D = q.shape
     L, NP, Hc, PS, _ = cache.k.shape
     maxp = page_table.shape[1]
@@ -181,16 +241,31 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
     if quantized:
         backend.require(cache.k_scale, "k_scale", torch.float32, (L, NP, H, PS))
         backend.require(cache.v_scale, "v_scale", torch.float32, (L, NP, H, PS))
-    qs = _scaled_query(q, quantized).contiguous()
+    for name, t in (("k pages", cache.k), ("v pages", cache.v), ("k_scale", cache.k_scale),
+                    ("v_scale", cache.v_scale)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"paged_decode_attention: {name} is not 16-byte aligned")
+    # a bf16 query is scaled in the kernel, by the same f32 product and bf16
+    # rounding as _scaled_query (three elementwise launches fewer a call)
+    qscale = 1.0 / D**0.5
+    if q.dtype == torch.bfloat16:
+        qs = q.contiguous()
+    else:
+        qs, qscale = _scaled_query(q, quantized).contiguous(), 1.0
     backend.require(qs, "q", torch.bfloat16, (B, H, D))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
+    P = paged_split_count(B, H, maxp, PS, backend.sm_count(q.device)) if splits is None else splits
+    if not 1 <= P <= -(-maxp * PS // SPLIT_ALIGN):
+        raise ValueError(f"paged_decode_attention: {P} splits of {maxp * PS} positions")
+    ws = cnt = None
+    if P > 1:
+        ws, cnt = backend.workspace(q.device, B * H * P * (D + 2), B * H)
     p, null = backend.ptr, backend.ptr(None)
     err = library().aria_paged_decode_attention(
         p(qs), p(cache.k), p(cache.v), p(cache.k_scale) if quantized else null,
-        p(cache.v_scale) if quantized else null, p(page_table), p(lengths), p(out),
-        B, H, NP, PS, maxp, layer, int(quantized), backend.stream())
+        p(cache.v_scale) if quantized else null, p(page_table), p(lengths), p(out), p(ws),
+        p(cnt), B, H, NP, PS, maxp, layer, int(quantized), P, qscale, backend.stream())
     backend.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
     return out
 
 

@@ -300,8 +300,9 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     # lanes x one 128-token chunk (T = 4096). No PyTorch call takes this
     # int4 layout: library none.
     #
-    # On the same inputs at T = 1 and 32, dense_int4_a8: the W4A8
-    # projections of a decode step under DENSE_A8. Exact integer dots and
+    # On the same inputs at T = 1, 8 and 32, dense_int4_a8: the W4A8
+    # projections of a decode step under DENSE_A8 (T = 8: the most rows of
+    # its split form, x quantized in the kernel). Exact integer dots and
     # the plain version's f32 steps, each rounded once: bit-equal is the
     # claim, printed; the limit is f32 rounding.
     print("dense_int4, dense_int4_a8", flush=True)
@@ -309,7 +310,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
     tick = lanes * paged_chunk
     for F_out in ((cfg.num_heads + 2 * cfg.num_kv_heads) * Dh, D):
         w = quantize_dense_int4(randn(2, D, F_out, scale=D**-0.5))
-        for T in dict.fromkeys((1, 32, 64, 128, 512, 2048, tick)):
+        for T in dict.fromkeys((1, 8, 32, 64, 128, 512, 2048, tick)):
             x = randn(T, D)
             got, ref = di.dense_int4(x, w, 1), di.dense_int4_plain(x, w, 1)
             errs.append(_compare(f"dense_int4 T={T} F={F_out}", got, ref, 1e-4,
@@ -327,7 +328,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                           f"torch.matmul by the weight dequantized to bf16 {mm:.4f} ms",
                           flush=True)
                     del wbf
-            if T in (1, lanes):
+            if T in (1, 8, lanes):
                 got, ref = di.dense_int4(x, w, 1, act_int8=True), di.dense_int4_a8_plain(x, w, 1)
                 same = "bit-equal" if torch.equal(got, ref) else "NOT bit-equal"
                 errs8.append(_compare(f"dense_int4_a8 T={T} F={F_out} ({same})", got, ref, 1e-6,
@@ -337,8 +338,10 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                                      lambda: di.dense_int4_a8_plain(x, w, 1),
                                      200 if T == 1 else 100, 5,
                                      _bound(read, 2 * T * D * F_out, "int8")))
-                print(f"  dense_int4_a8 T={T} F={F_out}: {timed8[-1]['k'][0]:.4f} ms against "
-                      f"dense_int4 (bf16 activations) {timed[-1]['k'][0]:.4f} ms", flush=True)
+                if T != 8:  # dense_int4 is not timed at 8 rows
+                    print(f"  dense_int4_a8 T={T} F={F_out}: {timed8[-1]['k'][0]:.4f} ms "
+                          f"against dense_int4 (bf16 activations) {timed[-1]['k'][0]:.4f} ms",
+                          flush=True)
     record("dense_int4", errs, timed)  # wqkv at T = 1 first
     record("dense_int4_a8", errs8, timed8)  # wqkv at T = 1 first
     del w
@@ -538,43 +541,61 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
 
     # paged_decode_attention at the paged path's shapes: 32 lanes on page
     # tables shuffled over the engine's default pool (1 + 2 pages per
-    # lane), lengths 48-511 of 512, int8 pages with f32 scales and bf16
-    # pages. No PyTorch call reads through a page table: library none.
+    # lane), lengths 48-511 of 512, then 4 lanes at 400-511 (where the split
+    # over positions matters most), int8 pages with f32 scales and bf16
+    # pages, at the split the wrapper's plan picks (printed). A lane's bits
+    # must not depend on the other lanes: lane 0 again with the others'
+    # lengths and tables changed, the claim printed. No PyTorch call reads
+    # through a page table: library none.
     print("paged_decode_attention", flush=True)
     errs, timed = [], []
     maxp = -(-paged_seq // page_size)
-    NP = 1 + lanes * (maxp // 2 + 1)
-    shape = (L, NP, H, page_size, Dh)
-    table = (torch.randperm(NP - 1, generator=gen, device=device)[:lanes * maxp] + 1)
-    table = table.reshape(lanes, maxp).to(torch.int32)
-    lens = torch.linspace(48, paged_seq - 1, lanes).round().int().tolist()
-    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
-    q = randn(lanes, H, Dh)
-    for label in ("int8", "bf16"):
-        if label == "int8":
-            pages = [torch.randint(-128, 128, shape, generator=gen, device=device,
-                                   dtype=torch.int8) for _ in range(2)]
-            pages += [torch.rand(shape[:-1], generator=gen, device=device) * 0.02 + 0.005
-                      for _ in range(2)]
-            per_pos = 2 * Dh + 8  # k and v bytes and two f32 scales per head
-        else:
-            pages = [randn(*shape) for _ in range(2)]
-            per_pos = 4 * Dh
-        cache = pg.PagedKVCache(*pages)
-        args = (q, cache, 1, table, lengths)
-        got, ref = pg.paged_decode_attention(*args), pg.paged_decode_attention_plain(*args)
-        errs.append(_compare(
-            f"paged_decode_attention {label} B={lanes} len={min(lens)}..{max(lens)} of "
-            f"{maxp * page_size}", got, ref, 1e-2,
-            "bf16 output; p (times v_scale) rounds to bf16 after the kernel's online "
-            "rescaling and after the plain version's one-pass softmax"))
-        bound = _bound(sum(lens) * H * per_pos + _nbytes(table, lengths) + 2 * _nbytes(q),
-                       4 * sum(lens) * H * Dh)
-        timed.append(_timed(f"{label}, {lanes} lanes, len {min(lens)}..{max(lens)}",
-                            lambda: pg.paged_decode_attention(*args),
-                            lambda: pg.paged_decode_attention_plain(*args), 200, 10, bound))
-        del cache, args, pages
-    record("paged_decode_attention", errs, timed)  # int8 first
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else 132
+    for n_lanes, lo in ((lanes, 48), (min(4, lanes), 400 * paged_seq // 512)):
+        NP = 1 + n_lanes * (maxp // 2 + 1)
+        shape = (L, NP, H, page_size, Dh)
+        table = (torch.randperm(NP - 1, generator=gen, device=device)[:n_lanes * maxp] + 1)
+        table = table.reshape(n_lanes, maxp).to(torch.int32)
+        lens = torch.linspace(lo, paged_seq - 1, n_lanes).round().int().tolist()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        q = randn(n_lanes, H, Dh)
+        P = pg.paged_split_count(n_lanes, H, maxp, page_size, sms)
+        other_table = table.roll(1, dims=0).contiguous()
+        other_lengths = torch.tensor([lens[0]] + [paged_seq - 1 - v for v in lens[1:]],
+                                     dtype=torch.int32, device=device)
+        other_table[0] = table[0]
+        for label in ("int8", "bf16"):
+            if label == "int8":
+                pages = [torch.randint(-128, 128, shape, generator=gen, device=device,
+                                       dtype=torch.int8) for _ in range(2)]
+                pages += [torch.rand(shape[:-1], generator=gen, device=device) * 0.02 + 0.005
+                          for _ in range(2)]
+                per_pos = 2 * Dh + 8  # k and v bytes and two f32 scales per head
+            else:
+                pages = [randn(*shape) for _ in range(2)]
+                per_pos = 4 * Dh
+            cache = pg.PagedKVCache(*pages)
+            args = (q, cache, 1, table, lengths)
+            got, ref = pg.paged_decode_attention(*args), pg.paged_decode_attention_plain(*args)
+            alone = torch.equal(pg.paged_decode_attention(q, cache, 1, other_table,
+                                                          other_lengths)[0], got[0])
+            errs.append(_compare(
+                f"paged_decode_attention {label} B={n_lanes} len={min(lens)}..{max(lens)} of "
+                f"{maxp * page_size}, P={P} (lane 0's bits with the other lanes changed: "
+                f"{'the same' if alone else 'DIFFER'})", got, ref, 1e-2,
+                "bf16 output; p (times v_scale) rounds to bf16 after the kernel's online "
+                "rescaling and after the plain version's one-pass softmax"))
+            if not alone:
+                raise AssertionError("paged_decode_attention: lane 0's bits moved with the "
+                                     "other lanes")
+            bound = _bound(sum(lens) * H * per_pos + _nbytes(table, lengths) + 2 * _nbytes(q),
+                           4 * sum(lens) * H * Dh)
+            timed.append(_timed(f"{label}, {n_lanes} lanes, len {min(lens)}..{max(lens)}, P={P}",
+                                lambda: pg.paged_decode_attention(*args),
+                                lambda: pg.paged_decode_attention_plain(*args), 200, 10, bound))
+            del cache, args, pages
+    record("paged_decode_attention", errs, timed)  # int8 at 32 lanes first
 
     # kv_cache_write at the lanes shapes: 32 lanes into [28, 32, H, 384,
     # 128], bf16, int8 with f32 scales, packed int4 (H/2 byte planes) with
@@ -1440,7 +1461,7 @@ KERNELS = {
     "kv_cache_write": ("aria_tpu_torch/csrc/kv_write.cu", "aria_tpu/ops/kv_write.py:91"),
     "decode_attention_int4": ("aria_tpu_torch/csrc/decode_attention.cu",
                               "aria_tpu/ops/decode_attention.py:80"),
-    "paged_decode_attention": ("aria_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode_attention": ("aria_tpu_torch/csrc/decode_attention.cu",
                                "aria_tpu/engine/paged.py:150"),
     "moe_decode": ("aria_tpu_torch/csrc/moe_decode_fp.cu",
                    "aria_tpu/ops/moe_decode_kernel.py:389"),

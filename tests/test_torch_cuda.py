@@ -250,12 +250,10 @@ def test_int4_decode_attention_kernel_matches_plain(cuda):
                                    rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("pages", ["int8", "bf16"])
-def test_paged_decode_attention_kernel_matches_plain(cuda, pages):
-    """32 lanes on page tables shuffled over a 65-page pool, lengths 48-511
-    of 512, one lane past its table and one over a single position."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    L, NP, H, PS, D, B, maxp = 2, 65, 20, 256, 128, 32, 2
+def _paged_case(g, cuda, pages, B=32, NP=65, maxp=2):
+    """A [2, NP, 20, 256, 128] pool (int8 pages with f32 scales, or bf16),
+    lane tables shuffled over pages 1.., lengths 48-511 of 512."""
+    L, H, PS, D = 2, 20, 256, 128
     shape = (L, NP, H, PS, D)
     if pages == "int8":
         kq, vq = (torch.randint(-128, 128, shape, generator=g, device=cuda, dtype=torch.int8)
@@ -266,19 +264,71 @@ def test_paged_decode_attention_kernel_matches_plain(cuda, pages):
     else:
         cache = pg.PagedKVCache(_randn(g, *shape), _randn(g, *shape))
     table = (torch.randperm(NP - 1, generator=g, device=cuda)[:B * maxp] + 1).reshape(B, maxp)
-    table = table.to(torch.int32)
     lengths = torch.randint(48, 512, (B,), generator=g, device=cuda).to(torch.int32)
-    lengths[0], lengths[1] = 600, 1
-    q = _randn(g, B, H, D)
+    return cache, table.to(torch.int32), lengths, _randn(g, B, H, D)
+
+
+@pytest.mark.parametrize("pages", ["int8", "bf16"])
+def test_paged_decode_attention_kernel_matches_plain(cuda, pages):
+    """32 lanes on page tables shuffled over a 65-page pool, lengths 48-511
+    of 512, one lane past its table, one over a single position, one of
+    length 0 (its output 0), and two whose second page id lies outside the
+    pool (-1, and NP): their positions there are masked, so they equal the
+    plain version over their first page."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cache, table, lengths, q = _paged_case(g, cuda, pages)
+    NP, PS = cache.num_pages, cache.page_size
+    lengths[0], lengths[1], lengths[2], lengths[3], lengths[4] = 600, 1, 0, 400, 511
+    table[3, 1], table[4, 1] = -1, NP
     args = (q, cache, 1, table, lengths)
     launches = pg.paged_decode_attention.launches
     got = pg.paged_decode_attention(*args)
     assert pg.paged_decode_attention.launches == launches + 1
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    # the masked pages: the plain version over the first page alone (a
+    # valid id in the table, which the capped length never reaches)
+    ref_table, ref_lengths = table.clone(), lengths.clone()
+    ref_table[3, 1] = ref_table[4, 1] = 1
+    ref_lengths[3] = ref_lengths[4] = PS
+    want = pg.paged_decode_attention_plain(q, cache, 1, ref_table, ref_lengths)
+    keep = torch.arange(q.shape[0], device=cuda) != 2
     # bf16 output; p (times v_scale) rounds to bf16 on both sides, after the
     # online softmax's rescaling in the kernel and a one-pass softmax in the
     # plain version
-    torch.testing.assert_close(got.float(), pg.paged_decode_attention_plain(*args).float(),
-                               rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got[keep].float(), want[keep].float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("pages", ["int8", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_paged_decode_attention_split_matches_plain(cuda, pages, splits):
+    """Each forced split of the 512 positions (chunks of 512 down to 64)
+    against the plain rendering of the same split and the unsplit plain
+    version, 4 lanes at 400-511 (the low-occupancy shape)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cache, table, lengths, q = _paged_case(g, cuda, pages, B=4, NP=9)
+    lengths = torch.tensor([400, 437, 474, 511], dtype=torch.int32, device=cuda)
+    args = (q, cache, 1, table, lengths)
+    got = pg.paged_decode_attention(*args, splits=splits)
+    for want in (pg.paged_decode_attention_split_plain(*args, splits=splits),
+                 pg.paged_decode_attention_plain(*args)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("pages", ["int8", "bf16"])
+def test_paged_decode_attention_lane_bits_do_not_depend_on_other_lanes(cuda, pages):
+    """Lane 0's output bits, at the split the wrapper picks, stay the same
+    when every other lane's length and table change (same B)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cache, table, lengths, q = _paged_case(g, cuda, pages)
+    first = pg.paged_decode_attention(q, cache, 1, table, lengths)
+    for seed in (3, 4):
+        g2 = torch.Generator(device=cuda).manual_seed(seed)
+        pool = torch.randperm(cache.num_pages - 1, generator=g2, device=cuda) + 1
+        other_table = pool[:table.numel()].reshape(table.shape).to(torch.int32)
+        other_lengths = torch.randint(0, 600, lengths.shape, generator=g2, device=cuda)
+        other_table[0], other_lengths[0] = table[0], lengths[0]
+        got = pg.paged_decode_attention(q, cache, 1, other_table, other_lengths.to(torch.int32))
+        assert torch.equal(got[0], first[0]), seed
 
 
 def test_paged_engine_greedy_streams_repeat(cuda):
@@ -925,7 +975,7 @@ def test_expert_block_dequant_kernel_matches_plain(cuda, form):
         ed.expert_block_dequant({k: v[0] for k, v in w1.items()}, "w1", 12, 11)
 
 
-@pytest.mark.parametrize("T", [1, 5, 32, 40])
+@pytest.mark.parametrize("T", [1, 5, 8, 9, 32, 40])
 def test_dense_int4_a8_kernel_matches_plain(cuda, T):
     """W4A8 wqkv and wo at full width: the integer dots are exact and the
     float steps are the plain version's, each rounded once, so bit-equal."""
@@ -939,6 +989,74 @@ def test_dense_int4_a8_kernel_matches_plain(cuda, T):
     assert di.dense_int4_a8.launches == before + 2
     with pytest.raises(TypeError):
         di.dense_int4(x.float(), w, 1, act_int8=True)
+
+
+@pytest.mark.parametrize("D,F", [(2048, 512), (256, 384), (160, 200)])
+def test_dense_int4_a8_kernel_takes_other_widths(cuda, D, F):
+    """Groups of 256 (D 2048: x quantized in the split from two reads),
+    one group of whole stages (D 256) and one whose last stage is partly
+    past its end (D 160), on both sides of the split: bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w = quantize_dense_int4(_randn(g, 2, D, F, scale=D**-0.5))
+    for T in (1, 8, 9, 33):
+        x = _randn(g, T, D)
+        assert torch.equal(di.dense_int4_a8(x, w, 1), di.dense_int4_a8_plain(x, w, 1)), (D, T)
+
+
+def test_dense_int4_a8_row_gets_the_same_bits_at_every_row_count(cuda):
+    """One token's W4A8 output bits alone, among 8 rows (the split over the
+    D-groups, x quantized in the kernel) and among 32 (act_quant_int8 first,
+    one block over every group), wqkv and wo."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for F in (7680, 2560):
+        w = quantize_dense_int4(_randn(g, 1, 2560, F, scale=2560**-0.5))
+        row = _randn(g, 1, 2560)
+        ref = di.dense_int4_a8(row, w, 0)
+        assert torch.equal(ref, di.dense_int4_a8_plain(row, w, 0))
+        for T in (8, 32):
+            x = _randn(g, T, 2560)
+            for at in (0, T - 1):
+                x[at] = row[0]
+                assert torch.equal(di.dense_int4_a8(x, w, 0)[at], ref[0]), (F, T, at)
+
+
+def _kernels_launched(fn) -> list:
+    """The names of the card's kernels one call of fn launches (profiled;
+    one warm-up call first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_dense_int4_a8_and_paged_attention_launch_once_a_call(cuda):
+    """One kernel a call: dense_int4_a8 up to 8 rows (x quantized in the
+    kernel) and paged_decode_attention split over positions (the merge in
+    the same launch); above 8 rows dense_int4_a8 is act_quant_int8 then the
+    kernel. Each wrapper counts one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    w = quantize_dense_int4(_randn(g, 1, 2560, 7680, scale=2560**-0.5))
+    for T, want in ((1, ["dense_int4_a8_kernel"]), (8, ["dense_int4_a8_kernel"]),
+                    (32, ["act_quant_kernel", "dense_int4_a8_kernel"])):
+        x = _randn(g, T, 2560)
+        before = di.dense_int4_a8.launches
+        names = _kernels_launched(lambda: di.dense_int4_a8(x, w, 0))
+        assert di.dense_int4_a8.launches == before + 2
+        assert len(names) == len(want) and all(n in got for n, got in zip(want, names)), names
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for pages in ("int8", "bf16"):
+        for B, NP in ((32, 65), (4, 9)):  # one block a lane's head; split, P > 1
+            cache, table, lengths, q = _paged_case(g, cuda, pages, B=B, NP=NP)
+            assert (pg.paged_split_count(B, 20, 2, 256, sms) > 1) == (B == 4)
+            before = pg.paged_decode_attention.launches
+            names = _kernels_launched(lambda: pg.paged_decode_attention(q, cache, 1, table,
+                                                                        lengths))
+            assert pg.paged_decode_attention.launches == before + 2
+            assert len(names) == 1 and "decode_attention_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("T", [1, 5, 32, 128])

@@ -3,7 +3,7 @@
 attention and decode attention, for two checkouts on one card, in turns
 (A, B, B, A).
 
-    python3 tools/attention_ab.py PARENT_DIR CHANGE_DIR [--iters 20]
+    python3 tools/attention_ab.py PARENT_DIR CHANGE_DIR [--iters 20] [--only NAME ...]
 
 Each turn is a fresh process that imports ``aria_tpu_torch`` from the
 directory given, builds its kernels there, and times on random inputs from
@@ -26,6 +26,10 @@ a seed, 20 heads of 128 (the flagship's attention):
   32,768 of 32,896 (int4, int8, bf16);
 - ``decode_attention_stats`` at one lane over one 4,352-position block
   (int8, bf16, int4);
+- ``paged_decode_attention`` over int8 and bf16 pages of 256 at the paged
+  path's 32 lanes (lengths 48-511 of 512, tables shuffled over the default
+  pool of 1 + 2 pages a lane) and at 4 lanes (400-511), each with its
+  largest difference from the plain version;
 
 with ``scaled_dot_product_attention`` beside each flash shape and each bf16
 decode shape. Times are the card's kernel time per call from
@@ -35,7 +39,9 @@ fails the turn, and is never printed as a time. It prints the card's name
 and power limit, one line per shape and turn, one JSON line per turn, and
 whether the causal forward's bits agree in every turn and each checkout's
 ViT outputs in its own turns (exit 1 where either does not: the causal
-forward is the control when another kernel changes).
+forward is the control when another kernel changes). ``--only`` keeps the
+shapes whose name holds one of the words given (for example ``--only
+paged``); the causal forward's shapes, the control, always run.
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ def _bits(t) -> str:
     return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def measure(iters: int) -> dict:
+def measure(iters: int, only=()) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -90,6 +96,9 @@ def measure(iters: int) -> dict:
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def want(*names: str) -> bool:
+        return not only or any(o in n for o in only for n in names)
 
     out = {}
     for B, S, stats in ((1, 512, False), (1, 2048, True), (8, 2048, False), (32, 64, False),
@@ -106,6 +115,8 @@ def measure(iters: int) -> dict:
 
     for B in (1, 8):
         S = 2048
+        if not want("flash_bwd"):
+            break
         q, k, v, do = (randn(B, S, H, D) for _ in range(4))
         lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         o = fl._forward(q, k, v, D**-0.5, lse)
@@ -124,38 +135,42 @@ def measure(iters: int) -> dict:
             "sdpa_fwd_bwd_ms": _device_ms(sdpa_fwd_bwd, iters)}
         del q, k, v, do, lse, o, leaves, o_sdpa, do_t
 
-    P, VH, VD, side = 4900, 16, 72, 70
-    q, k, v = (randn(1, P, VH, VD) for _ in range(3))
-    qt = [t.transpose(1, 2) for t in (q, k, v)]
-    crop = torch.zeros((side, side), dtype=torch.bool, device=dev)
-    crop[:, :side * 630 // 980] = True
-    for label, valid in (("all valid", torch.ones((1, P), dtype=torch.bool, device=dev)),
-                         ("3150 valid", crop.reshape(1, P))):
-        key_mask = valid[:, None, None, :]
-        seg_mask = valid[:, None, :, None] == valid[:, None, None, :]
-        out[f"vit_flash [1, {P}, {VH}, {VD}] {label}"] = {
-            "ms": _device_ms(lambda: vf.vit_flash(q, k, v, valid), iters),
-            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
-                *qt, attn_mask=key_mask), iters),
-            "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
-        out[f"flash_segment [1, {P}, {VH}, {VD}] {label}"] = {
-            "ms": _device_ms(lambda: fl.flash_segment(q, k, v, valid, valid), iters),
-            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
-                *qt, attn_mask=seg_mask), iters),
-            "vit_bits": _bits(fl.flash_segment(q, k, v, valid, valid))}
-        del seg_mask
-    del q, k, v, qt
-    for B, S, VH, VD, lens in ((2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (129,))):
-        q, k, v = (randn(B, S, VH, VD) for _ in range(3))
+    out.update(_paged(dev, gen, randn, iters) if want("paged_decode_attention") else {})
+    if want("vit_flash", "flash_segment"):
+        P, VH, VD, side = 4900, 16, 72, 70
+        q, k, v = (randn(1, P, VH, VD) for _ in range(3))
         qt = [t.transpose(1, 2) for t in (q, k, v)]
-        valid = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-        out[f"vit_flash [{B}, {S}, {VH}, {VD}]"] = {
-            "ms": _device_ms(lambda: vf.vit_flash(q, k, v, valid), iters),
-            "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
-                *qt, attn_mask=valid[:, None, None, :]), iters),
-            "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
+        crop = torch.zeros((side, side), dtype=torch.bool, device=dev)
+        crop[:, :side * 630 // 980] = True
+        for label, valid in (("all valid", torch.ones((1, P), dtype=torch.bool, device=dev)),
+                             ("3150 valid", crop.reshape(1, P))):
+            key_mask = valid[:, None, None, :]
+            seg_mask = valid[:, None, :, None] == valid[:, None, None, :]
+            out[f"vit_flash [1, {P}, {VH}, {VD}] {label}"] = {
+                "ms": _device_ms(lambda: vf.vit_flash(q, k, v, valid), iters),
+                "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                    *qt, attn_mask=key_mask), iters),
+                "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
+            out[f"flash_segment [1, {P}, {VH}, {VD}] {label}"] = {
+                "ms": _device_ms(lambda: fl.flash_segment(q, k, v, valid, valid), iters),
+                "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                    *qt, attn_mask=seg_mask), iters),
+                "vit_bits": _bits(fl.flash_segment(q, k, v, valid, valid))}
+            del seg_mask
         del q, k, v, qt
+        for B, S, VH, VD, lens in ((2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (129,))):
+            q, k, v = (randn(B, S, VH, VD) for _ in range(3))
+            qt = [t.transpose(1, 2) for t in (q, k, v)]
+            valid = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+            out[f"vit_flash [{B}, {S}, {VH}, {VD}]"] = {
+                "ms": _device_ms(lambda: vf.vit_flash(q, k, v, valid), iters),
+                "sdpa_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+                    *qt, attn_mask=valid[:, None, None, :]), iters),
+                "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
+            del q, k, v, qt
 
+    if not want("decode_attention"):
+        return out
     # the caches of chip_smoke.py next to this tool, whichever checkout is timed
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -186,14 +201,48 @@ def measure(iters: int) -> dict:
     return out
 
 
+def _paged(dev, gen, randn, iters: int) -> dict:
+    """``paged_decode_attention`` at the paged path's two shapes, int8 and
+    bf16 pages (chip_smoke.py's phase 2 cases)."""
+    import torch
+
+    from aria_tpu_torch.ops import paged_attention as pg
+
+    out, PS, maxp = {}, 256, 2
+    for lanes, lo in ((32, 48), (4, 400)):
+        NP = 1 + lanes * maxp
+        shape = (2, NP, H, PS, D)
+        table = (torch.randperm(NP - 1, generator=gen, device=dev)[:lanes * maxp] + 1)
+        table = table.reshape(lanes, maxp).to(torch.int32)
+        lengths = torch.linspace(lo, maxp * PS - 1, lanes).round().int().to(dev)
+        q = randn(lanes, H, D)
+        for label in ("int8", "bf16"):
+            if label == "int8":
+                pages = [torch.randint(-128, 128, shape, generator=gen, device=dev,
+                                       dtype=torch.int8) for _ in range(2)]
+                pages += [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 0.005
+                          for _ in range(2)]
+            else:
+                pages = [randn(*shape) for _ in range(2)]
+            args = (q, pg.PagedKVCache(*pages), 1, table, lengths)
+            err = (pg.paged_decode_attention(*args).float()
+                   - pg.paged_decode_attention_plain(*args).float()).abs().max().item()
+            out[f"paged_decode_attention {label} B={lanes} len={lo}..{maxp * PS - 1} of "
+                f"{maxp * PS}"] = {"ms": _device_ms(lambda: pg.paged_decode_attention(*args),
+                                                    iters), "max_abs_err": err}
+            del args, pages
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("dirs", nargs="*")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", nargs="*", default=[])
     ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:  # one turn, in the checkout on sys.path
-        print(json.dumps(measure(args.iters)), flush=True)
+        print(json.dumps(measure(args.iters, args.only)), flush=True)
         return 0
     if len(args.dirs) != 2:
         ap.error("give two checkout directories")
@@ -204,7 +253,8 @@ def main() -> int:
     bits, own_bits = {}, {}
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", "--iters",
-                               str(args.iters)], cwd=root, capture_output=True, text=True,
+                               str(args.iters), "--only", *args.only], cwd=root,
+                              capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": root})
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, flush=True)
@@ -213,7 +263,8 @@ def main() -> int:
         for shape, rec in times.items():
             extra = "".join(f", {k[:-3]} {v:.4f} ms" for k, v in rec.items()
                             if k.endswith("_ms"))
-            print(f"{label} ({root}) {shape}: {rec['ms']:.4f} ms{extra}", flush=True)
+            err = f", max_abs_err {rec['max_abs_err']:.3e}" if "max_abs_err" in rec else ""
+            print(f"{label} ({root}) {shape}: {rec['ms']:.4f} ms{extra}{err}", flush=True)
             if "bits" in rec:
                 bits.setdefault(shape, set()).add(rec["bits"])
             if "vit_bits" in rec:  # its own checkout's output, turn to turn

@@ -2,7 +2,7 @@
 """Device times of the port's int4 and int8 serving kernels, for two
 checkouts on one card, in turns (A, B, B, A).
 
-    python3 tools/int4_ab.py PARENT_DIR CHANGE_DIR [--iters 20]
+    python3 tools/int4_ab.py PARENT_DIR CHANGE_DIR [--iters 20] [--only NAME ...]
 
 with the parent unpacked from git into a directory that .gitignore lists,
 for example ``mkdir -p tmp/parent && git archive HEAD~1 | tar -x -C
@@ -18,6 +18,9 @@ plus 2 shared):
   T = 1, 32, 512, 2048 and 4096 rows, and beside each prefill shape
   ``torch.matmul`` of x by the weight already dequantized to bf16 (a
   yardstick of what the unpacking costs, not a call of the same function);
+- ``dense_int4_a8`` (the W4A8 form) for wqkv and wo at T = 1, 8 and 32,
+  each with a hash of its output's bits, which the two checkouts must agree
+  on (both are bit-equal to the same plain version);
 - ``moe_decode_int4`` in its W4A8 form and in its bf16-activation form
   (``moe_decode_int4_bf16``) at T = 1, 32 and 128 rows, one layer of 66
   experts;
@@ -29,9 +32,14 @@ plus 2 shared):
   takes), the routing drawn from the seed after the cases above, so both
   checkouts time the same tiles;
 - the controls, kernels neither checkout should change, each with a hash
-  of its output's bits that the two checkouts must agree on:
-  ``dense_int4_a8`` (wqkv, T = 32), the W4A8 ``moe_decode_int4`` (T = 32)
-  and ``moe_decode`` (bf16 experts, T = 32, 66 experts).
+  of its output's bits that the two checkouts must agree on: the W4A8
+  ``moe_decode_int4`` (T = 32) and ``moe_decode`` (bf16 experts, T = 32, 66
+  experts).
+
+``--only`` keeps the cases whose name holds one of the words given (for
+example ``--only dense_int4_a8``); the controls always run. The cases keep
+their order and draw their inputs from the seed in the same order whatever
+is kept, so a kept case sees the same inputs either way.
 
 Times are the card's kernel time per call from ``torch.profiler`` (the sum
 over the call's kernels). It prints the card's name and power limit, one
@@ -51,6 +59,7 @@ import sys
 D, I, ROUTED, TOPK, SHARED = 2560, 1664, 64, 6, 2
 DENSE = {"wqkv": 7680, "wo": 2560}
 DENSE_T = (1, 32, 512, 2048, 4096)
+A8_T = (1, 8, 32)
 MOE_T = (1, 32, 128)
 PREFILL_T = (512, 2048, 4096)
 
@@ -80,7 +89,7 @@ def _bits(t) -> str:
     return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def measure(iters: int) -> dict:
+def measure(iters: int, only=()) -> dict:
     import torch
 
     from aria_tpu_torch.ops import dense_int4 as di
@@ -95,21 +104,26 @@ def measure(iters: int) -> dict:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
+    def want(case: str) -> bool:
+        return case.startswith("control") or not only or any(o in case for o in only)
+
     out = {}
     for name, F in DENSE.items():
         w = quantize_dense_int4(randn(1, D, F, scale=D**-0.5))
         wbf = dequantize_dense_int4({"q4t": w["q4t"][0], "sg": w["sg"][0]})  # [D, F] bf16
-        for T in DENSE_T:
+        for T in sorted(set(DENSE_T) | set(A8_T)):
             x = randn(T, D)
-            rec = {"ms": _device_ms(lambda: di.dense_int4(x, w, 0), iters)}
-            if T >= 512:
-                rec["matmul_bf16_ms"] = _device_ms(lambda: torch.matmul(x, wbf), iters)
-            out[f"dense_int4 {name} T={T}"] = rec
-            if name == "wqkv" and T == 32:
-                a8 = di.dense_int4(x, w, 0, act_int8=True)
-                out["control dense_int4_a8 wqkv T=32"] = {
+            case = f"dense_int4 {name} T={T}"
+            if T in DENSE_T and want(case):
+                rec = {"ms": _device_ms(lambda: di.dense_int4(x, w, 0), iters)}
+                if T >= 512:
+                    rec["matmul_bf16_ms"] = _device_ms(lambda: torch.matmul(x, wbf), iters)
+                out[case] = rec
+            case = f"dense_int4_a8 {name} T={T}"
+            if T in A8_T and want(case):
+                out[case] = {
                     "ms": _device_ms(lambda: di.dense_int4(x, w, 0, act_int8=True), iters),
-                    "bits": _bits(a8)}
+                    "bits": _bits(di.dense_int4(x, w, 0, act_int8=True))}
         del w, wbf
     E = ROUTED + SHARED
 
@@ -128,21 +142,25 @@ def measure(iters: int) -> dict:
     for T in MOE_T:
         ind, wts = routing(T)
         x = randn(T, D)
-        rec = {"ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True),
-                                iters)}
-        if T == 32:
-            rec["bits"] = _bits(mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True))
-        out[f"{'control ' if T == 32 else ''}moe_decode_int4 W4A8 T={T}"] = rec
-        out[f"moe_decode_int4_bf16 T={T}"] = {
-            "ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks), iters)}
+        case = f"{'control ' if T == 32 else ''}moe_decode_int4 W4A8 T={T}"
+        if want(case):
+            rec = {"ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks,
+                                                                act_int8=True), iters)}
+            if T == 32:
+                rec["bits"] = _bits(mk.moe_decode_int4(x, ind, wts, *stacks, act_int8=True))
+            out[case] = rec
+        if want(f"moe_decode_int4_bf16 T={T}"):
+            out[f"moe_decode_int4_bf16 T={T}"] = {
+                "ms": _device_ms(lambda: mk.moe_decode_int4(x, ind, wts, *stacks), iters)}
     a, b = randn(1, E, 2 * I, D, scale=D**-0.5), randn(1, E, I, D, scale=I**-0.5)
     q1, q2 = with_s8(quantize_weight(a, input_axis=-1)), with_s8(quantize_weight(b, input_axis=-2))
     int8 = (q1["q"], q1["s8"], q2["q"], q2["s8"], 0)
     for T in MOE_T:
         ind, wts = routing(T)
         x = randn(T, D)
-        out[f"moe_decode_quant T={T}"] = {
-            "ms": _device_ms(lambda: mk.moe_decode_quant(x, ind, wts, *int8), iters)}
+        if want(f"moe_decode_quant T={T}"):
+            out[f"moe_decode_quant T={T}"] = {
+                "ms": _device_ms(lambda: mk.moe_decode_quant(x, ind, wts, *int8), iters)}
         if T == 32:
             out["control moe_decode bf16 T=32"] = {
                 "ms": _device_ms(lambda: mk.moe_decode(x, ind, wts, a, b, 0), iters),
@@ -156,8 +174,10 @@ def measure(iters: int) -> dict:
         dest, tile_e, R, rows = mp.segment_dispatch(ind, E)
         x_seg = torch.zeros((R, D), dtype=torch.bfloat16, device=dev)
         x_seg[dest.long()] = randn(T, D).repeat_interleave(TOPK + SHARED, dim=0)
-        out[f"moe_prefill_int4 T={T}"] = {
-            "ms": _device_ms(lambda: mp.moe_prefill_int4(x_seg, tile_e, *stacks, rows), iters)}
+        if want(f"moe_prefill_int4 T={T}"):
+            out[f"moe_prefill_int4 T={T}"] = {
+                "ms": _device_ms(lambda: mp.moe_prefill_int4(x_seg, tile_e, *stacks, rows),
+                                 iters)}
     return out
 
 
@@ -165,10 +185,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("dirs", nargs="*")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", nargs="*", default=[])
     ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure:  # one turn, in the checkout on sys.path
-        print(json.dumps(measure(args.iters)), flush=True)
+        print(json.dumps(measure(args.iters, args.only)), flush=True)
         return 0
     if len(args.dirs) != 2:
         ap.error("give two checkout directories")
@@ -179,7 +200,8 @@ def main() -> int:
     bits = {}
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", "--iters",
-                               str(args.iters)], cwd=root, capture_output=True, text=True,
+                               str(args.iters), "--only", *args.only], cwd=root,
+                              capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": root})
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, flush=True)
