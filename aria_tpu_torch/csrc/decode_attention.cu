@@ -312,8 +312,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q, const uint8_t* __re
 
   load(threadIdx.x, threadIdx.x < NST - 2);
   // the query's dims of this lane: key-row chunks qd + LPP * i, times
-  // qscale in f32 and rounded to bf16 (the wrapper's scaling, done here for
-  // the paged form; 1 where the wrapper scaled, which leaves q as it is)
+  // qscale in f32 and rounded to bf16 (the wrapper's scaling of a bf16
+  // query, done here; 1 where the wrapper scaled, which leaves q as it is)
   float qr[NH][C::DPL];
 #pragma unroll
   for (int t = 0; t < NH; ++t) {
@@ -571,7 +571,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 }  // namespace
 
 // kind: 0 bf16 cache, 1 int8 with f32 scales, 2 packed int4 with bf16 scales
-// (Hx = H/2 head pairs, else Hx = H). With acc non-null, the stats form
+// (Hx = H/2 head pairs, else Hx = H). q bf16 [B, H, 128], scaled in the
+// kernel by qscale (f32, then rounded to bf16). With acc non-null, the stats form
 // (acc, m, s; out null), else the normal form into out. P splits over
 // positions; with P > 1, ws holds B * Hx * P * (H / Hx) * (128 + 2) f32 and
 // counters B * Hx zeroed unsigned ints, which the kernel leaves zeroed.
@@ -579,10 +580,11 @@ ARIA_EXPORT int aria_decode_attention(const void* q, const void* k, const void* 
                                       const void* k_scale, const void* v_scale,
                                       const void* lengths, void* out, void* acc, void* m,
                                       void* s, void* ws, void* counters, int B, int Hx, int S,
-                                      int layer, int kind, int P, void* stream) {
+                                      int layer, int kind, int P, float qscale,
+                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const auto args = std::make_tuple(q, k, v, k_scale, v_scale, (const void*)nullptr, lengths, out,
-                                    acc, m, s, ws, counters, B, Hx, S, layer, 0, 0, P, 1.f, st);
+                                    acc, m, s, ws, counters, B, Hx, S, layer, 0, 0, P, qscale, st);
   switch (kind) {
     case BF16:
       return std::apply(launch<BF16, Stacked>, args);

@@ -42,12 +42,17 @@ shared_w2 and ride inside the expert GLU. ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant) as ``jax.checkpoint`` does the
 scanned body. The KV cache (bf16, int8, or head-pair packed int4) is
 written in place: at one offset for every lane, or at a per-lane offset
-(continuous batching), where one new token per lane goes through the
+(continuous batching). A decode step (one new token per lane) and a
+from-zero prefill take the fused prologue ``rope_kv_write``: one kernel a
+layer turns the wqkv output into the rotated, quantized cache write and
+the rotated query (with the fresh k, v for flash).
+The serving mesh's writers and a per-lane write of several positions keep
+the chain of ``apply_rope``, ``quantize_kv`` and an indexed write or the
 ``kv_cache_write`` kernel.
 
 With a ``page_table`` the cache is the paged server's ``PagedKVCache``
-(moe_lm.py:382-428): one new token per lane is written through
-``kv_cache_write`` with rows = page ids and attends through the
+(moe_lm.py:382-428): one new token per lane is written by
+``rope_kv_write`` with rows = page ids and attends through the
 ``paged_decode_attention`` kernel; a prefill chunk of C tokens per lane is
 written by an indexed write and attends the lanes' gathered, dequantized
 pages with the plain ``sdpa`` under the chunk's causal mask, as the JAX
@@ -69,7 +74,7 @@ from aria_tpu_torch.ops.decode_attention import decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
 from aria_tpu_torch.ops.flash import flash_causal
-from aria_tpu_torch.ops.kv_write import kv_cache_write
+from aria_tpu_torch.ops.kv_write import kv_cache_write, quantize_kv, rope_kv_write
 from aria_tpu_torch.ops.moe import (
     experts_gather,
     experts_grouped,
@@ -355,31 +360,6 @@ def embed_tokens(embed, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
     return embed[tokens]
 
 
-def quantize_kv(cache: KVCache, k_t: torch.Tensor, v_t: torch.Tensor):
-    """k/v [B, H, S, D] in the cache's form (moe_lm.py:435-471): returns
-    (k, v, k_scale, v_scale), the scales None for a bf16 cache.
-
-    int8 quantizes in f32; int4 takes the scale amax/7 to bf16 and then
-    divides and rounds in bf16, as the JAX source does, and packs head
-    pairs (``pack_heads``, moe_lm.py:460-463). The JAX source's division
-    of the amax by a constant is a reciprocal multiply under jit."""
-    if not cache.quantized:
-        return k_t.to(cache.k.dtype), v_t.to(cache.v.dtype), None, None
-    amax = [torch.clamp_min(t.float().abs().amax(dim=-1), 1e-6) for t in (k_t, v_t)]
-    if not cache.packed4:
-        scales = [a * (1.0 / 127.0) for a in amax]
-        return (*(torch.round(t.float() / sc[..., None]).to(torch.int8)
-                  for t, sc in zip((k_t, v_t), scales)), *scales)
-    scales = [(a * (1.0 / 7.0)).to(torch.bfloat16) for a in amax]
-    packed = []
-    for t, sc in zip((k_t, v_t), scales):
-        q = torch.round((t.to(torch.bfloat16) / sc[..., None]).float())
-        q = torch.clamp(q, -8, 7).to(torch.int8)
-        half = q.shape[1] // 2
-        packed.append(((q[:, :half] + 8) & 0xF) | (q[:, half:] << 4))
-    return (*packed, *scales)
-
-
 class _Block(NamedTuple):
     """This rank's block of a cache sharded over a serving mesh: heads
     [h0, h0 + heads), positions [s0, s0 + the cache's S) of ``max_seq``."""
@@ -453,16 +433,37 @@ def _write_cache(cache: KVCache, layer: int, pos, k: torch.Tensor, v: torch.Tens
         cache.v_scale[layer, bi, hs, si] = vs
 
 
-def _paged_attention(cache, layer: int, q, k, v, lengths, page_table, pages, slots, mask):
-    """Write k/v [B, S, H, D] into the lanes' pages, then attend: one token
+def _paged_attention(cache, layer: int, q, lengths, page_table, mask):
+    """Attend the lanes' just-written pages (moe_lm.py:382-428): one token
     per lane through the paged kernel, a chunk over the gathered pages
-    under ``mask`` (moe_lm.py:382-428)."""
-    paged_write(cache, layer, pages, slots,
-                *quantize_kv(cache, k.transpose(1, 2), v.transpose(1, 2)))
+    under ``mask``."""
     if q.shape[1] == 1:
         return paged_decode_attention(q[:, 0], cache, layer, page_table, lengths)[:, None]
     k_att, v_att = gather_lane_kv(cache, layer, page_table)  # [B, H, MAXP * PS, D]
     return sdpa(q, k_att.transpose(1, 2).to(q.dtype), v_att.transpose(1, 2).to(q.dtype), mask)
+
+
+def _prologue_dest(cache, cache_pos, rows, B: int, S: int, use_flash: bool, paged, mesh,
+                   device):
+    """Where ``rope_kv_write`` writes each token, (rows, slots) int32 [B *
+    S]: an S == 1 decode step's lanes (``rows``, at per-lane positions) or
+    pages (from ``write_index``), and a from-zero prefill's lanes at
+    cache_pos + s. None where the chain stays: no cache, a serving mesh
+    (its block's heads and positions), a per-lane write of several
+    positions, a paged chunk."""
+    if cache is None or mesh is not None:
+        return None
+    if paged is not None:
+        return (paged[1].reshape(-1), paged[2].reshape(-1)) if S == 1 else None
+    if isinstance(cache_pos, torch.Tensor):
+        return (rows, cache_pos) if S == 1 else None
+    if not (S == 1 or use_flash):
+        return None
+    lanes = torch.arange(B, dtype=torch.int32, device=device)
+    if cache_pos + S > cache.max_seq:
+        raise ValueError(f"cache write at {cache_pos}+{S} past max_seq {cache.max_seq}")
+    slots = cache_pos + torch.arange(S, dtype=torch.int32, device=device)
+    return lanes.repeat_interleave(S), slots.repeat(B)
 
 
 def _layer_weight(w, layer: int):
@@ -504,23 +505,33 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
                lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
                paged: Optional[tuple] = None, lora: Optional[dict] = None,
                lora_scale: float = 0.0, lora_onehot: Optional[torch.Tensor] = None,
-               mesh=None, block: Optional[_Block] = None, cp_mask=None):
+               mesh=None, block: Optional[_Block] = None, cp_mask=None,
+               dest: Optional[tuple] = None):
     B, S, _ = x.shape
     qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1)
     if lora and "wqkv" in lora:
         qkv = qkv + _lora_delta(x, lora["wqkv"], layer, lora_scale, lora_onehot)
-    qkv = qkv.to(x.dtype)
     q_size = cfg.q_size
-    kv_size = cfg.num_kv_heads * cfg.head_dim
-    q = qkv[..., :q_size].reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = qkv[..., q_size:q_size + kv_size].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = qkv[..., q_size + kv_size:].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    if cache is not None and paged is None:
-        _write_cache(cache, layer, cache_pos, k, v, rows, block)
+    if dest is not None:
+        # the fused prologue, one kernel: RoPE, the cache's quantization and
+        # write at ``dest``, the rotated query (and the fresh k, v for flash)
+        q, k, v = rope_kv_write(qkv, cos, sin, cache, layer, *dest, cfg.num_heads, x.dtype,
+                                fresh=use_flash, null_page=paged is not None)
+    else:
+        qkv = qkv.to(x.dtype)
+        kv_size = cfg.num_kv_heads * cfg.head_dim
+        q = qkv[..., :q_size].reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k = qkv[..., q_size:q_size + kv_size].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = qkv[..., q_size + kv_size:].reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if paged is not None:
+            paged_write(cache, layer, paged[1], paged[2],
+                        *quantize_kv(cache, k.transpose(1, 2), v.transpose(1, 2)))
+        elif cache is not None:
+            _write_cache(cache, layer, cache_pos, k, v, rows, block)
     if paged is not None:
-        out = _paged_attention(cache, layer, q, k, v, lengths, *paged)
+        out = _paged_attention(cache, layer, q, lengths, paged[0], paged[3])
     elif use_flash:
         # from-zero prefill: causal attention over the fresh k/v equals
         # attending the cache prefix, so the cache is written but not read
@@ -835,6 +846,7 @@ def lm_forward(
         kv_pos = torch.arange(block.max_seq, device=x.device)
         qi = (cache_pos[:, None] if per_lane else cache_pos) + torch.arange(S, device=x.device)
         cp_mask = (kv_pos <= qi[..., None]).reshape(-1, 1, S, block.max_seq)
+    dest = _prologue_dest(cache, cache_pos, rows, B, S, use_flash, paged, mesh, x.device)
     shared = _shared_slots(cfg, B * S, x.dtype, x.device) if fused else None
     tok_onehot = None if lora_onehot is None else torch.repeat_interleave(lora_onehot, S, dim=1)
 
@@ -842,7 +854,7 @@ def lm_forward(
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
                            lengths, rows, paged, lora_layers, lora_scale, lora_onehot, mesh,
-                           block, cp_mask)
+                           block, cp_mask, dest)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
                                          lora_layers, lora_scale, tok_onehot)

@@ -37,15 +37,19 @@ SIGNATURES = {
     # counters at most 8 rows, xq and sx above; the others NULL)
     "aria_dense_int4_a8": [_P] * 8 + [_I] * 5 + [_P],
     # q, k, v, k_scale, v_scale, lengths, out, acc, m, s, ws, counters, B, Hx, S, layer,
-    # kind, P, stream (acc, m, s NULL but in the stats form, out NULL in it; ws and
-    # counters NULL when P = 1)
-    "aria_decode_attention": [_P] * 12 + [_I] * 6 + [_P],
+    # kind, P, qscale, stream (acc, m, s NULL but in the stats form, out NULL in it; ws
+    # and counters NULL when P = 1)
+    "aria_decode_attention": [_P] * 12 + [_I] * 6 + [_F, _P],
     # q, k, v, k_scale, v_scale, table, lengths, out, ws, counters, B, H, NP, PS, MAXP,
     # layer, quantized, P, qscale, stream (ws and counters NULL when P = 1)
     "aria_paged_decode_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
     # k, v, k_scale, v_scale, k_new, v_new, ks_new, vs_new, rows, slots,
     # B, R, Hc, S, row_bytes, Hs, scale_bytes, layer, stream
     "aria_kv_write": [_P] * 10 + [_I] * 8 + [_P],
+    # qkv, cos, sin, k, v, k_scale, v_scale, rows, slots, q_out, k_out, v_out, T, Tc, H, R,
+    # S, layer, mode, low, null_page, stream (scales NULL for a bf16 cache; k_out and
+    # v_out NULL at decode)
+    "aria_rope_kv_write": [_P] * 12 + [_I] * 9 + [_P],
     # q, k, v, out, lse, B, S, H, scale, sms, stream
     "aria_flash_causal": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, o, do, lse, ws, dq_acc, counters, dq, dk, dv, B, S, H, scale, stream

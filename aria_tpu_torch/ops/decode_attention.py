@@ -272,7 +272,11 @@ def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool,
                     ("v_scale", v_scale)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} is not 16-byte aligned")
-    qs = _scaled_query(q, quantized).contiguous()
+    # a bf16 query is scaled in the kernel, by the same f32 product and bf16
+    # rounding as _scaled_query (three elementwise launches fewer a call)
+    qs, qscale = q.contiguous(), 1.0 / D**0.5
+    if q.dtype != torch.bfloat16:
+        qs, qscale = _scaled_query(q, quantized).contiguous(), 1.0
     backend.require(qs, "q", torch.bfloat16, (B, H, D))
     p, null = backend.ptr, backend.ptr(None)
     if stats:
@@ -294,7 +298,7 @@ def _launch(q, k_cache, v_cache, layer, lengths, k_scale, v_scale, stats: bool,
     err = library().aria_decode_attention(
         p(qs), p(k_cache), p(v_cache), p(k_scale) if quantized else null,
         p(v_scale) if quantized else null, p(lengths), p(out), p(acc), p(m), p(s), p(ws),
-        p(cnt), B, Hc, S, layer, kind, P, backend.stream())
+        p(cnt), B, Hc, S, layer, kind, P, qscale, backend.stream())
     backend.check(err, "decode_attention" + (" (int4)" if packed else "")
                   + (" stats" if stats else ""))
     return res

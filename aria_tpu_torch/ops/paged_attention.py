@@ -12,11 +12,12 @@ table row ``[MAXP]`` lists its pages in logical order; page 0 is the
 reserved null page that unallocated entries point at, and positions at or
 past a lane's length are masked, so nothing read from it counts.
 
-A decode step writes one position per lane through ``kv_cache_write``
-with rows = page ids; a prefill chunk writes C positions per lane by an
-indexed write. A position past the table (a lane can run past S inside a
-decode chunk) resolves to page -1 and is dropped, as the JAX package's
-scatter drops its out-of-range index.
+A decode step writes one position per lane through the fused prologue
+``rope_kv_write`` (``ops/kv_write.py``) with rows = page ids; a prefill
+chunk writes C positions per lane by an indexed write. A position past
+the table (a lane can run past S inside a decode chunk) resolves to page
+-1 and is dropped, as the JAX package's scatter drops its out-of-range
+index.
 
 Kernel: ``csrc/decode_attention.cu`` (``aria_paged_decode_attention``),
 the decode-attention kernel body read through the page table. It replaces
@@ -113,11 +114,13 @@ def paged_write(cache: PagedKVCache, layer: int, pages: torch.Tensor, slots: tor
     """Write k/v [B, H, S, D] (in the cache's dtype; scales [B, H, S]) in
     place at ``write_index``'s pages and slots (paged.py:68-114).
 
-    S == 1 (the decode step) goes through ``kv_cache_write`` with rows =
-    page ids, scales in the same launch. Idle lanes' zeroed tables resolve
-    to the null page 0 at their frozen, differing positions; those writes
-    go to slot 0 (paged.py:99-100), and page 0 is never read. S > 1 is an
-    indexed write of the positions inside the table."""
+    S == 1 goes through ``kv_cache_write`` with rows = page ids, scales in
+    the same launch. Idle lanes' zeroed tables resolve to the null page 0
+    at their frozen, differing positions; those writes go to slot 0
+    (paged.py:99-100), and page 0 is never read. No serving path writes
+    one position this way: the decode step takes the fused prologue
+    ``rope_kv_write``, and this branch is the chain it replaced. S > 1 is
+    an indexed write of the positions inside the table."""
     B, H, S, D = k_t.shape
     if S == 1:
         rows = pages[:, 0].contiguous()

@@ -14,28 +14,38 @@
    held on its first and last 128 rows), decode attention at one lane over
    32,768 positions (int4, int8, bf16), both held row by row beside a
    planted fault, and decode attention with its split over positions
-   forced to 1 against the split the wrapper picks.
+   forced to 1 against the split the wrapper picks. The fused prologue
+   ``rope_kv_write`` (RoPE and the cache's quantization and write in one
+   kernel a layer) bit-equal to the plain chain it replaced, in the three
+   cache forms, at decode T = 1 and 32, on pages, and at the from-zero
+   prefill of 512 and 8,192 tokens (RoPE's bf16 branch).
 3. The text path: random-init the full-width 28-layer, 64+2-expert int4
    serving model on the card, build ``Engine(max_seq_len=1024, int8 KV)``
-   and answer three text requests through ``Engine.generate``; the four
-   kernels of that path must each launch.
+   and answer three text requests through ``Engine.generate``; the five
+   kernels of that path must each launch, and no layer of a decode step or
+   of a from-zero prefill may call ``apply_rope`` or ``quantize_kv`` (the
+   fused prologue takes them whole; so on every serving path below but
+   the cp phase's).
 4. The image path (bench.py's default request): add the 27-layer ViT and
    the projector (int8, as bench.py builds them) and serve one 980px crop
    with the prompt [11]*8 + [9]*256 + [13]*8 through ``Engine.generate``;
-   its six kernels must each launch. Then the image prefill's device time
-   by kernel, and the card against the CPU's plain versions at reduced
+   its seven kernels must each launch. Then the image prefill's device time
+   by kernel, its launches beside the chain's, and the card against the CPU's plain versions at reduced
    depth: ``encode_images`` with 2 ViT layers, and a 2-layer prefill over
    more than 128 tokens.
 5. The lanes path (bench.py's lanes child): ``BatchedEngine`` with 32
    lanes and the int4 KV cache serves a warm-up round of 32 x 50 tokens
-   and a timed one of 32 x 200; ``kv_cache_write`` and the int4
-   decode attention must launch. Then a profiled decode chunk, a greedy
-   int8-KV check, and a 2-layer batched decode step against the CPU.
+   and a timed one of 32 x 200; ``rope_kv_write`` and the int4
+   decode attention must launch. Then a profiled decode chunk (and the
+   same chunk through the chain the fused prologue replaced: launches and
+   busy time a step, side by side), a greedy int8-KV check, and a 2-layer
+   batched decode step against the CPU.
 6. The paged path (bench.py's lanes child with ``--paged --kv-int8``):
    ``PagedBatchedEngine`` with 32 lanes on int8 pages serves a warm-up
    round of 32 x 50 tokens and a timed one of 32 x 200 through 128-token
    prefill chunks; ``paged_decode_attention`` must launch once per layer of
-   every decode step. Then a profiled prefill tick and decode chunk, where
+   every decode step. Then a profiled prefill tick and decode chunk (beside
+   the chain's), where
    a row's result depends on the rows beside it (op by op), two
    prefix-cache rounds at the served chunk (the first request alone,
    reported; beside a companion, held, with two planted faults that must
@@ -80,7 +90,9 @@
    (bf16-activation MoE; the W4A8 reading printed beside; the limit from
    tools/cp_witness.py's reading of the JAX package), rank 1's partials
    left out at 10x it or more; ``BatchedEngine(mesh=model 2)`` with an
-   int8 cache, 8 lanes x 32 greedy tokens, equal to one card's.
+   int8 cache, 8 lanes x 32 greedy tokens, equal to one card's, its decode
+   steps writing through ``kv_cache_write`` (a mesh's writers keep the
+   chain: ``rope_kv_write`` must not launch).
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
    ViT and projector bf16. int8: bench.py's image request twice sampled
@@ -133,6 +145,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -203,6 +216,7 @@ def _compare(name, got, ref, tol: float, why: str, absolute: bool = False) -> fl
 FLASH_SEG_ATOL = 3e-3
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+L2_BYTES = 50 * 2**20  # H100 SXM L2
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 
 
@@ -250,6 +264,115 @@ def _record(results: dict, name: str, errs, timed) -> None:
                      "times": [{"at": t["at"], **_entry(t)} for t in timed]}
     for t in timed:
         _print_timed(name, t)
+
+
+def _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, paged_seq):
+    """``rope_kv_write``, the fused prologue, against its plain chain
+    (``qkv.to(bf16)``, ``apply_rope``, ``quantize_kv``, the write) on the
+    same inputs, bit-equal: the query (q, k and v
+    at prefill), the cache's bytes and its scales, in the three cache forms
+    at decode T = 1 (one position, the single-stream engines) and T =
+    ``lanes`` (per-lane positions), on ``lanes`` lanes of int8 and bf16
+    pages (an idle lane on the null page, one past its table; page 0, which
+    the idle lanes share, left out), and at the from-zero prefill of 512
+    tokens and of LONG_SEQ (RoPE's bf16 branch). Timed beside the plain
+    chain and its byte bound (the f32 qkv rows, cos and sin, the
+    destinations, the query or q, k, v out, and the bytes and scales of the
+    tokens that write); no PyTorch call computes it. The prefill is timed
+    over copies of qkv that together hold twice the card's L2, so each
+    call reads its qkv from memory, as the image prefill does after the
+    wqkv product; the decode shapes (under 1 MB) are timed L2-warm."""
+    import torch
+
+    from aria_tpu_torch.models.moe_lm import KVCache
+    from aria_tpu_torch.ops import kv_write as kw
+    from aria_tpu_torch.ops.paged_attention import PagedKVCache, write_index
+    from aria_tpu_torch.ops.rope import LONG_SEQ, precompute_rope
+
+    print("rope_kv_write", flush=True)
+    H, Dh = cfg.num_heads, cfg.head_dim
+    two = dataclasses.replace(cfg, num_layers=2)  # layer 1 is written
+    forms = {"int8": torch.int8, "int4": "int4", "bf16": torch.bfloat16}
+    errs, timed = [], []
+    # label, lanes, tokens a lane, paged; the main path's shapes timed
+    cases = (("decode T=1", 1, 1, False), (f"decode T={lanes}", lanes, 1, False),
+             (f"paged T={lanes}", lanes, 1, True), ("prefill 512", 1, 512, False),
+             (f"prefill {LONG_SEQ} (bf16 rotation)", 1, LONG_SEQ, False))
+    for label, B, S, paged in cases:
+        for form, dtype in forms.items():
+            if paged and form == "int4":
+                continue  # pages are bf16 or int8
+            qkv = (torch.randn((B, S, 3 * H * Dh), generator=gen, device=device)
+                   * torch.rand((B, S, 3 * H * Dh), generator=gen, device=device) * 4)
+            if paged:
+                NP = 1 + 2 * B  # two pages a lane: paged_seq positions
+                caches = [PagedKVCache.init(two, NP, page_size, dtype, device=device)
+                          for _ in range(2)]
+                table = (torch.randperm(NP - 1, generator=gen, device=device) + 1).to(
+                    torch.int32).reshape(B, 2)
+                table[B - 2] = 0  # an idle lane: the null page
+                pos = torch.randint(0, paged_seq, (B,), generator=gen, device=device,
+                                    dtype=torch.int32)
+                pos[B - 1] = paged_seq  # past its table: page -1
+                pages, slots = write_index(table, pos, 1, page_size)
+                rows, slots, positions = pages.reshape(-1), slots.reshape(-1), pos[:, None]
+            else:
+                caches = [KVCache.init(two, B, max(lanes_seq, S), dtype, device=device)
+                          for _ in range(2)]
+                if S > 1:  # the from-zero prefill
+                    rows = torch.zeros(S, dtype=torch.int32, device=device)
+                    slots = torch.arange(S, dtype=torch.int32, device=device)
+                    positions = slots
+                elif B == 1:  # one position, as Engine's decode step
+                    rows = torch.zeros(1, dtype=torch.int32, device=device)
+                    slots = torch.full((1,), lanes_seq // 2, dtype=torch.int32, device=device)
+                    positions = slots
+                else:
+                    rows = torch.arange(B, dtype=torch.int32, device=device)
+                    slots = torch.randint(0, lanes_seq, (B,), generator=gen, device=device,
+                                          dtype=torch.int32)
+                    positions = slots[:, None]
+            cos, sin = precompute_rope(positions, Dh, cfg.rope_base)
+            fresh = S > 1
+            args = [(qkv, cos, sin, c, 1, rows, slots, H) for c in caches]
+            got = kw.rope_kv_write(*args[0], fresh=fresh, null_page=paged)
+            want = kw.rope_kv_write_plain(*args[1], fresh=fresh, null_page=paged)
+            torch.cuda.synchronize()
+            planes = [dataclasses.astuple(c) for c in caches]
+            same = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None) and all(
+                torch.equal(a[:, 1:], b[:, 1:]) if paged else torch.equal(a, b)
+                for a, b in zip(*planes) if a is not None)
+            if not same:
+                raise AssertionError(f"rope_kv_write {label}, {form} cache: differs from its "
+                                     "plain chain")
+            print(f"  rope_kv_write {label}, {form} cache: {'q, k, v' if fresh else 'q'}, the "
+                  "cache's bytes and scales equal to the plain chain's (limit: bit-equal)",
+                  flush=True)
+            errs.append(0.0)
+            if S == LONG_SEQ or (form != "int8" and (paged or S > 1)):
+                continue  # timed: every decode form, int8 pages, the int8 image prefill
+            live = (rows >= 0) & (rows < caches[0].k.shape[1]) & (slots < caches[0].k.shape[3])
+            n = int(live.sum())
+            per_token = 2 * caches[0].k[0, 0, :, 0].numel() * caches[0].k.element_size()
+            if caches[0].quantized:
+                per_token += 2 * H * caches[0].k_scale.element_size()
+            nbytes = _nbytes(qkv, cos, sin, rows, slots, *(t for t in got if t is not None))
+            copies = [qkv] + [qkv.clone() for _ in range(
+                -(-2 * L2_BYTES // _nbytes(qkv)) - 1 if fresh else 0)]
+            turn = itertools.count()
+
+            def call(fn, cache, copies=copies, turn=turn, fresh=fresh, paged=paged):
+                fn(copies[next(turn) % len(copies)], *args[0][1:3], cache, *args[0][4:],
+                   fresh=fresh, null_page=paged)
+
+            timed.append(_timed(
+                f"{label}, {form} cache" + (f", {len(copies)} qkv copies" if fresh else ""),
+                lambda: call(kw.rope_kv_write, caches[0]),
+                lambda: call(kw.rope_kv_write_plain, caches[1]),
+                200, 20, _bound(nbytes + n * per_token, 0)))
+            del copies
+        del qkv, caches, args, got, want, planes
+    record("rope_kv_write", errs, timed)  # decode T = 1, int8 first
 
 
 def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_seq=384,
@@ -688,6 +811,7 @@ def check_kernels(device, gen, cfg=None, S=1024, vision=None, lanes=32, lanes_se
                         200, 50, _bound(2 * _nbytes(*kept) + _nbytes(rows, slots), 0), library))
     del k, v, args, sc
     record("kv_cache_write", errs, timed)  # int4 first
+    _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, paged_seq)
 
     # flash_causal at the 64-, 128- and 512-token prompt buckets, at a
     # ragged S below each of the short and the long ones, and at the
@@ -1459,6 +1583,7 @@ KERNELS = {
     "moe_prefill_int4": ("aria_tpu_torch/csrc/moe_prefill.cu",
                          "aria_tpu/ops/moe_prefill_kernel.py:120"),
     "kv_cache_write": ("aria_tpu_torch/csrc/kv_write.cu", "aria_tpu/ops/kv_write.py:91"),
+    "rope_kv_write": ("aria_tpu_torch/csrc/kv_write.cu", "aria_tpu/ops/kv_write.py:91"),
     "decode_attention_int4": ("aria_tpu_torch/csrc/decode_attention.cu",
                               "aria_tpu/ops/decode_attention.py:80"),
     "paged_decode_attention": ("aria_tpu_torch/csrc/decode_attention.cu",
@@ -1484,7 +1609,8 @@ KERNELS = {
     "decode_attention_stats": ("aria_tpu_torch/csrc/decode_attention.cu",
                                "aria_tpu/ops/decode_attention.py:221"),
 }
-TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal")
+TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal",
+             "rope_kv_write")
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
 INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
 FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
@@ -1502,7 +1628,7 @@ def _wrappers():
     from aria_tpu_torch.ops.dense_int4 import dense_int4, dense_int4_a8
     from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
     from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd, flash_segment
-    from aria_tpu_torch.ops.kv_write import kv_cache_write
+    from aria_tpu_torch.ops.kv_write import kv_cache_write, rope_kv_write
     from aria_tpu_torch.ops.moe import gmm, gmm_dlhs, split_hi_lo, tgmm
     from aria_tpu_torch.ops.moe_decode_kernel import (
         moe_decode,
@@ -1524,7 +1650,78 @@ def _wrappers():
             "gmm_dlhs": gmm_dlhs, "tgmm": tgmm,
             "expert_block_dequant": expert_block_dequant, "dense_int4_a8": dense_int4_a8,
             "moe_decode_int4_bf16": moe_decode_int4_bf16, "flash_segment": flash_segment,
-            "decode_attention_stats": decode_attention_stats}
+            "decode_attention_stats": decode_attention_stats, "rope_kv_write": rope_kv_write}
+
+
+@contextlib.contextmanager
+def _the_chain():
+    """Every forward inside takes the chain that the fused prologue
+    ``rope_kv_write`` replaced (``apply_rope``, ``quantize_kv``, the cache
+    write): the A/B of launches and busy time. Decode attention scales a
+    bf16 query in its kernel either way."""
+    from aria_tpu_torch.models import moe_lm
+
+    dest = moe_lm._prologue_dest
+    moe_lm._prologue_dest = lambda *args: None
+    try:
+        yield
+    finally:
+        moe_lm._prologue_dest = dest
+
+
+@contextlib.contextmanager
+def _no_chain(device, path: str):
+    """On the card, every layer of an S == 1 decode step or of a from-zero
+    prefill (a cache and no serving mesh) must take the fused prologue: a
+    call of ``apply_rope`` or ``quantize_kv`` inside one fails ``path``.
+    Prints how many such layer forwards it watched."""
+    import inspect
+
+    import torch
+
+    from aria_tpu_torch.models import moe_lm
+    from aria_tpu_torch.ops import kv_write
+
+    if device.type != "cuda":
+        yield
+        return
+    state = {"watch": False, "layers": 0, "chain": 0}
+    attention = moe_lm._attention
+    bind = inspect.signature(attention).bind
+
+    def watched(*args, **kw):
+        a = bind(*args, **kw).arguments
+        state["watch"] = a["cache"] is not None and a.get("mesh") is None and (
+            a["x"].shape[1] == 1
+            or (a["use_flash"] and not isinstance(a["cache_pos"], torch.Tensor)))
+        state["layers"] += state["watch"]
+        try:
+            return attention(*args, **kw)
+        finally:
+            state["watch"] = False
+
+    def counted(fn):
+        def call(*args, **kw):
+            state["chain"] += state["watch"]
+            return fn(*args, **kw)
+        return call
+
+    saved = [(moe_lm, "_attention", attention)] + [
+        (m, name, getattr(m, name)) for m in (moe_lm, kv_write)
+        for name in ("apply_rope", "quantize_kv")]
+    for m, name, fn in saved:
+        setattr(m, name, watched if name == "_attention" else counted(fn))
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    if state["chain"] or not state["layers"]:
+        raise AssertionError(f"{path}: {state['chain']} calls of apply_rope or quantize_kv in "
+                             f"{state['layers']} layer forwards of decode steps and from-zero "
+                             "prefills, which the fused prologue should take whole")
+    print(f"  {path}: {state['layers']} layer forwards of decode steps and from-zero prefills, "
+          "none through apply_rope or quantize_kv (the fused prologue took each)", flush=True)
 
 
 def _tree_map(fn, tree):
@@ -1590,11 +1787,12 @@ def _serve(engine, requests, wrappers, vocab, gpu, **image):
     for w in wrappers.values():  # count only what the serving path launches
         w.launches = 0
     results = []
-    for name, prompt, gcfg in requests:
-        r = engine.generate(prompt, gcfg, **image)
-        results.append(r)
-        print(f"  request {name}: {len(r.tokens)} tokens, prefill {r.prefill_s * 1e3:.1f} ms, "
-              f"decode {r.tokens_per_s:.2f} tok/s ({gpu})", flush=True)
+    with _no_chain(engine.device, "the requests"):
+        for name, prompt, gcfg in requests:
+            r = engine.generate(prompt, gcfg, **image)
+            results.append(r)
+            print(f"  request {name}: {len(r.tokens)} tokens, prefill {r.prefill_s * 1e3:.1f} "
+                  f"ms, decode {r.tokens_per_s:.2f} tok/s ({gpu})", flush=True)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
     for (name, _, gcfg), r in zip(requests, results):
@@ -1645,6 +1843,13 @@ def run_slice(device, gen, cfg=None, gpu=""):
     for name in TEXT_PATH:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the text path")
+    with _the_chain():  # the stream through the chain the fused prologue replaced
+        chained = engine.generate(*requests[0][1:])
+    if chained.tokens != results[0].tokens:
+        raise AssertionError("the greedy text stream through the chain differs from the fused "
+                             "prologue's")
+    print(f"  {requests[0][0]} through the chain the fused prologue replaced: the same "
+          f"{len(chained.tokens)} tokens", flush=True)
 
     with torch.inference_mode():
         # the prefill's logits: finite, and their argmax is the first token
@@ -1730,6 +1935,30 @@ def _image_prefill(device, params, cfg, engine, pv, prompt, first_token, gpu):
         print(f"  device time by kernel, {label} ({gpu}):\n"
               + ev.table(sort_by="self_device_time_total", row_limit=12), flush=True)
     _prefill_moe_shares(lambda: prefill(feats), pre_ms, gpu)
+    fused = _launches_ms(lambda: prefill(feats))
+    with _the_chain():
+        chain = _launches_ms(lambda: prefill(feats))
+    print(f"  LM prefill ({bucket} tokens, {gpu}): {fused[0]} kernel launches through the fused "
+          f"prologue against {chain[0]} through the chain it replaced ({chain[0] - fused[0]} "
+          f"fewer); device {fused[1]:.2f} against {chain[1]:.2f} ms; wall {fused[2]:.1f} "
+          f"against {chain[2]:.1f} ms (profiler on)", flush=True)
+
+
+def _launches_ms(fn) -> tuple[int, float, float]:
+    """One call under the profiler: (kernel launches, device ms, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    return (sum(e.count for e in events if e.key == "cudaLaunchKernel"),
+            sum(e.self_device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3, wall)
 
 
 def _prefill_moe_shares(prefill, pre_ms: float, gpu: str) -> None:
@@ -1880,7 +2109,8 @@ def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
 
     rng = np.random.RandomState(0)
     vocab = engine.cfg.text.vocab_size
-    with torch.inference_mode():  # the engine's state is inference tensors
+    # the engine's state is inference tensors
+    with torch.inference_mode(), _no_chain(device, "the lanes rounds"):
         for rnd in range(rounds):
             n_new = new_tokens if rnd else min(new_tokens, WARMUP_TOKENS)
             for _ in range(lanes):
@@ -1945,7 +2175,7 @@ def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
     step_ms, tok_s = _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
-    for name in ("kv_cache_write", "decode_attention_int4"):
+    for name in ("rope_kv_write", "decode_attention_int4"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the lanes path")
 
@@ -1975,22 +2205,34 @@ def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label
     engine.decode_chunk = steps
     engine.step()  # admission and a first chunk, unprofiled
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.step()
-        wall = (time.perf_counter() - t0) / steps
-    events = prof.key_averages()
-    dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev_ev) / steps / 1e3
+
+    def chunk():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.step()
+            wall = (time.perf_counter() - t0) / steps
+        events = prof.key_averages()
+        dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev_ev) / steps / 1e3
+        n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
+        return events, dev_ev, busy, wall, n_launch
+
+    events, dev_ev, busy, wall, n_launch = chunk()
     moe = sum(e.self_device_time_total for e in dev_ev
               if any(k in e.key for k in moe_kernels or MOE_KERNELS)) / steps / 1e3
-    n_launch = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
     print(f"  profiled decode chunk ({steps} steps x {lanes} lanes): wall {wall * 1e3:.2f} ms per "
           f"step (profiler on), device busy {busy:.3f} ms per step, of it the decode MoE "
           f"{moe:.3f} ms; {n_launch:.0f} kernel launches per step; device idle share "
           f"{1 - busy / step_ms:.3f} of the {step_ms:.2f} ms step (profiler off)", flush=True)
     print(f"  device time by kernel, {label} decode:\n"
           + events.table(sort_by="self_device_time_total", row_limit=12), flush=True)
+    with _the_chain():  # the same chunk through the chain the prologue replaced
+        _, _, chain_busy, chain_wall, chain_launch = chunk()
+    print(f"  {label} decode, per step: {n_launch:.0f} kernel launches through the fused "
+          f"prologue against {chain_launch:.0f} through the chain it replaced "
+          f"({chain_launch - n_launch:.0f} fewer); device busy {busy:.3f} against "
+          f"{chain_busy:.3f} ms; wall {wall * 1e3:.2f} against {chain_wall * 1e3:.2f} ms "
+          "(profiler on)", flush=True)
     for uid in uids:
         engine.cancel(uid)
     engine.step()
@@ -1998,8 +2240,9 @@ def _profile_lanes_chunk(engine, lanes, top, new_tokens, step_ms, steps=5, label
 
 def _lanes_greedy_check(device, lm, cfg, top):
     """Greedy with the int8 KV cache: four requests in two buckets, served
-    twice, give the same streams, and each first token is the argmax of its
-    row of the grouped prefill's logits."""
+    twice, give the same streams, and the same again through the chain that
+    the fused prologue replaced; each first token is the argmax of its row
+    of the grouped prefill's logits."""
     import numpy as np
     import torch
 
@@ -2010,14 +2253,18 @@ def _lanes_greedy_check(device, lm, cfg, top):
     rng = np.random.RandomState(2)
     prompts = [rng.randint(5, top, n).tolist() for n in (20, 30, 40, 60)]  # buckets 32 and 64
     streams = []
-    for _ in range(2):
+    for chain in (False, False, True):
         eng = BatchedEngine({"lm": lm}, cfg, max_lanes=4, max_seq_len=320, decode_chunk=16,
                             cache_dtype=torch.int8, rng_seed=SEED)
         uids = [eng.submit(p, max_new_tokens=32) for p in prompts]
-        fin = {r.uid: r for r in eng.run_until_complete()}
+        with _the_chain() if chain else contextlib.nullcontext():
+            fin = {r.uid: r for r in eng.run_until_complete()}
         streams.append([fin[u].generated for u in uids])
     if streams[0] != streams[1] or any(len(s) != 32 for s in streams[0]):
         raise AssertionError("the repeated greedy lanes requests gave other streams")
+    if streams[2] != streams[0]:
+        raise AssertionError("the greedy lanes streams through the chain differ from the fused "
+                             "prologue's")
     for group, bucket in (((0, 1), 32), ((2, 3), 64)):  # the engine's two grouped prefills
         toks = torch.zeros((2, bucket), dtype=torch.long, device=device)
         for row, i in enumerate(group):
@@ -2032,7 +2279,8 @@ def _lanes_greedy_check(device, lm, cfg, top):
         for row, i in enumerate(group):
             if int(logits[row].argmax()) != streams[0][i][0]:
                 raise AssertionError(f"lane {i}: first token is not its prefill row's argmax")
-    print(f"  greedy, int8 KV, 4 requests in buckets 32 and 64: streams repeat; first tokens "
+    print(f"  greedy, int8 KV, 4 requests in buckets 32 and 64: streams repeat, and are the "
+          f"same through the chain the fused prologue replaced; first tokens "
           f"{[s[0] for s in streams[0]]} equal their prefill rows' argmax", flush=True)
 
 
@@ -2122,7 +2370,8 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2,
           f"{engine.pool.available + 1} pages, chunks of {chunk}, {new_tokens} tokens per "
           f"request, {rounds} rounds (the first warms up, {WARMUP_TOKENS} tokens)", flush=True)
     pda = wrappers["paged_decode_attention"]
-    with torch.inference_mode():  # the engine's state is inference tensors
+    # the engine's state is inference tensors
+    with torch.inference_mode(), _no_chain(device, "the paged rounds"):
         for rnd in range(rounds):
             n_new = new_tokens if rnd else min(new_tokens, WARMUP_TOKENS)
             for _ in range(lanes):
@@ -2163,7 +2412,7 @@ def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2,
                   f"per step, of them paged_decode_attention {attn:.0f} ({gpu})", flush=True)
     launches = {name: w.launches for name, w in wrappers.items()}
     print(f"  launches: {launches}", flush=True)
-    for name in ("kv_cache_write", "paged_decode_attention", "dense_int4", "moe_decode_int4",
+    for name in ("rope_kv_write", "paged_decode_attention", "dense_int4", "moe_decode_int4",
                  "moe_prefill_int4"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the paged path")
@@ -3113,7 +3362,8 @@ def moe_a8_off():
 def _cp_rank(rank: int, seed: int, device_type: str = "cuda", cfg=None,
              sizes: dict = CP_SIZES) -> dict:
     """One rank of the cp phase, on cuda:0 beside the other (gloo). Returns
-    its readings and the launch counts of the CP engine's request. On the
+    its readings and the launch counts of the CP engine's request and the
+    model-2 lanes. On the
     CPU (``device_type``, with a small ``cfg`` and ``sizes``: a rehearsal)
     the wrappers run their plain versions and count no launch."""
     import numpy as np
@@ -3170,6 +3420,9 @@ def _cp_rank(rank: int, seed: int, device_type: str = "cuda", cfg=None,
                                  f"{out['launches']['decode_attention_stats']} times, not {want}")
         if out["launches"]["decode_attention"] or out["launches"]["decode_attention_int4"]:
             raise AssertionError("the normal decode kernel launched in CP decode")
+        if out["launches"]["rope_kv_write"]:
+            raise AssertionError("the fused prologue launched on a serving mesh, whose writers "
+                                 "keep the chain")
         if len(res.tokens) != z["new"] or not all(0 <= t < text.vocab_size for t in res.tokens):
             raise AssertionError("the CP engine's tokens")
 
@@ -3255,7 +3508,14 @@ def _cp_rank(rank: int, seed: int, device_type: str = "cuda", cfg=None,
             fin = {r.uid: r for r in srv.run_until_complete()}
             return [fin[u].generated for u in uids], time.perf_counter() - t
 
+        for w in wrappers.values():  # count the model-2 lanes too: their decode writes
+            w.launches = 0
         streams, secs = serve(tp)
+        tp_launches = {name: w.launches for name, w in wrappers.items()}
+        if on_card and (tp_launches["kv_cache_write"] <= 0 or tp_launches["rope_kv_write"]):
+            raise AssertionError("BatchedEngine(mesh=model 2) did not write its decode steps "
+                                 "through kv_cache_write alone")
+        out["launches"] = {name: n + tp_launches[name] for name, n in out["launches"].items()}
         out["lanes_s"] = secs
         say(f"BatchedEngine(mesh=model 2, int8 KV): {z['lanes']} lanes x {z['lane_new']} greedy "
             f"tokens in {secs:.2f} s")
@@ -3283,7 +3543,9 @@ def run_cp(gpu="", device_type="cuda", cfg=None, sizes=CP_SIZES):
     (prefill and 8 decode steps), with rank 1's partials left out above
     it; ``BatchedEngine(mesh=model 2)`` token for token equal to one
     card's. Both ranks must return the same tokens. Returns rank 0's
-    launch counts of the CP request."""
+    launch counts of the CP request and the model-2 lanes, whose decode
+    steps write the cache through ``kv_cache_write`` (a serving mesh's
+    writers keep the chain; the fused prologue must not launch)."""
     from aria_tpu_torch.parallel.distributed import run_ranks
 
     outs = run_ranks(_cp_rank, 2, SEED + 12, device_type, cfg, sizes, backend="gloo",
@@ -3305,7 +3567,7 @@ def run_cp(gpu="", device_type="cuda", cfg=None, sizes=CP_SIZES):
 def _check_form_path(path, launches, form, image=True):
     """A forms path went through its form's kernels and left the int4 ones."""
     want = (FORM_DECODE[form], "gmm", "flash_causal")
-    want += ("decode_attention", "vit_flash") if image else ("kv_cache_write",)
+    want += ("rope_kv_write",) + (("decode_attention", "vit_flash") if image else ())
     for name in want:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched by the {path} path")

@@ -334,13 +334,13 @@ def test_paged_decode_attention_lane_bits_do_not_depend_on_other_lanes(cuda, pag
 def test_paged_engine_greedy_streams_repeat(cuda):
     """A 2-layer full-width int4 model, 8 lanes on int8 pages: serving the
     same greedy requests twice gives the same streams, through the
-    kv_cache_write and paged decode-attention kernels."""
+    fused prologue (rope_kv_write) and paged decode-attention kernels."""
     text = TextConfig(num_layers=2)
     lm = init_lm_params_serving_int4(text, torch.Generator(device=cuda).manual_seed(0))
     rng = np.random.RandomState(0)
     prompts = [[int(t) for t in rng.randint(5, 1000, n)] for n in (48, 48, 20, 300, 7)]
     streams = []
-    before = (kw.kv_cache_write.launches, pg.paged_decode_attention.launches)
+    before = (kw.rope_kv_write.launches, pg.paged_decode_attention.launches)
     for _ in range(2):
         eng = PagedBatchedEngine({"lm": lm}, AriaConfig(text=text), max_lanes=8,
                                  max_seq_len=512, page_size=256, prefill_chunk=128,
@@ -350,20 +350,20 @@ def test_paged_engine_greedy_streams_repeat(cuda):
         streams.append([fin[u].generated for u in uids])
     assert streams[0] == streams[1]
     assert all(len(s) == 24 for s in streams[0])
-    assert kw.kv_cache_write.launches > before[0]
+    assert kw.rope_kv_write.launches > before[0]
     assert pg.paged_decode_attention.launches > before[1]
 
 
 def test_batched_engine_greedy_streams_repeat(cuda):
     """A 2-layer full-width int4 model, 8 lanes, the int4 KV cache: serving
     the same greedy requests twice gives the same streams, through the
-    kv_cache_write and int4 decode-attention kernels."""
+    fused prologue (rope_kv_write) and int4 decode-attention kernels."""
     text = TextConfig(num_layers=2)
     lm = init_lm_params_serving_int4(text, torch.Generator(device=cuda).manual_seed(0))
     rng = np.random.RandomState(0)
     prompts = [[int(t) for t in rng.randint(5, 1000, n)] for n in (48, 48, 20, 100, 7)]
     streams = []
-    before = (kw.kv_cache_write.launches, da.decode_attention_int4.launches)
+    before = (kw.rope_kv_write.launches, da.decode_attention_int4.launches)
     for _ in range(2):
         eng = BatchedEngine({"lm": lm}, AriaConfig(text=text), max_lanes=8, max_seq_len=320,
                             decode_chunk=10, cache_dtype="int4")
@@ -372,7 +372,7 @@ def test_batched_engine_greedy_streams_repeat(cuda):
         streams.append([fin[u].generated for u in uids])
     assert streams[0] == streams[1]
     assert all(len(s) == 24 for s in streams[0])
-    assert kw.kv_cache_write.launches > before[0] and da.decode_attention_int4.launches > before[1]
+    assert kw.rope_kv_write.launches > before[0] and da.decode_attention_int4.launches > before[1]
 
 
 def test_flash_causal_kernel_matches_plain(cuda):
