@@ -6,6 +6,8 @@ order), then a Gumbel-argmax draw from an explicit ``torch.Generator``.
 Top-k is exact ``torch.topk`` where the JAX package takes the TPU's
 ``approx_max_k``. The batched engine gives per-row temperatures and
 applies the presence, frequency and repetition penalties first.
+``token_logprobs`` reports a token's log-probability and the top k
+alternatives under the raw logits.
 """
 
 from __future__ import annotations
@@ -109,3 +111,14 @@ def sample(
     if per_row:
         sampled = torch.where(temperature <= 0.0, torch.argmax(logits, dim=-1), sampled)
     return sampled.to(torch.int32)
+
+
+def token_logprobs(logits: torch.Tensor, toks: torch.Tensor, k: int = 5):
+    """Natural-log probabilities for OpenAI-style ``logprobs``
+    (sampling.py:145-158): (chosen [B], top_ids [B, k] int32, top_lps [B,
+    k]) under the raw, pre-temperature log-softmax in f32. The top k are
+    exact ``torch.topk`` where the JAX package takes ``approx_max_k``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = logp.gather(-1, toks.long()[:, None])[:, 0]
+    top_lps, top_ids = torch.topk(logp, k, dim=-1)
+    return chosen, top_ids.to(torch.int32), top_lps

@@ -21,9 +21,19 @@ are checked.
 
 The JAX engine pads a group to a power of two rows to bound its compile
 count; the port has no compile and runs the rows it has (rows do not
-interact, so the tokens are the same). Guided decoding and per-token
-logprobs are not ported yet and raise ``NotImplementedError``; so does a
-serving mesh for the paged engine.
+interact, so the tokens are the same). A serving mesh for the paged
+engine is not ported and raises ``NotImplementedError``.
+
+Guided decoding (``guided_fsm=``, a ``TokenFSM`` of engine/guided.py on the
+engine's device): a request submitted with ``guided=True`` decodes under
+the FSM, its state [B] on the device starting at the FSM's start, every
+other lane at its free state, whose row allows every token, so one table
+serves a mixed batch and the unguided lanes' streams stay the plain
+engine's. The mask goes on the prefill's sample (single and grouped), on
+the paged engine's chunk and on every decode step (server.py:235-374,
+:895-999). ``BatchedEngine(logprobs_topk=K)`` records each generated
+token's log-probability and its top K alternatives under the raw logits
+(``Request.logprobs``, ``.top_logprobs``), read back with the chunk.
 
 ``BatchedEngine(mesh=)`` shards its cache by head over the ``model`` axis
 of a serving mesh (``parallel/mesh.py``), as the JAX engine does
@@ -56,9 +66,15 @@ import torch
 
 from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.engine.generate import _bucket
+from aria_tpu_torch.engine.guided import guided_mask, guided_next_state
 from aria_tpu_torch.engine.multi_lora import AdapterRegistry, registry_for_params
 from aria_tpu_torch.engine.paged import PagePool
-from aria_tpu_torch.engine.sampling import apply_penalties, sample, update_counts
+from aria_tpu_torch.engine.sampling import (
+    apply_penalties,
+    sample,
+    token_logprobs,
+    update_counts,
+)
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
 from aria_tpu_torch.ops.paged_attention import PagedKVCache
@@ -67,8 +83,6 @@ GROUP_ROWS = 32  # most requests in one grouped admission prefill (server.py:470
 
 _NOT_PORTED = {
     "mesh": "a serving mesh for the paged engine (ROADMAP queue 1, item 11)",
-    "guided_fsm": "guided decoding (ROADMAP queue 1, item 6: the serving features)",
-    "logprobs_topk": "per-token logprobs (ROADMAP queue 1, item 6: the serving features)",
 }
 
 
@@ -86,12 +100,17 @@ class Request:
     presence_penalty: Optional[float] = None
     frequency_penalty: Optional[float] = None
     repetition_penalty: Optional[float] = None
+    guided: bool = False  # decode under the engine's TokenFSM
     # filled by the engine
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     error: Optional[str] = None
     cached_tokens: int = 0  # prompt positions served from the prefix cache (paged engine)
     adapter_id: int = 0  # index into the engine's AdapterRegistry (0 = the base)
+    # logprobs_topk=K: per generated token, its log-probability under the raw
+    # (pre-temperature) distribution and its top K alternatives {id: logprob}
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    top_logprobs: List[dict] = dataclasses.field(default_factory=list)
 
 
 class _LaneEngine:
@@ -102,7 +121,8 @@ class _LaneEngine:
 
     def __init__(self, params: dict, cfg: AriaConfig, max_lanes: int, temperature: float,
                  top_k: Optional[int], decode_chunk: int, rng_seed: int,
-                 adapters: Optional[AdapterRegistry], **given):
+                 adapters: Optional[AdapterRegistry], guided_fsm=None,
+                 logprobs_topk: Optional[int] = None, **given):
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(f"{type(self).__name__}({name}=...): "
@@ -115,6 +135,15 @@ class _LaneEngine:
         self.top_k = top_k
         self.decode_chunk = decode_chunk
         self.device = params["lm"]["final_norm"].device
+        if guided_fsm is not None and guided_fsm.device != self.device:
+            raise ValueError(f"the guided FSM is on {guided_fsm.device}, the model on "
+                             f"{self.device}: build it with device= or move it with .to()")
+        self.guided_fsm = guided_fsm
+        self.logprobs_topk = logprobs_topk
+        # each lane's FSM state, the free state (every token allowed) unless
+        # the lane holds a guided request
+        self.lane_gstate = None if guided_fsm is None else torch.full(
+            (self.B,), guided_fsm.free_state, dtype=torch.int32, device=self.device)
         if adapters is not None:
             placed = {ab[f].device for ab in adapters.stacked["layers"].values() for f in "ab"}
             if placed - {self.device}:
@@ -165,7 +194,7 @@ class _LaneEngine:
         frequency_penalty: Optional[float] = None,
         repetition_penalty: Optional[float] = None,
     ) -> int:
-        if guided:
+        if guided and self.guided_fsm is None:
             raise ValueError("engine was built without a guided_fsm")
         if adapter and self.adapters is None:
             raise ValueError("engine was built without adapters")
@@ -180,7 +209,7 @@ class _LaneEngine:
             stop_token_ids=tuple(stop_token_ids), pixel_values=pixel_values,
             pixel_mask=pixel_mask, temperature=temperature, top_p=top_p, min_p=min_p,
             presence_penalty=presence_penalty, frequency_penalty=frequency_penalty,
-            repetition_penalty=repetition_penalty, adapter_id=adapter_id))
+            repetition_penalty=repetition_penalty, guided=guided, adapter_id=adapter_id))
         return self._uid
 
     def cancel(self, uid: int) -> bool:
@@ -246,6 +275,25 @@ class _LaneEngine:
         self.lane_min_p[lane] = 0.0
         self.lane_pres[lane] = self.lane_freq[lane] = 0.0
         self.lane_rep[lane] = 1.0
+        if self.guided_fsm is not None:
+            self.lane_gstate[lane] = self.guided_fsm.free_state
+
+    def _start_states(self, reqs) -> torch.Tensor:
+        """[N] int32 FSM states for these requests' first sample: the
+        start for a guided one, the free state for the rest."""
+        f = self.guided_fsm
+        return torch.as_tensor([f.start if r.guided else f.free_state for r in reqs],
+                               dtype=torch.int32, device=self.device)
+
+    def _guided(self, logits: torch.Tensor, states: torch.Tensor) -> torch.Tensor:
+        f = self.guided_fsm
+        return guided_mask(f.trans, f.accepting, f.stop_mask, states, logits)
+
+    @staticmethod
+    def _append_logprobs(req: Request, chosen: float, top_ids, top_lps) -> None:
+        """One token's logprob and its top K alternatives (server.py:652-656)."""
+        req.logprobs.append(float(chosen))
+        req.top_logprobs.append({int(i): float(l) for i, l in zip(top_ids, top_lps)})
 
     def _lora_kwargs(self, ids) -> dict:
         """``lm_forward``'s adapter arguments for rows with these adapter
@@ -261,8 +309,12 @@ class _LaneEngine:
 
     def _decode_chunk(self, active: np.ndarray, page_table: Optional[torch.Tensor] = None):
         """``decode_chunk`` steps over all B lanes (server.py:317-374; the
-        paged engine's :956-999 with its ``page_table``). Returns the tokens
-        [n, B] and the positions after the chunk, both on the device."""
+        paged engine's :956-999 with its ``page_table``): the penalties, the
+        FSM's mask, the draw, then the counts and the active lanes' FSM
+        states. Returns the tokens [n, B], the positions after the chunk and,
+        with ``logprobs_topk``, each step's (chosen [n, B], top ids [n, B,
+        K], top logprobs [n, B, K]) under the raw logits, all on the
+        device."""
         dev, lm, text = self.device, self.params["lm"], self.cfg.text
         act = torch.as_tensor(active, device=dev)
         pos = torch.as_tensor(self.lane_pos, device=dev)
@@ -275,36 +327,57 @@ class _LaneEngine:
             pres, freq, rep = (torch.as_tensor(a, device=dev)
                                for a in (self.lane_pres, self.lane_freq, self.lane_rep))
         toks = self.lane_tok
-        outs = []
+        outs, lps = [], []
         lora = self._lora_kwargs(self.lane_adapter)
         for _ in range(self.decode_chunk):
-            logits = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
-                                cache=self.cache, cache_pos=pos, page_table=page_table,
-                                mesh=self.mesh, **lora).logits[:, -1]
+            raw = lm_forward(lm, text, toks[:, None].long(), positions=pos[:, None],
+                             cache=self.cache, cache_pos=pos, page_table=page_table,
+                             mesh=self.mesh, **lora).logits[:, -1]
+            logits = raw
             if self._penalties:
                 logits = apply_penalties(logits, self.lane_counts, self.lane_pmask, pres, freq, rep)
+            if self.guided_fsm is not None:
+                logits = self._guided(logits, self.lane_gstate)
             nxt = sample(self.generator, logits, temps, self.top_k, top_p, min_p)
             if self._penalties:
                 update_counts(self.lane_counts, nxt, act)
+            if self.guided_fsm is not None:
+                self.lane_gstate = torch.where(
+                    act, guided_next_state(self.guided_fsm.trans, self.lane_gstate, nxt),
+                    self.lane_gstate)
+            if self.logprobs_topk:
+                lps.append(token_logprobs(raw, nxt, self.logprobs_topk))
             pos = torch.where(act, pos + 1, pos)
             toks = torch.where(act, nxt, toks)
             outs.append(toks)
         self.lane_tok = toks
-        return torch.stack(outs), pos
+        lp = tuple(torch.stack(a) for a in zip(*lps)) if lps else None
+        return torch.stack(outs), pos, lp
 
-    def _read_back(self, active: np.ndarray, all_toks: torch.Tensor, pos: torch.Tensor):
+    def _read_back(self, active: np.ndarray, all_toks: torch.Tensor, pos: torch.Tensor,
+                   lp: Optional[tuple] = None):
         """The chunk's one read-back: its tokens [n, B], the positions after
-        it and the pending first tokens (server.py:742-779, :1330-1365).
-        Each active lane takes its tokens until a stop token, max_new_tokens
-        or position S - 1 (checked after the chunk, as both JAX engines
-        do); a lane that finishes on its first token drops its chunk's."""
+        it and the pending first tokens (server.py:742-779, :1330-1365),
+        with their logprobs when the engine records them. Each active lane
+        takes its tokens until a stop token, max_new_tokens or position S -
+        1 (checked after the chunk, as both JAX engines do); a lane that
+        finishes on its first token drops its chunk's."""
         n, B = all_toks.shape
         firsts = [e[2] for e in self._pending_first]
         host = torch.cat([all_toks.reshape(-1), pos, *firsts]).tolist()
         toks_host = np.asarray(host[:n * B], np.int64).reshape(n, B)
         new_pos = host[n * B:n * B + B]
-        for (lane, req, _), first in zip(self._pending_first, host[n * B + B:]):
+        lp_host = first_lp = None
+        if lp is not None:  # the floats in one more transfer
+            lp_host = [a.cpu().numpy() for a in lp]
+            if self._pending_first:
+                first_lp = [torch.cat(a).cpu().numpy()
+                            for a in zip(*(e[3] for e in self._pending_first))]
+        for i, ((lane, req, *_), first) in enumerate(zip(self._pending_first,
+                                                          host[n * B + B:])):
             req.generated.append(int(first))
+            if first_lp is not None:
+                self._append_logprobs(req, *(a[i] for a in first_lp))
             if first in req.stop_token_ids or len(req.generated) >= req.max_new_tokens:
                 self._finish(lane)
         self._pending_first = []
@@ -315,8 +388,10 @@ class _LaneEngine:
             req = self.lane_req[lane]
             if req is None:
                 continue  # finished on its first token
-            for t in toks_host[:, lane].tolist():
+            for i, t in enumerate(toks_host[:, lane].tolist()):
                 req.generated.append(t)
+                if lp_host is not None:
+                    self._append_logprobs(req, *(a[i, lane] for a in lp_host))
                 if (t in req.stop_token_ids or len(req.generated) >= req.max_new_tokens
                         or int(self.lane_pos[lane]) >= self.S - 1):
                     self._finish(lane)
@@ -342,7 +417,7 @@ class BatchedEngine(_LaneEngine):
         logprobs_topk: Optional[int] = None,
     ):
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
-                         adapters, guided_fsm=guided_fsm, logprobs_topk=logprobs_topk)
+                         adapters, guided_fsm, logprobs_topk)
         if mesh is not None:
             if mesh.shape["context"] > 1:
                 raise NotImplementedError(
@@ -439,10 +514,11 @@ class BatchedEngine(_LaneEngine):
         lane_cache = KVCache.init(text, N, bucket, self.cache_dtype, device=dev, mesh=self.mesh)
         embeds = prepare_embeddings(self.params, self.cfg, tok_t, image_features=image_features)
         ids = np.asarray([req.adapter_id for req in reqs], np.int32)
-        logits = lm_forward(self.params["lm"], text, inputs_embeds=embeds,
-                            positions=torch.arange(bucket, device=dev), cache=lane_cache,
-                            cache_pos=0, logit_position=lens_t - 1, causal_flash=True,
-                            mesh=self.mesh, **self._lora_kwargs(ids)).logits[:, 0]
+        raw = lm_forward(self.params["lm"], text, inputs_embeds=embeds,
+                         positions=torch.arange(bucket, device=dev), cache=lane_cache,
+                         cache_pos=0, logit_position=lens_t - 1, causal_flash=True,
+                         mesh=self.mesh, **self._lora_kwargs(ids)).logits[:, 0]
+        logits = raw
         self.lane_adapter[lanes] = ids
         lanes_t = torch.as_tensor(lanes, device=dev)
         for name in ("k", "v", "k_scale", "v_scale"):
@@ -457,11 +533,19 @@ class BatchedEngine(_LaneEngine):
             pres, freq, rep = (torch.as_tensor(samp[:, i], device=dev) for i in (2, 3, 4))
             logits = apply_penalties(logits, torch.zeros_like(logits, dtype=torch.int32), pmask,
                                      pres, freq, rep)
+        if self.guided_fsm is not None:
+            g0 = self._start_states(reqs)
+            logits = self._guided(logits, g0)
         top_p = min_p = None
         if self._nucleus:
             top_p, min_p = (torch.as_tensor(samp[:, i], device=dev) for i in (0, 1))
         toks = sample(self.generator, logits, torch.as_tensor(temps, device=dev), self.top_k,
                       top_p, min_p)
+        if self.guided_fsm is not None:
+            self.lane_gstate[lanes_t] = guided_next_state(self.guided_fsm.trans, g0, toks)
+        lp = None
+        if self.logprobs_topk:
+            lp = token_logprobs(raw, toks, self.logprobs_topk)
         self.lane_tok[lanes_t] = toks
         if self._penalties:
             self.lane_pmask[lanes_t] = pmask
@@ -469,7 +553,8 @@ class BatchedEngine(_LaneEngine):
             self.lane_counts[lanes_t, toks.long()] += 1
         for row, req in enumerate(reqs):
             lane = lanes[row]
-            self._pending_first.append((lane, req, toks[row:row + 1]))
+            self._pending_first.append((lane, req, toks[row:row + 1],
+                                        None if lp is None else tuple(a[row:row + 1] for a in lp)))
             self.lane_req[lane] = req
             self.lane_pos[lane] = len(req.prompt_tokens)
             self.lane_temp[lane] = temps[row]
@@ -531,7 +616,7 @@ class PagedBatchedEngine(_LaneEngine):
         mesh=None,
     ):
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
-                         adapters, guided_fsm=guided_fsm, mesh=mesh)
+                         adapters, guided_fsm, mesh=mesh)
         self.PS = page_size
         self.MAXP = -(-max_seq_len // page_size)
         self.S = self.MAXP * page_size
@@ -663,12 +748,20 @@ class PagedBatchedEngine(_LaneEngine):
             return
         dev, C = self.device, self.C
         logits = self._chunk_logits(lanes)
+        new_g = None
+        if self.guided_fsm is not None:
+            # the state is committed on the chunk that completes the prompt
+            # only: an earlier chunk's sample is a placeholder (server.py:933-941)
+            g0 = self._start_states([self.lane_req[l] for l in lanes])
+            logits = self._guided(logits, g0)
         top_p = min_p = None
         if self._nucleus:
             top_p = torch.as_tensor(self.lane_top_p[lanes], device=dev)
             min_p = torch.as_tensor(self.lane_min_p[lanes], device=dev)
         toks = sample(self.generator, logits, torch.as_tensor(self.lane_temp[lanes], device=dev),
                       self.top_k, top_p, min_p)
+        if self.guided_fsm is not None:
+            new_g = guided_next_state(self.guided_fsm.trans, g0, toks)
         for idx, lane in enumerate(lanes):
             self.lane_pos[lane] += C
             true_len = int(self.lane_true_len[lane])
@@ -678,7 +771,9 @@ class PagedBatchedEngine(_LaneEngine):
             self.lane_tok[lane] = tok[0]
             if self._penalties:
                 self.lane_counts[lane, tok.long()] += 1
-            self._pending_first.append((lane, self.lane_req[lane], tok))
+            self._pending_first.append((lane, self.lane_req[lane], tok, None))
+            if new_g is not None:
+                self.lane_gstate[lane] = new_g[idx]
             self.lane_pos[lane] = true_len
             self.lane_state[lane] = self.DECODE
             self.lane_embeds[lane] = None

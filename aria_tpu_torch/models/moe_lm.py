@@ -17,9 +17,13 @@ expert stacks as always-on experts:
 
 The layer loop is a Python loop over a layer index; the kernels index the
 whole weight and cache stacks with it, so no per-layer slice is copied.
-Attention has two branches, both hand kernels: causal flash over the fresh
+Attention has two kernel branches: causal flash over the fresh
 k/v of a from-zero prefill (and of training, where autograd runs its
-backward kernel), and decode attention over the cache for one new token;
+backward kernel), and decode attention over the cache for one new token.
+Several new tokens a lane over the cache (the speculative verify step,
+moe_lm.py:617-642) attend the layer's cache plane in plain torch, as the
+JAX package attends it in XLA, with the decode kernel's roundings
+(``cached_attention_plain``);
 wqkv/wo go through ``dense_int4`` in the int4 form and through ``linear``
 (an f32 torch product, as the JAX package leaves it to XLA) in the others.
 The MoE (moe_lm.py:929-1044) takes, in serving, up to 128 tokens, the
@@ -42,11 +46,11 @@ shared_w2 and ride inside the expert GLU. ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant) as ``jax.checkpoint`` does the
 scanned body. The KV cache (bf16, int8, or head-pair packed int4) is
 written in place: at one offset for every lane, or at a per-lane offset
-(continuous batching). A decode step (one new token per lane) and a
-from-zero prefill take the fused prologue ``rope_kv_write``: one kernel a
-layer turns the wqkv output into the rotated, quantized cache write and
-the rotated query (with the fresh k, v for flash).
-The serving mesh's writers and a per-lane write of several positions keep
+(continuous batching). A decode step (one new token per lane), a
+from-zero prefill and a per-lane write of several positions (the verify
+step) take the fused prologue ``rope_kv_write``: one kernel a layer turns
+the wqkv output into the rotated, quantized cache write and the rotated
+query (with the fresh k, v for flash). The serving mesh's writers keep
 the chain of ``apply_rope``, ``quantize_kv`` and an indexed write or the
 ``kv_cache_write`` kernel.
 
@@ -70,7 +74,7 @@ from torch.utils.checkpoint import checkpoint
 from aria_tpu_torch.config import TextConfig
 from aria_tpu_torch.ops import backend
 from aria_tpu_torch.ops.attention import sdpa
-from aria_tpu_torch.ops.decode_attention import decode_attention
+from aria_tpu_torch.ops.decode_attention import cached_attention_plain, decode_attention
 from aria_tpu_torch.ops.dense_int4 import dense_int4
 from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
 from aria_tpu_torch.ops.flash import flash_causal
@@ -443,27 +447,27 @@ def _paged_attention(cache, layer: int, q, lengths, page_table, mask):
     return sdpa(q, k_att.transpose(1, 2).to(q.dtype), v_att.transpose(1, 2).to(q.dtype), mask)
 
 
-def _prologue_dest(cache, cache_pos, rows, B: int, S: int, use_flash: bool, paged, mesh,
-                   device):
+def _prologue_dest(cache, cache_pos, rows, B: int, S: int, paged, mesh, device):
     """Where ``rope_kv_write`` writes each token, (rows, slots) int32 [B *
     S]: an S == 1 decode step's lanes (``rows``, at per-lane positions) or
-    pages (from ``write_index``), and a from-zero prefill's lanes at
-    cache_pos + s. None where the chain stays: no cache, a serving mesh
-    (its block's heads and positions), a per-lane write of several
-    positions, a paged chunk."""
+    pages (from ``write_index``); lane b's S tokens at cache_pos[b] + s for
+    per-lane positions (the verify step: a slot past the cache is dropped,
+    the engine's slack check keeps every slot inside); every lane's at
+    cache_pos + s for one offset. None where the chain stays: no cache, a
+    serving mesh (its block's heads and positions), a paged chunk."""
     if cache is None or mesh is not None:
         return None
     if paged is not None:
         return (paged[1].reshape(-1), paged[2].reshape(-1)) if S == 1 else None
-    if isinstance(cache_pos, torch.Tensor):
-        return (rows, cache_pos) if S == 1 else None
-    if not (S == 1 or use_flash):
-        return None
     lanes = torch.arange(B, dtype=torch.int32, device=device)
+    steps = torch.arange(S, dtype=torch.int32, device=device)
+    if isinstance(cache_pos, torch.Tensor):
+        if S == 1:
+            return rows, cache_pos
+        return lanes.repeat_interleave(S), (cache_pos[:, None] + steps[None, :]).reshape(-1)
     if cache_pos + S > cache.max_seq:
         raise ValueError(f"cache write at {cache_pos}+{S} past max_seq {cache.max_seq}")
-    slots = cache_pos + torch.arange(S, dtype=torch.int32, device=device)
-    return lanes.repeat_interleave(S), slots.repeat(B)
+    return lanes.repeat_interleave(S), (cache_pos + steps).repeat(B)
 
 
 def _layer_weight(w, layer: int):
@@ -505,7 +509,7 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
                lengths: Optional[torch.Tensor], rows: Optional[torch.Tensor],
                paged: Optional[tuple] = None, lora: Optional[dict] = None,
                lora_scale: float = 0.0, lora_onehot: Optional[torch.Tensor] = None,
-               mesh=None, block: Optional[_Block] = None, cp_mask=None,
+               mesh=None, block: Optional[_Block] = None, cache_mask=None,
                dest: Optional[tuple] = None):
     B, S, _ = x.shape
     qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1)
@@ -543,13 +547,19 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
     elif cache is not None and S == 1:
         out = decode_attention(q[:, 0], cache.k, cache.v, layer, lengths,
                                cache.k_scale, cache.v_scale)[:, None]
-    elif cache is not None and cp_mask is not None:
+    elif cache is not None and cache_mask is not None and mesh is not None:
         # cached prefill under context parallelism (moe_lm.py:600-609): the
         # query chunk against this rank's block of the just-written cache
-        out = cp_cached_prefill_attention(q, cache, layer, cp_mask, mesh)
+        out = cp_cached_prefill_attention(q, cache, layer, cache_mask, mesh)
+    elif cache is not None and cache_mask is not None:
+        # several tokens a lane not from zero (the verify step): plain torch
+        # with the decode kernel's roundings, as the JAX package's XLA branch
+        out = cached_attention_plain(q, cache.k, cache.v, layer, cache_mask, cache.k_scale,
+                                     cache.v_scale)
     else:
         raise NotImplementedError(
-            "attention over a cache for more than one new token at a time is not ported")
+            "attention over a cache for more than one new token on a serving mesh without a "
+            "context axis is not ported (ROADMAP queue 1 item 11)")
     out = out.reshape(B, S, q_size)
     proj = _project(out.reshape(B * S, q_size), layers["wo"], layer).reshape(B, S, -1)
     if lora and "wo" in lora:
@@ -753,10 +763,11 @@ def lm_forward(
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
     token, it attends the cache (decode-attention kernel) up to
-    ``cache_pos + 1`` for each lane. With a ``page_table`` the cache is a
-    ``PagedKVCache`` and token i of lane b attends logical positions up to
-    ``cache_pos[b] + i``. The cache is updated in place and returned, with
-    the router's z and aux losses summed over the layers (0 unless
+    ``cache_pos + 1`` for each lane; with a cache and several tokens not
+    from zero, token i of lane b attends positions up to ``cache_pos[b] +
+    i`` (``cached_attention_plain``). With a ``page_table`` the cache is a
+    ``PagedKVCache`` under the same rule. The cache is updated in place and
+    returned, with the router's z and aux losses summed over the layers (0 unless
     ``training``). Multi-adapter serving (``engine/multi_lora.py``) passes
     stacked factors with ``lora_scale=1.0`` and ``lora_onehot``: attention
     takes the row selector, the MoE its token-level expansion (each row's
@@ -841,12 +852,13 @@ def lm_forward(
         lengths = (cache_pos + S if per_lane else
                    torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device))
     block = _cache_block(cache, cfg, mesh) if cache is not None and paged is None else None
-    cp_mask = None
-    if cp_n > 1 and S > 1:  # kv_pos <= cache_pos + i over every position of the mesh
+    cache_mask = None
+    if block is not None and not use_flash and S > 1 and (mesh is None or cp_n > 1):
+        # kv_pos <= cache_pos + i, over every position of the mesh under context
         kv_pos = torch.arange(block.max_seq, device=x.device)
         qi = (cache_pos[:, None] if per_lane else cache_pos) + torch.arange(S, device=x.device)
-        cp_mask = (kv_pos <= qi[..., None]).reshape(-1, 1, S, block.max_seq)
-    dest = _prologue_dest(cache, cache_pos, rows, B, S, use_flash, paged, mesh, x.device)
+        cache_mask = (kv_pos <= qi[..., None]).reshape(-1, 1, S, block.max_seq)
+    dest = _prologue_dest(cache, cache_pos, rows, B, S, paged, mesh, x.device)
     shared = _shared_slots(cfg, B * S, x.dtype, x.device) if fused else None
     tok_onehot = None if lora_onehot is None else torch.repeat_interleave(lora_onehot, S, dim=1)
 
@@ -854,7 +866,7 @@ def lm_forward(
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
                            lengths, rows, paged, lora_layers, lora_scale, lora_onehot, mesh,
-                           block, cp_mask, dest)
+                           block, cache_mask, dest)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
                                          lora_layers, lora_scale, tok_onehot)

@@ -146,6 +146,40 @@ def decode_attention_plain(
     return (acc / denom).to(torch.bfloat16 if quantized else q.dtype)
 
 
+def cached_attention_plain(
+    q: torch.Tensor,  # [B, S, H, D]: S new tokens a lane
+    k_cache: torch.Tensor,  # [L, B, H, S_max, D] (H/2 packed int4)
+    v_cache: torch.Tensor,
+    layer: int,
+    mask: torch.Tensor,  # [B, 1, S, S_max] bool: token i of lane b attends these positions
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Several new tokens a lane over the written cache, in plain torch (no
+    kernel: the JAX package attends them in XLA, moe_lm.py:617-642): [B, S,
+    H, D]. Each query row takes ``decode_attention_plain``'s roundings (q
+    scaled and cast, the scores times k_scale, the probabilities times
+    v_scale cast before p.v, a bf16 output for a quantized cache), so the
+    speculative verify step over k + 1 tokens computes what k + 1 decode
+    steps compute, up to the order of the sums."""
+    quantized = k_scale is not None
+    cdt = torch.bfloat16 if quantized else q.dtype
+    qs = _scaled_query(q, quantized)
+    k, v = k_cache[layer], v_cache[layer]
+    if is_packed4(k_cache, k_scale):
+        k, v = unpack_heads(k), unpack_heads(v)
+    k, v = k.to(cdt).float(), v.to(cdt).float()  # [B, H, S_max, D]
+    scores = torch.einsum("bshd,bhtd->bhst", qs.float(), k)
+    if quantized:
+        scores = scores * k_scale[layer].float()[:, :, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1)  # [B, H, S]
+    pv = (p * v_scale[layer].float()[:, :, None, :] if quantized else p).to(cdt).float()
+    acc = torch.einsum("bhst,bhtd->bshd", pv, v)
+    return (acc / denom.transpose(1, 2)[..., None]).to(torch.bfloat16 if quantized else q.dtype)
+
+
 def merge_partials(parts):
     """The exact merge of partial (acc, m, s) over disjoint blocks of
     positions, as ``parallel/cp_cache.py`` merges the ranks': m = max m_i,

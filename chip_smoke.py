@@ -17,7 +17,8 @@
    forced to 1 against the split the wrapper picks. The fused prologue
    ``rope_kv_write`` (RoPE and the cache's quantization and write in one
    kernel a layer) bit-equal to the plain chain it replaced, in the three
-   cache forms, at decode T = 1 and 32, on pages, and at the from-zero
+   cache forms, at decode T = 1 and 32, on pages, at the speculative
+   verify step's 8 tokens from a per-lane position, and at the from-zero
    prefill of 512 and 8,192 tokens (RoPE's bf16 branch).
 3. The text path: random-init the full-width 28-layer, 64+2-expert int4
    serving model on the card, build ``Engine(max_seq_len=1024, int8 KV)``
@@ -56,7 +57,7 @@
    six targets, rank 16, and rank 8 on attention only) in one
    ``AdapterRegistry``; ``BatchedEngine(adapters=)`` with the int4 KV
    cache serves 32 greedy 48-token prompts (8 on the base, 8 on each
-   adapter) x 64 tokens twice: the streams repeat, each adapter moves
+   adapter) x 32 tokens twice: the streams repeat, each adapter moves
    some, and each decode step launches ``expert_block_dequant`` 12 times a
    layer (336). Then a profiled mixed decode chunk (busy share, peak
    memory), a base-only round equal token for token to the plain
@@ -77,6 +78,30 @@
    (reported beside its witness) against the CPU, and layer 0's W4A8
    projections and bf16-activation MoE against the CPU on the same rows
    and routing (held to their rounding).
+6e. The serving features, on the same int4 model: ``Engine`` (int8 KV)
+   answers a 96-token repetitive prompt (one seeded 12-token phrase said 8
+   times) with 128 greedy tokens, plainly and by prompt-lookup speculative
+   decoding (k 7, 2-gram, 8 verify steps a read-back): the verify steps,
+   the tokens each produced, both rates, how many leading tokens agree
+   (reported: plain attention over 8 rows is not bit-equal to the decode
+   kernel over one), and one verify forward's launches and device time
+   beside a decode forward's. Guided decoding over ``ByteTokenizer``
+   padded to the model's ids, a finite regex and JSON mode: ``Engine``
+   streams that match the regex, parse as JSON objects or, cut by their
+   budget, are live prefixes of the grammar, and a guided decode step's
+   wall beside an unguided one's; a 32-lane ``BatchedEngine`` with every
+   other lane guided, whose unguided lanes must equal a plain engine's
+   greedy streams token for token; ``PagedBatchedEngine`` with two of four
+   lanes guided. ``BatchedEngine(logprobs_topk=5)``: each greedy token's
+   logprob is its top-1 entry and top-1's id is the token. A
+   repetition-penalized ``Engine`` request. The path must launch
+   ``dense_int4``, the W4A8 ``moe_decode_int4``, ``decode_attention``,
+   ``flash_causal``, ``rope_kv_write`` and ``paged_decode_attention``, and
+   the verify steps take the fused prologue. Held at 2 layers (5e-2, each
+   with its bf16 witness): one verify step's logits against 8 decode
+   steps' fed the same tokens, on the card; the logprobs of a 4-lane
+   ``BatchedEngine`` against the CPU's for the same tokens; a
+   repetition-penalized first token's logits against the CPU's.
 6d. Context-parallel serving (cp), after the int4 model is freed: two
    ranks share cuda:0 over gloo (NCCL refuses two ranks on one device),
    spawned by ``parallel/distributed.run_ranks``, each with the full int4
@@ -95,8 +120,9 @@
    chain: ``rope_kv_write`` must not launch).
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
-   ViT and projector bf16. int8: bench.py's image request twice sampled
-   and twice greedy through ``Engine`` (bf16 KV), bench.py's lanes child
+   ViT and projector bf16. int8: bench.py's image request sampled (a
+   50-token warm-up, then 200 tokens) and twice greedy through ``Engine``
+   (bf16 KV), bench.py's lanes child
    through ``BatchedEngine`` (32 lanes, bf16 KV, 64 tokens, a warm-up and
    a timed round), and a 2-layer prefill and decode step against the
    CPU; bf16: the image request once sampled and twice greedy, and the
@@ -272,7 +298,8 @@ def _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, 
     same inputs, bit-equal: the query (q, k and v
     at prefill), the cache's bytes and its scales, in the three cache forms
     at decode T = 1 (one position, the single-stream engines) and T =
-    ``lanes`` (per-lane positions), on ``lanes`` lanes of int8 and bf16
+    ``lanes`` (per-lane positions), at the speculative verify step's B = 1,
+    S = 8 (one slot a token from a per-lane position), on ``lanes`` lanes of int8 and bf16
     pages (an idle lane on the null page, one past its table; page 0, which
     the idle lanes share, left out), and at the from-zero prefill of 512
     tokens and of LONG_SEQ (RoPE's bf16 branch). Timed beside the plain
@@ -296,9 +323,11 @@ def _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, 
     errs, timed = [], []
     # label, lanes, tokens a lane, paged; the main path's shapes timed
     cases = (("decode T=1", 1, 1, False), (f"decode T={lanes}", lanes, 1, False),
-             (f"paged T={lanes}", lanes, 1, True), ("prefill 512", 1, 512, False),
+             (f"paged T={lanes}", lanes, 1, True), ("verify B=1 S=8", 1, 8, False),
+             ("prefill 512", 1, 512, False),
              (f"prefill {LONG_SEQ} (bf16 rotation)", 1, LONG_SEQ, False))
     for label, B, S, paged in cases:
+        verify = label.startswith("verify")
         for form, dtype in forms.items():
             if paged and form == "int4":
                 continue  # pages are bf16 or int8
@@ -319,7 +348,12 @@ def _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, 
             else:
                 caches = [KVCache.init(two, B, max(lanes_seq, S), dtype, device=device)
                           for _ in range(2)]
-                if S > 1:  # the from-zero prefill
+                if verify:  # lane 0's S tokens from a per-lane position
+                    start = torch.full((1,), lanes_seq // 2, dtype=torch.int32, device=device)
+                    rows = torch.zeros(S, dtype=torch.int32, device=device)
+                    slots = start + torch.arange(S, dtype=torch.int32, device=device)
+                    positions = slots[None, :]
+                elif S > 1:  # the from-zero prefill
                     rows = torch.zeros(S, dtype=torch.int32, device=device)
                     slots = torch.arange(S, dtype=torch.int32, device=device)
                     positions = slots
@@ -333,7 +367,7 @@ def _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, 
                                           dtype=torch.int32)
                     positions = slots[:, None]
             cos, sin = precompute_rope(positions, Dh, cfg.rope_base)
-            fresh = S > 1
+            fresh = S > 1 and not verify
             args = [(qkv, cos, sin, c, 1, rows, slots, H) for c in caches]
             got = kw.rope_kv_write(*args[0], fresh=fresh, null_page=paged)
             want = kw.rope_kv_write_plain(*args[1], fresh=fresh, null_page=paged)
@@ -350,7 +384,7 @@ def _check_rope_kv_write(device, gen, cfg, record, lanes, lanes_seq, page_size, 
                   flush=True)
             errs.append(0.0)
             if S == LONG_SEQ or (form != "int8" and (paged or S > 1)):
-                continue  # timed: every decode form, int8 pages, the int8 image prefill
+                continue  # timed: every decode form; int8 pages, verify and image prefill
             live = (rows >= 0) & (rows < caches[0].k.shape[1]) & (slots < caches[0].k.shape[3])
             n = int(live.sum())
             per_token = 2 * caches[0].k[0, 0, :, 0].numel() * caches[0].k.element_size()
@@ -1614,9 +1648,13 @@ TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal"
 IMAGE_PATH = TEXT_PATH + ("vit_flash", "moe_prefill_int4")
 INT4_ONLY = ("dense_int4", "moe_decode_int4", "moe_prefill_int4")
 FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
+# the serving features' requests: the verify step (T = 8) and the decode
+# steps of the guided, logprobs and penalized requests, the paged lanes
+SERVING_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal",
+                "rope_kv_write", "paged_decode_attention")
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("cp", "variants-lanes", "variants-image", "adapters", "train-full", "train-lora",
-         "image-bf16", "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
+PATHS = ("serving", "cp", "variants-lanes", "variants-image", "adapters", "train-full",
+         "train-lora", "image-bf16", "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
 
 
 def _wrappers():
@@ -1671,13 +1709,12 @@ def _the_chain():
 
 @contextlib.contextmanager
 def _no_chain(device, path: str):
-    """On the card, every layer of an S == 1 decode step or of a from-zero
-    prefill (a cache and no serving mesh) must take the fused prologue: a
-    call of ``apply_rope`` or ``quantize_kv`` inside one fails ``path``.
-    Prints how many such layer forwards it watched."""
+    """On the card, every layer of a forward that writes a contiguous cache
+    or one token a lane into pages (a decode step, a speculative verify
+    step, a from-zero prefill; no serving mesh, no paged chunk) must take
+    the fused prologue: a call of ``apply_rope`` or ``quantize_kv`` inside
+    one fails ``path``. Prints how many such layer forwards it watched."""
     import inspect
-
-    import torch
 
     from aria_tpu_torch.models import moe_lm
     from aria_tpu_torch.ops import kv_write
@@ -1691,9 +1728,8 @@ def _no_chain(device, path: str):
 
     def watched(*args, **kw):
         a = bind(*args, **kw).arguments
-        state["watch"] = a["cache"] is not None and a.get("mesh") is None and (
-            a["x"].shape[1] == 1
-            or (a["use_flash"] and not isinstance(a["cache_pos"], torch.Tensor)))
+        paged_chunk = a.get("paged") is not None and a["x"].shape[1] > 1
+        state["watch"] = a["cache"] is not None and a.get("mesh") is None and not paged_chunk
         state["layers"] += state["watch"]
         try:
             return attention(*args, **kw)
@@ -1718,10 +1754,11 @@ def _no_chain(device, path: str):
             setattr(m, name, fn)
     if state["chain"] or not state["layers"]:
         raise AssertionError(f"{path}: {state['chain']} calls of apply_rope or quantize_kv in "
-                             f"{state['layers']} layer forwards of decode steps and from-zero "
-                             "prefills, which the fused prologue should take whole")
-    print(f"  {path}: {state['layers']} layer forwards of decode steps and from-zero prefills, "
-          "none through apply_rope or quantize_kv (the fused prologue took each)", flush=True)
+                             f"{state['layers']} layer forwards of decode, verify and from-zero "
+                             "prefill steps, which the fused prologue should take whole")
+    print(f"  {path}: {state['layers']} layer forwards of decode, verify and from-zero prefill "
+          "steps, none through apply_rope or quantize_kv (the fused prologue took each)",
+          flush=True)
 
 
 def _tree_map(fn, tree):
@@ -2035,7 +2072,8 @@ def run_image(device, gen, lm, cfg=None, gpu=""):
     sampled = GenerationConfig(max_new_tokens=200, temperature=0.8, top_k=200,
                                decode_chunk=50)
     greedy = GenerationConfig(max_new_tokens=64, temperature=0.0, decode_chunk=50)
-    requests = [("image, T 0.8 top-k 200 (first call)", prompt, sampled),
+    warm = dataclasses.replace(sampled, max_new_tokens=WARMUP_TOKENS)
+    requests = [("image, T 0.8 top-k 200 (warm-up)", prompt, warm),
                 ("image, T 0.8 top-k 200", prompt, sampled),
                 ("image greedy", prompt, greedy),
                 ("image greedy again", prompt, greedy)]
@@ -2804,7 +2842,7 @@ def _adapter_round(device, engine, wrappers, prompts, names, new_tokens, label, 
     return [fin[u].generated for u in uids], step_ms, per_step
 
 
-def run_adapters(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=64, ref_layers=2):
+def run_adapters(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=32, ref_layers=2):
     """The adapters phase: multi-LoRA serving over the int4 model (still
     resident after the paged phase). Three adapters from the seed
     (``ADAPTER_SPECS``) in one ``AdapterRegistry``; ``BatchedEngine(adapters=)``
@@ -3295,6 +3333,421 @@ def _variants_reference(device, lm, text, top, ref_layers=2):
         raise AssertionError(f"the variants reference differs: {failed}")
 
 
+# Phase 6e, the serving features. The speculative request (bench.py has
+# none; the JAX engine's defaults): greedy, k = 7 drafted tokens, 2-gram
+# lookup, 8 verify steps a read-back, 128 tokens on a prompt of one seeded
+# 12-token phrase said 8 times.
+SPEC_K, SPEC_NGRAM, SPEC_STEPS, SPEC_TOKENS = 7, 2, 8, 128
+# a finite language, so every guided stream ends in the stop token
+GUIDED_REGEX = "(yes|no|maybe), [0-9]{1,3}\\."
+LOGPROBS_K = 5
+LOGPROBS_REF_TOKENS = 3  # each lane's greedy tokens in the 2-layer logprobs check
+GUIDED_TOKENS = 40  # the guided Engine requests' budget (JSON mode, the step's wall)
+
+
+def _guided_text(tokens, eos: int) -> tuple[bytes, bool]:
+    """The bytes of a guided stream (a byte-level FSM allows byte tokens
+    only before the stop token) and whether it ended."""
+    ended = bool(tokens) and tokens[-1] == eos
+    body = tokens[:-1] if ended else tokens
+    if any(not 0 <= t < 256 for t in body):
+        raise AssertionError(f"guided stream holds a non-byte token: {body}")
+    return bytes(body), ended
+
+
+def _hold_regex(label, tokens, eos, dfa) -> None:
+    text, ended = _guided_text(tokens, eos)
+    if not (ended and dfa.matches(text)):
+        raise AssertionError(f"{label}: {text!r} (ended {ended}) is not in {GUIDED_REGEX!r}")
+
+
+def _hold_json(label, tokens, eos, dfa) -> bool:
+    """An ended JSON-mode stream is a JSON object; one cut by its budget a
+    live prefix of the grammar's DFA. Returns whether it ended."""
+    text, ended = _guided_text(tokens, eos)
+    if ended:
+        # a JSON string may hold any byte from 0x20 up: not always UTF-8
+        if not isinstance(json.loads(text.decode("utf-8", errors="replace")), dict):
+            raise AssertionError(f"{label}: {text!r} is not a JSON object")
+    elif dfa.simulate(text) < 0:
+        raise AssertionError(f"{label}: {text!r} left the JSON grammar")
+    return ended
+
+
+def _small(lm, text, layers=2):
+    """The first ``layers`` layers of ``lm``, on its device and on the CPU."""
+    cut = dataclasses.replace(text, num_layers=layers)
+    small = {**lm, "layers": _tree_map(lambda v: v[:layers].contiguous(), lm["layers"])}
+    return cut, small, _tree_map(lambda v: v.cpu(), small)
+
+
+def _spec_round(device, engine, prompt, wrappers, gpu):
+    """Plain greedy and speculative greedy on ``engine`` (warmed up), then one
+    verify forward and one decode forward under the profiler. Returns the
+    speculative stream."""
+    import torch
+
+    from aria_tpu_torch.engine.generate import GenerationConfig
+    from aria_tpu_torch.engine.speculative import SpeculativeConfig
+    from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+
+    plain_cfg = GenerationConfig(max_new_tokens=SPEC_TOKENS, temperature=0.0, decode_chunk=32)
+    spec_cfg = dataclasses.replace(plain_cfg, speculative=SpeculativeConfig(
+        k=SPEC_K, ngram=SPEC_NGRAM, steps_per_chunk=SPEC_STEPS))
+    for g in (plain_cfg, spec_cfg):  # warm-up
+        engine.generate(prompt, dataclasses.replace(g, max_new_tokens=16))
+    with _no_chain(device, "the speculative requests"):
+        plain = engine.generate(prompt, plain_cfg)
+        before = {n: w.launches for n, w in wrappers.items()}
+        spec = engine.generate(prompt, spec_cfg)
+        spec_launches = {n: w.launches - before[n] for n, w in wrappers.items()}
+    lead = next((i for i, (a, b) in enumerate(zip(spec.tokens, plain.tokens)) if a != b),
+                min(len(spec.tokens), len(plain.tokens)))
+    mean = sum(spec.produced_per_step) / len(spec.produced_per_step)
+    print(f"  speculative greedy (k {SPEC_K}, {SPEC_NGRAM}-gram, {SPEC_STEPS} steps a "
+          f"read-back), int8 KV, {len(prompt)}-token repetitive prompt, {SPEC_TOKENS} tokens: "
+          f"{spec.verify_steps} verify steps, {mean:.3f} tokens produced a step (max "
+          f"{max(spec.produced_per_step)}), {spec.tokens_per_s:.2f} tok/s, "
+          f"{spec.decode_s / spec.verify_steps * 1e3:.2f} ms wall a verify step; plain greedy "
+          f"{plain.tokens_per_s:.2f} tok/s, {plain.decode_s / plain.steps * 1e3:.2f} ms wall a "
+          f"decode step ({gpu})", flush=True)
+    print(f"  speculative against plain greedy: the first {lead} of {len(plain.tokens)} tokens "
+          "equal (reported, not held: the verify step's plain attention over 8 rows is not "
+          "bit-equal to the decode kernel over one)", flush=True)
+    print(f"  the speculative request's launches: "
+          f"{ {n: c for n, c in spec_launches.items() if c} }", flush=True)
+    if len(spec.tokens) != SPEC_TOKENS or sum(spec.produced_per_step) != spec.steps:
+        raise AssertionError(f"speculative: {len(spec.tokens)} tokens, produced "
+                             f"{sum(spec.produced_per_step)} of {spec.steps}")
+    if device.type == "cuda":  # the counts move on the card only
+        for name in ("dense_int4", "moe_decode_int4", "rope_kv_write", "flash_causal"):
+            if spec_launches[name] <= 0:
+                raise AssertionError(f"the speculative request launched no {name}")
+        # one verify forward against one decode forward
+        text = engine.cfg.text
+        n = len(prompt)
+        cache = KVCache.init(text, 1, engine.max_seq_len, torch.int8, device=device)
+        toks = torch.tensor([prompt], device=device)
+        lm = engine.params["lm"]
+        lm_forward(lm, text, toks, positions=torch.arange(n, device=device), cache=cache,
+                   cache_pos=0, causal_flash=True)
+        fed = torch.tensor([spec.tokens[:SPEC_K + 1]], device=device)
+        pos = torch.full((1,), n, dtype=torch.int32, device=device)
+        steps = torch.arange(SPEC_K + 1, dtype=torch.int32, device=device)[None, :]
+
+        def verify():
+            lm_forward(lm, text, fed, positions=pos[:, None] + steps, cache=cache, cache_pos=pos)
+
+        def decode():
+            lm_forward(lm, text, fed[:, :1], positions=pos, cache=cache, cache_pos=pos)
+
+        rows = {}
+        for label, fn in (("verify step (T = 8)", verify), ("decode step (T = 1)", decode)):
+            fn()
+            rows[label] = _launches_ms(fn)
+        for label, (n_launch, dev_ms, wall) in rows.items():
+            print(f"  one {label} forward, 28 layers: {n_launch} kernel launches, device busy "
+                  f"{dev_ms:.3f} ms, wall {wall:.2f} ms (profiler on; {gpu})", flush=True)
+    return spec
+
+
+def _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens):
+    """Guided decoding through ``Engine``, a 32-lane ``BatchedEngine`` with
+    half of its lanes guided (the others held equal to a plain engine's
+    greedy streams) and ``PagedBatchedEngine`` with a few guided lanes."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.data.tokenizer import ByteTokenizer
+    from aria_tpu_torch.engine.generate import GenerationConfig
+    from aria_tpu_torch.engine.guided import compile_regex, json_dfa, json_fsm, regex_fsm
+    from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine
+
+    text = cfg.text
+    tok = ByteTokenizer()
+    eos = tok.eos_token_id
+    t0 = time.perf_counter()
+    regex = regex_fsm(GUIDED_REGEX, tok, [eos], vocab_size=text.vocab_size, device=device)
+    t1 = time.perf_counter()
+    jsonm = json_fsm(tok, [eos], vocab_size=text.vocab_size, device=device)
+    t2 = time.perf_counter()
+    rdfa, jdfa = compile_regex(GUIDED_REGEX), json_dfa()
+    print(f"  guided tables over ByteTokenizer padded to {text.vocab_size} ids: regex "
+          f"{GUIDED_REGEX!r} {regex.num_states} states, {regex.nbytes} bytes on the card, "
+          f"built in {t1 - t0:.2f} s; JSON mode (depth 4) {jsonm.num_states} states, "
+          f"{jsonm.nbytes} bytes, built in {t2 - t1:.2f} s (host)", flush=True)
+    rng = np.random.RandomState(SEED + 61)
+    top = min(1000, text.vocab_size)
+    prompt = rng.randint(5, top, 40).tolist()
+    greedy = GenerationConfig(max_new_tokens=24, temperature=0.0, stop_token_ids=(eos,),
+                              decode_chunk=8)
+    with _no_chain(device, "the guided requests"):
+        r = engine.generate(prompt, dataclasses.replace(greedy, guided=regex))
+        _hold_regex("Engine, regex, greedy", r.tokens, eos, rdfa)
+        long = dataclasses.replace(greedy, max_new_tokens=GUIDED_TOKENS, decode_chunk=16)
+        free = engine.generate(prompt, dataclasses.replace(long, stop_token_ids=()))
+        j = engine.generate(prompt, dataclasses.replace(long, guided=jsonm))
+        j_ended = _hold_json("Engine, JSON mode, greedy", j.tokens, eos, jdfa)
+        sampled = [engine.generate(p, dataclasses.replace(long, temperature=1.0, top_k=None,
+                                                          guided=jsonm)).tokens
+                   for p in (rng.randint(5, top, 40).tolist() for _ in range(2))]
+        ended = [_hold_json(f"Engine, JSON mode, T 1.0, #{i}", s, eos, jdfa)
+                 for i, s in enumerate(sampled)]
+    print(f"  Engine, regex greedy: {_guided_text(r.tokens, eos)[0]!r}; JSON mode greedy "
+          f"({'ended' if j_ended else f'cut at {GUIDED_TOKENS} tokens, a live prefix'}): "
+          f"{_guided_text(j.tokens, eos)[0][:60]!r}; JSON mode at T 1.0: {sum(ended)} of 2 "
+          "ended as JSON objects, the rest live prefixes", flush=True)
+    print(f"  decode step, wall: guided (JSON mode) {j.decode_s / max(j.steps, 1) * 1e3:.2f} ms "
+          f"over {j.steps} steps against unguided {free.decode_s / free.steps * 1e3:.2f} ms over "
+          f"{free.steps} ({gpu})", flush=True)
+
+    kw = dict(max_lanes=lanes, max_seq_len=320, decode_chunk=16, cache_dtype=torch.int8,
+              rng_seed=SEED)
+    prompts = [rng.randint(5, top, 48).tolist() for _ in range(lanes)]
+    guided_eng = BatchedEngine({"lm": lm}, cfg, guided_fsm=regex, **kw)
+    plain_eng = BatchedEngine({"lm": lm}, cfg, **kw)
+    streams = []
+    with _no_chain(device, "the guided lanes"):
+        for eng, guide in ((guided_eng, True), (plain_eng, False)):
+            uids = [eng.submit(p, max_new_tokens=new_tokens, guided=guide and i % 2 == 1,
+                               stop_token_ids=(eos,) if guide and i % 2 else ())
+                    for i, p in enumerate(prompts)]
+            t0 = time.perf_counter()
+            fin = {r.uid: r for r in eng.run_until_complete()}
+            wall = time.perf_counter() - t0
+            if any(r.error for r in fin.values()):
+                raise AssertionError("a guided lanes request failed")
+            streams.append([fin[u].generated for u in uids])
+            print(f"  BatchedEngine, {lanes} lanes, int8 KV, greedy, "
+                  f"{'half guided' if guide else 'none guided'}: "
+                  f"{sum(map(len, streams[-1]))} tokens in {wall:.2f} s ({gpu})", flush=True)
+    for i, (g, p) in enumerate(zip(*streams)):
+        if i % 2:
+            _hold_regex(f"BatchedEngine lane {i}", g, eos, rdfa)
+        elif g != p:
+            raise AssertionError(f"unguided lane {i} beside guided lanes differs from the plain "
+                                 f"engine's greedy stream: {g} against {p}")
+    print(f"  the {lanes // 2} guided lanes match {GUIDED_REGEX!r} and end in the stop token; "
+          f"the {lanes - lanes // 2} unguided lanes equal the plain BatchedEngine's greedy "
+          "streams token for token", flush=True)
+
+    paged = PagedBatchedEngine({"lm": lm}, cfg, max_lanes=paged_lanes, max_seq_len=512,
+                               page_size=256, prefill_chunk=128, decode_chunk=16,
+                               cache_dtype=torch.int8, guided_fsm=regex)
+    pp = [rng.randint(5, top, n).tolist() for n in (48, 200, 130, 60)][:paged_lanes]
+    with _no_chain(device, "the guided paged lanes"):
+        uids = [paged.submit(p, max_new_tokens=new_tokens, guided=i % 2 == 0,
+                             stop_token_ids=(eos,) if i % 2 == 0 else ())
+                for i, p in enumerate(pp)]
+        fin = {r.uid: r for r in paged.run_until_complete()}
+    for i, u in enumerate(uids):
+        if fin[u].error:
+            raise AssertionError(f"paged guided request {i}: {fin[u].error}")
+        if i % 2 == 0:
+            _hold_regex(f"PagedBatchedEngine lane {i}", fin[u].generated, eos, rdfa)
+        elif len(fin[u].generated) != new_tokens:
+            raise AssertionError(f"paged unguided request {i}: {len(fin[u].generated)} tokens")
+    print(f"  PagedBatchedEngine, {paged_lanes} lanes on int8 pages, "
+          f"{(paged_lanes + 1) // 2} guided: every guided stream matches and ends", flush=True)
+
+
+def _serving_logprobs(device, lm, cfg, gpu, lanes=8, new_tokens=24):
+    """``BatchedEngine(logprobs_topk=5)``, greedy: each token's logprob is
+    its top-1 entry, and top-1's id is the token. Returns the requests."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.server import BatchedEngine
+
+    text = cfg.text
+    rng = np.random.RandomState(SEED + 62)
+    eng = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320, decode_chunk=16,
+                        cache_dtype=torch.int8, rng_seed=SEED, logprobs_topk=LOGPROBS_K)
+    uids = [eng.submit(rng.randint(5, min(1000, text.vocab_size), 48).tolist(),
+                       max_new_tokens=new_tokens) for _ in range(lanes)]
+    with _no_chain(device, "the logprobs lanes"):
+        t0 = time.perf_counter()
+        fin = {r.uid: r for r in eng.run_until_complete()}
+        wall = time.perf_counter() - t0
+    reqs = [fin[u] for u in uids]
+    for r in reqs:
+        if r.error or len(r.generated) != new_tokens or len(r.logprobs) != new_tokens:
+            raise AssertionError(f"logprobs request {r.uid}: {len(r.generated)} tokens, "
+                                 f"{len(r.logprobs)} logprobs, error {r.error}")
+        for t, lp, top in zip(r.generated, r.logprobs, r.top_logprobs):
+            (best, best_lp), *_ = top.items()
+            if best != t or lp != best_lp or len(top) != LOGPROBS_K or not lp <= 0.0:
+                raise AssertionError(f"logprobs request {r.uid}: token {t} logprob {lp}, top "
+                                     f"{top}")
+    print(f"  BatchedEngine(logprobs_topk={LOGPROBS_K}), {lanes} lanes x {new_tokens} greedy "
+          f"tokens in {wall:.2f} s: every token's logprob is its top-1 entry and top-1's id is "
+          f"the token (held; e.g. {reqs[0].logprobs[:3]}) ({gpu})", flush=True)
+
+
+def _serving_references(device, lm, cfg, spec_tokens, prompt):
+    """The 2-layer checks, each held to REF_LIMIT with its bf16 witness
+    beside it: one verify step's [k+1, V] logits on the card against k+1
+    decode steps' on the card fed the same tokens; the logprobs of a
+    ``BatchedEngine(logprobs_topk=)`` on the card against the CPU's for
+    the same tokens; a repetition-penalized first token's logits on the
+    card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+    from aria_tpu_torch.engine.sampling import apply_penalties
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.moe_lm import KVCache, embed_tokens, lm_forward
+
+    cut, small, small_cpu = _small(lm, cfg.text)
+    cut_cfg = dataclasses.replace(cfg, text=cut)
+    n = len(prompt)
+
+    # one verify step against k + 1 decode steps, same fed tokens
+    fed = torch.tensor([spec_tokens[:SPEC_K + 1]], device=device)
+    caches = []
+    for _ in range(3):
+        c = KVCache.init(cut, 1, 256, torch.int8, device=device)
+        lm_forward(small, cut, torch.tensor([prompt], device=device),
+                   positions=torch.arange(n, device=device), cache=c, cache_pos=0,
+                   causal_flash=True)
+        caches.append(c)
+    pos = torch.full((1,), n, dtype=torch.int32, device=device)
+    verify = lm_forward(small, cut, fed, positions=pos[:, None] + torch.arange(
+        SPEC_K + 1, device=device), cache=caches[0], cache_pos=pos).logits[0].float()
+
+    def steps(cache, bump):
+        out = []
+        for i in range(SPEC_K + 1):
+            emb = embed_tokens(small["embed"], fed[:, i:i + 1], dtype=small["final_norm"].dtype)
+            if bump:  # _bump_half draws its half on the CPU
+                emb = _bump_half(emb.cpu()).to(device)
+            out.append(lm_forward(small, cut, inputs_embeds=emb, positions=pos + i, cache=cache,
+                                  cache_pos=n + i).logits[0, 0])
+        return torch.stack(out).float()
+
+    ref, ulp = steps(caches[1], False), steps(caches[2], True)
+    rel, witness = _rel_err(verify, ref), _rel_err(ulp, ref)
+    print(f"  verify step (2 layers, int8 KV, {SPEC_K + 1} tokens after {n}) against "
+          f"{SPEC_K + 1} decode steps on the card: relative logit error {rel:.3e} (limit "
+          f"{REF_LIMIT:.0e}), top-1 agreement {_top1(verify, ref):.3f}; witness, the decode steps "
+          f"with one bf16 ulp on half the embeddings: {witness:.3e}", flush=True)
+    if not rel <= REF_LIMIT:
+        raise AssertionError(f"the verify step's logits differ from the decode steps': {rel}")
+
+    # logprobs on the card against the CPU's, the same tokens
+    rng = np.random.RandomState(SEED + 63)
+    top = min(1000, cut.vocab_size)
+    prompts = [rng.randint(5, top, 48).tolist() for _ in range(4)]
+    eng = BatchedEngine({"lm": small}, cut_cfg, max_lanes=4, max_seq_len=128, decode_chunk=8,
+                        cache_dtype=torch.int8, logprobs_topk=LOGPROBS_K)
+    uids = [eng.submit(p, max_new_tokens=LOGPROBS_REF_TOKENS) for p in prompts]
+    fin = {r.uid: r for r in eng.run_until_complete()}
+    gen_toks = torch.tensor([fin[u].generated for u in uids])  # [4, LOGPROBS_REF_TOKENS]
+    got = torch.tensor([fin[u].logprobs for u in uids])
+    # the CPU follows the engine's steps: a bucket-64 prefill into an int8
+    # cache, then decode steps fed the card's tokens
+    cpu = torch.device("cpu")
+    toks = torch.zeros((4, 64), dtype=torch.long)
+    toks[:, :48] = torch.tensor(prompts)
+    want, ulps = [], []
+    for bump, sink in ((False, want), (True, ulps)):
+        c = KVCache.init(cut, 4, 128, torch.int8, device=cpu)
+        emb = embed_tokens(small_cpu["embed"], toks, dtype=small_cpu["final_norm"].dtype)
+        logits = lm_forward(small_cpu, cut, inputs_embeds=_bump_half(emb) if bump else emb,
+                            positions=torch.arange(64), cache=c, cache_pos=0, logit_position=47,
+                            causal_flash=True).logits[:, 0]
+        for i in range(LOGPROBS_REF_TOKENS):
+            if i:
+                logits = lm_forward(small_cpu, cut, gen_toks[:, i - 1:i],
+                                    positions=torch.full((1,), 47 + i), cache=c,
+                                    cache_pos=47 + i).logits[:, 0]
+            sink.append(torch.log_softmax(logits.float(), -1).gather(
+                -1, gen_toks[:, i:i + 1])[:, 0])
+    want, ulps = torch.stack(want, 1), torch.stack(ulps, 1)
+    rel, witness = _rel_err(got, want), _rel_err(ulps, want)
+    print(f"  logprobs (2 layers, int8 KV, 4 lanes x {LOGPROBS_REF_TOKENS} greedy tokens) on the "
+          f"card against the "
+          f"CPU's for the same tokens: relative error {rel:.3e} (limit {REF_LIMIT:.0e}), max "
+          f"|difference| {(got - want).abs().max().item():.3e}; witness, one bf16 ulp on half "
+          f"the embeddings: {witness:.3e}", flush=True)
+    if not rel <= REF_LIMIT:
+        raise AssertionError(f"the card's logprobs differ from the CPU's: {rel}")
+
+    # a repetition-penalized first token: the logits on the card and the CPU
+    p = prompts[0]
+    kw = dict(presence_penalty=0.0, frequency_penalty=0.0, repetition_penalty=1.3)
+    first = Engine({"lm": small}, cut_cfg, max_seq_len=128, cache_dtype=torch.int8).generate(
+        p, GenerationConfig(max_new_tokens=1, temperature=0.0, **kw)).tokens[0]
+    outs = []
+    for params, dev, bump in ((small, device, False), (small_cpu, torch.device("cpu"), False),
+                              (small_cpu, torch.device("cpu"), True)):
+        toks = torch.tensor([p], device=dev)
+        emb = embed_tokens(params["embed"], toks, dtype=params["final_norm"].dtype)
+        logits = lm_forward(params, cut, inputs_embeds=_bump_half(emb) if bump else emb,
+                            logit_position=len(p) - 1).logits[:, 0].float()
+        pmask = torch.zeros_like(logits, dtype=torch.bool)
+        pmask[0, toks[0]] = True
+        one = torch.ones(1, device=dev)
+        outs.append(apply_penalties(logits, torch.zeros_like(logits, dtype=torch.int32), pmask,
+                                    0.0 * one, 0.0 * one, 1.3 * one).cpu())
+    rel, witness = _rel_err(outs[0], outs[1]), _rel_err(outs[2], outs[1])
+    print(f"  repetition penalty 1.3 (2 layers): the penalized first-token logits on the card "
+          f"against the CPU's: relative error {rel:.3e} (limit {REF_LIMIT:.0e}); witness "
+          f"{witness:.3e}; the engine's first token {first} is the card's argmax "
+          f"{int(outs[0].argmax())}", flush=True)
+    if not rel <= REF_LIMIT or first != int(outs[0].argmax()):
+        raise AssertionError(f"penalized first token: relative error {rel}, token {first}")
+
+
+def run_serving(device, lm, cfg=None, gpu="", lanes=32, paged_lanes=4, new_tokens=32):
+    """Phase 6e: the serving features on the resident full-width int4 model.
+    Speculative greedy through ``Engine`` (int8 KV) beside plain greedy on
+    the same repetitive prompt, one verify forward's launches and device
+    time beside a decode forward's; guided decoding (a regex and JSON mode
+    over ``ByteTokenizer``, padded to the model's ids) through ``Engine``,
+    a 32-lane ``BatchedEngine`` with half of its lanes guided and
+    ``PagedBatchedEngine``; ``BatchedEngine(logprobs_topk=5)``; a
+    repetition-penalized ``Engine`` request. Then the 2-layer checks
+    (``_serving_references``). Returns each kernel's launch count over the
+    served requests."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+
+    cfg = cfg or AriaConfig()
+    text = cfg.text
+    wrappers = _wrappers()
+    for w in wrappers.values():  # count only what the served requests launch
+        w.launches = 0
+    rng = np.random.RandomState(SEED + 60)
+    prompt = rng.randint(5, min(1000, text.vocab_size), 12).tolist() * 8
+    engine = Engine({"lm": lm}, cfg, max_seq_len=1024, cache_dtype=torch.int8, rng_seed=SEED)
+    print(f"serving features: speculative, guided, logprobs and penalties on the "
+          f"{text.num_layers}-layer int4 model", flush=True)
+    with torch.inference_mode():
+        spec = _spec_round(device, engine, prompt, wrappers, gpu)
+        _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens)
+        _serving_logprobs(device, lm, cfg, gpu)
+        with _no_chain(device, "the penalized request"):
+            pen = engine.generate(prompt[:40], GenerationConfig(
+                max_new_tokens=24, temperature=0.0, repetition_penalty=1.3, decode_chunk=12))
+        plain = engine.generate(prompt[:40], GenerationConfig(max_new_tokens=24, temperature=0.0,
+                                                              decode_chunk=12))
+        print(f"  Engine, repetition penalty 1.3, greedy: {len(pen.tokens)} tokens, "
+              f"{len(set(pen.tokens))} distinct (plain greedy: {len(set(plain.tokens))}), "
+              f"{pen.tokens_per_s:.2f} tok/s ({gpu})", flush=True)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        print(f"  launches: {launches}", flush=True)
+        for name in SERVING_PATH:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by the serving-features path")
+        _serving_references(device, lm, cfg, spec.tokens, prompt)
+    return launches
+
+
 # The 2-layer bf16-cache CP engine against one card, relative L2 of the
 # first-token and 8 decode steps' logits, held with the bf16-activation MoE
 # (MOE_A8 off): the CP prefill's f32 attention and the flash kernel's bf16
@@ -3623,8 +4076,8 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
     fused expert stacks in slabs, and the ViT and projector stay bf16.
 
     int8: ``Engine(max_seq_len=1024)`` with a bf16 KV cache serves
-    bench.py's image request twice sampled (200 tokens, T 0.8, top-k 200)
-    and twice greedy (64 tokens); ``BatchedEngine`` serves bench.py's lanes
+    bench.py's image request sampled (T 0.8, top-k 200: a warm-up of
+    WARMUP_TOKENS, then 200 tokens) and twice greedy (64 tokens); ``BatchedEngine`` serves bench.py's lanes
     child (``--lanes 32 --experts 64``: 32 prompts of 48 tokens, bf16 KV,
     max_seq_len 512, here 64 new tokens, a warm-up round and a timed one);
     then a 2-layer card-against-CPU reference. bf16, after the int8 model
@@ -3666,8 +4119,10 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
               f"{time.perf_counter() - t0:.1f} s ({gib:.2f} GiB on the card)", flush=True)
         engine = Engine(params, cfg, max_seq_len=1024, cache_dtype=torch.bfloat16, rng_seed=SEED)
         n_sampled = 2 if form == "int8" else 1
-        requests = [(f"image, T 0.8 top-k 200 ({i + 1} of {n_sampled})", prompt, sampled)
-                    for i in range(n_sampled)]
+        warm = dataclasses.replace(sampled, max_new_tokens=WARMUP_TOKENS)
+        requests = [(f"image, T 0.8 top-k 200 ({i + 1} of {n_sampled}"
+                     f"{', warm-up' if i < n_sampled - 1 else ''})", prompt,
+                     warm if i < n_sampled - 1 else sampled) for i in range(n_sampled)]
         requests += [("image greedy", prompt, greedy), ("image greedy again", prompt, greedy)]
         results, counts = _serve(engine, requests, _wrappers(), text.vocab_size, gpu,
                                  pixel_values=pixels)
@@ -4405,8 +4860,10 @@ def main() -> int:
     t0 = done("adapters", t0)
     launches.update(run_variants(device, gen(11), lm, gpu=gpu, default_image=image_headline,
                                  default_lanes=lanes_headline))
-    del lm  # the forms' models do not fit beside the int4 one
     t0 = done("variants", t0)
+    launches["serving"] = run_serving(device, lm, gpu=gpu)
+    del lm  # the forms' models do not fit beside the int4 one
+    t0 = done("serving", t0)
     launches["cp"] = run_cp(gpu=gpu)
     t0 = done("cp", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))

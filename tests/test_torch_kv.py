@@ -26,6 +26,8 @@ from aria_tpu.ops.rope import apply_rope as j_apply_rope
 from aria_tpu.ops.rope import precompute_rope as j_precompute_rope
 from aria_tpu_torch import config as tconfig
 from aria_tpu_torch.checkpoint.from_jax import from_jax, to_tensor
+from aria_tpu_torch.data.tokenizer import ByteTokenizer
+from aria_tpu_torch.engine import guided as tguided
 from aria_tpu_torch.engine.multi_lora import AdapterRegistry
 from aria_tpu_torch.models import aria as taria
 from aria_tpu_torch.models import moe_lm as tm
@@ -131,6 +133,9 @@ def test_entry_points_build_on_the_card_or_raise(monkeypatch):
         lambda **kw: taria.init_aria_params(cfg, gen, **kw),
         lambda **kw: tlora.init_lora_params(cfg, tlora.LoraConfig(rank=2), gen, **kw),
         lambda **kw: AdapterRegistry({}, **kw),
+        lambda **kw: tguided.regex_fsm("(yes|no)", ByteTokenizer(), [0], **kw),
+        lambda **kw: tguided.json_fsm(ByteTokenizer(), [0], max_depth=1, **kw),
+        lambda **kw: tguided.schema_fsm({"type": "boolean"}, ByteTokenizer(), [0], **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -42,13 +42,16 @@ from aria_tpu.ops import quant as jquant
 from aria_tpu.ops.quant import dequantize_weight
 from aria_tpu_torch.checkpoint.from_jax import from_jax
 from aria_tpu_torch.config import TextConfig, config_from_dict
+from aria_tpu_torch.data.tokenizer import ByteTokenizer
 from aria_tpu_torch.engine import paged as tpaged
 from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+from aria_tpu_torch.engine.guided import regex_fsm
 from aria_tpu_torch.engine.server import PagedBatchedEngine
 from aria_tpu_torch.models import moe_lm as tm
 from aria_tpu_torch.models.projector import init_projector_params
 from aria_tpu_torch.models.vit import init_vit_params
 from aria_tpu_torch.ops import paged_attention as tpa
+from aria_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
 torch.set_num_threads(1)
 
@@ -474,8 +477,12 @@ def test_oversized_request_reports_error(params):
 
 
 def test_not_ported_options_raise(params):
+    # guided decoding is ported (tests/test_torch_guided.py); a serving mesh is not
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        _paged(params[1], guided_fsm=object())
+        _paged(params[1], mesh=Mesh(MeshConfig(), 0, {}))
+    fsm = regex_fsm("(yes|no)", ByteTokenizer(), [0], vocab_size=512, device="cpu")
+    with pytest.raises(ValueError, match="guided FSM is on meta"):
+        _paged(params[1], guided_fsm=fsm.to("meta"))
     with pytest.raises(ValueError, match="guided_fsm"):
         _paged(params[1]).submit([1, 2], guided=True)
     with pytest.raises(ValueError, match="without adapters"):  # adapters: test_torch_multi_lora

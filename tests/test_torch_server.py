@@ -39,7 +39,9 @@ from aria_tpu.ops import quant as jquant
 from aria_tpu.ops.quant import dequantize_weight
 from aria_tpu_torch.checkpoint.from_jax import from_jax
 from aria_tpu_torch.config import config_from_dict
+from aria_tpu_torch.data.tokenizer import ByteTokenizer
 from aria_tpu_torch.engine import sampling as tsampling
+from aria_tpu_torch.engine.guided import regex_fsm
 from aria_tpu_torch.engine.generate import Engine, GenerationConfig
 from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine, Request
 from aria_tpu_torch.parallel.mesh import Mesh, MeshConfig
@@ -244,11 +246,15 @@ def test_not_ported_options_raise(params):
     # BatchedEngine(mesh=) is ported over the model axis (test_torch_cp_cache.py);
     # a context axis, and any mesh of the paged engine, are not
     context = Mesh(MeshConfig(context=2), 0, {"model": None, "context": None})
-    for kw in ({"mesh": context}, {"guided_fsm": object()}, {"logprobs_topk": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            BatchedEngine(params[1], CFG, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        BatchedEngine(params[1], CFG, mesh=context)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         PagedBatchedEngine(params[1], CFG, mesh=Mesh(MeshConfig(), 0, {}))
+    # guided decoding and logprobs are ported (tests/test_torch_guided.py,
+    # test_torch_speculative.py); an FSM must sit on the model's device
+    fsm = regex_fsm("(yes|no)", ByteTokenizer(), [0], vocab_size=512, device="cpu")
+    with pytest.raises(ValueError, match="guided FSM is on meta"):
+        BatchedEngine(params[1], CFG, guided_fsm=fsm.to("meta"), logprobs_topk=3)
     srv = BatchedEngine(params[1], CFG, max_lanes=1)
     with pytest.raises(ValueError, match="guided_fsm"):
         srv.submit([1, 2], guided=True)

@@ -38,8 +38,12 @@ from aria_tpu.ops import backend as jbackend
 from aria_tpu.ops.quant import dequantize_weight
 from aria_tpu_torch.checkpoint.from_jax import from_jax
 from aria_tpu_torch.config import config_from_dict
+from aria_tpu_torch.data.tokenizer import ByteTokenizer
 from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+from aria_tpu_torch.engine.guided import regex_fsm
+from aria_tpu_torch.engine.speculative import SpeculativeConfig
 from aria_tpu_torch.models import moe_lm as tm
+from aria_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
 torch.set_num_threads(1)
 
@@ -138,12 +142,19 @@ def test_paths_not_yet_ported_raise(params):
     eng = Engine({"lm": tlm}, T_CFG, max_seq_len=512)
     # a prompt over 128 tokens now prefills through moe_prefill_int4
     assert len(eng.generate(list(range(1, 200)), GenerationConfig(max_new_tokens=2)).tokens) == 2
-    with pytest.raises(NotImplementedError, match="speculative"):
-        eng.generate(PROMPT, GenerationConfig(speculative=object()))
-    with pytest.raises(NotImplementedError, match="guided"):
-        eng.generate(PROMPT, GenerationConfig(guided=object()))
-    with pytest.raises(NotImplementedError, match="penalties"):
-        eng.generate(PROMPT, GenerationConfig(presence_penalty=0.5))
+    # speculative, guided and penalized decoding are ported
+    # (tests/test_torch_speculative.py, test_torch_guided.py); what still
+    # raises is speculative decoding over a serving mesh (ROADMAP queue 1 item 11)
+    mesh = Engine({"lm": tlm}, T_CFG, max_seq_len=512,
+                  mesh=Mesh(MeshConfig(context=2), 0, {"model": None, "context": None}))
+    with pytest.raises(NotImplementedError, match="speculative decoding over a serving mesh"):
+        mesh.generate(PROMPT, GenerationConfig(speculative=SpeculativeConfig()))
+    with pytest.raises(ValueError, match="not \\(yet\\) with guided decoding"):
+        eng.generate(PROMPT, GenerationConfig(presence_penalty=0.5,
+                                              speculative=SpeculativeConfig()))
+    fsm = regex_fsm("(yes|no)", ByteTokenizer(), [0], vocab_size=512, device="cpu")
+    with pytest.raises(ValueError, match="guided FSM is on meta"):
+        eng.generate(PROMPT, GenerationConfig(guided=fsm.to("meta")))
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.generate(PROMPT, GenerationConfig(max_new_tokens=1000))
     with pytest.raises(NotImplementedError, match="ft=256"):
