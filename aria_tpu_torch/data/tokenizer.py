@@ -2,7 +2,8 @@
 aria_tpu/data/tokenizer.py): the ``Tokenizer`` protocol, ``ByteTokenizer``
 (byte-level ids with the Aria special tokens, for tests and runs without a
 vocabulary) and ``HFTokenizer`` / ``load_tokenizer`` for a checkpoint's
-own vocabulary through ``transformers``.
+own vocabulary through ``transformers`` or the port's sentencepiece reader
+(data/spm.py).
 """
 
 from __future__ import annotations
@@ -85,11 +86,16 @@ class ByteTokenizer:
 
 
 def load_tokenizer(path: str):
-    """Load the best available tokenizer implementation for a checkpoint dir:
+    """Load the best available tokenizer implementation for a checkpoint dir
+    (tokenizer.py:93-136):
 
     1. HF slow tokenizer (sentencepiece-backed), the reference's choice;
-    2. HF fast tokenizer (tokenizer.json) when the slow one does not load.
+    2. HF fast tokenizer (tokenizer.json) when the slow one does not load;
+    3. the port's pure-Python sentencepiece-unigram reader (data/spm.py):
+       tokenizer.model with added_tokens.json or tokenizer_config.json's
+       ``added_tokens_decoder`` (the card's machine has no transformers).
     """
+    import json
     import os
 
     try:
@@ -101,10 +107,25 @@ def load_tokenizer(path: str):
     except Exception:
         pass
 
-    if os.path.exists(os.path.join(path, "tokenizer.model")):
-        raise NotImplementedError(
-            "a tokenizer.model that transformers cannot load: the JAX package's own "
-            "sentencepiece reader (data/spm.py) is not ported")
+    model_file = os.path.join(path, "tokenizer.model")
+    if os.path.exists(model_file):
+        from aria_tpu_torch.data.spm import SentencePieceTokenizer, parse_model_proto
+
+        with open(model_file, "rb") as f:
+            pieces = parse_model_proto(f.read())
+        added = {}
+        added_file = os.path.join(path, "added_tokens.json")
+        if os.path.exists(added_file):
+            with open(added_file) as f:
+                added = {k: int(v) for k, v in json.load(f).items()}
+        else:
+            cfg_file = os.path.join(path, "tokenizer_config.json")
+            if os.path.exists(cfg_file):
+                with open(cfg_file) as f:
+                    tc = json.load(f)
+                for tid, info in (tc.get("added_tokens_decoder") or {}).items():
+                    added[info["content"]] = int(tid)
+        return SentencePieceTokenizer(pieces, added_tokens=added)
     raise FileNotFoundError(f"no loadable tokenizer found in {path}")
 
 

@@ -579,8 +579,9 @@ def decode_kernel_tile(I: int) -> Optional[int]:
     """The intermediate tile ``ft`` the JAX package gives moe_decode_int4
     (moe_lm.py:945-961): all of I when I is a multiple of 128 up to 2048,
     else the largest of 1024, 512, 256, 128 that divides I, else none (and
-    no decode kernel). W4A8 re-quantizes h per row of one tile; the port
-    quantizes over all of I, so it matches the reference where ft == I."""
+    the reference's dequantizing path serves, at any T). W4A8 re-quantizes
+    h per row of one tile; the port quantizes over all of I, so it matches
+    the reference where ft == I."""
     cands = (I,) if I % 128 == 0 and I <= 2048 else (1024, 512, 256, 128)
     return next((f for f in cands if I % f == 0), None)
 
@@ -588,8 +589,8 @@ def decode_kernel_tile(I: int) -> Optional[int]:
 def prefill_kernel_tile(I: int) -> Optional[int]:
     """The intermediate tile the JAX package gives moe_prefill_int4
     (moe_lm.py:985-1002): the first of 512, 256, 128 that divides I, else
-    none (and the JAX package dequantizes in XLA instead, which is not
-    ported). 128 at I = 1664."""
+    none (and the JAX package dequantizes in XLA instead, as the port does:
+    then ``decode_kernel_tile`` is none too). 128 at I = 1664."""
     return next((f for f in (512, 256, 128) if I % f == 0), None)
 
 
@@ -700,8 +701,12 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
             out = experts_grouped(flat, indices, weights, w1[layer], w2[layer],
                                   lora_w1=lw.get("w1"), lora_w2=lw.get("w2"),
                                   lora_scale=lora_scale, lora_onehot=lora_onehot)
-    elif training:
-        w1l, w2l = w1[layer], w2[layer]
+    elif training or decode_kernel_tile(cfg.moe_intermediate_size) is None:
+        # training; and serving where the reference has no kernel tile for I
+        # (not a multiple of 128: its dequantizing path, moe_lm.py:1020-1044)
+        w1l, w2l = dequantize_expert_weights(
+            *({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
+              for w in (w1, w2)), dtype=flat.dtype)
         if T <= GATHER_PATH_MAX_TOKENS:
             out = experts_gather(flat, indices, weights, w1l, w2l)
         elif cfg.num_experts > 2 * cfg.moe_topk:
@@ -800,13 +805,8 @@ def lm_forward(
         raise NotImplementedError(
             "training over quantized experts is QLoRA: its training path over the blocked "
             "dequantize (_experts_lora_blocked) is not ported yet (ROADMAP queue 1 item 10)")
-    many = B * S > DECODE_KERNEL_MAX_TOKENS
-    if not training and many and int4 and prefill_kernel_tile(cfg.moe_intermediate_size) is None:
-        raise NotImplementedError(
-            f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's prefill "
-            "kernel needs a multiple of 128; its dequantizing XLA path is not ported")
     ft = decode_kernel_tile(cfg.moe_intermediate_size)
-    if not (training or expert_lora) and ft != cfg.moe_intermediate_size:
+    if not (training or expert_lora) and ft not in (None, cfg.moe_intermediate_size):
         raise NotImplementedError(
             f"moe_intermediate_size {cfg.moe_intermediate_size}: the reference's decode "
             f"kernel takes a tile ft={ft}; only ft equal to the whole intermediate is ported")

@@ -75,13 +75,11 @@ def with_s8(qw: dict) -> dict:
 LM_QUANT_KEYS = ("wqkv", "wo", "w1", "w2", "shared_w1", "shared_w2")
 
 
-def quantize_lm_params(lm_params: dict) -> dict:
-    """The int8 serving form of the decoder (quant.py:123-141): w1 is
-    out-major [L, E, 2I, D] and quantized over D (a scale per row of 2I),
-    w2 [L, E, I, D] over I (a scale per column of D), both with ``s8``;
-    every other weight is [..., in, out] with a scale per output; lm_head
-    int8, embed unchanged."""
-    layers = dict(lm_params["layers"])
+def quantize_lm_layers(layers: dict) -> dict:
+    """The int8 form of a decoder's [L, ...] layer stacks (any L): w1
+    quantized over D with ``s8``, w2 over I with ``s8``, the other
+    ``LM_QUANT_KEYS`` per output channel; norms and the gate unchanged."""
+    layers = dict(layers)
     for key in LM_QUANT_KEYS:
         if key not in layers:
             continue  # shared_w1/w2 are gone after fuse_shared_experts
@@ -91,7 +89,16 @@ def quantize_lm_params(lm_params: dict) -> dict:
             layers[key] = with_s8(quantize_weight(layers[key], input_axis=-2))
         else:
             layers[key] = quantize_weight(layers[key], input_axis=-2)
-    return {**lm_params, "layers": layers,
+    return layers
+
+
+def quantize_lm_params(lm_params: dict) -> dict:
+    """The int8 serving form of the decoder (quant.py:123-141): w1 is
+    out-major [L, E, 2I, D] and quantized over D (a scale per row of 2I),
+    w2 [L, E, I, D] over I (a scale per column of D), both with ``s8``;
+    every other weight is [..., in, out] with a scale per output; lm_head
+    int8, embed unchanged."""
+    return {**lm_params, "layers": quantize_lm_layers(lm_params["layers"]),
             "lm_head": quantize_weight(lm_params["lm_head"], input_axis=-2)}
 
 
@@ -342,3 +349,21 @@ def dequantize_dense_int4(w: dict, dtype=torch.bfloat16) -> torch.Tensor:
     s = sg[..., :ng, :].transpose(-1, -2).float()
     wt = (vals * s[..., None]).reshape(*lead, F, D)
     return wt.transpose(-1, -2).to(dtype)
+
+
+def quantize_lm_params_int4(lm_params: dict) -> dict:
+    """The int4 serving transform of the decoder (quant.py:332-350): the
+    expert stacks int4, wqkv / wo dense int4, an unfused shared MLP, embed
+    and lm_head int8 (embed dequantized per lookup). Apply after
+    ``fuse_shared_experts`` (or before: then the shared MLP stays int8).
+    The streamed HF import's oracle."""
+    layers = dict(lm_params["layers"])
+    for key in ("wqkv", "wo"):
+        layers[key] = quantize_dense_int4(layers[key])
+    for key in ("shared_w1", "shared_w2"):
+        if key in layers:
+            layers[key] = quantize_weight(layers[key], input_axis=-2)
+    layers["w1"], layers["w2"] = quantize_expert_int4(layers["w1"], layers["w2"])
+    return {**lm_params, "layers": layers,
+            "embed": quantize_weight(lm_params["embed"], input_axis=-2),
+            "lm_head": quantize_weight(lm_params["lm_head"], input_axis=-2)}

@@ -20,7 +20,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from aria_tpu_torch.checkpoint.io import latest_step, load_checkpoint, save_checkpoint
+from aria_tpu_torch.checkpoint.io import (
+    import_hf_checkpoint,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)
 from aria_tpu_torch.config import AriaConfig
 from aria_tpu_torch.data.collate import collate_fn
 from aria_tpu_torch.data.datasets import iter_batches, mix_datasets
@@ -83,8 +88,7 @@ def build_tokenizer(r: Recipe):
 def build_params(r: Recipe, cfg: AriaConfig, dtype, device):
     if r.model_path and os.path.isdir(r.model_path):
         if any(f.endswith(".safetensors") for f in os.listdir(r.model_path)):
-            raise NotImplementedError("the HF safetensors import (import_hf_checkpoint) is "
-                                      "ROADMAP queue 1 item 9")
+            return import_hf_checkpoint(r.model_path, cfg, dtype, device=device)
         step = latest_step(r.model_path)
         if step is not None:
             return load_checkpoint(r.model_path, step, device)[0]

@@ -57,7 +57,7 @@
    six targets, rank 16, and rank 8 on attention only) in one
    ``AdapterRegistry``; ``BatchedEngine(adapters=)`` with the int4 KV
    cache serves 32 greedy 48-token prompts (8 on the base, 8 on each
-   adapter) x 32 tokens twice: the streams repeat, each adapter moves
+   adapter) x 16 tokens twice: the streams repeat, each adapter moves
    some, and each decode step launches ``expert_block_dequant`` 12 times a
    layer (336). Then a profiled mixed decode chunk (busy share, peak
    memory), a base-only round equal token for token to the plain
@@ -86,14 +86,12 @@
    (reported: plain attention over 8 rows is not bit-equal to the decode
    kernel over one), and one verify forward's launches and device time
    beside a decode forward's. Guided decoding over ``ByteTokenizer``
-   padded to the model's ids, a finite regex and JSON mode: ``Engine``
-   streams that match the regex, parse as JSON objects or, cut by their
-   budget, are live prefixes of the grammar, and a guided decode step's
-   wall beside an unguided one's; a 32-lane ``BatchedEngine`` with every
-   other lane guided, whose unguided lanes must equal a plain engine's
-   greedy streams token for token; ``PagedBatchedEngine`` with two of four
-   lanes guided. ``BatchedEngine(logprobs_topk=5)``: each greedy token's
-   logprob is its top-1 entry and top-1's id is the token. A
+   padded to the model's ids, a finite regex: an ``Engine`` stream that
+   matches it, and a guided decode step's wall beside an unguided one's; a
+   32-lane ``BatchedEngine`` with every other lane guided, whose unguided
+   lanes must equal a plain engine's greedy streams token for token;
+   ``PagedBatchedEngine`` with two of four lanes guided (JSON mode and
+   engine logprobs are the front door's requests, 6f). A
    repetition-penalized ``Engine`` request. The path must launch
    ``dense_int4``, the W4A8 ``moe_decode_int4``, ``decode_attention``,
    ``flash_causal``, ``rope_kv_write`` and ``paged_decode_attention``, and
@@ -102,6 +100,29 @@
    steps' fed the same tokens, on the card; the logprobs of a 4-lane
    ``BatchedEngine`` against the CPU's for the same tokens; a
    repetition-penalized first token's logits against the CPU's.
+6f. The front doors. (a) On the same int4 model, with a ViT and projector
+   (int8): ``engine/http_server.py``'s ``ServingLoop`` over a 4-lane
+   ``BatchedEngine`` (int8 KV, greedy, the JSON-mode FSM, logprobs top 5)
+   behind a ``ThreadingHTTPServer`` on 127.0.0.1, ``ByteTokenizer``.
+   ``/health``; a greedy 32-token ``/generate`` plainly and streamed (equal
+   tokens); 4 concurrent ``/v1/completions`` with logprobs, admitted as one
+   group; a ``/v1/chat/completions`` carrying a 980 px PNG as a base64 data
+   URL; JSON mode greedy and twice at T 1.0 (JSON objects or live
+   prefixes); a streamed request dropped after its first chunk, whose lane
+   must be free within FRONT_DROP_TICKS ticks; ``/metrics``. Every greedy
+   request's tokens (and the completions' logprobs) equal the same prompts
+   served straight through the engine in the same grouping; each request's
+   wall, first chunk and tok/s beside the straight ones; the int4 path's
+   seven kernels must launch. (b) After ``del lm``: the script writes an
+   HF-layout bf16 checkpoint (2 decoder and ViT layers at full width, one
+   shard a decoder layer plus head, vision and projector; its own
+   safetensors writer) to a temporary directory; the streamed int4 import
+   must equal quantize-after-import bit for bit with a device peak at
+   least 3 GiB below it (seconds, GB/s, device and host RssAnon peaks of
+   both); ``cli/serve.py``'s builder serves the directory in its default
+   int8 form and one ``/v1/completions`` over HTTP gives
+   ``Engine.generate``'s greedy tokens, through ``moe_decode_quant`` and
+   ``gmm``. The directory is removed.
 6d. Context-parallel serving (cp), after the int4 model is freed: two
    ranks share cuda:0 over gloo (NCCL refuses two ranks on one device),
    spawned by ``parallel/distributed.run_ranks``, each with the full int4
@@ -171,6 +192,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -1653,8 +1675,9 @@ FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 SERVING_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal",
                 "rope_kv_write", "paged_decode_attention")
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("serving", "cp", "variants-lanes", "variants-image", "adapters", "train-full",
-         "train-lora", "image-bf16", "lanes-int8", "image-int8", "paged", "lanes", "image", "text")
+PATHS = ("frontdoor-serve", "frontdoor", "serving", "cp", "variants-lanes", "variants-image",
+         "adapters", "train-full", "train-lora", "image-bf16", "lanes-int8", "image-int8", "paged",
+         "lanes", "image", "text")
 
 
 def _wrappers():
@@ -2842,7 +2865,7 @@ def _adapter_round(device, engine, wrappers, prompts, names, new_tokens, label, 
     return [fin[u].generated for u in uids], step_ms, per_step
 
 
-def run_adapters(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=32, ref_layers=2):
+def run_adapters(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=16, ref_layers=2):
     """The adapters phase: multi-LoRA serving over the int4 model (still
     resident after the paged phase). Three adapters from the seed
     (``ADAPTER_SPECS``) in one ``AdapterRegistry``; ``BatchedEngine(adapters=)``
@@ -2966,15 +2989,16 @@ def run_adapters(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=32, ref
 
 
 MOE_ULP_LIMIT = 4e-3  # two bf16 roundings (the block's output, the sum's), relative
-ADAPTER_REF_INPUTS = (5, 7)  # the numpy seeds of the 2-layer adapters reference's inputs
+ADAPTER_REF_INPUTS = (5,)  # the numpy seed of the 2-layer adapters reference's input
 WITNESS_DRAWS = 6
 
 
 def _adapters_reference(device, lm, text, reg, top, ref_layers=2):
     """A 2-layer grouped prefill of 4 lanes (adapters t1, none, t2, att)
     then one mixed decode step with per-lane positions, int8 KV, on the
-    card against the CPU's plain versions, on each of two inputs, held to
-    the limit and to its bf16 witness, each lane's error beside them. A
+    card against the CPU's plain versions, on each input of
+    ADAPTER_REF_INPUTS, held to the limit and to its bf16 witness, each
+    lane's error beside them. A
     router near-tie makes a lane's error heavy-tailed: whether one draw of
     the witness (one ulp on half the prompt embeddings) trips the tie is
     chance, as it is for the card's roundings. So the witness is the
@@ -3342,7 +3366,7 @@ SPEC_K, SPEC_NGRAM, SPEC_STEPS, SPEC_TOKENS = 7, 2, 8, 128
 GUIDED_REGEX = "(yes|no|maybe), [0-9]{1,3}\\."
 LOGPROBS_K = 5
 LOGPROBS_REF_TOKENS = 3  # each lane's greedy tokens in the 2-layer logprobs check
-GUIDED_TOKENS = 40  # the guided Engine requests' budget (JSON mode, the step's wall)
+GUIDED_TOKENS = 40  # the JSON-mode requests' budget (the front door's, phase 6f)
 
 
 def _guided_text(tokens, eos: int) -> tuple[bytes, bool]:
@@ -3460,7 +3484,7 @@ def _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens
 
     from aria_tpu_torch.data.tokenizer import ByteTokenizer
     from aria_tpu_torch.engine.generate import GenerationConfig
-    from aria_tpu_torch.engine.guided import compile_regex, json_dfa, json_fsm, regex_fsm
+    from aria_tpu_torch.engine.guided import compile_regex, regex_fsm
     from aria_tpu_torch.engine.server import BatchedEngine, PagedBatchedEngine
 
     text = cfg.text
@@ -3468,14 +3492,11 @@ def _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens
     eos = tok.eos_token_id
     t0 = time.perf_counter()
     regex = regex_fsm(GUIDED_REGEX, tok, [eos], vocab_size=text.vocab_size, device=device)
-    t1 = time.perf_counter()
-    jsonm = json_fsm(tok, [eos], vocab_size=text.vocab_size, device=device)
-    t2 = time.perf_counter()
-    rdfa, jdfa = compile_regex(GUIDED_REGEX), json_dfa()
-    print(f"  guided tables over ByteTokenizer padded to {text.vocab_size} ids: regex "
+    rdfa = compile_regex(GUIDED_REGEX)
+    print(f"  guided table over ByteTokenizer padded to {text.vocab_size} ids: regex "
           f"{GUIDED_REGEX!r} {regex.num_states} states, {regex.nbytes} bytes on the card, "
-          f"built in {t1 - t0:.2f} s; JSON mode (depth 4) {jsonm.num_states} states, "
-          f"{jsonm.nbytes} bytes, built in {t2 - t1:.2f} s (host)", flush=True)
+          f"built in {time.perf_counter() - t0:.2f} s (host; JSON mode is the front door's, "
+          "phase 6f)", flush=True)
     rng = np.random.RandomState(SEED + 61)
     top = min(1000, text.vocab_size)
     prompt = rng.randint(5, top, 40).tolist()
@@ -3484,21 +3505,10 @@ def _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens
     with _no_chain(device, "the guided requests"):
         r = engine.generate(prompt, dataclasses.replace(greedy, guided=regex))
         _hold_regex("Engine, regex, greedy", r.tokens, eos, rdfa)
-        long = dataclasses.replace(greedy, max_new_tokens=GUIDED_TOKENS, decode_chunk=16)
-        free = engine.generate(prompt, dataclasses.replace(long, stop_token_ids=()))
-        j = engine.generate(prompt, dataclasses.replace(long, guided=jsonm))
-        j_ended = _hold_json("Engine, JSON mode, greedy", j.tokens, eos, jdfa)
-        sampled = [engine.generate(p, dataclasses.replace(long, temperature=1.0, top_k=None,
-                                                          guided=jsonm)).tokens
-                   for p in (rng.randint(5, top, 40).tolist() for _ in range(2))]
-        ended = [_hold_json(f"Engine, JSON mode, T 1.0, #{i}", s, eos, jdfa)
-                 for i, s in enumerate(sampled)]
-    print(f"  Engine, regex greedy: {_guided_text(r.tokens, eos)[0]!r}; JSON mode greedy "
-          f"({'ended' if j_ended else f'cut at {GUIDED_TOKENS} tokens, a live prefix'}): "
-          f"{_guided_text(j.tokens, eos)[0][:60]!r}; JSON mode at T 1.0: {sum(ended)} of 2 "
-          "ended as JSON objects, the rest live prefixes", flush=True)
-    print(f"  decode step, wall: guided (JSON mode) {j.decode_s / max(j.steps, 1) * 1e3:.2f} ms "
-          f"over {j.steps} steps against unguided {free.decode_s / free.steps * 1e3:.2f} ms over "
+        free = engine.generate(prompt, dataclasses.replace(greedy, stop_token_ids=()))
+    print(f"  Engine, regex greedy: {_guided_text(r.tokens, eos)[0]!r}", flush=True)
+    print(f"  decode step, wall: guided (regex) {r.decode_s / max(r.steps, 1) * 1e3:.2f} ms "
+          f"over {r.steps} steps against unguided {free.decode_s / free.steps * 1e3:.2f} ms over "
           f"{free.steps} ({gpu})", flush=True)
 
     kw = dict(max_lanes=lanes, max_seq_len=320, decode_chunk=16, cache_dtype=torch.int8,
@@ -3549,39 +3559,6 @@ def _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens
             raise AssertionError(f"paged unguided request {i}: {len(fin[u].generated)} tokens")
     print(f"  PagedBatchedEngine, {paged_lanes} lanes on int8 pages, "
           f"{(paged_lanes + 1) // 2} guided: every guided stream matches and ends", flush=True)
-
-
-def _serving_logprobs(device, lm, cfg, gpu, lanes=8, new_tokens=24):
-    """``BatchedEngine(logprobs_topk=5)``, greedy: each token's logprob is
-    its top-1 entry, and top-1's id is the token. Returns the requests."""
-    import numpy as np
-    import torch
-
-    from aria_tpu_torch.engine.server import BatchedEngine
-
-    text = cfg.text
-    rng = np.random.RandomState(SEED + 62)
-    eng = BatchedEngine({"lm": lm}, cfg, max_lanes=lanes, max_seq_len=320, decode_chunk=16,
-                        cache_dtype=torch.int8, rng_seed=SEED, logprobs_topk=LOGPROBS_K)
-    uids = [eng.submit(rng.randint(5, min(1000, text.vocab_size), 48).tolist(),
-                       max_new_tokens=new_tokens) for _ in range(lanes)]
-    with _no_chain(device, "the logprobs lanes"):
-        t0 = time.perf_counter()
-        fin = {r.uid: r for r in eng.run_until_complete()}
-        wall = time.perf_counter() - t0
-    reqs = [fin[u] for u in uids]
-    for r in reqs:
-        if r.error or len(r.generated) != new_tokens or len(r.logprobs) != new_tokens:
-            raise AssertionError(f"logprobs request {r.uid}: {len(r.generated)} tokens, "
-                                 f"{len(r.logprobs)} logprobs, error {r.error}")
-        for t, lp, top in zip(r.generated, r.logprobs, r.top_logprobs):
-            (best, best_lp), *_ = top.items()
-            if best != t or lp != best_lp or len(top) != LOGPROBS_K or not lp <= 0.0:
-                raise AssertionError(f"logprobs request {r.uid}: token {t} logprob {lp}, top "
-                                     f"{top}")
-    print(f"  BatchedEngine(logprobs_topk={LOGPROBS_K}), {lanes} lanes x {new_tokens} greedy "
-          f"tokens in {wall:.2f} s: every token's logprob is its top-1 entry and top-1's id is "
-          f"the token (held; e.g. {reqs[0].logprobs[:3]}) ({gpu})", flush=True)
 
 
 def _serving_references(device, lm, cfg, spec_tokens, prompt):
@@ -3704,11 +3681,12 @@ def run_serving(device, lm, cfg=None, gpu="", lanes=32, paged_lanes=4, new_token
     """Phase 6e: the serving features on the resident full-width int4 model.
     Speculative greedy through ``Engine`` (int8 KV) beside plain greedy on
     the same repetitive prompt, one verify forward's launches and device
-    time beside a decode forward's; guided decoding (a regex and JSON mode
-    over ``ByteTokenizer``, padded to the model's ids) through ``Engine``,
-    a 32-lane ``BatchedEngine`` with half of its lanes guided and
-    ``PagedBatchedEngine``; ``BatchedEngine(logprobs_topk=5)``; a
-    repetition-penalized ``Engine`` request. Then the 2-layer checks
+    time beside a decode forward's; guided decoding (a regex over
+    ``ByteTokenizer``, padded to the model's ids) through ``Engine``, a
+    32-lane ``BatchedEngine`` with half of its lanes guided and
+    ``PagedBatchedEngine`` (JSON mode and engine logprobs are phase 6f's
+    HTTP requests); a repetition-penalized ``Engine`` request. Then the
+    2-layer checks
     (``_serving_references``). Returns each kernel's launch count over the
     served requests."""
     import numpy as np
@@ -3730,7 +3708,6 @@ def run_serving(device, lm, cfg=None, gpu="", lanes=32, paged_lanes=4, new_token
     with torch.inference_mode():
         spec = _spec_round(device, engine, prompt, wrappers, gpu)
         _serving_guided(device, engine, lm, cfg, gpu, lanes, paged_lanes, new_tokens)
-        _serving_logprobs(device, lm, cfg, gpu)
         with _no_chain(device, "the penalized request"):
             pen = engine.generate(prompt[:40], GenerationConfig(
                 max_new_tokens=24, temperature=0.0, repetition_penalty=1.3, decode_chunk=12))
@@ -4812,6 +4789,693 @@ def run_train(device, gen, cfg=None, gpu="", lora_batch=1, full_batch=8, full_la
     return launches
 
 
+# ------------------------------------------------------------ the front doors
+
+SAFETENSORS_NAMES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32", "int8": "I8",
+                     "uint8": "U8", "int32": "I32", "int64": "I64"}
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """Write ``{name: tensor}`` as one .safetensors file (an 8-byte
+    little-endian header length, the JSON header padded with spaces to 8
+    bytes, then each tensor's bytes in order), without the ``safetensors``
+    package, which the card's machine lacks. Returns the tensor bytes."""
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).split(".")[1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            if t.numel():
+                flat = t.detach().contiguous().reshape(-1).cpu()
+                f.write(flat.view(torch.uint8).numpy().tobytes())
+    return offset
+
+
+# the int4 path's kernels that the HTTP requests must launch (phase 6f, a)
+FRONT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "rope_kv_write",
+              "flash_causal", "moe_prefill_int4", "vit_flash")
+FRONT_TOKENS = 32  # each greedy HTTP request's budget
+FRONT_DROP_BUDGET = 256  # the dropped stream's budget, far past when it must be freed
+FRONT_DROP_TICKS = 6  # scheduler ticks within which a dropped stream's lane is free
+# (the budget takes 16: a few chunks go out before a write fails)
+FRONT_IMPORT_LAYERS = 2  # decoder and ViT layers of the checkpoint the script writes
+FRONT_PEAK_MARGIN = 3 * 2**30  # the streamed import's device peak below the whole one's
+
+
+def _http(url, path, payload=None, timeout=600):
+    """(json, wall s) of one GET (no payload) or POST."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        out = json.loads(r.read())
+    return out, time.perf_counter() - t0
+
+
+def _http_stream(url, path, payload, timeout=600):
+    """(events, wall s, s to the first event) of one streamed POST."""
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, first = [], None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            first = time.perf_counter() - t0 if first is None else first
+            events.append(json.loads(line[len("data: "):]))
+    return events, time.perf_counter() - t0, first
+
+
+def _direct(engine, batch):
+    """Serve ``batch`` ([(token ids, submit keywords)]) straight through
+    the engine, every request submitted before the first tick (one
+    admission group where their buckets agree). Returns [(request, wall s,
+    s to its first read-back tokens)]."""
+    t0 = time.perf_counter()
+    reqs = []
+    for ids, kw in batch:
+        engine.submit(ids, **kw)
+        reqs.append(engine.queue[-1])
+    first, done = {}, {}
+    while len(done) < len(reqs):
+        finished = engine.step()
+        now = time.perf_counter() - t0
+        for r in reqs:
+            if r.generated and r.uid not in first:
+                first[r.uid] = now
+        for r in finished:
+            done[r.uid] = now
+    return [(r, done[r.uid], first[r.uid]) for r in reqs]
+
+
+def _hold_logprobs(label, tokens, lps, tops):
+    """Each greedy token's logprob is its top-1 entry and top-1's id is the
+    token, with LOGPROBS_K alternatives (phase 6e's check)."""
+    if len(lps) != len(tokens) or len(tops) != len(tokens):
+        raise AssertionError(f"{label}: {len(tokens)} tokens, {len(lps)} logprobs")
+    for t, lp, top in zip(tokens, lps, tops):
+        (best, best_lp), *_ = top.items()
+        if int(best) != t or lp != best_lp or len(top) != LOGPROBS_K or not lp <= 0.0:
+            raise AssertionError(f"{label}: token {t} logprob {lp}, top {top}")
+
+
+def _png_data_url(side: int, seed: int) -> str:
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    img = Image.fromarray(rng.randint(0, 256, (side, side, 3), dtype=np.uint8))
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+class _Front:
+    """A live ``ThreadingHTTPServer`` on 127.0.0.1 over a ``ServingLoop``
+    whose scheduler ticks can be held (``gate``) and are counted
+    (``ticks``), and whose ``submit_and_wait`` results are kept by prompt
+    (``results``: the OpenAI routes return text, the loop the token ids)."""
+
+    def __init__(self, engine, tokenizer):
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        from aria_tpu_torch.engine.http_server import ServingLoop, make_handler
+
+        self.engine, self.ticks, self.results = engine, 0, {}
+        self.gate = threading.Event()
+        self.gate.set()
+        step = engine.step
+
+        def gated_step():
+            if not self.gate.is_set():
+                return []
+            self.ticks += 1
+            return step()
+
+        engine.step = gated_step  # the scheduler thread's only call into the engine
+        self.loop = ServingLoop(engine, tokenizer)
+        wait = self.loop.submit_and_wait
+
+        def recorded(prompt, *args, **kw):
+            out = wait(prompt, *args, **kw)
+            self.results.setdefault(prompt, []).append(out)
+            return out
+
+        self.loop.submit_and_wait = recorded
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(self.loop))
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}"
+
+    def queued(self) -> int:
+        with self.loop._lock:
+            return len(self.engine.queue)
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.loop.shutdown()
+        # the wrappers close cycles through the engine and the loop: undo them,
+        # so that the model is freed with its last name (``del lm``)
+        del self.engine.step, self.loop.submit_and_wait
+
+
+def _drop_stream(front, payload) -> tuple[int, int]:
+    """A streamed /generate whose client hangs up after its first chunk.
+    Returns (scheduler ticks from the hang-up until ``/health`` reads no
+    active lane, the request's generated tokens)."""
+    import socket
+
+    body = json.dumps({**payload, "stream": True}).encode()
+    stats = front.loop.stats
+    before = (stats["requests"], stats["generated_tokens"])
+    sock = socket.create_connection(("127.0.0.1", front.httpd.server_port), timeout=600)
+    sock.sendall(b"POST /generate HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: "
+                 b"application/json\r\nContent-Length: " + str(len(body)).encode()
+                 + b"\r\n\r\n" + body)
+    seen = b""
+    while b"data: " not in seen:
+        seen += sock.recv(65536)
+    sock.close()
+    at = front.ticks
+    t0 = time.perf_counter()
+    while _http(front.url, "/health")[0]["active"]:
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("the dropped stream's lane is still active after 120 s")
+        time.sleep(0.002)
+    ticks = front.ticks - at
+    while stats["requests"] == before[0]:  # the cancelled request leaves on the next tick
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("the dropped stream's request never finished")
+        time.sleep(0.002)
+    return ticks, stats["generated_tokens"] - before[1]
+
+
+def run_frontdoor(device, gen, lm, cfg=None, gpu=""):
+    """Phase 6f (a): the HTTP front door on the resident full-width int4
+    model, with the ViT and the projector (int8, as bench.py builds them).
+    ``ServingLoop(BatchedEngine(max_lanes=4, int8 KV, greedy, the JSON-mode
+    FSM, logprobs_topk=5), ByteTokenizer())`` behind a
+    ``ThreadingHTTPServer`` on 127.0.0.1. Each request is first served
+    straight through the same engine (the same processed prompt, the same
+    grouping), then over HTTP: a greedy /generate plainly and streamed (the
+    streamed tokens equal the plain ones), 4 concurrent /v1/completions
+    with logprobs (admitted as one group, as the straight ones were; each
+    token's logprob its top-1 entry), a /v1/chat/completions carrying a
+    980 px PNG as a base64 data URL, JSON mode greedy and twice at T 1.0
+    (JSON objects, or live prefixes where the budget cut them), and a
+    streamed request dropped after its first chunk, whose lane must be free
+    within FRONT_DROP_TICKS ticks. Every greedy request's tokens equal the
+    straight ones, and each FRONT_PATH kernel launches during the requests.
+    Returns the requests' launch counts."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.data.processor import AriaProcessor
+    from aria_tpu_torch.data.tokenizer import ByteTokenizer
+    from aria_tpu_torch.engine.guided import json_dfa, json_fsm
+    from aria_tpu_torch.engine.http_server import _chat_to_prompt
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.projector import init_projector_params
+    from aria_tpu_torch.models.vit import init_vit_params
+    from aria_tpu_torch.ops.quant import quantize_projector_params, quantize_vit_params
+
+    tok = ByteTokenizer()
+    eos = tok.eos_token_id
+    # the prompt's <|img|> is the tokenizer's id (cli/infer.py does the same)
+    cfg = (cfg or AriaConfig()).replace(image_token_id=tok.image_token_id)
+    text = cfg.text
+    t0 = time.perf_counter()
+    params = {"lm": lm,
+              "vision": quantize_vit_params(init_vit_params(cfg.vision, gen, device=device)),
+              "projector": quantize_projector_params(init_projector_params(
+                  cfg.projector, gen, device=device))}
+    jsonm = json_fsm(tok, [eos], vocab_size=text.vocab_size, device=device)
+    jdfa = json_dfa()
+    engine = BatchedEngine(params, cfg, max_lanes=4, max_seq_len=1024, temperature=0.0,
+                           decode_chunk=16, cache_dtype=torch.int8, rng_seed=SEED,
+                           guided_fsm=jsonm, logprobs_topk=LOGPROBS_K)
+    print(f"front door: ViT and projector (int8), JSON-mode FSM ({jsonm.num_states} states) "
+          f"and a 4-lane BatchedEngine (int8 KV, logprobs_topk {LOGPROBS_K}) on the "
+          f"{text.num_layers}-layer int4 model, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.RandomState(SEED + 70)
+
+    def words(n):  # n bytes of lowercase words: n ByteTokenizer ids
+        return "".join(" " if i % 6 == 5 else chr(97 + rng.randint(26)) for i in range(n))
+
+    proc = AriaProcessor(tok)
+
+    def ids(prompt, images=None):
+        out = proc(prompt, images=images, max_image_size=980)
+        return out.input_ids[0].tolist(), out
+
+    greedy = dict(max_new_tokens=FRONT_TOKENS, stop_token_ids=(eos,), temperature=0.0)
+    plain_p, json_p = words(40), "a json object: " + words(25)
+    conc_p = [words(40) for _ in range(4)]
+    url_img = _png_data_url(980, SEED + 71)
+    messages = [{"role": "user", "content": [{"type": "image_url", "image_url": {"url": url_img}},
+                                             {"type": "text", "text": "describe the image"}]}]
+    chat_p, images = _chat_to_prompt(messages)
+    img_ids, img_out = ids(chat_p, images)
+    json_kw = dict(greedy, max_new_tokens=GUIDED_TOKENS, guided=True)
+
+    # straight through the engine, each group as the HTTP requests will come,
+    # after a 2-token warm-up of each (the first image encode, grouped
+    # prefill and guided step pay one-time costs)
+    wrappers = _wrappers()
+    batches = {"plain": [(ids(plain_p)[0], greedy)],
+               "completions": [(ids(p)[0], greedy) for p in conc_p],
+               "image": [(img_ids, dict(greedy, pixel_values=img_out.pixel_values,
+                                        pixel_mask=img_out.pixel_mask))],
+               "json": [(ids(json_p)[0], json_kw)]}
+    with torch.inference_mode(), _no_chain(device, "the front door's straight requests"):
+        for batch in batches.values():
+            _direct(engine, [(i, dict(kw, max_new_tokens=2)) for i, kw in batch])
+        direct = {name: _direct(engine, batch) for name, batch in batches.items()}
+        direct = {name: d if name == "completions" else d[0] for name, d in direct.items()}
+    front = _Front(engine, tok)
+    url = front.url
+    timings = {}
+    for w in wrappers.values():  # count only what the HTTP requests launch
+        w.launches = 0
+    try:
+        with _no_chain(device, "the front door's HTTP requests"):
+            health, _ = _http(url, "/health")
+            if health != {"status": "ok", "active": 0, "queued": 0}:
+                raise AssertionError(f"/health before the requests: {health}")
+            body = {"prompt": plain_p, "max_new_tokens": FRONT_TOKENS, "temperature": 0.0}
+            plain, wall = _http(url, "/generate", body)
+            timings["/generate"] = (len(plain["tokens"]), wall, None, ("plain", 0))
+            events, wall, first = _http_stream(url, "/generate", {**body, "stream": True})
+            streamed = [t for ev in events for t in ev["tokens"]]
+            timings["/generate, streamed"] = (len(streamed), wall, first, ("plain", 0))
+            if streamed != plain["tokens"] or plain["tokens"] != direct["plain"][0].generated:
+                raise AssertionError(f"/generate: streamed {streamed}, plain {plain['tokens']}, "
+                                     f"straight {direct['plain'][0].generated}")
+
+            # 4 concurrent completions, held until all four are queued: one group
+            import threading
+
+            outs = [None] * 4
+
+            def complete(i):
+                outs[i] = _http(url, "/v1/completions", {
+                    "prompt": conc_p[i], "max_tokens": FRONT_TOKENS, "temperature": 0.0,
+                    "logprobs": LOGPROBS_K})
+
+            front.gate.clear()
+            threads = [threading.Thread(target=complete, args=(i,)) for i in range(4)]
+            for th in threads:
+                th.start()
+            t_wait = time.perf_counter()
+            while front.queued() < 4:
+                if time.perf_counter() - t_wait > 120:
+                    raise AssertionError("the 4 concurrent completions were not all queued")
+                time.sleep(0.001)
+            front.gate.set()
+            for th in threads:
+                th.join()
+            for i, p in enumerate(conc_p):
+                (res,), (resp, wall) = front.results[p], outs[i]
+                req = direct["completions"][i][0]
+                timings[f"/v1/completions #{i}"] = (len(res["tokens"]), wall, None,
+                                                    ("completions", i))
+                if res["tokens"] != req.generated or res["logprobs"] != req.logprobs:
+                    raise AssertionError(f"completion {i}: {res['tokens']} against the "
+                                         f"straight {req.generated}")
+                _hold_logprobs(f"completion {i}", res["tokens"], res["logprobs"],
+                               res["top_logprobs"])
+                choice = resp["choices"][0]
+                if (choice["text"] != res["text"]
+                        or len(choice["logprobs"]["token_logprobs"]) != len(res["tokens"])):
+                    raise AssertionError(f"completion {i}: the response's text or logprobs "
+                                         "differ from the loop's")
+
+            chat, wall = _http(url, "/v1/chat/completions", {
+                "messages": messages, "max_tokens": FRONT_TOKENS, "temperature": 0.0})
+            (res,) = front.results[chat_p]
+            timings["/v1/chat/completions, 980 px image"] = (len(res["tokens"]), wall, None,
+                                                             ("image", 0))
+            if (res["tokens"] != direct["image"][0].generated
+                    or chat["choices"][0]["message"]["content"] != res["text"]):
+                raise AssertionError(f"image chat: {res['tokens']} against the straight "
+                                     f"{direct['image'][0].generated}")
+
+            jbody = {"prompt": json_p, "max_tokens": GUIDED_TOKENS,
+                     "response_format": {"type": "json_object"}}
+            _, wall = _http(url, "/v1/completions", {**jbody, "temperature": 0.0})
+            (res,) = front.results[json_p]
+            timings["/v1/completions, JSON mode"] = (len(res["tokens"]), wall, None,
+                                                     ("json", 0))
+            if res["tokens"] != direct["json"][0].generated:
+                raise AssertionError(f"JSON mode: {res['tokens']} against the straight "
+                                     f"{direct['json'][0].generated}")
+            ended = [_hold_json("HTTP JSON mode, greedy", res["tokens"], eos, jdfa)]
+            for i in range(2):
+                _http(url, "/v1/completions", {**jbody, "temperature": 1.0})
+                ended.append(_hold_json(f"HTTP JSON mode, T 1.0, #{i}",
+                                        front.results[json_p][i + 1]["tokens"], eos, jdfa))
+
+            ticks, dropped = _drop_stream(front, {"prompt": words(40),
+                                                  "max_new_tokens": FRONT_DROP_BUDGET,
+                                                  "temperature": 0.0})
+            metrics, _ = _http(url, "/metrics")
+    finally:
+        front.close()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"  /health: {health}; /metrics after the requests: "
+          f"{ {k: round(v, 3) if isinstance(v, float) else v for k, v in metrics.items()} }",
+          flush=True)
+    # the straight requests again, after: the host-bound steps' wall drifts
+    # within a run, so the HTTP walls are read against both
+    with torch.inference_mode():
+        after = {name: _direct(engine, batch) for name, batch in batches.items()}
+    for name, (n, wall, first, (key, i)) in timings.items():
+        req, d_wall, d_first = (direct[key][i] if key == "completions" else direct[key])
+        _, a_wall, a_first = after[key][i]
+        if after[key][i][0].generated != req.generated:
+            raise AssertionError(f"{name}: the straight request after the HTTP ones gave "
+                                 "other tokens")
+        mean = (d_wall + a_wall) / 2
+        first_s = "" if first is None else f", first chunk {first * 1e3:.1f} ms"
+        print(f"  {name}: {n} tokens over HTTP in {wall * 1e3:.1f} ms ({n / wall:.2f} tok/s"
+              f"{first_s}); straight through the engine before / after {d_wall * 1e3:.1f} / "
+              f"{a_wall * 1e3:.1f} ms ({len(req.generated) / mean:.2f} tok/s, first read-back "
+              f"{d_first * 1e3:.1f} / {a_first * 1e3:.1f} ms): the front door's cost "
+              f"{(wall - mean) * 1e3:.1f} ms ({gpu})", flush=True)
+    print(f"  every greedy request's tokens equal the straight ones (the 4 completions' "
+          f"logprobs too, each its top-1 entry); the stream equals /generate; JSON mode: "
+          f"{sum(ended)} of 3 ended as JSON objects, the rest live prefixes", flush=True)
+    print(f"  the stream dropped after its first chunk: its lane free {ticks} scheduler ticks "
+          f"after the hang-up (limit {FRONT_DROP_TICKS}), {dropped} of its "
+          f"{FRONT_DROP_BUDGET} tokens generated", flush=True)
+    if ticks > FRONT_DROP_TICKS or dropped >= FRONT_DROP_BUDGET:
+        raise AssertionError(f"the dropped stream ran on: {ticks} ticks, {dropped} tokens")
+    print(f"  launches: { {n: c for n, c in launches.items() if c} }", flush=True)
+    for name in FRONT_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the HTTP requests")
+    return launches
+
+
+def _rss_anon_kb() -> tuple[int, str]:
+    """(kB, what was read): this process's resident anonymous memory,
+    RssAnon of /proc/self/status; where the kernel gives none (a container's
+    may not), the C heap's allocated bytes, glibc's ``mallinfo2`` (arena
+    and mmapped chunks: where torch and numpy keep host arrays)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("RssAnon:"):
+                    return int(line.split()[1]), "RssAnon"
+    except OSError:
+        pass
+    import ctypes
+
+    class Mallinfo2(ctypes.Structure):
+        _fields_ = [(n, ctypes.c_size_t) for n in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks",
+            "uordblks", "fordblks", "keepcost")]
+
+    libc = ctypes.CDLL(None)
+    libc.mallinfo2.argtypes, libc.mallinfo2.restype = [], Mallinfo2
+    info = libc.mallinfo2()
+    return (info.uordblks + info.hblkhd) // 1024, "the C heap in use (mallinfo2: no RssAnon)"
+
+
+@contextlib.contextmanager
+def _rss_anon_peak():
+    """Samples ``_rss_anon_kb`` every 2 ms; yields a dict whose ``peak_kb``
+    is the largest sample above the one taken at entry, and ``source`` what
+    was read."""
+    import threading
+
+    base, source = _rss_anon_kb()
+    out = {"peak_kb": 0, "source": source}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out["peak_kb"] = max(out["peak_kb"], _rss_anon_kb()[0] - base)
+            stop.wait(0.002)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join()
+        out["peak_kb"] = max(out["peak_kb"], _rss_anon_kb()[0] - base)
+
+
+def _write_hf_checkpoint(path, cfg, gen, device) -> dict:
+    """An HF-layout bf16 Aria checkpoint of ``cfg``'s shape, drawn on the
+    card from ``gen`` (normal / sqrt(fan in); norms 1, biases 0), one
+    shard per decoder layer plus head, vision and projector shards.
+    Returns {shard: bytes}."""
+    import torch
+
+    tc, vc, pc = cfg.text, cfg.vision, cfg.projector
+
+    def w(*shape, fan=None):
+        fan = fan or shape[-1]
+        return (torch.randn(shape, generator=gen, device=device) * fan**-0.5).to(torch.bfloat16)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=torch.bfloat16, device=device)
+
+    D, V, H, Dh = tc.hidden_size, tc.vocab_size, tc.num_heads, tc.head_dim
+    E, I, Is = tc.num_experts, tc.moe_intermediate_size, tc.shared_intermediate_size
+    shards = {}
+    for i in range(tc.num_layers):
+        p = f"language_model.model.layers.{i}."
+        shards[f"model-layer-{i:02d}.safetensors"] = {
+            p + "self_attn.q_proj.weight": w(H * Dh, D),
+            p + "self_attn.k_proj.weight": w(tc.num_kv_heads * Dh, D),
+            p + "self_attn.v_proj.weight": w(tc.num_kv_heads * Dh, D),
+            p + "self_attn.o_proj.weight": w(D, H * Dh),
+            p + "mlp.router.weight": w(E, D),
+            p + "mlp.experts.fc1.weight": w(E, D, 2 * I, fan=D),
+            p + "mlp.experts.fc2.weight": w(E, I, D, fan=I),
+            p + "mlp.shared_experts.gate_proj.weight": w(Is, D),
+            p + "mlp.shared_experts.up_proj.weight": w(Is, D),
+            p + "mlp.shared_experts.down_proj.weight": w(D, Is),
+            p + "input_layernorm.weight": const(1.0, D),
+            p + "post_attention_layernorm.weight": const(1.0, D),
+        }
+    shards["model-head.safetensors"] = {
+        "language_model.model.embed_tokens.weight": w(V, D),
+        "language_model.model.norm.weight": const(1.0, D),
+        "language_model.lm_head.weight": w(V, D)}
+    vd, vf, vt = vc.hidden_size, vc.intermediate_size, "vision_tower.vision_model."
+    vis = {vt + "embeddings.patch_embedding.weight": w(vd, 3, vc.patch_size, vc.patch_size,
+                                                       fan=3 * vc.patch_size**2),
+           vt + "embeddings.patch_embedding.bias": const(0.0, vd),
+           vt + "embeddings.position_embedding.weight": w(vc.patches_per_side**2, vd)}
+    for i in range(vc.num_layers):
+        p = f"{vt}encoder.layers.{i}."
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            vis[p + f"self_attn.{nm}.weight"] = w(vd, vd)
+            vis[p + f"self_attn.{nm}.bias"] = const(0.0, vd)
+        for nm in ("layer_norm1", "layer_norm2"):
+            vis[p + f"{nm}.weight"], vis[p + f"{nm}.bias"] = const(1.0, vd), const(0.0, vd)
+        vis.update({p + "mlp.fc1.weight": w(vf, vd), p + "mlp.fc1.bias": const(0.0, vf),
+                    p + "mlp.fc2.weight": w(vd, vf), p + "mlp.fc2.bias": const(0.0, vd)})
+    shards["model-vision.safetensors"] = vis
+    pe, mp = pc.embed_dim, "multi_modal_projector."
+    shards["model-projector.safetensors"] = {
+        mp + "query": w(pc.max_queries, pe),
+        mp + "cross_attn.q_proj.weight": w(pe, pe),
+        mp + "cross_attn.k_proj.weight": w(pe, pc.kv_dim),
+        mp + "cross_attn.v_proj.weight": w(pe, pc.kv_dim),
+        mp + "cross_attn.multihead_attn.in_proj_weight": w(3 * pe, pe),
+        mp + "cross_attn.multihead_attn.in_proj_bias": const(0.0, 3 * pe),
+        mp + "cross_attn.multihead_attn.out_proj.weight": w(pe, pe),
+        mp + "cross_attn.multihead_attn.out_proj.bias": const(0.0, pe),
+        mp + "cross_attn.linear.weight": w(pe, pe),
+        mp + "cross_attn.linear.bias": const(0.0, pe),
+        mp + "cross_attn.layer_norm.weight": const(1.0, pe),
+        mp + "cross_attn.layer_norm.bias": const(0.0, pe),
+        mp + "cross_attn.ln_kv.weight": const(1.0, pc.kv_dim),
+        mp + "cross_attn.ln_kv.bias": const(0.0, pc.kv_dim),
+        mp + "ln_ffn.weight": const(1.0, pe),
+        mp + "ln_ffn.bias": const(0.0, pe),
+        mp + "ffn.linear_in.weight": w(pc.ff_dim, pe),
+        mp + "ffn.linear_out.weight": w(pc.output_dim, pc.ff_dim)}
+    written = {}
+    for name, tensors in shards.items():  # a shard's tensors live on the card until written
+        written[name] = _write_safetensors(os.path.join(path, name), tensors)
+        del tensors
+    return written
+
+
+def _trees_equal(got, want, path="") -> int:
+    """Bit-equal, leaf for leaf (keys, dtypes, shapes, bits); returns the
+    number of leaves."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            raise AssertionError(f"{path}: keys differ")
+        return sum(_trees_equal(got[k], want[k], f"{path}/{k}") for k in want)
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(
+            got.contiguous().view(ints[got.element_size()]),
+            want.contiguous().view(ints[want.element_size()])):
+        raise AssertionError(f"{path}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}, or other bits")
+    return 1
+
+
+def run_frontdoor_imports(device, gen, cfg=None, gpu=""):
+    """Phase 6f (b), after the int4 model is freed: the HF imports and
+    ``cli/serve.py`` at full width and FRONT_IMPORT_LAYERS decoder and ViT
+    layers. The script writes an HF-layout bf16 checkpoint (its own
+    safetensors writer) into a temporary directory, then on the card: the
+    whole import (``import_hf_checkpoint``) and its int4 serving transform
+    (``quantize_lm_params_int4(fuse_shared_experts(...))``), and the streamed
+    import (``import_hf_lm_serving_int4``), which must equal it bit for bit
+    on every leaf with a device peak at least FRONT_PEAK_MARGIN below the
+    whole path's; each with its seconds, GB/s read, device peak and host
+    RssAnon peak. Then ``cli/serve.py``'s builder makes its default engine
+    (the int8 form) from the directory and answers one /v1/completions over
+    HTTP, whose greedy tokens equal ``Engine.generate``'s on the same
+    params. The directory is removed. Returns the HTTP request's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.checkpoint.io import import_hf_checkpoint, import_hf_lm_serving_int4
+    from aria_tpu_torch.cli import serve
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+    from aria_tpu_torch.ops.quant import fuse_shared_experts, quantize_lm_params_int4
+
+    cfg = cfg or AriaConfig()
+    cut = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=FRONT_IMPORT_LAYERS),
+                      vision=dataclasses.replace(cfg.vision, num_layers=FRONT_IMPORT_LAYERS))
+    path = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    try:
+        t0 = time.perf_counter()
+        written = _write_hf_checkpoint(path, cut, gen, device)
+        total = sum(written.values())
+        lm_bytes = sum(n for name, n in written.items()
+                       if name.startswith(("model-layer-", "model-head")))
+        print(f"front door imports: an HF-layout bf16 checkpoint of {len(written)} shards, "
+              f"{total / 1e9:.3f} GB ({lm_bytes / 1e9:.3f} GB of decoder), "
+              f"{FRONT_IMPORT_LAYERS} decoder and ViT layers at full width, written in "
+              f"{time.perf_counter() - t0:.1f} s (so its pages are warm in the host's cache)",
+              flush=True)
+
+        cuda = device.type == "cuda"
+
+        def measured(label, nbytes, fn):
+            _sync(device)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() if cuda else 0
+            with _rss_anon_peak() as rss:
+                t = time.perf_counter()
+                out = fn()
+                _sync(device)
+                sec = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+            print(f"  {label}: {sec:.2f} s, {nbytes / sec / 1e9:.2f} GB/s read (warm), device "
+                  f"peak {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB resident, host "
+                  f"peak {rss['peak_kb'] / 2**20:.3f} GiB above entry, read as {rss['source']} "
+                  f"({gpu})",
+                  flush=True)
+            return out, peak
+
+        def whole():
+            params = import_hf_checkpoint(path, cut, device=device)
+            return quantize_lm_params_int4(fuse_shared_experts(
+                params, cut.text.num_shared_experts)["lm"])
+
+        want, whole_peak = measured(
+            "whole import then quantize_lm_params_int4(fuse_shared_experts(...))", total, whole)
+        got, stream_peak = measured(
+            "streamed int4 import (import_hf_lm_serving_int4)", lm_bytes,
+            lambda: import_hf_lm_serving_int4(path, cut.text, device=device))
+        leaves = _trees_equal(got, want)
+        print(f"  the streamed import equals quantize-after-import bit for bit on all {leaves} "
+              f"leaves; its device peak {stream_peak / 2**30:.2f} GiB against "
+              f"{whole_peak / 2**30:.2f} GiB (held at least {FRONT_PEAK_MARGIN / 2**30:.0f} GiB "
+              "below on the card)", flush=True)
+        if cuda and not stream_peak <= whole_peak - FRONT_PEAK_MARGIN:
+            raise AssertionError(f"streamed import device peak {stream_peak} against the whole "
+                                 f"import's {whole_peak}")
+        del got, want
+
+        t0 = time.perf_counter()
+        args = serve.parse_args(["--model-path", path, "--max-lanes", "2", "--max-seq-len",
+                                 "1024", "--host", "127.0.0.1", "--port", "0",
+                                 "--device", str(device)])
+        engine, tok = serve.build(args, cfg=cut)
+        _sync(device)
+        print(f"  cli/serve.py's builder (default int8 form, imported a layer at a time): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        prompt = " ".join(np.random.RandomState(SEED + 72).choice(
+            ["red", "green", "blue", "cat", "dog", "sun", "moon", "tree"], 50))  # > 128 ids
+        wrappers = _wrappers()
+        front = _Front(engine, tok)
+        for w in wrappers.values():  # count only what the served request launches
+            w.launches = 0
+        try:
+            with _no_chain(device, "the served request"):
+                resp, wall = _http(front.url, "/v1/completions", {
+                    "prompt": prompt, "max_tokens": FRONT_TOKENS, "temperature": 0.0})
+            launches = {name: w.launches for name, w in wrappers.items()}
+        finally:
+            front.close()
+        (res,) = front.results[prompt]
+        ids = tok.encode(prompt)
+        ref = Engine(engine.params, engine.cfg, max_seq_len=1024).generate(
+            ids, GenerationConfig(max_new_tokens=FRONT_TOKENS, temperature=0.0,
+                                  stop_token_ids=(tok.eos_token_id,)))
+        print(f"  /v1/completions over HTTP ({len(ids)}-token prompt): {len(res['tokens'])} "
+              f"tokens in {wall * 1e3:.1f} ms; Engine.generate on the same params "
+              f"{'gives the same tokens' if ref.tokens == res['tokens'] else 'differs'}; "
+              f"launches { {n: c for n, c in launches.items() if c} } ({gpu})", flush=True)
+        if ref.tokens != res["tokens"] or resp["choices"][0]["text"] != res["text"]:
+            raise AssertionError(f"the served tokens {res['tokens']} against Engine.generate's "
+                                 f"{ref.tokens}")
+        _check_form_path("frontdoor-serve", launches, "int8", image=False)
+        return launches
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -4838,6 +5502,7 @@ def main() -> int:
 
     def done(phase, since):
         torch.cuda.synchronize()
+        gc.collect()  # a model a phase left in a reference cycle is freed here, not later
         torch.cuda.empty_cache()
         print(f"phase {phase}: {time.perf_counter() - since:.1f} s", flush=True)
         return time.perf_counter()
@@ -4862,8 +5527,12 @@ def main() -> int:
                                  default_lanes=lanes_headline))
     t0 = done("variants", t0)
     launches["serving"] = run_serving(device, lm, gpu=gpu)
-    del lm  # the forms' models do not fit beside the int4 one
     t0 = done("serving", t0)
+    launches["frontdoor"] = run_frontdoor(device, gen(12), lm, gpu=gpu)
+    del lm  # the forms' models do not fit beside the int4 one
+    t0 = done("frontdoor (HTTP)", t0)
+    launches["frontdoor-serve"] = run_frontdoor_imports(device, gen(13), gpu=gpu)
+    t0 = done("frontdoor (imports, cli/serve.py)", t0)
     launches["cp"] = run_cp(gpu=gpu)
     t0 = done("cp", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))

@@ -94,7 +94,8 @@ def test_port_imports_nothing_of_jax(path):
             assert top not in banned, f"{path.name}:{node.lineno} imports {name}"
 
 
-ENV_READERS = {"aria_tpu_torch/ops/_build.py"}  # finds nvcc through CUDA_HOME
+ENV_READERS = {"aria_tpu_torch/ops/_build.py",  # finds nvcc through CUDA_HOME
+               "aria_tpu_torch/cli/download.py"}  # the Hub token's default, $HF_TOKEN
 
 
 @pytest.mark.parametrize("path", sorted((ROOT / "aria_tpu_torch").rglob("*.py")),

@@ -278,11 +278,6 @@ def test_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
         train(base_recipe(tmp_path, mesh_fsdp=2), cfg=T_CFG, device="cpu")
     with pytest.raises(NotImplementedError, match="QLoRA"):
         train(base_recipe(tmp_path, use_peft=True, quantize_base=True), cfg=T_CFG, device="cpu")
-    st = tmp_path / "hf"
-    st.mkdir()
-    (st / "model.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        train(base_recipe(tmp_path, model_path=str(st)), cfg=T_CFG, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(base_recipe(tmp_path), cfg=T_CFG)
