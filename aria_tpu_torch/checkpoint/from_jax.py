@@ -6,7 +6,8 @@ Every leaf keeps its dtype and its bytes: int8 ``{"q", "s"}`` /
 ``{"q4", "sg"}`` / ``{"q4", "s8"}`` (quant.py:263-300) and dense int4
 ``{"q4t", "sg"}`` (dense_int4.py:33-50) come across byte for byte, as do
 the training tree (``init_aria_params``: float weights, the shared experts
-unfused) and a LoRA tree (``init_lora_params``). bf16
+unfused; its ViT too, trained with ``freeze_vit=False``), the QLoRA base
+of ``quantize_params`` and a LoRA tree (``init_lora_params``). bf16
 leaves (numpy's ``bfloat16`` extension dtype) are carried as their 16-bit
 patterns. Nothing here imports jax: convert a JAX tree first with
 ``jax.tree.map(numpy.asarray, tree)``. The tensors land on the card

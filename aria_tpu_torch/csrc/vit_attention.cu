@@ -19,7 +19,11 @@
 //   key's, so pad queries attend pad keys only; keys past Sk get -inf; the
 //   output is acc * (l == 0 ? 1 : 1 / l), divided once at the end where the
 //   library rescales at every key block (the same value up to f32
-//   rounding).
+//   rounding). In training it also writes each row's statistics, the
+//   library's residuals m (the row max of the masked, scaled scores) and l
+//   (the sum of their exponentials), into stats f32 [2, B, H, Sq], for
+//   the backward (csrc/vit_attention_bwd.cu); the output's bits are the
+//   same with or without them.
 //
 // Both: the online softmax in f32, p rounded to bf16 for p.v while l sums
 // the f32 p. The exponentials are ex2.approx((s - m) * log2(e)) with
@@ -210,7 +214,7 @@ template <int D, int FORM>
 __global__ void __launch_bounds__(THREADS, 1)
 vit_attention_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ q_valid,
                      const uint8_t* __restrict__ kv_valid, __nv_bfloat16* __restrict__ out,
-                     int Sq, int Sk, int H, float scale) {
+                     float* __restrict__ stats, int Sq, int Sk, int H, float scale) {
   using L = Layout<D>;
   using QT = typename L::Q;
   using KV = typename L::KV;
@@ -453,6 +457,12 @@ vit_attention_kernel(const __grid_constant__ Maps maps, const uint8_t* __restric
     ia = la == 0.f ? 1.f : 1.f / la;
     ib = lb == 0.f ? 1.f : 1.f / lb;
   }
+  if (FORM == SEGMENT && stats != nullptr && (lane & 3) == 0) {  // m, then l: [2, B, H, Sq]
+    float* const sm = stats + (size_t)bh * Sq;
+    float* const sl = sm + (size_t)gridDim.y * Sq;
+    if (ra < Sq) sm[ra] = ma, sl[ra] = la;
+    if (rb < Sq) sm[rb] = mb, sl[rb] = lb;
+  }
   const size_t row_stride = (size_t)H * D;
   __nv_bfloat16* oa = out + ((size_t)b * Sq + ra) * row_stride + (size_t)h * D;
   __nv_bfloat16* ob = oa + 8 * row_stride;
@@ -468,8 +478,8 @@ vit_attention_kernel(const __grid_constant__ Maps maps, const uint8_t* __restric
 // ---- host side
 template <int D, int FORM>
 int launch(const void* q, const void* k, const void* v, const void* q_valid,
-           const void* kv_valid, void* out, int B, int Sq, int Sk, int H, float scale,
-           cudaStream_t stream) {
+           const void* kv_valid, void* out, void* stats, int B, int Sq, int Sk, int H,
+           float scale, cudaStream_t stream) {
   using L = Layout<D>;
   Maps m{};  // the tail maps stay zero at D = 64, where the kernel reads none
   if (!aria::bshd_map(&m.q, q, B, Sq, H, ROWS, D) || !aria::bshd_map(&m.k, k, B, Sk, H, KT, D) ||
@@ -483,20 +493,21 @@ int launch(const void* q, const void* k, const void* v, const void* q_valid,
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (Sq + ROWS - 1) / ROWS;
   vit_attention_kernel<D, FORM><<<dim3(n_qt, B * H), THREADS, L::BYTES, stream>>>(
-      m, (const uint8_t*)q_valid, (const uint8_t*)kv_valid, (__nv_bfloat16*)out, Sq, Sk, H,
-      scale);
+      m, (const uint8_t*)q_valid, (const uint8_t*)kv_valid, (__nv_bfloat16*)out, (float*)stats,
+      Sq, Sk, H, scale);
   return (int)cudaGetLastError();
 }
 
 template <int FORM>
 int dispatch(const void* q, const void* k, const void* v, const void* q_valid,
-             const void* kv_valid, void* out, int B, int Sq, int Sk, int H, int D, float scale,
-             void* stream) {
+             const void* kv_valid, void* out, void* stats, int B, int Sq, int Sk, int H, int D,
+             float scale, void* stream) {
   if ((D != 64 && D != 72) || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return D == 64 ? launch<64, FORM>(q, k, v, q_valid, kv_valid, out, B, Sq, Sk, H, scale, st)
-                 : launch<72, FORM>(q, k, v, q_valid, kv_valid, out, B, Sq, Sk, H, scale, st);
+  return D == 64
+             ? launch<64, FORM>(q, k, v, q_valid, kv_valid, out, stats, B, Sq, Sk, H, scale, st)
+             : launch<72, FORM>(q, k, v, q_valid, kv_valid, out, stats, B, Sq, Sk, H, scale, st);
 }
 
 }  // namespace
@@ -505,13 +516,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* q_valid,
 ARIA_EXPORT int aria_vit_flash(const void* q, const void* k, const void* v, const void* kv_valid,
                                void* out, int B, int S, int H, int D, float scale,
                                void* stream) {
-  return dispatch<VIT>(q, k, v, nullptr, kv_valid, out, B, S, S, H, D, scale, stream);
+  return dispatch<VIT>(q, k, v, nullptr, kv_valid, out, nullptr, B, S, S, H, D, scale, stream);
 }
 
 // the segment form: q, out [B, Sq, H, D], k, v [B, Sk, H, D]; q_valid [B, Sq]
-// and kv_valid [B, Sk] bool bytes or NULL (every position valid)
+// and kv_valid [B, Sk] bool bytes or NULL (every position valid); stats f32
+// [2, B, H, Sq] (m, then l) or NULL
 ARIA_EXPORT int aria_flash_segment(const void* q, const void* k, const void* v,
-                                   const void* q_valid, const void* kv_valid, void* out, int B,
-                                   int Sq, int Sk, int H, int D, float scale, void* stream) {
-  return dispatch<SEGMENT>(q, k, v, q_valid, kv_valid, out, B, Sq, Sk, H, D, scale, stream);
+                                   const void* q_valid, const void* kv_valid, void* out,
+                                   void* stats, int B, int Sq, int Sk, int H, int D, float scale,
+                                   void* stream) {
+  return dispatch<SEGMENT>(q, k, v, q_valid, kv_valid, out, stats, B, Sq, Sk, H, D, scale,
+                           stream);
 }

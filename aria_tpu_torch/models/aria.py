@@ -2,15 +2,17 @@
 scattered into the ``<|img|>`` token embeddings -> the MoE decoder, and the
 training loss (counterpart of aria_tpu/models/aria.py).
 
-In training the vision tower runs under ``torch.no_grad()``: it is frozen
-(its backward, through ``vit_flash``, has no counterpart in the JAX
-package either). The projector is differentiated when its weights ask
-for gradients.
+The vision tower records a graph only where autograd is on and one of its
+leaves asks for a gradient (``freeze_vit=False``); its attention then
+takes ``flash_segment``'s differentiable form (``models/vit.py``). A
+frozen tower, and serving, run it under ``torch.no_grad()``. The projector
+is differentiated when its weights ask for gradients.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,19 +46,27 @@ def init_aria_params(cfg: AriaConfig, generator: torch.Generator, *, device="cud
             "lm": init_lm_params(cfg.text, generator, device=device, dtype=dtype)}
 
 
+def _asks_grad(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return any(_asks_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def encode_images(params: dict, cfg: AriaConfig, pixel_values: torch.Tensor,
                   pixel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, C, S, S] images -> [N, Q, D_lm] projected image features.
 
     uint8 pixels are normalized on the device; ``pixel_mask=None`` means
-    every pixel is valid. The ViT never records a graph (it is frozen in
-    training); the projector does when autograd is on."""
+    every pixel is valid. The ViT records a graph when autograd is on and a
+    vision leaf requires a gradient; the projector whenever autograd is
+    on."""
     if pixel_values.dtype == torch.uint8:
         pixel_values = normalize_pixels(pixel_values)
     if pixel_mask is None:
         N, _, H, W = pixel_values.shape
         pixel_mask = torch.ones((N, H, W), dtype=torch.bool, device=pixel_values.device)
-    with torch.no_grad():
+    train_vit = torch.is_grad_enabled() and _asks_grad(params["vision"])
+    with contextlib.nullcontext() if train_vit else torch.no_grad():
         vis = vit_forward(params["vision"], cfg.vision, pixel_values, pixel_mask)
     return projector_forward(params["projector"], cfg.projector, vis.features,
                              vis.kv_ignore_mask)
@@ -100,17 +110,19 @@ def aria_forward(
     pixel_values: Optional[torch.Tensor] = None,  # [N, C, S_img, S_img]
     pixel_mask: Optional[torch.Tensor] = None,  # [N, S_img, S_img] bool
     *,
+    mask: Optional[torch.Tensor] = None,  # broadcastable to [B, H, S, S]; True = attend
     training: bool = False,
     lora: Optional[dict] = None,  # {"lm": {"layers": {...}}}
     lora_scale: float = 0.0,
     remat: bool = False,
 ) -> LMOutput:
     """Embeddings with the image features scattered in, then the decoder
-    over the whole sequence with causal attention (aria.py:101-126)."""
+    over the whole sequence with causal attention, or where ``mask`` says
+    (aria.py:101-126)."""
     embeds = prepare_embeddings(params, cfg, tokens, pixel_values, pixel_mask)
-    return lm_forward(params["lm"], cfg.text, inputs_embeds=embeds, training=training,
-                      lora=lora["lm"] if lora is not None else None, lora_scale=lora_scale,
-                      remat=remat)
+    return lm_forward(params["lm"], cfg.text, inputs_embeds=embeds, mask=mask,
+                      training=training, lora=lora["lm"] if lora is not None else None,
+                      lora_scale=lora_scale, remat=remat)
 
 
 class LossOutput(NamedTuple):

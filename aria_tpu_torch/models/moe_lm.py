@@ -44,13 +44,21 @@ router adds its z and aux losses, and there is no MoE slicing. LoRA
 adapters (``train/lora.py``) add their deltas to wqkv, wo, shared_w1 and
 shared_w2 and ride inside the expert GLU. ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant) as ``jax.checkpoint`` does the
-scanned body. The KV cache (bf16, int8, or head-pair packed int4) is
-written in place: at one offset for every lane, or at a per-lane offset
-(continuous batching). A decode step (one new token per lane), a
-from-zero prefill and a per-lane write of several positions (the verify
-step) take the fused prologue ``rope_kv_write``: one kernel a layer turns
-the wqkv output into the rotated, quantized cache write and the rotated
-query (with the fresh k, v for flash). The serving mesh's writers keep
+scanned body. Training over int8 experts is QLoRA (the JAX package's
+``quantize_params`` tree): with expert LoRA the blocked path above, else
+the layer's experts dequantized for the training dispatch; the frozen
+base's dequantized weights are constants, and each block (or layer) runs
+under a non-reentrant checkpoint so that the backward dequantizes it again
+instead of keeping it (``_frozen_base``). An attention ``mask`` (True =
+attend) replaces the causal mask of uncached attention: the plain masked
+``sdpa`` runs with autograd, as the JAX package leaves it to XLA. The KV
+cache (bf16, int8, or head-pair packed int4) is written in place: at one
+offset for every lane, or at a per-lane offset (continuous batching). A
+decode step (one new token per lane), a from-zero prefill and a per-lane
+write of several positions (the verify step) take the fused prologue
+``rope_kv_write``: one kernel a layer turns the wqkv output into the
+rotated, quantized cache write and the rotated query (with the fresh k, v
+for flash). The serving mesh's writers keep
 the chain of ``apply_rope``, ``quantize_kv`` and an indexed write or the
 ``kv_cache_write`` kernel.
 
@@ -510,7 +518,7 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
                paged: Optional[tuple] = None, lora: Optional[dict] = None,
                lora_scale: float = 0.0, lora_onehot: Optional[torch.Tensor] = None,
                mesh=None, block: Optional[_Block] = None, cache_mask=None,
-               dest: Optional[tuple] = None):
+               dest: Optional[tuple] = None, attn_mask: Optional[torch.Tensor] = None):
     B, S, _ = x.shape
     qkv = _project(x.reshape(B * S, -1), layers["wqkv"], layer).reshape(B, S, -1)
     if lora and "wqkv" in lora:
@@ -536,6 +544,10 @@ def _attention(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, cos, 
             _write_cache(cache, layer, cache_pos, k, v, rows, block)
     if paged is not None:
         out = _paged_attention(cache, layer, q, lengths, paged[0], paged[3])
+    elif attn_mask is not None:
+        # the caller's mask in place of the causal one (moe_lm.py:644):
+        # plain attention, differentiated by autograd
+        out = sdpa(q, k, v, attn_mask)
     elif use_flash:
         # from-zero prefill: causal attention over the fresh k/v equals
         # attending the cache prefix, so the cache is written but not read
@@ -604,6 +616,18 @@ def lora_block_size(E: int) -> int:
     return eb
 
 
+def _frozen_base(fn, *args):
+    """``fn(*args)`` over a quantized base's experts, dequantized inside
+    ``fn``. Where autograd records, under a non-reentrant checkpoint: the
+    backward runs ``fn`` again (the dequantize included) instead of saving
+    the float weights, which at flagship would keep 28 layers x 4 blocks x
+    408 MB of bf16 copies of the frozen int8 experts alive until the
+    backward reaches them."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _experts_lora_blocked(x: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor,
                           w1q: dict, w2q: dict, lora: dict, lora_scale: float,
                           lora_onehot: Optional[torch.Tensor], dtype) -> torch.Tensor:
@@ -616,7 +640,8 @@ def _experts_lora_blocked(x: torch.Tensor, indices: torch.Tensor, weights: torch
     factors). Slots outside the block take weight 0 and the id ``eb``,
     which the dispatch sends to its trash row; the blocks' outputs are
     summed in f32. A layer of at most 16 experts is one block, run without
-    the masking and the sum."""
+    the masking and the sum. In training each block runs under
+    ``_frozen_base``."""
     E = (w1q["q4"] if "q4" in w1q else w1q["q"]).shape[0]
     eb = lora_block_size(E)
     lw1, lw2 = lora.get("w1"), lora.get("w2")
@@ -626,10 +651,12 @@ def _experts_lora_blocked(x: torch.Tensor, indices: torch.Tensor, weights: torch
                                           for f, v in tree.items()}
 
     def run(e0, il, wts):
-        return experts_grouped(x, il, wts, expert_block_dequant(w1q, "w1", e0, eb, dtype),
-                               expert_block_dequant(w2q, "w2", e0, eb, dtype),
-                               lora_w1=block(lw1, e0), lora_w2=block(lw2, e0),
-                               lora_scale=lora_scale, lora_onehot=lora_onehot)
+        def blk(x, il, wts):
+            return experts_grouped(x, il, wts, expert_block_dequant(w1q, "w1", e0, eb, dtype),
+                                   expert_block_dequant(w2q, "w2", e0, eb, dtype),
+                                   lora_w1=block(lw1, e0), lora_w2=block(lw2, e0),
+                                   lora_scale=lora_scale, lora_onehot=lora_onehot)
+        return _frozen_base(blk, x, il, wts)
 
     if eb == E:
         return run(0, indices, weights)
@@ -704,15 +731,17 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
     elif training or decode_kernel_tile(cfg.moe_intermediate_size) is None:
         # training; and serving where the reference has no kernel tile for I
         # (not a multiple of 128: its dequantizing path, moe_lm.py:1020-1044)
-        w1l, w2l = dequantize_expert_weights(
-            *({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
-              for w in (w1, w2)), dtype=flat.dtype)
-        if T <= GATHER_PATH_MAX_TOKENS:
-            out = experts_gather(flat, indices, weights, w1l, w2l)
-        elif cfg.num_experts > 2 * cfg.moe_topk:
-            out = experts_ragged(flat, indices, weights, w1l, w2l)
-        else:
-            out = experts_grouped(flat, indices, weights, w1l, w2l)
+        def dispatch(flat, indices, weights):
+            w1l, w2l = dequantize_expert_weights(
+                *({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
+                  for w in (w1, w2)), dtype=flat.dtype)
+            if T <= GATHER_PATH_MAX_TOKENS:
+                return experts_gather(flat, indices, weights, w1l, w2l)
+            if cfg.num_experts > 2 * cfg.moe_topk:
+                return experts_ragged(flat, indices, weights, w1l, w2l)
+            return experts_grouped(flat, indices, weights, w1l, w2l)
+        out = (_frozen_base(dispatch, flat, indices, weights) if isinstance(w1, dict)
+               else dispatch(flat, indices, weights))
     elif is_quantized_int4(w1):
         experts = (w1["q4"], w1["sg"], w2["q4"], w2["s8"], layer)
         if T <= DECODE_KERNEL_MAX_TOKENS:
@@ -759,6 +788,7 @@ def lm_forward(
     causal_flash: Optional[bool] = None,  # caller asserts causal-from-0 attention
     page_table: Optional[torch.Tensor] = None,  # [B, MAXP] int32: ``cache`` is paged
     training: bool = False,  # router losses, the training MoE dispatch
+    mask: Optional[torch.Tensor] = None,  # broadcastable to [B, H, S, S]; True = attend
     lora: Optional[dict] = None,  # {"layers": {name: {"a": [L, ...], "b": [L, ...]}}}
     lora_scale: float = 0.0,
     lora_onehot: Optional[torch.Tensor] = None,  # [A, B] selector over stacked [L, A, ...]
@@ -768,7 +798,9 @@ def lm_forward(
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
     token, it attends the cache (decode-attention kernel) up to
-    ``cache_pos + 1`` for each lane; with a cache and several tokens not
+    ``cache_pos + 1`` for each lane; without a cache and with a ``mask``,
+    it attends where the mask is True (plain ``sdpa``, moe_lm.py:1107-1109);
+    with a cache and several tokens not
     from zero, token i of lane b attends positions up to ``cache_pos[b] +
     i`` (``cached_attention_plain``). With a ``page_table`` the cache is a
     ``PagedKVCache`` under the same rule. The cache is updated in place and
@@ -801,10 +833,12 @@ def lm_forward(
                          + (f" + {cfg.num_shared_experts} fused shared" if fused else ""))
     lora_layers = lora["layers"] if lora is not None else None
     expert_lora = lora_layers is not None and ("w1" in lora_layers or "w2" in lora_layers)
-    if training and isinstance(w1, dict):
-        raise NotImplementedError(
-            "training over quantized experts is QLoRA: its training path over the blocked "
-            "dequantize (_experts_lora_blocked) is not ported yet (ROADMAP queue 1 item 10)")
+    if training and int4:
+        raise NotImplementedError("training over int4 experts: QLoRA trains over the int8 "
+                                  "tree of quantize_params")
+    if mask is not None and (cache is not None or mesh is not None):
+        raise NotImplementedError("an attention mask is ported for uncached attention "
+                                  "(training); the cached paths make their own")
     ft = decode_kernel_tile(cfg.moe_intermediate_size)
     if not (training or expert_lora) and ft not in (None, cfg.moe_intermediate_size):
         raise NotImplementedError(
@@ -816,7 +850,7 @@ def lm_forward(
         positions = torch.arange(S, device=x.device)
     cos, sin = precompute_rope(positions, cfg.head_dim, cfg.rope_base)
     if causal_flash is None:
-        causal_flash = cache is None
+        causal_flash = cache is None and mask is None
     cp_n = mesh.shape["context"] if mesh is not None else 1
     if mesh is not None and (page_table is not None or training or cache is None):
         raise NotImplementedError(
@@ -866,7 +900,7 @@ def lm_forward(
         normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
         x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
                            lengths, rows, paged, lora_layers, lora_scale, lora_onehot, mesh,
-                           block, cache_mask, dest)
+                           block, cache_mask, dest, mask)
         normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
         out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
                                          lora_layers, lora_scale, tok_onehot)

@@ -10,7 +10,12 @@ wrapper at 256 patches or more, and through the plain masked ``sdpa``
 below that (vit.py:142); with ``VIT_FLASH`` off (the JAX package's
 ``ARIA_TPU_VIT_FLASH=0``, vit.py:157-177) the 256 patches or more go
 through ``flash_sdpa`` with the padding as segment ids, so pad patches
-attend each other only. No post-layernorm.
+attend each other only. ``vit_flash`` serves: it has no backward, as in
+the JAX package, so a ViT that records a graph (``freeze_vit=False``) at
+256 patches or more takes ``flash_sdpa``'s segment form whatever
+``VIT_FLASH`` says, the JAX package's differentiable path under
+``ARIA_TPU_VIT_FLASH=0``; its autograd function runs the segment backward
+kernel on the card. No post-layernorm.
 """
 
 from __future__ import annotations
@@ -142,7 +147,7 @@ def vit_forward(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
                             cfg.layer_norm_eps)
         q, k, v = (lin(normed, w, b, layer).reshape(N, P, H, Dh)
                    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-        if flash and VIT_FLASH:
+        if flash and VIT_FLASH and not (torch.is_grad_enabled() and q.requires_grad):
             att = vit_flash(q, k, v, pmask)
         elif flash:
             att = flash_sdpa(q, k, v, q_valid=pmask, kv_valid=pmask)

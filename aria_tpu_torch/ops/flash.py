@@ -34,7 +34,16 @@ whose notes give the design); it follows the library's numerics
 (flash_attention.py:395-472): unscaled bf16 q.k with f32 sums, then the
 scale in f32, an additive -0.7 * FLT_MAX where the segments differ, p
 rounded to v's dtype for p.v. At [1, 4900, 16, 72] it does 110.6 GFLOP,
-so it is bound by tensor-core throughput. ``flash_sdpa`` takes the JAX
+so it is bound by tensor-core throughput. It is differentiable: a forward
+that autograd records writes each row's statistics (the library's m and
+l) for ``flash_segment_bwd``, whose kernel ``csrc/vit_attention_bwd.cu``
+replaces the library's backward with segment ids (flash_attention.py:941
+and :1287); its notes give the design. Off the card the plain version
+runs with its autograd gradient (``flash_segment_bwd_plain``). Pad queries
+attend pad keys only, where the JAX package off the TPU lets them attend
+the valid keys (flash.py:47-59): the outputs of pad rows differ by design,
+and the gradients agree wherever the cotangent of the pad rows is zero (in
+the ViT the projector ignores pad patches). ``flash_sdpa`` takes the JAX
 signature and picks the form.
 """
 
@@ -171,16 +180,18 @@ def flash_sdpa_plain(q, k, v, q_valid: Optional[torch.Tensor] = None,
     return (out / p.sum(dim=-1).transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  q_valid: Optional[torch.Tensor] = None,
-                  kv_valid: Optional[torch.Tensor] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """Non-causal attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] with
-    segment ids from ``q_valid`` [B, Sq] and ``kv_valid`` [B, Sk] (None:
-    every position valid); returns [B, Sq, H, D] in q's dtype."""
-    tensors = [t for t in (q, k, v, q_valid, kv_valid) if t is not None]
-    if not backend.on_cuda(*tensors):
-        return flash_sdpa_plain(q, k, v, q_valid, kv_valid, scale)
+def flash_segment_bwd_plain(q, k, v, dout, q_valid: Optional[torch.Tensor] = None,
+                            kv_valid: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv): autograd of ``flash_sdpa_plain``'s segment attention
+    with cotangent ``dout``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_sdpa_plain(*leaves, q_valid, kv_valid, scale)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _segment_check(q, k, v, q_valid, kv_valid, scale) -> float:
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if D not in SEGMENT_HEAD_DIMS:
@@ -191,17 +202,82 @@ def flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t, S in (("q_valid", q_valid, Sq), ("kv_valid", kv_valid, Sk)):
         if t is not None:
             backend.require(t, name, torch.bool, (B, S))
-    scale = 1.0 / (D**0.5) if scale is None else scale
+    return 1.0 / (D**0.5) if scale is None else scale
+
+
+def _segment_forward(q, k, v, q_valid, kv_valid, scale: float,
+                     stats: Optional[torch.Tensor]) -> torch.Tensor:
+    B, Sq, H, D = q.shape
     out = torch.empty_like(q)
     p = backend.ptr
     err = library().aria_flash_segment(p(q), p(k), p(v), p(q_valid), p(kv_valid), p(out),
-                                       B, Sq, Sk, H, D, ctypes.c_float(scale), backend.stream())
+                                       p(stats), B, Sq, k.shape[1], H, D, ctypes.c_float(scale),
+                                       backend.stream())
     backend.check(err, "flash_segment")
     flash_segment.launches += 1
     return out
 
 
+def flash_segment_bwd(q, k, v, out, dout, stats, q_valid: Optional[torch.Tensor] = None,
+                      kv_valid: Optional[torch.Tensor] = None, scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_segment`` from its output ``out``, the
+    cotangent ``dout`` and the forward's row statistics ``stats`` f32 [2, B,
+    H, Sq] (m, then l), on the card."""
+    scale = _segment_check(q, k, v, q_valid, kv_valid, scale)
+    B, Sq, H, D = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        backend.require(t, name, torch.bfloat16, (B, Sq, H, D))
+    backend.require(stats, "stats", torch.float32, (2, B, H, Sq))
+    # each query row's (m, 1 / l, di, segment), over Sq rounded up to 64
+    qs = torch.empty((B, H, -(-Sq // 64) * 64, 4), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    p = backend.ptr
+    err = library().aria_flash_segment_bwd(
+        p(q), p(k), p(v), p(out), p(dout), p(stats), p(q_valid), p(kv_valid), p(qs), p(dq),
+        p(dk), p(dv), B, Sq, k.shape[1], H, D, ctypes.c_float(scale), backend.stream())
+    backend.check(err, "flash_segment_bwd")
+    flash_segment_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashSegment(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_valid, kv_valid, scale):
+        B, Sq, H, _ = q.shape
+        stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+        out = _segment_forward(q, k, v, q_valid, kv_valid, scale, stats)
+        ctx.save_for_backward(q, k, v, out, stats, q_valid, kv_valid)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, stats, q_valid, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_segment_bwd(q, k, v, out, dout.contiguous(), stats, q_valid,
+                                       kv_valid, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_valid: Optional[torch.Tensor] = None,
+                  kv_valid: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] with
+    segment ids from ``q_valid`` [B, Sq] and ``kv_valid`` [B, Sk] (None:
+    every position valid); returns [B, Sq, H, D] in q's dtype.
+    Differentiable: on the card a forward that autograd records keeps the
+    row statistics for ``flash_segment_bwd``."""
+    tensors = [t for t in (q, k, v, q_valid, kv_valid) if t is not None]
+    if not backend.on_cuda(*tensors):
+        return flash_sdpa_plain(q, k, v, q_valid, kv_valid, scale)
+    scale = _segment_check(q, k, v, q_valid, kv_valid, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashSegment.apply(q, k, v, q_valid, kv_valid, scale)
+    return _segment_forward(q, k, v, q_valid, kv_valid, scale, None)
+
+
 flash_segment.launches = 0
+flash_segment_bwd.launches = 0
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False,

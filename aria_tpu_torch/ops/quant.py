@@ -70,26 +70,50 @@ def with_s8(qw: dict) -> dict:
     return {**qw, "s8": s[..., None, :].expand(*s.shape[:-1], 8, s.shape[-1]).contiguous()}
 
 
-# the decoder's weights that the int8 serving form quantizes (quant.py:26);
-# norms, the router gate and embed stay float
-LM_QUANT_KEYS = ("wqkv", "wo", "w1", "w2", "shared_w1", "shared_w2")
+# the decoder's weights that the int8 form quantizes (quant.py:26), the
+# largest first, each with its input axis and whether it carries ``s8``
+# (w1 [L, E, 2I, D] over D, w2 [L, E, I, D] over I, the rest per output
+# channel); norms, the router gate and embed stay float
+LM_QUANT_KEYS = {"w1": (-1, True), "w2": (-2, True), "wqkv": (-2, False), "wo": (-2, False),
+                 "shared_w1": (-2, False), "shared_w2": (-2, False)}
+# experts quantized at a time: bounds the f32 temporaries of an expert stack
+# (``quantize_weight`` of a whole flagship w1 would take a 61 GB f32 copy)
+QUANT_SLAB = 16
+
+
+def _quantize_stack(w: torch.Tensor, input_axis: int) -> dict:
+    """``quantize_weight(w, input_axis)`` of an [L, ...] stack, one layer
+    (of expert stacks [L, E, R, D], ``QUANT_SLAB`` experts) at a time into
+    preallocated int8 values and f32 scales. Each scale covers one row or
+    column inside an expert, so the bits are those of the whole stack's."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    sshape = list(w.shape)
+    del sshape[input_axis]
+    s = torch.empty(sshape, dtype=torch.float32, device=w.device)
+    for layer in range(w.shape[0]):
+        parts = range(0, w.shape[1], QUANT_SLAB) if w.dim() == 4 else (None,)
+        for e0 in parts:
+            at = (layer,) if e0 is None else (layer, slice(e0, e0 + QUANT_SLAB))
+            part = quantize_weight(w[at], input_axis)
+            q[at], s[at] = part["q"], part["s"]
+    return {"q": q, "s": s}
+
+
+def _quantize_layers(layers: dict) -> dict:
+    """Replace ``layers``' ``LM_QUANT_KEYS`` stacks by their int8 forms, in
+    place, and return it; each float stack is let go as soon as its int8
+    form is whole (shared_w1/w2 are gone after fuse_shared_experts)."""
+    for key, (axis, s8) in LM_QUANT_KEYS.items():
+        if key in layers:
+            qw = _quantize_stack(layers[key], axis)
+            layers[key] = with_s8(qw) if s8 else qw
+    return layers
 
 
 def quantize_lm_layers(layers: dict) -> dict:
-    """The int8 form of a decoder's [L, ...] layer stacks (any L): w1
-    quantized over D with ``s8``, w2 over I with ``s8``, the other
-    ``LM_QUANT_KEYS`` per output channel; norms and the gate unchanged."""
-    layers = dict(layers)
-    for key in LM_QUANT_KEYS:
-        if key not in layers:
-            continue  # shared_w1/w2 are gone after fuse_shared_experts
-        if key == "w1":
-            layers[key] = with_s8(quantize_weight(layers[key], input_axis=-1))
-        elif key == "w2":
-            layers[key] = with_s8(quantize_weight(layers[key], input_axis=-2))
-        else:
-            layers[key] = quantize_weight(layers[key], input_axis=-2)
-    return layers
+    """The int8 form of a decoder's [L, ...] layer stacks (any L), in a new
+    dict; norms and the gate unchanged."""
+    return _quantize_layers(dict(layers))
 
 
 def quantize_lm_params(lm_params: dict) -> dict:
@@ -106,6 +130,22 @@ def quantize_params(params: dict) -> dict:
     """Quantize the decoder; the ViT and projector stay as they are
     (quant.py:144-148)."""
     return {**params, "lm": quantize_lm_params(params["lm"])}
+
+
+def quantize_params_by_layer(params: dict) -> dict:
+    """``quantize_params`` (the JAX package's QLoRA base, loop.py:132-140)
+    made in place, a layer (an expert slab) at a time, bit for bit the
+    whole-tree quantization: each float leaf leaves ``params`` as soon as
+    its int8 form is whole, so the float base and its int8 form are never
+    both whole. ``params`` is consumed (updated and returned); the caller
+    holds no other reference to its float leaves. The tree keeps the JAX
+    QLoRA form: w1, w2 with ``s8``; wqkv, wo, the unfused shared experts and
+    lm_head int8; embed, norms and the gate float; the ViT and projector
+    unchanged."""
+    lm = params["lm"]
+    _quantize_layers(lm["layers"])
+    lm["lm_head"] = quantize_weight(lm["lm_head"], input_axis=-2)
+    return params
 
 
 def fuse_shared_experts(params: dict, num_shared: int = 2) -> dict:

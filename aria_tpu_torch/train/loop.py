@@ -5,9 +5,11 @@ Full fine-tuning or LoRA as the recipe says, gradient accumulation by the
 optimizer's ``MultiSteps`` (the whole loss, aux terms included, is
 averaged), checkpoints at the end of each epoch (and every
 ``save_every_steps``) with resume, and JSONL metrics. The recipe's mesh
-fields must be 1: meshes are ROADMAP queue 1 item 11. ``quantize_base``
-(QLoRA) raises: the blocked expert-LoRA dequantize and its kernel are
-ported for serving, and only their training path is left (queue 1 item 10).
+fields must be 1: meshes are ROADMAP queue 1 item 11. With ``use_peft``,
+``quantize_base`` (QLoRA) quantizes the built base to the int8 tree of
+``quantize_params`` before the adapters are made, one decoder layer at a
+time (``quantize_params_by_layer``), as loop.py:131-140 does; the adapters
+then train over it through the blocked dequantize.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from aria_tpu_torch.data.tokenizer import ByteTokenizer, load_tokenizer
 from aria_tpu_torch.data.vision_processor import AriaVisionProcessor
 from aria_tpu_torch.models.aria import init_aria_params
 from aria_tpu_torch.ops import backend
+from aria_tpu_torch.ops.quant import quantize_params_by_layer
 from aria_tpu_torch.train.lora import LoraConfig, init_lora_params
 from aria_tpu_torch.train.recipe import Recipe
 from aria_tpu_torch.train.step import (
@@ -117,10 +120,6 @@ def train(r: Recipe, cfg: Optional[AriaConfig] = None, max_steps: Optional[int] 
     bad = [f for f in MESH_FIELDS if getattr(r, f) != 1]
     if bad:
         raise NotImplementedError(f"{', '.join(bad)} != 1: meshes are ROADMAP queue 1 item 11")
-    if r.use_peft and r.quantize_base:
-        raise NotImplementedError("quantize_base (QLoRA): only the training path over the "
-                                  "blocked dequantize (_experts_lora_blocked) is left to port "
-                                  "(ROADMAP queue 1 item 10)")
     device = backend.device(device)
     cfg = cfg or AriaConfig.aria_25b()
     cfg = cfg.replace(text=dataclasses.replace(
@@ -141,6 +140,9 @@ def train(r: Recipe, cfg: Optional[AriaConfig] = None, max_steps: Optional[int] 
     tc = _to_train_config(r, total_steps // accum)
 
     params = build_params(r, cfg, dtype, device)
+    if r.use_peft and r.quantize_base:
+        # QLoRA: the frozen base in int8, the adapters trained over it
+        params = quantize_params_by_layer(params)
     logger = MetricsLogger(r.output_dir, enabled=r.report_to != "none")
     timer = StepTimer()
     tokens_per_batch = r.per_device_train_batch_size * r.max_seq_length

@@ -194,13 +194,12 @@ def _batch_to(batch: dict, device) -> dict:
 def loss_fn(params, cfg: AriaConfig, batch: dict, remat: bool = False, lora=None,
             lora_scale: float = 0.0):
     """(loss, LossOutput) of one batch {input_ids, labels, pixel_values?,
-    pixel_mask?} in training mode (step.py:102-115). Attention is causal;
-    padding is excluded by -100 labels."""
-    if batch.get("attn_mask") is not None:
-        raise NotImplementedError("an attention mask in training is not ported")
+    pixel_mask?, attn_mask?} in training mode (step.py:102-115). Attention
+    is causal, or where ``attn_mask`` (broadcastable to [B, H, S, S], True =
+    attend) says; padding is excluded by -100 labels."""
     out = aria_forward(params, cfg, batch["input_ids"], batch.get("pixel_values"),
-                       batch.get("pixel_mask"), training=True, lora=lora,
-                       lora_scale=lora_scale, remat=remat)
+                       batch.get("pixel_mask"), mask=batch.get("attn_mask"), training=True,
+                       lora=lora, lora_scale=lora_scale, remat=remat)
     losses = causal_lm_loss(out, batch["labels"])
     return losses.loss, losses
 
@@ -221,11 +220,8 @@ def _metrics(losses, grads) -> Dict[str, torch.Tensor]:
 def train_step(state: TrainState, batch: dict, cfg: AriaConfig, tc: TrainConfig,
                optimizer: Optimizer) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One micro step of full fine-tuning (step.py:118-134): the trainable
-    leaves' gradients, frozen layers zeroed, then the optimizer, in place.
-    The ViT is frozen: its backward is not ported."""
-    if not tc.freeze_vit:
-        raise NotImplementedError("training the ViT: its backward (through vit_flash) is "
-                                  "not ported")
+    leaves' gradients (the ViT's too with ``freeze_vit=False``), frozen
+    layers zeroed, then the optimizer, in place."""
     named = optimizer.trainable(state.params)
     for _, t in named:
         t.requires_grad_(True)

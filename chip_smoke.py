@@ -150,24 +150,38 @@
    same reference. Each path must launch its form's decode MoE kernel,
    ``gmm`` and the attention kernels, and none of the int4 kernels.
 
-8. Training: with the forms freed, the LoRA recipe
-   (recipes/config_lora.yaml) through ``train()`` at full width and depth
-   on a random bf16 base, its batch cut to 1, on text and 980px image rows
-   the script writes (the frozen ViT runs ``vit_flash``), and the full
-   recipe (recipes/config_full.yaml) at 2 decoder layers, batch 8 x 2048,
-   its mesh fields set to 1: 3 optimizer steps each (2 accumulated micro
-   steps a step), each micro step's ms, tokens/s, loss and gradient norm,
-   the peak memory, the device's busy share (with a check that the
-   profile holds every launch the wrappers counted), the full recipe's
-   epoch-end checkpoint; the flash backward must launch on both,
-   ``split_hi_lo``, ``gmm_dlhs`` and ``tgmm`` on the full recipe. Then one micro step of
-   each at 2 layers and 512 tokens on the card against the CPU's plain
-   versions, leaf by leaf.
+8. Training: with the forms freed, three runs through ``train()`` at full
+   width on text and 980px image rows the script writes, batch 1 x 2048,
+   3 optimizer steps each (2 accumulated micro steps a step): train-lora,
+   the LoRA recipe (recipes/config_lora.yaml) on a random bf16 base at 4
+   decoder layers (the frozen ViT runs ``vit_flash``); train-qlora, the
+   same recipe with ``quantize_base`` at all 28 layers over the int8 base
+   that ``train()`` quantizes a layer at a time (``expert_block_dequant``
+   must launch); train-vit, the full recipe (recipes/config_full.yaml)
+   with ``freeze_vit`` false and its mesh fields set to 1, at 2 decoder
+   layers and the whole ViT, at the recipe's batch of 8 with every 2nd row
+   an image: ``flash_segment`` with row statistics and
+   ``flash_segment_bwd`` launch 27 times each per ViT call, ``vit_flash``
+   never, and the epoch-end checkpoint is written. Each prints the base's
+   build (seconds, device peak, resident bytes beside the bf16 form's),
+   each micro step's ms, tokens/s, loss and gradient norm, the peak
+   memory, the device's busy share (with a check that the profile holds
+   every launch the wrappers counted) and the device time by kernel; the
+   flash backward must launch on all three, ``gmm``, ``split_hi_lo``,
+   ``gmm_dlhs`` and ``tgmm`` on train-vit. Then one micro step at 2
+   decoder layers and 512 tokens of each of: LoRA over the bf16 base,
+   QLoRA over the int8 base, and train-vit's recipe with a 2-layer ViT,
+   the projector and the decoder trained on a 490px image; each on the
+   card against the CPU's plain versions, leaf by leaf.
 
 Phase 2 also holds the variants' kernels at their path's shapes
 (``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
 kernel with its row bits, ``flash_segment`` at 4,900 patches all valid and 3,150 valid, to
-an absolute 3e-3),
+an absolute 3e-3), the ViT's training attention (``flash_segment`` with its
+row statistics, bit-equal to the serving forward, and ``flash_segment_bwd``
+against its plain version at [1, 4900, 16, 72] all valid and 3,150 valid,
+[2, 300, 2, 72] and [1, 129, 4, 64], cotangents zero on pad rows, with a
+planted fault),
 ``decode_attention_stats`` (the stats form of decode attention) over one
 rank's block of the cp phase's cache, bf16, int8 and int4, at 1 and 32
 lanes (absolute on acc / s, ``STATS_LIMIT``), and two blocks merged
@@ -1664,6 +1678,8 @@ KERNELS = {
     "flash_segment": ("aria_tpu_torch/csrc/vit_attention.cu", "aria_tpu/ops/flash.py:30"),
     "decode_attention_stats": ("aria_tpu_torch/csrc/decode_attention.cu",
                                "aria_tpu/ops/decode_attention.py:221"),
+    "flash_segment_bwd": ("aria_tpu_torch/csrc/vit_attention_bwd.cu",
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
 }
 TEXT_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal",
              "rope_kv_write")
@@ -1675,9 +1691,9 @@ FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 SERVING_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal",
                 "rope_kv_write", "paged_decode_attention")
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("frontdoor-serve", "frontdoor", "serving", "cp", "variants-lanes", "variants-image",
-         "adapters", "train-full", "train-lora", "image-bf16", "lanes-int8", "image-int8", "paged",
-         "lanes", "image", "text")
+PATHS = ("train-vit", "train-qlora", "frontdoor-serve", "frontdoor", "serving", "cp",
+         "variants-lanes", "variants-image", "adapters", "train-lora", "image-bf16", "lanes-int8",
+         "image-int8", "paged", "lanes", "image", "text")
 
 
 def _wrappers():
@@ -1688,7 +1704,12 @@ def _wrappers():
     )
     from aria_tpu_torch.ops.dense_int4 import dense_int4, dense_int4_a8
     from aria_tpu_torch.ops.expert_dequant import expert_block_dequant
-    from aria_tpu_torch.ops.flash import flash_causal, flash_causal_bwd, flash_segment
+    from aria_tpu_torch.ops.flash import (
+        flash_causal,
+        flash_causal_bwd,
+        flash_segment,
+        flash_segment_bwd,
+    )
     from aria_tpu_torch.ops.kv_write import kv_cache_write, rope_kv_write
     from aria_tpu_torch.ops.moe import gmm, gmm_dlhs, split_hi_lo, tgmm
     from aria_tpu_torch.ops.moe_decode_kernel import (
@@ -1711,7 +1732,8 @@ def _wrappers():
             "gmm_dlhs": gmm_dlhs, "tgmm": tgmm,
             "expert_block_dequant": expert_block_dequant, "dense_int4_a8": dense_int4_a8,
             "moe_decode_int4_bf16": moe_decode_int4_bf16, "flash_segment": flash_segment,
-            "decode_attention_stats": decode_attention_stats, "rope_kv_write": rope_kv_write}
+            "decode_attention_stats": decode_attention_stats, "rope_kv_write": rope_kv_write,
+            "flash_segment_bwd": flash_segment_bwd}
 
 
 @contextlib.contextmanager
@@ -4353,6 +4375,111 @@ def check_train_kernels(device, gen, results, cfg=None, batch=8):
     _record(results, "tgmm", terrs, ttimed)
 
 
+# The segment backward's limit: each gradient's largest error within 2e-2 of
+# its largest element (the card test's). The kernel rounds ds to bf16
+# before dk and dq (relative 2^-9 a term; the plain version keeps it in
+# f32) and rounds each gradient once, ~5e-3 of the largest element at
+# 4,900 keys; the plain gradient without the last 36 keys must move dq by
+# more.
+SEG_BWD_REL = 2e-2
+# [B, S, H, D] and the valid prefix of each image (None: all valid)
+SEG_BWD_SHAPES = ((1, 4900, 16, 72, None), (1, 4900, 16, 72, (3150,)),
+                  (2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (100,)))
+
+
+def check_segment_bwd(device, gen, results, shapes=SEG_BWD_SHAPES):
+    """Phase 2, the ViT's training attention: ``flash_segment``'s forward
+    with its row statistics (bits equal to the serving forward's, timed as
+    the training form of row 6a) and ``flash_segment_bwd`` against
+    ``flash_segment_bwd_plain`` (autograd of the plain version), each
+    gradient to SEG_BWD_REL of its largest element, a second call's bits,
+    and a planted fault at the all-valid 4,900 (the plain gradient without
+    the last 36 keys) that must read above the limit. The cotangent is zero
+    on pad rows: there the JAX package off the TPU (pad queries attend the
+    valid keys) and the library kernel (pad queries attend pad keys) differ
+    by design, and in the ViT the projector gives pad patches no gradient.
+    Timed at 4,900 patches beside its bound (5 products over the pairs of
+    equal segments), its plain version and sdpa's backward under the
+    segment mask (its forward outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from aria_tpu_torch.ops import flash as fl
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    print("flash_segment_bwd, flash_segment with row statistics (training)", flush=True)
+    errs, timed, ferrs, ftimed = [], [], [], []
+    for B, S, H, D, prefix in shapes:
+        q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+        valid = torch.ones((B, S), dtype=torch.bool, device=device)
+        for b, n in enumerate(prefix or ()):
+            valid[b, n:] = False
+        do = do * valid[:, :, None, None]
+        at = f"[{B}, {S}, {H}, {D}] " + ("all valid" if prefix is None else f"valid {prefix}")
+        scale = D**-0.5
+        stats = torch.empty((2, B, H, S), dtype=torch.float32, device=device)
+        out = fl._segment_forward(q, k, v, valid, valid, scale, stats)
+        if not torch.equal(out, fl.flash_segment(q, k, v, valid, valid)):
+            raise AssertionError(f"flash_segment {at}: the forward with statistics gives "
+                                 "other bits")
+        ferrs.append(0.0)
+        got = fl.flash_segment_bwd(q, k, v, out, do, stats, valid, valid)
+        if not all(map(torch.equal, got, fl.flash_segment_bwd(q, k, v, out, do, stats, valid,
+                                                              valid))):
+            raise AssertionError(f"flash_segment_bwd {at}: a second call gives other bits")
+        ref = fl.flash_segment_bwd_plain(q, k, v, do, valid, valid)
+        for n, a, r in zip("qkv", got, ref):
+            limit = SEG_BWD_REL * r.float().abs().max().item()
+            errs.append(_compare(
+                f"flash_segment_bwd d{n} {at}", a, r, limit,
+                f"absolute, {SEG_BWD_REL:.0e} of the largest element: bf16 outputs; ds enters "
+                "dk and dq as bf16 in the kernel, in f32 in the plain version", absolute=True))
+        if S == 4900 and prefix is None:  # what the limit must catch: the last 36 keys left out
+            cut = fl.flash_segment_bwd_plain(q, k[:, :S - 36], v[:, :S - 36], do,
+                                             valid, valid[:, :S - 36])[0]
+            moved = (cut.float() - ref[0].float()).abs().max().item()
+            limit = SEG_BWD_REL * ref[0].float().abs().max().item()
+            print(f"  flash_segment_bwd {at}: the plain dq without the last 36 keys moves by "
+                  f"{moved:.3e} (limit {limit:.3e})", flush=True)
+            if not moved > limit:
+                raise AssertionError("flash_segment_bwd's limit does not see a dropped key tile")
+            del cut
+        del got, ref
+        if S == 4900:
+            n_seg = int(valid[0].sum())
+            pairs = B * H * (n_seg**2 + (S - n_seg)**2)  # (query, key) pairs of equal segments
+            qkv_t = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            same = valid[:, None, :, None] == valid[:, None, None, :]
+            o_sdpa = F.scaled_dot_product_attention(*qkv_t, attn_mask=same)
+            do_t = do.transpose(1, 2)
+
+            def sdpa_bwd(o=o_sdpa, leaves=qkv_t, do_t=do_t):
+                torch.autograd.grad(o, leaves, do_t, retain_graph=True)
+
+            timed.append(_timed(
+                f"{at} (the plain version includes its forward; library: sdpa's backward "
+                f"alone under the segment mask)",
+                lambda a=(q, k, v, out, do, stats, valid, valid): fl.flash_segment_bwd(*a),
+                lambda a=(q, k, v, do, valid, valid): fl.flash_segment_bwd_plain(*a), 10, 2,
+                _bound(5 * _nbytes(q) + _nbytes(stats, valid, valid) + 3 * _nbytes(q),
+                       5 * 2 * pairs * D), sdpa_bwd))
+            ftimed.append(_timed(
+                f"{at}, with row statistics (training)",
+                lambda a=(q, k, v, valid, valid, scale, stats): fl._segment_forward(*a),
+                lambda a=(q, k, v, valid, valid): fl.flash_sdpa_plain(*a), 10, 2,
+                _bound(4 * _nbytes(q) + _nbytes(stats, valid, valid), 2 * 2 * pairs * D),
+                lambda a=qkv_t, m=same: F.scaled_dot_product_attention(
+                    *(t.detach() for t in a), attn_mask=m)))
+            del qkv_t, same, o_sdpa, do_t
+        del q, k, v, do, out, stats
+    _record(results, "flash_segment_bwd", errs, timed)
+    for t in ftimed:
+        _print_timed("flash_segment", t)
+    _extend(results["flash_segment"], ferrs, ftimed)
+
+
 # the cancellation witness: an entry whose exact value is 2^-12 of its
 # terms, which the hi product alone gives as 0; held to 1e-2 of its own size
 # (the kernels' bf16 output rounds it by at most 2^-9), the lo product
@@ -4458,17 +4585,25 @@ def _union_ms(spans) -> float:
     return busy / 1e3
 
 
-def _busy_share(prof, first="flash_causal") -> tuple[float, float]:
+def _device_spans(prof) -> list:
+    """(start us, end us, name) of every device event of a profile (kernels,
+    copies, fills), sorted by start, from the profiler's raw events:
+    ``prof.events()`` builds a Python object for each (~70 us each), too
+    slow for a 28-layer training run's profile."""
+    import torch
+
+    return sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+
+def _busy_share(device_spans, first="flash_causal") -> tuple[float, float]:
     """(device busy ms, window ms) over the profiled run, from the start of
     the first kernel whose name holds ``first`` (the first step's first
     attention) to the end of the last kernel; copies and fills are left
     out, so that the checkpoint's device-to-host copies after the last
     step do not count."""
-    import torch
-
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith(("Memcpy", "Memset")))
+    spans = [t for t in device_spans if not t[2].startswith(("Memcpy", "Memset"))]
     start = next(s for s, _, name in spans if first in name)
     end = max(e for _, e, _ in spans)
     return _union_ms([(max(s, start), e) for s, e, _ in spans if e > start]), (end - start) / 1e3
@@ -4486,25 +4621,28 @@ TRAIN_KERNEL_EVENTS = {
     "split_hi_lo": (r"\bsplit_kernel\b",),
     "gmm_dlhs": (r"\bgmm_dlhs_kernel<",),
     "tgmm": (r"\btgmm_kernel\b",),
+    "flash_segment": (r"\bvit_attention_kernel<\d+, 1>",),
+    "flash_segment_bwd": (r"\bseg_bwd_prep_kernel\b", r"\bseg_bwd_dkv_kernel<",
+                          r"\bseg_bwd_dq_kernel<"),
 }
 
 
-def _profile_complete(prof, launches, label, event_ms) -> bool:
+def _profile_complete(device_spans, launches, label, event_ms) -> bool:
     """Whether the profile holds every launch of the port's kernels that the
     wrappers counted (the profiler was seen to drop events late in a long
     run); prints the counts and the profiled kernel time beside the CUDA
     events' span around the run."""
+    import collections
     import re
 
-    import torch
-
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = collections.Counter(n for *_, n in device_spans)  # each name searched once
     seen = {}
     for name, patterns in TRAIN_KERNEL_EVENTS.items():
         if launches[name]:
-            seen[name] = [sum(1 for e in kernels if re.search(pat, e.name)) for pat in patterns]
+            seen[name] = [sum(c for n, c in calls.items() if re.search(pat, n))
+                          for pat in patterns]
     complete = all(n == launches[name] for name, ns in seen.items() for n in ns)
-    total = _union_ms(sorted((e.time_range.start, e.time_range.end) for e in kernels))
+    total = _union_ms(device_spans)
     print(f"  {label}: profile {'complete' if complete else 'INCOMPLETE, busy share not measured'}"
           f": profiled launches {seen} against the wrappers' counts "
           f"{ {name: launches[name] for name in seen} }; profiled device busy time {total:.1f} ms "
@@ -4516,11 +4654,68 @@ def _profile_complete(prof, launches, label, event_ms) -> bool:
     return complete
 
 
+def _base_bytes(tree) -> tuple[int, int]:
+    """(bytes the tree holds, bytes of its bf16 form): an int8 ``{"q", "s"}``
+    leaf counts its values at 2 bytes in the bf16 form, and its scales not."""
+    held = bf16 = 0
+    for v in (tree.values() if isinstance(tree, dict) else ()):
+        if isinstance(v, dict) and "q" in v and "s" in v:
+            held += sum(t.numel() * t.element_size() for t in v.values())
+            bf16 += 2 * v["q"].numel()
+        elif isinstance(v, dict):
+            h, b = _base_bytes(v)
+            held, bf16 = held + h, bf16 + b
+        else:
+            held += v.numel() * v.element_size()
+            bf16 += v.numel() * v.element_size()
+    return held, bf16
+
+
+@contextlib.contextmanager
+def _watch_build(out: dict, cuda: bool):
+    """Inside, ``train()``'s base build (``build_params``, then QLoRA's
+    ``quantize_params_by_layer``) records into ``out`` its seconds, its
+    device peak and the resident base's bytes beside its bf16 form's; the
+    peak statistics are reset after it, so that the run's peak is the
+    steps'."""
+    import torch
+
+    from aria_tpu_torch.train import loop
+
+    build, quantize = loop.build_params, loop.quantize_params_by_layer
+
+    def note(tree, t0):
+        if cuda:
+            torch.cuda.synchronize()
+            out["peak_gib"] = max(out.get("peak_gib", 0.0),
+                                  torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+        out["s"] = out.get("s", 0.0) + time.perf_counter() - t0
+        out["held"], out["bf16"] = _base_bytes(tree["lm"])
+        return tree
+
+    def build_params(*a, **kw):
+        t0 = time.perf_counter()
+        return note(build(*a, **kw), t0)
+
+    def quantize_params_by_layer(params, *a, **kw):
+        t0 = time.perf_counter()
+        return note(quantize(params, *a, **kw), t0)
+
+    loop.build_params, loop.quantize_params_by_layer = build_params, quantize_params_by_layer
+    try:
+        yield out
+    finally:
+        loop.build_params, loop.quantize_params_by_layer = build, quantize
+
+
 def _run_recipe(device, recipe, cfg, label, gpu, steps):
     """``train()`` on the card under the profiler (kernels only), every launch
-    count set to 0 first; prints each micro step's metrics, the peak
-    memory and the device's busy share over the steps. Returns the launch
-    counts and the final state."""
+    count set to 0 first; prints the base's build (seconds, device peak,
+    the decoder's resident bytes beside its bf16 form's), each micro step's
+    metrics, the steps' peak memory, the device's busy share over the steps
+    and the device time by kernel. Returns the launch counts, the final
+    state and the build's record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4536,17 +4731,22 @@ def _run_recipe(device, recipe, cfg, label, gpu, steps):
     if cuda:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
+    built = {}
     with (profile(activities=[ProfilerActivity.CUDA]) if cuda else
-          contextlib.nullcontext()) as prof:
+          contextlib.nullcontext()) as prof, _watch_build(built, cuda):
         state = train(recipe, cfg=cfg, max_steps=steps, device=device)
         if cuda:
             end.record()
         _sync(device)
     wall = time.perf_counter() - t0
+    print(f"  {label}: the base built in {built['s']:.2f} s, device peak "
+          f"{built.get('peak_gib', float('nan')):.2f} GiB; the decoder holds "
+          f"{built['held'] / 1e9:.2f} GB ({built['bf16'] / 1e9:.2f} GB in bf16)", flush=True)
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
-    busy, window = _busy_share(prof) if cuda else (float("nan"), float("nan"))
-    if cuda and not _profile_complete(prof, launches, label, start.elapsed_time(end)):
+    spans = _device_spans(prof) if cuda else []
+    busy, window = _busy_share(spans) if cuda else (float("nan"), float("nan"))
+    if cuda and not _profile_complete(spans, launches, label, start.elapsed_time(end)):
         busy = float("nan")  # not measured: the profile lost some of the card's events
     lines = [json.loads(line) for line in open(os.path.join(recipe.output_dir, "metrics.jsonl"))]
     for line in lines:
@@ -4558,57 +4758,94 @@ def _run_recipe(device, recipe, cfg, label, gpu, steps):
           f"attention kernel on (busy share {busy / window:.3f}, idle {1 - busy / window:.3f}; "
           f"under the kernel profiler); launches: {launches}", flush=True)
     if cuda:  # where the device time goes over the run (set-up included)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in events)
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"    {e.key[:90]}: {e.self_device_time_total / 1e3:.1f} ms "
-                  f"({e.self_device_time_total / total:.3f} of the device time), "
-                  f"{e.count} calls", flush=True)
+        by_name = {}
+        for s0, s1, name in spans:
+            us, calls = by_name.get(name, (0.0, 0))
+            by_name[name] = (us + s1 - s0, calls + 1)
+        total = sum(us for us, _ in by_name.values())
+        for name, (us, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"    {name[:90]}: {us / 1e3:.1f} ms ({us / total:.3f} of the device time), "
+                  f"{calls} calls", flush=True)
     if len(lines) != steps or not all(
             all(map(lambda v: v == v and abs(v) != float("inf"), line.values()))
             for line in lines):
         raise AssertionError(f"{label}: {len(lines)} micro steps logged, or non-finite metrics")
-    return launches, state
+    return launches, state, built
 
 
-def _train_reference(device, cfg, peft, seed, ref_layers=2):
-    """One micro step of a recipe at ``ref_layers`` layers and
-    ``TRAIN_REF_SEQ`` tokens on the card against the plain versions on the
-    CPU from the same weights, leaf by leaf: the loss, the gradient norm
-    and each trainable leaf's gradient as relative errors beside a witness
-    (the card with one bf16 ulp on half the embedding table, against the
-    card), held to the larger of REF_LIMIT and twice the witness; then the
-    card's optimizer given the CPU's gradients against the CPU's update,
-    entry by entry (OPT_SHARE, OPT_STEPS). Adam's first step is close to
-    -lr * sign(g), so the update of the card's own step flips wherever bf16
-    noise flips a small gradient's sign: the optimizer is held on equal
-    gradients instead."""
+REF_VIT_LAYERS = 2  # the ViT's layers in the train-vit reference (full width)
+REF_IMAGE = 490  # its image's side: 35 x 35 patches, 1,225 of them, 128 image tokens
+REF_IMAGE_VALID = 322  # the image's valid columns (23 of 35 patch columns)
+REF_KINDS = ("lora", "qlora", "vit")
+# train-vit: one row in 8 with an image. The ViT keeps no checkpoints (nor
+# does the JAX package's): its graph holds ~14.5 GiB a 980px image, so a
+# micro step of this data (2, 0, 2, 1, 1 and 0 images) fits beside the
+# 2-layer decoder at batch 8, and 8 image rows (~116 GiB) fit no card.
+VIT_TRAIN_IMAGES = 8
+
+
+def _train_reference(device, cfg, kind, seed, ref_layers=2):
+    """One micro step at ``ref_layers`` decoder layers and ``TRAIN_REF_SEQ``
+    tokens on the card against the plain versions on the CPU from the same
+    weights, leaf by leaf. ``kind``: "lora", the LoRA recipe's adapters
+    over the bf16 base; "qlora", the same over the int8 base of
+    ``quantize_params_by_layer`` (the blocked dequantize); "vit", the full
+    recipe with ``freeze_vit`` false: the ViT (``REF_VIT_LAYERS`` layers at
+    full width, one ``REF_IMAGE`` px image whose last columns are padding,
+    so pad patches meet the segment kernels), the projector and the
+    decoder trained, so that one step goes through the segment backward and
+    the expert products' backward (``gmm_dlhs``, ``tgmm``). Held: the loss,
+    the gradient norm and each trainable leaf's gradient as relative errors
+    beside a witness (the card with one bf16 ulp on half the embedding
+    table, against the card), to the larger of REF_LIMIT and twice the
+    witness; then the card's optimizer given the CPU's gradients and the
+    CPU's global norm against the CPU's update, entry by entry (OPT_SHARE,
+    OPT_STEPS). Adam's first step is close to -lr * sign(g), so the update
+    of the card's own step flips wherever bf16 noise flips a small
+    gradient's sign: the optimizer is held on equal gradients instead. The
+    leaves are compared on the card, the CPU's gradients and updates moved
+    there."""
     import numpy as np
     import torch
 
     from aria_tpu_torch.models.aria import init_aria_params
+    from aria_tpu_torch.ops.quant import quantize_params_by_layer
     from aria_tpu_torch.train import step as tstep
     from aria_tpu_torch.train.lora import LoraConfig, init_lora_params
 
+    peft = kind != "vit"
     text = dataclasses.replace(cfg.text, num_layers=ref_layers)
     small = cfg.replace(text=text)
+    if not peft:
+        small = small.replace(vision=dataclasses.replace(cfg.vision, num_layers=REF_VIT_LAYERS))
     gen = torch.Generator(device=device).manual_seed(seed)
     base = init_aria_params(small, gen, device=device)
+    if kind == "qlora":
+        base = quantize_params_by_layer(base)
     rng = np.random.RandomState(seed)
     ids = torch.as_tensor(rng.randint(0, text.vocab_size, (1, TRAIN_REF_SEQ)))
     batch = {"input_ids": ids, "labels": ids.clone()}
+    if not peft:
+        n_img = small.projector.query_count((REF_IMAGE // small.vision.patch_size) ** 2)
+        ids[0, 8:8 + n_img] = small.image_token_id
+        batch["labels"] = torch.where(ids == small.image_token_id, -100, ids)
+        batch["pixel_values"] = torch.as_tensor(
+            rng.uniform(-1, 1, (1, 3, REF_IMAGE, REF_IMAGE)).astype(np.float32))
+        mask = torch.zeros((1, REF_IMAGE, REF_IMAGE), dtype=torch.bool)
+        mask[:, :, :REF_IMAGE_VALID] = True
+        batch["pixel_mask"] = mask
     tc = tstep.TrainConfig(learning_rate=5e-5, weight_decay=0.1, b2=0.95,
-                           freeze_projector=peft, total_steps=3, gradient_checkpointing=True)
+                           freeze_vit=peft, freeze_projector=peft, freeze_llm=False,
+                           total_steps=3, gradient_checkpointing=True)
     lc = LoraConfig(rank=8, alpha=32.0)
     lora = init_lora_params(small, lc, gen, device=device) if peft else None
     if peft:  # B away from 0, so that the step moves A as well
         for ab in lora["lm"]["layers"].values():
             ab["b"].normal_(0, 0.02, generator=gen)
 
-    def run(dev, bump=False, grads=None):
-        """(metrics, gradients, update) of one step on ``dev``; with
-        ``grads``, only the optimizer, given those gradients."""
+    def run(dev, bump=False, grads=None, updates=True):
+        """(metrics, gradients, update) of one step on ``dev``, left there;
+        with ``grads``, only the optimizer, given those gradients."""
         params = _tree_map(lambda t: t.to(dev).clone(), base)
         if bump:
             params["lm"]["embed"] = _bump_half(params["lm"]["embed"].cpu()).to(dev)
@@ -4623,33 +4860,47 @@ def _train_reference(device, cfg, peft, seed, ref_layers=2):
         update = opt.update
         opt.update = lambda g, st, p: (caught.update(g), update(g, st, p))
         state = tstep.TrainState(tree, opt.init(tree), 0)
-        before = {k: v.detach().clone() for k, v in opt.trainable(tree)}
+        before = {k: v.detach().clone() for k, v in opt.trainable(tree)} if updates else {}
         if grads is not None:
-            opt.update({k: g.to(dev) for k, g in grads.items()}, state.opt_state, tree)
+            # the clip's global norm is a reduction whose order the card
+            # and the CPU choose differently: give the card the CPU's, so
+            # that the elementwise steps are what is compared (the norm is
+            # held as the step's grad_norm above)
+            norm, global_norm = ref_norm.to(dev), tstep.global_norm
+            tstep.global_norm = lambda g: norm
+            try:
+                opt.update(grads, state.opt_state, tree)
+            finally:
+                tstep.global_norm = global_norm
         elif peft:
             _, m = tstep.lora_train_step(state, b, params, small, lc.scale, opt, True)
         else:
             _, m = tstep.train_step(state, b, small, tc, opt)
-        # on the host in the leaves' dtypes (bf16 for the full recipe's
-        # 2.3 G values); a bf16 update is the difference of two adjacent
-        # bf16 values, which bf16 holds exactly
-        return ({k: float(v) for k, v in m.items()}, {k: v.cpu() for k, v in caught.items()},
-                {k: (v.detach().float() - before[k].float()).to(v.dtype).cpu()
-                 for k, v in opt.trainable(tree)})
+        # in the leaves' dtypes; a bf16 update is the difference of two
+        # adjacent bf16 values, which bf16 holds exactly
+        return ({k: float(v) for k, v in m.items()}, dict(caught),
+                {k: (v.detach().float() - before[k].float()).to(v.dtype)
+                 for k, v in opt.trainable(tree) if k in before})
 
     t0 = time.perf_counter()
-    # the witness runs on the card: the CPU's 2.3 G-weight step is the
-    # phase's slowest part, and a bump's spread does not depend on where
-    # the same arithmetic runs
-    got, ulp = run(device), run(device, bump=True)
+    # the witness runs on the card: the CPU's step is the reference's
+    # slowest part, and a bump's spread does not depend on where the same
+    # arithmetic runs
+    got, ulp = run(device, updates=False), run(device, bump=True, updates=False)
     t1 = time.perf_counter()
     ref = run(torch.device("cpu"))
+    ref_norm = tstep.global_norm(ref[1])  # what the CPU's optimizer clipped by
+    ref = (ref[0], *({k: v.to(device) for k, v in part.items()} for part in ref[1:]))
     t2 = time.perf_counter()
     opt_got = run(device, grads=ref[1])[2]
     print(f"  reference ({TRAIN_REF_SEQ} tokens): the card's two steps {t1 - t0:.1f} s, the "
           f"CPU's step {t2 - t1:.1f} s, the card's optimizer {time.perf_counter() - t2:.1f} s",
           flush=True)
-    label = f"{'LoRA' if peft else 'full'} step, {ref_layers} layers, {TRAIN_REF_SEQ} tokens"
+    label = {"lora": f"LoRA step, bf16 base, {ref_layers} layers, {TRAIN_REF_SEQ} tokens",
+             "qlora": f"QLoRA step, int8 base, {ref_layers} layers, {TRAIN_REF_SEQ} tokens",
+             "vit": f"full step, the ViT ({REF_VIT_LAYERS} layers, a {REF_IMAGE} px image, "
+                    f"{REF_IMAGE_VALID} columns valid), the projector and {ref_layers} decoder "
+                    f"layers trained, {TRAIN_REF_SEQ} tokens"}[kind]
     for key in ("loss", "grad_norm"):
         err = abs(got[0][key] - ref[0][key]) / abs(ref[0][key])
         witness = abs(ulp[0][key] - got[0][key]) / abs(got[0][key])
@@ -4660,21 +4911,30 @@ def _train_reference(device, cfg, peft, seed, ref_layers=2):
             raise AssertionError(f"training reference ({label}): {key} differs by {err}")
     worst, failed = [], []
     for leaf, g_ref in ref[1].items():
-        g_err, g_wit = _rel_leaf(got[1][leaf], g_ref), _rel_leaf(ulp[1][leaf], got[1][leaf])
         u_got, u_ref = opt_got[leaf], ref[2][leaf]
         u_err = _rel_leaf(u_got, u_ref)
         differ = u_got != u_ref
-        u_share = int(differ.sum()) / differ.numel()
         u_steps = float((u_got[differ].float() - u_ref[differ].float()).abs().max()
-                        ) / tc.learning_rate if u_share else 0.0
+                        ) / tc.learning_rate if differ.any() else 0.0
+        # the gradient and the share of differing entries over the entries
+        # that are not a key bias (SHIFT_INVARIANT); the largest difference
+        # over all
+        held, note = _shift_held(leaf, ref[1], got[1])
+        g_err = _rel_leaf(got[1][leaf][..., held], g_ref[..., held])
+        g_wit = _rel_leaf(ulp[1][leaf][..., held], got[1][leaf][..., held])
+        u_share = int(differ[..., held].sum()) / max(differ[..., held].numel(), 1)
         g_limit = max(REF_LIMIT, GRAD_WITNESS_FACTOR * g_wit)
-        print(f"  reference ({label}): {leaf} gradient relative error {g_err:.3e} (limit "
-              f"{g_limit:.3e}; witness {g_wit:.3e}); the card's optimizer on the CPU's "
+        if not held.any():
+            g_limit = u_share_limit = float("inf")
+        else:
+            u_share_limit = OPT_SHARE
+        print(f"  reference ({label}): {leaf}{note} gradient relative error {g_err:.3e} "
+              f"(limit {g_limit:.3e}; witness {g_wit:.3e}); the card's optimizer on the CPU's "
               f"gradient: {u_share:.3e} of {g_ref.numel()} entries differ (limit "
-              f"{OPT_SHARE:.0e}), by at most {u_steps:.3f} x lr (limit {OPT_STEPS}); update "
+              f"{u_share_limit:.0e}), by at most {u_steps:.3f} x lr (limit {OPT_STEPS}); update "
               f"relative error {u_err:.3e}", flush=True)
         for what, err, limit in (("gradient", g_err, g_limit),
-                                 ("update's share of differing entries", u_share, OPT_SHARE),
+                                 ("update's share of differing entries", u_share, u_share_limit),
                                  ("update's largest difference in lr", u_steps, OPT_STEPS)):
             worst.append((err / limit, leaf, what))
             if not err <= limit:
@@ -4687,6 +4947,50 @@ def _train_reference(device, cfg, peft, seed, ref_layers=2):
 
 
 GRAD_WITNESS_FACTOR = 2  # a leaf's gradient is held to twice its witness
+# A key bias adds q . b to every score of a query row, which the softmax
+# cancels: its gradient is 0 but for rounding on either side, and Adam's
+# g / (sqrt(v) + eps) on a rounding-sized gradient gives updates whose last
+# bits differ between the card and the CPU (0.005 x lr seen on the ViT's
+# bk and the projector's in_proj key bias, 13.6% of bk's entries). Leaf ->
+# (the key bias's slice of its last axis, the query bias's leaf and slice
+# that it is measured against), from the last axis's length. Where the
+# CPU's key-bias gradient is below SHIFT_NOISE of the query bias's (norms),
+# its gradient and its share of differing entries go unheld (its largest
+# difference in lr stays held); else it is held as every other entry is.
+SHIFT_INVARIANT = {
+    "vision/layers/bk": (lambda n: slice(0, n), "vision/layers/bq", lambda n: slice(0, n)),
+    "projector/attn_in_b": (lambda n: slice(n // 3, 2 * n // 3), "projector/attn_in_b",
+                            lambda n: slice(0, n // 3)),
+}
+SHIFT_NOISE = 1e-2
+
+
+def _shift_held(leaf: str, ref: dict, got: dict):
+    """(bool [last axis], note): the entries of ``leaf`` that are held, and
+    for a key bias its gradient's norm on the CPU and on the card beside
+    its query bias's on the CPU."""
+    import torch
+
+    n = ref[leaf].shape[-1]
+    held = torch.ones(n, dtype=torch.bool, device=ref[leaf].device)
+    if leaf not in SHIFT_INVARIANT:
+        return held, ""
+    key, qleaf, qcols = SHIFT_INVARIANT[leaf]
+    kcols, qcols = key(n), qcols(ref[qleaf].shape[-1])
+    q_norm = float(torch.linalg.norm(ref[qleaf][..., qcols].float()))
+    k_norm = float(torch.linalg.norm(ref[leaf][..., kcols].float()))
+    k_card = float(torch.linalg.norm(got[leaf][..., kcols].float()))
+    noise = k_norm <= SHIFT_NOISE * q_norm
+    if noise:
+        held[kcols] = False
+    part = "all" if kcols == slice(0, n) else f"columns {kcols.start}-{kcols.stop - 1}"
+    return held, (f" (key bias, {part}: gradient norm {k_norm:.3e} on the CPU, {k_card:.3e} "
+                  f"on the card, beside the query bias's {q_norm:.3e} on the CPU, "
+                  + (f"{k_norm / q_norm:.2e} of it, at most {SHIFT_NOISE:.0e}: 0 but for "
+                     "rounding, its gradient and share not held)" if noise else
+                     f"{k_norm / q_norm:.2e} of it, above {SHIFT_NOISE:.0e}: held)"))
+
+
 # The update from equal gradients: the card's and the CPU's torch do not
 # round every bf16 elementwise op alike, and where a step lands near half
 # a bf16 ulp of its parameter the two results differ by that ulp, which
@@ -4704,87 +5008,171 @@ def _rel_leaf(a, b) -> float:
     return d / den if den else d
 
 
-def run_train(device, gen, cfg=None, gpu="", lora_batch=1, full_batch=8, full_layers=2,
-              steps=3, lora_images=2):
-    """The train phase (its kernels are checked in phase 2): the LoRA recipe
-    (recipes/config_lora.yaml) through ``train()`` at full width and depth
-    on the random bf16 base, its batch cut to ``lora_batch`` and every
-    ``lora_images``-th row with a 980px image (the frozen ViT runs
-    ``vit_flash``); the full recipe (recipes/config_full.yaml) at full width
-    and ``full_layers`` decoder layers, batch ``full_batch`` x 2048, text
-    rows, its mesh fields set to 1, saving the whole state at the epoch's
-    end under a temporary directory; then one step of each recipe at 2
-    layers on the card against the CPU. ``steps`` optimizer steps each (x
-    the recipes' 2 accumulated micro steps). Returns {path: launches}."""
+def _recipe_run(device, work, name, cfg, gpu, steps, batch, images, seed, **over):
+    """A recipe's dataset (``steps`` optimizer steps of rows, every
+    ``images``-th with a 980px image) and its ``_run_recipe``; returns the
+    launches, the final state, the build and the micro steps."""
+    from aria_tpu_torch.train.recipe import load_recipe
+
+    recipe = load_recipe(os.path.join(HERE, "recipes", f"config_{name}.yaml"))
+    micro = steps * recipe.gradient_accumulation_steps
+    label = over.pop("label")
+    ds = os.path.join(work, f"{label}_ds")
+    _train_dataset(ds, micro * batch, images, seed)
+    recipe = dataclasses.replace(recipe, per_device_train_batch_size=batch, dataset_mixer={ds: 1},
+                                 output_dir=os.path.join(work, f"{label}_out"), **over)
+    counts, state, built = _run_recipe(device, recipe, cfg, label, gpu, micro)
+    return counts, state, built, micro
+
+
+@contextlib.contextmanager
+def _watch_images(out: list):
+    """Inside, each ``encode_images`` call appends (its images, whether
+    the ViT records a graph, the device bytes its graph and features hold
+    when it returns: 0 off the card) to ``out``."""
+    import torch
+
+    from aria_tpu_torch.models import aria
+
+    encode = aria.encode_images
+
+    def encode_images(params, cfg, pixel_values, *a, **kw):
+        cuda = pixel_values.is_cuda
+        before = torch.cuda.memory_allocated() if cuda else 0
+        feats = encode(params, cfg, pixel_values, *a, **kw)
+        out.append((pixel_values.shape[0],
+                    torch.is_grad_enabled() and aria._asks_grad(params["vision"]),
+                    torch.cuda.memory_allocated() - before if cuda else 0))
+        return feats
+
+    aria.encode_images = encode_images
+    try:
+        yield out
+    finally:
+        aria.encode_images = encode
+
+
+def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_layers=2,
+              vit_batch=8, steps=3):
+    """The train phase (its kernels are checked in phase 2), at full width,
+    ``steps`` optimizer steps each (x the recipes' 2 accumulated micro
+    steps), on rows of 2048 tokens, some with a 980px image:
+
+    - train-lora: recipes/config_lora.yaml on a random bf16 base at
+      ``lora_layers`` decoder layers (the frozen ViT runs ``vit_flash``),
+      its batch cut to ``lora_batch`` (the LoRA capacity path's
+      [64, T, 3328] f32 buffers), every 2nd row an image;
+    - train-qlora: the same recipe with ``quantize_base``, all decoder
+      layers over the int8 base that ``train()`` quantizes one layer at a
+      time (the blocked dequantize, ``expert_block_dequant``);
+    - train-vit: recipes/config_full.yaml with ``freeze_vit`` false and its
+      mesh fields set to 1, ``vit_layers`` decoder layers, the ViT whole,
+      at the recipe's batch of ``vit_batch`` (gmm, tgmm and split_hi_lo at
+      M 98,304), one row in VIT_TRAIN_IMAGES an image:
+      the ViT's attention through ``flash_segment`` with row statistics and
+      the segment backward, one launch of each per ViT layer and micro step
+      that has images; the epoch-end checkpoint;
+
+    then one step of each of REF_KINDS at 2 decoder layers on the card
+    against the CPU. Returns {path: launches}."""
     import shutil
     import tempfile
 
     import torch
 
     from aria_tpu_torch import AriaConfig
-    from aria_tpu_torch.train.recipe import load_recipe
+    from aria_tpu_torch.data.tokenizer import ByteTokenizer
 
-    cfg = cfg or AriaConfig.aria_25b()
+    # the rows are tokenized by train()'s ByteTokenizer, whose <|img|> is
+    # 256 (the flagship tokenizer's is the config's 9): without this the
+    # image features would reach no token
+    cfg = (cfg or AriaConfig.aria_25b()).replace(image_token_id=ByteTokenizer().image_token_id)
+    L, LV = cfg.text.num_layers, cfg.vision.num_layers
+    cuda = device.type == "cuda"
     launches = {}
     work = tempfile.mkdtemp(prefix="aria_train_")
-    try:
-        lora = load_recipe(os.path.join(HERE, "recipes", "config_lora.yaml"))
-        accum = lora.gradient_accumulation_steps
-        n_rows = steps * accum * lora_batch
-        _train_dataset(os.path.join(work, "lora_ds"), n_rows, lora_images, SEED)
-        lora = dataclasses.replace(lora, per_device_train_batch_size=lora_batch,
-                                   dataset_mixer={os.path.join(work, "lora_ds"): 1},
-                                   output_dir=os.path.join(work, "lora_out"))
-        print(f"train, LoRA recipe: {cfg.text.num_layers} layers, hidden {cfg.text.hidden_size}, "
-              f"{cfg.text.num_experts} experts, bf16 base; "
-              f"per_device_train_batch_size cut from 8 to {lora_batch} (the capacity path's "
-              f"[64, T, 3328] f32 buffers beside the 50.6 GB base); max_seq_length "
-              f"{lora.max_seq_length}, gradient_accumulation_steps {accum}, gradient "
-              f"checkpointing {lora.gradient_checkpointing}, rank {lora.lora_r}, alpha "
-              f"{lora.lora_alpha}; {n_rows} rows"
-              + (f", every {lora_images}-th with a 980px image" if lora_images else ""),
-              flush=True)
-        counts, _ = _run_recipe(device, lora, cfg, "LoRA", gpu, steps * accum)
-        for name in ("flash_causal", "flash_causal_bwd", "vit_flash"):
-            if counts[name] <= 0:
-                raise AssertionError(f"{name} was not launched by the LoRA recipe")
-        launches["train-lora"] = counts
-        torch.cuda.empty_cache()
 
-        full = load_recipe(os.path.join(HERE, "recipes", "config_full.yaml"))
-        accum = full.gradient_accumulation_steps
-        n_rows = steps * accum * full_batch
-        _train_dataset(os.path.join(work, "full_ds"), n_rows, 0, SEED + 1)
-        full = dataclasses.replace(full, per_device_train_batch_size=full_batch, mesh_fsdp=1,
-                                   mesh_expert=1, dataset_mixer={os.path.join(work, "full_ds"): 1},
-                                   output_dir=os.path.join(work, "full_out"))
-        small = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=full_layers))
-        print(f"train, full recipe: {full_layers} decoder layers, hidden "
-              f"{cfg.text.hidden_size} (cut from {cfg.text.num_layers}), batch {full_batch} x "
-              f"{full.max_seq_length}, gradient_accumulation_steps {accum}, mesh_fsdp 2 and mesh_expert 4 set to 1 "
-              f"(one card), text rows", flush=True)
-        counts, state = _run_recipe(device, full, small, "full", gpu, steps * accum)
-        for name in ("flash_causal", "flash_causal_bwd", "gmm", "split_hi_lo", "gmm_dlhs",
-                     "tgmm"):
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+
+    def need(path, counts, names):
+        for name in names:
             if counts[name] <= 0:
-                raise AssertionError(f"{name} was not launched by the full recipe")
-        launches["train-full"] = counts
-        ckpt = os.path.join(full.output_dir, "checkpoints")
+                raise AssertionError(f"{name} was not launched on {path}")
+        launches[path] = counts
+        if cuda:
+            torch.cuda.empty_cache()
+
+    try:
+        small = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=lora_layers))
+        print(f"train-lora (recipes/config_lora.yaml): {lora_layers} decoder layers (cut from "
+              f"{L}: train-qlora runs the recipe at full depth), hidden {cfg.text.hidden_size}, "
+              f"{cfg.text.num_experts} experts, bf16 base; per_device_train_batch_size cut from "
+              f"8 to {lora_batch}; every 2nd row with a 980px image", flush=True)
+        counts, _, lora_built, _ = _recipe_run(device, work, "lora", small, gpu, steps,
+                                               lora_batch, 2, SEED, label="train-lora")
+        lora_peak = peak_gib()
+        need("train-lora", counts, ("flash_causal", "flash_causal_bwd", "vit_flash"))
+
+        print(f"train-qlora (recipes/config_lora.yaml, quantize_base true): {L} decoder layers, "
+              f"the int8 base of quantize_params_by_layer; batch {lora_batch}, every 2nd row "
+              f"with a 980px image", flush=True)
+        counts, _, built, _ = _recipe_run(device, work, "lora", cfg, gpu, steps, lora_batch, 2,
+                                          SEED, label="train-qlora", quantize_base=True)
+        peak = peak_gib()
+        print(f"  train-qlora: resident decoder {built['held'] / 1e9:.2f} GB in int8 (its bf16 "
+              f"form at {L} layers: {built['bf16'] / 1e9:.2f} GB; train-lora's bf16 decoder at "
+              f"{lora_layers} layers: {lora_built['held'] / 1e9:.2f} GB); device peak over the "
+              f"steps {peak:.2f} GiB (train-lora's at {lora_layers} layers: {lora_peak:.2f} "
+              f"GiB), over the build {built.get('peak_gib', float('nan')):.2f} GiB ({gpu})",
+              flush=True)
+        need("train-qlora", counts, ("expert_block_dequant", "flash_causal", "flash_causal_bwd"))
+
+        small = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=vit_layers))
+        print(f"train-vit (recipes/config_full.yaml, freeze_vit false): {vit_layers} decoder "
+              f"layers (cut from {L}), the ViT's {LV} layers at hidden "
+              f"{cfg.vision.hidden_size}; batch {vit_batch} x 2048, one row in {VIT_TRAIN_IMAGES} "
+              f"with a 980px image (4,900 patches); mesh_fsdp 2 and mesh_expert 4 set to 1 (one "
+              f"card)", flush=True)
+        images = []
+        with _watch_images(images):
+            counts, state, _, micro = _recipe_run(
+                device, work, "full", small, gpu, steps, vit_batch, VIT_TRAIN_IMAGES, SEED + 1,
+                label="train-vit", freeze_vit=False, mesh_fsdp=1, mesh_expert=1)
+        if not all(graph for _, graph, _ in images):
+            raise AssertionError("train-vit: the ViT recorded no graph")
+        want = LV * len(images)
+        for name in ("flash_segment", "flash_segment_bwd"):
+            if cuda and counts[name] != want:
+                raise AssertionError(f"train-vit: {name} launched {counts[name]} times, not "
+                                     f"{LV} per ViT call ({want})")
+        per_image = max(b / n for n, _, b in images) / 2**30
+        print(f"  train-vit: the ViT ran {len(images)} times in {micro} micro steps, on "
+              f"{[n for n, _, _ in images]} images, its graph holding up to {per_image:.2f} GiB "
+              f"an image when the decoder starts ({gpu}); flash_segment (with row statistics) and "
+              f"flash_segment_bwd launched {counts['flash_segment']} and "
+              f"{counts['flash_segment_bwd']} times, {LV} per ViT call; vit_flash "
+              f"{counts['vit_flash']}", flush=True)
+        if cuda and counts["vit_flash"]:
+            raise AssertionError("train-vit: the trained ViT went through vit_flash")
+        need("train-vit", counts, ("flash_causal", "flash_causal_bwd", "gmm", "split_hi_lo",
+                                   "gmm_dlhs", "tgmm"))
+        out = os.path.join(work, "train-vit_out")
+        ckpt = os.path.join(out, "checkpoints")
         size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(ckpt) for f in fs)
         state_file = os.path.join(ckpt, f"step_{state.step}", "state.pt")
         # the last metrics line is written just before the epoch-end save starts
         save_s = os.path.getmtime(state_file) - os.path.getmtime(
-            os.path.join(full.output_dir, "metrics.jsonl"))
-        print(f"  full recipe: the epoch-end checkpoint (params, moments, accumulator) holds "
+            os.path.join(out, "metrics.jsonl"))
+        print(f"  train-vit: the epoch-end checkpoint (params, moments, accumulator) holds "
               f"{size / 2**30:.2f} GiB, written in {save_s:.1f} s (the files' times)",
               flush=True)
         del state
-        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for peft in (True, False):
-        _train_reference(device, cfg, peft, SEED + 3)
-        if device.type == "cuda":
+    for kind in REF_KINDS:
+        _train_reference(device, cfg, kind, SEED + 3)
+        if cuda:
             torch.cuda.empty_cache()
     return launches
 
@@ -5511,6 +5899,7 @@ def main() -> int:
     with torch.inference_mode():
         results = check_kernels(device, gen(2))
     check_train_kernels(device, gen(9), results)
+    check_segment_bwd(device, gen(14), results)
     t0 = done("kernels", t0)
     lm, text_launches = run_slice(device, gen(3), gpu=gpu)
     t0 = done("text", t0)

@@ -975,6 +975,37 @@ def test_expert_block_dequant_kernel_matches_plain(cuda, form):
         ed.expert_block_dequant({k: v[0] for k, v in w1.items()}, "w1", 12, 11)
 
 
+def test_expert_block_dequant_under_autograd_and_the_qlora_layer(cuda):
+    """QLoRA calls the dequantize with autograd on: the block is the plain
+    version's, bit for bit, and records no graph. One full-width int8
+    training layer (64 experts, 4 blocks of 16) of the LoRA path launches
+    it for each block in the forward and again in the backward, where the
+    block is dequantized anew (``_frozen_base``)."""
+    from aria_tpu_torch.models import moe_lm as tm
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    E, I, D, T = 64, 1664, 2560, 256
+    q1, _, q2, _ = _fp_stack(g, E, I, D, "int8")
+    w1 = {"q": q1[0], "s": torch.rand((E, 2 * I), generator=g, device=cuda) * 1e-2}
+    w2 = {"q": q2[0], "s": torch.rand((E, D), generator=g, device=cuda) * 1e-2}
+    with torch.enable_grad():
+        got = ed.expert_block_dequant(w1, "w1", 16, 16)
+    assert not got.requires_grad and got.grad_fn is None
+    assert torch.equal(got, ed.expert_block_dequant_plain(w1, "w1", 16, 16))
+    x = _randn(g, T, D).requires_grad_()
+    ids = torch.stack([torch.randperm(E, generator=g, device=cuda)[:6] for _ in range(T)])
+    wts = torch.softmax(torch.randn((T, 6), generator=g, device=cuda), -1).to(torch.bfloat16)
+    lora = {n: {"a": (_randn(g, E, D if n == "w1" else I, 8) * 0.01).requires_grad_(),
+                "b": (_randn(g, E, 8, 2 * I if n == "w1" else D) * 0.01).requires_grad_()}
+            for n in ("w1", "w2")}
+    before = ed.expert_block_dequant.launches
+    out = tm._experts_lora_blocked(x, ids.int(), wts, w1, w2, lora, 4.0, None, torch.bfloat16)
+    assert ed.expert_block_dequant.launches == before + 2 * E // tm.lora_block_size(E)
+    grads = torch.autograd.grad(out.float().square().sum(), [x, lora["w1"]["a"]])
+    assert ed.expert_block_dequant.launches == before + 4 * E // tm.lora_block_size(E)
+    assert all(torch.isfinite(t).all() for t in grads)
+
+
 @pytest.mark.parametrize("T", [1, 5, 8, 9, 32, 40])
 def test_dense_int4_a8_kernel_matches_plain(cuda, T):
     """W4A8 wqkv and wo at full width: the integer dots are exact and the
@@ -1202,6 +1233,85 @@ def test_flash_segment_kernel_takes_sq_other_than_sk(cuda, B, Sq, Sk, H, D, q_va
                                rtol=rtol, atol=3e-3)
     torch.testing.assert_close(fl.flash_segment(q, k, v).float(),
                                fl.flash_sdpa_plain(q, k, v).float(), rtol=rtol, atol=3e-3)
+
+
+# The segment backward against the autograd gradient of the plain version.
+# The cotangent is zero on pad rows: there the JAX package off the TPU (its
+# pad queries attend the valid keys) and the library kernel (pad queries
+# attend pad keys) differ by design, and inside the ViT the projector gives
+# pad patches no gradient. Limit: each gradient's largest error within 2e-2
+# of its largest element. The kernel rounds ds to bf16 before dk and dq
+# (relative 2^-9 a term; the plain version keeps it in f32) and rounds each
+# gradient once, ~5e-3 of the largest element at 4,900 keys: ~4x margin.
+SEG_BWD_REL = 2e-2
+
+
+def _seg_bwd_case(cuda, g, B, Sq, Sk, H, D, q_valid, kv_valid):
+    q = _randn(g, B, Sq, H, D)
+    k, v = (_randn(g, B, Sk, H, D) for _ in range(2))
+    qm = _valid_mask(cuda, B, Sq, q_valid)
+    km = _valid_mask(cuda, B, Sk, kv_valid)
+    dout = _randn(g, B, Sq, H, D) * qm[:, :, None, None]
+    return q, k, v, qm, km, dout
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,q_valid,kv_valid", [
+    (1, 4900, 4900, 16, 72, (4900,), (4900,)),
+    (1, 4900, 4900, 16, 72, (3150,), (3150,)),
+    (1, 4900, 4900, 16, 72, "crop", "crop"),
+    (2, 300, 300, 2, 72, (300, 137), (300, 137)),
+    (1, 129, 129, 4, 64, (100,), (100,)),
+    (2, 129, 300, 2, 72, (129, 60), (300, 137))])
+def test_flash_segment_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, D, q_valid, kv_valid):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, qm, km, dout = _seg_bwd_case(cuda, g, B, Sq, Sk, H, D, q_valid, kv_valid)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fl.flash_segment.launches, fl.flash_segment_bwd.launches)
+    out = fl.flash_sdpa(*leaves, q_valid=qm, kv_valid=km)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert (fl.flash_segment.launches, fl.flash_segment_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    ref = fl.flash_segment_bwd_plain(q, k, v, dout, qm, km)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= SEG_BWD_REL * r.float().abs().max().item(), (name, err)
+    # the recorded forward's output is the serving forward's, bit for bit;
+    # a second backward gives the same bits (no sums across blocks)
+    assert torch.equal(out.detach(), fl.flash_segment(q, k, v, qm, km))
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=cuda)
+    o = fl._segment_forward(q, k, v, qm, km, D**-0.5, stats)
+    again = fl.flash_segment_bwd(q, k, v, o, dout, stats, qm, km)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_segment_stats_are_the_row_statistics(cuda):
+    """m and l of each row: log(l) + m is the row's log-sum-exp of the
+    masked, scaled scores (f32; l sums bf16-era exponentials of ex2.approx,
+    ~1e-6 relative)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    B, S, H, D = 2, 300, 2, 72
+    q, k, v = (_randn(g, B, S, H, D) for _ in range(3))
+    mask = _valid_mask(cuda, B, S, (300, 137))
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=cuda)
+    fl._segment_forward(q, k, v, mask, mask, D**-0.5, stats)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D**-0.5
+    same = mask[:, None, :, None] == mask[:, None, None, :]
+    s = s + torch.where(same, 0.0, -0.7 * torch.finfo(torch.float32).max)
+    torch.testing.assert_close(stats[0] + torch.log(stats[1]), torch.logsumexp(s, -1),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_flash_segment_bwd_refuses_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (_randn(g, 1, 64, 2, 72) for _ in range(3))
+    stats = torch.empty((2, 1, 2, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        fl.flash_segment_bwd(q, k, v, q, q, stats[:, :, :1])
+    with pytest.raises(ValueError):
+        bad = _randn(g, 1, 64, 2, 128)
+        fl.flash_segment_bwd(bad, bad, bad, bad, bad, stats)
 
 
 def _stats_caches(g, cuda, L, B, H, S, D):

@@ -276,8 +276,6 @@ def test_load_checkpoint_defaults_to_the_card(tmp_path, monkeypatch):
 def test_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="mesh_fsdp"):
         train(base_recipe(tmp_path, mesh_fsdp=2), cfg=T_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="QLoRA"):
-        train(base_recipe(tmp_path, use_peft=True, quantize_base=True), cfg=T_CFG, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(base_recipe(tmp_path), cfg=T_CFG)
