@@ -123,31 +123,6 @@ flash_bwd_di_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __
   }
 }
 
-// waits until the counter reads at least `want` (acquire: the adds it
-// counts are visible after); a wait that never ends traps
-__device__ __forceinline__ void wait_count(const int* ctr, int want) {
-  for (uint32_t tries = 0;; ++tries) {
-    int v;
-    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(ctr) : "memory");
-    if (v >= want) return;
-    if (tries == (1u << 24)) __trap();
-  }
-}
-
-// this thread's bulk add is complete: one more on the counter (release)
-__device__ __forceinline__ void release_count(int* ctr) {
-  asm volatile(
-      "cp.async.bulk.wait_group 0;\n fence.proxy.async.global;\n fence.acq_rel.gpu;\n"
-      " red.relaxed.gpu.global.add.s32 [%0], 1;\n" :: "l"(ctr) : "memory");
-}
-
-// a warpgroup's dQ part at (row, col) of its 64 x 64 quarter, in floats:
-// rows of 16 chunks of 4, chunk c at c ^ 2 (row % 4), so that a warp's
-// float2 stores of 8 rows take the two passes that 256 bytes need
-__device__ __forceinline__ int dq_at(int row, int col) {
-  return row * 64 + (((col >> 2) ^ ((row & 3) << 1)) << 2) + (col & 3);
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -262,7 +237,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
           asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                        :: "l"(part), "r"(src), "r"(DQ_BYTES) : "memory");
         } else {
-          wait_count(ctr + staged, 2 * kt);
+          aria::wait_count(ctr + staged, 2 * kt);
           asm volatile(
               "fence.proxy.async.global;\n"
               " cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
@@ -341,7 +316,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       aria::wgmma_ss64<1, 1>(dqr, desc(sds + kk * 16 * ROW_BYTES, DS_BYTES),
                              desc(kb_s + cw * KV_BOX + kk * 16 * ROW_BYTES, KV_BOX), kk > 0);
     aria::wgmma_commit();
-    if (threadIdx.x % 128 == 0 && pending >= 0) release_count(ctr + pending);
+    if (threadIdx.x % 128 == 0 && pending >= 0) aria::release_count(ctr + pending);
     pending = -1;
     // both warpgroups are past step t - 1: its stage takes step t - 1 + STAGES
     if (threadIdx.x == 0 && t > 0 && t - 1 + STAGES < nsteps) load_step(t - 1 + STAGES);
@@ -357,14 +332,14 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
         for (int n = 0; n < 8; ++n)
-          *reinterpret_cast<float2*>(stage + dq_at(rw + 8 * hr, 8 * n + c2)) =
+          *reinterpret_cast<float2*>(stage + aria::dq_at(rw + 8 * hr, 8 * n + c2)) =
               make_float2(dqr[4 * n + 2 * hr], dqr[4 * n + 2 * hr + 1]);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the copy
       staged = qt;
     } else {  // the diagonal key tile is the last: the scratch plus its part, as bf16
       const float* const part = dq_acc + ((size_t)(bh * nqt + qt) * 2 + cw) * (DQ_BYTES / 4);
       if (kt > 0) {
-        wait_count(ctr + qt, 2 * kt);
+        aria::wait_count(ctr + qt, 2 * kt);
         asm volatile("fence.proxy.async.global;\n" ::: "memory");
       }
 #pragma unroll
@@ -374,7 +349,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           const float2 a = kt > 0 ? __ldcg(reinterpret_cast<const float2*>(
-                                        part + dq_at(row, 8 * n + c2)))
+                                        part + aria::dq_at(row, 8 * n + c2)))
                                   : make_float2(0.f, 0.f);
           if (qi < S)
             *reinterpret_cast<uint32_t*>(o + 8 * n) =

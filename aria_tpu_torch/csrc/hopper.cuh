@@ -1,9 +1,11 @@
 // Hopper pieces shared by the wgmma kernels (flash.cu, flash_bwd.cu,
-// gmm.cu, vit_attention.cu, dense_int4.cu, moe_prefill.cu) and the decode
+// gmm.cu, vit_attention.cu, vit_attention_bwd.cu, dense_int4.cu,
+// moe_prefill.cu) and the decode
 // MoE's TMA rings (moe_decode.cu, moe_decode_bf16x.cu): TMA loads of
 // tensor-map boxes, the 128-byte-swizzle and the unswizzled shared-memory
 // descriptors, the wgmma fences and the m64n8k16 to m64n256k16 bf16
-// products (transpose bits as template arguments), the packed int4 weights
+// products (transpose bits as template arguments), the counters that order
+// the attention backwards' dq sums across blocks, the packed int4 weights
 // unpacked into bf16 A fragments of wgmma or int8 ones of mma.sync, and the
 // host-side tensor maps.
 #pragma once
@@ -121,6 +123,17 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// d (+)= A B: 64 x 8 x 16, bf16 operands from shared memory, f32 sums
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss8(float (&d)[4], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+      ", %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // d (+)= A B: 64 x 128 x 16, bf16 operands from shared memory, f32 sums;
 // TA / TB: 0 for a K-major operand, 1 for an MN-major one
 template <int TA, int TB>
@@ -234,6 +247,36 @@ __device__ __forceinline__ void wgmma_rsn(float (&d)[TN / 2], const uint32_t* a,
   else if constexpr (TN == 64) wgmma_rs64<0>(d, a, db, accumulate);
   else if constexpr (TN == 96) wgmma_rs96<0>(d, a, db, accumulate);
   else wgmma_rs<0>(d, a, db, accumulate);
+}
+
+// ---- dq of the attention backwards (flash_bwd.cu, vit_attention_bwd.cu):
+// each key tile's part of a query tile's dq is added into an f32 scratch
+// by a bulk reduce-add in key-tile order, ordered by a counter per query
+// tile that counts the parts added
+
+// waits until the counter reads at least `want` (acquire: the adds it
+// counts are visible after); a wait that never ends traps
+__device__ __forceinline__ void wait_count(const int* ctr, int want) {
+  for (uint32_t tries = 0;; ++tries) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(ctr) : "memory");
+    if (v >= want) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+
+// this thread's bulk add is complete: one more on the counter (release)
+__device__ __forceinline__ void release_count(int* ctr) {
+  asm volatile(
+      "cp.async.bulk.wait_group 0;\n fence.proxy.async.global;\n fence.acq_rel.gpu;\n"
+      " red.relaxed.gpu.global.add.s32 [%0], 1;\n" :: "l"(ctr) : "memory");
+}
+
+// a warpgroup's 64 x 64 f32 part of dq at (row, col), in floats: rows of 16
+// chunks of 4, chunk c at c ^ 2 (row % 4), so that a warp's float2 stores
+// of 8 rows take the two passes that 256 bytes need
+__device__ __forceinline__ int dq_at(int row, int col) {
+  return row * 64 + (((col >> 2) ^ ((row & 3) << 1)) << 2) + (col & 3);
 }
 
 // ---- packed int4 weights (biased-lo bytes: B = 16 hi + (lo + 8)) as bf16

@@ -20,57 +20,135 @@
 //
 // Bound: operations, 5 products of 2 * Sq * Sk * D FLOPs per (b, h) (s,
 // dp, dv, dk, dq): 276.6 GFLOP at [1, 4900, 16, 72], 0.280 ms at the bf16
-// peak. This first design is the library's own split, simple and
-// deterministic, on warp-level tensor-core products (mma.sync m16n8k16,
-// operands from shared memory by ldmatrix):
+// peak. The design is flash_bwd.cu's (FlashAttention-3's backward on
+// Hopper's pieces, hopper.cuh), one pass over the key tiles with five
+// products on wgmma, adapted to the ViT's head dims and segments:
 //
-// - Three launches. A prep kernel packs each query row's (m, 1 / l, di,
-//   segment) into a float4 (one warp a row; rows past Sq get segment -1,
-//   which no key has, and 1 / l = 0, so they add nothing). The dkv kernel
-//   takes a block of 64 keys of one (b, h) and walks every tile of 64
-//   queries, keeping dk and dv in registers; the dq kernel takes 64
-//   queries and walks every key tile. Neither adds across blocks, so the
-//   bits repeat from run to run; s and dp are computed in both (7 products
-//   where one pass takes 5).
-// - A block is 4 warps, each owning 16 of its rows. The walked tiles come
-//   through a 2-stage cp.async ring in shared memory, a row padded to D
-//   rounded up to 16 (zeros: the k-steps of s and dp over d read them) plus
-//   8 columns, so the 8 rows an ldmatrix reads fall on distinct banks. At
-//   D = 72 a product over d takes 5 k-steps (columns 72-79 zero), one with
-//   d as its output 9 n-tiles of 8.
-// - p and ds stay in registers: the accumulator fragments of two n-tiles
-//   are the A fragment of the next product's k-step (dv, dk over queries,
-//   dq over keys).
+// - Two launches. A prep kernel packs each query row's (m, 1 / l, di,
+//   segment) into a float4, one warp a row and one block a tile of 64
+//   rows (rows past Sq get segment -1 and 1 / l = 0, so they add nothing),
+//   and writes each query tile's flags: which segments its rows hold, and
+//   whether a row has no key of its own segment (its m is the masked
+//   -0.7 * FLT_MAX: a pad query when every key is valid, which the library
+//   gives attention over every key).
+// - The main kernel: a block takes one (b, h) and a tile of 128 keys, two
+//   consumer warpgroups of 64 keys each, 256 threads, no producer warp
+//   (flash_bwd.cu's register finding: a ninth warp caps a thread at 168
+//   registers). Thread 0 starts the loads: K and V once, and Q and dO in
+//   tiles of 64 queries with their 1 KB of row statistics through a
+//   3-stage ring with a full mbarrier a stage, refilled once both
+//   warpgroups are past the step that read it.
+// - D = 72 against the 128-byte swizzle (vit_attention.cu's layout): a
+//   tile's columns 0-63 are one swizzled box, columns 64-71 an unswizzled
+//   8-column tail box (16-byte rows, the core matrices of an unswizzled
+//   wgmma operand). A box zero-filled to 128 columns would make TMA move
+//   the zeros too (the forward measured 0.337 ms of loads against the
+//   tail's 0.196). At D = 64 a tile is the box alone.
+// - Per query tile, 5 products: S^T = K Q^T and dP^T = V dO^T (m64n64k16:
+//   four k-steps in the box and, at D = 72, a fifth on the tails whose
+//   columns 72-79 read 1 KB of zeros at LBO). K and V are the A operands:
+//   each warp keeps its 16 keys of both in registers as wgmma A fragments
+//   (ldmatrix once, 40 registers), so these products read only Q and dO
+//   from shared memory (both operands from there would read 128 bytes a
+//   clock at m64n64k16, the SM's shared-memory rate). P^T and dS^T are
+//   made on the accumulators; dV += P^T dO and dK += dS^T Q take them as A
+//   from registers (m64n64k16 on the box, m64n8k16 on the tail, B
+//   MN-major through the transpose bit). dQ = dS K runs from dS^T staged
+//   to shared memory as bf16 (two buffers, a named barrier between the two
+//   warpgroups): warpgroup 0 takes dQ's columns 0-63 (m64n64k16 over the
+//   box), warpgroup 1 the tail's 64-71 (m64n8k16; none at D = 64).
+// - Segments. Each key's additive mask for a query of segment 0 and of
+//   segment 1 stays in registers; a thread picks one by the query's
+//   segment. A (query tile, key tile) pair whose query rows and keys are
+//   all of one segment, with every key inside Sk and no row without a key
+//   of its segment, skips the masks (the add of 0 they would make changes
+//   no value). A pair in which no query shares a segment with any key, and
+//   no query lacks a key of its own segment, is not visited at all: its p
+//   is exactly 0 there (exp of a score 0.7 * FLT_MAX below the row's max,
+//   flushed to zero), so every term it would add to dk, dv and dq is an
+//   exact zero. The block's prologue scans kv_valid for which segments
+//   each key tile of b holds and lists the query tiles its key tile visits.
+// - dq. Each key tile's part of a query tile's dQ (warpgroup 0: 64 x 64
+//   f32, warpgroup 1: 64 x 8) is added into an f32 scratch in key-tile
+//   order, so dq's bits repeat from run to run; no atomics in arrival
+//   order. A warpgroup stages its part in shared memory at the end of a
+//   step; in the next, while the tensor cores run S^T and dP^T, one of its
+//   threads waits until the query tile's counter reads the parts of every
+//   earlier key tile that visits it (acquire), and adds its part with a
+//   bulk reduce-add (the first such key tile: a bulk store); once the copy
+//   is complete, after that step's dQ product is issued, it adds one to
+//   the counter (release). The last key tile that visits a query tile adds
+//   the scratch to its own part and writes dq in bf16. Which key tiles
+//   visit a query tile follows from the tile flags alone, so each block
+//   knows, without asking another, how many parts come before its own and
+//   whether it is the last.
+// - Launch order. Every key tile reaches every query tile (39 key tiles
+//   and 77 query tiles a head at 4,900), so the counters make a wavefront:
+//   key tile j adds to query tile t after key tile j - 1 has, and runs a
+//   fraction of a step behind it. The blocks of a head are consecutive,
+//   key tile by key tile, and blocks are dispatched in order of their
+//   index, so a block waits only for blocks dispatched before it, which
+//   hold an SM or have finished: a waiting block never holds an SM that a
+//   block it waits for needs. As blocks finish one after another, the next
+//   head's key tiles start one after another, in the wavefront's order.
 //
-// Rows past Sq or Sk load as zeros and are not stored, so any Sq and Sk
-// work.
+// Rows past Sq or Sk load as zeros (TMA) and are masked and not stored, so
+// any Sq and Sk work.
 
 #include <float.h>
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;     // a block's own rows: 4 warps of 16
-constexpr int COLS = 64;     // rows of a walked tile
-constexpr int THREADS = 128;
+constexpr int KT = 128;         // keys per block: two warpgroups of 64
+constexpr int QT = 64;          // queries per step
+constexpr int STAGES = 3;       // the Q / dO ring
+constexpr int THREADS = 256;    // two warpgroups
+constexpr int ROW_BYTES = 128;  // one swizzled row: 64 bf16
+constexpr int TAIL_ROW = 16;    // one unswizzled tail row: 8 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;  // the library's DEFAULT_MASK_VALUE
+// a row max below this is the masked value: the row has no key of its segment
+constexpr float NO_KEY_M = -1e37f;
+
+// a query tile's flags (the prep kernel) and a key tile's bits (the main
+// kernel's prologue): rows or keys of segment 0, of segment 1; for a query
+// tile, a row without a key of its own segment; for a key tile, keys past Sk
+constexpr int SEG0 = 1, SEG1 = 2, NO_KEY = 4, PAST = 4;
 
 template <int D>
-struct Dims {
-  static constexpr int DP = (D + 15) / 16 * 16;  // d in whole k-steps, zeros past D
-  static constexpr int STRIDE = DP + 8;          // a row in shared memory (elements)
-  static constexpr int KS = DP / 16;             // k-steps over d
-  static constexpr int NT = D / 8;               // n-tiles over d
-  static constexpr int CHUNKS = D / 8;           // 16-byte chunks of a row in memory
-  static constexpr int TILE = ROWS * STRIDE;     // elements of one tile (COLS == ROWS)
-  // four tiles of rows (the block's two, the ring's two stages of two),
-  // then two stages of 64 floats4 (the dkv kernel's query statistics, the
-  // dq kernel's key segments)
-  static constexpr int SMEM = 6 * TILE * 2 + 2 * COLS * 16;
+struct Cfg {
+  static constexpr bool TAIL = D > 64;
+  static constexpr int NPARTS = TAIL ? 2 : 1;  // dq parts a key tile adds
+  static constexpr int KS = TAIL ? 5 : 4;      // k-steps over d
+  static constexpr int KV_BOX = KT * ROW_BYTES;
+  static constexpr int KV_BYTES = KV_BOX + (TAIL ? KT * TAIL_ROW : 0);
+  static constexpr int Q_BOX = QT * ROW_BYTES;
+  static constexpr int Q_BYTES = Q_BOX + (TAIL ? QT * TAIL_ROW : 0);
+  static constexpr int STAT_BYTES = QT * 16;      // a query tile's float4 rows
+  static constexpr int DS_BYTES = KT * ROW_BYTES;  // dS^T: 128 keys x 64 queries bf16
+  static constexpr int DQ0 = QT * 64 * 4;          // warpgroup 0's dQ part (f32)
+  static constexpr int DQ1 = TAIL ? QT * 8 * 4 : 0;  // warpgroup 1's
+  // shared memory from a 1024-byte aligned base (the swizzle's alignment)
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + KV_BYTES;
+  static constexpr int Q_OFF = V_OFF + KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int DS_OFF = DO_OFF + STAGES * Q_BYTES;  // two buffers
+  static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int ZERO_OFF = DQ_OFF + DQ0 + DQ1;       // columns 72-79 of 64 rows
+  static constexpr int ST_OFF = ZERO_OFF + (TAIL ? QT * TAIL_ROW : 0);
+  static constexpr int BAR_OFF = ST_OFF + STAGES * STAT_BYTES;  // kv, full[STAGES]
+  static constexpr int INFO_OFF = BAR_OFF + 8 * (1 + STAGES);   // 8 ints, below
+  static constexpr int LIST_OFF = INFO_OFF + 8 * 4;  // the visited query tiles, the key tiles' bits
+  static constexpr int bytes(int nqt, int nkt) { return LIST_OFF + 4 * nqt + nkt + 1024; }
 };
+// info[]: the key tiles of b of each class (keys of segment 0 only, of
+// segment 1 only, of both); this block's key tile, its class, its place in
+// the class, its bits; the query tiles it visits
+enum { N0 = 0, N1 = 1, N2 = 2, KTILE = 3, CLASS = 4, INDEX = 5, KBITS = 6, NSTEPS = 7 };
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -78,382 +156,509 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// ldmatrix: four (or two) 8 x 8 bf16 matrices, one row address a thread
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return aria::sw128_desc(addr, lbo, 1024);
+}
+
 __device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
-__device__ __forceinline__ void ldsm4t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm2t(uint32_t addr, uint32_t (&r)[2]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+__device__ __forceinline__ void ldsm2(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
 
-// Byte offsets of this lane's ldmatrix row in a tile of STRIDE-element rows.
-// A (16 x 16 at row r0, column c0, row-major) and B from [K][N] storage
-// with .trans (k0 = r0, n0 = c0: two n-tiles): rows r0 + lane % 16, column
-// c0 + 8 (lane / 16).
-template <int D>
-__device__ __forceinline__ uint32_t a_off(int r0, int c0, int lane) {
-  return ((r0 + (lane & 15)) * Dims<D>::STRIDE + c0 + ((lane >> 4) << 3)) * 2;
-}
-// B from [N][K] storage (n0, k0: two n-tiles of 8): row n0 + lane % 8 + 8
-// (lane / 16), column k0 + 8 ((lane / 8) % 2)
-template <int D>
-__device__ __forceinline__ uint32_t b_off(int n0, int k0, int lane) {
-  const int row = n0 + (lane & 7) + ((lane >> 4) << 3);
-  return (row * Dims<D>::STRIDE + k0 + (((lane >> 3) & 1) << 3)) * 2;
-}
-
-// rows row0 .. row0 + 63 of one head of x [B, S, H, D] into a tile: cp.async
-// for rows inside S, zeros past it
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
-                                          int h, int row0, int S, int H) {
-  using T = Dims<D>;
-  for (int i = threadIdx.x; i < ROWS * T::CHUNKS; i += THREADS) {
-    const int r = i / T::CHUNKS, c = i % T::CHUNKS, row = row0 + r;
-    __nv_bfloat16* const d = dst + r * T::STRIDE + 8 * c;
-    if (row < S)
-      aria::cp_async16(d, src + (((size_t)b * S + row) * H + h) * D + 8 * c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// columns D .. DP - 1 of every row of the six tiles: zeros, never written again
-template <int D>
-__device__ __forceinline__ void zero_pad(__nv_bfloat16* tiles) {
-  using T = Dims<D>;
-  if constexpr (T::DP > D) {
-    static_assert(T::DP - D == 8, "one 16-byte chunk of padding");
-    for (int r = threadIdx.x; r < 6 * ROWS; r += THREADS)
-      *reinterpret_cast<uint4*>(tiles + r * T::STRIDE + D) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// the additive mask of a (query, key) pair: the key's segment -2 past Sk,
-// the query's -1 past Sq
-__device__ __forceinline__ float mask_add(int qseg, int kseg) {
-  return kseg < 0 ? -INFINITY : qseg != kseg ? MASK_VALUE : 0.f;
-}
-
-// one score's p and ds from its q.k, its dp and the query's statistics
-__device__ __forceinline__ void p_ds(float& s, float& dp, const float4& st, int kseg,
-                                     float scale) {
-  const float x = __fadd_rn(__fmul_rn(s, scale), mask_add((int)st.w, kseg));
-  const float p = __fmul_rn(ex2(__fmul_rn(x - st.x, LOG2E)), st.y);
-  dp = __fmul_rn(__fmul_rn(dp - st.z, p), scale);
-  s = p;
-}
-
-// (m, 1 / l, di, segment) of each query row, [B, H, Sqp]; one warp a row
+// (m, 1 / l, di, segment) of each query row, [B, H, Sqp] (Sqp: Sq rounded up
+// to 64), and each query tile's flags [B, H, Sqp / 64]; one block a tile, one
+// warp a row
 __global__ void __launch_bounds__(256)
 seg_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ stats, const uint8_t* __restrict__ q_valid,
-                    float4* __restrict__ qs, int B, int Sq, int Sqp, int H, int D) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= B * H * Sqp) return;  // warp-uniform
-  const int s = row % Sqp, bh = row / Sqp, b = bh / H, h = bh % H;
-  float4 r = make_float4(0.f, 0.f, 0.f, -1.f);
-  if (s < Sq) {  // warp-uniform
-    float v = 0.f;
-    if (lane < D / 4) {
-      const size_t at = (((size_t)b * Sq + s) * H + h) * D + 4 * lane;
-      const uint2 ow = *reinterpret_cast<const uint2*>(o + at);
-      const uint2 dw = *reinterpret_cast<const uint2*>(dout + at);
-      v = aria::bf_lo(ow.x) * aria::bf_lo(dw.x) + aria::bf_hi(ow.x) * aria::bf_hi(dw.x) +
-          aria::bf_lo(ow.y) * aria::bf_lo(dw.y) + aria::bf_hi(ow.y) * aria::bf_hi(dw.y);
+                    float4* __restrict__ qs, int* __restrict__ qflags, int B, int Sq, int H,
+                    int D) {
+  const int nqt = (Sq + QT - 1) / QT, Sqp = nqt * QT;
+  const int bh = blockIdx.x / nqt, qt = blockIdx.x % nqt, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int flags = 0;
+  for (int i = 0; i < QT / 8; ++i) {
+    const int s = qt * QT + warp * (QT / 8) + i;
+    float4 r = make_float4(0.f, 0.f, 0.f, -1.f);
+    if (s < Sq) {  // warp-uniform
+      float v = 0.f;
+      if (lane < D / 4) {
+        const size_t at = (((size_t)b * Sq + s) * H + h) * D + 4 * lane;
+        const uint2 ow = *reinterpret_cast<const uint2*>(o + at);
+        const uint2 dw = *reinterpret_cast<const uint2*>(dout + at);
+        v = aria::bf_lo(ow.x) * aria::bf_lo(dw.x) + aria::bf_hi(ow.x) * aria::bf_hi(dw.x) +
+            aria::bf_lo(ow.y) * aria::bf_lo(dw.y) + aria::bf_hi(ow.y) * aria::bf_hi(dw.y);
+      }
+      v = aria::warp_sum(v);
+      const size_t st = (size_t)bh * Sq + s;
+      const float m = stats[st];
+      const int seg = q_valid == nullptr ? 1 : (int)q_valid[(size_t)b * Sq + s];
+      r = make_float4(m, 1.f / stats[(size_t)B * H * Sq + st], v, (float)seg);
+      flags |= (seg ? SEG1 : SEG0) | (m < NO_KEY_M ? NO_KEY : 0);
     }
-    v = aria::warp_sum(v);
-    const size_t st = (size_t)bh * Sq + s;
-    r = make_float4(stats[st], 1.f / stats[(size_t)B * H * Sq + st], v,
-                    q_valid == nullptr ? 1.f : (float)q_valid[(size_t)b * Sq + s]);
+    if (lane == 0) qs[(size_t)bh * Sqp + s] = r;
   }
-  if (lane == 0) qs[row] = r;
+  const int any0 = __syncthreads_or(flags & SEG0), any1 = __syncthreads_or(flags & SEG1);
+  const int none = __syncthreads_or(flags & NO_KEY);
+  if (threadIdx.x == 0)
+    qflags[blockIdx.x] = (any0 ? SEG0 : 0) | (any1 ? SEG1 : 0) | (none ? NO_KEY : 0);
 }
 
-// dk, dv of 64 keys: walks the query tiles
+// the maps of q, k, v and do: columns 0-63 (swizzled boxes) and the tails
+struct Maps {
+  CUtensorMap q, k, v, d, qt, kt, vt, dt;
+};
+
+// thread 0's loads of step t's query tile (list[t]) into stage t % STAGES
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-seg_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float4* __restrict__ qs, const uint8_t* __restrict__ kv_valid,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-                   int Sk, int Sqp, int H, float scale) {
-  using T = Dims<D>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* const sk = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* const sv = sk + T::TILE;
-  __nv_bfloat16* const sq = sv + T::TILE;      // [2] the walked query tiles
-  __nv_bfloat16* const sd = sq + 2 * T::TILE;  // [2] their cotangents
-  float4* const sst = reinterpret_cast<float4*>(sd + 2 * T::TILE);  // [2][COLS]
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, key0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-  const int nq = Sqp / COLS;
-  const float4* const qrow = qs + (size_t)bh * Sqp;
+__device__ __forceinline__ void load_step(const Maps& maps, uint32_t base, const int* list, int t,
+                                          const float4* qrow, int b, int h) {
+  using C = Cfg<D>;
+  const int st = t % STAGES, q0 = (list[t] & 0xFFFFFF) * QT;
+  const uint32_t full = base + C::BAR_OFF + 8 * (1 + st);
+  const uint32_t sq = base + C::Q_OFF + st * C::Q_BYTES, sd = base + C::DO_OFF + st * C::Q_BYTES;
+  aria::mbar_expect_tx(full, 2 * C::Q_BYTES + C::STAT_BYTES);
+  aria::tma_load(sq, &maps.q, full, 0, h, q0, b);
+  aria::tma_load(sd, &maps.d, full, 0, h, q0, b);
+  if constexpr (C::TAIL) {
+    aria::tma_load(sq + C::Q_BOX, &maps.qt, full, 64, h, q0, b);
+    aria::tma_load(sd + C::Q_BOX, &maps.dt, full, 64, h, q0, b);
+  }
+  aria::bulk_load(base + C::ST_OFF + st * C::STAT_BYTES, qrow + q0, C::STAT_BYTES, full);
+}
 
-  zero_pad<D>(sk);
-  load_rows<D>(sk, k, b, h, key0, Sk, H);
-  load_rows<D>(sv, v, b, h, key0, Sk, H);
-  auto load_stage = [&](int t) {
-    const int st = t & 1;
-    load_rows<D>(sq + st * T::TILE, q, b, h, t * COLS, Sq, H);
-    load_rows<D>(sd + st * T::TILE, dout, b, h, t * COLS, Sq, H);
-    if (threadIdx.x < COLS)
-      aria::cp_async16(sst + st * COLS + threadIdx.x, qrow + t * COLS + threadIdx.x);
-  };
-  load_stage(0);
-  aria::cp_async_commit();
-
-  auto kseg_of = [&](int key) {
-    return key >= Sk ? -2 : kv_valid == nullptr ? 1 : (int)kv_valid[(size_t)b * Sk + key];
-  };
-  const int sega = kseg_of(key0 + r0 + g), segb = kseg_of(key0 + r0 + g + 8);
-  const uint32_t ska = aria::smem_u32(sk), sva = aria::smem_u32(sv);
-
-  float dka[T::NT][4], dva[T::NT][4];
+// P^T and dS^T of one step on a thread's accumulators (keys ka: e < 2, kb:
+// e >= 2; query 8n + c2 + e % 2), packed to bf16 as wgmma's A fragments as
+// they are made: k-step u holds queries 16u..16u+15, the accumulator's
+// column blocks 2u and 2u+1
+template <bool MASKED>
+__device__ __forceinline__ void scores(const float (&s)[32], const float (&dp)[32],
+                                       const float4* stq, int c2, const float (&add0)[2],
+                                       const float (&add1)[2], float scale, uint32_t (&pa)[16],
+                                       uint32_t (&sa)[16]) {
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < 8; ++n) {
+    const float4 q0 = stq[8 * n + c2], q1 = stq[8 * n + c2 + 1];
+    float p[4], ds[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int t = 0; t < nq; ++t) {
-    if (t + 1 < nq) {
-      load_stage(t + 1);
-      aria::cp_async_commit();
-      aria::cp_async_wait<1>();
-    } else {
-      aria::cp_async_wait<0>();
+    for (int e = 0; e < 4; ++e) {
+      const float4& r = (e & 1) ? q1 : q0;  // (m, 1 / l, di, segment)
+      float x = __fmul_rn(s[4 * n + e], scale);
+      if (MASKED) x = __fadd_rn(x, r.w > 0.5f ? add1[e >> 1] : add0[e >> 1]);
+      p[e] = __fmul_rn(ex2(__fmul_rn(x - r.x, LOG2E)), r.y);
+      ds[e] = __fmul_rn(__fmul_rn(dp[4 * n + e] - r.z, p[e]), scale);
     }
-    __syncthreads();
-    const int st = t & 1;
-    const uint32_t sqa = aria::smem_u32(sq + st * T::TILE), sda = aria::smem_u32(sd + st * T::TILE);
-    const float4* const qst = sst + st * COLS;
+    pa[2 * n] = aria::pack_bf16(p[0], p[1]);
+    pa[2 * n + 1] = aria::pack_bf16(p[2], p[3]);
+    sa[2 * n] = aria::pack_bf16(ds[0], ds[1]);
+    sa[2 * n + 1] = aria::pack_bf16(ds[2], ds[3]);
+  }
+}
 
-    // s^T = K Q^T and dp^T = V dO^T: this warp's 16 keys x 64 queries
-    float s[8][4], dp[8][4];
+// warpgroup CW's keys: dK and dV in registers over the visited query tiles,
+// and its part of dQ (warpgroup 0: columns 0-63; 1: 64-71 at D = 72)
+template <int D, int CW>
+__device__ __forceinline__ void consume(const Maps& maps, uint32_t base, uint8_t* gbase,
+                                        const float4* qrow, const uint8_t* kv_valid,
+                                        float* dq_acc, int* ctr, __nv_bfloat16* dq,
+                                        __nv_bfloat16* dk, __nv_bfloat16* dv, int b, int h,
+                                        int bh, int kt, int nqt, int Sq, int Sk, int H,
+                                        float scale) {
+  using C = Cfg<D>;
+  constexpr bool TAIL = C::TAIL;
+  constexpr bool PART = CW == 0 || TAIL;  // this warpgroup adds a part of dq
+  const int* const info = reinterpret_cast<const int*>(gbase + C::INFO_OFF);
+  const int* const list = reinterpret_cast<const int*>(gbase + C::LIST_OFF);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, ct = threadIdx.x % 128;
+  const int rw = warp * 16 + lane / 4;  // this thread's first fragment row (and rw + 8)
+  const int c2 = 2 * (lane % 4);        // its first column in each 8-column block
+  const int ka = kt * KT + CW * 64 + rw;  // its two keys: ka, ka + 8
+  const uint32_t sk = base + C::K_OFF, sv = base + C::V_OFF, zero = base + C::ZERO_OFF;
+  const uint32_t bar_kv = base + C::BAR_OFF;
+  const int nsteps = info[NSTEPS], kbits = info[KBITS];
+  const int n0 = info[N0], n1 = info[N1], n2 = info[N2], cls = info[CLASS], idx = info[INDEX];
+
+  // each key's additive mask for a query of segment 0 and of segment 1
+  float add0[2], add1[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < T::KS; ++kk) {
-      uint32_t ak[4], av[4];
-      ldsm4(ska + a_off<D>(r0, 16 * kk, lane), ak);
-      ldsm4(sva + a_off<D>(r0, 16 * kk, lane), av);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t bq[4], bd[4];
-        ldsm4(sqa + b_off<D>(16 * j, 16 * kk, lane), bq);
-        ldsm4(sda + b_off<D>(16 * j, 16 * kk, lane), bd);
-        aria::mma_bf16(s[2 * j], ak, bq[0], bq[1]);
-        aria::mma_bf16(s[2 * j + 1], ak, bq[2], bq[3]);
-        aria::mma_bf16(dp[2 * j], av, bd[0], bd[1]);
-        aria::mma_bf16(dp[2 * j + 1], av, bd[2], bd[3]);
-      }
-    }
-    // p^T and ds^T, then as A fragments: k-step u holds queries 16u .. 16u + 15
-    uint32_t pa[4][4], sa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 q0v = qst[8 * j + 2 * t4], q1v = qst[8 * j + 2 * t4 + 1];
-      p_ds(s[j][0], dp[j][0], q0v, sega, scale);
-      p_ds(s[j][1], dp[j][1], q1v, sega, scale);
-      p_ds(s[j][2], dp[j][2], q0v, segb, scale);
-      p_ds(s[j][3], dp[j][3], q1v, segb, scale);
-      const int u = j >> 1, hf = (j & 1) << 1;
-      pa[u][hf] = aria::pack_bf16(s[j][0], s[j][1]);
-      pa[u][hf + 1] = aria::pack_bf16(s[j][2], s[j][3]);
-      sa[u][hf] = aria::pack_bf16(dp[j][0], dp[j][1]);
-      sa[u][hf + 1] = aria::pack_bf16(dp[j][2], dp[j][3]);
-    }
-    // dV += P^T dO and dK += dS^T Q: B from [query][d] storage through .trans
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int jp = 0; jp < T::NT / 2; ++jp) {
-        uint32_t bd[4], bq[4];
-        ldsm4t(sda + a_off<D>(16 * u, 16 * jp, lane), bd);
-        ldsm4t(sqa + a_off<D>(16 * u, 16 * jp, lane), bq);
-        aria::mma_bf16(dva[2 * jp], pa[u], bd[0], bd[1]);
-        aria::mma_bf16(dva[2 * jp + 1], pa[u], bd[2], bd[3]);
-        aria::mma_bf16(dka[2 * jp], sa[u], bq[0], bq[1]);
-        aria::mma_bf16(dka[2 * jp + 1], sa[u], bq[2], bq[3]);
-      }
-      if constexpr (T::NT % 2) {  // d's last 8 columns
-        uint32_t bd[2], bq[2];
-        ldsm2t(sda + a_off<D>(16 * u, 8 * (T::NT - 1), lane), bd);
-        ldsm2t(sqa + a_off<D>(16 * u, 8 * (T::NT - 1), lane), bq);
-        aria::mma_bf16(dva[T::NT - 1], pa[u], bd[0], bd[1]);
-        aria::mma_bf16(dka[T::NT - 1], sa[u], bq[0], bq[1]);
-      }
-    }
-    __syncthreads();  // the stage is free for the tile after next
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = ka + 8 * hr;
+    const int seg = key >= Sk ? -1 : kv_valid == nullptr ? 1 : (int)kv_valid[(size_t)b * Sk + key];
+    add0[hr] = seg < 0 ? -INFINITY : seg == 0 ? 0.f : MASK_VALUE;
+    add1[hr] = seg < 0 ? -INFINITY : seg == 1 ? 0.f : MASK_VALUE;
   }
 
+  // this warp's 16 keys of K and V as A fragments: k-step kk holds columns
+  // 16kk..16kk+15 (the fifth: the tail's 64-71, then zeros)
+  aria::mbar_wait(bar_kv, 0);
+  uint32_t kf[C::KS][4], vf[C::KS][4];
+  {
+    const int r0 = CW * 64 + warp * 16, mi = lane / 8;
+    const int row = r0 + lane % 8 + 8 * (mi % 2);  // ldmatrix's matrix mi, row lane % 8
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t off = row * ROW_BYTES + (((2 * kk + mi / 2) ^ (row & 7)) << 4);
+      ldsm4(sk + off, kf[kk]);
+      ldsm4(sv + off, vf[kk]);
+    }
+    if constexpr (TAIL) {
+      const uint32_t off = C::KV_BOX + (r0 + lane % 16) * TAIL_ROW;
+      ldsm2(sk + off, kf[4]);
+      ldsm2(sv + off, vf[4]);
+      kf[4][2] = kf[4][3] = vf[4][2] = vf[4][3] = 0;
+    }
+  }
+
+  float dkr[32], dvr[32], dkt[4], dvt[4];  // dK, dV: columns 0-63, and 64-71 (D = 72)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dkr[i] = dvr[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dkt[i] = dvt[i] = 0.f;
+  int staged = -1, staged_rank = 0;  // the query tile whose dQ part waits in shared memory
+  int pending = -1;  // the query tile whose bulk add is in flight, not yet counted
+  const uint32_t part_src = base + C::DQ_OFF + (CW ? C::DQ0 : 0);
+  constexpr int PART_BYTES = CW ? C::DQ1 : C::DQ0;
+  auto part_of = [&](int qt) {  // this warpgroup's part of query tile qt in the scratch
+    return dq_acc + ((size_t)bh * nqt + qt) * (QT * D) + (CW ? QT * 64 : 0);
+  };
+  // the staged part, added after the parts of the key tiles before this one
+  auto add_staged = [&]() {
+    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + CW) : "memory");  // it is staged
+    if (ct == 0) {
+      float* const part = part_of(staged);
+      if (staged_rank == 0) {
+        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                     :: "l"(part), "r"(part_src), "r"(PART_BYTES) : "memory");
+      } else {
+        aria::wait_count(ctr + staged, C::NPARTS * staged_rank);
+        asm volatile(
+            "fence.proxy.async.global;\n"
+            " cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+            :: "l"(part), "r"(part_src), "r"(PART_BYTES) : "memory");
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    pending = staged;
+    staged = -1;
+  };
+
+  for (int t = 0; t < nsteps; ++t) {
+    const int st = t % STAGES, qt = list[t] & 0xFFFFFF, f = list[t] >> 24;
+    const uint32_t sq = base + C::Q_OFF + st * C::Q_BYTES, sd = base + C::DO_OFF + st * C::Q_BYTES;
+    const uint32_t sds = base + C::DS_OFF + (t & 1) * C::DS_BYTES;
+    const float4* const stq = reinterpret_cast<const float4*>(gbase + C::ST_OFF + st * C::STAT_BYTES);
+    aria::mbar_wait_loop(bar_kv + 8 * (1 + st), (t / STAGES) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, k-steps over d
+    float s[32], dp[32];
+    aria::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 columns a step, 32 bytes into the box's rows
+      aria::wgmma_rs64<0>(s, kf[kk], desc(sq + kk * 32, 16), kk > 0);
+    if constexpr (TAIL)  // columns 64-71 from the tail, 72-79 from the zeros at LBO
+      aria::wgmma_rs64<0>(s, kf[4], aria::plain_desc(sq + C::Q_BOX, zero - (sq + C::Q_BOX), 128));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      aria::wgmma_rs64<0>(dp, vf[kk], desc(sd + kk * 32, 16), kk > 0);
+    if constexpr (TAIL)
+      aria::wgmma_rs64<0>(dp, vf[4], aria::plain_desc(sd + C::Q_BOX, zero - (sd + C::Q_BOX), 128));
+    aria::wgmma_commit();
+    if constexpr (PART)
+      if (staged >= 0) add_staged();  // the last step's dQ part
+    aria::wgmma_wait<0>();
+    aria::fence_regs(s);
+    aria::fence_regs(dp);
+
+    // P^T and dS^T; the masks only where the pair is not all of one segment
+    uint32_t pa[16], sa[16];
+    if (f == (kbits & 7) && (f == SEG0 || f == SEG1))
+      scores<false>(s, dp, stq, c2, add0, add1, scale, pa, sa);
+    else
+      scores<true>(s, dp, stq, c2, add0, add1, scale, pa, sa);
+    // dS^T into this step's buffer: row = key (one swizzled 128-byte row of
+    // 64 queries), the 16-byte chunk n at n ^ (row % 8)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = CW * 64 + rw + 8 * hr;
+        asm volatile("st.shared.u32 [%0], %1;\n"
+                     :: "r"(sds + row * ROW_BYTES + ((n ^ (row & 7)) << 4) + c2 * 2),
+                        "r"(sa[2 * n + hr]) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+
+    // dV += P^T dO and dK += dS^T Q: 16 queries a k-step; the box, then the tail
+    aria::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < QT / 16; ++u) {
+      aria::wgmma_rs64<1>(dvr, pa + 4 * u, desc(sd + u * 16 * ROW_BYTES, C::Q_BOX));
+      if constexpr (TAIL)
+        aria::wgmma_rs8<1>(dvt, pa + 4 * u,
+                           aria::plain_desc(sd + C::Q_BOX + u * 16 * TAIL_ROW, 128, 256));
+    }
+#pragma unroll
+    for (int u = 0; u < QT / 16; ++u) {
+      aria::wgmma_rs64<1>(dkr, sa + 4 * u, desc(sq + u * 16 * ROW_BYTES, C::Q_BOX));
+      if constexpr (TAIL)
+        aria::wgmma_rs8<1>(dkt, sa + 4 * u,
+                           aria::plain_desc(sq + C::Q_BOX + u * 16 * TAIL_ROW, 128, 256));
+    }
+    aria::wgmma_commit();
+
+    // this step's bulk add has read its staging buffer, and both warpgroups'
+    // dS^T are in; dQ = dS K over the tile's 128 keys, 16 a k-step: A is
+    // dS^T (MN-major), B this warpgroup's columns of K (MN-major)
+    if (PART && ct == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float dqr[CW == 0 ? 32 : 4];
+    if constexpr (CW == 0) {
+      aria::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        aria::wgmma_ss64<1, 1>(dqr, desc(sds + kk * 16 * ROW_BYTES, C::DS_BYTES),
+                               desc(sk + kk * 16 * ROW_BYTES, C::KV_BOX), kk > 0);
+      aria::wgmma_commit();
+    } else if constexpr (TAIL) {
+      aria::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        aria::wgmma_ss8<1, 1>(dqr, desc(sds + kk * 16 * ROW_BYTES, C::DS_BYTES),
+                              aria::plain_desc(sk + C::KV_BOX + kk * 16 * TAIL_ROW, 128, 256),
+                              kk > 0);
+      aria::wgmma_commit();
+    }
+    if (PART && ct == 0 && pending >= 0) aria::release_count(ctr + pending);
+    pending = -1;
+    // both warpgroups are past step t - 1: its stage takes step t - 1 + STAGES
+    if (CW == 0 && threadIdx.x == 0 && t > 0 && t - 1 + STAGES < nsteps)
+      load_step<D>(maps, base, list, t - 1 + STAGES, qrow, b, h);
+    aria::wgmma_wait<0>();
+    aria::fence_regs(dvr);
+    aria::fence_regs(dkr);
+    aria::fence_regs(dvt);
+    aria::fence_regs(dkt);
+    if constexpr (PART) aria::fence_regs(dqr);
+
+    if constexpr (PART) {
+      // the key tiles that visit this query tile before and after this one,
+      // in the order of classes
+      const int v0 = (f & (SEG0 | NO_KEY)) ? n0 : 0, v1 = (f & (SEG1 | NO_KEY)) ? n1 : 0;
+      const int rank = idx + (cls > 0 ? v0 : 0) + (cls > 1 ? v1 : 0);
+      const int later = (cls == 0 ? v0 : cls == 1 ? v1 : n2) - 1 - idx + (cls < 1 ? v1 : 0) +
+                        (cls < 2 ? n2 : 0);
+      if (later > 0) {  // staged for a bulk add
+        float* const stage = reinterpret_cast<float*>(gbase + C::DQ_OFF + (CW ? C::DQ0 : 0));
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          if constexpr (CW == 0) {
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+              *reinterpret_cast<float2*>(stage + aria::dq_at(rw + 8 * hr, 8 * n + c2)) =
+                  make_float2(dqr[4 * n + 2 * hr], dqr[4 * n + 2 * hr + 1]);
+          } else {
+            *reinterpret_cast<float2*>(stage + (rw + 8 * hr) * 8 + c2) =
+                make_float2(dqr[2 * hr], dqr[2 * hr + 1]);
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the copy
+        staged = qt;
+        staged_rank = rank;
+      } else {  // the last key tile here: the scratch plus its part, as bf16
+        const float* const part = part_of(qt);
+        if (rank > 0) {  // every load first: a store between two would wait out each
+          aria::wait_count(ctr + qt, C::NPARTS * rank);
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          float2 a[2][CW == 0 ? 8 : 1];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+            for (int n = 0; n < (CW == 0 ? 8 : 1); ++n)
+              a[hr][n] = __ldcg(reinterpret_cast<const float2*>(
+                  part + (CW == 0 ? aria::dq_at(rw + 8 * hr, 8 * n + c2) : (rw + 8 * hr) * 8 + c2)));
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+            for (int n = 0; n < (CW == 0 ? 8 : 1); ++n) {
+              dqr[4 * n + 2 * hr] = a[hr][n].x + dqr[4 * n + 2 * hr];
+              dqr[4 * n + 2 * hr + 1] = a[hr][n].y + dqr[4 * n + 2 * hr + 1];
+            }
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int qi = qt * QT + rw + 8 * hr;
+          __nv_bfloat16* const o = dq + (((size_t)b * Sq + qi) * H + h) * D + CW * 64 + c2;
+          if (qi < Sq)
+#pragma unroll
+            for (int n = 0; n < (CW == 0 ? 8 : 1); ++n)
+              *reinterpret_cast<uint32_t*>(o + 8 * n) =
+                  aria::pack_bf16(dqr[4 * n + 2 * hr], dqr[4 * n + 2 * hr + 1]);
+        }
+      }
+    }
+  }
+  if constexpr (PART) {
+    if (staged >= 0) {  // the last step's part
+      add_staged();
+      if (ct == 0) aria::release_count(ctr + pending);
+    }
+  }
+
+  // dK and dV rows of this thread's two keys
   const size_t row_stride = (size_t)H * D;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int key = key0 + r0 + g + 8 * hr;
+    const int key = ka + 8 * hr;
     if (key >= Sk) continue;
-    const size_t at = ((size_t)b * Sk + key) * row_stride + (size_t)h * D + 2 * t4;
+    const size_t at = ((size_t)b * Sk + key) * row_stride + (size_t)h * D + c2;
 #pragma unroll
-    for (int n = 0; n < T::NT; ++n) {
+    for (int n = 0; n < 8; ++n) {
       *reinterpret_cast<uint32_t*>(dk + at + 8 * n) =
-          aria::pack_bf16(dka[n][2 * hr], dka[n][2 * hr + 1]);
+          aria::pack_bf16(dkr[4 * n + 2 * hr], dkr[4 * n + 2 * hr + 1]);
       *reinterpret_cast<uint32_t*>(dv + at + 8 * n) =
-          aria::pack_bf16(dva[n][2 * hr], dva[n][2 * hr + 1]);
+          aria::pack_bf16(dvr[4 * n + 2 * hr], dvr[4 * n + 2 * hr + 1]);
+    }
+    if constexpr (TAIL) {
+      *reinterpret_cast<uint32_t*>(dk + at + 64) = aria::pack_bf16(dkt[2 * hr], dkt[2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 64) = aria::pack_bf16(dvt[2 * hr], dvt[2 * hr + 1]);
     }
   }
 }
 
-// dq of 64 queries: walks the key tiles
+// one block: (b, h) = blockIdx.x / nkt and the (blockIdx.x % nkt)-th key
+// tile of b in the order of classes (the launch order above)
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-seg_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                  const float4* __restrict__ qs, const uint8_t* __restrict__ kv_valid,
-                  __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Sqp, int H, float scale) {
-  using T = Dims<D>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __nv_bfloat16* const sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* const sd = sq + T::TILE;
-  __nv_bfloat16* const sk = sd + T::TILE;      // [2] the walked key tiles
-  __nv_bfloat16* const sv = sk + 2 * T::TILE;  // [2] and their values
-  int* const kseg = reinterpret_cast<int*>(sv + 2 * T::TILE);  // [2][COLS]
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-  const int nk = (Sk + COLS - 1) / COLS;
+__global__ void __launch_bounds__(THREADS, 1)
+seg_bwd_kernel(const __grid_constant__ Maps maps, const float4* __restrict__ qs,
+               const int* __restrict__ qflags, const uint8_t* __restrict__ kv_valid,
+               float* __restrict__ dq_acc, int* __restrict__ counters,
+               __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = aria::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle needs 1024-byte alignment
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const int nkt = (Sk + KT - 1) / KT, nqt = (Sq + QT - 1) / QT;
+  int* const info = reinterpret_cast<int*>(gbase + C::INFO_OFF);
+  int* const list = reinterpret_cast<int*>(gbase + C::LIST_OFF);
+  uint8_t* const tbits = gbase + C::LIST_OFF + 4 * nqt;  // each key tile's bits
+  const int bh = blockIdx.x / nkt, pos = blockIdx.x % nkt, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t bar_kv = base + C::BAR_OFF;
 
-  zero_pad<D>(sq);
-  load_rows<D>(sq, q, b, h, q0, Sq, H);
-  load_rows<D>(sd, dout, b, h, q0, Sq, H);
-  auto load_stage = [&](int t) {
-    const int st = t & 1;
-    load_rows<D>(sk + st * T::TILE, k, b, h, t * COLS, Sk, H);
-    load_rows<D>(sv + st * T::TILE, v, b, h, t * COLS, Sk, H);
-    if (threadIdx.x < COLS) {
-      const int key = t * COLS + threadIdx.x;
-      kseg[st * COLS + threadIdx.x] =
-          key >= Sk ? -2 : kv_valid == nullptr ? 1 : (int)kv_valid[(size_t)b * Sk + key];
-    }
-  };
-  load_stage(0);
-  aria::cp_async_commit();
-
-  // this thread's two query rows' statistics (rows past Sq: segment -1, 1 / l = 0)
-  const float4 sta = qs[(size_t)bh * Sqp + q0 + r0 + g];
-  const float4 stb = qs[(size_t)bh * Sqp + q0 + r0 + g + 8];
-  const uint32_t sqa = aria::smem_u32(sq), sda = aria::smem_u32(sd);
-
-  float dqa[T::NT][4];
-#pragma unroll
-  for (int n = 0; n < T::NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-
-  for (int t = 0; t < nk; ++t) {
-    if (t + 1 < nk) {
-      load_stage(t + 1);
-      aria::cp_async_commit();
-      aria::cp_async_wait<1>();
-    } else {
-      aria::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = t & 1;
-    const uint32_t ska = aria::smem_u32(sk + st * T::TILE), sva = aria::smem_u32(sv + st * T::TILE);
-    const int* const ks = kseg + st * COLS;
-
-    // s = Q K^T and dp = dO V^T: this warp's 16 queries x 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < T::KS; ++kk) {
-      uint32_t aq[4], ad[4];
-      ldsm4(sqa + a_off<D>(r0, 16 * kk, lane), aq);
-      ldsm4(sda + a_off<D>(r0, 16 * kk, lane), ad);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t bk[4], bv[4];
-        ldsm4(ska + b_off<D>(16 * j, 16 * kk, lane), bk);
-        ldsm4(sva + b_off<D>(16 * j, 16 * kk, lane), bv);
-        aria::mma_bf16(s[2 * j], aq, bk[0], bk[1]);
-        aria::mma_bf16(s[2 * j + 1], aq, bk[2], bk[3]);
-        aria::mma_bf16(dp[2 * j], ad, bv[0], bv[1]);
-        aria::mma_bf16(dp[2 * j + 1], ad, bv[2], bv[3]);
-      }
-    }
-    // ds as A fragments: k-step u holds keys 16u .. 16u + 15
-    uint32_t sa[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k0s = ks[8 * j + 2 * t4], k1s = ks[8 * j + 2 * t4 + 1];
-      p_ds(s[j][0], dp[j][0], sta, k0s, scale);
-      p_ds(s[j][1], dp[j][1], sta, k1s, scale);
-      p_ds(s[j][2], dp[j][2], stb, k0s, scale);
-      p_ds(s[j][3], dp[j][3], stb, k1s, scale);
-      const int u = j >> 1, hf = (j & 1) << 1;
-      sa[u][hf] = aria::pack_bf16(dp[j][0], dp[j][1]);
-      sa[u][hf + 1] = aria::pack_bf16(dp[j][2], dp[j][3]);
-    }
-    // dQ += dS K: B from [key][d] storage through .trans
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int jp = 0; jp < T::NT / 2; ++jp) {
-        uint32_t bk[4];
-        ldsm4t(ska + a_off<D>(16 * u, 16 * jp, lane), bk);
-        aria::mma_bf16(dqa[2 * jp], sa[u], bk[0], bk[1]);
-        aria::mma_bf16(dqa[2 * jp + 1], sa[u], bk[2], bk[3]);
-      }
-      if constexpr (T::NT % 2) {
-        uint32_t bk[2];
-        ldsm2t(ska + a_off<D>(16 * u, 8 * (T::NT - 1), lane), bk);
-        aria::mma_bf16(dqa[T::NT - 1], sa[u], bk[0], bk[1]);
-      }
-    }
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    aria::mbar_init(bar_kv, 1);
+    for (int st = 0; st < STAGES; ++st) aria::mbar_init(bar_kv + 8 * (1 + st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  const size_t row_stride = (size_t)H * D;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + g + 8 * hr;
-    if (row >= Sq) continue;
-    const size_t at = ((size_t)b * Sq + row) * row_stride + (size_t)h * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < T::NT; ++n)
-      *reinterpret_cast<uint32_t*>(dq + at + 8 * n) =
-          aria::pack_bf16(dqa[n][2 * hr], dqa[n][2 * hr + 1]);
+  if (threadIdx.x < 8) info[threadIdx.x] = 0;
+  if (C::TAIL && threadIdx.x < QT) {  // columns 72-79 that the fifth k-step reads: zeros
+    reinterpret_cast<uint4*>(gbase + C::ZERO_OFF)[threadIdx.x] = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
+  __syncthreads();
+
+  // the segments each key tile of b holds, and how many tiles of each class
+  for (int j = warp; j < nkt; j += THREADS / 32) {
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = j * KT + 4 * lane + i;
+      bits |= key >= Sk ? PAST
+              : kv_valid == nullptr || kv_valid[(size_t)b * Sk + key] ? SEG1 : SEG0;
+    }
+    bits = __reduce_or_sync(aria::FULL_MASK, bits);
+    if (lane == 0) {
+      tbits[j] = (uint8_t)bits;
+      atomicAdd(&info[N0 + (bits & 3) - 1], 1);
+    }
+  }
+  __syncthreads();
+  // this block's key tile: the pos-th in the order of classes, ascending
+  // within a class; then the query tiles it visits, in order: those with a
+  // row of a segment it holds, or a row without a key of its own segment
+  if (warp == 0) {
+    const int n0 = info[N0], n1 = info[N1];
+    const int cls = pos < n0 ? 0 : pos < n0 + n1 ? 1 : 2;
+    const int idx = pos - (cls == 0 ? 0 : cls == 1 ? n0 : n0 + n1);
+    int i = idx, kt = 0;
+    for (int j0 = 0; j0 < nkt; j0 += 32) {
+      const int j = j0 + lane;
+      const unsigned m = __ballot_sync(aria::FULL_MASK, j < nkt && (tbits[j] & 3) == cls + 1);
+      if (i < __popc(m)) {
+        kt = j0 + __fns(m, 0, i + 1);
+        break;
+      }
+      i -= __popc(m);
+    }
+    const int segs = tbits[kt] & 3;
+    int n = 0;
+    for (int c = 0; c < nqt; c += 32) {
+      const int qt = c + lane;
+      const int f = qt < nqt ? qflags[(size_t)bh * nqt + qt] : 0;
+      const bool visit = qt < nqt && ((f & NO_KEY) || (f & segs));
+      const unsigned m = __ballot_sync(aria::FULL_MASK, visit);
+      if (visit) list[n + __popc(m & ((1u << lane) - 1))] = qt | f << 24;
+      n += __popc(m);
+    }
+    if (lane == 0) {
+      info[CLASS] = cls;
+      info[INDEX] = idx;
+      info[KTILE] = kt;
+      info[KBITS] = tbits[kt];
+      info[NSTEPS] = n;
+    }
+  }
+  __syncthreads();
+
+  const int kt = info[KTILE];
+  const float4* const qrow = qs + (size_t)bh * nqt * QT;
+  if (threadIdx.x == 0) {
+    aria::mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
+    const uint32_t sk = base + C::K_OFF, sv = base + C::V_OFF;
+    aria::tma_load(sk, &maps.k, bar_kv, 0, h, kt * KT, b);
+    aria::tma_load(sv, &maps.v, bar_kv, 0, h, kt * KT, b);
+    if constexpr (C::TAIL) {
+      aria::tma_load(sk + C::KV_BOX, &maps.kt, bar_kv, 64, h, kt * KT, b);
+      aria::tma_load(sv + C::KV_BOX, &maps.vt, bar_kv, 64, h, kt * KT, b);
+    }
+    for (int t = 0; t < min(STAGES, info[NSTEPS]); ++t) load_step<D>(maps, base, list, t, qrow, b, h);
+  }
+  int* const ctr = counters + (size_t)bh * nqt;
+  if (threadIdx.x < 128)
+    consume<D, 0>(maps, base, gbase, qrow, kv_valid, dq_acc, ctr, dq, dk, dv, b, h, bh, kt, nqt,
+                  Sq, Sk, H, scale);
+  else
+    consume<D, 1>(maps, base, gbase, qrow, kv_valid, dq_acc, ctr, dq, dk, dv, b, h, bh, kt, nqt,
+                  Sq, Sk, H, scale);
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* kv_valid,
-           const float4* qs, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int Sqp, int H,
-           float scale, cudaStream_t st) {
-  using T = Dims<D>;
-  using bf = const __nv_bfloat16*;
-  cudaError_t err = aria::allow_smem(seg_bwd_dkv_kernel<D>, T::SMEM);
-  if (err == cudaSuccess) err = aria::allow_smem(seg_bwd_dq_kernel<D>, T::SMEM);
+           const float4* qs, const int* qflags, void* dq_acc, void* counters, void* dq, void* dk,
+           void* dv, int B, int Sq, int Sk, int H, float scale, cudaStream_t st) {
+  using C = Cfg<D>;
+  Maps m{};  // the tail maps stay zero at D = 64, where the kernel reads none
+  if (!aria::bshd_map(&m.q, q, B, Sq, H, QT, D) || !aria::bshd_map(&m.d, dout, B, Sq, H, QT, D) ||
+      !aria::bshd_map(&m.k, k, B, Sk, H, KT, D) || !aria::bshd_map(&m.v, v, B, Sk, H, KT, D))
+    return (int)cudaErrorInvalidValue;
+  if (C::TAIL && (!aria::bshd_map(&m.qt, q, B, Sq, H, QT, D, D - 64) ||
+                  !aria::bshd_map(&m.dt, dout, B, Sq, H, QT, D, D - 64) ||
+                  !aria::bshd_map(&m.kt, k, B, Sk, H, KT, D, D - 64) ||
+                  !aria::bshd_map(&m.vt, v, B, Sk, H, KT, D, D - 64)))
+    return (int)cudaErrorInvalidValue;
+  const int nkt = (Sk + KT - 1) / KT, nqt = (Sq + QT - 1) / QT, bytes = C::bytes(nqt, nkt);
+  cudaError_t err = aria::allow_smem(seg_bwd_kernel<D>, bytes);
   if (err != cudaSuccess) return (int)err;
-  seg_bwd_dkv_kernel<D><<<dim3((Sk + ROWS - 1) / ROWS, B * H), THREADS, T::SMEM, st>>>(
-      (bf)q, (bf)k, (bf)v, (bf)dout, qs, (const uint8_t*)kv_valid, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, Sq, Sk, Sqp, H, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  seg_bwd_dq_kernel<D><<<dim3(Sqp / ROWS, B * H), THREADS, T::SMEM, st>>>(
-      (bf)q, (bf)k, (bf)v, (bf)dout, qs, (const uint8_t*)kv_valid, (__nv_bfloat16*)dq, Sq, Sk,
-      Sqp, H, scale);
+  seg_bwd_kernel<D><<<B * H * nkt, THREADS, bytes, st>>>(
+      m, qs, qflags, (const uint8_t*)kv_valid, (float*)dq_acc, (int*)counters,
+      (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, Sq, Sk, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -461,24 +666,28 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 // q, o, do, dq [B, Sq, H, D], k, v, dk, dv [B, Sk, H, D] bf16 (D 64 or 72);
 // stats f32 [2, B, H, Sq] (the forward's m, then l); q_valid [B, Sq],
-// kv_valid [B, Sk] bool bytes or NULL; scratch qs f32 [B, H, Sqp, 4], Sqp =
-// Sq rounded up to 64.
+// kv_valid [B, Sk] bool bytes or NULL. Scratch (Sqp = Sq rounded up to 64):
+// qs f32 [B, H, Sqp, 4], qflags int32 [B, H, Sqp / 64], dq_acc f32
+// [B, H, Sqp, D], counters int32 [B, H, Sqp / 64] zeroed by the caller.
 ARIA_EXPORT int aria_flash_segment_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* stats,
                                        const void* q_valid, const void* kv_valid, void* qs,
-                                       void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                                       int H, int D, float scale, void* stream) {
+                                       void* qflags, void* dq_acc, void* counters, void* dq,
+                                       void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
+                                       float scale, void* stream) {
   if ((D != 64 && D != 72) || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int Sqp = (Sq + COLS - 1) / COLS * COLS, rows = B * H * Sqp;
-  seg_bwd_prep_kernel<<<(rows + 7) / 8, 256, 0, st>>>(
+  const int nqt = (Sq + QT - 1) / QT;
+  seg_bwd_prep_kernel<<<B * H * nqt, 256, 0, st>>>(
       (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)stats,
-      (const uint8_t*)q_valid, (float4*)qs, B, Sq, Sqp, H, D);
+      (const uint8_t*)q_valid, (float4*)qs, (int*)qflags, B, Sq, H, D);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float4* const qsf = (const float4*)qs;
-  return D == 64
-             ? launch<64>(q, k, v, dout, kv_valid, qsf, dq, dk, dv, B, Sq, Sk, Sqp, H, scale, st)
-             : launch<72>(q, k, v, dout, kv_valid, qsf, dq, dk, dv, B, Sq, Sk, Sqp, H, scale, st);
+  const int* const qf = (const int*)qflags;
+  return D == 64 ? launch<64>(q, k, v, dout, kv_valid, qsf, qf, dq_acc, counters, dq, dk, dv, B,
+                              Sq, Sk, H, scale, st)
+                 : launch<72>(q, k, v, dout, kv_valid, qsf, qf, dq_acc, counters, dq, dk, dv, B,
+                              Sq, Sk, H, scale, st);
 }

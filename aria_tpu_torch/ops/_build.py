@@ -64,8 +64,9 @@ SIGNATURES = {
     # q, k, v, q_valid, kv_valid, out, stats, B, Sq, Sk, H, D, scale, stream (stats NULL
     # but in training)
     "aria_flash_segment": [_P] * 7 + [_I] * 5 + [_F, _P],
-    # q, k, v, o, do, stats, q_valid, kv_valid, qs, dq, dk, dv, B, Sq, Sk, H, D, scale, stream
-    "aria_flash_segment_bwd": [_P] * 12 + [_I] * 5 + [_F, _P],
+    # q, k, v, o, do, stats, q_valid, kv_valid, qs, qflags, dq_acc, counters, dq, dk, dv,
+    # B, Sq, Sk, H, D, scale, stream
+    "aria_flash_segment_bwd": [_P] * 15 + [_I] * 5 + [_F, _P],
     # x_seg, tile_expert, tile_rows, w1q4, w1sg, h, R, D, I, L, E, layer, stream
     "aria_moe_prefill_glu": [_P] * 6 + [_I] * 6 + [_P],
     # h, tile_expert, tile_rows, w2q4, w2s8, out, R, D, I, L, E, layer, stream

@@ -38,7 +38,9 @@ so it is bound by tensor-core throughput. It is differentiable: a forward
 that autograd records writes each row's statistics (the library's m and
 l) for ``flash_segment_bwd``, whose kernel ``csrc/vit_attention_bwd.cu``
 replaces the library's backward with segment ids (flash_attention.py:941
-and :1287); its notes give the design. Off the card the plain version
+and :1287) with ``flash_bwd.cu``'s one wgmma + TMA pass over key tiles,
+dq added in key-tile order (so its bits repeat); its notes give the
+design. Off the card the plain version
 runs with its autograd gradient (``flash_segment_bwd_plain``). Pad queries
 attend pad keys only, where the JAX package off the TPU lets them attend
 the valid keys (flash.py:47-59): the outputs of pad rows differ by design,
@@ -228,13 +230,20 @@ def flash_segment_bwd(q, k, v, out, dout, stats, q_valid: Optional[torch.Tensor]
     for name, t in (("out", out), ("dout", dout)):
         backend.require(t, name, torch.bfloat16, (B, Sq, H, D))
     backend.require(stats, "stats", torch.float32, (2, B, H, Sq))
-    # each query row's (m, 1 / l, di, segment), over Sq rounded up to 64
-    qs = torch.empty((B, H, -(-Sq // 64) * 64, 4), dtype=torch.float32, device=q.device)
+    # scratch over Sq rounded up to the kernel's 64-query tiles: each row's
+    # (m, 1 / l, di, segment), each tile's flags, dq's f32 sums, and a zeroed
+    # counter per tile
+    nqt = -(-Sq // 64)
+    qs = torch.empty((B, H, nqt * 64, 4), dtype=torch.float32, device=q.device)
+    qflags = torch.empty((B, H, nqt), dtype=torch.int32, device=q.device)
+    dq_acc = torch.empty((B, H, nqt * 64, D), dtype=torch.float32, device=q.device)
+    counters = torch.zeros((B, H, nqt), dtype=torch.int32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     p = backend.ptr
     err = library().aria_flash_segment_bwd(
-        p(q), p(k), p(v), p(out), p(dout), p(stats), p(q_valid), p(kv_valid), p(qs), p(dq),
-        p(dk), p(dv), B, Sq, k.shape[1], H, D, ctypes.c_float(scale), backend.stream())
+        p(q), p(k), p(v), p(out), p(dout), p(stats), p(q_valid), p(kv_valid), p(qs), p(qflags),
+        p(dq_acc), p(counters), p(dq), p(dk), p(dv), B, Sq, k.shape[1], H, D,
+        ctypes.c_float(scale), backend.stream())
     backend.check(err, "flash_segment_bwd")
     flash_segment_bwd.launches += 1
     return dq, dk, dv

@@ -162,7 +162,8 @@
    layers and the whole ViT, at the recipe's batch of 8 with every 2nd row
    an image: ``flash_segment`` with row statistics and
    ``flash_segment_bwd`` launch 27 times each per ViT call, ``vit_flash``
-   never, and the epoch-end checkpoint is written. Each prints the base's
+   never, and the epoch-end checkpoint is written; its micro steps' ms are
+   printed by their images beside PR 21's. Each prints the base's
    build (seconds, device peak, resident bytes beside the bf16 form's),
    each micro step's ms, tokens/s, loss and gradient norm, the peak
    memory, the device's busy share (with a check that the profile holds
@@ -179,9 +180,10 @@ Phase 2 also holds the variants' kernels at their path's shapes
 kernel with its row bits, ``flash_segment`` at 4,900 patches all valid and 3,150 valid, to
 an absolute 3e-3), the ViT's training attention (``flash_segment`` with its
 row statistics, bit-equal to the serving forward, and ``flash_segment_bwd``
-against its plain version at [1, 4900, 16, 72] all valid and 3,150 valid,
-[2, 300, 2, 72] and [1, 129, 4, 64], cotangents zero on pad rows, with a
-planted fault),
+against its plain version at [1, 4900, 16, 72] all valid, 3,150 valid as a
+prefix and as a portrait crop's patches, [2, 300, 2, 72] and [1, 129, 4,
+64], cotangents zero on pad rows, with a planted fault and a second call's
+bits),
 ``decode_attention_stats`` (the stats form of decode attention) over one
 rank's block of the cp phase's cache, bf16, int8 and int4, at 1 and 32
 lanes (absolute on acc / s, ``STATS_LIMIT``), and two blocks merged
@@ -4382,9 +4384,12 @@ def check_train_kernels(device, gen, results, cfg=None, batch=8):
 # 4,900 keys; the plain gradient without the last 36 keys must move dq by
 # more.
 SEG_BWD_REL = 2e-2
-# [B, S, H, D] and the valid prefix of each image (None: all valid)
+# [B, S, H, D] and the valid patches of each image: None (all valid), a
+# prefix of each length (a landscape crop), or "crop": a 980 x 630 portrait
+# crop's 70 x 45 of the 70 x 70 patches (3,150, padding inside every tile)
 SEG_BWD_SHAPES = ((1, 4900, 16, 72, None), (1, 4900, 16, 72, (3150,)),
-                  (2, 300, 2, 72, (300, 137)), (1, 129, 4, 64, (100,)))
+                  (1, 4900, 16, 72, "crop"), (2, 300, 2, 72, (300, 137)),
+                  (1, 129, 4, 64, (100,)))
 
 
 def check_segment_bwd(device, gen, results, shapes=SEG_BWD_SHAPES):
@@ -4398,9 +4403,10 @@ def check_segment_bwd(device, gen, results, shapes=SEG_BWD_SHAPES):
     on pad rows: there the JAX package off the TPU (pad queries attend the
     valid keys) and the library kernel (pad queries attend pad keys) differ
     by design, and in the ViT the projector gives pad patches no gradient.
-    Timed at 4,900 patches beside its bound (5 products over the pairs of
-    equal segments), its plain version and sdpa's backward under the
-    segment mask (its forward outside the timed call)."""
+    Timed at 4,900 patches (all valid, a prefix of 3,150 and the crop)
+    beside its bound (5 products over the pairs of equal segments), its
+    plain version and sdpa's backward under the segment mask (its forward
+    outside the timed call)."""
     import torch
     import torch.nn.functional as F
 
@@ -4414,10 +4420,18 @@ def check_segment_bwd(device, gen, results, shapes=SEG_BWD_SHAPES):
     for B, S, H, D, prefix in shapes:
         q, k, v, do = (randn(B, S, H, D) for _ in range(4))
         valid = torch.ones((B, S), dtype=torch.bool, device=device)
-        for b, n in enumerate(prefix or ()):
-            valid[b, n:] = False
+        if prefix == "crop":
+            side = int(S**0.5)
+            valid = valid.reshape(B, side, side)
+            valid[:, :, side * 630 // 980:] = False
+            valid = valid.reshape(B, S)
+        else:
+            for b, n in enumerate(prefix or ()):
+                valid[b, n:] = False
         do = do * valid[:, :, None, None]
-        at = f"[{B}, {S}, {H}, {D}] " + ("all valid" if prefix is None else f"valid {prefix}")
+        at = f"[{B}, {S}, {H}, {D}] " + ("all valid" if prefix is None else
+                                         f"the crop's {int(valid[0].sum())} valid"
+                                         if prefix == "crop" else f"valid {prefix}")
         scale = D**-0.5
         stats = torch.empty((2, B, H, S), dtype=torch.float32, device=device)
         out = fl._segment_forward(q, k, v, valid, valid, scale, stats)
@@ -4622,8 +4636,7 @@ TRAIN_KERNEL_EVENTS = {
     "gmm_dlhs": (r"\bgmm_dlhs_kernel<",),
     "tgmm": (r"\btgmm_kernel\b",),
     "flash_segment": (r"\bvit_attention_kernel<\d+, 1>",),
-    "flash_segment_bwd": (r"\bseg_bwd_prep_kernel\b", r"\bseg_bwd_dkv_kernel<",
-                          r"\bseg_bwd_dq_kernel<"),
+    "flash_segment_bwd": (r"\bseg_bwd_prep_kernel\b", r"\bseg_bwd_kernel<"),
 }
 
 
@@ -4782,6 +4795,10 @@ REF_KINDS = ("lora", "qlora", "vit")
 # micro step of this data (2, 0, 2, 1, 1 and 0 images) fits beside the
 # 2-layer decoder at batch 8, and 8 image rows (~116 GiB) fit no card.
 VIT_TRAIN_IMAGES = 8
+# train-vit's micro step ms by its images with PR 21's segment backward (its
+# chip_smoke.py run after review, H100 80GB HBM3 at 700 W), printed beside
+# this run's
+TRAIN_VIT_PR21_MS = {0: "784.0-789.6", 1: "1,156.7-1,548.3", 2: "1,298.8-2,432.6"}
 
 
 def _train_reference(device, cfg, kind, seed, ref_layers=2):
@@ -5026,15 +5043,24 @@ def _recipe_run(device, work, name, cfg, gpu, steps, batch, images, seed, **over
 
 
 @contextlib.contextmanager
-def _watch_images(out: list):
+def _watch_images(out: list, per_step: list | None = None):
     """Inside, each ``encode_images`` call appends (its images, whether
     the ViT records a graph, the device bytes its graph and features hold
-    when it returns: 0 off the card) to ``out``."""
+    when it returns: 0 off the card) to ``out``, and each metrics line that
+    ``train()`` logs appends the images encoded since the one before to
+    ``per_step`` (one entry a micro step)."""
     import torch
 
     from aria_tpu_torch.models import aria
+    from aria_tpu_torch.utils.metrics import MetricsLogger
 
-    encode = aria.encode_images
+    encode, log, seen = aria.encode_images, MetricsLogger.log, [0]
+
+    def logged(self, step, metrics):
+        if per_step is not None:
+            per_step.append(sum(n for n, _, _ in out[seen[0]:]))
+            seen[0] = len(out)
+        return log(self, step, metrics)
 
     def encode_images(params, cfg, pixel_values, *a, **kw):
         cuda = pixel_values.is_cuda
@@ -5045,11 +5071,11 @@ def _watch_images(out: list):
                     torch.cuda.memory_allocated() - before if cuda else 0))
         return feats
 
-    aria.encode_images = encode_images
+    aria.encode_images, MetricsLogger.log = encode_images, logged
     try:
         yield out
     finally:
-        aria.encode_images = encode
+        aria.encode_images, MetricsLogger.log = encode, log
 
 
 def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_layers=2,
@@ -5134,8 +5160,8 @@ def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_la
               f"{cfg.vision.hidden_size}; batch {vit_batch} x 2048, one row in {VIT_TRAIN_IMAGES} "
               f"with a 980px image (4,900 patches); mesh_fsdp 2 and mesh_expert 4 set to 1 (one "
               f"card)", flush=True)
-        images = []
-        with _watch_images(images):
+        images, per_step = [], []
+        with _watch_images(images, per_step):
             counts, state, _, micro = _recipe_run(
                 device, work, "full", small, gpu, steps, vit_batch, VIT_TRAIN_IMAGES, SEED + 1,
                 label="train-vit", freeze_vit=False, mesh_fsdp=1, mesh_expert=1)
@@ -5167,6 +5193,13 @@ def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_la
         print(f"  train-vit: the epoch-end checkpoint (params, moments, accumulator) holds "
               f"{size / 2**30:.2f} GiB, written in {save_s:.1f} s (the files' times)",
               flush=True)
+        step_ms = [json.loads(line)["step_time_s"] * 1e3
+                   for line in open(os.path.join(out, "metrics.jsonl"))]
+        for n in sorted(set(per_step)):
+            ms = [t for t, k in zip(step_ms, per_step) if k == n]
+            print(f"  train-vit micro steps with {n} image(s): {min(ms):.1f}-{max(ms):.1f} ms "
+                  f"over {len(ms)} (PR 21's segment backward: {TRAIN_VIT_PR21_MS.get(n, 'none')} "
+                  f"ms; {gpu})", flush=True)
         del state
     finally:
         shutil.rmtree(work, ignore_errors=True)

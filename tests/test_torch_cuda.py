@@ -1261,7 +1261,14 @@ def _seg_bwd_case(cuda, g, B, Sq, Sk, H, D, q_valid, kv_valid):
     (1, 4900, 4900, 16, 72, "crop", "crop"),
     (2, 300, 300, 2, 72, (300, 137), (300, 137)),
     (1, 129, 129, 4, 64, (100,), (100,)),
-    (2, 129, 300, 2, 72, (129, 60), (300, 137))])
+    (2, 129, 300, 2, 72, (129, 60), (300, 137)),
+    # D = 64 at the ViT's 4,900 (38 key tiles of 128 and one of 36)
+    (1, 4900, 4900, 16, 64, (4900,), (4900,)),
+    # key tile 0 all valid facing query tile 3 of both segments; query
+    # tiles 0-2 and key tile 2 (all padding, partly past Sk) share no segment
+    (1, 300, 300, 2, 72, (200,), (200,)),
+    # 129 over 4,900: one query tile of 64 and one of a single row
+    (1, 129, 4900, 16, 72, (100,), (3150,))])
 def test_flash_segment_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, D, q_valid, kv_valid):
     g = torch.Generator(device=cuda).manual_seed(11)
     q, k, v, qm, km, dout = _seg_bwd_case(cuda, g, B, Sq, Sk, H, D, q_valid, kv_valid)
@@ -1284,6 +1291,56 @@ def test_flash_segment_bwd_kernel_matches_plain(cuda, B, Sq, Sk, H, D, q_valid, 
     again = fl.flash_segment_bwd(q, k, v, o, dout, stats, qm, km)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def test_flash_segment_bwd_pad_queries_without_pad_keys(cuda):
+    """Pad queries over keys that are all valid have no key of their own
+    segment: the library gives them attention over every key (p = 1 / Sk),
+    so their tiles are visited by every key tile. The cotangent is not zero
+    on those rows here: the kernel and the plain version follow the same
+    segment semantics, and the pad rows' terms must reach dk, dv and dq."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    B, Sq, Sk, H, D = 1, 300, 4900, 16, 72
+    q = _randn(g, B, Sq, H, D)
+    k, v = (_randn(g, B, Sk, H, D) for _ in range(2))
+    qm = _valid_mask(cuda, B, Sq, (250,))
+    km = _valid_mask(cuda, B, Sk, (Sk,))
+    dout = _randn(g, B, Sq, H, D)
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=cuda)
+    o = fl._segment_forward(q, k, v, qm, km, D**-0.5, stats)
+    got = fl.flash_segment_bwd(q, k, v, o, dout, stats, qm, km)
+    ref = fl.flash_segment_bwd_plain(q, k, v, dout, qm, km)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= SEG_BWD_REL * r.float().abs().max().item(), (name, err)
+    # the pad rows' own gradient and their share of dv are there
+    assert got[0][:, 250:].float().abs().max().item() > 0
+    dv_valid_only = fl.flash_segment_bwd_plain(q, k, v, dout * qm[:, :, None, None], qm, km)[2]
+    assert (ref[2].float() - dv_valid_only.float()).abs().max().item() > \
+        SEG_BWD_REL * ref[2].float().abs().max().item()
+
+
+def test_flash_segment_bwd_bits_repeat_and_counts(cuda):
+    """dq's sums across key tiles run in a fixed order: three calls at the
+    crop's mask give the same bits; each backward is one launch of the
+    wrapper, through autograd too."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    B, S, H, D = 1, 4900, 16, 72
+    q, k, v, qm, km, dout = _seg_bwd_case(cuda, g, B, S, S, H, D, "crop", "crop")
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=cuda)
+    o = fl._segment_forward(q, k, v, qm, km, D**-0.5, stats)
+    before = fl.flash_segment_bwd.launches
+    first = fl.flash_segment_bwd(q, k, v, o, dout, stats, qm, km)
+    for n in (2, 3):
+        again = fl.flash_segment_bwd(q, k, v, o, dout, stats, qm, km)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        assert fl.flash_segment_bwd.launches == before + n
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    for n in (4, 5):
+        out = fl.flash_sdpa(*leaves, q_valid=qm, kv_valid=km)
+        got = torch.autograd.grad(out, leaves, dout)
+        assert fl.flash_segment_bwd.launches == before + n
+        assert all(torch.equal(a, b) for a, b in zip(first, got))
 
 
 def test_flash_segment_stats_are_the_row_statistics(cuda):

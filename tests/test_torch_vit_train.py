@@ -81,29 +81,54 @@ def _close(got, want, name="", rtol=RTOL, atol=ATOL):
 # ------------------------------------------------------------ flash_segment
 
 
+def _segment_masks(B, S, valid):
+    """(Sk, q_valid, kv_valid) as numpy bools: None (every position valid),
+    a prefix of each length, "crop" (a 980 x 630 crop's patches on the
+    square grid: each grid row's first 10 of 16 valid at S = 256, padding
+    inside every tile), or ("kv", Sk, q lengths, kv lengths) for Sk != S."""
+    if valid == "crop":
+        side = int(S**0.5)
+        grid = np.zeros((side, side), bool)
+        grid[:, :side * 630 // 980] = True
+        mask = np.broadcast_to(grid.reshape(1, S), (B, S)).copy()
+        return S, mask, mask
+    Sk, q_lens, kv_lens = (valid[1], valid[2], valid[3]) if valid and valid[0] == "kv" \
+        else (S, valid, valid)
+
+    def prefix(n, lens):
+        m = np.ones((B, n), bool)
+        for b, ln in enumerate(lens or ()):
+            m[b, ln:] = False
+        return m
+
+    return Sk, prefix(S, q_lens), prefix(Sk, kv_lens)
+
+
 @pytest.mark.parametrize("B,S,H,D,valid", [(1, 256, 2, 64, None), (2, 300, 2, 72, (300, 137)),
-                                           (1, 256, 4, 72, None), (2, 260, 2, 64, (200, 256))])
+                                           (1, 256, 4, 72, None), (2, 260, 2, 64, (200, 256)),
+                                           (1, 256, 2, 72, "crop"),
+                                           (2, 129, 2, 72, ("kv", 300, (129, 60), (300, 137)))])
 def test_flash_segment_plain_grads_match_jax(B, S, H, D, valid):
     """(dq, dk, dv) of the port's segment attention against ``jax.grad`` of
     the JAX ``flash_sdpa(q_valid, kv_valid)``, the cotangent zero on pad
-    rows; and ``flash_segment`` on the CPU records the same graph."""
+    rows; and ``flash_segment`` on the CPU records the same graph. The
+    masks are the ViT's: a prefix (a landscape crop), the interleaved mask
+    of a portrait crop, and queries over keys of another length."""
     rng = np.random.RandomState(S + D)
-    q, k, v, do = (rng.randn(B, S, H, D).astype(np.float32) for _ in range(4))
-    mask = np.ones((B, S), bool)
-    for b, n in enumerate(valid or ()):
-        mask[b, n:] = False
-    do = do * mask[:, :, None, None]
-    jm = jnp.asarray(mask)
-    _, vjp = jax.vjp(lambda a, b, c: j_flash_sdpa(a, b, c, q_valid=jm, kv_valid=jm),
+    Sk, qmask, kvmask = _segment_masks(B, S, valid)
+    q, k, v, do = (rng.randn(B, n, H, D).astype(np.float32) for n in (S, Sk, Sk, S))
+    do = do * qmask[:, :, None, None]
+    jq, jkv = jnp.asarray(qmask), jnp.asarray(kvmask)
+    _, vjp = jax.vjp(lambda a, b, c: j_flash_sdpa(a, b, c, q_valid=jq, kv_valid=jkv),
                      *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(do))
-    tm = torch.as_tensor(mask)
-    got = tfl.flash_segment_bwd_plain(*map(torch.as_tensor, (q, k, v)), torch.as_tensor(do), tm,
-                                      tm)
+    tq, tkv = torch.as_tensor(qmask), torch.as_tensor(kvmask)
+    got = tfl.flash_segment_bwd_plain(*map(torch.as_tensor, (q, k, v)), torch.as_tensor(do), tq,
+                                      tkv)
     for n, a, w in zip("qkv", got, want):
         _close(a, w, f"d{n}")
     leaves = [torch.as_tensor(t).requires_grad_() for t in (q, k, v)]
-    out = tfl.flash_segment(*leaves, tm, tm)
+    out = tfl.flash_segment(*leaves, tq, tkv)
     for a, b in zip(torch.autograd.grad(out, leaves, torch.as_tensor(do)), got):
         torch.testing.assert_close(a, b)
 

@@ -21,6 +21,11 @@ a seed, 20 heads of 128 (the flagship's attention):
   the key mask and with the segment mask, each with a hash of its output's
   bits, and ``vit_flash`` at the card tests' small shapes [2, 300, 2, 72]
   (300 and 137 valid) and [1, 129, 4, 64];
+- ``flash_segment_bwd`` (the ViT's training backward) at [1, 4900, 16, 72],
+  every patch valid, 3,150 valid as a prefix (a landscape crop) and the
+  portrait crop's 3,150, the cotangent zero on pad rows, beside sdpa's
+  backward alone under the segment mask (its forward run once, outside
+  the timed call), each with a hash of its gradients' bits;
 - ``decode_attention`` at one lane over 1,000 of 1,024 positions (int8,
   bf16), at 32 lanes over 48..320 of 384 (packed int4) and at one lane over
   32,768 of 32,896 (int4, int8, bf16);
@@ -169,6 +174,8 @@ def measure(iters: int, only=()) -> dict:
                 "vit_bits": _bits(vf.vit_flash(q, k, v, valid))}
             del q, k, v, qt
 
+    if want("flash_segment_bwd"):
+        out.update(_segment_bwd(dev, randn, iters))
     if not want("decode_attention"):
         return out
     # the caches of chip_smoke.py next to this tool, whichever checkout is timed
@@ -198,6 +205,40 @@ def measure(iters: int, only=()) -> dict:
                     q[:, :, None], c[0][1], c[1][1], attn_mask=mask), iters)
             out[f"{fn} {label} B={B} len={min(lens)}..{max(lens)} of {S}"] = rec
         del cs
+    return out
+
+
+def _segment_bwd(dev, randn, iters: int) -> dict:
+    """``flash_segment_bwd`` at the ViT's 4,900 patches under three masks
+    (chip_smoke.py's phase 2 cases), beside sdpa's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from aria_tpu_torch.ops import flash as fl
+
+    P, VH, VD, side = 4900, 16, 72, 70
+    q, k, v, do = (randn(1, P, VH, VD) for _ in range(4))
+    crop = torch.zeros((side, side), dtype=torch.bool, device=dev)
+    crop[:, :side * 630 // 980] = True
+    prefix = torch.arange(P, device=dev)[None, :] < 3150
+    out = {}
+    for label, valid in (("all valid", torch.ones((1, P), dtype=torch.bool, device=dev)),
+                         ("3150 valid prefix", prefix), ("crop's 3150 valid", crop.reshape(1, P))):
+        dm = do * valid[:, :, None, None]
+        stats = torch.empty((2, 1, VH, P), dtype=torch.float32, device=dev)
+        o = fl._segment_forward(q, k, v, valid, valid, VD**-0.5, stats)
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        seg_mask = valid[:, None, :, None] == valid[:, None, None, :]
+        o_sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=seg_mask)
+        do_t = dm.transpose(1, 2)
+        grads = fl.flash_segment_bwd(q, k, v, o, dm, stats, valid, valid)
+        out[f"flash_segment_bwd [1, {P}, {VH}, {VD}] {label}"] = {
+            "ms": _device_ms(lambda: fl.flash_segment_bwd(q, k, v, o, dm, stats, valid, valid),
+                             iters),
+            "sdpa_bwd_ms": _device_ms(
+                lambda: torch.autograd.grad(o_sdpa, leaves, do_t, retain_graph=True), iters),
+            "vit_bits": "".join(_bits(g) for g in grads)}
+        del leaves, seg_mask, o_sdpa, do_t, grads
     return out
 
 
