@@ -37,7 +37,8 @@
 //   registers). Thread 0 starts the loads: K and V once, and Q and dO in
 //   tiles of 64 queries with their 1 KB of row statistics through a
 //   3-stage ring with a full mbarrier a stage, refilled once both
-//   warpgroups are past the step that read it.
+//   warpgroups are past the step that read it (the warpgroups meet at a
+//   named barrier each step, before dQ reads both halves of dS^T).
 // - D = 72 against the 128-byte swizzle (vit_attention.cu's layout): a
 //   tile's columns 0-63 are one swizzled box, columns 64-71 an unswizzled
 //   8-column tail box (16-byte rows, the core matrices of an unswizzled
@@ -69,28 +70,38 @@
 //   exact zero. The block's prologue scans kv_valid for which segments
 //   each key tile of b holds and lists the query tiles its key tile visits.
 // - dq. Each key tile's part of a query tile's dQ (warpgroup 0: 64 x 64
-//   f32, warpgroup 1: 64 x 8) is added into an f32 scratch in key-tile
-//   order, so dq's bits repeat from run to run; no atomics in arrival
-//   order. A warpgroup stages its part in shared memory at the end of a
-//   step; in the next, while the tensor cores run S^T and dP^T, one of its
-//   threads waits until the query tile's counter reads the parts of every
-//   earlier key tile that visits it (acquire), and adds its part with a
-//   bulk reduce-add (the first such key tile: a bulk store); once the copy
-//   is complete, after that step's dQ product is issued, it adds one to
-//   the counter (release). The last key tile that visits a query tile adds
-//   the scratch to its own part and writes dq in bf16. Which key tiles
-//   visit a query tile follows from the tile flags alone, so each block
-//   knows, without asking another, how many parts come before its own and
-//   whether it is the last.
-// - Launch order. Every key tile reaches every query tile (39 key tiles
-//   and 77 query tiles a head at 4,900), so the counters make a wavefront:
-//   key tile j adds to query tile t after key tile j - 1 has, and runs a
-//   fraction of a step behind it. The blocks of a head are consecutive,
-//   key tile by key tile, and blocks are dispatched in order of their
-//   index, so a block waits only for blocks dispatched before it, which
-//   hold an SM or have finished: a waiting block never holds an SM that a
-//   block it waits for needs. As blocks finish one after another, the next
-//   head's key tiles start one after another, in the wavefront's order.
+//   f32, warpgroup 1: 64 x 8) is added into an f32 scratch in a fixed order
+//   of key tiles, so dq's bits repeat from run to run; no atomics in
+//   arrival order. A warpgroup stages its part in shared memory at the end
+//   of a step; in the next, while the tensor cores run S^T and dP^T, one of
+//   its threads waits until the query tile's counter reads the parts of
+//   every key tile before this one that visits it (acquire), and adds its
+//   part with a bulk reduce-add (the first such key tile: a bulk store);
+//   before that step's dV and dK products it waits for the copy and adds
+//   one to the counter (release): counted there and not after the step's
+//   dQ product, the next key tile waits less (tools/seg_bwd_probe.py).
+//   The last key tile that visits a query tile loads the scratch, all of
+//   it before any store (a store between two loads would wait out each
+//   one's trip to L2, and that tile ran far longer than the others), adds
+//   its own part and writes dq in bf16. Which key tiles visit a query tile follows
+//   from the tile flags alone, so each block knows, without asking another,
+//   how many parts come before its own and whether it is the last.
+// - Order. Every key tile of a class visits the same query tiles, so the
+//   counters make a wavefront: in a class, key tile j adds to a query tile
+//   after key tile j - 1 has, and runs a fraction of a step behind it. The
+//   order puts the key tiles with keys of segment 0 only first, then those
+//   of segment 1 only, then those of both, each ascending: at a prefix
+//   mask (a landscape crop) the padding's key tiles start at the first
+//   query tile they visit instead of waiting until the valid key tiles
+//   reach it (which left them idle most of their time). A block's place in
+//   the order is blockIdx.x % nkt, the blocks of a head consecutive, and
+//   blocks are dispatched in order of their index, so a block waits only
+//   for blocks dispatched before it, which hold an SM or have finished: a
+//   waiting block never holds an SM that a block it waits for needs. As
+//   blocks finish one after another, the next head's start one after
+//   another, in the wavefront's order. (Two chains of key tiles into two
+//   scratches, summed by the last, measured slower: the sum's second read
+//   cost more than the shorter wavefront saved.)
 //
 // Rows past Sq or Sk load as zeros (TMA) and are masked and not stored, so
 // any Sq and Sk work.
@@ -350,7 +361,8 @@ __device__ __forceinline__ void consume(const Maps& maps, uint32_t base, uint8_t
     const int st = t % STAGES, qt = list[t] & 0xFFFFFF, f = list[t] >> 24;
     const uint32_t sq = base + C::Q_OFF + st * C::Q_BYTES, sd = base + C::DO_OFF + st * C::Q_BYTES;
     const uint32_t sds = base + C::DS_OFF + (t & 1) * C::DS_BYTES;
-    const float4* const stq = reinterpret_cast<const float4*>(gbase + C::ST_OFF + st * C::STAT_BYTES);
+    const float4* const stq =
+        reinterpret_cast<const float4*>(gbase + C::ST_OFF + st * C::STAT_BYTES);
     aria::mbar_wait_loop(bar_kv + 8 * (1 + st), (t / STAGES) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, k-steps over d
@@ -392,6 +404,11 @@ __device__ __forceinline__ void consume(const Maps& maps, uint32_t base, uint8_t
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    // the add issued with this step's first products has landed by now:
+    // counted here, before the products that follow, so that the next key
+    // tile's add waits as little as it can
+    if (PART && ct == 0 && pending >= 0) aria::release_count(ctr + pending);
+    pending = -1;
 
     // dV += P^T dO and dK += dS^T Q: 16 queries a k-step; the box, then the tail
     aria::wgmma_fence();
@@ -433,8 +450,6 @@ __device__ __forceinline__ void consume(const Maps& maps, uint32_t base, uint8_t
                               kk > 0);
       aria::wgmma_commit();
     }
-    if (PART && ct == 0 && pending >= 0) aria::release_count(ctr + pending);
-    pending = -1;
     // both warpgroups are past step t - 1: its stage takes step t - 1 + STAGES
     if (CW == 0 && threadIdx.x == 0 && t > 0 && t - 1 + STAGES < nsteps)
       load_step<D>(maps, base, list, t - 1 + STAGES, qrow, b, h);
@@ -480,7 +495,8 @@ __device__ __forceinline__ void consume(const Maps& maps, uint32_t base, uint8_t
 #pragma unroll
             for (int n = 0; n < (CW == 0 ? 8 : 1); ++n)
               a[hr][n] = __ldcg(reinterpret_cast<const float2*>(
-                  part + (CW == 0 ? aria::dq_at(rw + 8 * hr, 8 * n + c2) : (rw + 8 * hr) * 8 + c2)));
+                  part + (CW == 0 ? aria::dq_at(rw + 8 * hr, 8 * n + c2)
+                                  : (rw + 8 * hr) * 8 + c2)));
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
@@ -628,7 +644,8 @@ seg_bwd_kernel(const __grid_constant__ Maps maps, const float4* __restrict__ qs,
       aria::tma_load(sk + C::KV_BOX, &maps.kt, bar_kv, 64, h, kt * KT, b);
       aria::tma_load(sv + C::KV_BOX, &maps.vt, bar_kv, 64, h, kt * KT, b);
     }
-    for (int t = 0; t < min(STAGES, info[NSTEPS]); ++t) load_step<D>(maps, base, list, t, qrow, b, h);
+    for (int t = 0; t < min(STAGES, info[NSTEPS]); ++t)
+      load_step<D>(maps, base, list, t, qrow, b, h);
   }
   int* const ctr = counters + (size_t)bh * nqt;
   if (threadIdx.x < 128)

@@ -163,7 +163,7 @@
    an image: ``flash_segment`` with row statistics and
    ``flash_segment_bwd`` launch 27 times each per ViT call, ``vit_flash``
    never, and the epoch-end checkpoint is written; its micro steps' ms are
-   printed by their images beside PR 21's. Each prints the base's
+   printed by their images beside the first design's. Each prints the base's
    build (seconds, device peak, resident bytes beside the bf16 form's),
    each micro step's ms, tokens/s, loss and gradient norm, the peak
    memory, the device's busy share (with a check that the profile holds
@@ -4795,10 +4795,10 @@ REF_KINDS = ("lora", "qlora", "vit")
 # micro step of this data (2, 0, 2, 1, 1 and 0 images) fits beside the
 # 2-layer decoder at batch 8, and 8 image rows (~116 GiB) fit no card.
 VIT_TRAIN_IMAGES = 8
-# train-vit's micro step ms by its images with PR 21's segment backward (its
-# chip_smoke.py run after review, H100 80GB HBM3 at 700 W), printed beside
-# this run's
-TRAIN_VIT_PR21_MS = {0: "784.0-789.6", 1: "1,156.7-1,548.3", 2: "1,298.8-2,432.6"}
+# train-vit's micro step ms by its images with the segment backward's first
+# design (mma.sync dkv and dq kernels; this script on an H100 80GB HBM3 at
+# 700 W), printed beside this run's
+TRAIN_VIT_FIRST_MS = {0: "784.0-789.6", 1: "1,156.7-1,548.3", 2: "1,298.8-2,432.6"}
 
 
 def _train_reference(device, cfg, kind, seed, ref_layers=2):
@@ -5198,8 +5198,8 @@ def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_la
         for n in sorted(set(per_step)):
             ms = [t for t, k in zip(step_ms, per_step) if k == n]
             print(f"  train-vit micro steps with {n} image(s): {min(ms):.1f}-{max(ms):.1f} ms "
-                  f"over {len(ms)} (PR 21's segment backward: {TRAIN_VIT_PR21_MS.get(n, 'none')} "
-                  f"ms; {gpu})", flush=True)
+                  f"over {len(ms)} (the segment backward's first design: "
+                  f"{TRAIN_VIT_FIRST_MS.get(n, 'none')} ms; {gpu})", flush=True)
         del state
     finally:
         shutil.rmtree(work, ignore_errors=True)
