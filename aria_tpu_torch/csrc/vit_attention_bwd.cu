@@ -98,7 +98,7 @@
 //   blocks are dispatched in order of their index, so a block waits only
 //   for blocks dispatched before it, which hold an SM or have finished: a
 //   waiting block never holds an SM that a block it waits for needs. As
-//   blocks finish one after another, the next head's start one after
+//   blocks finish one after another, the next head's blocks start one after
 //   another, in the wavefront's order. (Two chains of key tiles into two
 //   scratches, summed by the last, measured slower: the sum's second read
 //   cost more than the shorter wavefront saved.)
