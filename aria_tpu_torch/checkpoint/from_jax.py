@@ -12,6 +12,14 @@ leaves (numpy's ``bfloat16`` extension dtype) are carried as their 16-bit
 patterns. Nothing here imports jax: convert a JAX tree first with
 ``jax.tree.map(numpy.asarray, tree)``. The tensors land on the card
 unless the caller passes ``device="cpu"``.
+
+With a ``mesh`` each rank converts only its shard of each leaf
+(the blocks ``parallel/mesh.shard_leaf`` takes, sliced from the numpy
+array before the copy): by
+``serving_param_specs`` unless ``specs`` names another tree (the unfused
+int4 serving tree's expert stacks over ``expert``; a training tree by
+``aria_param_specs`` over ``fsdp`` and ``expert``), so no rank holds an
+expert stack it does not own.
 """
 
 from __future__ import annotations
@@ -35,8 +43,23 @@ def to_tensor(a: np.ndarray, device="cuda") -> torch.Tensor:
     return t.to(device)
 
 
-def from_jax(tree: Any, device="cuda") -> Any:
-    """Map a nested dict of numpy arrays to tensors on ``device``."""
+def from_jax(tree: Any, device="cuda", *, mesh=None, specs: Any = None) -> Any:
+    """Map a nested dict of numpy arrays to tensors on ``device``; with a
+    ``mesh``, this rank's shard of each (see the module notes)."""
+    if mesh is not None:
+        from aria_tpu_torch.parallel.mesh import leaf_specs, local_dims, serving_param_specs
+
+        specs = leaf_specs(tree, serving_param_specs(tree) if specs is None else specs)
+
+        def walk(t, s):
+            if isinstance(t, dict):
+                return {k: walk(v, s[k]) for k, v in t.items()}
+            for d, axis in local_dims(s, mesh).items():
+                start, size = mesh.block(axis, t.shape[d])
+                t = np.take(t, np.arange(start, start + size), axis=d)
+            return to_tensor(t, device)
+
+        return walk(tree, specs)
     if isinstance(tree, dict):
         return {k: from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):

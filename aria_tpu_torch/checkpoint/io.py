@@ -63,12 +63,14 @@ def save_checkpoint(path: str, tree: Any, cfg: Optional[AriaConfig] = None, step
             json.dump(dataclasses.asdict(cfg), f, indent=2)
 
 
-def load_checkpoint(path: str, step: int = 0, device="cuda"
+def load_checkpoint(path: str, step: int = 0, device="cuda", *, mmap: bool = False
                     ) -> tuple[Any, Optional[AriaConfig]]:
     """(tree, config or None), the tensors on ``device``: the card unless
-    the caller names another (``backend.device``: no card raises)."""
+    the caller names another (``backend.device``: no card raises). With
+    ``mmap`` (on the CPU) the tensors are views of the mapped file, so the
+    ranks of a mesh that each take their shard share one copy."""
     tree = torch.load(os.path.join(os.path.abspath(path), f"step_{step}", "state.pt"),
-                      map_location=backend.device(device), weights_only=True)
+                      map_location=backend.device(device), weights_only=True, mmap=mmap)
     cfg = None
     cfg_file = os.path.join(path, "config.json")
     if os.path.exists(cfg_file):

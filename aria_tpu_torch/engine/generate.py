@@ -36,15 +36,21 @@ result, so they sum to ``steps`` (queue 3 (c)).
 
 ``mesh`` (``parallel/mesh.py``, over a ``torch.distributed`` group: every
 rank builds the same Engine on the same parameters and calls ``generate``
-with the same arguments) serves one stream from a cache sharded over the
-ranks (generate.py:97-150): each rank allocates its block of it, heads
-over ``model`` (all of them for int4) and positions over ``context``. The
-parameters stay replicated, as the JAX layout of the int4 serving form
-keeps all but the expert stacks. The prefill writes the positions of this
-rank's block; under ``context`` it attends the written cache blockwise, and
-decode merges the ranks' partial softmaxes (``parallel/cp_cache.py``).
-Every rank returns the same tokens: they sample from generators seeded
-alike, as the JAX engine draws from its one key.
+with the same arguments) serves one stream over the ranks
+(generate.py:97-150). Over ``model`` and ``context`` the cache is sharded:
+each rank allocates its block of it, heads over ``model`` (all of them for
+int4) and positions over ``context``; the prefill writes the positions of
+this rank's block; under ``context`` it attends the written cache
+blockwise, and decode merges the ranks' partial softmaxes
+(``parallel/cp_cache.py``). Over ``expert`` each rank keeps only its
+experts, as the JAX engine shards a quantized tree by
+``serving_param_specs`` and a float one by ``aria_param_specs``
+(``mesh.serving_shard``: a whole tree given is sliced; the shared experts
+must be unfused, where the JAX engine would gather a fused stack), and the
+MoE is expert-parallel (``parallel/ep.py``). Every other leaf stays
+replicated (``fsdp`` and ``data`` shard nothing in serving). Every rank
+returns the same tokens: they sample from generators seeded alike, as the
+JAX engine draws from its one key.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from aria_tpu_torch.engine.sampling import apply_penalties, sample, update_count
 from aria_tpu_torch.engine.speculative import ngram_draft, verify_greedy, verify_sampled
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
+from aria_tpu_torch.parallel.mesh import serving_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +126,7 @@ class Engine:
         mesh=None,  # parallel/mesh.Mesh: this rank's view of a serving mesh
     ):
         self.cfg = cfg
-        self.params = params
+        self.params = serving_shard(params, cfg.text.num_experts, mesh)
         self.mesh = mesh
         # a multiple of 512, as the JAX engine allocates (generate.py:103)
         self.max_seq_len = -(-max_seq_len // 512) * 512

@@ -591,9 +591,19 @@ def make_handler(loop: ServingLoop):
     return Handler
 
 
+class HTTPServer(ThreadingHTTPServer):
+    """The front door's listener: one thread a connection, and a listen
+    backlog for many clients at once. The standard library's is 5: past
+    it, clients that connect together are reset before their request is
+    read (seen with 44 at once on the CPU)."""
+
+    request_queue_size = 1024
+    daemon_threads = True
+
+
 def serve(engine, tokenizer, host: str = "127.0.0.1", port: int = 8000):
     loop = ServingLoop(engine, tokenizer)
-    httpd = ThreadingHTTPServer((host, port), make_handler(loop))
+    httpd = HTTPServer((host, port), make_handler(loop))
     print(f"serving on {host}:{port}")
     try:
         httpd.serve_forever()

@@ -38,9 +38,12 @@ token's log-probability and its top K alternatives under the raw logits
 ``BatchedEngine(mesh=)`` shards its cache by head over the ``model`` axis
 of a serving mesh (``parallel/mesh.py``), as the JAX engine does
 (server.py:108-125): every rank holds all lanes and H / model heads of
-each, runs the same steps on replicated parameters, and decode attention
-gathers the heads (``parallel/cp_cache.py``). As in the JAX engine, the
-int4 cache, whose bytes pair heads across the shards, is refused.
+each, runs the same steps, and decode attention gathers the heads
+(``parallel/cp_cache.py``). As in the JAX engine, the int4 cache, whose
+bytes pair heads across the model shards, is refused there. Over the
+``expert`` axis each rank keeps only its experts (``mesh.serving_shard``:
+a whole tree given is sliced, an unfused tree is required) and the MoE is
+expert-parallel (``parallel/ep.py``); every other leaf is replicated.
 
 Multi-LoRA (``adapters=``, an ``AdapterRegistry`` of
 ``engine/multi_lora.py``): each request names an adapter at ``submit``
@@ -78,6 +81,7 @@ from aria_tpu_torch.engine.sampling import (
 from aria_tpu_torch.models.aria import encode_images, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import KVCache, lm_forward
 from aria_tpu_torch.ops.paged_attention import PagedKVCache
+from aria_tpu_torch.parallel.mesh import serving_shard
 
 GROUP_ROWS = 32  # most requests in one grouped admission prefill (server.py:470-477)
 
@@ -416,6 +420,7 @@ class BatchedEngine(_LaneEngine):
         adapters=None,
         logprobs_topk: Optional[int] = None,
     ):
+        params = serving_shard(params, cfg.text.num_experts, mesh)
         super().__init__(params, cfg, max_lanes, temperature, top_k, decode_chunk, rng_seed,
                          adapters, guided_fsm, logprobs_topk)
         if mesh is not None:
@@ -424,7 +429,7 @@ class BatchedEngine(_LaneEngine):
                     "BatchedEngine(mesh=) with a context axis: the batched engine shards its "
                     "cache over model only, as the JAX engine does; context parallelism serves "
                     "through Engine(mesh=) (ROADMAP queue 1, item 11)")
-            if cache_dtype == "int4":
+            if cache_dtype == "int4" and mesh.shape["model"] > 1:
                 raise ValueError("an int4 KV cache pairs heads across the model shards")
         self.mesh = mesh
         # a multiple of 128, as the JAX engine allocates (server.py:103)

@@ -36,14 +36,21 @@ def normalize_pixels(pixel_values: torch.Tensor) -> torch.Tensor:
 
 
 def init_aria_params(cfg: AriaConfig, generator: torch.Generator, *, device="cuda",
-                     dtype=torch.bfloat16) -> dict:
+                     dtype=torch.bfloat16, mesh=None) -> dict:
     """The whole model's training tree (aria.py:24-31): ViT, projector and
     the decoder's ``init_lm_params``, on the card unless ``device`` names
-    another."""
-    return {"vision": init_vit_params(cfg.vision, generator, device=device, dtype=dtype),
-            "projector": init_projector_params(cfg.projector, generator, device=device,
-                                               dtype=dtype),
-            "lm": init_lm_params(cfg.text, generator, device=device, dtype=dtype)}
+    another. With a ``mesh``, this rank's shard of it by
+    ``aria_param_specs`` (``mesh.shard_params``), the draws those of the
+    whole tree; the decoder is cut leaf by leaf as it is drawn."""
+    from aria_tpu_torch.parallel.mesh import projector_param_specs, shard_params, vit_param_specs
+
+    vision = init_vit_params(cfg.vision, generator, device=device, dtype=dtype)
+    projector = init_projector_params(cfg.projector, generator, device=device, dtype=dtype)
+    if mesh is not None:
+        vision = shard_params(vision, vit_param_specs(), mesh)
+        projector = shard_params(projector, projector_param_specs(), mesh)
+    return {"vision": vision, "projector": projector,
+            "lm": init_lm_params(cfg.text, generator, device=device, dtype=dtype, mesh=mesh)}
 
 
 def _asks_grad(tree: Any) -> bool:
@@ -115,14 +122,18 @@ def aria_forward(
     lora: Optional[dict] = None,  # {"lm": {"layers": {...}}}
     lora_scale: float = 0.0,
     remat: bool = False,
+    mesh=None,  # parallel/mesh.Mesh: the decoder's (see lm_forward)
+    head: bool = True,  # False: the final norm's output in place of the logits
 ) -> LMOutput:
     """Embeddings with the image features scattered in, then the decoder
     over the whole sequence with causal attention, or where ``mask`` says
-    (aria.py:101-126)."""
+    (aria.py:101-126). On a mesh the ViT and the projector run on this
+    rank's rows as on one card: replicated over ``expert``, the batch split
+    over ``data`` x ``fsdp``, as their spec trees leave them."""
     embeds = prepare_embeddings(params, cfg, tokens, pixel_values, pixel_mask)
     return lm_forward(params["lm"], cfg.text, inputs_embeds=embeds, mask=mask,
                       training=training, lora=lora["lm"] if lora is not None else None,
-                      lora_scale=lora_scale, remat=remat)
+                      lora_scale=lora_scale, remat=remat, mesh=mesh, head=head)
 
 
 class LossOutput(NamedTuple):
@@ -132,15 +143,52 @@ class LossOutput(NamedTuple):
     aux_loss: torch.Tensor
 
 
-def causal_lm_loss(out: LMOutput, labels: torch.Tensor, *, include_aux: bool = True
-                   ) -> LossOutput:
+def chunked_lm_loss(hidden: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, z_loss,
+                    aux_loss, *, num_valid: Optional[torch.Tensor] = None, chunk: int = 1024,
+                    vocab_block: int = 8192) -> LossOutput:
+    """``causal_lm_loss`` from the final norm's output ``hidden`` [B, S, D]
+    (``lm_forward(head=False)``): the head and the cross-entropy of
+    ``chunk`` positions at a time, each recomputed in the backward
+    (``torch.utils.checkpoint``), so that no [B, S, V] f32 logits are held;
+    the head's product runs on blocks of ``vocab_block`` columns, so that
+    its f32 backward upcasts a block of the [D, V] weight, not all of it
+    (two f32 copies of a 100K vocabulary's head are 2 GB). The same sums,
+    in another order."""
+    from torch.utils.checkpoint import checkpoint
+
+    from aria_tpu_torch.ops.quant import linear
+
+    D = hidden.shape[-1]
+    h = hidden[:, :-1].reshape(-1, D)
+    targets = labels[:, 1:].reshape(-1).long()
+    valid = targets != -100
+    safe = torch.where(valid, targets, 0)
+    blocks = lm_head.split(vocab_block, dim=1)
+
+    def part(h, t, v):
+        logits = torch.cat([linear(h, w) for w in blocks], dim=-1)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.sum(torch.where(v, torch.gather(logp, -1, t[:, None])[:, 0], 0.0))
+
+    total = sum(checkpoint(part, h[i:i + chunk], safe[i:i + chunk], valid[i:i + chunk],
+                           use_reentrant=False) for i in range(0, h.shape[0], chunk))
+    count = valid.sum() if num_valid is None else num_valid.reshape(())
+    ce = total / torch.clamp_min(count, 1)
+    return LossOutput(ce + z_loss + aux_loss, ce, z_loss, aux_loss)
+
+
+def causal_lm_loss(out: LMOutput, labels: torch.Tensor, *, include_aux: bool = True,
+                   num_valid: Optional[torch.Tensor] = None) -> LossOutput:
     """Shifted cross-entropy in f32 over the positions whose label is not
-    -100, plus the MoE z and aux losses (aria.py:136-148)."""
+    -100, plus the MoE z and aux losses (aria.py:136-148). ``num_valid``
+    (the valid labels of the whole batch, when ``labels`` are a part of it)
+    divides the sum in place of this part's count."""
     logits = out.logits[:, :-1].float()
     targets = labels[:, 1:].long()
     valid = targets != -100
     logp = torch.log_softmax(logits, dim=-1)
     tok_logp = torch.gather(logp, -1, torch.where(valid, targets, 0)[..., None])[..., 0]
-    ce = -torch.sum(torch.where(valid, tok_logp, 0.0)) / torch.clamp_min(valid.sum(), 1)
+    count = valid.sum() if num_valid is None else num_valid.reshape(())
+    ce = -torch.sum(torch.where(valid, tok_logp, 0.0)) / torch.clamp_min(count, 1)
     loss = ce + (out.z_loss + out.aux_loss if include_aux else 0.0)
     return LossOutput(loss, ce, out.z_loss, out.aux_loss)

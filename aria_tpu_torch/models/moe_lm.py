@@ -58,9 +58,15 @@ decode step (one new token per lane), a from-zero prefill and a per-lane
 write of several positions (the verify step) take the fused prologue
 ``rope_kv_write``: one kernel a layer turns the wqkv output into the
 rotated, quantized cache write and the rotated query (with the fresh k, v
-for flash). The serving mesh's writers keep
-the chain of ``apply_rope``, ``quantize_kv`` and an indexed write or the
-``kv_cache_write`` kernel.
+for flash). The writers of a mesh over ``model``
+or ``context`` keep the chain of ``apply_rope``, ``quantize_kv`` and an
+indexed write or the ``kv_cache_write`` kernel; on a mesh with neither the
+cache is whole and the prologue stays.
+
+Over a mesh's ``expert`` axis the MoE is expert-parallel
+(``_moe_ffn_ep``, ``parallel/ep.py``); in training over ``fsdp`` each
+layer's weights are gathered whole just before it runs
+(``parallel/fsdp.py``).
 
 With a ``page_table`` the cache is the paged server's ``PagedKVCache``
 (moe_lm.py:382-428): one new token per lane is written by
@@ -93,6 +99,7 @@ from aria_tpu_torch.ops.moe import (
     experts_ragged,
     glu,
     route_topk,
+    router_logits,
 )
 from aria_tpu_torch.ops.moe_decode_kernel import (
     DECODE_KERNEL_MAX_TOKENS,
@@ -193,10 +200,11 @@ class KVCache:
 
 
 class LMOutput(NamedTuple):
-    logits: torch.Tensor  # [B, S, V] f32
+    logits: Optional[torch.Tensor]  # [B, S, V] f32 (None with head=False)
     cache: Optional[KVCache]
     z_loss: Optional[torch.Tensor] = None  # f32 scalars, summed over layers
     aux_loss: Optional[torch.Tensor] = None
+    hidden: Optional[torch.Tensor] = None  # [B, S, D] after the final norm (head=False)
 
 # Up to this many tokens the training MoE gathers each token's experts
 # (moe_lm.py:46).
@@ -213,60 +221,83 @@ def _dense_init(generator, device, dtype):
 
 
 def init_lm_params(cfg: TextConfig, generator: torch.Generator, *, device="cuda",
-                   dtype=torch.bfloat16) -> dict:
+                   dtype=torch.bfloat16, mesh=None) -> dict:
     """Random-init the training tree of moe_lm.py:122-146, on the card unless
     ``device`` names another: float weights, the router gate f32, the
     shared experts unfused. Each [L, ...] stack is drawn one layer at a
     time, so the f32 draws never hold a whole stack (a full-width w1 is 15
-    G weights)."""
+    G weights). With a ``mesh`` each leaf (each layer of a stack) is cut to
+    this rank's shard by ``lm_param_specs`` as soon as it is drawn
+    (``mesh.shard_leaf``); the draws are those of the whole tree."""
+    from aria_tpu_torch.parallel.mesh import P, lm_param_specs, shard_leaf
+
     device = backend.device(device)
     L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
     I, Is = cfg.moe_intermediate_size, cfg.shared_intermediate_size
     qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     dense = _dense_init(generator, device, dtype)
+    specs = lm_param_specs()
 
-    def stack(shape, scale_dim):
-        out = torch.empty((L,) + shape, dtype=dtype, device=device)
+    def cut(t, spec):
+        return t if mesh is None else shard_leaf(t, spec, mesh)
+
+    def stack(name, shape, scale_dim, out_dtype=dtype):
+        spec = P(*specs["layers"][name][1:])
+        out = None
         for layer in range(L):
-            out[layer] = dense(shape, scale_dim)
+            piece = cut(dense(shape, scale_dim), spec).to(out_dtype)
+            if out is None:
+                out = torch.empty((L,) + piece.shape, dtype=out_dtype, device=device)
+            out[layer] = piece
         return out
 
+    def ones(name, shape):
+        return cut(torch.ones((L,) + shape, dtype=dtype, device=device), specs["layers"][name])
+
     return {
-        "embed": dense((cfg.vocab_size, D), D),
+        "embed": cut(dense((cfg.vocab_size, D), D), specs["embed"]),
         "layers": {
-            "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
-            "ffn_norm": torch.ones((L, D), dtype=dtype, device=device),
-            "wqkv": stack((D, qkv_out), D),
-            "wo": stack((cfg.q_size, D), cfg.q_size),
-            "gate": stack((E, D), D).float(),
-            "w1": stack((E, 2 * I, D), D),
-            "w2": stack((E, I, D), I),
-            "shared_w1": stack((D, 2 * Is), D),
-            "shared_w2": stack((Is, D), Is),
+            "attn_norm": ones("attn_norm", (D,)),
+            "ffn_norm": ones("ffn_norm", (D,)),
+            "wqkv": stack("wqkv", (D, qkv_out), D),
+            "wo": stack("wo", (cfg.q_size, D), cfg.q_size),
+            "gate": stack("gate", (E, D), D, torch.float32),
+            "w1": stack("w1", (E, 2 * I, D), D),
+            "w2": stack("w2", (E, I, D), I),
+            "shared_w1": stack("shared_w1", (D, 2 * Is), D),
+            "shared_w2": stack("shared_w2", (Is, D), Is),
         },
         "final_norm": torch.ones((D,), dtype=dtype, device=device),
-        "lm_head": dense((D, cfg.vocab_size), D),
+        "lm_head": cut(dense((D, cfg.vocab_size), D), specs["lm_head"]),
     }
 
 
-def _expert_stacks(cfg: TextConfig, dense, quantize, device) -> tuple:
-    """The fused [L, E + ns, ...] expert stacks, drawn and quantized in
+def _expert_stacks(cfg: TextConfig, dense, quantize, device, fuse_shared: bool = True,
+                   keep: Optional[tuple] = None) -> tuple:
+    """The [L, E (+ ns fused), ...] expert stacks, drawn and quantized in
     slabs of at most 11 experts so that no float stack is ever whole:
     ``quantize`` maps a slab (w1 [n, 2I, D], w2 [n, I, D]) to two dicts of
-    leaves, which fill stacks allocated at the first slab."""
+    leaves, which fill stacks allocated at the first slab. ``keep`` (start,
+    count) keeps only those experts: every slab is still drawn, in the same
+    order, so the kept experts are the whole stack's."""
     L, D, I = cfg.num_layers, cfg.hidden_size, cfg.moe_intermediate_size
-    E_t = cfg.num_experts + cfg.num_shared_experts
+    E_t = cfg.num_experts + (cfg.num_shared_experts if fuse_shared else 0)
+    k0, kn = keep if keep is not None else (0, E_t)
     chunk = next(d for d in range(11, 0, -1) if E_t % d == 0)
     w1 = w2 = None
     for l in range(L):
         for e0 in range(0, E_t, chunk):
-            q1, q2 = quantize(dense((chunk, 2 * I, D), D), dense((chunk, I, D), I))
+            a1, a2 = dense((chunk, 2 * I, D), D), dense((chunk, I, D), I)
+            lo, hi = max(e0, k0), min(e0 + chunk, k0 + kn)
+            if lo >= hi:
+                continue
+            q1, q2 = quantize(a1[lo - e0:hi - e0], a2[lo - e0:hi - e0])
             if w1 is None:
-                w1, w2 = ({k: torch.empty((L, E_t) + v.shape[1:], dtype=v.dtype, device=device)
+                w1, w2 = ({k: torch.empty((L, kn) + v.shape[1:], dtype=v.dtype, device=device)
                            for k, v in q.items()} for q in (q1, q2))
             for dst, src in ((w1, q1), (w2, q2)):
                 for leaf, v in src.items():
-                    dst[leaf][l, e0:e0 + chunk] = v
+                    dst[leaf][l, lo - k0:hi - k0] = v
     return w1, w2
 
 
@@ -274,20 +305,32 @@ def init_lm_params_serving_int4(
     cfg: TextConfig,
     generator: torch.Generator,
     *,
+    fuse_shared: bool = True,
+    mesh=None,
     device="cuda",
     dtype=torch.bfloat16,
 ) -> dict:
     """Random-init the decoder directly in its serving form, on the card
     unless ``device`` names another:
-    int4 expert stacks with the shared experts fused in, int4 wqkv/wo, int8
-    embed and lm_head (the structure of moe_lm.py:149-252, quantized by the
-    port's own quantizers). Expert weights are drawn and quantized in slabs
-    of at most 11 experts, so the bf16 stacks are never whole."""
+    int4 expert stacks, int4 wqkv/wo, int8 embed and lm_head (the structure
+    of moe_lm.py:149-252, quantized by the port's own quantizers). The
+    shared experts are fused into the stacks, or with ``fuse_shared=False``
+    kept as their own int8 MLP (``shared_w1``, ``shared_w2``), the form an
+    expert mesh serves. With a ``mesh`` whose ``expert`` axis is above 1,
+    the stacks hold only this rank's experts (its block of dim 1, as
+    ``serving_param_specs`` shards them); the other leaves are whole and
+    every draw is made as without the mesh. Expert weights are drawn and
+    quantized in slabs of at most 11 experts, so the bf16 stacks are never
+    whole."""
     device = backend.device(device)
     L, D, E = cfg.num_layers, cfg.hidden_size, cfg.num_experts
     qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     dense = _dense_init(generator, device, dtype)
-    w1, w2 = _expert_stacks(cfg, dense, quantize_expert_int4, device)
+    E_t = E + (cfg.num_shared_experts if fuse_shared else 0)
+    keep = None
+    if mesh is not None and mesh.shape["expert"] > 1:
+        keep = mesh.block("expert", E_t)
+    w1, w2 = _expert_stacks(cfg, dense, quantize_expert_int4, device, fuse_shared, keep)
 
     def dense_int4_stack(d_in, d_out):
         parts = [quantize_dense_int4(dense((1, d_in, d_out), d_in)) for _ in range(L)]
@@ -302,6 +345,10 @@ def init_lm_params_serving_int4(
         "w1": w1,
         "w2": w2,
     }
+    if not fuse_shared:
+        Is = cfg.shared_intermediate_size
+        layers["shared_w1"] = quantize_weight(dense((L, D, 2 * Is), D))
+        layers["shared_w2"] = quantize_weight(dense((L, Is, D), Is))
     return {
         "embed": quantize_weight(dense((cfg.vocab_size, D), D)),
         "layers": layers,
@@ -462,7 +509,8 @@ def _prologue_dest(cache, cache_pos, rows, B: int, S: int, paged, mesh, device):
     per-lane positions (the verify step: a slot past the cache is dropped,
     the engine's slack check keeps every slot inside); every lane's at
     cache_pos + s for one offset. None where the chain stays: no cache, a
-    serving mesh (its block's heads and positions), a paged chunk."""
+    mesh over model or context (its block's heads and positions), a paged
+    chunk."""
     if cache is None or mesh is not None:
         return None
     if paged is not None:
@@ -671,11 +719,14 @@ def _experts_lora_blocked(x: torch.Tensor, indices: torch.Tensor, weights: torch
 
 def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared,
              training: bool = False, lora: Optional[dict] = None, lora_scale: float = 0.0,
-             lora_onehot: Optional[torch.Tensor] = None):
+             lora_onehot: Optional[torch.Tensor] = None, mesh=None):
     """The routed experts, and the shared ones fused in as always-on slots
-    (``shared``) or as their own MLP (moe_lm.py:763-1057, single chip).
-    Returns (out [B, S, D], z_loss, aux_loss). ``lora_onehot`` is the
-    token-level [A, B*S] adapter selector of multi-adapter serving.
+    (``shared``) or as their own MLP (moe_lm.py:763-1057). Returns (out [B,
+    S, D], z_loss, aux_loss). ``lora_onehot`` is the token-level [A, B*S]
+    adapter selector of multi-adapter serving.
+
+    On a mesh whose ``expert`` axis is above 1 the routed experts are
+    expert-parallel (``_moe_ffn_ep``, moe_lm.py:793-860).
 
     A serving prefill of more than MOE_CHUNK tokens (MOE_CHUNK_LONG at
     32768 and over) runs in slices of that size one after another, with
@@ -688,6 +739,10 @@ def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared,
     B, S, D = x.shape
     flat = x.reshape(-1, D)
     T = flat.shape[0]
+    if mesh is not None and mesh.shape["expert"] > 1:
+        out, z_loss, aux_loss = _moe_ffn_ep(layers, cfg, layer, flat, training, lora,
+                                            lora_scale, lora_onehot, mesh)
+        return out.reshape(B, S, D), z_loss, aux_loss
     chunk = MOE_CHUNK_LONG if T >= 32768 else MOE_CHUNK
     if T > chunk and not training:
         if T % chunk:
@@ -702,6 +757,13 @@ def _moe_ffn(layers: dict, cfg: TextConfig, layer: int, x: torch.Tensor, shared,
         return torch.cat(outs).reshape(B, S, D), zero, zero
     out, z_loss, aux_loss = _moe_ffn_tokens(layers, cfg, layer, flat, shared, training, lora,
                                             lora_scale, lora_onehot)
+    if training and mesh is not None and mesh.batch_size > 1:
+        # the router's losses over the global batch, this rank's share
+        from aria_tpu_torch.parallel.ep import router_losses
+
+        logits = router_logits(flat, layers["gate"][layer], True)
+        z_loss, aux_loss = router_losses(logits, torch.topk(logits, cfg.moe_topk, dim=-1)[1],
+                                         cfg.moe_z_loss_coeff, cfg.moe_aux_loss_coeff, mesh)
     return out.reshape(B, S, D), z_loss, aux_loss
 
 
@@ -762,17 +824,63 @@ def _moe_ffn_tokens(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tenso
             out = experts_ragged(flat, indices, weights, w1l, w2l)
         else:
             out = experts_grouped(flat, indices, weights, w1l, w2l)
-    if shared is None:  # the shared MLP (moe_lm.py:1049-1056)
-        h = linear(flat, _layer_weight(layers["shared_w1"], layer))
-        if lora and "shared_w1" in lora:
-            h = h + _lora_delta(flat, lora["shared_w1"], layer, lora_scale, lora_onehot)
-        h = glu(h.to(flat.dtype))
-        shared_out = linear(h, _layer_weight(layers["shared_w2"], layer))
-        if lora and "shared_w2" in lora:
-            shared_out = shared_out + _lora_delta(h, lora["shared_w2"], layer, lora_scale,
-                                                  lora_onehot)
-        out = out + shared_out.to(flat.dtype)
+    if shared is None:
+        out = out + _shared_mlp(layers, layer, flat, lora, lora_scale, lora_onehot)
     return out, routing.z_loss, routing.aux_loss
+
+
+def _shared_mlp(layers: dict, layer: int, flat: torch.Tensor, lora: Optional[dict],
+                lora_scale: float, lora_onehot: Optional[torch.Tensor]) -> torch.Tensor:
+    """The unfused shared experts' MLP (moe_lm.py:1049-1056), in x's dtype."""
+    h = linear(flat, _layer_weight(layers["shared_w1"], layer))
+    if lora and "shared_w1" in lora:
+        h = h + _lora_delta(flat, lora["shared_w1"], layer, lora_scale, lora_onehot)
+    h = glu(h.to(flat.dtype))
+    shared_out = linear(h, _layer_weight(layers["shared_w2"], layer))
+    if lora and "shared_w2" in lora:
+        shared_out = shared_out + _lora_delta(h, lora["shared_w2"], layer, lora_scale,
+                                              lora_onehot)
+    return shared_out.to(flat.dtype)
+
+
+def _moe_ffn_ep(layers: dict, cfg: TextConfig, layer: int, flat: torch.Tensor,
+                training: bool, lora: Optional[dict], lora_scale: float,
+                lora_onehot: Optional[torch.Tensor], mesh):
+    """The expert-parallel branch (moe_lm.py:793-860): the routed experts
+    through ``experts_ep`` over this rank's [L, E/n, ...] stacks, the shared
+    MLP beside them. Serving pads T to a multiple of n with zero rows whose
+    outputs are dropped, and up to 8 x GATHER_PATH_MAX_TOKENS tokens gives
+    the whole stacks and the layer to the decode-MoE kernel; above, and in
+    training (where T must divide), the layer's slice goes through the
+    dequantize and the ``gmm`` kernels. Where the JAX package cannot take
+    this branch (expert LoRA, a fused stack, T that does not divide in
+    training) it lets GSPMD gather the stacks; the port raises instead (a
+    fused stack in ``lm_forward``)."""
+    from aria_tpu_torch.parallel.ep import experts_ep
+
+    n = mesh.shape["expert"]
+    T, D = flat.shape
+    if lora is not None and ("w1" in lora or "w2" in lora):
+        raise NotImplementedError("expert LoRA over an expert mesh: the JAX package gathers "
+                                  "the expert stacks there, which the port does not do")
+    if training and T % n:
+        raise ValueError(f"training over expert={n}: {T} tokens must divide")
+    pad = (-T) % n
+    ep_flat = torch.cat([flat, flat.new_zeros((pad, D))]) if pad else flat
+    gate = layers["gate"][layer].float()
+    common = dict(z_loss_coeff=cfg.moe_z_loss_coeff, aux_loss_coeff=cfg.moe_aux_loss_coeff)
+    w1, w2 = layers["w1"], layers["w2"]
+    if not training and ep_flat.shape[0] <= 8 * GATHER_PATH_MAX_TOKENS:
+        out, z_loss, aux_loss = experts_ep(ep_flat, gate, cfg.moe_topk, w1, w2, mesh,
+                                           training=False, layer_idx=layer, act_int8=MOE_A8,
+                                           **common)
+    else:
+        w1l, w2l = ({k: v[layer] for k, v in w.items()} if isinstance(w, dict) else w[layer]
+                    for w in (w1, w2))
+        out, z_loss, aux_loss = experts_ep(ep_flat, gate, cfg.moe_topk, w1l, w2l, mesh,
+                                           training=training, **common)
+    out = out[:T] + _shared_mlp(layers, layer, flat, lora, lora_scale, lora_onehot)
+    return out, z_loss, aux_loss
 
 
 def lm_forward(
@@ -793,7 +901,8 @@ def lm_forward(
     lora_scale: float = 0.0,
     lora_onehot: Optional[torch.Tensor] = None,  # [A, B] selector over stacked [L, A, ...]
     remat: bool = False,  # recompute each layer in the backward
-    mesh=None,  # serving mesh (parallel/mesh.py): ``cache`` is this rank's block
+    mesh=None,  # parallel/mesh.Mesh: see below
+    head: bool = True,  # False: the final norm's output in place of the logits
 ) -> LMOutput:
     """Run the decoder. Without a cache, or with ``causal_flash``, attention
     is causal over the tokens given (flash kernel); with a cache and one
@@ -810,33 +919,55 @@ def lm_forward(
     takes the row selector, the MoE its token-level expansion (each row's
     column repeated S times, moe_lm.py:1123-1126).
 
-    With a serving ``mesh`` the parameters are replicated and ``cache`` is
-    this rank's block (``KVCache.init(mesh=)``), sharded by head over
-    ``model`` and by position over ``context`` (moe_lm.py:308-317,
-    :584-616): writes land in the block, decode goes through
-    ``mesh_decode_attention``, and a prefill takes causal flash over the
-    fresh k/v when ``context`` is 1, else the blockwise
-    ``cp_cached_prefill_attention`` over the written cache. Every rank
-    returns the same logits."""
+    With a ``mesh`` (``parallel/mesh.py``) every rank of it returns the
+    same logits. Over ``model`` or ``context`` the parameters are
+    replicated and ``cache`` is this rank's block (``KVCache.init(mesh=)``),
+    sharded by head over ``model`` and by position over ``context``
+    (moe_lm.py:308-317, :584-616): writes land in the block, decode goes
+    through ``mesh_decode_attention``, and a prefill takes causal flash over
+    the fresh k/v when ``context`` is 1, else the blockwise
+    ``cp_cached_prefill_attention`` over the written cache. On a mesh with
+    neither the cache is whole and attention runs as on one card, the
+    fused prologue included. Over ``expert`` the expert stacks are this
+    rank's [L, E/n, ...] shards (unfused shared experts) and the MoE is
+    expert-parallel (``_moe_ffn_ep``). Training takes a mesh of ``data``,
+    ``fsdp`` and ``expert``: ``x`` is this rank's rows, and over ``fsdp``
+    the layer stacks are this rank's shards, each layer gathered whole just
+    before it runs (``parallel/fsdp.py``)."""
     if inputs_embeds is None:
         x = embed_tokens(params["embed"], tokens, dtype=params["final_norm"].dtype)
     else:
         x = inputs_embeds
     B, S, _ = x.shape
+    # the KV cache's mesh: heads over model, positions over context; on a mesh
+    # with neither the cache is whole and attention runs as on one card
+    kv_mesh = mesh if mesh is not None and (mesh.shape["model"] > 1
+                                            or mesh.shape["context"] > 1) else None
+    if mesh is not None and training and kv_mesh is not None:
+        raise NotImplementedError(
+            "training over a mesh with model or context above 1: weight tensor parallelism and "
+            "Ulysses / ring attention are not ported (ROADMAP queue 1 item 11)")
     layers = params["layers"]
     w1 = layers["w1"]
     int4 = is_quantized_int4(w1)
     stack = w1["q4"] if int4 else w1["q"] if is_quantized(w1) else w1
     fused = "shared_w1" not in layers
-    if stack.shape[1] != cfg.num_experts + (cfg.num_shared_experts if fused else 0):
-        raise ValueError(f"expert stack of {stack.shape[1]} experts: {cfg.num_experts} routed"
+    n_exp = mesh.shape["expert"] if mesh is not None else 1
+    if fused and n_exp > 1:
+        raise ValueError("a fused expert stack on an expert mesh: build the tree with the "
+                         "shared experts unfused (fuse_shared=False); the JAX package gathers "
+                         "the stacks there instead of running expert parallelism")
+    if stack.shape[1] * n_exp != cfg.num_experts + (cfg.num_shared_experts if fused else 0):
+        raise ValueError(f"expert stack of {stack.shape[1]} experts"
+                         + (f" on each of expert={n_exp}" if n_exp > 1 else "")
+                         + f": {cfg.num_experts} routed"
                          + (f" + {cfg.num_shared_experts} fused shared" if fused else ""))
     lora_layers = lora["layers"] if lora is not None else None
     expert_lora = lora_layers is not None and ("w1" in lora_layers or "w2" in lora_layers)
     if training and int4:
         raise NotImplementedError("training over int4 experts: QLoRA trains over the int8 "
                                   "tree of quantize_params")
-    if mask is not None and (cache is not None or mesh is not None):
+    if mask is not None and (cache is not None or kv_mesh is not None):
         raise NotImplementedError("an attention mask is ported for uncached attention "
                                   "(training); the cached paths make their own")
     ft = decode_kernel_tile(cfg.moe_intermediate_size)
@@ -851,13 +982,25 @@ def lm_forward(
     cos, sin = precompute_rope(positions, cfg.head_dim, cfg.rope_base)
     if causal_flash is None:
         causal_flash = cache is None and mask is None
-    cp_n = mesh.shape["context"] if mesh is not None else 1
-    if mesh is not None and (page_table is not None or training or cache is None):
+    cp_n = kv_mesh.shape["context"] if kv_mesh is not None else 1
+    if kv_mesh is not None and (page_table is not None or cache is None):
         raise NotImplementedError(
-            "a serving mesh takes a contiguous cache, in serving: paged caches, training and "
-            "uncached attention over a mesh are not ported (ROADMAP queue 1 item 11)")
-    if mesh is not None and cfg.num_heads % mesh.shape["model"]:
-        raise ValueError(f"{cfg.num_heads} heads over model={mesh.shape['model']}")
+            "a serving mesh over model or context takes a contiguous cache: paged caches and "
+            "uncached attention over such a mesh are not ported (ROADMAP queue 1 item 11)")
+    if mesh is not None and page_table is not None:
+        raise NotImplementedError("a paged cache over a mesh is not ported (ROADMAP queue 1 "
+                                  "item 11)")
+    if kv_mesh is not None and cfg.num_heads % kv_mesh.shape["model"]:
+        raise ValueError(f"{cfg.num_heads} heads over model={kv_mesh.shape['model']}")
+    # training over fsdp: the layer stacks are this rank's shards, each layer
+    # gathered whole just before it runs (parallel/fsdp.py)
+    fsdp_specs = None
+    if training and mesh is not None and mesh.shape["fsdp"] > 1:
+        from aria_tpu_torch.parallel.fsdp import specs_by_path
+        from aria_tpu_torch.parallel.mesh import lm_param_specs
+
+        fsdp_specs = specs_by_path({"lm": {"layers": layers}},
+                                   {"lm": {"layers": lm_param_specs()["layers"]}})
     # under context parallelism a prefill reads the written cache blockwise
     # (moe_lm.py:600-616): flash over fresh k/v only with one position block
     use_flash = (bool(causal_flash) and (S > 1 or cache is None) and page_table is None
@@ -885,25 +1028,33 @@ def lm_forward(
     if cache is not None and not use_flash:
         lengths = (cache_pos + S if per_lane else
                    torch.full((B,), cache_pos + S, dtype=torch.int32, device=x.device))
-    block = _cache_block(cache, cfg, mesh) if cache is not None and paged is None else None
+    block = _cache_block(cache, cfg, kv_mesh) if cache is not None and paged is None else None
     cache_mask = None
-    if block is not None and not use_flash and S > 1 and (mesh is None or cp_n > 1):
+    if block is not None and not use_flash and S > 1 and (kv_mesh is None or cp_n > 1):
         # kv_pos <= cache_pos + i, over every position of the mesh under context
         kv_pos = torch.arange(block.max_seq, device=x.device)
         qi = (cache_pos[:, None] if per_lane else cache_pos) + torch.arange(S, device=x.device)
         cache_mask = (kv_pos <= qi[..., None]).reshape(-1, 1, S, block.max_seq)
-    dest = _prologue_dest(cache, cache_pos, rows, B, S, paged, mesh, x.device)
+    dest = _prologue_dest(cache, cache_pos, rows, B, S, paged, kv_mesh, x.device)
     shared = _shared_slots(cfg, B * S, x.dtype, x.device) if fused else None
     tok_onehot = None if lora_onehot is None else torch.repeat_interleave(lora_onehot, S, dim=1)
 
     def layer_fn(x, layer):
-        normed = rms_norm(x, layers["attn_norm"][layer], cfg.rms_norm_eps)
-        x = x + _attention(layers, cfg, layer, normed, cos, sin, cache, cache_pos, use_flash,
-                           lengths, rows, paged, lora_layers, lora_scale, lora_onehot, mesh,
+        lw, li, lr = layers, layer, lora_layers
+        if fsdp_specs is not None:  # training: no cache, so layer 0 of the view
+            from aria_tpu_torch.parallel.fsdp import gather_layer
+
+            lw, li = gather_layer(layers, layer, mesh, fsdp_specs), 0
+            lr = None if lora_layers is None else {
+                n: {f: t[layer:layer + 1] for f, t in ab.items()}
+                for n, ab in lora_layers.items()}
+        normed = rms_norm(x, lw["attn_norm"][li], cfg.rms_norm_eps)
+        x = x + _attention(lw, cfg, li, normed, cos, sin, cache, cache_pos, use_flash,
+                           lengths, rows, paged, lr, lora_scale, lora_onehot, kv_mesh,
                            block, cache_mask, dest, mask)
-        normed = rms_norm(x, layers["ffn_norm"][layer], cfg.rms_norm_eps)
-        out, z_loss, aux_loss = _moe_ffn(layers, cfg, layer, normed, shared, training,
-                                         lora_layers, lora_scale, tok_onehot)
+        normed = rms_norm(x, lw["ffn_norm"][li], cfg.rms_norm_eps)
+        out, z_loss, aux_loss = _moe_ffn(lw, cfg, li, normed, shared, training,
+                                         lr, lora_scale, tok_onehot, mesh)
         return x + out, z_loss, aux_loss
 
     z_loss = aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -915,6 +1066,8 @@ def lm_forward(
         z_loss, aux_loss = z_loss + zl, aux_loss + al
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if not head:  # the caller applies lm_head (a loss over token chunks)
+        return LMOutput(None, cache, z_loss, aux_loss, x)
     if isinstance(logit_position, torch.Tensor):  # one position per row
         x = x[torch.arange(B, device=x.device), logit_position.long()][:, None]
     elif logit_position is not None:

@@ -44,6 +44,14 @@ class RouterOutput(NamedTuple):
     aux_loss: torch.Tensor  # f32 scalar (0 unless training)
 
 
+def router_logits(x: torch.Tensor, gate_weight: torch.Tensor, training: bool) -> torch.Tensor:
+    """x [T, D] . gate_weight [E, D]^T as f32 [T, E]: in f64 when serving
+    on the card (see ``route_topk``), else in f32."""
+    if x.is_cuda and not training:
+        return (x.double() @ gate_weight.double().T).float()
+    return x.float() @ gate_weight.float().T
+
+
 def route_topk(x: torch.Tensor, gate_weight: torch.Tensor, topk: int, *,
                z_loss_coeff: float = 0.0, aux_loss_coeff: float = 0.0,
                training: bool = False) -> RouterOutput:
@@ -52,10 +60,7 @@ def route_topk(x: torch.Tensor, gate_weight: torch.Tensor, topk: int, *,
     other bits beside other rows (a cached prefix page would differ from a
     recomputed one): serving takes the product in f64, rounded once to
     f32, which leaves each row's logits as they are at any row count."""
-    if x.is_cuda and not training:
-        logits = (x.double() @ gate_weight.double().T).float()
-    else:
-        logits = x.float() @ gate_weight.float().T
+    logits = router_logits(x, gate_weight, training)
     top_logits, top_indices = torch.topk(logits, topk, dim=-1)
     scores = torch.softmax(top_logits, dim=-1)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)

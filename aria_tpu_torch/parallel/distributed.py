@@ -1,18 +1,31 @@
-"""Process groups for the serving mesh (counterpart of
-aria_tpu/parallel/distributed.py).
+"""Process groups, the collectives and the ranks of one host
+(counterpart of aria_tpu/parallel/distributed.py).
 
 JAX sees every device of a host in one process and compiles the
 collectives from sharding annotations. Here each device of the mesh is a
 rank of a ``torch.distributed`` process group, and the collectives are
-called by hand (``parallel/cp_cache.py``). :func:`initialize` joins a group
-from explicit arguments: the JAX version reads ``ARIA_TPU_*`` environment
-variables, and no module of the port but the build reads the environment.
-:func:`run_ranks` starts the ranks of one host as processes and is the
-counterpart of one JAX process holding all its devices.
+called by hand (``parallel/cp_cache.py``, ``parallel/ep.py``,
+``parallel/fsdp.py``). :func:`initialize` joins a group from explicit
+arguments: the JAX version reads ``ARIA_TPU_*`` environment variables, and
+no module of the port but the build reads the environment. :func:`run_ranks`
+starts the ranks of one host as processes and is the counterpart of one JAX
+process holding all its devices; :func:`local_batch_rows` is this rank's
+share of a global batch.
 
 The backend is the caller's to name: ``gloo`` for CPU tensors and for
 ranks that share one card (NCCL refuses two ranks on one device), ``nccl``
-only when every rank has a card of its own.
+only when every rank has a card of its own (:func:`default_backend`).
+
+The helpers :func:`all_to_all`, :func:`all_gather`, :func:`reduce_scatter`
+and :func:`all_reduce` are each one collective over a group,
+:func:`send_to_first` one send to rank 0. Under gloo a
+CUDA tensor is staged through pinned host memory by the helper itself (gloo
+moves CUDA tensors through the host in any case; a buffer above
+``PINNED_MAX`` is pageable, since the caching host allocator keeps every
+pinned block it made); under nccl it stays on the card. With ``LOG`` set to a list, each call appends (name, bytes this
+rank sent, seconds, its start on ``time.perf_counter``), which is how a
+run shows that only token buffers travel and what share of a step the
+collectives take.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import torch.multiprocessing as mp
 
 BACKENDS = ("gloo", "nccl")
 TIMEOUT = datetime.timedelta(seconds=600)  # a collective that waits longer raises
+LOG: Optional[list] = None  # (collective, bytes sent, seconds, start) per call when a list
 
 
 def initialize(
@@ -129,3 +143,214 @@ def run_ranks(fn: Callable[..., Any], world_size: int, *args, backend: str = "gl
     if failure is not None:
         raise RuntimeError(f"run_ranks({getattr(fn, '__name__', fn)}): {failure}")
     return [out[r] for r in range(world_size)]
+
+
+def default_backend(world_size: int, device: str) -> str:
+    """``nccl`` when the ranks are on the card and each has one of its own,
+    else ``gloo`` (CPU ranks, or ranks sharing a card)."""
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device: str, rank: int, backend: str) -> torch.device:
+    """The device of ``rank``: its own card under nccl, the one card the
+    ranks share under gloo, or the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and backend == "nccl":
+        return torch.device("cuda", rank)
+    return dev
+
+
+def local_batch_rows(rows, batch_size: int, parts: int, index: int):
+    """Part ``index`` of ``parts`` of one global batch's rows, contiguous
+    (distributed.py:68-82, with the batch group's size and place in place
+    of the process count and index): the global batch must divide."""
+    if parts == 1:
+        return rows
+    if batch_size % parts:
+        raise ValueError(f"global batch {batch_size} must divide over {parts} ranks")
+    per = batch_size // parts
+    return rows[index * per:(index + 1) * per]
+
+
+# ------------------------------------------------------------ collectives
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+PINNED_MAX = 256 * 2**20  # larger staging buffers are pageable: pinned ones stay cached
+
+
+def _pinned(nbytes: int) -> bool:
+    return nbytes <= PINNED_MAX
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=_pinned(t.numel() * t.element_size()))
+    h.copy_(t)
+    return h
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _log(name: str, nbytes: int, t0: float) -> None:
+    if LOG is not None:
+        LOG.append((name, int(nbytes), time.perf_counter() - t0, t0))
+
+
+def all_to_all(x: torch.Tensor, send_counts: list, recv_counts: list, group) -> torch.Tensor:
+    """Rows of ``x`` [sum(send_counts), ...] sent in blocks, block i to the
+    group's rank i; returns the received blocks [sum(recv_counts), ...] in
+    rank order (``all_to_all_single`` with uneven splits)."""
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    staged = _staged(x, group)
+    src = _host(x) if staged else x
+    shape = (sum(recv_counts),) + tuple(x.shape[1:])
+    out = torch.empty(shape, dtype=x.dtype, device=src.device,
+                      pin_memory=staged and _pinned(_numel(shape) * x.element_size()))
+    dist.all_to_all_single(out, src, [int(c) for c in recv_counts],
+                           [int(c) for c in send_counts], group=group)
+    if staged:
+        out = out.to(x.device)
+    _log("all_to_all", x.numel() * x.element_size(), t0)
+    return out
+
+
+def exchange_counts(counts: torch.Tensor, group) -> list:
+    """Each rank's int64 [n] send counts in, the counts each rank sends to
+    this one out (a list): the sizes an uneven all-to-all needs."""
+    t0 = time.perf_counter()
+    src = counts.to("cpu", torch.int64) if dist.get_backend(group) == "gloo" else counts.long()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _log("exchange_counts", src.numel() * 8, t0)
+    return out.tolist()
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim`` in rank order
+    (contiguous)."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    staged = _staged(moved, group)
+    src = _host(moved) if staged else moved
+    shape = (n * moved.shape[0],) + tuple(moved.shape[1:])
+    out = torch.empty(shape, dtype=x.dtype, device=src.device,
+                      pin_memory=staged and _pinned(_numel(shape) * x.element_size()))
+    dist.all_gather_into_tensor(out, src, group=group)
+    if staged:
+        out = out.to(x.device)
+    _log("all_gather", moved.numel() * moved.element_size(), t0)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over the group, this rank's block of it along
+    ``dim`` (the blocks in rank order; contiguous)."""
+    t0 = time.perf_counter()
+    n = dist.get_world_size(group)
+    moved = x.movedim(dim, 0).contiguous()
+    if moved.shape[0] % n:
+        raise ValueError(f"reduce_scatter: {moved.shape[0]} rows over {n} ranks")
+    staged = _staged(moved, group)
+    src = _host(moved) if staged else moved
+    shape = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+    out = torch.empty(shape, dtype=x.dtype, device=src.device,
+                      pin_memory=staged and _pinned(_numel(shape) * x.element_size()))
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    if staged:
+        out = out.to(x.device)
+    _log("reduce_scatter", moved.numel() * moved.element_size(), t0)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group, in place; returns ``x``."""
+    t0 = time.perf_counter()
+    if _staged(x, group):
+        h = _host(x.contiguous())
+        dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
+        x.copy_(h)
+    else:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    _log("all_reduce", x.numel() * x.element_size(), t0)
+    return x
+
+
+def send_to_first(x: torch.Tensor, owner: int) -> Optional[torch.Tensor]:
+    """Rank ``owner``'s ``x`` on rank 0 of the default group, on the CPU
+    (point to point; ``owner`` 0 keeps its own); None on the other ranks.
+    Every rank calls it with the same ``owner``."""
+    rank = dist.get_rank()
+    if rank not in (0, owner):
+        return None
+    t0 = time.perf_counter()
+    buf = x.detach().contiguous().cpu()
+    if owner != 0:
+        if rank == owner:
+            dist.send(buf, dst=0)
+            _log("send", buf.numel() * buf.element_size(), t0)
+            return None
+        dist.recv(buf, src=owner)
+    return buf
+
+
+class AllToAll(torch.autograd.Function):
+    """``all_to_all`` whose backward is the reverse all-to-all: each
+    received row's gradient goes back to the rank and place it came from."""
+
+    @staticmethod
+    def forward(ctx, x, send_counts, recv_counts, group):
+        ctx.counts, ctx.group = (send_counts, recv_counts), group
+        return all_to_all(x, send_counts, recv_counts, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        send_counts, recv_counts = ctx.counts
+        return all_to_all(grad, recv_counts, send_counts, ctx.group), None, None, None
+
+
+class SplitRows(torch.autograd.Function):
+    """This rank's block of rows of a tensor every rank of the group holds
+    whole. The backward gathers the blocks' gradients, so each rank gets the
+    whole gradient: the computation after the split runs on a block, the
+    one before it on every rank alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks")
+        size = x.shape[0] // n
+        return x[r * size:(r + 1) * size].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.group), None
+
+
+class GatherRows(torch.autograd.Function):
+    """Every rank's block of rows, concatenated in rank order. The backward
+    takes this rank's block of the gradient, which every rank holds whole:
+    summing it over the group would count it once per rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        size = grad.shape[0] // n
+        return grad[r * size:(r + 1) * size].contiguous(), None

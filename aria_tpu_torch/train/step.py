@@ -29,6 +29,16 @@ and ``clip_grad_norm_`` differ from it (eps and the clip threshold):
 Parameters, moments and the accumulator are updated in place to save
 device memory (the full recipe's 2.3 G trainable weights take 4.6 GB per
 copy in bf16).
+
+Over a mesh of ``data``, ``fsdp`` and ``expert`` (``mesh=``; the JAX
+package jits the same step under GSPMD) each rank holds its shard of the
+parameters and of the optimizer's state (``parallel/fsdp.py``) and the
+batch's rows of its place in the batch group. The step computes what one
+device computes on the whole batch: the cross-entropy is divided by the
+global count of valid labels, the MoE losses are the global formulas
+(``parallel/ep.py``), each gradient is summed over the batch group and
+never over ``expert``, the clip takes the global norm with each element
+counted once, and the metrics are the global ones.
 """
 
 from __future__ import annotations
@@ -40,7 +50,14 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from aria_tpu_torch.config import AriaConfig
-from aria_tpu_torch.models.aria import aria_forward, causal_lm_loss
+from aria_tpu_torch.models.aria import (
+    aria_forward,
+    causal_lm_loss,
+    chunked_lm_loss,
+    prepare_embeddings,
+)
+from aria_tpu_torch.models.moe_lm import lm_forward
+from aria_tpu_torch.parallel.mesh import lm_param_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,9 +150,20 @@ class Optimizer:
     applies one micro step's gradients to the parameters in place."""
 
     def __init__(self, tc: TrainConfig, mask: Optional[Dict[str, bool]] = None,
-                 every_k: int = 1):
+                 every_k: int = 1, mesh=None, specs: Optional[Dict[str, Any]] = None):
         self.tc, self.mask, self.every_k = tc, mask, max(every_k, 1)
         self.schedule = make_schedule(tc)
+        # on a mesh: the spec of each leaf's path, for the sharded global norm
+        self.mesh, self.specs = mesh, specs
+
+    def norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients (of this rank's shards on a
+        mesh, each element counted once)."""
+        if self.mesh is None:
+            return global_norm(grads)
+        from aria_tpu_torch.parallel.fsdp import global_norm_sq
+
+        return torch.sqrt(global_norm_sq(grads, self.mesh, self.specs))
 
     def trainable(self, params: Any) -> List[Tuple[str, torch.Tensor]]:
         return [(p, t) for p, t in leaves(params) if self.mask is None or self.mask[p]]
@@ -166,7 +194,7 @@ class Optimizer:
 
     def _adamw(self, grads, state, params) -> None:
         tc = self.tc
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         clip = not bool(norm < tc.grad_clip_norm)
         lr = self.schedule(state["count"])
         state["count"] += 1
@@ -192,15 +220,47 @@ def _batch_to(batch: dict, device) -> dict:
 
 
 def loss_fn(params, cfg: AriaConfig, batch: dict, remat: bool = False, lora=None,
-            lora_scale: float = 0.0):
+            lora_scale: float = 0.0, mesh=None):
     """(loss, LossOutput) of one batch {input_ids, labels, pixel_values?,
     pixel_mask?, attn_mask?} in training mode (step.py:102-115). Attention
     is causal, or where ``attn_mask`` (broadcastable to [B, H, S, S], True =
-    attend) says; padding is excluded by -100 labels."""
-    out = aria_forward(params, cfg, batch["input_ids"], batch.get("pixel_values"),
-                       batch.get("pixel_mask"), mask=batch.get("attn_mask"), training=True,
-                       lora=lora, lora_scale=lora_scale, remat=remat)
-    losses = causal_lm_loss(out, batch["labels"])
+    attend) says; padding is excluded by -100 labels. On a mesh the batch
+    is this rank's rows and the loss its share of the global loss: the
+    cross-entropy over the global count of valid labels, the MoE losses
+    their share (summed over the batch group, each is the global value);
+    the head and the cross-entropy run a chunk of positions at a time
+    (``chunked_lm_loss``), and a frozen ViT is gathered whole for the
+    encode alone."""
+    if mesh is None:
+        out = aria_forward(params, cfg, batch["input_ids"], batch.get("pixel_values"),
+                           batch.get("pixel_mask"), mask=batch.get("attn_mask"), training=True,
+                           lora=lora, lora_scale=lora_scale, remat=remat)
+        losses = causal_lm_loss(out, batch["labels"])
+        return losses.loss, losses
+    from aria_tpu_torch.parallel import distributed as dd
+    from aria_tpu_torch.parallel import fsdp
+
+    num_valid = (batch["labels"][:, 1:] != -100).sum().float().reshape(1)
+    if mesh.batch_size > 1:
+        num_valid = dd.all_reduce(num_valid, mesh.group("batch"))
+    # the embedding and a frozen ViT stay in shards until here (``_mesh_grads``):
+    # whole for the lookup and the encode only, on every rank (collectives),
+    # and freed before the decoder runs
+    lm = {**params["lm"], "embed": fsdp.gathered(params["lm"]["embed"],
+                                                 lm_param_specs()["embed"], mesh)}
+    embed_params = {**params, "lm": lm}
+    if mesh.shape["fsdp"] > 1 and not any(t.requires_grad for _, t in leaves(params["vision"])):
+        vision = {"vision": params["vision"]}
+        embed_params.update(fsdp.gather_whole(vision, mesh, fsdp.specs_by_path(vision)))
+    embeds = prepare_embeddings(embed_params, cfg, batch["input_ids"], batch.get("pixel_values"),
+                                batch.get("pixel_mask"))
+    del embed_params, lm
+    out = lm_forward(params["lm"], cfg.text, inputs_embeds=embeds, mask=batch.get("attn_mask"),
+                     training=True, lora=lora["lm"] if lora is not None else None,
+                     lora_scale=lora_scale, remat=remat, mesh=mesh, head=False)
+    # the head and the loss a chunk of positions at a time: no [B, S, V] logits
+    losses = chunked_lm_loss(out.hidden, params["lm"]["lm_head"], batch["labels"], out.z_loss,
+                             out.aux_loss, num_valid=num_valid, chunk=256)
     return losses.loss, losses
 
 
@@ -211,49 +271,108 @@ def _grads(loss: torch.Tensor, named: List[Tuple[str, torch.Tensor]]) -> Dict[st
     return {p: torch.zeros_like(t) if g is None else g for (p, t), g in zip(named, got)}
 
 
-def _metrics(losses, grads) -> Dict[str, torch.Tensor]:
-    return {"loss": losses.loss.detach(), "ce_loss": losses.ce_loss.detach(),
-            "z_loss": losses.z_loss.detach(), "aux_loss": losses.aux_loss.detach(),
-            "grad_norm": global_norm(grads)}
+def _metrics(losses, grads, optimizer: Optimizer) -> Dict[str, torch.Tensor]:
+    vals = torch.stack([losses.loss.detach(), losses.ce_loss.detach(),
+                        losses.z_loss.detach(), losses.aux_loss.detach()]).float()
+    mesh = optimizer.mesh
+    if mesh is not None and mesh.batch_size > 1:  # each rank's share -> the global values
+        from aria_tpu_torch.parallel import distributed as dd
+
+        vals = dd.all_reduce(vals, mesh.group("batch"))
+    loss, ce, z, aux = vals.unbind()
+    return {"loss": loss, "ce_loss": ce, "z_loss": z, "aux_loss": aux,
+            "grad_norm": optimizer.norm(grads)}
+
+
+def _mesh_grads(params: Any, named, optimizer: Optimizer, run) -> tuple:
+    """``run(forward tree)`` -> (loss, losses) over a mesh, and the
+    trainable shards' gradients summed over the batch group. The leaves
+    outside the decoder's layer stack are gathered whole for the step
+    (``fsdp.whole_leaves``); the layer stack's shards are gathered a layer
+    at a time inside the forward."""
+    from aria_tpu_torch.parallel import fsdp
+
+    mesh, specs = optimizer.mesh, optimizer.specs
+    trainable = {p: True for p, _ in named}
+    frozen_vit = not any(p.startswith("vision/") for p in trainable)
+    inside = ("lm/layers/", "lm/embed")  # gathered inside autograd by the forward
+    tree = fsdp.whole_leaves(params, mesh, specs, trainable,
+                             skip=inside + (("vision/",) if frozen_vit else ()))
+    by_path = dict(leaves(tree))
+    loss, losses = run(tree)
+    grads = _grads(loss, [(p, by_path[p]) for p, _ in named])
+    return losses, fsdp.reduce_grads(grads, mesh, specs, scattered=inside)
 
 
 def train_step(state: TrainState, batch: dict, cfg: AriaConfig, tc: TrainConfig,
-               optimizer: Optimizer) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               optimizer: Optimizer, mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One micro step of full fine-tuning (step.py:118-134): the trainable
     leaves' gradients (the ViT's too with ``freeze_vit=False``), frozen
-    layers zeroed, then the optimizer, in place."""
+    layers zeroed, then the optimizer, in place. Over a ``mesh`` the
+    parameters and the optimizer are this rank's shards (``make_optimizer(
+    mesh=)``) and ``batch`` this rank's rows."""
     named = optimizer.trainable(state.params)
     for _, t in named:
         t.requires_grad_(True)
     with torch.enable_grad():
-        loss, losses = loss_fn(state.params, cfg, batch, tc.gradient_checkpointing)
-        grads = _grads(loss, named)
+        if mesh is None:
+            loss, losses = loss_fn(state.params, cfg, batch, tc.gradient_checkpointing)
+            grads = _grads(loss, named)
+        else:
+            losses, grads = _mesh_grads(state.params, named, optimizer, lambda tree: loss_fn(
+                tree, cfg, batch, tc.gradient_checkpointing, mesh=mesh))
     _zero_frozen_layer_grads(grads, tc)
-    metrics = _metrics(losses, grads)
+    metrics = _metrics(losses, grads, optimizer)
     optimizer.update(grads, state.opt_state, state.params)
     return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
 def lora_train_step(state: TrainState, batch: dict, base_params: Any, cfg: AriaConfig,
-                    lora_scale: float, optimizer: Optimizer, remat: bool = False
+                    lora_scale: float, optimizer: Optimizer, remat: bool = False, mesh=None
                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One LoRA micro step (step.py:155-177): gradients reach only the
-    adapter tree; the base stays frozen."""
+    adapter tree; the base stays frozen. Over a ``mesh`` the base is this
+    rank's shards and the adapters are replicated."""
     named = optimizer.trainable(state.params)
     for _, t in named:
         t.requires_grad_(True)
     with torch.enable_grad():
-        loss, losses = loss_fn(base_params, cfg, batch, remat, lora=state.params,
-                               lora_scale=lora_scale)
-        grads = _grads(loss, named)
-    metrics = _metrics(losses, grads)
+        if mesh is None:
+            loss, losses = loss_fn(base_params, cfg, batch, remat, lora=state.params,
+                                   lora_scale=lora_scale)
+            grads = _grads(loss, named)
+        else:
+            from aria_tpu_torch.parallel import fsdp
+
+            tree = fsdp.whole_leaves(base_params, mesh, optimizer.base_specs, {},
+                                     skip=("lm/layers/", "lm/embed", "vision/"))
+            losses, grads = _mesh_grads(state.params, named, optimizer, lambda lora: loss_fn(
+                tree, cfg, batch, remat, lora=lora, lora_scale=lora_scale, mesh=mesh))
+    metrics = _metrics(losses, grads, optimizer)
     optimizer.update(grads, state.opt_state, state.params)
     return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
-def make_optimizer(tc: TrainConfig, params: Any, every_k: int = 1) -> Optimizer:
-    return Optimizer(tc, trainable_mask(params, tc), every_k)
+def make_optimizer(tc: TrainConfig, params: Any, every_k: int = 1, mesh=None) -> Optimizer:
+    """The full fine-tuning optimizer; over a ``mesh``, of the shards of
+    ``params`` (specs from ``aria_param_specs``)."""
+    specs = None
+    if mesh is not None:
+        from aria_tpu_torch.parallel.fsdp import specs_by_path
+
+        specs = specs_by_path(params)
+    return Optimizer(tc, trainable_mask(params, tc), every_k, mesh, specs)
 
 
-def make_lora_optimizer(tc: TrainConfig, every_k: int = 1) -> Optimizer:
-    return Optimizer(tc, None, every_k)
+def make_lora_optimizer(tc: TrainConfig, every_k: int = 1, mesh=None, lora: Any = None,
+                        base_params: Any = None) -> Optimizer:
+    """The LoRA optimizer; over a ``mesh`` it needs the adapter tree
+    (replicated) and the sharded base (``aria_param_specs``)."""
+    if mesh is None:
+        return Optimizer(tc, None, every_k)
+    from aria_tpu_torch.parallel.fsdp import specs_by_path
+    from aria_tpu_torch.parallel.mesh import P
+
+    opt = Optimizer(tc, None, every_k, mesh, {p: P() for p, _ in leaves(lora)})
+    opt.base_specs = specs_by_path(base_params)
+    return opt

@@ -20,8 +20,12 @@
    cache forms, at decode T = 1 and 32, on pages, at the speculative
    verify step's 8 tokens from a per-lane position, and at the from-zero
    prefill of 512 and 8,192 tokens (RoPE's bf16 branch).
-3. The text path: random-init the full-width 28-layer, 64+2-expert int4
-   serving model on the card, build ``Engine(max_seq_len=1024, int8 KV)``
+3. The text path: random-init the full-width, 64+2-expert int4 serving
+   model on the card at ``SERVING_LAYERS`` (14) of its 28 decoder layers
+   (the serving paths through 6f share that depth: 28 until PR 22, cut so
+   that ep-serve and train-mesh fit the run's time; the per-step launch
+   counts below are a layer's times that depth), build
+   ``Engine(max_seq_len=1024, int8 KV)``
    and answer three text requests through ``Engine.generate``; the five
    kernels of that path must each launch, and no layer of a decode step or
    of a from-zero prefill may call ``apply_rope`` or ``quantize_kv`` (the
@@ -36,14 +40,16 @@
    more than 128 tokens.
 5. The lanes path (bench.py's lanes child): ``BatchedEngine`` with 32
    lanes and the int4 KV cache serves a warm-up round of 32 x 50 tokens
-   and a timed one of 32 x 200; ``rope_kv_write`` and the int4
+   and a timed one of 32 x 100 (200 until PR 22: cut to make room for
+   ep-serve and train-mesh); ``rope_kv_write`` and the int4
    decode attention must launch. Then a profiled decode chunk (and the
    same chunk through the chain the fused prologue replaced: launches and
    busy time a step, side by side), a greedy int8-KV check, and a 2-layer
    batched decode step against the CPU.
 6. The paged path (bench.py's lanes child with ``--paged --kv-int8``):
    ``PagedBatchedEngine`` with 32 lanes on int8 pages serves a warm-up
-   round of 32 x 50 tokens and a timed one of 32 x 200 through 128-token
+   round of 32 x 50 tokens and a timed one of 32 x 100 (200 until PR 22)
+   through 128-token
    prefill chunks; ``paged_decode_attention`` must launch once per layer of
    every decode step. Then a profiled prefill tick and decode chunk (beside
    the chain's), where
@@ -139,10 +145,28 @@
    int8 cache, 8 lanes x 32 greedy tokens, equal to one card's, its decode
    steps writing through ``kv_cache_write`` (a mesh's writers keep the
    chain: ``rope_kv_write`` must not launch).
+6g. Expert-parallel serving (ep-serve), after cp: four ranks share cuda:0
+   over gloo, each with its 16 of the 64 experts of the full-width,
+   28-layer int4 serving form with the shared experts unfused, drawn from
+   the phase's seed (``init_lm_params_serving_int4(fuse_shared=False,
+   mesh=)``), the rest replicated. ``Engine(mesh=expert 4)`` with int8 KV
+   answers a 64-token prompt (the decode-MoE kernel over each rank's whole
+   stack) and a 300-token one (bucket 512: each layer's 16 experts
+   dequantized by ``expert_block_dequant``, through ``gmm``) with 32
+   greedy tokens each: ``moe_decode_int4`` launches 28 times a decode step
+   on each rank, and no collective carries more than the token buffers
+   (each call's bytes logged). Printed: tok/s, each rank's peak, the
+   collectives' share of the decode steps' wall. Held at 2 layers of one
+   whole 2-layer model: expert 4 and expert 2 (data 2 x expert 2) give the
+   same greedy tokens; the EP prefill's last-position logits within
+   ``EP_REF_LIMIT`` of one card's (a bf16 witness beside it);
+   ``BatchedEngine(mesh=expert 2 x model 2)``'s 8 x 32 greedy streams
+   against one card's (leading tokens that agree, printed).
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
    the int8 and then the bf16 serving form at full width and depth, the
    ViT and projector bf16. int8: bench.py's image request sampled (a
-   50-token warm-up, then 200 tokens) and twice greedy through ``Engine``
+   50-token warm-up, then 100 tokens: 200 until PR 22) and twice greedy
+   through ``Engine``
    (bf16 KV), bench.py's lanes child
    through ``BatchedEngine`` (32 lanes, bf16 KV, 64 tokens, a warm-up and
    a timed round), and a 2-layer prefill and decode step against the
@@ -152,10 +176,12 @@
 
 8. Training: with the forms freed, three runs through ``train()`` at full
    width on text and 980px image rows the script writes, batch 1 x 2048,
-   3 optimizer steps each (2 accumulated micro steps a step): train-lora,
+   2 optimizer steps each (2 accumulated micro steps a step; 3 until PR
+   22): train-lora,
    the LoRA recipe (recipes/config_lora.yaml) on a random bf16 base at 4
    decoder layers (the frozen ViT runs ``vit_flash``); train-qlora, the
-   same recipe with ``quantize_base`` at all 28 layers over the int8 base
+   same recipe with ``quantize_base`` at ``QLORA_LAYERS`` (14; 28 until PR
+   22) layers over the int8 base
    that ``train()`` quantizes a layer at a time (``expert_block_dequant``
    must launch); train-vit, the full recipe (recipes/config_full.yaml)
    with ``freeze_vit`` false and its mesh fields set to 1, at 2 decoder
@@ -174,6 +200,21 @@
    QLoRA over the int8 base, and train-vit's recipe with a 2-layer ViT,
    the projector and the decoder trained on a 490px image; each on the
    card against the CPU's plain versions, leaf by leaf.
+8b. train-mesh (run right after ep-serve, while the main process holds
+   the least of the card: the 8 ranks fill it): recipes/config_full.yaml
+   with its mesh as written (fsdp 2 x expert 4), 8 ranks sharing cuda:0
+   over gloo through ``train()``: full
+   width, 2 decoder layers, the whole ViT frozen (as the recipe says), its
+   batch of 8 with every 2nd row a 980px image, 2 optimizer steps of 2
+   micro steps, at 512 tokens (``TRAIN_MESH_SEQ``: 8 ranks' logits at
+   2,048 do not fit the card). ``gmm``, ``gmm_dlhs``, ``tgmm``,
+   ``split_hi_lo``, the flash forward and backward and ``vit_flash`` must
+   launch on every rank. Printed: each micro step's ms, each rank's peak
+   and resident parameter and optimizer bytes beside one rank's, the
+   collectives' share. Held: the first micro step's loss and aux loss
+   within 2e-3 relative of one rank's ``train()`` on the same global batches
+   and weights; rank 0's epoch-end checkpoint loads on one rank and its
+   trainable leaves are within ``TRAIN_MESH_LEAF`` of one rank's run.
 
 Phase 2 also holds the variants' kernels at their path's shapes
 (``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
@@ -218,6 +259,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+# The decoder's depth on the serving paths (text through the front doors):
+# 28 until PR 22, cut so that ep-serve and train-mesh fit the run's time;
+# cp, ep-serve and the forms build their own 28-layer models.
+SERVING_LAYERS = 14
+QLORA_LAYERS = 14  # train-qlora's decoder layers (28 until PR 22)
 
 
 def _gpu_info() -> str:
@@ -1693,7 +1739,7 @@ FORM_DECODE = {"int8": "moe_decode_quant", "bf16": "moe_decode"}
 SERVING_PATH = ("dense_int4", "moe_decode_int4", "decode_attention", "flash_causal",
                 "rope_kv_write", "paged_decode_attention")
 # newest first: a kernel's "launches" is the first with any
-PATHS = ("train-vit", "train-qlora", "frontdoor-serve", "frontdoor", "serving", "cp",
+PATHS = ("train-mesh", "ep-serve", "train-vit", "train-qlora", "frontdoor-serve", "frontdoor", "serving", "cp",
          "variants-lanes", "variants-image", "adapters", "train-lora", "image-bf16", "lanes-int8",
          "image-int8", "paged", "lanes", "image", "text")
 
@@ -2231,7 +2277,7 @@ def _lanes_rounds(device, engine, wrappers, lanes, top, new_tokens, rounds, gpu)
     return step_ms, total / (t2 - t0)
 
 
-def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2):
+def run_lanes(device, lm, cfg=None, gpu="", lanes=32, new_tokens=100, rounds=2):
     """Phase 5: bench.py's lanes child (bench.py:48-104, 247-256) through
     the port's ``BatchedEngine``: 32 lanes, max_seq_len 320, T 0.8, top-k
     200, decode_chunk 50, the int4 KV cache; each round submits 32 prompts
@@ -2421,7 +2467,7 @@ def _lanes_reference(device, lm, text, top, ref_layers=2):
 PREFIX_LOGIT_LIMIT = 5e-2  # relative first-token logit error, cached against uncached pages
 
 
-def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=200, rounds=2,
+def run_paged(device, lm, cfg=None, gpu="", lanes=32, new_tokens=100, rounds=2,
               max_seq=512, page_size=256, chunk=128):
     """Phase 6: bench.py's lanes child with ``--paged --kv-int8``
     (bench.py:48-104) through the port's ``PagedBatchedEngine``: 32 lanes,
@@ -3167,7 +3213,7 @@ def variants_on():
         moe_lm.DENSE_A8, moe_lm.MOE_A8, vit.VIT_FLASH = saved
 
 
-def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200,
+def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=100,
                  default_image=(float("nan"),) * 2, default_lanes=(float("nan"),) * 2):
     """The variants phase: the int4 model (still resident after the
     adapters phase) with the three kernel variants on. bench.py's image
@@ -3177,7 +3223,7 @@ def run_variants(device, gen, lm, cfg=None, gpu="", lanes=32, new_tokens=200,
     ``dense_int4_a8`` 56 times and ``moe_decode_int4_bf16`` 28 times, and
     neither ``vit_flash`` nor the W4A8 ``moe_decode_int4`` launches. Then
     bench.py's lanes child through ``BatchedEngine`` (32 lanes, int4 KV, a
-    warm-up round and a timed one of 200 tokens, T = 32 a decode step), a
+    warm-up round and a timed one of ``new_tokens``, T = 32 a decode step), a
     profiled decode chunk, the A/B against the default configuration's
     numbers from this call (``default_image``: run_image's (first-token
     ms, tok/s); ``default_lanes``: run_lanes' (tok/s, step ms)), and the
@@ -3494,8 +3540,9 @@ def _spec_round(device, engine, prompt, wrappers, gpu):
             fn()
             rows[label] = _launches_ms(fn)
         for label, (n_launch, dev_ms, wall) in rows.items():
-            print(f"  one {label} forward, 28 layers: {n_launch} kernel launches, device busy "
-                  f"{dev_ms:.3f} ms, wall {wall:.2f} ms (profiler on; {gpu})", flush=True)
+            print(f"  one {label} forward, {text.num_layers} layers: {n_launch} kernel "
+                  f"launches, device busy {dev_ms:.3f} ms, wall {wall:.2f} ms (profiler on; "
+                  f"{gpu})", flush=True)
     return spec
 
 
@@ -4018,6 +4065,249 @@ def run_cp(gpu="", device_type="cuda", cfg=None, sizes=CP_SIZES):
     return outs[0]["launches"]
 
 
+# ------------------------------------------------------------ expert parallelism
+
+# EP_SIZES: the ep-serve phase. Prompts "short" (bucket 64: the decode-MoE
+# kernel branch, up to 8 x 32 tokens) and "long" (bucket 512: the sliced
+# branch, each rank's 16 experts dequantized a layer and through gmm).
+EP_SIZES = {"short": 64, "long": 300, "new": 32, "max_seq": 1024,
+            "ref_prompt": 64, "ref_new": 16, "lanes": 8, "lane_prompt": 48, "lane_new": 32}
+# The 2-layer EP prefill's last-position logits against one card's, relative
+# L2. EP rounds each expert slot's output to bf16 for the return exchange
+# where one card keeps the weighted slot sum in f32 (tests/test_mesh_kernels.py
+# holds the JAX package's to 0.15 absolute at its tiny config); the bf16
+# witness (one ulp on half the embeddings) is printed beside.
+EP_REF_LIMIT = 5e-2
+
+
+def _ep_moe_launches(text, tokens: int, n: int) -> int:
+    """moe_decode_int4's launches of one forward over ``tokens`` tokens on
+    an expert mesh of n: each layer's padded [n, C] receive buffer (C = T/n
+    x k rows from each rank) in launches of at most 128 rows; 0 past the
+    kernel branch's 8 x 32 tokens."""
+    from aria_tpu_torch.ops.moe_decode_kernel import DECODE_KERNEL_MAX_TOKENS
+
+    t_pad = -(-tokens // n) * n
+    if t_pad > 8 * 32:
+        return 0
+    rows = t_pad * text.moe_topk
+    return text.num_layers * -(-rows // DECODE_KERNEL_MAX_TOKENS)
+
+
+def _ep_request(engine, prompt, new, wrappers, text, n):
+    """One greedy request through an EP engine: the result, the launches,
+    the collectives' log (those that started after the prefill are the
+    decode steps') and the largest token buffer of the prefill, in bytes."""
+    from aria_tpu_torch.engine.generate import GenerationConfig, _bucket
+    from aria_tpu_torch.parallel import distributed as dd
+
+    for w in wrappers.values():
+        w.launches = 0
+    dd.LOG = []
+    t0 = time.perf_counter()
+    res = engine.generate(prompt, GenerationConfig(max_new_tokens=new, temperature=0.0,
+                                                   decode_chunk=new))
+    log, dd.LOG = dd.LOG, None
+    decode_log = [e for e in log if e[3] >= t0 + res.prefill_s]
+    launches = {name: w.launches for name, w in wrappers.items()}
+    t_pad = -(-_bucket(len(prompt)) // n) * n
+    token_bytes = t_pad * text.moe_topk * text.hidden_size * 2  # the [n, C] buffers, bf16
+    return res, launches, (log, decode_log), token_bytes
+
+
+def _ep_rank(rank: int, seed: int, device_type: str = "cuda", cfg=None,
+             sizes: dict = EP_SIZES) -> dict:
+    """One rank of the ep-serve phase, on cuda:0 beside three others (gloo).
+    Returns its readings and the launches of its two requests. On the CPU
+    (``device_type``, a small ``cfg`` and ``sizes``: a rehearsal) the
+    wrappers run their plain versions and count no launch."""
+    import numpy as np
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.engine.generate import Engine, GenerationConfig
+    from aria_tpu_torch.engine.server import BatchedEngine
+    from aria_tpu_torch.models.moe_lm import KVCache, init_lm_params_serving_int4
+    from aria_tpu_torch.parallel.mesh import MeshConfig, make_mesh, serving_shard
+
+    on_card = device_type == "cuda"
+    device = torch.device(device_type, 0 if on_card else None)
+    if on_card:
+        torch.cuda.set_device(device)
+    cfg = cfg or AriaConfig()
+    text, z, n = cfg.text, sizes, 4
+    say = lambda msg: print(f"  [rank {rank}] {msg}", flush=True)  # noqa: E731
+    mesh = make_mesh(MeshConfig(expert=n))
+    mesh2 = make_mesh(MeshConfig(data=2, expert=2))  # two expert groups of 2
+    mesh_em = make_mesh(MeshConfig(expert=2, model=2))
+    t0 = time.perf_counter()
+    lm = init_lm_params_serving_int4(text, torch.Generator(device=device).manual_seed(seed),
+                                     fuse_shared=False, mesh=mesh, device=device)
+    _sync(device)
+    stack = sum(t.numel() * t.element_size() for w in ("w1", "w2")
+                for t in lm["layers"][w].values())
+    rest = sum(t.numel() * t.element_size() for k, v in lm.items() if k != "layers"
+               for t in (v.values() if isinstance(v, dict) else [v]))
+    rest += sum(t.numel() * t.element_size() for k, v in lm["layers"].items()
+                if k not in ("w1", "w2") for t in (v.values() if isinstance(v, dict) else [v]))
+    say(f"int4 serving form ({text.num_layers} layers, shared experts unfused), this rank's "
+        f"{lm['layers']['w1']['q4'].shape[1]} of {text.num_experts} experts, initialised in "
+        f"{time.perf_counter() - t0:.1f} s: experts {stack / 2**30:.2f} GiB, the rest "
+        f"{rest / 2**30:.2f} GiB")
+    rng = np.random.RandomState(seed)
+    out: dict = {"launches": {}, "streams": {}}
+    with torch.inference_mode():
+        engine = Engine({"lm": lm}, cfg, max_seq_len=z["max_seq"], cache_dtype=torch.int8,
+                        rng_seed=SEED, mesh=mesh)
+        wrappers = _wrappers()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        layer_stack = stack // text.num_layers // 2  # one layer's w1 or w2, about
+        for label in ("short", "long"):
+            prompt = [int(t) for t in rng.randint(1, text.vocab_size, z[label])]
+            res, launches, (log, decode_log), token_bytes = _ep_request(
+                engine, prompt, z["new"], wrappers, text, n)
+            steps = len(res.tokens) - 1
+            want = _ep_moe_launches(text, _bucket_of(prompt), n)
+            want += steps * _ep_moe_launches(text, 1, n)
+            got = launches["moe_decode_int4"]
+            if on_card and got != want:
+                raise AssertionError(f"ep-serve {label}: moe_decode_int4 launched {got} times, "
+                                     f"not {want} ({text.num_layers} a decode step)")
+            if on_card and label == "long" and not (launches["expert_block_dequant"]
+                                                    and launches["gmm"]):
+                raise AssertionError("ep-serve long: the sliced branch did not dequantize "
+                                     "through expert_block_dequant and gmm")
+            biggest = max(b for _, b, _, _ in log)
+            if biggest > token_bytes:
+                raise AssertionError(f"ep-serve {label}: a collective moved {biggest} bytes, "
+                                     f"above the token buffers' {token_bytes}")
+            coll_s = sum(s for _, _, s, _ in decode_log)
+            share = coll_s / res.decode_s if res.decode_s > 0 else float("nan")
+            if len(res.tokens) != z["new"] or not all(0 <= t < text.vocab_size
+                                                      for t in res.tokens):
+                raise AssertionError(f"ep-serve {label}: the tokens")
+            out["launches"][label] = launches
+            out["streams"][label] = res.tokens
+            out[label] = {"prefill_s": res.prefill_s, "tok_s": res.tokens_per_s,
+                          "share": share, "biggest": biggest, "calls": len(log)}
+            say(f"Engine(mesh=expert {n}, int8 KV) {label} {z[label]}-token prompt: prefill "
+                f"{res.prefill_s:.3f} s, {len(res.tokens)} greedy tokens at "
+                f"{res.tokens_per_s:.2f} tok/s; moe_decode_int4 {got} launches ({want} "
+                f"expected: {text.num_layers} a decode step), expert_block_dequant "
+                f"{launches['expert_block_dequant']}, gmm {launches['gmm']}; {len(log)} "
+                f"collectives, the largest {biggest} bytes (token buffers up to {token_bytes}, "
+                f"a layer's w1 shard {layer_stack}); collectives {share:.3f} of the decode "
+                f"steps' wall")
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+        say(f"device peak over the requests {out['peak_gib']:.2f} GiB")
+        del engine, lm
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # held at 2 layers, a whole 2-layer model drawn from the next seed on
+        # every rank (each mesh keeps its experts of it)
+        cut = dataclasses.replace(text, num_layers=2)
+        small = init_lm_params_serving_int4(
+            cut, torch.Generator(device=device).manual_seed(seed + 1), fuse_shared=False,
+            device=device)
+        small_cfg = cfg.replace(text=cut)
+        ref_prompt = [int(t) for t in rng.randint(1, text.vocab_size, z["ref_prompt"])]
+        greedy = GenerationConfig(max_new_tokens=z["ref_new"], temperature=0.0,
+                                  decode_chunk=z["ref_new"])
+        with moe_a8_off():  # as tests/test_mesh_kernels.py:149-171 (ARIA_TPU_A8=0)
+            t4 = Engine({"lm": small}, small_cfg, max_seq_len=256, cache_dtype=torch.int8,
+                        mesh=mesh).generate(ref_prompt, greedy).tokens
+            t2 = Engine({"lm": small}, small_cfg, max_seq_len=256, cache_dtype=torch.int8,
+                        mesh=mesh2).generate(ref_prompt, greedy).tokens
+        if t4 != t2:
+            raise AssertionError(f"ep-serve: expert 4 and expert 2 gave other tokens: {t4} "
+                                 f"{t2}")
+        out["invariant"] = t4
+
+        def first_logits(m, params, witness=False):
+            cache = KVCache.init(cut, 1, 256, torch.int8, device=device, mesh=m)
+            return _cp_logits(params, cut, ref_prompt, cache, m, witness=witness)[0][0]
+
+        ep_first = first_logits(mesh, serving_shard({"lm": small}, text.num_experts, mesh)["lm"])
+        if rank == 0:
+            one = first_logits(None, small)
+            witness = first_logits(None, small, witness=True)
+            rel, wit = _rel_err(ep_first, one), _rel_err(witness, one)
+            out.update(ref_rel=rel, ref_witness=wit)
+            say(f"2 layers: the EP prefill's last-position logits against one card's relative "
+                f"L2 {rel:.3e} (limit {EP_REF_LIMIT:.0e}; one card with one bf16 ulp on half "
+                f"the embeddings {wit:.3e})")
+            if not rel <= EP_REF_LIMIT:
+                raise AssertionError(f"ep-serve: the EP prefill's logits differ from one "
+                                     f"card's: {rel}")
+
+        prompts = [[int(t) for t in rng.randint(1, text.vocab_size, z["lane_prompt"])]
+                   for _ in range(z["lanes"])]
+
+        def serve(m):
+            srv = BatchedEngine({"lm": small}, small_cfg, max_lanes=z["lanes"], max_seq_len=128,
+                                decode_chunk=16, cache_dtype=torch.int8, rng_seed=SEED, mesh=m)
+            uids = [srv.submit(p, max_new_tokens=z["lane_new"]) for p in prompts]
+            fin = {r.uid: r for r in srv.run_until_complete()}
+            return [fin[u].generated for u in uids]
+
+        out["lanes"] = serve(mesh_em)
+        if rank == 0:
+            single = serve(None)
+            lead = [next((i for i, (a, b) in enumerate(zip(s, o)) if a != b), len(o))
+                    for s, o in zip(out["lanes"], single)]
+            out["lead"] = lead
+            say(f"BatchedEngine(mesh=expert 2 x model 2, int8 KV), {z['lanes']} lanes x "
+                f"{z['lane_new']} greedy tokens against one card's: leading tokens that agree "
+                f"{lead} ({sum(x == z['lane_new'] for x in lead)} streams equal)")
+    return out
+
+
+def _bucket_of(prompt) -> int:
+    from aria_tpu_torch.engine.generate import _bucket
+
+    return _bucket(len(prompt))
+
+
+def run_ep_serve(gpu="", device_type="cuda", cfg=None, sizes=EP_SIZES):
+    """The ep-serve phase: expert-parallel serving, 4 ranks sharing cuda:0
+    over gloo, each with its 16 of the 64 experts of the full-width,
+    full-depth int4 serving form (the shared experts unfused) drawn from the
+    phase's seed, the rest replicated. ``Engine(mesh=expert 4)`` with int8
+    KV answers a 64-token prompt (the decode-MoE kernel over each rank's
+    whole stack) and a 300-token one (bucket 512: the layer's 16 experts
+    dequantized, through gmm) with 32 greedy tokens each; ``moe_decode_int4``
+    launches 28 times a decode step on each rank and no collective carries
+    more than the token buffers. Held at 2 layers: expert 4 and expert 2
+    (data 2 x expert 2) give equal greedy tokens, and the EP prefill's
+    last-position logits stay within ``EP_REF_LIMIT`` of one card's;
+    ``BatchedEngine(mesh=expert 2 x model 2)``'s 8 streams are printed
+    against one card's (leading tokens that agree). Every rank must return
+    the same tokens. Returns rank 0's launches of the two requests."""
+    from aria_tpu_torch.parallel.distributed import run_ranks
+
+    outs = run_ranks(_ep_rank, 4, SEED + 15, device_type, cfg, sizes, backend="gloo",
+                     timeout_s=900)
+    for key in ("streams", "invariant", "lanes"):
+        if any(o[key] != outs[0][key] for o in outs[1:]):
+            raise AssertionError(f"ep-serve: the ranks returned different {key}")
+    for label in ("short", "long"):
+        prefill = " / ".join(f"{o[label]['prefill_s']:.3f}" for o in outs)
+        rate = " / ".join(f"{o[label]['tok_s']:.2f}" for o in outs)
+        share = " / ".join(f"{o[label]['share']:.3f}" for o in outs)
+        print(f"  ep-serve {label} ({gpu}): prefill {prefill} s, decode {rate} tok/s, "
+              f"collectives {share} of the decode steps' wall (ranks 0-3)", flush=True)
+    peaks = " / ".join(f"{o['peak_gib']:.2f}" for o in outs)
+    print(f"  ep-serve peaks {peaks} GiB; 2-layer logits {outs[0]['ref_rel']:.3e} (witness "
+          f"{outs[0]['ref_witness']:.3e}); expert 2 x model 2 lanes' leading agreement "
+          f"{outs[0]['lead']}", flush=True)
+    launches = dict(outs[0]["launches"]["short"])
+    for name, count in outs[0]["launches"]["long"].items():
+        launches[name] += count
+    return launches
+
+
 def _check_form_path(path, launches, form, image=True):
     """A forms path went through its form's kernels and left the int4 ones."""
     want = (FORM_DECODE[form], "gmm", "flash_causal")
@@ -4078,7 +4368,7 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
 
     int8: ``Engine(max_seq_len=1024)`` with a bf16 KV cache serves
     bench.py's image request sampled (T 0.8, top-k 200: a warm-up of
-    WARMUP_TOKENS, then 200 tokens) and twice greedy (64 tokens); ``BatchedEngine`` serves bench.py's lanes
+    WARMUP_TOKENS, then 100 tokens) and twice greedy (64 tokens); ``BatchedEngine`` serves bench.py's lanes
     child (``--lanes 32 --experts 64``: 32 prompts of 48 tokens, bf16 KV,
     max_seq_len 512, here 64 new tokens, a warm-up round and a timed one);
     then a 2-layer card-against-CPU reference. bf16, after the int8 model
@@ -4102,7 +4392,7 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
     pixels = np.random.RandomState(SEED).randint(0, 256, (1, 3, side, side), dtype=np.uint8)
     n_q = cfg.projector.query_count(vision.patches_per_side**2)
     prompt = [11] * 8 + [cfg.image_token_id] * n_q + [13] * 8
-    sampled = GenerationConfig(max_new_tokens=200, temperature=0.8, top_k=200, decode_chunk=50)
+    sampled = GenerationConfig(max_new_tokens=100, temperature=0.8, top_k=200, decode_chunk=50)
     greedy = GenerationConfig(max_new_tokens=64, temperature=0.0, decode_chunk=50)
     rng = np.random.RandomState(SEED + 2)
     ref_prompt = [int(t) for t in rng.randint(1, text.vocab_size, 200)]
@@ -4558,9 +4848,10 @@ def _cancellation(tmoe, lhs, rhs, grad, sizes, trans, label) -> float:
     return max(reads["held"])
 
 
-def _train_dataset(path, rows, images, seed):
+def _train_dataset(path, rows, images, seed, words=(180, 130, 90)):
     """A jsonl dataset of ``rows`` chat rows drawn from ``seed``: long
-    random-word text (most of a 2048-token sequence), every ``images``-th
+    random-word text (most of a 2048-token sequence: ``words`` of a text
+    row's question, an image row's, and the answer), every ``images``-th
     row (0: none) with one random 980px image."""
     import numpy as np
     from PIL import Image
@@ -4568,6 +4859,7 @@ def _train_dataset(path, rows, images, seed):
     rng = np.random.RandomState(seed)
     os.makedirs(path, exist_ok=True)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    n_text, n_image, n_answer = words
 
     def words(n):
         return " ".join("".join(rng.choice(letters, rng.randint(2, 9))) for _ in range(n))
@@ -4575,10 +4867,10 @@ def _train_dataset(path, rows, images, seed):
     with open(os.path.join(path, "train.jsonl"), "w") as f:
         for i in range(rows):
             image = images and i % images == 0
-            user = [{"type": "text", "text": words(130 if image else 180)}]
+            user = [{"type": "text", "text": words(n_image if image else n_text)}]
             row = {"messages": [{"role": "user", "content": user},
                                 {"role": "assistant", "content": [{"type": "text",
-                                                                   "text": words(90)}]}],
+                                                                   "text": words(n_answer)}]}],
                    "images": None, "video": None}
             if image:
                 name = f"image{i}.png"
@@ -5079,7 +5371,7 @@ def _watch_images(out: list, per_step: list | None = None):
 
 
 def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_layers=2,
-              vit_batch=8, steps=3):
+              vit_batch=8, steps=2, qlora_layers=QLORA_LAYERS):
     """The train phase (its kernels are checked in phase 2), at full width,
     ``steps`` optimizer steps each (x the recipes' 2 accumulated micro
     steps), on rows of 2048 tokens, some with a 980px image:
@@ -5132,7 +5424,7 @@ def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_la
     try:
         small = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=lora_layers))
         print(f"train-lora (recipes/config_lora.yaml): {lora_layers} decoder layers (cut from "
-              f"{L}: train-qlora runs the recipe at full depth), hidden {cfg.text.hidden_size}, "
+              f"{L}), hidden {cfg.text.hidden_size}, "
               f"{cfg.text.num_experts} experts, bf16 base; per_device_train_batch_size cut from "
               f"8 to {lora_batch}; every 2nd row with a 980px image", flush=True)
         counts, _, lora_built, _ = _recipe_run(device, work, "lora", small, gpu, steps,
@@ -5140,14 +5432,16 @@ def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_la
         lora_peak = peak_gib()
         need("train-lora", counts, ("flash_causal", "flash_causal_bwd", "vit_flash"))
 
-        print(f"train-qlora (recipes/config_lora.yaml, quantize_base true): {L} decoder layers, "
-              f"the int8 base of quantize_params_by_layer; batch {lora_batch}, every 2nd row "
-              f"with a 980px image", flush=True)
-        counts, _, built, _ = _recipe_run(device, work, "lora", cfg, gpu, steps, lora_batch, 2,
+        print(f"train-qlora (recipes/config_lora.yaml, quantize_base true): {qlora_layers} "
+              f"decoder layers (cut from {L}), the int8 base of quantize_params_by_layer; batch "
+              f"{lora_batch}, every 2nd row with a 980px image", flush=True)
+        qcfg = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=qlora_layers))
+        counts, _, built, _ = _recipe_run(device, work, "lora", qcfg, gpu, steps, lora_batch, 2,
                                           SEED, label="train-qlora", quantize_base=True)
         peak = peak_gib()
         print(f"  train-qlora: resident decoder {built['held'] / 1e9:.2f} GB in int8 (its bf16 "
-              f"form at {L} layers: {built['bf16'] / 1e9:.2f} GB; train-lora's bf16 decoder at "
+              f"form at {qlora_layers} layers: {built['bf16'] / 1e9:.2f} GB; train-lora's bf16 "
+              f"decoder at "
               f"{lora_layers} layers: {lora_built['held'] / 1e9:.2f} GB); device peak over the "
               f"steps {peak:.2f} GiB (train-lora's at {lora_layers} layers: {lora_peak:.2f} "
               f"GiB), over the build {built.get('peak_gib', float('nan')):.2f} GiB ({gpu})",
@@ -5208,6 +5502,253 @@ def run_train(device, gen, cfg=None, gpu="", lora_layers=4, lora_batch=1, vit_la
         if cuda:
             torch.cuda.empty_cache()
     return launches
+
+
+# train-mesh: recipes/config_full.yaml's mesh (fsdp 2 x expert 4) as 8 ranks
+# sharing the card. At 2,048 tokens a rank's 4 rows hold [4, 2048, 100352]
+# f32 logits three times over (logits, log-softmax, their gradient: ~10 GiB)
+# beside its shards, whole embed, head and ViT and the optimizer's state: 8
+# such ranks do not fit one card's 80 GB, so the phase runs at 512.
+TRAIN_MESH_SEQ = 512
+TRAIN_MESH = {"mesh_fsdp": 2, "mesh_expert": 4}
+
+
+def _train_mesh_rank(rank: int, recipe, cfg, steps: int, device_type: str) -> dict:
+    """One rank of train-mesh: ``train()`` on cuda:0 (or the CPU in a
+    rehearsal) with every launch count at 0 and the collectives logged.
+    Returns the launches, the peak, the resident bytes and the collectives'
+    seconds within the steps (before the epoch-end gather starts) and their
+    largest message."""
+    import torch
+
+    from aria_tpu_torch.parallel import distributed as dd
+    from aria_tpu_torch.train import loop
+
+    cuda = device_type == "cuda"
+    device = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    if cuda:
+        # 8 ranks share the card: segments that grow in place, so that a
+        # rank's cache does not hold freed blocks of one size the next
+        # allocation of another cannot use (2.4 GiB a rank without it)
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats()
+    else:
+        torch.set_num_threads(1)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    dd.LOG = []
+    saving = []
+    whole = loop._whole_state
+
+    def marked(*a, **kw):  # the epoch-end gather's start closes the steps' window
+        saving.append(time.perf_counter())
+        return whole(*a, **kw)
+
+    loop._whole_state = marked
+    t0 = time.perf_counter()
+    try:
+        state = loop.train(recipe, cfg, max_steps=steps, device=device)
+    finally:
+        loop._whole_state = whole
+    end = saving[0] if saving else time.perf_counter()
+    log, dd.LOG = dd.LOG, None
+    in_steps = [e for e in log if e[3] < end]
+    summary = loop._rank_summary(state, device)
+    summary.update(launches={name: w.launches for name, w in wrappers.items()},
+                   coll_s=sum(e[2] for e in in_steps), coll_calls=len(in_steps),
+                   coll_bytes=sum(e[1] for e in in_steps), run_s=end - t0,
+                   biggest=max((e[1], e[0]) for e in in_steps))
+    return summary
+
+
+def _one_rank_steps(recipe, cfg, micro: int, device) -> tuple:
+    """``train()``'s first ``micro`` micro steps of ``recipe`` on one rank
+    (its data order, build and optimizer), without a checkpoint: the final
+    state and each step's metrics with its ms."""
+    import random
+
+    import torch
+
+    from aria_tpu_torch.data.collate import collate_fn
+    from aria_tpu_torch.data.datasets import iter_batches, mix_datasets
+    from aria_tpu_torch.data.vision_processor import AriaVisionProcessor
+    from aria_tpu_torch.train import loop
+    from aria_tpu_torch.train.step import TrainState, make_optimizer, train_step
+
+    cfg = cfg.replace(text=dataclasses.replace(
+        cfg.text, moe_z_loss_coeff=recipe.moe_z_loss_coeff,
+        moe_aux_loss_coeff=recipe.moe_aux_loss_coeff))
+    dtype = torch.bfloat16 if recipe.dtype == "bfloat16" else torch.float32
+    rows = list(mix_datasets(recipe.dataset_mixer, seed=recipe.seed)["train"])
+    random.Random(recipe.seed).shuffle(rows)
+    total = max(len(rows) // recipe.per_device_train_batch_size, 1) * recipe.num_train_epochs
+    accum = max(recipe.gradient_accumulation_steps, 1)
+    tc = loop._to_train_config(recipe, min(total, micro) // accum)
+    params = loop.build_params(recipe, cfg, dtype, device)
+    opt = make_optimizer(tc, params, accum)
+    state = TrainState(params, opt.init(params), 0)
+    tokenizer, images = loop.build_tokenizer(recipe), AriaVisionProcessor(
+        max_image_size=recipe.max_image_size)
+    lines = []
+    for batch_rows in itertools.islice(iter_batches(rows, recipe.per_device_train_batch_size),
+                                       micro):
+        batch = loop._pad_batch(collate_fn(batch_rows, tokenizer, images,
+                                           max_length=recipe.max_seq_length,
+                                           max_image_size=recipe.max_image_size,
+                                           split_image=recipe.split_image),
+                                recipe.max_seq_length, tokenizer.pad_token_id)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, loop._device_batch(batch, device), cfg, tc, opt)
+        line = {k: float(v) for k, v in metrics.items()}
+        _sync(device)
+        lines.append({**line, "step_time_s": time.perf_counter() - t0})
+    return state, lines
+
+
+def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers=2, batch=8,
+                   world=8):
+    """train-mesh: recipes/config_full.yaml with its mesh as written (fsdp 2
+    x expert 4), 8 ranks on cuda:0 over gloo, through ``train_on_ranks``'
+    rank body: full width, ``layers`` decoder layers, the whole ViT frozen,
+    the recipe's batch of 8 with every 2nd row a 980px image, ``steps``
+    optimizer steps (2 accumulated micro steps each) at ``seq`` tokens.
+    ``gmm``, ``gmm_dlhs``, ``tgmm``, ``split_hi_lo``, the flash forward and
+    backward and ``vit_flash`` must launch on every rank. Printed: each
+    micro step's ms, each rank's peak and resident parameter and optimizer
+    bytes beside one rank's, the collectives' share of the steps. Held: the
+    first micro step's loss and aux loss within 2e-3 relative of one rank's
+    ``train()`` on the same global batch and weights; the trainable leaves
+    after the run within ``TRAIN_MESH_LEAF`` of one rank's; the checkpoint
+    rank 0 wrote loads on one rank. Returns rank 0's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aria_tpu_torch import AriaConfig
+    from aria_tpu_torch.checkpoint.io import latest_step, load_checkpoint
+    from aria_tpu_torch.data.tokenizer import ByteTokenizer
+    from aria_tpu_torch.parallel.distributed import run_ranks
+    from aria_tpu_torch.train import loop
+    from aria_tpu_torch.train.recipe import load_recipe
+    from aria_tpu_torch.train.step import leaves, trainable_mask
+
+    cuda = device.type == "cuda"
+    cfg = (cfg or AriaConfig.aria_25b()).replace(image_token_id=ByteTokenizer().image_token_id)
+    small = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=layers))
+    recipe = load_recipe(os.path.join(HERE, "recipes", "config_full.yaml"))
+    if (recipe.mesh_fsdp, recipe.mesh_expert) != (2, 4):
+        raise AssertionError("recipes/config_full.yaml's mesh is no longer fsdp 2 x expert 4")
+    micro = steps * recipe.gradient_accumulation_steps
+    work = tempfile.mkdtemp(prefix="aria_train_mesh_")
+    try:
+        ds = os.path.join(work, "ds")
+        # rows that fit 512 tokens with their answer (an image row's 980px
+        # image is 256 of them)
+        _train_dataset(ds, micro * batch, 2, SEED + 16, words=(40, 8, 20))
+        recipe = dataclasses.replace(recipe, per_device_train_batch_size=batch,
+                                     dataset_mixer={ds: 1}, max_seq_length=seq,
+                                     output_dir=os.path.join(work, "mesh"))
+        fsdp, expert = recipe.mesh_fsdp, recipe.mesh_expert
+        print(f"train-mesh (recipes/config_full.yaml, mesh fsdp {fsdp} x expert {expert} as "
+              f"written): {fsdp * expert} ranks on one card over gloo; {layers} decoder layers "
+              f"(cut from {cfg.text.num_layers}), the ViT frozen (as the recipe says); batch "
+              f"{batch} x {seq} (max_seq_length cut from 2048: 8 ranks' logits do not fit), "
+              f"every 2nd row a 980px image; {steps} optimizer steps of "
+              f"{recipe.gradient_accumulation_steps} micro steps", flush=True)
+        if cuda:
+            free, total = torch.cuda.mem_get_info(device)
+            print(f"  before the ranks start: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free "
+                  f"on the card, this process holding {torch.cuda.memory_reserved() / 2**30:.2f} "
+                  f"GiB", flush=True)
+        t0 = time.perf_counter()
+        outs = run_ranks(_train_mesh_rank, world, recipe, small, micro, device.type,
+                         backend="gloo", timeout_s=1200)
+        mesh_s = time.perf_counter() - t0
+        lines = [json.loads(line) for line in
+                 open(os.path.join(recipe.output_dir, "metrics.jsonl"))]
+        for line in lines:
+            print(f"  train-mesh micro step {line['step']}: {line['step_time_s'] * 1e3:.1f} ms, "
+                  f"loss {line['loss']:.5f}, aux {line['aux_loss']:.6f}, grad_norm "
+                  f"{line['grad_norm']:.5f} ({gpu})", flush=True)
+        for r, o in enumerate(outs):
+            print(f"  [rank {r}] peak {o['peak_bytes'] / 2**30:.2f} GiB, parameters "
+                  f"{o['param_bytes'] / 2**30:.3f} GiB, optimizer {o['opt_bytes'] / 2**30:.3f} "
+                  f"GiB; collectives {o['coll_s']:.2f} s of {o['run_s']:.2f} s (set-up "
+                  f"included), {o['coll_calls']} calls, {o['coll_bytes'] / 2**30:.2f} GiB sent, "
+                  f"the largest {o['biggest'][0] / 2**20:.1f} MiB ({o['biggest'][1]})",
+                  flush=True)
+        for r, o in enumerate(outs):
+            for name in ("gmm", "gmm_dlhs", "tgmm", "split_hi_lo", "flash_causal",
+                         "flash_causal_bwd", "vit_flash"):
+                if cuda and o["launches"][name] <= 0:
+                    raise AssertionError(f"train-mesh: {name} did not launch on rank {r}")
+        print(f"  train-mesh launches on rank 0: "
+              f"{ {k: v for k, v in outs[0]['launches'].items() if v} }", flush=True)
+        if len(lines) != micro:
+            raise AssertionError(f"train-mesh: {len(lines)} micro steps logged, not {micro}")
+
+        # one rank on the same global batches and weights: train()'s steps
+        # without its epoch-end save (the mesh's checkpoint is the one held)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, one_lines = _one_rank_steps(recipe, small, micro, device)
+        ref = loop._rank_summary(state, device)
+        print(f"  one rank: {time.perf_counter() - t1:.1f} s, micro steps "
+              f"{[round(x['step_time_s'] * 1e3, 1) for x in one_lines]} ms; peak "
+              f"{ref['peak_bytes'] / 2**30:.2f} GiB, parameters {ref['param_bytes'] / 2**30:.3f} "
+              f"GiB, optimizer {ref['opt_bytes'] / 2**30:.3f} GiB (a mesh rank holds "
+              f"{outs[0]['param_bytes'] / ref['param_bytes']:.3f} and "
+              f"{outs[0]['opt_bytes'] / ref['opt_bytes']:.3f} of them); the mesh's "
+              f"{fsdp * expert} ranks took {mesh_s:.1f} s with their start", flush=True)
+        for key in ("loss", "aux_loss"):
+            a, b = lines[0][key], one_lines[0][key]
+            rel = abs(a - b) / abs(b)
+            print(f"  first micro step {key}: mesh {a:.6f}, one rank {b:.6f}, relative "
+                  f"{rel:.2e} (limit 2e-3, tests/test_parallel.py:289-318)", flush=True)
+            if not rel <= 2e-3:
+                raise AssertionError(f"train-mesh: the first step's {key} is {rel} off one "
+                                     f"rank's")
+
+        # the checkpoint rank 0 wrote, loaded on one rank, against one rank's state
+        ckpt = os.path.join(recipe.output_dir, "checkpoints")
+        saved, _ = load_checkpoint(ckpt, latest_step(ckpt), "cpu", mmap=True)
+        mask = trainable_mask(state.params, loop._to_train_config(recipe, micro))
+        got, worst, moved = dict(leaves(saved["params"])), (0.0, ""), 0
+        for path, want in leaves(state.params):
+            if got[path].shape != want.shape:
+                raise AssertionError(f"train-mesh: the checkpoint's {path} is "
+                                     f"{tuple(got[path].shape)}, not {tuple(want.shape)}")
+            if not mask[path]:
+                continue
+            g, w = got[path].to(want.device).float(), want.float()
+            tol = TRAIN_MESH_LEAF * w.abs().max().item() + 2 * recipe.learning_rate * steps
+            moved += int((g != w).sum())
+            worst = max(worst, ((g - w).abs().max().item() / tol, path))
+        print(f"  the checkpoint (step {saved['step']}, rank 0) loads on one rank: the "
+              f"trainable leaves' largest difference from one rank's run {worst[0]:.3f} of its "
+              f"limit ({worst[1]}; the limit: {TRAIN_MESH_LEAF:.3e} of the leaf's largest value, "
+              f"a bf16 rounding of an update, plus 2 x lr a step, an Adam step whose sign "
+              f"flipped), {moved} elements differ", flush=True)
+        if saved["step"] != micro or not worst[0] <= 1.0:
+            raise AssertionError(f"train-mesh: the mesh's leaves differ from one rank's: "
+                                 f"{worst}")
+        del state, saved
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return outs[0]["launches"]
+
+
+# A trainable leaf after the run against one rank's: the two sum each
+# gradient in another order, so an element whose bf16 update rounds the
+# other way moves by one ulp (2^-8 of its value, at most 2^-7 of the leaf's
+# largest), and one whose gradient is near 0 may take an Adam step of the
+# other sign (2 x lr a step).
+TRAIN_MESH_LEAF = 2.0**-7
 
 
 # ------------------------------------------------------------ the front doors
@@ -5342,9 +5883,8 @@ class _Front:
 
     def __init__(self, engine, tokenizer):
         import threading
-        from http.server import ThreadingHTTPServer
 
-        from aria_tpu_torch.engine.http_server import ServingLoop, make_handler
+        from aria_tpu_torch.engine.http_server import HTTPServer, ServingLoop, make_handler
 
         self.engine, self.ticks, self.results = engine, 0, {}
         self.gate = threading.Event()
@@ -5367,7 +5907,7 @@ class _Front:
             return out
 
         self.loop.submit_and_wait = recorded
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(self.loop))
+        self.httpd = HTTPServer(("127.0.0.1", 0), make_handler(self.loop))
         threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
         self.url = f"http://127.0.0.1:{self.httpd.server_port}"
 
@@ -5905,6 +6445,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
     try:
+        from aria_tpu_torch import AriaConfig
         from aria_tpu_torch.ops import _build
     except ImportError as exc:
         print(f"chip_smoke: the aria_tpu_torch package is missing: {exc}", file=sys.stderr)
@@ -5934,29 +6475,37 @@ def main() -> int:
     check_train_kernels(device, gen(9), results)
     check_segment_bwd(device, gen(14), results)
     t0 = done("kernels", t0)
-    lm, text_launches = run_slice(device, gen(3), gpu=gpu)
+    # the serving paths' model: full width, SERVING_LAYERS deep
+    serve = AriaConfig()
+    serve = serve.replace(text=dataclasses.replace(serve.text, num_layers=SERVING_LAYERS))
+    lm, text_launches = run_slice(device, gen(3), serve, gpu=gpu)
     t0 = done("text", t0)
     launches = {"text": text_launches}
-    launches["image"], image_headline = run_image(device, gen(4), lm, gpu=gpu)
+    launches["image"], image_headline = run_image(device, gen(4), lm, serve, gpu=gpu)
     t0 = done("image", t0)
-    launches["lanes"], lanes_headline = run_lanes(device, lm, gpu=gpu)
+    launches["lanes"], lanes_headline = run_lanes(device, lm, serve, gpu=gpu)
     t0 = done("lanes", t0)
-    launches["paged"] = run_paged(device, lm, gpu=gpu)
+    launches["paged"] = run_paged(device, lm, serve, gpu=gpu)
     t0 = done("paged", t0)
-    launches["adapters"] = run_adapters(device, gen(10), lm, gpu=gpu)
+    launches["adapters"] = run_adapters(device, gen(10), lm, serve, gpu=gpu)
     t0 = done("adapters", t0)
-    launches.update(run_variants(device, gen(11), lm, gpu=gpu, default_image=image_headline,
+    launches.update(run_variants(device, gen(11), lm, serve, gpu=gpu, default_image=image_headline,
                                  default_lanes=lanes_headline))
     t0 = done("variants", t0)
-    launches["serving"] = run_serving(device, lm, gpu=gpu)
+    launches["serving"] = run_serving(device, lm, serve, gpu=gpu)
     t0 = done("serving", t0)
-    launches["frontdoor"] = run_frontdoor(device, gen(12), lm, gpu=gpu)
+    launches["frontdoor"] = run_frontdoor(device, gen(12), lm, serve, gpu=gpu)
     del lm  # the forms' models do not fit beside the int4 one
     t0 = done("frontdoor (HTTP)", t0)
     launches["frontdoor-serve"] = run_frontdoor_imports(device, gen(13), gpu=gpu)
     t0 = done("frontdoor (imports, cli/serve.py)", t0)
     launches["cp"] = run_cp(gpu=gpu)
     t0 = done("cp", t0)
+    launches["ep-serve"] = run_ep_serve(gpu=gpu)
+    t0 = done("ep-serve", t0)
+    # the 8 ranks fill the card: they run while this process holds the least
+    launches["train-mesh"] = run_train_mesh(device, gpu=gpu)
+    t0 = done("train-mesh", t0)
     launches.update(run_forms(device, gen(7), gpu=gpu))
     t0 = done("forms", t0)
     launches.update(run_train(device, gen(8), gpu=gpu))

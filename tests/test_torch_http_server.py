@@ -1,8 +1,8 @@
 """The port's HTTP front door (aria_tpu_torch/engine/http_server.py) on the
 tiny CPU model: every behaviour of tests/test_http_server.py (each of its
 classes, the same requests and checks) through a live
-``ThreadingHTTPServer`` over the port's ``BatchedEngine``, with
-``ByteTokenizer``; ``_chat_to_prompt`` against the JAX package's on the
+``ThreadingHTTPServer`` (``http_server.HTTPServer``) over the port's
+``BatchedEngine``, with ``ByteTokenizer``; ``_chat_to_prompt`` against the JAX package's on the
 same messages; a greedy request's tokens against the same prompt submitted
 straight to the engine; and a streamed request whose client hangs up after
 its first chunk, whose lane must be free again long before its token
@@ -19,7 +19,6 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from http.server import ThreadingHTTPServer
 
 import numpy as np
 import pytest
@@ -48,11 +47,12 @@ def _engine(params, **kw):
 
 
 class _Server:
-    """A live server on 127.0.0.1 over ``loop``; ``close()`` stops both."""
+    """A live server on 127.0.0.1 over ``loop`` (the front door's listener,
+    as ``serve`` builds it); ``close()`` stops both."""
 
     def __init__(self, loop):
         self.loop = loop
-        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(loop))
+        self.httpd = thttp.HTTPServer(("127.0.0.1", 0), make_handler(loop))
         threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
         self.url = f"http://127.0.0.1:{self.httpd.server_port}"
 

@@ -274,7 +274,12 @@ def test_load_checkpoint_defaults_to_the_card(tmp_path, monkeypatch):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh_fsdp"):
+    # model and context in training are not ported; fsdp, expert and data
+    # are, and need the ranks of their mesh (tests/test_torch_mesh_train.py)
+    for field in ("mesh_model", "mesh_context"):
+        with pytest.raises(NotImplementedError, match=field):
+            train(base_recipe(tmp_path, **{field: 2}), cfg=T_CFG, device="cpu")
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
         train(base_recipe(tmp_path, mesh_fsdp=2), cfg=T_CFG, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
