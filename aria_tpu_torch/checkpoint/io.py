@@ -314,27 +314,53 @@ def _lm_ends(get, dtype) -> dict:
             "lm_head": get("language_model.lm_head.weight").T.to(dtype).contiguous()}
 
 
-def import_hf_state_dict(sd, cfg: AriaConfig, dtype=torch.bfloat16, *, device="cuda") -> dict:
+def import_hf_state_dict(sd, cfg: AriaConfig, dtype=torch.bfloat16, *, device="cuda",
+                         mesh=None) -> dict:
     """HF Aria state dict (a mapping of name -> numpy array or tensor, or a
     :class:`SafetensorsDir`) -> the port's training tree on ``device``, the
-    card unless the caller names another (io.py:161-215)."""
+    card unless the caller names another (io.py:161-215). With a ``mesh``,
+    this rank's shard of each leaf by ``aria_param_specs``
+    (``parallel/mesh.shard_params``): each tensor is read on the CPU and
+    cut there, a decoder leaf layer by layer, before its shard goes to
+    ``device``, so that no rank holds an expert stack it does not own."""
     device = backend.device(device)
-    get = _getter(sd, device)
+    get = _getter(sd, device if mesh is None else torch.device("cpu"))
+    if mesh is not None:
+        from aria_tpu_torch.parallel.mesh import P, aria_param_specs, shard_leaf, shard_params
+
+        specs = aria_param_specs()
+
+    def part(tree: dict, name: str) -> dict:  # a subtree, cut by its specs on a mesh
+        if mesh is None:
+            return tree
+        spec = specs[name] if name != "lm" else {k: specs["lm"][k] for k in tree}
+        return _map_tensors(lambda t: t.to(device), shard_params(tree, spec, mesh))
+
+    def layer(fn, name: str):  # layer i's tensor of a decoder leaf
+        if mesh is None:
+            return fn
+        spec = P(*specs["lm"]["layers"][name][1:])  # the leaf's spec without its L axis
+        return lambda i: shard_leaf(fn(i), spec, mesh).to(device)
+
     tc = cfg.text
-    ends = _lm_ends(get, dtype)
-    layers = {k: _stack(tc.num_layers, fn, d or dtype)
+    layers = {k: _stack(tc.num_layers, layer(fn, k), d or dtype)
               for k, (fn, d) in _lm_layer_fns(get, tc).items()}
     return {
-        "vision": _import_vision(get, cfg.vision, dtype),
-        "projector": _import_projector(get, cfg.projector, dtype),
-        "lm": {"embed": ends["embed"], "layers": layers, "final_norm": ends["final_norm"],
-               "lm_head": ends["lm_head"]},
+        "vision": part(_import_vision(get, cfg.vision, dtype), "vision"),
+        "projector": part(_import_projector(get, cfg.projector, dtype), "projector"),
+        "lm": {**part(_lm_ends(get, dtype), "lm"), "layers": layers},
     }
 
 
-def import_hf_checkpoint(path: str, cfg: AriaConfig, dtype=torch.bfloat16, *, device="cuda"
-                         ) -> dict:
-    return import_hf_state_dict(SafetensorsDir(path), cfg, dtype, device=device)
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def import_hf_checkpoint(path: str, cfg: AriaConfig, dtype=torch.bfloat16, *, device="cuda",
+                         mesh=None) -> dict:
+    return import_hf_state_dict(SafetensorsDir(path), cfg, dtype, device=device, mesh=mesh)
 
 
 def import_hf_serving(src, cfg: AriaConfig, *, form: str = "int8", dtype=torch.bfloat16,

@@ -122,18 +122,14 @@ def aria_forward(
     lora: Optional[dict] = None,  # {"lm": {"layers": {...}}}
     lora_scale: float = 0.0,
     remat: bool = False,
-    mesh=None,  # parallel/mesh.Mesh: the decoder's (see lm_forward)
-    head: bool = True,  # False: the final norm's output in place of the logits
 ) -> LMOutput:
     """Embeddings with the image features scattered in, then the decoder
     over the whole sequence with causal attention, or where ``mask`` says
-    (aria.py:101-126). On a mesh the ViT and the projector run on this
-    rank's rows as on one card: replicated over ``expert``, the batch split
-    over ``data`` x ``fsdp``, as their spec trees leave them."""
+    (aria.py:101-126)."""
     embeds = prepare_embeddings(params, cfg, tokens, pixel_values, pixel_mask)
     return lm_forward(params["lm"], cfg.text, inputs_embeds=embeds, mask=mask,
                       training=training, lora=lora["lm"] if lora is not None else None,
-                      lora_scale=lora_scale, remat=remat, mesh=mesh, head=head)
+                      lora_scale=lora_scale, remat=remat)
 
 
 class LossOutput(NamedTuple):
@@ -143,52 +139,58 @@ class LossOutput(NamedTuple):
     aux_loss: torch.Tensor
 
 
+LOSS_CHUNK = 256  # positions a chunk of chunked_lm_loss
+VOCAB_BLOCK = 8192  # columns a block of its head product
+
+
 def chunked_lm_loss(hidden: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, z_loss,
-                    aux_loss, *, num_valid: Optional[torch.Tensor] = None, chunk: int = 1024,
-                    vocab_block: int = 8192) -> LossOutput:
+                    aux_loss, num_valid: torch.Tensor) -> LossOutput:
     """``causal_lm_loss`` from the final norm's output ``hidden`` [B, S, D]
-    (``lm_forward(head=False)``): the head and the cross-entropy of
-    ``chunk`` positions at a time, each recomputed in the backward
-    (``torch.utils.checkpoint``), so that no [B, S, V] f32 logits are held;
-    the head's product runs on blocks of ``vocab_block`` columns, so that
-    its f32 backward upcasts a block of the [D, V] weight, not all of it
-    (two f32 copies of a 100K vocabulary's head are 2 GB). The same sums,
-    in another order."""
+    (``lm_forward(head=False)``), the training step's loss: the head and
+    the cross-entropy of ``LOSS_CHUNK`` positions at a time, each
+    recomputed in the backward (``torch.utils.checkpoint``), so that no
+    [B, S, V] f32 logits are held; the head's product runs on blocks of
+    ``VOCAB_BLOCK`` columns, so that its f32 backward upcasts a block of the
+    [D, V] weight, not all of it (two f32 copies of a 100K vocabulary's
+    head are 2 GB). The sum is divided by ``num_valid``, the valid labels
+    of the whole batch (on a mesh more than this rank's rows hold). The
+    same sums as ``causal_lm_loss``, in another order."""
     from torch.utils.checkpoint import checkpoint
 
-    from aria_tpu_torch.ops.quant import linear
+    from aria_tpu_torch.ops.quant import is_quantized, linear
 
     D = hidden.shape[-1]
     h = hidden[:, :-1].reshape(-1, D)
     targets = labels[:, 1:].reshape(-1).long()
     valid = targets != -100
     safe = torch.where(valid, targets, 0)
-    blocks = lm_head.split(vocab_block, dim=1)
+    if is_quantized(lm_head):  # QLoRA's int8 head: its scales run over the columns too
+        blocks = [{"q": q, "s": sc} for q, sc in zip(lm_head["q"].split(VOCAB_BLOCK, dim=1),
+                                                     lm_head["s"].split(VOCAB_BLOCK, dim=-1))]
+    else:
+        blocks = lm_head.split(VOCAB_BLOCK, dim=1)
 
     def part(h, t, v):
         logits = torch.cat([linear(h, w) for w in blocks], dim=-1)
         logp = torch.log_softmax(logits.float(), dim=-1)
         return -torch.sum(torch.where(v, torch.gather(logp, -1, t[:, None])[:, 0], 0.0))
 
-    total = sum(checkpoint(part, h[i:i + chunk], safe[i:i + chunk], valid[i:i + chunk],
-                           use_reentrant=False) for i in range(0, h.shape[0], chunk))
-    count = valid.sum() if num_valid is None else num_valid.reshape(())
-    ce = total / torch.clamp_min(count, 1)
+    n = LOSS_CHUNK
+    total = sum(checkpoint(part, h[i:i + n], safe[i:i + n], valid[i:i + n], use_reentrant=False)
+                for i in range(0, h.shape[0], n))
+    ce = total / torch.clamp_min(num_valid.reshape(()), 1)
     return LossOutput(ce + z_loss + aux_loss, ce, z_loss, aux_loss)
 
 
-def causal_lm_loss(out: LMOutput, labels: torch.Tensor, *, include_aux: bool = True,
-                   num_valid: Optional[torch.Tensor] = None) -> LossOutput:
+def causal_lm_loss(out: LMOutput, labels: torch.Tensor, *, include_aux: bool = True
+                   ) -> LossOutput:
     """Shifted cross-entropy in f32 over the positions whose label is not
-    -100, plus the MoE z and aux losses (aria.py:136-148). ``num_valid``
-    (the valid labels of the whole batch, when ``labels`` are a part of it)
-    divides the sum in place of this part's count."""
+    -100, plus the MoE z and aux losses (aria.py:136-148)."""
     logits = out.logits[:, :-1].float()
     targets = labels[:, 1:].long()
     valid = targets != -100
     logp = torch.log_softmax(logits, dim=-1)
     tok_logp = torch.gather(logp, -1, torch.where(valid, targets, 0)[..., None])[..., 0]
-    count = valid.sum() if num_valid is None else num_valid.reshape(())
-    ce = -torch.sum(torch.where(valid, tok_logp, 0.0)) / torch.clamp_min(count, 1)
+    ce = -torch.sum(torch.where(valid, tok_logp, 0.0)) / torch.clamp_min(valid.sum(), 1)
     loss = ce + (out.z_loss + out.aux_loss if include_aux else 0.0)
     return LossOutput(loss, ce, out.z_loss, out.aux_loss)

@@ -18,14 +18,12 @@ only when every rank has a card of its own (:func:`default_backend`).
 
 The helpers :func:`all_to_all`, :func:`all_gather`, :func:`reduce_scatter`
 and :func:`all_reduce` are each one collective over a group,
-:func:`send_to_first` one send to rank 0. Under gloo a
-CUDA tensor is staged through pinned host memory by the helper itself (gloo
-moves CUDA tensors through the host in any case; a buffer above
-``PINNED_MAX`` is pageable, since the caching host allocator keeps every
-pinned block it made); under nccl it stays on the card. With ``LOG`` set to a list, each call appends (name, bytes this
-rank sent, seconds, its start on ``time.perf_counter``), which is how a
-run shows that only token buffers travel and what share of a step the
-collectives take.
+:func:`send_to_first` one send to rank 0. They take tensors where they
+lie: gloo moves a CUDA tensor through host memory itself, nccl keeps it on
+the card. With ``LOG`` set to a list, each call appends (name, bytes this
+rank sent, seconds until the call returned, its start on
+``time.perf_counter``), which is how a run shows that only token buffers
+travel and what share of a step the collectives take.
 """
 
 from __future__ import annotations
@@ -162,6 +160,26 @@ def rank_device(device: str, rank: int, backend: str) -> torch.device:
     return dev
 
 
+CONTEXT_SLACK = 256 * 2**20  # a rank's share kept back for the kernels its context loads later
+
+
+def share_card(device: torch.device) -> int:
+    """For ranks that share one card: cap this rank's caching allocator at
+    an equal share of the memory free once every rank has made its context
+    (less ``CONTEXT_SLACK``). A rank that reaches its share frees the blocks
+    it has cached, those gloo's copies leave on its own streams too, before
+    it asks for more, so that one rank's cache cannot starve another. Every
+    rank of the default group calls it before it allocates; returns the
+    share in bytes."""
+    torch.zeros(1, device=device)  # this rank's context
+    dist.barrier()
+    free, total = torch.cuda.mem_get_info(device)
+    dist.barrier()  # every rank has read before any allocates
+    share = free / dist.get_world_size() - CONTEXT_SLACK
+    torch.cuda.set_per_process_memory_fraction(share / total, device)
+    return int(share)
+
+
 def local_batch_rows(rows, batch_size: int, parts: int, index: int):
     """Part ``index`` of ``parts`` of one global batch's rows, contiguous
     (distributed.py:68-82, with the batch group's size and place in place
@@ -176,30 +194,6 @@ def local_batch_rows(rows, batch_size: int, parts: int, index: int):
 
 # ------------------------------------------------------------ collectives
 
-def _staged(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
-PINNED_MAX = 256 * 2**20  # larger staging buffers are pageable: pinned ones stay cached
-
-
-def _pinned(nbytes: int) -> bool:
-    return nbytes <= PINNED_MAX
-
-
-def _host(t: torch.Tensor) -> torch.Tensor:
-    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=_pinned(t.numel() * t.element_size()))
-    h.copy_(t)
-    return h
-
-
-def _numel(shape) -> int:
-    n = 1
-    for d in shape:
-        n *= int(d)
-    return n
-
-
 def _log(name: str, nbytes: int, t0: float) -> None:
     if LOG is not None:
         LOG.append((name, int(nbytes), time.perf_counter() - t0, t0))
@@ -211,15 +205,9 @@ def all_to_all(x: torch.Tensor, send_counts: list, recv_counts: list, group) -> 
     rank order (``all_to_all_single`` with uneven splits)."""
     t0 = time.perf_counter()
     x = x.contiguous()
-    staged = _staged(x, group)
-    src = _host(x) if staged else x
-    shape = (sum(recv_counts),) + tuple(x.shape[1:])
-    out = torch.empty(shape, dtype=x.dtype, device=src.device,
-                      pin_memory=staged and _pinned(_numel(shape) * x.element_size()))
-    dist.all_to_all_single(out, src, [int(c) for c in recv_counts],
+    out = x.new_empty((sum(recv_counts),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, [int(c) for c in recv_counts],
                            [int(c) for c in send_counts], group=group)
-    if staged:
-        out = out.to(x.device)
     _log("all_to_all", x.numel() * x.element_size(), t0)
     return out
 
@@ -228,7 +216,7 @@ def exchange_counts(counts: torch.Tensor, group) -> list:
     """Each rank's int64 [n] send counts in, the counts each rank sends to
     this one out (a list): the sizes an uneven all-to-all needs."""
     t0 = time.perf_counter()
-    src = counts.to("cpu", torch.int64) if dist.get_backend(group) == "gloo" else counts.long()
+    src = counts.long().contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
     _log("exchange_counts", src.numel() * 8, t0)
@@ -241,14 +229,8 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     t0 = time.perf_counter()
     n = dist.get_world_size(group)
     moved = x.movedim(dim, 0).contiguous()
-    staged = _staged(moved, group)
-    src = _host(moved) if staged else moved
-    shape = (n * moved.shape[0],) + tuple(moved.shape[1:])
-    out = torch.empty(shape, dtype=x.dtype, device=src.device,
-                      pin_memory=staged and _pinned(_numel(shape) * x.element_size()))
-    dist.all_gather_into_tensor(out, src, group=group)
-    if staged:
-        out = out.to(x.device)
+    out = moved.new_empty((n * moved.shape[0],) + tuple(moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=group)
     _log("all_gather", moved.numel() * moved.element_size(), t0)
     return out.movedim(0, dim).contiguous() if dim else out
 
@@ -261,14 +243,8 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     moved = x.movedim(dim, 0).contiguous()
     if moved.shape[0] % n:
         raise ValueError(f"reduce_scatter: {moved.shape[0]} rows over {n} ranks")
-    staged = _staged(moved, group)
-    src = _host(moved) if staged else moved
-    shape = (moved.shape[0] // n,) + tuple(moved.shape[1:])
-    out = torch.empty(shape, dtype=x.dtype, device=src.device,
-                      pin_memory=staged and _pinned(_numel(shape) * x.element_size()))
-    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
-    if staged:
-        out = out.to(x.device)
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=group)
     _log("reduce_scatter", moved.numel() * moved.element_size(), t0)
     return out.movedim(0, dim).contiguous() if dim else out
 
@@ -276,12 +252,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group, in place; returns ``x``."""
     t0 = time.perf_counter()
-    if _staged(x, group):
-        h = _host(x.contiguous())
-        dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
-        x.copy_(h)
-    else:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     _log("all_reduce", x.numel() * x.element_size(), t0)
     return x
 

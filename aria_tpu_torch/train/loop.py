@@ -55,15 +55,10 @@ from aria_tpu_torch.parallel.distributed import (
     local_batch_rows,
     rank_device,
     run_ranks,
+    share_card,
 )
-from aria_tpu_torch.parallel.mesh import (
-    MeshConfig,
-    P,
-    aria_param_specs,
-    make_mesh,
-    shard_leaf,
-    shard_params,
-)
+from aria_tpu_torch.parallel.fsdp import specs_by_path
+from aria_tpu_torch.parallel.mesh import MeshConfig, P, make_mesh, shard_leaf
 from aria_tpu_torch.train.lora import LoraConfig, init_lora_params
 from aria_tpu_torch.train.recipe import Recipe
 from aria_tpu_torch.train.step import (
@@ -130,16 +125,19 @@ def build_tokenizer(r: Recipe):
 
 def build_params(r: Recipe, cfg: AriaConfig, dtype, device, mesh=None):
     """The training tree from the recipe's ``model_path`` or its seed; on a
-    mesh, this rank's shard of it."""
+    mesh, this rank's shard of it, read on the CPU (a checkpoint mapped, an
+    HF import a layer at a time) and cut there before it reaches
+    ``device``: no rank holds leaves it does not own."""
     if r.model_path and os.path.isdir(r.model_path):
         if any(f.endswith(".safetensors") for f in os.listdir(r.model_path)):
-            params = import_hf_checkpoint(r.model_path, cfg, dtype, device=device)
-        else:
-            step = latest_step(r.model_path)
-            if step is None:
-                raise FileNotFoundError(f"no checkpoint found at {r.model_path}")
-            params = load_checkpoint(r.model_path, step, device)[0]
-        return params if mesh is None else shard_params(params, aria_param_specs(), mesh)
+            return import_hf_checkpoint(r.model_path, cfg, dtype, device=device, mesh=mesh)
+        step = latest_step(r.model_path)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found at {r.model_path}")
+        if mesh is None:
+            return load_checkpoint(r.model_path, step, device)[0]
+        whole = load_checkpoint(r.model_path, step, "cpu", mmap=True)[0]
+        return _shard_to(whole, mesh, specs_by_path(whole), device)
     gen = torch.Generator(device=device).manual_seed(r.seed)
     return init_aria_params(cfg, gen, device=device, dtype=dtype, mesh=mesh)
 
@@ -187,23 +185,24 @@ def _whole_state(state: TrainState, mesh, specs: dict) -> Optional[dict]:
     return {"params": params, "opt_state": opt, "step": state.step}
 
 
+def _shard_to(tree, mesh, specs: dict, device, prefix: str = ""):
+    """This rank's shards of a whole tree (``specs``: path -> spec) on
+    ``device``, each cut before it is moved."""
+    if isinstance(tree, dict):
+        return {k: _shard_to(v, mesh, specs, device, f"{prefix}{k}/") for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return shard_leaf(tree, specs.get(prefix[:-1], P()), mesh).to(device)
+
+
 def _shard_state(restored: dict, mesh, specs: dict, device) -> TrainState:
     """A one-device checkpoint's state cut to this rank's shards on
     ``device``."""
-    def cut(t, path):
-        if not isinstance(t, torch.Tensor):
-            return t
-        return shard_leaf(t, specs.get(path, P()), mesh).to(device)
-
-    def walk(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
-        return cut(tree, prefix[:-1])
-
     opt = dict(restored["opt_state"])
     for k, tree in _opt_paths(opt).items():
-        opt[k] = {path: cut(t, path) for path, t in tree.items()}
-    return TrainState(walk(restored["params"]), opt, restored["step"])
+        opt[k] = {path: _shard_to(t, mesh, specs, device, f"{path}/")
+                  for path, t in tree.items()}
+    return TrainState(_shard_to(restored["params"], mesh, specs, device), opt, restored["step"])
 
 
 def train_on_ranks(r: Recipe, cfg: Optional[AriaConfig] = None,
@@ -237,6 +236,8 @@ def _train_rank(rank: int, r: Recipe, cfg, max_steps, device: str, backend_name:
     dev = rank_device(device, rank, backend_name)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        if backend_name == "gloo" and dist.get_world_size() > 1:  # the ranks share the card
+            share_card(dev)
     else:
         torch.set_num_threads(1)
     return _rank_summary(train(r, cfg, max_steps, device=dev), dev)

@@ -50,12 +50,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from aria_tpu_torch.config import AriaConfig
-from aria_tpu_torch.models.aria import (
-    aria_forward,
-    causal_lm_loss,
-    chunked_lm_loss,
-    prepare_embeddings,
-)
+from aria_tpu_torch.models.aria import chunked_lm_loss, prepare_embeddings
 from aria_tpu_torch.models.moe_lm import lm_forward
 from aria_tpu_torch.parallel.mesh import lm_param_specs
 
@@ -224,43 +219,39 @@ def loss_fn(params, cfg: AriaConfig, batch: dict, remat: bool = False, lora=None
     """(loss, LossOutput) of one batch {input_ids, labels, pixel_values?,
     pixel_mask?, attn_mask?} in training mode (step.py:102-115). Attention
     is causal, or where ``attn_mask`` (broadcastable to [B, H, S, S], True =
-    attend) says; padding is excluded by -100 labels. On a mesh the batch
-    is this rank's rows and the loss its share of the global loss: the
-    cross-entropy over the global count of valid labels, the MoE losses
-    their share (summed over the batch group, each is the global value);
-    the head and the cross-entropy run a chunk of positions at a time
-    (``chunked_lm_loss``), and a frozen ViT is gathered whole for the
-    encode alone."""
-    if mesh is None:
-        out = aria_forward(params, cfg, batch["input_ids"], batch.get("pixel_values"),
-                           batch.get("pixel_mask"), mask=batch.get("attn_mask"), training=True,
-                           lora=lora, lora_scale=lora_scale, remat=remat)
-        losses = causal_lm_loss(out, batch["labels"])
-        return losses.loss, losses
-    from aria_tpu_torch.parallel import distributed as dd
-    from aria_tpu_torch.parallel import fsdp
-
+    attend) says; padding is excluded by -100 labels. The head and the
+    cross-entropy run a chunk of positions at a time (``chunked_lm_loss``).
+    On a mesh the batch is this rank's rows and the loss its share of the
+    global loss: the cross-entropy over the global count of valid labels,
+    the MoE losses their share (summed over the batch group, each is the
+    global value); the embedding and a frozen ViT are gathered whole for
+    the lookup and the encode alone."""
     num_valid = (batch["labels"][:, 1:] != -100).sum().float().reshape(1)
-    if mesh.batch_size > 1:
-        num_valid = dd.all_reduce(num_valid, mesh.group("batch"))
-    # the embedding and a frozen ViT stay in shards until here (``_mesh_grads``):
-    # whole for the lookup and the encode only, on every rank (collectives),
-    # and freed before the decoder runs
-    lm = {**params["lm"], "embed": fsdp.gathered(params["lm"]["embed"],
-                                                 lm_param_specs()["embed"], mesh)}
-    embed_params = {**params, "lm": lm}
-    if mesh.shape["fsdp"] > 1 and not any(t.requires_grad for _, t in leaves(params["vision"])):
-        vision = {"vision": params["vision"]}
-        embed_params.update(fsdp.gather_whole(vision, mesh, fsdp.specs_by_path(vision)))
+    embed_params = params
+    if mesh is not None:
+        from aria_tpu_torch.parallel import distributed as dd
+        from aria_tpu_torch.parallel import fsdp
+
+        if mesh.batch_size > 1:
+            num_valid = dd.all_reduce(num_valid, mesh.group("batch"))
+        # the embedding and a frozen ViT stay in shards until here (``_step_grads``):
+        # whole for the lookup and the encode only, on every rank (collectives),
+        # and freed before the decoder runs
+        lm = {**params["lm"], "embed": fsdp.gathered(params["lm"]["embed"],
+                                                     lm_param_specs()["embed"], mesh)}
+        embed_params = {**params, "lm": lm}
+        if mesh.shape["fsdp"] > 1 and not any(t.requires_grad
+                                              for _, t in leaves(params["vision"])):
+            vision = {"vision": params["vision"]}
+            embed_params.update(fsdp.gather_whole(vision, mesh, fsdp.specs_by_path(vision)))
     embeds = prepare_embeddings(embed_params, cfg, batch["input_ids"], batch.get("pixel_values"),
                                 batch.get("pixel_mask"))
-    del embed_params, lm
+    del embed_params
     out = lm_forward(params["lm"], cfg.text, inputs_embeds=embeds, mask=batch.get("attn_mask"),
                      training=True, lora=lora["lm"] if lora is not None else None,
                      lora_scale=lora_scale, remat=remat, mesh=mesh, head=False)
-    # the head and the loss a chunk of positions at a time: no [B, S, V] logits
     losses = chunked_lm_loss(out.hidden, params["lm"]["lm_head"], batch["labels"], out.z_loss,
-                             out.aux_loss, num_valid=num_valid, chunk=256)
+                             out.aux_loss, num_valid)
     return losses.loss, losses
 
 
@@ -284,15 +275,18 @@ def _metrics(losses, grads, optimizer: Optimizer) -> Dict[str, torch.Tensor]:
             "grad_norm": optimizer.norm(grads)}
 
 
-def _mesh_grads(params: Any, named, optimizer: Optimizer, run) -> tuple:
-    """``run(forward tree)`` -> (loss, losses) over a mesh, and the
-    trainable shards' gradients summed over the batch group. The leaves
-    outside the decoder's layer stack are gathered whole for the step
-    (``fsdp.whole_leaves``); the layer stack's shards are gathered a layer
-    at a time inside the forward."""
+def _step_grads(params: Any, named, optimizer: Optimizer, run) -> tuple:
+    """``run(forward tree)`` -> (loss, losses), and the trainable leaves'
+    gradients. Over a mesh the leaves outside the decoder's layer stack are
+    gathered whole for the step (``fsdp.whole_leaves``), the layer stack's
+    shards a layer at a time inside the forward, and the gradients are
+    those of this rank's shards, summed over the batch group."""
+    mesh, specs = optimizer.mesh, optimizer.specs
+    if mesh is None:
+        loss, losses = run(params)
+        return losses, _grads(loss, named)
     from aria_tpu_torch.parallel import fsdp
 
-    mesh, specs = optimizer.mesh, optimizer.specs
     trainable = {p: True for p, _ in named}
     frozen_vit = not any(p.startswith("vision/") for p in trainable)
     inside = ("lm/layers/", "lm/embed")  # gathered inside autograd by the forward
@@ -315,12 +309,8 @@ def train_step(state: TrainState, batch: dict, cfg: AriaConfig, tc: TrainConfig,
     for _, t in named:
         t.requires_grad_(True)
     with torch.enable_grad():
-        if mesh is None:
-            loss, losses = loss_fn(state.params, cfg, batch, tc.gradient_checkpointing)
-            grads = _grads(loss, named)
-        else:
-            losses, grads = _mesh_grads(state.params, named, optimizer, lambda tree: loss_fn(
-                tree, cfg, batch, tc.gradient_checkpointing, mesh=mesh))
+        losses, grads = _step_grads(state.params, named, optimizer, lambda tree: loss_fn(
+            tree, cfg, batch, tc.gradient_checkpointing, mesh=mesh))
     _zero_frozen_layer_grads(grads, tc)
     metrics = _metrics(losses, grads, optimizer)
     optimizer.update(grads, state.opt_state, state.params)
@@ -336,18 +326,15 @@ def lora_train_step(state: TrainState, batch: dict, base_params: Any, cfg: AriaC
     named = optimizer.trainable(state.params)
     for _, t in named:
         t.requires_grad_(True)
-    with torch.enable_grad():
-        if mesh is None:
-            loss, losses = loss_fn(base_params, cfg, batch, remat, lora=state.params,
-                                   lora_scale=lora_scale)
-            grads = _grads(loss, named)
-        else:
-            from aria_tpu_torch.parallel import fsdp
+    base = base_params
+    if mesh is not None:
+        from aria_tpu_torch.parallel import fsdp
 
-            tree = fsdp.whole_leaves(base_params, mesh, optimizer.base_specs, {},
-                                     skip=("lm/layers/", "lm/embed", "vision/"))
-            losses, grads = _mesh_grads(state.params, named, optimizer, lambda lora: loss_fn(
-                tree, cfg, batch, remat, lora=lora, lora_scale=lora_scale, mesh=mesh))
+        base = fsdp.whole_leaves(base_params, mesh, optimizer.base_specs, {},
+                                 skip=("lm/layers/", "lm/embed", "vision/"))
+    with torch.enable_grad():
+        losses, grads = _step_grads(state.params, named, optimizer, lambda lora: loss_fn(
+            base, cfg, batch, remat, lora=lora, lora_scale=lora_scale, mesh=mesh))
     metrics = _metrics(losses, grads, optimizer)
     optimizer.update(grads, state.opt_state, state.params)
     return TrainState(state.params, state.opt_state, state.step + 1), metrics

@@ -22,7 +22,7 @@
    prefill of 512 and 8,192 tokens (RoPE's bf16 branch).
 3. The text path: random-init the full-width, 64+2-expert int4 serving
    model on the card at ``SERVING_LAYERS`` (14) of its 28 decoder layers
-   (the serving paths through 6f share that depth: 28 until PR 22, cut so
+   (the serving paths through 6f and the forms share that depth, cut so
    that ep-serve and train-mesh fit the run's time; the per-step launch
    counts below are a layer's times that depth), build
    ``Engine(max_seq_len=1024, int8 KV)``
@@ -40,15 +40,15 @@
    more than 128 tokens.
 5. The lanes path (bench.py's lanes child): ``BatchedEngine`` with 32
    lanes and the int4 KV cache serves a warm-up round of 32 x 50 tokens
-   and a timed one of 32 x 100 (200 until PR 22: cut to make room for
-   ep-serve and train-mesh); ``rope_kv_write`` and the int4
+   and a timed one of 32 x 100 (cut from 200 to make room for ep-serve
+   and train-mesh); ``rope_kv_write`` and the int4
    decode attention must launch. Then a profiled decode chunk (and the
    same chunk through the chain the fused prologue replaced: launches and
    busy time a step, side by side), a greedy int8-KV check, and a 2-layer
    batched decode step against the CPU.
 6. The paged path (bench.py's lanes child with ``--paged --kv-int8``):
    ``PagedBatchedEngine`` with 32 lanes on int8 pages serves a warm-up
-   round of 32 x 50 tokens and a timed one of 32 x 100 (200 until PR 22)
+   round of 32 x 50 tokens and a timed one of 32 x 100 (cut from 200)
    through 128-token
    prefill chunks; ``paged_decode_attention`` must launch once per layer of
    every decode step. Then a profiled prefill tick and decode chunk (beside
@@ -163,25 +163,27 @@
    ``BatchedEngine(mesh=expert 2 x model 2)``'s 8 x 32 greedy streams
    against one card's (leading tokens that agree, printed).
 7. The forms (bench.py without ``--int4``): with the int4 model freed,
-   the int8 and then the bf16 serving form at full width and depth, the
-   ViT and projector bf16. int8: bench.py's image request sampled (a
-   50-token warm-up, then 100 tokens: 200 until PR 22) and twice greedy
+   the int8 and then the bf16 serving form at full width and
+   ``SERVING_LAYERS`` deep, the ViT and projector bf16. int8: bench.py's
+   image request sampled (a 50-token warm-up, then 100 tokens, cut from
+   200) and twice greedy
    through ``Engine``
    (bf16 KV), bench.py's lanes child
    through ``BatchedEngine`` (32 lanes, bf16 KV, 64 tokens, a warm-up and
    a timed round), and a 2-layer prefill and decode step against the
-   CPU; bf16: the image request once sampled and twice greedy, and the
-   same reference. Each path must launch its form's decode MoE kernel,
+   CPU (held to the larger of 5e-2 and 3 times its bf16 witness); bf16:
+   the image request once sampled and twice greedy, and the same
+   reference. Each path must launch its form's decode MoE kernel,
    ``gmm`` and the attention kernels, and none of the int4 kernels.
 
 8. Training: with the forms freed, three runs through ``train()`` at full
    width on text and 980px image rows the script writes, batch 1 x 2048,
-   2 optimizer steps each (2 accumulated micro steps a step; 3 until PR
-   22): train-lora,
+   2 optimizer steps each (2 accumulated micro steps a step; cut from 3):
+   train-lora,
    the LoRA recipe (recipes/config_lora.yaml) on a random bf16 base at 4
    decoder layers (the frozen ViT runs ``vit_flash``); train-qlora, the
-   same recipe with ``quantize_base`` at ``QLORA_LAYERS`` (14; 28 until PR
-   22) layers over the int8 base
+   same recipe with ``quantize_base`` at ``QLORA_LAYERS`` (14; cut from
+   28) layers over the int8 base
    that ``train()`` quantizes a layer at a time (``expert_block_dequant``
    must launch); train-vit, the full recipe (recipes/config_full.yaml)
    with ``freeze_vit`` false and its mesh fields set to 1, at 2 decoder
@@ -200,10 +202,11 @@
    QLoRA over the int8 base, and train-vit's recipe with a 2-layer ViT,
    the projector and the decoder trained on a 490px image; each on the
    card against the CPU's plain versions, leaf by leaf.
-8b. train-mesh (run right after ep-serve, while the main process holds
+8b. train-mesh (run right after the build, while the main process holds
    the least of the card: the 8 ranks fill it): recipes/config_full.yaml
    with its mesh as written (fsdp 2 x expert 4), 8 ranks sharing cuda:0
-   over gloo through ``train()``: full
+   over gloo through ``train()``, each rank's allocator capped at an
+   eighth of the card's free memory (``share_card``): full
    width, 2 decoder layers, the whole ViT frozen (as the recipe says), its
    batch of 8 with every 2nd row a 980px image, 2 optimizer steps of 2
    micro steps, at 512 tokens (``TRAIN_MESH_SEQ``: 8 ranks' logits at
@@ -211,10 +214,13 @@
    ``split_hi_lo``, the flash forward and backward and ``vit_flash`` must
    launch on every rank. Printed: each micro step's ms, each rank's peak
    and resident parameter and optimizer bytes beside one rank's, the
-   collectives' share. Held: the first micro step's loss and aux loss
-   within 2e-3 relative of one rank's ``train()`` on the same global batches
-   and weights; rank 0's epoch-end checkpoint loads on one rank and its
-   trainable leaves are within ``TRAIN_MESH_LEAF`` of one rank's run.
+   collectives' share. Held against one rank's ``train()`` on the same
+   global batches and weights: every micro step's loss and aux loss (2e-3
+   relative) and grad_norm (``TRAIN_MESH_NORM``); rank 0's epoch-end
+   checkpoint loads on one rank, its optimizer moments within
+   ``TRAIN_MESH_MOMENT`` of one rank's and each trainable leaf's change
+   from its initial value within ``TRAIN_MESH_CHANGE`` of one rank's
+   (``tools/train_mesh_faults.py`` plants faults that these checks read).
 
 Phase 2 also holds the variants' kernels at their path's shapes
 (``dense_int4_a8`` bit-equal, ``moe_decode_int4_bf16`` beside the W4A8
@@ -259,11 +265,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-# The decoder's depth on the serving paths (text through the front doors):
-# 28 until PR 22, cut so that ep-serve and train-mesh fit the run's time;
-# cp, ep-serve and the forms build their own 28-layer models.
+# The decoder's depth on the serving paths (text through the front doors,
+# and the forms), cut from 28 so that ep-serve and train-mesh fit the run's
+# time; cp and ep-serve build their own 28-layer models.
 SERVING_LAYERS = 14
-QLORA_LAYERS = 14  # train-qlora's decoder layers (28 until PR 22)
+QLORA_LAYERS = 14  # train-qlora's decoder layers (cut from 28 for the same reason)
 
 
 def _gpu_info() -> str:
@@ -4351,18 +4357,31 @@ def _form_reference(lm, text, prompt, device, ref_layers=2):
     got, ref, ulp = run(small, device), run(small_cpu, cpu), run(small_cpu, cpu, bump=True)
     for i, label in enumerate((f"prefill of {S} tokens", "then a decode step")):
         rel, witness = _rel_err(got[i], ref[i]), _rel_err(ulp[i], ref[i])
+        limit = max(REF_LIMIT, FORM_WITNESS_TIMES * witness)
         print(f"  reference ({ref_layers} layers, bf16 KV, {label}, CPU plain versions): "
-              f"relative logit error {rel:.3e} (limit {REF_LIMIT:.0e}), top-1 agreement "
+              f"relative logit error {rel:.3e} (limit {limit:.3e}: the larger of "
+              f"{REF_LIMIT:.0e} and {FORM_WITNESS_TIMES} x the witness), top-1 agreement "
               f"{_top1(got[i], ref[i]):.3f}; witness, CPU with one bf16 ulp on half the prompt "
               f"embeddings: relative error {witness:.3e}, top-1 agreement "
               f"{_top1(ulp[i], ref[i]):.3f}", flush=True)
-        if not rel <= REF_LIMIT:
-            raise AssertionError(f"reference logits ({label}) differ: relative error {rel}")
+        if not rel <= limit:
+            raise AssertionError(f"reference logits ({label}) differ: relative error {rel} "
+                                 f"(limit {limit})")
+
+
+# The forms' 2-layer references are held to the larger of REF_LIMIT and this
+# multiple of their own witness: in the bf16 form some weights carry one
+# bf16 ulp on half the embeddings to 9.27e-2 after a decode step, above
+# REF_LIMIT, and the card's roundings differ from the CPU's in every
+# operation of the two layers, not in the embeddings alone. A wrong scale,
+# layout or mask is an O(1) error, far above both.
+FORM_WITNESS_TIMES = 3
 
 
 def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_rounds=2):
-    """Phase 7: the int8 and bf16 serving forms at full width and depth, as
-    bench.py builds them without ``--int4`` (bench.py:410-425), random
+    """Phase 7: the int8 and bf16 serving forms at full width, at the
+    depth of ``cfg``, as bench.py builds them without ``--int4``
+    (bench.py:410-425), random
     weights from the phase's generator: ``init_lm_params_serving`` draws the
     fused expert stacks in slabs, and the ViT and projector stay bf16.
 
@@ -4373,7 +4392,8 @@ def run_forms(device, gen, cfg=None, gpu="", lanes=32, lanes_new=64, lanes_round
     max_seq_len 512, here 64 new tokens, a warm-up round and a timed one);
     then a 2-layer card-against-CPU reference. bf16, after the int8 model
     is freed: the image request once sampled and twice greedy, and the
-    same reference. Each path must go through its form's kernels and none
+    same reference (each held to the larger of ``REF_LIMIT`` and
+    ``FORM_WITNESS_TIMES`` times its own witness). Each path must go through its form's kernels and none
     of the int4 ones. Returns {path: launches}."""
     import numpy as np
     import torch
@@ -5532,8 +5552,10 @@ def _train_mesh_rank(rank: int, recipe, cfg, steps: int, device_type: str) -> di
         # allocation of another cannot use (2.4 GiB a rank without it)
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         torch.cuda.set_device(device)
+        share = dd.share_card(device)  # each rank an eighth of what the card has free
         torch.cuda.reset_peak_memory_stats()
     else:
+        share = 0
         torch.set_num_threads(1)
     wrappers = _wrappers()
     for w in wrappers.values():
@@ -5556,7 +5578,7 @@ def _train_mesh_rank(rank: int, recipe, cfg, steps: int, device_type: str) -> di
     log, dd.LOG = dd.LOG, None
     in_steps = [e for e in log if e[3] < end]
     summary = loop._rank_summary(state, device)
-    summary.update(launches={name: w.launches for name, w in wrappers.items()},
+    summary.update(launches={name: w.launches for name, w in wrappers.items()}, share=share,
                    coll_s=sum(e[2] for e in in_steps), coll_calls=len(in_steps),
                    coll_bytes=sum(e[1] for e in in_steps), run_s=end - t0,
                    biggest=max((e[1], e[0]) for e in in_steps))
@@ -5566,7 +5588,8 @@ def _train_mesh_rank(rank: int, recipe, cfg, steps: int, device_type: str) -> di
 def _one_rank_steps(recipe, cfg, micro: int, device) -> tuple:
     """``train()``'s first ``micro`` micro steps of ``recipe`` on one rank
     (its data order, build and optimizer), without a checkpoint: the final
-    state and each step's metrics with its ms."""
+    state, each step's metrics with its ms, and the trainable leaves as
+    they were built."""
     import random
 
     import torch
@@ -5589,6 +5612,7 @@ def _one_rank_steps(recipe, cfg, micro: int, device) -> tuple:
     params = loop.build_params(recipe, cfg, dtype, device)
     opt = make_optimizer(tc, params, accum)
     state = TrainState(params, opt.init(params), 0)
+    init = {path: t.detach().clone() for path, t in opt.trainable(params)}
     tokenizer, images = loop.build_tokenizer(recipe), AriaVisionProcessor(
         max_image_size=recipe.max_image_size)
     lines = []
@@ -5605,7 +5629,7 @@ def _one_rank_steps(recipe, cfg, micro: int, device) -> tuple:
         line = {k: float(v) for k, v in metrics.items()}
         _sync(device)
         lines.append({**line, "step_time_s": time.perf_counter() - t0})
-    return state, lines
+    return state, lines, init
 
 
 def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers=2, batch=8,
@@ -5618,11 +5642,12 @@ def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers
     ``gmm``, ``gmm_dlhs``, ``tgmm``, ``split_hi_lo``, the flash forward and
     backward and ``vit_flash`` must launch on every rank. Printed: each
     micro step's ms, each rank's peak and resident parameter and optimizer
-    bytes beside one rank's, the collectives' share of the steps. Held: the
-    first micro step's loss and aux loss within 2e-3 relative of one rank's
-    ``train()`` on the same global batch and weights; the trainable leaves
-    after the run within ``TRAIN_MESH_LEAF`` of one rank's; the checkpoint
-    rank 0 wrote loads on one rank. Returns rank 0's launches."""
+    bytes beside one rank's, the collectives' share of the steps. Held
+    against one rank's ``train()`` steps on the same global batches and
+    weights (``_hold_train_mesh``): every micro step's loss, aux loss and
+    grad_norm, the optimizer's moments and each trainable leaf's change in
+    the checkpoint rank 0 wrote, loaded on one rank. Returns rank 0's
+    launches."""
     import shutil
     import tempfile
 
@@ -5634,7 +5659,6 @@ def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers
     from aria_tpu_torch.parallel.distributed import run_ranks
     from aria_tpu_torch.train import loop
     from aria_tpu_torch.train.recipe import load_recipe
-    from aria_tpu_torch.train.step import leaves, trainable_mask
 
     cuda = device.type == "cuda"
     cfg = (cfg or AriaConfig.aria_25b()).replace(image_token_id=ByteTokenizer().image_token_id)
@@ -5675,7 +5699,8 @@ def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers
                   f"loss {line['loss']:.5f}, aux {line['aux_loss']:.6f}, grad_norm "
                   f"{line['grad_norm']:.5f} ({gpu})", flush=True)
         for r, o in enumerate(outs):
-            print(f"  [rank {r}] peak {o['peak_bytes'] / 2**30:.2f} GiB, parameters "
+            print(f"  [rank {r}] peak {o['peak_bytes'] / 2**30:.2f} GiB of its share "
+                  f"{o['share'] / 2**30:.2f} GiB, parameters "
                   f"{o['param_bytes'] / 2**30:.3f} GiB, optimizer {o['opt_bytes'] / 2**30:.3f} "
                   f"GiB; collectives {o['coll_s']:.2f} s of {o['run_s']:.2f} s (set-up "
                   f"included), {o['coll_calls']} calls, {o['coll_bytes'] / 2**30:.2f} GiB sent, "
@@ -5696,7 +5721,7 @@ def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        state, one_lines = _one_rank_steps(recipe, small, micro, device)
+        state, one_lines, init = _one_rank_steps(recipe, small, micro, device)
         ref = loop._rank_summary(state, device)
         print(f"  one rank: {time.perf_counter() - t1:.1f} s, micro steps "
               f"{[round(x['step_time_s'] * 1e3, 1) for x in one_lines]} ms; peak "
@@ -5705,50 +5730,112 @@ def run_train_mesh(device, gpu="", cfg=None, seq=TRAIN_MESH_SEQ, steps=2, layers
               f"{outs[0]['param_bytes'] / ref['param_bytes']:.3f} and "
               f"{outs[0]['opt_bytes'] / ref['opt_bytes']:.3f} of them); the mesh's "
               f"{fsdp * expert} ranks took {mesh_s:.1f} s with their start", flush=True)
-        for key in ("loss", "aux_loss"):
-            a, b = lines[0][key], one_lines[0][key]
-            rel = abs(a - b) / abs(b)
-            print(f"  first micro step {key}: mesh {a:.6f}, one rank {b:.6f}, relative "
-                  f"{rel:.2e} (limit 2e-3, tests/test_parallel.py:289-318)", flush=True)
-            if not rel <= 2e-3:
-                raise AssertionError(f"train-mesh: the first step's {key} is {rel} off one "
-                                     f"rank's")
-
-        # the checkpoint rank 0 wrote, loaded on one rank, against one rank's state
         ckpt = os.path.join(recipe.output_dir, "checkpoints")
         saved, _ = load_checkpoint(ckpt, latest_step(ckpt), "cpu", mmap=True)
-        mask = trainable_mask(state.params, loop._to_train_config(recipe, micro))
-        got, worst, moved = dict(leaves(saved["params"])), (0.0, ""), 0
-        for path, want in leaves(state.params):
-            if got[path].shape != want.shape:
-                raise AssertionError(f"train-mesh: the checkpoint's {path} is "
-                                     f"{tuple(got[path].shape)}, not {tuple(want.shape)}")
-            if not mask[path]:
-                continue
-            g, w = got[path].to(want.device).float(), want.float()
-            tol = TRAIN_MESH_LEAF * w.abs().max().item() + 2 * recipe.learning_rate * steps
-            moved += int((g != w).sum())
-            worst = max(worst, ((g - w).abs().max().item() / tol, path))
-        print(f"  the checkpoint (step {saved['step']}, rank 0) loads on one rank: the "
-              f"trainable leaves' largest difference from one rank's run {worst[0]:.3f} of its "
-              f"limit ({worst[1]}; the limit: {TRAIN_MESH_LEAF:.3e} of the leaf's largest value, "
-              f"a bf16 rounding of an update, plus 2 x lr a step, an Adam step whose sign "
-              f"flipped), {moved} elements differ", flush=True)
-        if saved["step"] != micro or not worst[0] <= 1.0:
-            raise AssertionError(f"train-mesh: the mesh's leaves differ from one rank's: "
-                                 f"{worst}")
-        del state, saved
+        failed = _hold_train_mesh(lines, one_lines, saved, state, init, micro)
+        del state, saved, init
+        if failed:
+            raise AssertionError("train-mesh: " + "; ".join(failed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return outs[0]["launches"]
 
 
-# A trainable leaf after the run against one rank's: the two sum each
-# gradient in another order, so an element whose bf16 update rounds the
-# other way moves by one ulp (2^-8 of its value, at most 2^-7 of the leaf's
-# largest), and one whose gradient is near 0 may take an Adam step of the
-# other sign (2 x lr a step).
-TRAIN_MESH_LEAF = 2.0**-7
+# The mesh's run against one rank's on the same global batches and weights
+# (bf16 both; they reduce each gradient in another order). Every logged micro
+# step's loss and aux loss: 2e-3 relative (tests/test_parallel.py:289-318).
+# Its grad_norm, the sharded norm of the gradients before clipping (a sum
+# over ``expert`` multiplies the replicated leaves' by 4, half the batch moves
+# it by O(1)): TRAIN_MESH_NORM relative. The optimizer's moments mu and nu in
+# the checkpoint, leaf by leaf, the norm of the difference over the norm of
+# one rank's: TRAIN_MESH_MOMENT (bf16 roundings of the gradients, and the
+# routing they flip; a sum over ``expert`` reads O(1), since clipping no
+# longer scales every leaf alike).
+# Each trainable leaf's change from its initial value, projected on one
+# rank's change: |1 - <mesh, one> / <one, one>| within TRAIN_MESH_CHANGE. At
+# the recipe's lr of 5e-6 an Adam step moves a bf16 weight only where its
+# ulp is below ~1e-5 (|w| < 2^-9), by about lr, with the sign of its
+# update: the two runs differ where that sign does (an update near 0), which
+# the norm of the difference counts in full (0.42-0.50 on the card with no
+# fault in the change), the projection by its share. A change left out
+# reads 1, one of the wrong sign 2, one twice too large 1. A leaf with fewer
+# than TRAIN_MESH_CHANGED moved elements in one rank's run is held in the
+# sum over all trainable leaves alone: a few elements' signs are noise there.
+TRAIN_MESH_NORM = 1e-2
+TRAIN_MESH_MOMENT = 0.2
+TRAIN_MESH_CHANGE = 0.5
+TRAIN_MESH_CHANGED = 10_000
+
+
+def _hold_train_mesh(lines, one_lines, saved, state, init, micro) -> list:
+    """The held checks of train-mesh (see the limits above); prints every
+    reading and returns the failures."""
+    import torch
+
+    from aria_tpu_torch.train.step import leaves
+
+    failed = []
+    for i, (a, b) in enumerate(zip(lines, one_lines)):
+        parts = []
+        for key, limit in (("loss", 2e-3), ("aux_loss", 2e-3), ("grad_norm", TRAIN_MESH_NORM)):
+            rel = abs(a[key] - b[key]) / abs(b[key])
+            parts.append(f"{key} {a[key]:.6g} / {b[key]:.6g}, relative {rel:.2e} (limit "
+                         f"{limit:.0e})")
+            if not rel <= limit:
+                failed.append(f"micro step {i + 1}'s {key} is {rel:.3e} off one rank's")
+        print(f"  micro step {i + 1}, mesh / one rank: " + "; ".join(parts), flush=True)
+    if saved["step"] != micro:
+        failed.append(f"the checkpoint is at step {saved['step']}, not {micro}")
+    got = dict(leaves(saved["params"]))
+    for path, want in leaves(state.params):
+        if got[path].shape != want.shape:
+            failed.append(f"the checkpoint's {path} is {tuple(got[path].shape)}, not "
+                          f"{tuple(want.shape)}")
+    dev = next(iter(init.values())).device
+
+    @torch.no_grad()
+    def rel(a, b):  # |a - b| / |b| in f32
+        d = float(torch.linalg.vector_norm((a.to(dev).float() - b.float())))
+        n = float(torch.linalg.vector_norm(b.float()))
+        return d / n if n else (0.0 if d == 0 else float("inf"))
+
+    for moment in ("mu", "nu"):
+        worst = max((rel(saved["opt_state"][moment][p], w), p)
+                    for p, w in state.opt_state[moment].items())
+        print(f"  optimizer {moment}, leaf by leaf: the largest |mesh - one rank| / |one rank| "
+              f"{worst[0]:.3e} ({worst[1]}; limit {TRAIN_MESH_MOMENT:.0e})", flush=True)
+        if not worst[0] <= TRAIN_MESH_MOMENT:
+            failed.append(f"optimizer {moment} of {worst[1]} is {worst[0]:.3e} off one rank's")
+    params = dict(leaves(state.params))
+    held, dot, norm2, moved, differ, rows = [], 0.0, 0.0, 0, 0, []
+    with torch.no_grad():
+        for path, start in init.items():
+            mine, want = got[path].to(dev), params[path].detach()
+            dm, do = mine.float() - start.float(), want.float() - start.float()
+            d, n2 = float((dm * do).sum()), float((do * do).sum())
+            dot, norm2 = dot + d, norm2 + n2
+            changed = int((want != start).sum())
+            moved += changed
+            differ += int((mine != want).sum())
+            gap = abs(1 - d / n2) if n2 else (0.0 if not dm.any() else float("inf"))
+            rows.append((gap, path, changed))
+            if changed >= TRAIN_MESH_CHANGED:
+                held.append((gap, path))
+    total = abs(1 - dot / norm2) if norm2 else float("inf")
+    worst = max(held) if held else (0.0, "none")
+    print(f"  the checkpoint (step {saved['step']}, rank 0) loads on one rank; each trainable "
+          f"leaf's change from its initial value projected on one rank's, |1 - <mesh, one "
+          f"rank> / <one rank, one rank>|: all {len(init)} leaves together {total:.3e}, the "
+          f"largest of the {len(held)} with >= {TRAIN_MESH_CHANGED} moved elements "
+          f"{worst[0]:.3e} ({worst[1]}; limit {TRAIN_MESH_CHANGE} for both); one rank moved "
+          f"{moved} elements, {differ} end elsewhere on the mesh", flush=True)
+    print("  by leaf (|1 - projection|, moved elements): " + ", ".join(
+        f"{p} {r:.3e} ({n})" for r, p, n in sorted(rows, reverse=True)[:8]), flush=True)
+    if not total <= TRAIN_MESH_CHANGE:
+        failed.append(f"the trainable leaves' change is {total:.3e} off one rank's")
+    if not worst[0] <= TRAIN_MESH_CHANGE:
+        failed.append(f"{worst[1]}'s change is {worst[0]:.3e} off one rank's")
+    return failed
 
 
 # ------------------------------------------------------------ the front doors
@@ -6470,6 +6557,11 @@ def main() -> int:
         return time.perf_counter()
 
     t0 = done("build", t0)
+    # the 8 ranks fill the card: they run while this process holds the least
+    # of it (after the other phases it holds ~1.1 GiB more, and a rank ran
+    # out of memory there)
+    train_mesh = run_train_mesh(device, gpu=gpu)
+    t0 = done("train-mesh", t0)
     with torch.inference_mode():
         results = check_kernels(device, gen(2))
     check_train_kernels(device, gen(9), results)
@@ -6480,7 +6572,7 @@ def main() -> int:
     serve = serve.replace(text=dataclasses.replace(serve.text, num_layers=SERVING_LAYERS))
     lm, text_launches = run_slice(device, gen(3), serve, gpu=gpu)
     t0 = done("text", t0)
-    launches = {"text": text_launches}
+    launches = {"text": text_launches, "train-mesh": train_mesh}
     launches["image"], image_headline = run_image(device, gen(4), lm, serve, gpu=gpu)
     t0 = done("image", t0)
     launches["lanes"], lanes_headline = run_lanes(device, lm, serve, gpu=gpu)
@@ -6503,10 +6595,7 @@ def main() -> int:
     t0 = done("cp", t0)
     launches["ep-serve"] = run_ep_serve(gpu=gpu)
     t0 = done("ep-serve", t0)
-    # the 8 ranks fill the card: they run while this process holds the least
-    launches["train-mesh"] = run_train_mesh(device, gpu=gpu)
-    t0 = done("train-mesh", t0)
-    launches.update(run_forms(device, gen(7), gpu=gpu))
+    launches.update(run_forms(device, gen(7), serve, gpu=gpu))
     t0 = done("forms", t0)
     launches.update(run_train(device, gen(8), gpu=gpu))
     done("train", t0)

@@ -14,7 +14,9 @@
   ``quantize_lm_params_int4(fuse_shared_experts(import_hf_state_dict(...)))``.
 - ``import_hf_serving`` (the serving CLI's import, a layer at a time)
   against ``quantize_params(fuse_shared_experts(import_hf_checkpoint(...)))``.
-- ``train/loop.py:build_params`` from a safetensors directory.
+- ``train/loop.py:build_params`` from a safetensors directory; on each
+  rank of a mesh (fsdp 2 x expert 2), from a safetensors directory and from
+  a checkpoint, bit-equal to the rank's shard of the whole tree.
 """
 
 import dataclasses
@@ -261,3 +263,26 @@ def test_build_params_imports_a_safetensors_dir(hf):
     got = build_params(Recipe(model_path=str(path)), CFG, torch.float32, torch.device("cpu"))
     want = _from_jax(jio.import_hf_state_dict(sd, JCFG, dtype=jnp.float32))
     _assert_trees_equal(got, want)
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("source", ["safetensors", "checkpoint"])
+def test_build_params_over_a_mesh_is_the_rank_shard(hf, tmp_path, source, rank):
+    """``build_params`` on a rank of fsdp 2 x expert 2 gives, leaf for leaf
+    and bit-equal, ``shard_params`` of the whole tree: the HF import cuts
+    each decoder leaf a layer at a time, a checkpoint is mapped and cut."""
+    from aria_tpu_torch.parallel import mesh as tmesh
+
+    _, path = hf
+    whole = build_params(Recipe(model_path=str(path)), CFG, torch.float32, torch.device("cpu"))
+    if source == "checkpoint":
+        path = tmp_path / "ckpt"
+        tio.save_checkpoint(str(path), whole, CFG, step=3)
+    mesh = tmesh.Mesh(tmesh.MeshConfig(fsdp=2, expert=2), rank, {})
+    got = build_params(Recipe(model_path=str(path)), CFG, torch.float32, torch.device("cpu"),
+                       mesh)
+    want = tmesh.shard_params(whole, tmesh.aria_param_specs(), mesh)
+    assert _assert_trees_equal(got, want) == 49
+    w1 = got["lm"]["layers"]["w1"]
+    assert w1.shape[1] * 2 == CFG.text.num_experts and w1.shape[3] * 2 == CFG.text.hidden_size
+

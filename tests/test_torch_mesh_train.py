@@ -26,7 +26,8 @@ batch. ``train()`` runs on 4 more spawned ranks (mesh_fsdp 2, mesh_expert 2).
   every leaf ``fsdp`` shards, the rest whole.
 - ``train()`` with mesh_fsdp 2, mesh_expert 2 for 2 steps ends where the
   one-rank ``train()`` does, rank 0's checkpoint is in the one-device format
-  and resumes on one rank; model and context in training, and pipe, raise.
+  and resumes on one rank; from an HF model_path its step is one rank's;
+  model and context in training, and pipe, raise.
 
 Tolerances: gradients 1e-5 of the leaf's largest value (f32 in another
 summation order); each trainable leaf's change over the steps 2e-3 of its
@@ -300,6 +301,35 @@ def test_train_over_a_mesh_checkpoints_and_resumes_on_one_rank(tmp_path):
     resumed = train(recipe("mesh", mesh_fsdp=1, mesh_expert=1, resume_from_checkpoint=True),
                     cfg=CFG, max_steps=3, device="cpu")
     assert resumed.step == 3 and resumed.opt_state["count"] == 3
+
+
+def test_train_over_a_mesh_from_a_model_path(tmp_path):
+    """A recipe whose model_path is an HF safetensors directory, over
+    mesh_fsdp 2, mesh_expert 2 on 4 spawned ranks: each rank builds its
+    shard on the CPU before it reaches the device (``build_params``), and
+    the step's metrics equal the one-rank run's from the same directory."""
+    from tests.test_checkpoint import synthetic_hf_state_dict
+    from tests.test_torch_checkpoint_io import _save_shards
+
+    model = _save_shards(synthetic_hf_state_dict(JCFG), tmp_path / "hf")
+    base = load_recipe(os.path.join(ROOT, "recipes", "config_full.yaml"))
+    ds = _dataset(str(tmp_path / "ds"), 4)
+
+    def recipe(out, **kw):
+        return dataclasses.replace(base, output_dir=str(tmp_path / out), dataset_mixer={ds: 1.0},
+                                   model_path=str(model), per_device_train_batch_size=4,
+                                   gradient_accumulation_steps=1, max_seq_length=64,
+                                   learning_rate=1e-3, dtype="float32", save_every_steps=0,
+                                   **kw)
+
+    train(recipe("one", mesh_fsdp=1, mesh_expert=1), cfg=CFG, max_steps=1, device="cpu")
+    summary = train_on_ranks(recipe("mesh", mesh_fsdp=2, mesh_expert=2), cfg=CFG, max_steps=1,
+                             device="cpu")
+    assert [s["step"] for s in summary] == [1] * 4
+    (one,), (mesh,) = ([json.loads(x) for x in open(tmp_path / name / "metrics.jsonl")]
+                       for name in ("one", "mesh"))
+    for key in ("loss", "ce_loss", "z_loss", "aux_loss", "grad_norm"):
+        assert abs(mesh[key] - one[key]) <= METRIC_RTOL * abs(one[key]), key
 
 
 def test_unported_training_axes_raise():

@@ -253,6 +253,25 @@ def test_training_loss_and_grads_match_jax(model, peft, remat):
     """aria_forward(training=True) + causal_lm_loss and its gradients: the
     decoder's in full fine-tuning (the ragged MoE at 80 tokens), the
     adapters' in LoRA (the capacity path with expert LoRA)."""
+    _loss_and_grads_against_jax(model, peft, remat, chunked=False)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("peft", [False, True])
+def test_chunked_training_loss_and_grads_match_jax(model, peft, remat, monkeypatch):
+    """The training step's loss (``loss_fn``: the decoder without its head,
+    then ``chunked_lm_loss``) against the JAX aria_forward + causal_lm_loss,
+    the same limits: chunks of 16 positions and head blocks of 200 columns,
+    so that the 78 shifted positions of the batch take 5 chunks (the last
+    short) and the 512-token vocabulary 3 blocks (the last short)."""
+    monkeypatch.setattr(taria, "LOSS_CHUNK", 16)
+    monkeypatch.setattr(taria, "VOCAB_BLOCK", 200)
+    _loss_and_grads_against_jax(model, peft, remat, chunked=True)
+
+
+def _loss_and_grads_against_jax(model, peft, remat, chunked):
+    from aria_tpu_torch.train import step as tstep
+
     jparams, tparams, jl, tl = model
     batch = _batch(5)
     scale = 2.0
@@ -270,11 +289,15 @@ def test_training_loss_and_grads_match_jax(model, peft, remat):
     named = leaves(trainable)
     for _, t in named:
         t.requires_grad_(True)
+    tokens, labels = (torch.as_tensor(batch[k]).long() for k in ("input_ids", "labels"))
     try:
-        out = taria.aria_forward(tparams, T_CFG, torch.as_tensor(batch["input_ids"]).long(),
-                                 training=True, lora=tl if peft else None, lora_scale=scale,
-                                 remat=remat)
-        losses = taria.causal_lm_loss(out, torch.as_tensor(batch["labels"]).long())
+        if chunked:
+            _, losses = tstep.loss_fn(tparams, T_CFG, {"input_ids": tokens, "labels": labels},
+                                      remat, lora=tl if peft else None, lora_scale=scale)
+        else:
+            out = taria.aria_forward(tparams, T_CFG, tokens, training=True,
+                                     lora=tl if peft else None, lora_scale=scale, remat=remat)
+            losses = taria.causal_lm_loss(out, labels)
         grads = torch.autograd.grad(losses.loss, [t for _, t in named])
     finally:
         for _, t in named:

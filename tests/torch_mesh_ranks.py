@@ -163,7 +163,7 @@ def train_step(mesh, params, cfg, tokens, labels, tc_kw: dict, steps: int = 1) -
     for _, t in named:
         t.requires_grad_(True)
     with torch.enable_grad():
-        _, grads = tstep._mesh_grads(state.params, named, opt, lambda tree: tstep.loss_fn(
+        _, grads = tstep._step_grads(state.params, named, opt, lambda tree: tstep.loss_fn(
             tree, cfg, batch, tc.gradient_checkpointing, mesh=mesh))
     # the witness: each gradient further summed over expert, as a port that
     # forgot that the loss is replicated there would do
